@@ -1,0 +1,141 @@
+"""Port parity: divergence, projection, CFL, BDIM and the momentum step
+(torch vs JAX, and the kernels' plain versions vs the Pallas kernels in
+interpret mode)."""
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from waterlily_tpu import flow as jf
+from waterlily_tpu.grid import pad_interior as jpad
+from waterlily_tpu.ops import poisson as jp
+from waterlily_tpu.ops.multigrid import build_levels as jbuild
+from waterlily_tpu.ops.pallas_stencil import (div3d_pallas, project3d_pallas,
+                                              cfl3d_pallas)
+from waterlily_tpu_torch import flow as tf
+from waterlily_tpu_torch.ops import stencil_kernels as sk
+from waterlily_tpu_torch.convert import flow_from_numpy, levels_from_numpy
+
+from _torch_parity import (F32, F64, STENCIL_RTOL, normal, uniform, tt, jj,
+                           npy, assert_exact, assert_rel, bc_coeffs)
+
+S3 = (14, 12, 10)
+
+
+@pytest.mark.parametrize("dtype", [F32, F64])
+def test_div3d_plain_vs_jax(dtype):
+    u = normal(1, (3,) + S3, dtype)
+    p = normal(2, S3, dtype)
+    dt = dtype(0.42)
+    z, x = sk.div3d(tt(u), tt(p), torch.tensor(dt))
+    assert_exact(z, jf.div(jj(u)))
+    assert_exact(x, jj(p) * jnp.asarray(dt))
+
+
+@pytest.mark.parametrize("S", [(14, 12, 10), (13, 10, 12)])
+def test_div3d_plain_vs_pallas(S):
+    u = normal(3, (3,) + S)
+    p = normal(4, S)
+    dt = np.float32(0.42)
+    zj, xj = div3d_pallas(jj(u), jj(p), jnp.asarray(dt), interpret=True,
+                          block=2)
+    z, x = sk.div3d(tt(u), tt(p), torch.tensor(dt))
+    assert_exact(z, zj)
+    assert_exact(x, xj)
+
+
+@pytest.mark.parametrize("dtype", [F32, F64])
+def test_project3d_plain_vs_jax(dtype):
+    L = bc_coeffs(5, S3, dtype)
+    x = normal(6, S3, dtype)
+    u = normal(7, (3,) + S3, dtype)
+    dt = dtype(0.37)
+    lj = jp.make_level(jj(L), bf16_eps=False)
+    uj = jj(u) - jpad(jp.pressure_grad_interior(lj, jj(x)), lead=1)
+    ut, pt = sk.project3d(tt(L), tt(x), tt(u), torch.tensor(dt))
+    assert_exact(ut, uj)
+    assert_exact(pt, jj(x) / jnp.asarray(dt))
+
+
+@pytest.mark.parametrize("S", [(14, 12, 10), (13, 10, 12)])
+def test_project3d_plain_vs_pallas(S):
+    L = bc_coeffs(8, S)
+    x = normal(9, S)
+    u = normal(10, (3,) + S)
+    dt = np.float32(0.37)
+    uj, pj = project3d_pallas(jj(L), jj(x), jj(u), jnp.asarray(dt),
+                              interpret=True, block=1)
+    ut, pt = sk.project3d(tt(L), tt(x), tt(u), torch.tensor(dt))
+    assert_rel(ut, uj, 1e-6)   # the Pallas kernel may contract an FMA
+    assert_exact(pt, pj)
+    assert_exact(ut[:, 0], uj[:, 0])
+
+
+@pytest.mark.parametrize("dtype", [F32, F64])
+def test_cfl_bitwise(dtype):
+    u = normal(11, (3,) + S3, dtype)
+    assert float(tf.cfl(tt(u), 0.04)) == float(jf.cfl(jj(u), 0.04))
+    assert_exact(sk.cfl3d(tt(u)), tf.cfl_flux_max(tt(u)))
+
+
+@pytest.mark.parametrize("S", [(18, 34, 34), (13, 10, 12)])
+def test_cfl3d_plain_vs_pallas(S):
+    u = normal(12, (3,) + S)
+    assert_exact(sk.cfl3d(tt(u)), cfl3d_pallas(jj(u), S, interpret=True,
+                                               block=4))
+
+
+@pytest.mark.parametrize("dtype", [F32, F64])
+def test_bdim(dtype):
+    args = [normal(13 + k, (3,) + S3, dtype) for k in range(4)]
+    mu0 = uniform(17, (3,) + S3, dtype=dtype)
+    mu1 = normal(18, (3, 3) + S3, dtype, 0.1)
+    dt = dtype(0.3)
+    ref = jf.bdim(*[jj(a) for a in args], jj(mu0), jj(mu1), jnp.asarray(dt))
+    got = tf.bdim(*[tt(a) for a in args], tt(mu0), tt(mu1), torch.tensor(dt))
+    assert_rel(got, ref, STENCIL_RTOL[dtype])
+
+
+def _configs(dtype):
+    S = (18, 14, 10)
+    jc = jf.FlowConfig(D=3, S=S, nu=0.02, U=(1.0, 0.0, 0.0),
+                       dtype=jnp.float32 if dtype is F32 else jnp.float64)
+    tcfg = tf.FlowConfig(D=3, S=S, device=torch.device("cpu"), nu=0.02,
+                         U=(1.0, 0.0, 0.0),
+                         dtype=torch.float32 if dtype is F32 else torch.float64)
+    return S, jc, tcfg
+
+
+@pytest.mark.parametrize("dtype", [F32, F64])
+def test_flow_init(dtype):
+    S, jc, tcfg = _configs(dtype)
+    sj = jf.flow_init(jc)
+    st = tf.flow_init(tcfg)
+    for k in ("u", "p", "V", "mu0", "mu1", "dt", "t"):
+        assert_exact(getattr(st, k), getattr(sj, k))
+
+
+@pytest.mark.parametrize("dtype", [F32, F64])
+def test_mom_step_from_one_state(dtype):
+    """One predictor/corrector step of both packages from the same
+    perturbed state with a body-like μ₀ (converted through `convert`)."""
+    S, jc, tcfg = _configs(dtype)
+    sj = jf.flow_init(jc)
+    u = np.asarray(sj.u) + normal(19, (3,) + S, dtype, 0.1)
+    mu0 = np.asarray(jf.bc_vector(jj(uniform(20, (3,) + S, 0.2, 1.0, dtype)),
+                                  (0.0,) * 3))
+    sj = sj._replace(u=jj(u), mu0=jj(mu0))
+    levj = jbuild(sj.mu0, bf16_eps=False)
+    st = flow_from_numpy({k: np.asarray(v) for k, v in sj._asdict().items()},
+                         "cpu")
+    levt = levels_from_numpy([{"L": np.asarray(l.L), "D": np.asarray(l.D),
+                               "iD": np.asarray(l.iD)} for l in levj], "cpu")
+    nj, auxj = jf.mom_step(jc, levj, sj)
+    nt, auxt = tf.mom_step(tcfg, levt, st)
+    assert [int(v) for v in auxj["pois_n"]] == auxt["pois_n"]
+    assert_rel(nt.dt, nj.dt, 1e-5 if dtype is F32 else 1e-10)
+    atol = 1e-4 if dtype is F32 else 1e-9
+    np.testing.assert_allclose(npy(nt.u), npy(nj.u), atol=atol)
+    np.testing.assert_allclose(npy(nt.p), npy(nj.p), atol=atol)
+    # the step never writes into the state it was given
+    assert np.array_equal(npy(st.u), u)

@@ -1,0 +1,202 @@
+"""Implicit geometry: signed-distance bodies measured with `torch.func`.
+
+PyTorch counterpart of `waterlily_tpu.body` (reference src/Body.jl,
+src/AutoBody.jl), dense path.  The sdf normal comes from `torch.func.grad`,
+the map Jacobian from `jacfwd` and the map's time derivative from `jvp`,
+all under `vmap` over the grid points, evaluated in chunks so that large
+grids stay within memory.  CSG (`Bodies`) is not ported yet (ROADMAP A8).
+"""
+from __future__ import annotations
+
+import math
+from typing import Callable
+
+import torch
+
+from .grid import loc_grid, interior, mask_interior
+from .ops.bc import bc_vector
+
+__all__ = ["AbstractBody", "AutoBody", "NoBody", "sdf", "measure",
+           "measure_fields", "kern", "kern0", "kern1", "mu0", "mu1"]
+
+# points per vmapped measurement batch: bounds the autodiff temporaries
+# (a few hundred bytes per point) at 256³-class grids
+CHUNK = 1 << 20
+
+
+# --- immersion kernel moments (reference Body.jl:56-61) ---
+
+def kern(d):
+    """Cosine immersion kernel ``½+½cos(πd)``."""
+    return 0.5 + 0.5 * torch.cos(math.pi * d)
+
+
+def kern0(d):
+    return 0.5 + 0.5 * d + 0.5 * torch.sin(math.pi * d) / math.pi
+
+
+def kern1(d):
+    return (0.25 * (1 - d * d)
+            - 0.5 * (d * torch.sin(math.pi * d)
+                     + (1 + torch.cos(math.pi * d)) / math.pi) / math.pi)
+
+
+def mu0(d, eps):
+    """Zeroth kernel moment with clamped support."""
+    return kern0(torch.clamp(d / eps, -1, 1))
+
+
+def mu1(d, eps):
+    """First kernel moment with clamped support."""
+    return eps * kern1(torch.clamp(d / eps, -1, 1))
+
+
+# --- body types ---
+
+class AbstractBody:
+    """Contract: subclasses implement ``sdf(x,t)`` and a point measure."""
+
+
+class NoBody(AbstractBody):
+    """Body-free simulation marker."""
+
+
+class AutoBody(AbstractBody):
+    """Implicit geometry from an sdf and an optional coordinate map.
+
+    ``sdf(x, t) -> 0-d tensor`` and ``map(x, t) -> (D,) tensor`` are
+    point-wise closures written with torch ops; ``compose=True`` uses
+    ``sdf(map(x,t), t)``."""
+
+    def __init__(self, sdf: Callable, map: Callable | None = None,
+                 compose: bool = True):
+        self.raw_sdf = sdf
+        self.map = map if map is not None else (lambda x, t: x)
+        if compose and map is not None:
+            self.sdf = lambda x, t: sdf(self.map(x, t), t)
+        else:
+            self.sdf = sdf
+
+
+def sdf(body, x, t=0.0):
+    """Signed distance of ``body`` at ``x``."""
+    return body.sdf(x, t)
+
+
+def _cross(a, b):
+    return torch.stack([a[1] * b[2] - a[2] * b[1],
+                        a[2] * b[0] - a[0] * b[2],
+                        a[0] * b[1] - a[1] * b[0]])
+
+
+def _solve_small(J, b):
+    """Solve J v = b for D=2/3 in closed form."""
+    D = b.shape[-1]
+    nan = torch.full_like(b[0], math.nan)
+    if D == 2:
+        det = J[0, 0] * J[1, 1] - J[0, 1] * J[1, 0]
+        det = torch.where(det == 0, nan, det)
+        v0 = (b[0] * J[1, 1] - b[1] * J[0, 1]) / det
+        v1 = (J[0, 0] * b[1] - J[1, 0] * b[0]) / det
+        return torch.stack([v0, v1])
+    c0 = _cross(J[:, 1], J[:, 2])
+    det = torch.sum(J[:, 0] * c0)
+    det = torch.where(det == 0, nan, det)
+    v0 = torch.sum(b * c0) / det
+    v1 = torch.sum(b * _cross(J[:, 2], J[:, 0])) / det
+    v2 = torch.sum(b * _cross(J[:, 0], J[:, 1])) / det
+    return torch.stack([v0, v1, v2])
+
+
+def _measure_one(sdf_fn, map_fn, x, t, fastd2=None):
+    """Point measurement ``(d, n, V)``: pseudo-sdf-corrected distance, unit
+    normal from ``∇sdf`` (NaN-guarded) and body velocity ``-J⁻¹ ∂map/∂t``."""
+    d_raw = sdf_fn(x, t)
+    n = torch.func.grad(lambda y: sdf_fn(y, t))(x)
+    isnan = torch.any(torch.isnan(n))
+    n = torch.where(torch.isnan(n), 0.0, n)
+    m = torch.sqrt(torch.sum(n * n))
+    msafe = torch.where(m == 0, 1.0, m)
+    d_c = d_raw / msafe
+    n_c = n / msafe
+    J = torch.func.jacfwd(lambda y: map_fn(y, t))(x)
+    _, mdot = torch.func.jvp(lambda tt: map_fn(x, tt), (t,),
+                             (torch.ones_like(t),))
+    V = -_solve_small(J, mdot.to(x.dtype))
+    V = torch.where(torch.isnan(V), 0.0, V)
+    zero = torch.zeros_like(x)
+    d_out = torch.where(isnan, d_raw, d_c)
+    n_out = torch.where(isnan, zero, n_c)
+    V_out = torch.where(isnan, zero, V)
+    if fastd2 is not None:
+        fast = d_raw * d_raw > fastd2
+        d_out = torch.where(fast, d_raw, d_out)
+        n_out = torch.where(fast, zero, n_out)
+        V_out = torch.where(fast, zero, V_out)
+    return d_out, n_out, V_out
+
+
+def measure(body, x, t=0.0, fastd2=None):
+    """Geometric measurement ``(d, n, V)`` of ``body`` at point ``x``."""
+    if isinstance(body, AutoBody):
+        t_ = torch.as_tensor(t, dtype=x.dtype, device=x.device)
+        return _measure_one(body.sdf, body.map, x, t_, fastd2)
+    raise TypeError(f"cannot measure {type(body)} (CSG Bodies: ROADMAP A8)")
+
+
+def _chunked_vmap(fn, pts):
+    """``vmap(fn)`` over the rows of ``pts`` in chunks of `CHUNK` points;
+    outputs (single tensor or tuple) are concatenated."""
+    outs = [torch.func.vmap(fn)(pts[i:i + CHUNK])
+            for i in range(0, pts.shape[0], CHUNK)]
+    if isinstance(outs[0], tuple):
+        return tuple(torch.cat(parts) for parts in zip(*outs))
+    return torch.cat(outs)
+
+
+def measure_fields(body, S, t=0.0, eps=1.0, perdir=(), exitBC=False,
+                   dtype=torch.float32, device=None):
+    """BDIM rasterization (reference ``measure!``, Body.jl:31-53): ``V``,
+    ``μ₀`` and ``μ₁`` on the whole padded grid, measured at each face in
+    the band ``d² < (2+eps)²``, deep-interior cells zeroed, vector BCs
+    applied.  Returns ``(V, mu0, mu1, d_center)``."""
+    D = len(S)
+    if isinstance(body, NoBody) or body is None:
+        V = torch.zeros((D,) + S, dtype=dtype, device=device)
+        m0 = bc_vector(torch.ones((D,) + S, dtype=dtype, device=device),
+                       (0.0,) * D, False, perdir)
+        m1 = torch.zeros((D, D) + S, dtype=dtype, device=device)
+        return V, m0, m1, torch.zeros(S, dtype=dtype, device=device)
+
+    t_ = torch.as_tensor(t, dtype=dtype, device=device)
+    fastd2 = (2.0 + eps) ** 2
+    centers = loc_grid(S, None, dtype, device).reshape(-1, D)
+    d_center = _chunked_vmap(lambda x: sdf(body, x, t_), centers)
+    d_center = d_center.reshape(S).to(dtype)
+    near = d_center * d_center < fastd2
+    inside_deep = d_center < 0
+
+    V_comps, m0_comps, m1_comps = [], [], []
+    for i in range(D):
+        pts = loc_grid(S, i, dtype, device).reshape(-1, D)
+        di, ni, Vi = _chunked_vmap(lambda x: measure(body, x, t_, fastd2), pts)
+        di = di.reshape(S).to(dtype)
+        ni = ni.reshape(S + (D,)).to(dtype)
+        Vi = Vi.reshape(S + (D,)).to(dtype)
+        m0_comps.append(torch.where(near, mu0(di, eps),
+                                    torch.where(inside_deep, 0.0, 1.0)))
+        V_comps.append(torch.where(near, Vi[..., i], 0.0))
+        m1_comps.append(torch.stack(
+            [torch.where(near, mu1(di, eps) * ni[..., j], 0.0)
+             for j in range(D)], dim=0))
+    V = torch.stack(V_comps, dim=0).to(dtype)
+    m0 = torch.stack(m0_comps, dim=0).to(dtype)
+    m1 = torch.stack(m1_comps, dim=0).to(dtype)
+    # interior cells only: μ₁ ghosts stay zero, V ghosts are zero before the
+    # BC fill (so an exitBC outlet plane stays 0)
+    m1_in = torch.zeros_like(m1)
+    m1_in[interior(D, lead=2)] = m1[interior(D, lead=2)]
+    V = mask_interior(V, D)
+    m0 = bc_vector(m0, (0.0,) * D, False, perdir)
+    V = bc_vector(V, (0.0,) * D, exitBC, perdir)
+    return V, m0, m1_in, d_center

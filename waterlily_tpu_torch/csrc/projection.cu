@@ -1,0 +1,72 @@
+// Projection head and tail: (div u, p*dt) and (u - L grad x, x/dt).
+//
+// Replaces waterlily_tpu/ops/pallas_stencil.py `div3d_pallas` (`_div_kernel`)
+// and `project3d_pallas` (`_project_kernel`), f32 and whole-grid.
+//
+// Bound on the H100: memory.  div reads u (12 B) and p (4 B) and writes z and
+// x (8 B): 24 B/cell; project reads L, u (24 B) and x (4 B) and writes u and
+// p (16 B): 44 B/cell.  The plain forms spend a pass per shifted operand and
+// per chained op.  Design: one thread per cell emits both outputs of its
+// sweep; the +-d_i taps are neighbours' values already in L1/L2.  dt arrives
+// as a device pointer (it is the CFL feedback value: reading it on the host
+// would synchronise every call).  Ghost cells take the pass-through branch
+// and read no neighbour.  Associations follow waterlily_tpu.flow.div
+// ((t0 + t1) + t2) and the projection's u - L*(x - x[-d]).
+#include "common.cuh"
+
+__global__ void div_kernel(const float* __restrict__ u,
+                           const float* __restrict__ p,
+                           const float* __restrict__ dt, float* __restrict__ z,
+                           float* __restrict__ x, Shape3 g) {
+  const long long c = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (c >= g.N) return;
+  int idx[3];
+  unflatten(g, c, idx);
+  float v = 0.f;
+  if (is_interior(g, idx)) {
+    for (int a = 0; a < 3; ++a) {
+      const float* ua = u + a * g.N;
+      const float t = ua[c + g.st[a]] - ua[c];
+      v = (a == 0) ? t : v + t;
+    }
+  }
+  z[c] = v;
+  x[c] = p[c] * dt[0];
+}
+
+__global__ void project_kernel(const float* __restrict__ L,
+                               const float* __restrict__ x,
+                               const float* __restrict__ u,
+                               const float* __restrict__ dt,
+                               float* __restrict__ u_out,
+                               float* __restrict__ p, Shape3 g) {
+  const long long c = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (c >= g.N) return;
+  int idx[3];
+  unflatten(g, c, idx);
+  const float xc = x[c];
+  const bool in = is_interior(g, idx);
+  for (int a = 0; a < 3; ++a) {
+    const long long o = a * g.N + c;
+    u_out[o] = in ? u[o] - L[o] * (xc - x[c - g.st[a]]) : u[o];
+  }
+  p[c] = xc / dt[0];
+}
+
+extern "C" int wl_div3d(const float* u, const float* p, const float* dt,
+                        float* z, float* x, int S0, int S1, int S2,
+                        void* stream) {
+  const Shape3 g = make_shape(S0, S1, S2);
+  div_kernel<<<blocks_for(g.N), WL_THREADS, 0, (cudaStream_t)stream>>>(
+      u, p, dt, z, x, g);
+  return (int)cudaGetLastError();
+}
+
+extern "C" int wl_project3d(const float* L, const float* x, const float* u,
+                            const float* dt, float* u_out, float* p, int S0,
+                            int S1, int S2, void* stream) {
+  const Shape3 g = make_shape(S0, S1, S2);
+  project_kernel<<<blocks_for(g.N), WL_THREADS, 0, (cudaStream_t)stream>>>(
+      L, x, u, dt, u_out, p, g);
+  return (int)cudaGetLastError();
+}

@@ -1,0 +1,199 @@
+"""Flow state and the momentum step (predictor/corrector + projection).
+
+PyTorch counterpart of `waterlily_tpu.flow` (reference src/Flow.jl), dense
+single-device path.  `mom_step(cfg, levels, state) -> (state, aux)` runs
+eagerly; the only host synchronisations are the pressure solver's
+convergence checks (one per outer multigrid iteration).
+"""
+from __future__ import annotations
+
+import dataclasses
+from dataclasses import dataclass
+from typing import Any, Callable
+
+import torch
+
+from .grid import interior_view, interior_mask, apply_field, pad_interior
+from .ops.bc import bc_vector, exit_bc
+from .ops.convect import conv_diff, accelerate, quick
+from .ops.multigrid import ml_solve
+from .ops.poisson import pressure_grad_interior
+from .ops import stencil_kernels as sk
+
+__all__ = ["FlowState", "FlowConfig", "bc_tuple", "div", "bdim", "project",
+           "cfl", "cfl_flux_max", "mom_step", "flow_init"]
+
+
+@dataclass(frozen=True)
+class FlowState:
+    """Simulation state (reference `Flow` fields, src/Flow.jl:92-122)."""
+    u: torch.Tensor     # (D, *S) velocity
+    p: torch.Tensor     # (*S) pressure
+    V: torch.Tensor     # (D, *S) body velocity (BDIM)
+    mu0: torch.Tensor   # (D, *S) zeroth kernel moment (= Poisson face coeffs)
+    mu1: torch.Tensor   # (D, D, *S) first kernel moment × normal
+    dt: torch.Tensor    # 0-d: the time step to take next
+    t: torch.Tensor     # 0-d: accumulated time
+
+    def replace(self, **kw) -> "FlowState":
+        return dataclasses.replace(self, **kw)
+
+
+@dataclass(frozen=True)
+class FlowConfig:
+    """Static configuration of the step."""
+    D: int
+    S: tuple                       # ghost-padded spatial shape
+    device: Any                    # torch device of every field
+    nu: float = 0.0
+    U: Any = None                  # tuple of BC velocities or callable (i,t)->u_i
+    g: Callable | None = None      # body force g(i,t)
+    perdir: tuple = ()
+    exitBC: bool = False
+    dtype: Any = torch.float32
+    limiter: Callable = quick
+    tol: float = 1e-4
+    itmx: int = 32
+    fixed_iters: int | None = None
+
+
+def bc_tuple(U, t, D, dtype):
+    """The BC velocity at time ``t`` (reference `BCTuple`): Python numbers
+    for a constant ``U``, 0-d tensors for a callable."""
+    if callable(U):
+        return tuple(torch.as_tensor(U(i, t), dtype=dtype) for i in range(D))
+    return tuple(float(Ui) for Ui in U)
+
+
+def _off(D, i, v):
+    return tuple(v if d == i else 0 for d in range(D))
+
+
+def div(u: torch.Tensor) -> torch.Tensor:
+    """Cell divergence Σᵢ u[I+δᵢ,i]-u[I,i] on the interior, zero ghosts."""
+    D = u.shape[0]
+    s = None
+    for i in range(D):
+        t = interior_view(u[i], D, _off(D, i, +1)) - interior_view(u[i], D)
+        s = t if s is None else s + t
+    return pad_interior(s)
+
+
+def _bdim_blend(u0, r, V, mu0, mu1, dt):
+    """Interior BDIM update: ``f = u⁰ + dt·r - V``, then
+    ``½Σⱼ μ₁[:,j](f[+δⱼ]-f[-δⱼ]) + V + μ₀∘f``."""
+    D = u0.shape[0]
+    f = u0 + dt * r - V
+    iv = lambda a, off=None: interior_view(a, D, off)
+    m = None
+    for j in range(D):
+        t = iv(mu1[:, j]) * (iv(f, _off(D, j, +1)) - iv(f, _off(D, j, -1)))
+        m = t if m is None else m + t
+    return 0.5 * m + iv(V) + iv(mu0) * iv(f)
+
+
+def bdim(u, u0, r, V, mu0, mu1, dt):
+    """BDIM velocity blend (reference `BDIM!`)."""
+    return u + pad_interior(_bdim_blend(u0, r, V, mu0, mu1, dt), lead=1)
+
+
+def project(levels, u, p, dt_eff, cfg: FlowConfig):
+    """Pressure projection (reference `project!`): the Poisson unknown is
+    the dt-scaled pressure, warm-started from the last step; the velocity
+    loses the μ₀-weighted pressure gradient.  Returns ``(u, p, n)``."""
+    lev = levels[0]
+    fused = sk.use_blocked(tuple(p.shape), p.dtype, p.device)
+    if fused:
+        z, x = sk.div3d(u, p, dt_eff)
+    else:
+        z = div(u)
+        x = p * dt_eff
+    x, _r, n = ml_solve(levels, x, z, tol=cfg.tol, itmx=cfg.itmx,
+                        fixed=cfg.fixed_iters)
+    if fused:
+        u, p = sk.project3d(lev.L, x, u, dt_eff)
+    else:
+        u = u - pad_interior(pressure_grad_interior(lev, x), lead=1)
+        p = x / dt_eff
+    return u, p, n
+
+
+def cfl_flux_max(u: torch.Tensor) -> torch.Tensor:
+    """Interior max of Σᵢ max(0,uᵢ[I+δᵢ]) + max(0,−uᵢ[I]) (0-d tensor)."""
+    D = u.shape[0]
+    s = None
+    for i in range(D):
+        t = (torch.clamp_min(interior_view(u[i], D, _off(D, i, +1)), 0.0)
+             + torch.clamp_min(-interior_view(u[i], D), 0.0))
+        s = t if s is None else s + t
+    return torch.max(s)
+
+
+def cfl(u, nu, dt_max=10.0):
+    """Adaptive time step (reference `CFL`/`flux_out`) as a 0-d tensor."""
+    S = tuple(u.shape[1:])
+    if u.shape[0] == 3 and sk.use_blocked(S, u.dtype, u.device):
+        mx = sk.cfl3d(u)
+    else:
+        mx = cfl_flux_max(u)
+    return torch.clamp_max(1.0 / (mx + 5 * nu), dt_max)
+
+
+def mom_step(cfg: FlowConfig, levels, state: FlowState):
+    """One predictor/corrector time step (reference `mom_step!`).
+
+    Returns the advanced state and ``aux`` with the pressure-solver
+    iteration counts ``pois_n = [predictor, corrector]`` (host ints) and the
+    next ``dt``.  Nothing is updated in place: ``state.u`` is read again by
+    the corrector's BDIM blend and by the outlet BC."""
+    D, dtype = cfg.D, cfg.dtype
+    u0, p, dt, t = state.u, state.p, state.dt, state.t
+    U = bc_tuple(cfg.U, t + dt, D, dtype)
+    imask = interior_mask(cfg.S, cfg.device)
+
+    # predictor u -> u'
+    r = conv_diff(u0, cfg.nu, cfg.perdir, cfg.limiter)
+    r = accelerate(r, t, cfg.g, cfg.U, dtype)
+    u = torch.where(imask, 0.0, u0)                 # scale_u!(a, 0)
+    u = bdim(u, u0, r, state.V, state.mu0, state.mu1, dt)
+    u = bc_vector(u, U, cfg.exitBC, cfg.perdir)
+    if cfg.exitBC:
+        u = exit_bc(u, u0, U, dt)
+    u, p, n1 = project(levels, u, p, dt, cfg)
+    u = bc_vector(u, U, cfg.exitBC, cfg.perdir)
+
+    # corrector u -> u¹
+    r = conv_diff(u, cfg.nu, cfg.perdir, cfg.limiter)
+    r = accelerate(r, t + dt, cfg.g, cfg.U, dtype)
+    u = bdim(u, u0, r, state.V, state.mu0, state.mu1, dt)
+    u = torch.where(imask, 0.5 * u, u)              # scale_u!(a, 0.5)
+    u = bc_vector(u, U, cfg.exitBC, cfg.perdir)
+    u, p, n2 = project(levels, u, p, 0.5 * dt, cfg)
+    u = bc_vector(u, U, cfg.exitBC, cfg.perdir)
+
+    dt_new = cfl(u, cfg.nu)
+    new = state.replace(u=u, p=p, dt=dt_new, t=t + dt)
+    return new, {"pois_n": [n1, n2], "dt": dt_new}
+
+
+def flow_init(cfg: FlowConfig, ulam=None, dt0=0.25) -> FlowState:
+    """Initial state (reference `Flow` constructor, src/Flow.jl:110-121)."""
+    D, S, dtype, dev = cfg.D, cfg.S, cfg.dtype, cfg.device
+    if ulam is None:
+        U0t = bc_tuple(cfg.U, torch.zeros((), dtype=dtype, device=dev), D,
+                       dtype)
+        u = torch.stack([torch.full(S, 0.0, dtype=dtype, device=dev) + U0t[i]
+                         for i in range(D)])
+    else:
+        u = apply_field(ulam, (D,) + S, dtype, vector=True, device=dev)
+    U0 = bc_tuple(cfg.U, torch.zeros((), dtype=dtype, device=dev), D, dtype)
+    u = bc_vector(u, U0, cfg.exitBC, cfg.perdir)
+    u = exit_bc(u, u, U0, 0.0)      # always applied at init (Flow.jl:115)
+    p = torch.zeros(S, dtype=dtype, device=dev)
+    V = torch.zeros((D,) + S, dtype=dtype, device=dev)
+    mu0 = bc_vector(torch.ones((D,) + S, dtype=dtype, device=dev), (0.0,) * D,
+                    False, cfg.perdir)
+    mu1 = torch.zeros((D, D) + S, dtype=dtype, device=dev)
+    return FlowState(u=u, p=p, V=V, mu0=mu0, mu1=mu1,
+                     dt=torch.tensor(dt0, dtype=dtype, device=dev),
+                     t=torch.zeros((), dtype=dtype, device=dev))

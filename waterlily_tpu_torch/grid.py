@@ -1,0 +1,141 @@
+"""Staggered-grid index algebra and whole-array stencil primitives.
+
+PyTorch counterpart of `waterlily_tpu.grid`, with the same conventions
+(all 0-based):
+
+- a scalar field has shape ``S = tuple(N_d + 2)``: the interior ``N`` plus
+  one ghost cell on each side;
+- a vector field has shape ``(D, *S)``, component axis first;
+- the interior of a field is the slice ``[1:-1]`` along every spatial axis;
+- the centre of cell ``I`` sits at ``I - 0.5``; face ``i`` of that cell at
+  ``I - 0.5 - 0.5*e_i``.
+
+Every function is a plain tensor expression on the device of its input.
+"""
+from __future__ import annotations
+
+import math
+
+import torch
+
+__all__ = [
+    "shift", "interior", "interior_view", "interior_mask", "mask_interior",
+    "pad_interior", "axis_coord", "loc_grid", "apply_field", "inside_count",
+    "field_dot", "l2", "linf",
+]
+
+
+def shift(f: torch.Tensor, axis: int, off: int) -> torch.Tensor:
+    """Return ``g`` with ``g[I] = f[I + off*e_axis]`` (circular wrap)."""
+    if off == 0:
+        return f
+    return torch.roll(f, -off, dims=axis)
+
+
+def interior(ndim: int, off=None, lead: int = 0) -> tuple:
+    """Index tuple for the interior ``[1:-1]`` of the ``ndim`` spatial axes,
+    optionally shifted by ``off`` (one integer in [-1, 1] per axis), after
+    ``lead`` full leading (component) axes."""
+    off = (0,) * ndim if off is None else off
+    assert all(abs(o) <= 1 for o in off), (
+        f"interior offset {off} exceeds the 1-cell ghost ring")
+    return (slice(None),) * lead + tuple(
+        slice(1 + o, None if (-1 + o) == 0 else -1 + o) for o in off)
+
+
+def interior_view(a: torch.Tensor, D: int, off=None) -> torch.Tensor:
+    """Interior of the trailing ``D`` spatial axes of ``a`` (a view)."""
+    return a[interior(D, off, lead=a.ndim - D)]
+
+
+def axis_coord(shape: tuple, axis: int, device=None) -> torch.Tensor:
+    """Integer coordinate along ``axis``, broadcastable to ``shape``."""
+    view = [1] * len(shape)
+    view[axis] = shape[axis]
+    return torch.arange(shape[axis], device=device).reshape(view)
+
+
+def interior_mask(S: tuple, device=None) -> torch.Tensor:
+    """Boolean mask of the interior cells of a ghost-padded shape."""
+    m = None
+    for d in range(len(S)):
+        k = axis_coord(S, d, device)
+        md = (k >= 1) & (k <= S[d] - 2)
+        m = md if m is None else m & md
+    return m.expand(S)
+
+
+def mask_interior(a: torch.Tensor, D: int | None = None) -> torch.Tensor:
+    """Zero the ghost cells of ``a`` (trailing ``D`` spatial axes)."""
+    D = a.ndim if D is None else D
+    return torch.where(interior_mask(a.shape[a.ndim - D:], a.device), a, 0.0)
+
+
+def inside_count(S: tuple) -> int:
+    """Number of interior cells of a ghost-padded scalar shape."""
+    return math.prod(s - 2 for s in S)
+
+
+def field_dot(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """⟨a, b⟩ over whole fields, as multiply + reduce (a 0-d tensor)."""
+    return torch.sum(a * b)
+
+
+def pad_interior(v: torch.Tensor, lead: int = 0) -> torch.Tensor:
+    """Zero-ghost pad of an interior-shaped array (trailing ``ndim-lead``
+    axes)."""
+    D = v.ndim - lead
+    return torch.nn.functional.pad(v, (1, 1) * D)
+
+
+def loc_grid(S: tuple, i: int | None, dtype=torch.float32,
+             device=None) -> torch.Tensor:
+    """Physical coordinates of every cell, shape ``(*S, D)``: cell centres
+    for ``i=None``, the lower face of component ``i`` otherwise."""
+    D = len(S)
+    axes = []
+    for d in range(D):
+        c = torch.arange(S[d], dtype=dtype, device=device) - 0.5
+        if i == d:
+            c = c - 0.5
+        axes.append(c)
+    return torch.stack(torch.meshgrid(*axes, indexing="ij"), dim=-1)
+
+
+def apply_field(f, c_shape: tuple, dtype=torch.float32, vector: bool = False,
+                device=None) -> torch.Tensor:
+    """Evaluate a point-wise field function onto a ghost-padded array:
+    ``f(i, x)`` at the face-``i`` locations for a vector target
+    ``(D, *S)``, ``f(x)`` at cell centres for a scalar target."""
+    if vector:
+        D, S = c_shape[0], tuple(c_shape[1:])
+        comps = []
+        for i in range(D):
+            pts = loc_grid(S, i, dtype, device).reshape(-1, D)
+            vals = torch.func.vmap(lambda x, i=i: _as_tensor(f(i, x), x))(pts)
+            comps.append(vals.to(dtype).reshape(S))
+        return torch.stack(comps, dim=0)
+    S = tuple(c_shape)
+    pts = loc_grid(S, None, dtype, device).reshape(-1, len(S))
+    vals = torch.func.vmap(lambda x: _as_tensor(f(x), x))(pts)
+    return vals.to(dtype).reshape(S)
+
+
+def _as_tensor(v, like: torch.Tensor) -> torch.Tensor:
+    """Point values may be Python numbers; vmap needs tensors that depend
+    on the batched input, so constants are broadcast against ``like``."""
+    if not torch.is_tensor(v):
+        v = torch.as_tensor(v, dtype=like.dtype, device=like.device)
+    return v + torch.zeros_like(like[0])
+
+
+def l2(a: torch.Tensor, D: int | None = None) -> torch.Tensor:
+    """Squared L2 norm over the interior (reference ``L₂``)."""
+    D = a.ndim if D is None else D
+    v = interior_view(a, D)
+    return torch.sum(v * v)
+
+
+def linf(a: torch.Tensor) -> torch.Tensor:
+    """Max-abs over the full array (reference ``L∞``)."""
+    return torch.max(torch.abs(a))

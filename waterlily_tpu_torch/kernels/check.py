@@ -1,0 +1,186 @@
+"""Kernel-versus-plain checks and timings on a CUDA device.
+
+Each case builds numpy-seeded inputs at a given shape, runs a kernel's
+wrapper and its plain PyTorch version on the same device tensors and
+returns the largest differences.  `chip_smoke.py` and
+``tests/test_torch_kernels.py`` use these cases; neither falls back to the
+plain version when a kernel fails.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from ..ops import stencil_kernels as sk
+from ..ops import pcg_kernel as pk
+from ..ops import poisson, convect
+from ..ops.bc import bc_vector_planes
+from ..utils.perf import device_profile
+
+__all__ = ["KERNELS", "TOLERANCE", "SOURCES", "inputs", "variants", "compare",
+           "time_pair", "ulp_diff"]
+
+# csrc file and the TPU kernel (file:line of its function) of each wrapper
+SOURCES = {
+    "mult3d": ("waterlily_tpu_torch/csrc/poisson_stencil.cu",
+               "waterlily_tpu/ops/pallas_stencil.py:161"),
+    "increment3d": ("waterlily_tpu_torch/csrc/poisson_stencil.cu",
+                    "waterlily_tpu/ops/pallas_stencil.py:198"),
+    "cfl3d": ("waterlily_tpu_torch/csrc/cfl.cu",
+              "waterlily_tpu/ops/pallas_stencil.py:260"),
+    "bc3d": ("waterlily_tpu_torch/csrc/bc.cu",
+             "waterlily_tpu/ops/pallas_stencil.py:359"),
+    "project3d": ("waterlily_tpu_torch/csrc/projection.cu",
+                  "waterlily_tpu/ops/pallas_stencil.py:454"),
+    "div3d": ("waterlily_tpu_torch/csrc/projection.cu",
+              "waterlily_tpu/ops/pallas_stencil.py:537"),
+    "conv_diff3d": ("waterlily_tpu_torch/csrc/conv_diff.cu",
+                    "waterlily_tpu/ops/pallas_stencil.py:934"),
+    "pcg_fused": ("waterlily_tpu_torch/csrc/pcg.cu",
+                  "waterlily_tpu/ops/pallas_kernels.py:127"),
+}
+
+# ("exact", None): equal values; ("rel", r): max|a-b| <= r*max|b|;
+# ("abs", a): max|a-b| <= a.  Sums taken in another order than torch.sum
+# (the mult3d dot, pcg's dots) are the only inexact outputs.
+TOLERANCE = {
+    "mult3d.z": ("exact", None), "mult3d.dot": ("rel", 1e-5),
+    "increment3d.x": ("exact", None), "increment3d.r": ("exact", None),
+    "cfl3d": ("exact", None), "bc3d": ("exact", None),
+    "div3d.z": ("exact", None), "div3d.x": ("exact", None),
+    "project3d.u": ("exact", None), "project3d.p": ("exact", None),
+    "conv_diff3d.quick": ("exact", None), "conv_diff3d.vanleer": ("exact", None),
+    "pcg_fused.x": ("abs", 1e-5), "pcg_fused.r": ("abs", 1e-5),
+}
+
+
+def inputs(S, seed, device) -> dict:
+    """Seeded fields at ghost-padded shape ``S``: a level built from
+    positive face coefficients with wall-normal ghosts zeroed (a μ₀), a
+    right-hand side and residual with zero ghosts, a velocity, a pressure
+    and a time step on the device."""
+    rng = np.random.default_rng(seed)
+    S = tuple(S)
+    f32 = np.float32
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a, f32)).to(device)
+    inner = np.zeros(S, bool)
+    inner[1:-1, 1:-1, 1:-1] = True
+    L = bc_vector_planes(t(rng.uniform(0.5, 1.5, (3,) + S)), (0.0,) * 3)
+    lev = poisson.make_level(L.contiguous())
+    rhs = t(np.where(inner, rng.standard_normal(S) * 0.1, 0.0))
+    r = poisson.residual(lev, torch.zeros_like(rhs), rhs).contiguous()
+    return {
+        "lev": lev, "r": r,
+        "x": t(rng.standard_normal(S)),
+        "eps": t(np.where(inner, rng.standard_normal(S) * 0.1, 0.0)),
+        "u": t(rng.standard_normal((3,) + S)),
+        "p": t(rng.standard_normal(S)),
+        "dt": torch.full((), 0.37, dtype=torch.float32, device=device),
+        "A": (1.0, 0.0, 0.0), "nu": 0.01,
+    }
+
+
+def variants(name, d) -> list:
+    """``[(outputs, kernel call, plain call), ...]`` of kernel ``name`` on
+    inputs ``d``; each call returns one tensor or a tuple matching
+    ``outputs``.  The first variant is the one timed."""
+    lev = d["lev"]
+    L, Dd, x, r, eps, u, p, dt = (lev.L, lev.D, d["x"], d["r"], d["eps"],
+                                  d["u"], d["p"], d["dt"])
+    x0 = torch.zeros_like(r)
+    conv = lambda lim: (
+        (lim.__name__,),
+        lambda: sk.conv_diff3d(u, d["nu"], lim),
+        lambda: sk._conv_diff3d_plain(u, d["nu"], lim))
+    return {
+        "mult3d": [(("z", "dot"), lambda: sk.mult3d(L, Dd, x, with_dot=True),
+                    lambda: sk._mult3d_plain(L, Dd, x, with_dot=True))],
+        "increment3d": [(("x", "r"),
+                         lambda: sk.increment3d(L, Dd, eps, x, r),
+                         lambda: sk._increment3d_plain(L, Dd, eps, x, r))],
+        "cfl3d": [((), lambda: sk.cfl3d(u), lambda: sk._cfl3d_plain(u))],
+        "bc3d": [((), lambda: sk.bc3d(u, d["A"]),
+                  lambda: bc_vector_planes(u, d["A"]))],
+        "div3d": [(("z", "x"), lambda: sk.div3d(u, p, dt),
+                   lambda: sk._div3d_plain(u, p, dt))],
+        "project3d": [(("u", "p"), lambda: sk.project3d(L, x, u, dt),
+                       lambda: sk._project3d_plain(L, x, u, dt))],
+        "conv_diff3d": [conv(convect.quick), conv(convect.vanleer)],
+        "pcg_fused": [(("x", "r"), lambda: pk.pcg_fused(lev, x0, r),
+                       lambda: poisson.pcg(lev, x0, r))],
+    }[name]
+
+
+KERNELS = tuple(SOURCES)
+
+
+def ulp_diff(a: torch.Tensor, b: torch.Tensor) -> int:
+    """Largest distance in units in the last place between two f32
+    tensors (signed zeros count as equal)."""
+    def ordered(x):
+        i = x.contiguous().view(torch.int32).to(torch.int64)
+        return torch.where(i < 0, -(i & 0x7FFFFFFF), i)
+    return int(torch.max(torch.abs(ordered(a) - ordered(b))))
+
+
+def compare(name, S, seed, device) -> list[dict]:
+    """Run kernel ``name`` and its plain version at shape ``S``; one row per
+    output with its max |diff|, max ulp distance and pass verdict."""
+    rows = []
+    pairs = []
+    for outputs, kern, plain in variants(name, inputs(S, seed, device)):
+        k_out, p_out = kern(), plain()
+        if not isinstance(k_out, tuple):
+            k_out, p_out = (k_out,), (p_out,)
+        pairs += [(".".join(filter(None, (name, o))), k, p)
+                  for o, k, p in zip(outputs or ("",), k_out, p_out)]
+    torch.cuda.synchronize(device)
+    for key, k, p in pairs:
+        k, p = k.float(), p.float()
+        err = float(torch.max(torch.abs(k - p)))
+        kind, tol = TOLERANCE[key]
+        if kind == "exact":
+            ok = bool(torch.equal(k, p))
+        elif kind == "rel":
+            ok = err <= tol * float(torch.max(torch.abs(p)))
+        else:
+            ok = err <= tol
+        rows.append({"output": key, "shape": tuple(S), "max_abs_err": err,
+                     "max_ulp": ulp_diff(k, p),
+                     "finite": bool(torch.isfinite(k).all()),
+                     "tolerance": kind if tol is None else f"{kind} {tol}",
+                     "ok": ok and bool(torch.isfinite(k).all())})
+    return rows
+
+
+def _timed(fn, n):
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(n):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / n
+
+
+def time_pair(name, S, device, n=20) -> dict:
+    """Per-call times of kernel ``name`` and its plain version at shape
+    ``S``: device time from `torch.profiler` (the card's busy time for
+    one call: every kernel, fill and copy it launches) and wall time per
+    call from CUDA events over ``n`` back-to-back calls (includes the host
+    dispatch).  Measured in turns plain, kernel, kernel, plain after a
+    warm-up."""
+    _, kern, plain = variants(name, inputs(S, 0, device))[0]
+    kern(), plain()
+    torch.cuda.synchronize()
+    p1 = device_profile(plain, n)[0]
+    k1 = device_profile(kern, n)[0]
+    k2 = device_profile(kern, n)[0]
+    p2 = device_profile(plain, n)[0]
+    pw1 = _timed(plain, n)
+    kw1 = _timed(kern, n)
+    kw2 = _timed(kern, n)
+    pw2 = _timed(plain, n)
+    return {"ms": (k1 + k2) / 2, "plain_ms": (p1 + p2) / 2,
+            "wall_ms": (kw1 + kw2) / 2, "plain_wall_ms": (pw1 + pw2) / 2}

@@ -1,0 +1,2 @@
+"""Canonical simulation cases."""
+from .cases import sphere_3d  # noqa: F401

@@ -1,0 +1,96 @@
+"""Ghost-cell boundary conditions.
+
+PyTorch counterpart of `waterlily_tpu.ops.bc` (reference ``BC!``,
+``exitBC!`` and ``perBC!``).  The plain form applies the reference's
+sequential plane updates to a copy of the field; big 3D f32 fields on a
+CUDA device dispatch to the one-sweep kernel `stencil_kernels.bc3d`, which
+composes the same stages per cell.
+"""
+from __future__ import annotations
+
+import torch
+
+from . import stencil_kernels as sk
+
+__all__ = ["bc_vector", "bc_vector_planes", "bc_scalar_periodic", "exit_bc"]
+
+
+def _pl(D: int, j: int, lo: int, lead: int = 0) -> tuple:
+    """Width-1 slice selecting plane ``axis j == lo``."""
+    return (slice(None),) * lead + tuple(
+        slice(lo, lo + 1) if d == j else slice(None) for d in range(D))
+
+
+def bc_vector(u: torch.Tensor, A, save_exit: bool = False,
+              perdir: tuple = ()) -> torch.Tensor:
+    """Apply domain BCs to the ghost cells of a vector field ``u`` (D,*S)
+    and return a new tensor.
+
+    Fields that pass `stencil_kernels.use_blocked` go through the one-sweep
+    kernel.  Semantics (reference src/util.jl:192-210):
+    periodic direction ``j`` copies the opposite interior plane; the normal
+    component (``i==j``) is Dirichlet ``A[i]`` on the low ghost *and* first
+    interior plane and on the high ghost plane (the high plane is kept for
+    ``i==0`` when ``save_exit``); tangential components copy the adjacent
+    plane.  Updates run component-major, direction-minor, so ghost corners
+    match the reference exactly.
+    """
+    S = tuple(u.shape[1:])
+    if u.shape[0] == 3 and sk.use_blocked(S, u.dtype, u.device):
+        return sk.bc3d(u, A, save_exit, perdir)
+    return bc_vector_planes(u, A, save_exit, perdir)
+
+
+def bc_vector_planes(u: torch.Tensor, A, save_exit: bool = False,
+                     perdir: tuple = ()) -> torch.Tensor:
+    """The sequential plane-update form of `bc_vector` (the plain version
+    of the `bc3d` kernel)."""
+    D = u.shape[0]
+    S = u.shape[1:]
+    u = u.clone()
+    cpl = lambda i, j, lo: (slice(i, i + 1),) + _pl(D, j, lo)
+    for i in range(D):
+        for j in range(D):
+            if j in perdir:
+                u[cpl(i, j, 0)] = u[cpl(i, j, S[j] - 2)]
+                u[cpl(i, j, S[j] - 1)] = u[cpl(i, j, 1)]
+            elif i == j:
+                u[cpl(i, j, 0)] = A[i]
+                u[cpl(i, j, 1)] = A[i]
+                if not (save_exit and i == 0):
+                    u[cpl(i, j, S[j] - 1)] = A[i]
+            else:
+                u[cpl(i, j, 0)] = u[cpl(i, j, 1)]
+                u[cpl(i, j, S[j] - 1)] = u[cpl(i, j, S[j] - 2)]
+    return u
+
+
+def bc_scalar_periodic(a: torch.Tensor, perdir: tuple,
+                       D: int | None = None) -> torch.Tensor:
+    """Periodic ghost fill for a scalar field (reference ``perBC!``);
+    returns ``a`` itself when nothing is periodic, a new tensor otherwise."""
+    if not perdir:
+        return a
+    D = a.ndim if D is None else D
+    lead = a.ndim - D
+    S = a.shape[lead:]
+    a = a.clone()
+    for j in perdir:
+        a[_pl(D, j, 0, lead)] = a[_pl(D, j, S[j] - 2, lead)]
+        a[_pl(D, j, S[j] - 1, lead)] = a[_pl(D, j, 1, lead)]
+    return a
+
+
+def exit_bc(u: torch.Tensor, u0: torch.Tensor, U, dt) -> torch.Tensor:
+    """1D convective outlet on the high-x ghost plane plus a global flux fix
+    (reference ``exitBC!``, src/util.jl:216-222); returns a new tensor."""
+    D = u.shape[0]
+    S = u.shape[1:]
+    tr = tuple(slice(1, -1) for _ in range(D - 1))
+    ex = (0, slice(S[0] - 1, S[0])) + tr
+    exm = (0, slice(S[0] - 2, S[0] - 1)) + tr
+    new = u0[ex] - U[0] * dt * (u0[ex] - u0[exm])
+    flux = torch.mean(new) - U[0]
+    u = u.clone()
+    u[ex] = new - flux
+    return u

@@ -1,0 +1,60 @@
+"""Wrapper, plain version, launch counter and level gate of the one-launch
+PCG smooth.
+
+Counterpart of `waterlily_tpu.ops.pallas_kernels`: the whole ``it``-step
+Jacobi-PCG smooth of a small multigrid level (matvecs, dots, axpys and the
+early exits) runs as one CUDA launch (``csrc/pcg.cu``) instead of some 30
+small tensor ops.  The plain version is `ops.poisson.pcg`.
+"""
+from __future__ import annotations
+
+import math
+
+import torch
+
+from ..kernels.build import launch
+
+__all__ = ["PCG_MAX_CELLS", "use_pcg_fused", "pcg_fused"]
+
+# Level gate: the single-block kernel serves levels of at most this many
+# ghost-padded cells.  It picks the levels the JAX VMEM estimate picks for
+# the sphere grids: (50,34,34) = 57,800 cells in, the (98,66,66) fine level
+# out; at 258³ the 34³ level in and 66³ out.
+PCG_MAX_CELLS = 60_000
+
+
+def use_pcg_fused(S, dtype, device) -> bool:
+    """Gate: small f32 levels on a CUDA device (2D and 3D, as in JAX)."""
+    return (torch.device(device).type == "cuda" and dtype == torch.float32
+            and len(S) >= 2 and math.prod(S) <= PCG_MAX_CELLS)
+
+
+def pcg_fused(lev, x, r, it: int = 6):
+    """One whole PCG smooth of level ``lev``; returns new ``(x, r)``.
+    CPU tensors run the plain version `ops.poisson.pcg`."""
+    S = tuple(x.shape)
+    if x.device.type == "cpu":
+        from .poisson import pcg
+        return pcg(lev, x, r, it)
+    if x.device.type != "cuda":
+        raise ValueError(f"pcg_fused: tensors on {x.device} are not supported")
+    if len(S) != 3:
+        raise NotImplementedError("2D pcg_fused is not ported yet "
+                                  "(ROADMAP B11)")
+    if lev.perdir:
+        raise NotImplementedError("periodic pcg_fused is not ported yet "
+                                  "(ROADMAP B10)")
+    from .stencil_kernels import _check
+    _check("pcg_fused", S, L=(lev.L, (3,) + S), D=(lev.D, S),
+           iD=(lev.iD, S), x=(x, S), r=(r, S))
+    x = x.clone()
+    r = r.clone()
+    eps = torch.empty_like(x)
+    z = torch.empty_like(x)
+    launch("wl_pcg3d", lev.L, lev.D, lev.iD, x, r, eps, z, *S, int(it))
+    pcg_fused.launches += 1
+    return x, r
+
+
+pcg_fused.launches = 0
+
