@@ -8,23 +8,40 @@ Phases, each of which raises (and so exits non-zero) on failure:
 1. card record: name and power limit (nvidia-smi), CUDA, nvcc, triton;
 2. build of the hand-written kernels from ``waterlily_tpu_torch/csrc``;
 3. every kernel against its plain PyTorch version on the card at the
-   slice's shapes (exact for the stencils, 1e-5 relative for the matvec
-   dot, 1e-5 absolute for the PCG smooth);
-4. the slice: ``sphere_3d(96, 64)`` constructed and stepped 20 times on the
-   card with every kernel launch-counted, then 3 steps from the same initial
-   state on the CPU (plain versions), compared: pois_n, dt, u, p;
-5. timing: ms/step, MLUPS, ns/DOF and the card's idle share at (96,64,64)
-   and for ``sphere_3d(256, 256, bbox=False)``, and each kernel next to
-   its plain version.
+   dense slice's shapes and a ragged one (exact for the stencils, 1e-5
+   relative for the matvec dots, 1e-5 absolute for the PCG smooth);
+4. the dense slice: ``sphere_3d(96, 64)`` constructed and stepped 20 times
+   on the card with every kernel launch-counted, then 3 steps from the same
+   initial state on the CPU (plain versions), compared: pois_n, dt, u, p;
+5. the banded slice, small: ``sphere_3d(48, 48, bbox="force",
+   banded_levels=True)`` 3 steps on the card (``ana_mult3d`` launched) and
+   on the CPU from one state, compared as in 4;
+6. the banded paths at full size, each against ``bbox=False`` from the
+   same start over 3 steps (equal pois_n, max|du| < 1e-3, the same μ₀):
+   ``sphere_3d(256, 256)`` as it runs by default (banded BDIM window and
+   narrow-band measurement, dense levels), the same with
+   ``banded_levels=True`` (pois_n within the ±2/≤4 rule), and
+   ``heaving_sphere_3d(radius=24)`` re-measured every step;
+7. every kernel against its plain version again, at every shape a path
+   of 4-6 launched it at (258³, 130³, 66³, ...), with the tolerances of 3;
+8. timing: ms/step, MLUPS, ns/DOF and the card's idle share at (96,64,64),
+   256³ dense and banded (in turns), 256³ ``banded_levels=True`` and the
+   256³ heaving sphere with its remeasure, and each kernel next to its
+   plain version and its bound at (98,66,66) and at the largest shape a
+   path launched it at (the shape the kernels line reports).
 
-The line before the last is a JSON object with one entry per kernel; the
-last line is ``{"ok": true, "device": {...}}``.  Without a CUDA device the
-script prints no result and exits 2.  Imports no JAX.
+Every path runs with the launch counters set to 0 and the launched shapes
+cleared just before it, both read just after; a kernel of the path that
+never launched fails the run.  The
+line before the last is a JSON object with one entry per kernel; the last
+line is ``{"ok": true, "device": {...}}``.  Without a CUDA device the script
+prints no result and exits 2.  Imports no JAX.
 """
 from __future__ import annotations
 
 import dataclasses
 import json
+import math
 import subprocess
 import sys
 import time
@@ -33,6 +50,7 @@ FINE = (98, 66, 66)          # ghost-padded (96, 64, 64)
 PCG_LEVEL = (50, 34, 34)     # the first coarse level, the PCG kernel's
 RAGGED = (37, 29, 35)        # non-cubic, 37555 cells: a ragged last block
 PCG_RAGGED = (23, 17, 29)
+BIG = (258, 258, 258)        # ghost-padded 256³
 
 
 def log(msg=""):
@@ -59,24 +77,30 @@ def card_record(torch):
     return card
 
 
-def check_kernels(torch, dev):
+# kernel -> the largest max|kernel - plain| and the shapes checked so far
+WORST = {}
+CHECKED = {}
+
+
+def check_kernels(torch, dev, shapes):
+    """Each kernel against its plain version at every shape in
+    ``shapes[name]`` not checked yet."""
     from waterlily_tpu_torch.kernels.check import KERNELS, compare
-    worst = {}
     failures = []
     for name in KERNELS:
-        shapes = ((PCG_LEVEL, PCG_RAGGED) if name == "pcg_fused"
-                  else (FINE, RAGGED))
-        for S in shapes:
+        done = CHECKED.setdefault(name, set())
+        for S in sorted(set(shapes[name]) - done, key=math.prod):
             for row in compare(name, S, 1, dev):
-                log(f"  {row['output']:<20} {str(row['shape']):<14} "
+                log(f"  {row['output']:<20} {str(row['shape']):<15} "
                     f"max|d|={row['max_abs_err']:.3e} ulp={row['max_ulp']} "
                     f"[{row['tolerance']}] {'ok' if row['ok'] else 'FAIL'}")
-                worst[name] = max(worst.get(name, 0.0), row["max_abs_err"])
+                WORST[name] = max(WORST.get(name, 0.0), row["max_abs_err"])
                 if not row["ok"]:
                     failures.append(row)
+            done.add(S)
+            torch.cuda.empty_cache()
     if failures:
         raise AssertionError(f"kernel checks failed: {failures}")
-    return worst
 
 
 def pois_ok(a, b):
@@ -84,78 +108,175 @@ def pois_ok(a, b):
     return all(v == 0 for v in d) or (all(v <= 2 for v in d) and sum(d) <= 4)
 
 
-def run_slice(torch, dev):
-    from waterlily_tpu_torch import sphere_3d
-    from waterlily_tpu_torch.flow import mom_step
-    from waterlily_tpu_torch.ops.stencil_kernels import kernel_wrappers
-    from waterlily_tpu_torch.convert import levels_from_numpy
+# kernels each path must launch; PATH_LAUNCHES collects every path's counts
+DENSE = ("mult3d", "increment3d", "cfl3d", "bc3d", "div3d", "project3d",
+         "conv_diff3d", "pcg_fused")
+BANDED_LEVELS = ("ana_mult3d", "cfl3d", "bc3d", "conv_diff3d", "pcg_fused")
+PATH_LAUNCHES = {}
+PATH_SHAPES = {}    # kernel -> every shape a path launched it at
 
+
+def on_path(torch, label, expect, fn):
+    """Run ``fn`` (a user-facing path) with every launch counter set to 0
+    and every launched-shape set cleared just before, both read just
+    after; fail if a kernel in ``expect`` never launched."""
+    from waterlily_tpu_torch.ops.stencil_kernels import kernel_wrappers
     kernels = kernel_wrappers()
     for w in kernels.values():
         w.launches = 0
-    t0 = time.perf_counter()
-    sim = sphere_3d(96, 64, device=dev)
+        w.shapes.clear()
+    out = fn()
     torch.cuda.synchronize()
-    log(f"constructed sphere_3d(96, 64) on {dev} in "
-        f"{time.perf_counter() - t0:.2f} s")
-    init = sim.flow
-    init_levels = sim.levels
-    t0 = time.perf_counter()
-    sim.steps(20, remeasure=False)
-    torch.cuda.synchronize()
-    launches = {k: w.launches for k, w in kernels.items()}
-    log(f"20 steps in {time.perf_counter() - t0:.2f} s; pois_n "
-        f"{sim.pois_n}; dt {sim.dts[-1]}")
-    log(f"launches on the main path: {launches}")
-    idle = [k for k, n in launches.items() if n == 0]
+    counts = {k: w.launches for k, w in kernels.items()}
+    log(f"launches on {label}: {counts}")
+    log(f"  at shapes: " + "; ".join(
+        f"{k} {sorted(w.shapes, key=math.prod)}"
+        for k, w in kernels.items() if w.shapes))
+    idle = [k for k in expect if counts[k] == 0]
     if idle:
-        raise AssertionError(f"kernels never launched on the main path: {idle}")
+        raise AssertionError(f"kernels never launched on {label}: {idle}")
+    PATH_LAUNCHES[label] = counts
+    for k, w in kernels.items():
+        PATH_SHAPES.setdefault(k, set()).update(w.shapes)
+    return out
+
+
+def vs_cpu(torch, sim, init, init_levels, n=3):
+    """``n`` steps of ``sim``'s configuration from the state ``init`` on the
+    CPU (plain versions) against the card's first ``n`` steps: pois_n, dt,
+    and max|du|, max|dp| against the card's run from the same state."""
+    from waterlily_tpu_torch.flow import mom_step
+    from waterlily_tpu_torch.convert import flow_to, levels_to
+    cpu = torch.device("cpu")
+    state, levels = flow_to(init, cpu), levels_to(init_levels, cpu)
+    cfg = dataclasses.replace(sim.cfg, device=cpu)
+    pois, dts = [], []
+    t0 = time.perf_counter()
+    for _ in range(n):
+        state, aux = mom_step(cfg, levels, state)
+        pois.append(aux["pois_n"])
+        dts.append(float(aux["dt"]))
+    log(f"{n} CPU steps in {time.perf_counter() - t0:.1f} s: pois_n {pois}, "
+        f"dt {dts}")
+    log(f"GPU first {n} steps: pois_n {sim.pois_n[:n]}, dt {sim.dts[1:n + 1]}")
+    if not pois_ok(sim.pois_n[:n], pois):
+        raise AssertionError(f"pois_n GPU {sim.pois_n[:n]} vs CPU {pois}")
+    for a, b in zip(sim.dts[1:n + 1], dts):
+        if abs(a - b) > 1e-5 * abs(b):
+            raise AssertionError(f"dt GPU {sim.dts[1:n + 1]} vs CPU {dts}")
+    g = init
+    for _ in range(n):
+        g, _aux = mom_step(sim.cfg, init_levels, g)
+    du = float((g.u.cpu() - state.u).abs().max())
+    dp = float((g.p.cpu() - state.p).abs().max())
+    log(f"after {n} steps: max|du| = {du:.3e}, max|dp| = {dp:.3e}")
+
+
+def run_slice(torch, dev):
+    from waterlily_tpu_torch import sphere_3d
+
+    def drive():
+        t0 = time.perf_counter()
+        sim = sphere_3d(96, 64, device=dev)
+        torch.cuda.synchronize()
+        log(f"constructed sphere_3d(96, 64) on {dev} in "
+            f"{time.perf_counter() - t0:.2f} s")
+        init, init_levels = sim.flow, sim.levels
+        t0 = time.perf_counter()
+        sim.steps(20, remeasure=False)
+        torch.cuda.synchronize()
+        log(f"20 steps in {time.perf_counter() - t0:.2f} s; pois_n "
+            f"{sim.pois_n}; dt {sim.dts[-1]}")
+        return sim, init, init_levels
+
+    sim, init, init_levels = on_path(torch, "sphere_3d(96, 64)", DENSE, drive)
     f = sim.flow
     S = sim.cfg.S
     assert tuple(f.u.shape) == (3,) + S and tuple(f.p.shape) == S
     for k in ("u", "p", "dt"):
         if not bool(torch.isfinite(getattr(f, k)).all()):
             raise AssertionError(f"non-finite {k} after 20 steps")
-
-    # the same initial state, 3 steps on the CPU (plain versions)
-    cpu = torch.device("cpu")
-    state = dataclasses.replace(
-        init, **{k.name: getattr(init, k.name).cpu()
-                 for k in dataclasses.fields(init)})
-    levels = levels_from_numpy(
-        [{"L": l.L.cpu().numpy(), "D": l.D.cpu().numpy(),
-          "iD": l.iD.cpu().numpy()} for l in init_levels], cpu)
-    cfg = dataclasses.replace(sim.cfg, device=cpu)
-    pois, dts = [], []
-    t0 = time.perf_counter()
-    for _ in range(3):
-        state, aux = mom_step(cfg, levels, state)
-        pois.append(aux["pois_n"])
-        dts.append(float(aux["dt"]))
-    log(f"3 CPU steps in {time.perf_counter() - t0:.1f} s: pois_n {pois}, "
-        f"dt {dts}")
-    log(f"GPU first 3 steps: pois_n {sim.pois_n[:3]}, dt {sim.dts[1:4]}")
-    if not pois_ok(sim.pois_n[:3], pois):
-        raise AssertionError(f"pois_n GPU {sim.pois_n[:3]} vs CPU {pois}")
-    for a, b in zip(sim.dts[1:4], dts):
-        if abs(a - b) > 1e-5 * abs(b):
-            raise AssertionError(f"dt GPU {sim.dts[1:4]} vs CPU {dts}")
-    # the GPU state after 3 steps, recomputed from the same start
-    g = init
-    for _ in range(3):
-        g, _aux = mom_step(sim.cfg, init_levels, g)
-    du = float((g.u.cpu() - state.u).abs().max())
-    dp = float((g.p.cpu() - state.p).abs().max())
-    log(f"after 3 steps: max|du| = {du:.3e}, max|dp| = {dp:.3e}")
-    return sim, launches
+    vs_cpu(torch, sim, init, init_levels)
+    return sim
 
 
-def step_profile(sim, n, label):
+def run_banded_small(torch, dev):
+    from waterlily_tpu_torch import sphere_3d
+    label = 'sphere_3d(48, 48, bbox="force", banded_levels=True)'
+
+    def drive():
+        sim = sphere_3d(48, 48, bbox="force", banded_levels=True, device=dev)
+        init, init_levels = sim.flow, sim.levels
+        sim.steps(3, remeasure=False)
+        return sim, init, init_levels
+
+    sim, init, init_levels = on_path(torch, label, BANDED_LEVELS, drive)
+    log(f"box {sim.cfg.bbox_shape} at {init.bbox}; banded levels "
+        f"{[l.banded for l in sim.levels]}")
+    vs_cpu(torch, sim, init, init_levels)
+
+
+def _max_du(a, b):
+    return float((a.flow.u - b.flow.u).abs().max())
+
+
+def banded_vs_dense(torch, label, expect, make, remeasure, exact_pois=True):
+    """3 steps of the banded configuration ``make(True)`` (launch-counted)
+    and of ``make(False)`` (bbox=False) from the same start: pois_n, u and
+    the same μ₀."""
+    def drive():
+        t0 = time.perf_counter()
+        sim = make(True)
+        torch.cuda.synchronize()
+        log(f"constructed {label} in {time.perf_counter() - t0:.1f} s: box "
+            f"{sim.cfg.bbox_shape} at {sim.flow.bbox}, banded levels "
+            f"{[l.banded for l in sim.levels]}")
+        sim.steps(3, remeasure=remeasure)
+        return sim
+
+    a = on_path(torch, label, expect, drive)
+    b = make(False)
+    b.steps(3, remeasure=remeasure)
+    du = _max_du(a, b)
+    same_mu0 = bool(torch.equal(a.flow.mu0, b.flow.mu0))
+    log(f"{label} vs bbox=False, 3 steps: pois_n {a.pois_n} vs {b.pois_n}, "
+        f"max|du| = {du:.3e}, max|dp| = "
+        f"{float((a.flow.p - b.flow.p).abs().max()):.3e}, "
+        f"mu0 equal: {same_mu0}")
+    ok = (a.pois_n == b.pois_n) if exact_pois else pois_ok(a.pois_n, b.pois_n)
+    if not ok or not du < 1e-3 or not same_mu0:
+        raise AssertionError(f"{label} differs from bbox=False")
+
+
+def run_banded_big(torch, dev):
+    from waterlily_tpu_torch import sphere_3d, heaving_sphere_3d
+    banded_vs_dense(
+        torch, "sphere_3d(256, 256)", DENSE,
+        lambda on: sphere_3d(256, 256, device=dev,
+                             **({} if on else {"bbox": False})),
+        remeasure=False)
+    torch.cuda.empty_cache()
+    banded_vs_dense(
+        torch, "sphere_3d(256, 256, banded_levels=True)", BANDED_LEVELS,
+        lambda on: sphere_3d(256, 256, device=dev,
+                             **({"banded_levels": True} if on
+                                else {"bbox": False})),
+        remeasure=False, exact_pois=False)
+    torch.cuda.empty_cache()
+    banded_vs_dense(
+        torch, "heaving_sphere_3d(radius=24)", DENSE,
+        lambda on: heaving_sphere_3d(radius=24, device=dev,
+                                     **({} if on else {"bbox": False})),
+        remeasure=True)
+    torch.cuda.empty_cache()
+
+
+def step_profile(sim, n, label, remeasure=False):
     """The card's idle share over ``n`` steps: device busy time and wall
     time of the same steps (`utils.perf.idle_share`), and the ops that
     take the busy time."""
     from waterlily_tpu_torch.utils.perf import idle_share
-    r = idle_share(sim, n)
+    r = idle_share(sim, n, remeasure=remeasure)
     log(f"{label}: idle share {r['idle_share']:.4f}: device busy "
         f"{r['busy_ms']:.4f} ms/step of {r['wall_ms']:.4f} ms/step wall "
         f"(the same {n} steps, pois_n {r['pois_n']}; wall timed without "
@@ -165,41 +286,103 @@ def step_profile(sim, n, label):
         log(f"    {ms:9.4f} ms/step  {name[:90]}")
 
 
-def timing(torch, dev, sim):
-    from waterlily_tpu_torch import sphere_3d
+def report_steps(torch, sim, label, n, warmup, remeasure=False):
     from waterlily_tpu_torch.utils.perf import time_steps
-    from waterlily_tpu_torch.kernels.check import KERNELS, time_pair
-
-    r = time_steps(sim, 50, warmup=10)
-    log(f"sphere_3d(96, 64): {r['sec_per_step'] * 1e3:.3f} ms/step, "
+    r = time_steps(sim, n, warmup=warmup, remeasure=remeasure)
+    if not bool(torch.isfinite(sim.flow.u).all()):
+        raise AssertionError(f"non-finite u: {label}")
+    log(f"{label}: {r['sec_per_step'] * 1e3:.3f} ms/step, "
         f"{r['mlups']:.1f} MLUPS, {r['ns_per_dof']:.3f} ns/DOF "
-        f"(50 steps after 10 warm-up; pois_n last {sim.pois_n[-1]})")
-    step_profile(sim, 20, "sphere_3d(96, 64)")
-    times = {}
-    for name in KERNELS:
-        S = PCG_LEVEL if name == "pcg_fused" else FINE
-        t = time_pair(name, S, dev)
-        times[name] = t
-        log(f"  {name:<12} {str(S):<14} device (profiler): kernel "
-            f"{t['ms']:.4f} ms, plain {t['plain_ms']:.4f} ms; wall per call: "
-            f"kernel {t['wall_ms']:.4f} ms, plain {t['plain_wall_ms']:.4f} ms")
+        f"({n} steps after {warmup} warm-up; pois_n last "
+        f"{sim.pois_n[-3:]})")
 
-    del sim
+
+def construct(torch, label, make):
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    big = sphere_3d(256, 256, bbox=False, device=dev)
+    sim = make()
     torch.cuda.synchronize()
-    log(f"constructed sphere_3d(256, 256, bbox=False) in "
-        f"{time.perf_counter() - t0:.1f} s")
-    rb = time_steps(big, 10, warmup=2)
-    if not bool(torch.isfinite(big.flow.u).all()):
-        raise AssertionError("non-finite u at 256^3")
-    log(f"sphere_3d(256, 256, bbox=False): {rb['sec_per_step'] * 1e3:.2f} "
-        f"ms/step, {rb['mlups']:.1f} MLUPS, {rb['ns_per_dof']:.3f} ns/DOF, "
-        f"peak {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB "
-        f"(10 steps after 2 warm-up; pois_n {big.pois_n[-3:]})")
-    step_profile(big, 5, "sphere_3d(256, 256, bbox=False)")
+    log(f"constructed {label} in {time.perf_counter() - t0:.1f} s")
+    return sim
+
+
+def peak(torch, label):
+    log(f"{label}: peak {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB "
+        "allocated")
+
+
+def timing(torch, dev, sim):
+    from waterlily_tpu_torch import sphere_3d, heaving_sphere_3d
+    from waterlily_tpu_torch.kernels.check import KERNELS, time_pair, bound_ms
+
+    report_steps(torch, sim, "sphere_3d(96, 64)", 50, 10)
+    step_profile(sim, 20, "sphere_3d(96, 64)")
+    # each kernel at the dense slice's shape, then at the largest shape a
+    # path launched it at (the kernels line's shape)
+    times = {}
+    for name in KERNELS:
+        largest = max(PATH_SHAPES[name], key=math.prod)
+        for S in dict.fromkeys((PCG_LEVEL if name == "pcg_fused" else FINE,
+                                largest)):
+            t = time_pair(name, S, dev)
+            t["shape"] = S
+            t["bound_ms"], t["bound_by"] = bound_ms(name, S)
+            log(f"  {name:<12} {str(S):<15} device (profiler): kernel "
+                f"{t['ms']:.4f} ms, plain {t['plain_ms']:.4f} ms, bound "
+                f"{t['bound_ms']:.4f} ms ({t['bound_by']}); wall per call: "
+                f"kernel {t['wall_ms']:.4f} ms, plain "
+                f"{t['plain_wall_ms']:.4f} ms")
+            torch.cuda.empty_cache()
+        times[name] = t
+    # ana_mult3d without the dot (the bound counts the same bytes)
+    t = time_pair("ana_mult3d", BIG, dev, variant=1)
+    log(f"  ana_mult3d   {str(BIG):<15} without the dot, device (profiler): "
+        f"kernel {t['ms']:.4f} ms, plain {t['plain_ms']:.4f} ms, bound "
+        f"{bound_ms('ana_mult3d', BIG)[0]:.4f} ms")
+    del sim
+
+    # 256³: dense and banded BDIM in turns (dense, banded, banded, dense)
+    dense = construct(torch, "sphere_3d(256, 256, bbox=False)",
+                      lambda: sphere_3d(256, 256, bbox=False, device=dev))
+    peak(torch, "sphere_3d(256, 256, bbox=False)")
+    band = construct(torch, "sphere_3d(256, 256)",
+                     lambda: sphere_3d(256, 256, device=dev))
+    for sim_, label in ((dense, "sphere_3d(256, 256, bbox=False)"),
+                        (band, "sphere_3d(256, 256)"),
+                        (band, "sphere_3d(256, 256)"),
+                        (dense, "sphere_3d(256, 256, bbox=False)")):
+        report_steps(torch, sim_, label, 10, 2)
+    step_profile(dense, 5, "sphere_3d(256, 256, bbox=False)")
+    step_profile(band, 5, "sphere_3d(256, 256)")
+    del dense, band
+
+    lv = construct(torch, "sphere_3d(256, 256, banded_levels=True)",
+                   lambda: sphere_3d(256, 256, banded_levels=True,
+                                     device=dev))
+    report_steps(torch, lv, "sphere_3d(256, 256, banded_levels=True)", 10, 2)
+    peak(torch, "sphere_3d(256, 256, banded_levels=True)")
+    step_profile(lv, 5, "sphere_3d(256, 256, banded_levels=True)")
+    del lv
+
+    hv = construct(torch, "heaving_sphere_3d(radius=64)",
+                   lambda: heaving_sphere_3d(radius=64, device=dev))
+    report_steps(torch, hv, "heaving_sphere_3d(radius=64), remeasure", 10, 2,
+                 remeasure=True)
+    peak(torch, "heaving_sphere_3d(radius=64)")
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    for _ in range(3):
+        hv.measure()
+    end.record()
+    torch.cuda.synchronize()
+    log(f"heaving_sphere_3d(radius=64): {start.elapsed_time(end) / 3e3:.4f} "
+        f"s per remeasure (measure() alone, 3 calls; box "
+        f"{hv.cfg.bbox_shape})")
+    step_profile(hv, 5, "heaving_sphere_3d(radius=64), remeasure",
+                 remeasure=True)
     return times
 
 
@@ -227,17 +410,32 @@ def main() -> int:
     log(f"kernel library ready in {time.perf_counter() - t0:.1f} s "
         f"(nvcc {build_seconds():.1f} s)")
     log("== 3. kernels vs plain versions")
-    worst = check_kernels(torch, dev)
-    log("== 4. the slice: sphere_3d(96, 64)")
-    sim, launches = run_slice(torch, dev)
-    log("== 5. timing")
+    from waterlily_tpu_torch.kernels.check import KERNELS
+    check_kernels(torch, dev, {
+        k: (PCG_LEVEL, PCG_RAGGED) if k == "pcg_fused" else (FINE, RAGGED)
+        for k in KERNELS})
+    log("== 4. the dense slice: sphere_3d(96, 64)")
+    sim = run_slice(torch, dev)
+    log("== 5. the banded slice, small")
+    run_banded_small(torch, dev)
+    log("== 6. the banded paths at full size")
+    run_banded_big(torch, dev)
+    log("== 7. kernels vs plain versions at the paths' shapes")
+    check_kernels(torch, dev, PATH_SHAPES)
+    log("== 8. timing")
     times = timing(torch, dev, sim)
 
     from waterlily_tpu_torch.kernels.check import SOURCES
+    launches = {k: sum(c[k] for c in PATH_LAUNCHES.values()) for k in SOURCES}
+    # no single PyTorch call computes any of these functions (variable or
+    # wall-masked coefficients, BC stages, limiters, a whole smooth)
     kernels = [{"name": k, "route": "cuda", "source": SOURCES[k][0],
                 "replaces": SOURCES[k][1], "launches": launches[k],
-                "max_abs_err": worst[k], "ms": times[k]["ms"],
-                "plain_ms": times[k]["plain_ms"]} for k in SOURCES]
+                "max_abs_err": WORST[k], "ms": times[k]["ms"],
+                "plain_ms": times[k]["plain_ms"],
+                "bound_ms": times[k]["bound_ms"],
+                "bound_by": times[k]["bound_by"], "library_ms": None}
+               for k in SOURCES]
     log(card)
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {

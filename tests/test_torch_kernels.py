@@ -45,6 +45,12 @@ def test_pcg_kernel_matches_plain(S, device):
     _check("pcg_fused", S, device)
 
 
+@pytest.mark.parametrize("S", [FINE, RAGGED])
+def test_ana_mult3d_matches_plain(S, device):
+    """c = 1 and 2, with and without the dot, and a periodic axis."""
+    _check("ana_mult3d", S, device)
+
+
 def test_unported_variants_raise(device):
     from waterlily_tpu_torch.ops import stencil_kernels as sk
     from waterlily_tpu_torch.ops import convect

@@ -89,14 +89,31 @@ def test_run_until():
 
 
 def test_banded_sizes_refuse():
-    """Where JAX would take its banded BDIM path the port refuses rather
-    than compute something else; bbox=False is the dense path."""
-    with pytest.raises(NotImplementedError, match="bbox=False"):
-        tsphere(96, 96, device="cpu")
+    """The size gate: a body on a grid of at least 600k interior cells
+    takes the banded path, as in JAX (``bbox=False`` keeps it dense and
+    ``"force"`` bands at any size); checked through the gate's constant and
+    ``bbox="force"``, without building a 96³ grid here."""
+    from waterlily_tpu_torch.simulation import BANDED_MIN_CELLS
+    assert BANDED_MIN_CELLS == 600_000
+    assert 96 ** 3 >= BANDED_MIN_CELLS > 96 * 64 * 64
+    assert tsphere(48, 32, device="cpu").cfg.bbox_shape is None
+    forced = tsphere(48, 32, bbox="force", device="cpu")
+    js = jsphere(48, 32, bbox="force", dtype=jnp.float32)
+    assert forced.cfg.bbox_shape == js.cfg.bbox_shape is not None
+    assert not any(l.banded for l in forced.levels)   # levels stay dense
 
 
 def test_device_is_required():
-    with pytest.raises(TypeError):
+    """The device defaults to the card: ``device="cuda"`` on `Simulation`
+    and on every case; without a card the default construction fails with
+    torch's own CUDA error (no fallback to the CPU)."""
+    import inspect
+    from waterlily_tpu_torch import heaving_sphere_3d
+    for fn in (Simulation, tsphere, heaving_sphere_3d):
+        assert inspect.signature(fn).parameters["device"].default == "cuda"
+    if torch.cuda.is_available():
+        return
+    with pytest.raises((AssertionError, RuntimeError), match="CUDA"):
         Simulation((16, 16, 16), (1, 0, 0), 4.0)
 
 

@@ -1,23 +1,27 @@
 """Implicit geometry: signed-distance bodies measured with `torch.func`.
 
 PyTorch counterpart of `waterlily_tpu.body` (reference src/Body.jl,
-src/AutoBody.jl), dense path.  The sdf normal comes from `torch.func.grad`,
+src/AutoBody.jl).  The sdf normal comes from `torch.func.grad`,
 the map Jacobian from `jacfwd` and the map's time derivative from `jvp`,
 all under `vmap` over the grid points, evaluated in chunks so that large
-grids stay within memory.  CSG (`Bodies`) is not ported yet (ROADMAP A8).
+grids stay within memory.  `measure_fields_banded` measures on a window
+around the body only.  CSG (`Bodies`) is not ported yet (ROADMAP A8).
 """
 from __future__ import annotations
 
 import math
 from typing import Callable
 
+import numpy as np
 import torch
 
-from .grid import loc_grid, interior, mask_interior
+from .grid import (loc_grid, interior, mask_interior, band_box_start,
+                   box_slices)
 from .ops.bc import bc_vector
 
 __all__ = ["AbstractBody", "AutoBody", "NoBody", "sdf", "measure",
-           "measure_fields", "kern", "kern0", "kern1", "mu0", "mu1"]
+           "measure_fields", "measure_fields_banded", "band_box_shape",
+           "kern", "kern0", "kern1", "mu0", "mu1"]
 
 # points per vmapped measurement batch: bounds the autodiff temporaries
 # (a few hundred bytes per point) at 256³-class grids
@@ -154,6 +158,40 @@ def _chunked_vmap(fn, pts):
     return torch.cat(outs)
 
 
+def _face_fields(body, points, shape, d_center, t_, eps, dtype):
+    """BDIM fields on the cells of ``shape`` whose centre distances are
+    ``d_center``: ``points(i)`` gives the face-``i`` coordinates, measured
+    in the band ``d² < (2+eps)²``; far cells get ``μ₀ = 1`` (0 deep inside),
+    ``V = 0`` and ``μ₁ = 0``.  Returns stacked ``(V, μ₀, μ₁)``."""
+    D = len(shape)
+    fastd2 = (2.0 + eps) ** 2
+    near = d_center * d_center < fastd2
+    inside_deep = d_center < 0
+    V_comps, m0_comps, m1_comps = [], [], []
+    for i in range(D):
+        di, ni, Vi = _chunked_vmap(lambda x: measure(body, x, t_, fastd2),
+                                   points(i).reshape(-1, D))
+        di = di.reshape(shape).to(dtype)
+        ni = ni.reshape(shape + (D,)).to(dtype)
+        Vi = Vi.reshape(shape + (D,)).to(dtype)
+        m0_comps.append(torch.where(near, mu0(di, eps),
+                                    torch.where(inside_deep, 0.0, 1.0)))
+        V_comps.append(torch.where(near, Vi[..., i], 0.0))
+        m1_comps.append(torch.stack(
+            [torch.where(near, mu1(di, eps) * ni[..., j], 0.0)
+             for j in range(D)], dim=0))
+    return (torch.stack(V_comps, dim=0).to(dtype),
+            torch.stack(m0_comps, dim=0).to(dtype),
+            torch.stack(m1_comps, dim=0).to(dtype))
+
+
+def _d_center(body, S, t_, dtype, device):
+    """The sdf at every cell centre (no gradients)."""
+    centers = loc_grid(S, None, dtype, device).reshape(-1, len(S))
+    return _chunked_vmap(lambda x: sdf(body, x, t_), centers).reshape(S).to(
+        dtype)
+
+
 def measure_fields(body, S, t=0.0, eps=1.0, perdir=(), exitBC=False,
                    dtype=torch.float32, device=None):
     """BDIM rasterization (reference ``measure!``, Body.jl:31-53): ``V``,
@@ -169,29 +207,9 @@ def measure_fields(body, S, t=0.0, eps=1.0, perdir=(), exitBC=False,
         return V, m0, m1, torch.zeros(S, dtype=dtype, device=device)
 
     t_ = torch.as_tensor(t, dtype=dtype, device=device)
-    fastd2 = (2.0 + eps) ** 2
-    centers = loc_grid(S, None, dtype, device).reshape(-1, D)
-    d_center = _chunked_vmap(lambda x: sdf(body, x, t_), centers)
-    d_center = d_center.reshape(S).to(dtype)
-    near = d_center * d_center < fastd2
-    inside_deep = d_center < 0
-
-    V_comps, m0_comps, m1_comps = [], [], []
-    for i in range(D):
-        pts = loc_grid(S, i, dtype, device).reshape(-1, D)
-        di, ni, Vi = _chunked_vmap(lambda x: measure(body, x, t_, fastd2), pts)
-        di = di.reshape(S).to(dtype)
-        ni = ni.reshape(S + (D,)).to(dtype)
-        Vi = Vi.reshape(S + (D,)).to(dtype)
-        m0_comps.append(torch.where(near, mu0(di, eps),
-                                    torch.where(inside_deep, 0.0, 1.0)))
-        V_comps.append(torch.where(near, Vi[..., i], 0.0))
-        m1_comps.append(torch.stack(
-            [torch.where(near, mu1(di, eps) * ni[..., j], 0.0)
-             for j in range(D)], dim=0))
-    V = torch.stack(V_comps, dim=0).to(dtype)
-    m0 = torch.stack(m0_comps, dim=0).to(dtype)
-    m1 = torch.stack(m1_comps, dim=0).to(dtype)
+    d_center = _d_center(body, S, t_, dtype, device)
+    V, m0, m1 = _face_fields(body, lambda i: loc_grid(S, i, dtype, device),
+                             tuple(S), d_center, t_, eps, dtype)
     # interior cells only: μ₁ ghosts stay zero, V ghosts are zero before the
     # BC fill (so an exitBC outlet plane stays 0)
     m1_in = torch.zeros_like(m1)
@@ -200,3 +218,76 @@ def measure_fields(body, S, t=0.0, eps=1.0, perdir=(), exitBC=False,
     m0 = bc_vector(m0, (0.0,) * D, False, perdir)
     V = bc_vector(V, (0.0,) * D, exitBC, perdir)
     return V, m0, m1_in, d_center
+
+
+def _loc_window(W: tuple, start: tuple, i: int | None, dtype,
+                device=None) -> torch.Tensor:
+    """Physical coordinates of the box-window cells (indices
+    ``start+1+k``), shape ``(*W, D)``: the `loc_grid` convention generated
+    on the window alone."""
+    axes = []
+    for d in range(len(W)):
+        c = (torch.arange(W[d], device=device) + (start[d] + 1)).to(dtype) \
+            - 0.5
+        if i == d:
+            c = c - 0.5
+        axes.append(c)
+    return torch.stack(torch.meshgrid(*axes, indexing="ij"), dim=-1)
+
+
+def measure_fields_banded(body, S, t, eps, perdir, exitBC, dtype, box_shape,
+                          device=None):
+    """Narrow-band BDIM rasterization (reference ``measure!``, Body.jl:32-44).
+
+    One cheap full-grid sdf pass (no gradients) locates the band; the D
+    face-grid measurements (sdf gradient, map Jacobian and jvp per point)
+    run only on the ``box_shape`` window placed by `grid.band_box_start`
+    (one host read of its corner) and are written into the far-field
+    constants ``μ₀ = 1, V = 0, μ₁ = 0``.  Equal to `measure_fields` bit for
+    bit whenever the window covers the ``d < 2+eps`` region (the
+    `band_box_shape` contract).  Returns ``(V, mu0, mu1, d_center,
+    start)``, ``start`` the window corner as host ints."""
+    D = len(S)
+    t_ = torch.as_tensor(t, dtype=dtype, device=device)
+    d_center = _d_center(body, S, t_, dtype, device)
+    start = tuple(band_box_start(d_center < (2.0 + eps), box_shape).tolist())
+    W = tuple(box_shape)
+    box = box_slices(start, W)
+    Vw, m0w, m1w = _face_fields(
+        body, lambda i: _loc_window(W, start, i, dtype, device), W,
+        d_center[box], t_, eps, dtype)
+    m0 = torch.ones((D,) + S, dtype=dtype, device=device)
+    V = torch.zeros((D,) + S, dtype=dtype, device=device)
+    m1 = torch.zeros((D, D) + S, dtype=dtype, device=device)
+    m0[box_slices(start, W, 1)] = m0w
+    V[box_slices(start, W, 1)] = Vw
+    m1[box_slices(start, W, 2)] = m1w
+    # window cells are interior: μ₁ and V ghosts are already zero
+    m0 = bc_vector(m0, (0.0,) * D, False, perdir)
+    V = bc_vector(V, (0.0,) * D, exitBC, perdir)
+    return V, m0, m1, d_center, start
+
+
+def band_box_shape(body, S, t=0.0, eps=1.0, dtype=torch.float32, margin=3,
+                   max_frac=0.5, device=None):
+    """Static band-box extents for the banded immersed-boundary path: the
+    per-axis extent of the ``d < 2+eps`` region at ``t`` plus ``margin``
+    cells each side (the box's position is found again at every
+    remeasure).  ``None`` when there is no band or the halo'd box would
+    cover more than ``max_frac`` of the grid.  One host read, at
+    construction."""
+    if isinstance(body, NoBody) or body is None:
+        return None
+    D = len(S)
+    t_ = torch.as_tensor(t, dtype=dtype, device=device)
+    mask = (_d_center(body, S, t_, dtype, device) < (2.0 + eps)).cpu().numpy()
+    if not mask.any():
+        return None
+    shape = []
+    for a in range(D):
+        proj = mask.any(axis=tuple(i for i in range(D) if i != a))
+        idx = np.nonzero(proj)[0]
+        shape.append(min(int(idx[-1] - idx[0] + 1) + 2 * margin, S[a] - 2))
+    if math.prod(s + 2 for s in shape) > max_frac * math.prod(S):
+        return None
+    return tuple(shape)

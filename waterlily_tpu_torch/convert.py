@@ -1,46 +1,71 @@
-"""Carry state across from the JAX package as numpy arrays.
+"""Carry state across from the JAX package as numpy arrays, or between
+devices.
 
 `flow_from_numpy` and `levels_from_numpy` take the fields of a
-`waterlily_tpu` ``FlowState`` / ``PoissonLevel`` as numpy arrays (for
-example ``{k: np.asarray(v) for k, v in state._asdict().items()}``) and
-build the port's counterparts on ``device``, so both packages can be
-stepped from one state.  No JAX import is needed.
+`waterlily_tpu` ``FlowState`` / ``PoissonLevel`` as numpy arrays and plain
+values (for example ``{k: np.asarray(v) for k, v in state._asdict().items()}``)
+and build the port's counterparts on ``device``, so both packages can be
+stepped from one state.  `flow_to` and `levels_to` copy the port's own
+state to another device.  No JAX import is needed.
 """
 from __future__ import annotations
+
+import dataclasses
 
 import numpy as np
 import torch
 
 from .flow import FlowState
-from .ops.poisson import PoissonLevel
-from .ops import stencil_kernels as sk
+from .ops.poisson import make_level
 
-__all__ = ["flow_from_numpy", "levels_from_numpy"]
+__all__ = ["flow_from_numpy", "levels_from_numpy", "flow_to", "levels_to"]
 
 FLOW_FIELDS = ("u", "p", "V", "mu0", "mu1", "dt", "t")
+# per-level values besides L, D and iD (JAX's static level fields)
+LEVEL_EXTRAS = ("banded", "c", "box_shape", "box_start")
 
 
 def _t(a, device) -> torch.Tensor:
     return torch.from_numpy(np.array(a, copy=True)).to(device)
 
 
+def _ints(v):
+    return None if v is None else tuple(int(s) for s in np.asarray(v))
+
+
 def flow_from_numpy(fields: dict, device) -> FlowState:
-    """A `FlowState` from numpy arrays of the JAX state's fields (extra
-    keys such as ``bbox`` are ignored)."""
+    """A `FlowState` from numpy arrays of the JAX state's fields; the
+    window corner ``bbox``, where given, becomes host ints (only the banded
+    path reads it)."""
     missing = [k for k in FLOW_FIELDS if k not in fields]
     if missing:
         raise KeyError(f"flow_from_numpy: missing fields {missing}")
-    return FlowState(**{k: _t(fields[k], device) for k in FLOW_FIELDS})
+    return FlowState(**{k: _t(fields[k], device) for k in FLOW_FIELDS},
+                     bbox=_ints(fields.get("bbox")))
 
 
 def levels_from_numpy(levels: list, device, perdir: tuple = ()) -> tuple:
-    """Poisson levels from numpy arrays of each JAX level's ``L``, ``D`` and
-    ``iD``; the kernel gate is re-evaluated for ``device``."""
-    out = []
-    for lev in levels:
-        L = _t(lev["L"], device)
-        out.append(PoissonLevel(
-            L=L, D=_t(lev["D"], device), iD=_t(lev["iD"], device),
-            blocked=sk.use_blocked(tuple(L.shape[1:]), L.dtype, L.device),
-            perdir=tuple(perdir)))
-    return tuple(out)
+    """Poisson levels from numpy arrays of each JAX level's ``L``, ``D``
+    and ``iD``, and its ``banded``, ``c``, ``box_shape`` and ``box_start``
+    where given."""
+    return tuple(
+        make_level(_t(lev["L"], device), perdir, Dd=_t(lev["D"], device),
+                   iD=_t(lev["iD"], device),
+                   **{k: lev[k] for k in LEVEL_EXTRAS if k in lev})
+        for lev in levels)
+
+
+def flow_to(state: FlowState, device) -> FlowState:
+    """A copy of ``state`` with every tensor on ``device``."""
+    return dataclasses.replace(state, **{
+        f.name: getattr(state, f.name).to(device)
+        for f in dataclasses.fields(state)
+        if isinstance(getattr(state, f.name), torch.Tensor)})
+
+
+def levels_to(levels: tuple, device) -> tuple:
+    """Copies of ``levels`` on ``device``, the kernel gate re-evaluated."""
+    return tuple(
+        make_level(l.L.to(device), l.perdir, l.banded, l.c, l.box_shape,
+                   l.box_start, Dd=l.D.to(device), iD=l.iD.to(device))
+        for l in levels)

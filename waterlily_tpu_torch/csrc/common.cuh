@@ -63,14 +63,16 @@ __device__ inline float ax_cell(const float* L, const float* Dd,
   return s;
 }
 
-// Deterministic tree reductions over a block (blockDim.x a power of two,
-// sh holds blockDim.x floats).  Every thread of the block must call them;
-// all threads receive the result.
+// Deterministic tree reductions over a block (blockDim.x * blockDim.y a
+// power of two, sh holds that many floats; a 2D block reduces in the order
+// of its flat thread index threadIdx.y * blockDim.x + threadIdx.x).  Every
+// thread of the block must call them; all threads receive the result.
 __device__ inline float block_sum(float v, float* sh) {
-  sh[threadIdx.x] = v;
+  const int t = threadIdx.y * blockDim.x + threadIdx.x;
+  sh[t] = v;
   __syncthreads();
-  for (int s = blockDim.x / 2; s > 0; s >>= 1) {
-    if (threadIdx.x < s) sh[threadIdx.x] = sh[threadIdx.x] + sh[threadIdx.x + s];
+  for (int s = blockDim.x * blockDim.y / 2; s > 0; s >>= 1) {
+    if (t < s) sh[t] = sh[t] + sh[t + s];
     __syncthreads();
   }
   float out = sh[0];

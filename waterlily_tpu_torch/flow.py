@@ -1,7 +1,7 @@
 """Flow state and the momentum step (predictor/corrector + projection).
 
-PyTorch counterpart of `waterlily_tpu.flow` (reference src/Flow.jl), dense
-single-device path.  `mom_step(cfg, levels, state) -> (state, aux)` runs
+PyTorch counterpart of `waterlily_tpu.flow` (reference src/Flow.jl),
+single device, with the dense and the band-windowed BDIM blend.  `mom_step(cfg, levels, state) -> (state, aux)` runs
 eagerly; the only host synchronisations are the pressure solver's
 convergence checks (one per outer multigrid iteration).
 """
@@ -13,15 +13,17 @@ from typing import Any, Callable
 
 import torch
 
-from .grid import interior_view, interior_mask, apply_field, pad_interior
+from .grid import (interior_view, interior_mask, apply_field, pad_interior,
+                   box_slices)
 from .ops.bc import bc_vector, exit_bc
 from .ops.convect import conv_diff, accelerate, quick
 from .ops.multigrid import ml_solve
 from .ops.poisson import pressure_grad_interior
 from .ops import stencil_kernels as sk
 
-__all__ = ["FlowState", "FlowConfig", "bc_tuple", "div", "bdim", "project",
-           "cfl", "cfl_flux_max", "mom_step", "flow_init"]
+__all__ = ["FlowState", "FlowConfig", "bc_tuple", "div", "bdim",
+           "bdim_banded", "project", "cfl", "cfl_flux_max", "mom_step",
+           "flow_init"]
 
 
 @dataclass(frozen=True)
@@ -34,6 +36,7 @@ class FlowState:
     mu1: torch.Tensor   # (D, D, *S) first kernel moment × normal
     dt: torch.Tensor    # 0-d: the time step to take next
     t: torch.Tensor     # 0-d: accumulated time
+    bbox: tuple | None = None  # body-band window corner, host ints (banded)
 
     def replace(self, **kw) -> "FlowState":
         return dataclasses.replace(self, **kw)
@@ -55,6 +58,7 @@ class FlowConfig:
     tol: float = 1e-4
     itmx: int = 32
     fixed_iters: int | None = None
+    bbox_shape: tuple | None = None  # body-band box extents (banded BDIM)
 
 
 def bc_tuple(U, t, D, dtype):
@@ -97,12 +101,44 @@ def bdim(u, u0, r, V, mu0, mu1, dt):
     return u + pad_interior(_bdim_blend(u0, r, V, mu0, mu1, dt), lead=1)
 
 
+def bdim_banded(cfg: FlowConfig, bbox, u, u0, r, V, mu0, mu1, dt,
+                scale=None):
+    """Band-windowed BDIM blend.  Outside the kernel band μ₁ = 0, V = 0
+    and μ₀ = 1 exactly, so the blend reduces to ``u + u⁰ + dt·r`` there;
+    the full blend runs only on the ``cfg.bbox_shape + 2`` window at corner
+    ``bbox``.  Equal to `bdim` (with the scalings around it) up to the sign
+    of zero.
+
+    ``u=None`` is the predictor form: interior from the blend alone, ghosts
+    from ``u0`` (the reference's ``scale_u!(a, 0)`` folded in); ``scale``
+    folds the corrector's ``scale_u!(a, 0.5)``."""
+    D = cfg.D
+    win = lambda a, lead: a[box_slices(bbox, cfg.bbox_shape, lead, halo=1)]
+    blend = _bdim_blend(win(u0, 1), win(r, 1), win(V, 1), win(mu0, 1),
+                        win(mu1, 2), dt)
+    f_far = u0 + dt * r                  # V = 0 away from the body
+    imask = interior_mask(cfg.S, u0.device)
+    box = box_slices(bbox, cfg.bbox_shape, 1)
+    if u is None:
+        out = torch.where(imask, f_far, u0)
+        out[box] = blend
+        return out
+    upd_far = u + f_far
+    w_val = interior_view(win(u, 1), D) + blend
+    if scale is not None:
+        upd_far, w_val = scale * upd_far, scale * w_val
+    out = torch.where(imask, upd_far, u)
+    out[box] = w_val
+    return out
+
+
 def project(levels, u, p, dt_eff, cfg: FlowConfig):
     """Pressure projection (reference `project!`): the Poisson unknown is
     the dt-scaled pressure, warm-started from the last step; the velocity
     loses the μ₀-weighted pressure gradient.  Returns ``(u, p, n)``."""
     lev = levels[0]
-    fused = sk.use_blocked(tuple(p.shape), p.dtype, p.device)
+    fused = (not lev.banded
+             and sk.use_blocked(tuple(p.shape), p.dtype, p.device))
     if fused:
         z, x = sk.div3d(u, p, dt_eff)
     else:
@@ -150,12 +186,17 @@ def mom_step(cfg: FlowConfig, levels, state: FlowState):
     u0, p, dt, t = state.u, state.p, state.dt, state.t
     U = bc_tuple(cfg.U, t + dt, D, dtype)
     imask = interior_mask(cfg.S, cfg.device)
+    banded = cfg.bbox_shape is not None
 
     # predictor u -> u'
     r = conv_diff(u0, cfg.nu, cfg.perdir, cfg.limiter)
     r = accelerate(r, t, cfg.g, cfg.U, dtype)
-    u = torch.where(imask, 0.0, u0)                 # scale_u!(a, 0)
-    u = bdim(u, u0, r, state.V, state.mu0, state.mu1, dt)
+    if banded:
+        u = bdim_banded(cfg, state.bbox, None, u0, r, state.V, state.mu0,
+                        state.mu1, dt)
+    else:
+        u = torch.where(imask, 0.0, u0)             # scale_u!(a, 0)
+        u = bdim(u, u0, r, state.V, state.mu0, state.mu1, dt)
     u = bc_vector(u, U, cfg.exitBC, cfg.perdir)
     if cfg.exitBC:
         u = exit_bc(u, u0, U, dt)
@@ -165,8 +206,12 @@ def mom_step(cfg: FlowConfig, levels, state: FlowState):
     # corrector u -> u¹
     r = conv_diff(u, cfg.nu, cfg.perdir, cfg.limiter)
     r = accelerate(r, t + dt, cfg.g, cfg.U, dtype)
-    u = bdim(u, u0, r, state.V, state.mu0, state.mu1, dt)
-    u = torch.where(imask, 0.5 * u, u)              # scale_u!(a, 0.5)
+    if banded:
+        u = bdim_banded(cfg, state.bbox, u, u0, r, state.V, state.mu0,
+                        state.mu1, dt, scale=0.5)
+    else:
+        u = bdim(u, u0, r, state.V, state.mu0, state.mu1, dt)
+        u = torch.where(imask, 0.5 * u, u)          # scale_u!(a, 0.5)
     u = bc_vector(u, U, cfg.exitBC, cfg.perdir)
     u, p, n2 = project(levels, u, p, 0.5 * dt, cfg)
     u = bc_vector(u, U, cfg.exitBC, cfg.perdir)

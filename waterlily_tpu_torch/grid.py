@@ -21,7 +21,8 @@ import torch
 __all__ = [
     "shift", "interior", "interior_view", "interior_mask", "mask_interior",
     "pad_interior", "axis_coord", "loc_grid", "apply_field", "inside_count",
-    "field_dot", "l2", "linf",
+    "field_dot", "l2", "linf", "band_box_start",
+    "box_slices",
 ]
 
 
@@ -86,6 +87,35 @@ def pad_interior(v: torch.Tensor, lead: int = 0) -> torch.Tensor:
     axes)."""
     D = v.ndim - lead
     return torch.nn.functional.pad(v, (1, 1) * D)
+
+
+def band_box_start(mask: torch.Tensor, box_shape: tuple) -> torch.Tensor:
+    """Lower corner of a ``box_shape`` window covering the True cells of
+    ``mask``, as a (D,) int64 tensor on the mask's device.
+
+    ``start`` addresses a ``box_shape + 2`` halo'd window whose box cells
+    are ``[start+1, start+1+box_shape)`` per axis, with one in-box margin
+    cell below the band (``start+2``): the Poisson row under the band reads
+    the band's face coefficient.  ``start`` is clamped to
+    ``S - box_shape - 2`` so the halo'd window stays in bounds; an empty
+    mask gives 0."""
+    D = mask.ndim
+    starts = []
+    for d in range(D):
+        proj = torch.any(mask, dim=tuple(i for i in range(D) if i != d))
+        lo = torch.argmax(proj.to(torch.uint8))  # first True cell, 0 if none
+        starts.append(torch.clamp(lo - 2, 0, mask.shape[d] - box_shape[d] - 2))
+    return torch.stack(starts)
+
+
+def box_slices(start: tuple, shape: tuple, lead: int = 0,
+               halo: int = 0) -> tuple:
+    """Index tuple of the box cells ``[start+1, start+1+shape)`` of a
+    window with corner ``start`` (host ints), widened by ``halo`` cells
+    each side (``halo=1``: the whole window), after ``lead`` full leading
+    axes."""
+    return (slice(None),) * lead + tuple(
+        slice(s + 1 - halo, s + 1 + w + halo) for s, w in zip(start, shape))
 
 
 def loc_grid(S: tuple, i: int | None, dtype=torch.float32,

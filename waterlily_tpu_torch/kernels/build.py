@@ -1,7 +1,8 @@
 """Build and load the hand-written CUDA kernels.
 
-All sources under ``waterlily_tpu_torch/csrc/`` are compiled by ``nvcc``
-into one shared library with a plain C interface, loaded with `ctypes`.
+Each source under ``waterlily_tpu_torch/csrc/`` is compiled by its own
+``nvcc`` (all started together) and the objects are linked into one shared
+library with a plain C interface, loaded with `ctypes`.
 The build happens at first use, into ``waterlily_tpu_torch/_build/``, keyed
 by a hash of the sources and flags, so a fresh checkout builds its kernels
 from the repository's own sources and a changed source never loads a stale
@@ -45,6 +46,7 @@ _S3 = [_I, _I, _I]
 SIGNATURES = {
     "wl_mult3d": [_P, _P, _P, _P, _P] + _S3,
     "wl_increment3d": [_P, _P, _P, _P, _P] + _S3,
+    "wl_ana_mult3d": [_P, _P, _P, _F, _I] + _S3,
     "wl_cfl3d": [_P, _P] + _S3,
     "wl_bc3d": [_P, _P, _P] + _S3,
     "wl_div3d": [_P, _P, _P, _P, _P] + _S3,
@@ -80,16 +82,37 @@ def _library_path() -> Path:
 
 
 def _build(out: Path) -> None:
+    """One `nvcc -c` per source, all started together, then one link."""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-           *[str(p) for p in sorted(CSRC.glob("*.cu"))]]
+    tag = f"{out.stem}.{os.getpid()}"
+    compile_flags = [f for f in NVCC_FLAGS if f != "-shared"]
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}"
-                           f"\n{proc.stdout}\n{proc.stderr}")
-    os.replace(tmp, out)   # atomic: a concurrent loader never sees half a file
+    jobs = []
+    for src in sorted(CSRC.glob("*.cu")):
+        obj = BUILD_DIR / f"{tag}.{src.stem}.o"
+        cmd = [_nvcc(), *compile_flags, "-c", "-o", str(obj), str(src)]
+        jobs.append((cmd, obj, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
+    failed = []
+    for cmd, _obj, proc in jobs:
+        log, _ = proc.communicate()
+        if proc.returncode != 0:
+            failed.append(f"{' '.join(cmd)}\n{log}")
+    objs = [obj for _cmd, obj, _proc in jobs]
+    try:
+        if failed:
+            raise RuntimeError("nvcc failed:\n" + "\n".join(failed))
+        tmp = out.with_suffix(f".{os.getpid()}.tmp")
+        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, objs)]
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc link failed ({proc.returncode}):\n"
+                               f"{' '.join(cmd)}\n{proc.stdout}\n"
+                               f"{proc.stderr}")
+        os.replace(tmp, out)  # atomic: a concurrent loader never sees half
+    finally:
+        for obj in objs:
+            obj.unlink(missing_ok=True)
     _build_seconds[0] = time.perf_counter() - t0
 
 

@@ -8,6 +8,8 @@ plain version when a kernel fails.
 """
 from __future__ import annotations
 
+import math
+
 import numpy as np
 import torch
 
@@ -18,7 +20,8 @@ from ..ops.bc import bc_vector_planes
 from ..utils.perf import device_profile
 
 __all__ = ["KERNELS", "TOLERANCE", "SOURCES", "inputs", "variants", "compare",
-           "time_pair", "ulp_diff"]
+           "time_pair", "ulp_diff", "bound_ms", "HBM_BYTES_PER_S",
+           "F32_FLOPS_PER_S"]
 
 # csrc file and the TPU kernel (file:line of its function) of each wrapper
 SOURCES = {
@@ -38,6 +41,8 @@ SOURCES = {
                     "waterlily_tpu/ops/pallas_stencil.py:934"),
     "pcg_fused": ("waterlily_tpu_torch/csrc/pcg.cu",
                   "waterlily_tpu/ops/pallas_kernels.py:127"),
+    "ana_mult3d": ("waterlily_tpu_torch/csrc/ana_stencil.cu",
+                   "waterlily_tpu/ops/pallas_stencil.py:622"),
 }
 
 # ("exact", None): equal values; ("rel", r): max|a-b| <= r*max|b|;
@@ -51,6 +56,9 @@ TOLERANCE = {
     "project3d.u": ("exact", None), "project3d.p": ("exact", None),
     "conv_diff3d.quick": ("exact", None), "conv_diff3d.vanleer": ("exact", None),
     "pcg_fused.x": ("abs", 1e-5), "pcg_fused.r": ("abs", 1e-5),
+    "ana_mult3d.z": ("exact", None), "ana_mult3d.dot": ("rel", 1e-5),
+    "ana_mult3d.z_c2": ("exact", None),
+    "ana_mult3d.z_periodic": ("exact", None),
 }
 
 
@@ -108,10 +116,51 @@ def variants(name, d) -> list:
         "conv_diff3d": [conv(convect.quick), conv(convect.vanleer)],
         "pcg_fused": [(("x", "r"), lambda: pk.pcg_fused(lev, x0, r),
                        lambda: poisson.pcg(lev, x0, r))],
+        "ana_mult3d": [
+            (("z", "dot"), lambda: sk.ana_mult3d(x, 1.0, with_dot=True),
+             lambda: sk._ana_mult3d_plain(x, 1.0, with_dot=True)),
+            (("z_c2",), lambda: sk.ana_mult3d(x, 2.0),
+             lambda: sk._ana_mult3d_plain(x, 2.0)),
+            (("z_periodic",), lambda: sk.ana_mult3d(x, 2.0, (1,)),
+             lambda: sk._ana_mult3d_plain(x, 2.0, (1,)))],
     }[name]
 
 
 KERNELS = tuple(SOURCES)
+
+# The card's published peaks (H100 SXM data sheet, at the 700 W limit):
+# device memory rate and f32 rate outside the tensor cores.
+HBM_BYTES_PER_S = 3.35e12
+F32_FLOPS_PER_S = 67e12
+
+# Work of the first (timed) variant of each kernel per cell: f32 fields it
+# must read once and write once, and its float operations (the dots' and
+# maxima's reduction counted as one add per cell).  pcg_fused counts all
+# six iterations of its smooth, conv_diff3d the nine face fluxes a cell
+# owns (about twenty operations each, the limiter included).
+_WORK = {
+    "mult3d": (6, 15),          # L(3), D, x in; z out
+    "increment3d": (9, 15),     # L(3), D, eps, x, r in; x, r out
+    "cfl3d": (3, 13),           # u(3) in
+    "bc3d": (6, 0),             # u(3) in, u(3) out
+    "div3d": (6, 6),            # u(3), p in; z, x out
+    "project3d": (11, 10),      # L(3), x, u(3) in; u(3), p out
+    "conv_diff3d": (6, 200),    # u(3) in, r(3) out
+    "pcg_fused": (9, 150),      # L(3), D, iD, x, r in; x, r out
+    "ana_mult3d": (2, 22),      # x in, z out
+}
+
+
+def bound_ms(name, S) -> tuple[float, str]:
+    """The least time the card could take for kernel ``name``'s timed
+    variant at shape ``S``: the larger of its bytes over the memory rate
+    and its operations over the f32 rate, in ms, and which of the two
+    bounds it ("bytes" or "operations")."""
+    fields, flops = _WORK[name]
+    n = math.prod(S)
+    t_bytes = 4 * fields * n / HBM_BYTES_PER_S * 1e3
+    t_ops = flops * n / F32_FLOPS_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
 def ulp_diff(a: torch.Tensor, b: torch.Tensor) -> int:
@@ -164,14 +213,15 @@ def _timed(fn, n):
     return start.elapsed_time(end) / n
 
 
-def time_pair(name, S, device, n=20) -> dict:
+def time_pair(name, S, device, n=20, variant=0) -> dict:
     """Per-call times of kernel ``name`` and its plain version at shape
     ``S``: device time from `torch.profiler` (the card's busy time for
     one call: every kernel, fill and copy it launches) and wall time per
     call from CUDA events over ``n`` back-to-back calls (includes the host
     dispatch).  Measured in turns plain, kernel, kernel, plain after a
-    warm-up."""
-    _, kern, plain = variants(name, inputs(S, 0, device))[0]
+    warm-up; the device time is the larger of each side's two sessions
+    (a session that lost events reads low), the wall time their mean."""
+    _, kern, plain = variants(name, inputs(S, 0, device))[variant]
     kern(), plain()
     torch.cuda.synchronize()
     p1 = device_profile(plain, n)[0]
@@ -182,5 +232,5 @@ def time_pair(name, S, device, n=20) -> dict:
     kw1 = _timed(kern, n)
     kw2 = _timed(kern, n)
     pw2 = _timed(plain, n)
-    return {"ms": (k1 + k2) / 2, "plain_ms": (p1 + p2) / 2,
+    return {"ms": max(k1, k2), "plain_ms": max(p1, p2),
             "wall_ms": (kw1 + kw2) / 2, "plain_wall_ms": (pw1 + pw2) / 2}

@@ -1,13 +1,15 @@
 """Geometric multigrid over nested Poisson levels.
 
 PyTorch counterpart of `waterlily_tpu.ops.multigrid` (reference
-src/MultiLevelPoisson.jl), dense single-device path.  Grid transfers
+src/MultiLevelPoisson.jl), single device, dense and banded levels.  Grid transfers
 (0-based): coarse interior cell ``c`` has fine children ``{2c-1, 2c}`` per
 axis.  A level of ghost-padded size ``S`` coarsens to ``1 + S//2`` while
 every ``S`` is even and >4, with at most 10 coarsenings and at least 3
 levels.
 """
 from __future__ import annotations
+
+import math
 
 import torch
 
@@ -16,7 +18,7 @@ from .bc import bc_vector, bc_scalar_periodic
 from .poisson import make_level, residual, jacobi, smooth, increment, fdot
 
 __all__ = ["n_levels", "coarse_shape", "restrict", "restrict_L", "prolongate",
-           "build_levels", "vcycle", "ml_solve"]
+           "build_levels", "update_levels", "vcycle", "ml_solve"]
 
 MAX_LEVELS = 10
 
@@ -84,17 +86,57 @@ def prolongate(x_coarse: torch.Tensor) -> torch.Tensor:
     return pad_interior(v)
 
 
-def build_levels(mu0: torch.Tensor, perdir: tuple = ()) -> tuple:
+def _band_ok(S, box_shape) -> bool:
+    """Banded dispatch pays only while the box is a small fraction of the
+    level and its halo'd window fits."""
+    return (all(b + 2 <= s for b, s in zip(box_shape, S))
+            and 4 * math.prod(box_shape) <= math.prod(S))
+
+
+def _coarsen_box(box_start, box_shape, S_coarse):
+    """Map a band box down one level (fine cell f -> coarse (f+1)//2),
+    keeping the one in-box margin cell below the band; host ints."""
+    shape_c = tuple(b // 2 + 4 for b in box_shape)
+    start_c = tuple(min(max((s + 3) // 2 - 2, 0), Sc - b - 2)
+                    for s, Sc, b in zip(box_start, S_coarse, shape_c))
+    return start_c, shape_c
+
+
+def build_levels(mu0: torch.Tensor, perdir: tuple = (), box_shape=None,
+                 box_start=None) -> tuple:
     """The level stack from the fine face coefficients: the fine ``L`` is
-    the BDIM zeroth moment ``μ₀``, each coarse ``L`` its restriction."""
-    nlev = n_levels(tuple(mu0.shape[1:]))
+    the BDIM zeroth moment ``μ₀``, each coarse ``L`` its restriction.
+    ``box_shape``/``box_start`` (the body band window) make the levels on
+    which it pays banded; the box coarsens with the grid and the far-field
+    coefficient scales by 2^(D-2) per level."""
+    S = tuple(mu0.shape[1:])
+    nlev = n_levels(S)
+    have_box = box_shape is not None and box_start is not None
     levels = []
-    L = mu0
+    L, c = mu0, 1.0
     for li in range(nlev):
-        levels.append(make_level(L, perdir))
-        if li < nlev - 1:
-            L = restrict_L(L, perdir)
+        banded = have_box and _band_ok(tuple(L.shape[1:]), box_shape)
+        levels.append(make_level(L, perdir, banded=banded, c=c,
+                                 box_shape=box_shape if banded else None,
+                                 box_start=box_start if banded else None))
+        if li == nlev - 1:
+            break
+        L = restrict_L(L, perdir)
+        c *= 2.0 ** (len(S) - 2)
+        if have_box:
+            box_start, box_shape = _coarsen_box(box_start, box_shape,
+                                                tuple(L.shape[1:]))
     return tuple(levels)
+
+
+def update_levels(levels: tuple, mu0: torch.Tensor, box_start=None) -> tuple:
+    """Re-restrict the coefficients after body motion (reference
+    ``update!``), keeping the fine level's window (moved to ``box_start``
+    when given)."""
+    fine = levels[0]
+    return build_levels(mu0, fine.perdir, fine.box_shape,
+                        box_start if box_start is not None
+                        else fine.box_start)
 
 
 def vcycle(levels: tuple, l: int, x, r):

@@ -1,5 +1,5 @@
-"""Wrapper, plain version, launch counter and level gate of the one-launch
-PCG smooth.
+"""Wrapper, plain version, launch counter, launched shapes and level gate
+of the one-launch PCG smooth.
 
 Counterpart of `waterlily_tpu.ops.pallas_kernels`: the whole ``it``-step
 Jacobi-PCG smooth of a small multigrid level (matvecs, dots, axpys and the
@@ -53,8 +53,10 @@ def pcg_fused(lev, x, r, it: int = 6):
     z = torch.empty_like(x)
     launch("wl_pcg3d", lev.L, lev.D, lev.iD, x, r, eps, z, *S, int(it))
     pcg_fused.launches += 1
+    pcg_fused.shapes.add(S)
     return x, r
 
 
 pcg_fused.launches = 0
+pcg_fused.shapes = set()
 

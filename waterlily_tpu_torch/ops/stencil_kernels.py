@@ -7,7 +7,8 @@ any other device raises.  There is no fallback: a CUDA tensor the kernel
 does not take (dtype, shape, layout, an unported variant) raises.
 
 Each wrapper counts its launches in a plain int attribute, ``.launches``,
-incremented only where the kernel is launched.
+incremented only where the kernel is launched, and keeps the shapes it
+launched at in a set, ``.shapes``.
 
 The plain versions are the package's own whole-array forms (the functions
 `waterlily_tpu` runs through XLA on the CPU), with the same association as
@@ -25,8 +26,9 @@ import torch
 
 from ..kernels.build import THREADS, launch
 
-__all__ = ["MIN_CELLS", "use_blocked", "mult3d", "increment3d", "cfl3d", "bc3d", "div3d", "project3d",
-           "conv_diff3d", "kernel_wrappers"]
+__all__ = ["MIN_CELLS", "use_blocked", "mult3d", "increment3d",
+           "ana_mult3d", "cfl3d", "bc3d", "div3d", "project3d", "conv_diff3d",
+           "kernel_wrappers"]
 
 # Minimum ghost-padded cell count for the kernel tier (the JAX gate's own
 # floor): smaller levels run the plain forms on the device.
@@ -103,6 +105,7 @@ def _vector_on(A, like: torch.Tensor, name: str) -> torch.Tensor:
 
 def _counted(fn):
     fn.launches = 0
+    fn.shapes = set()
     return fn
 
 
@@ -130,6 +133,7 @@ def mult3d(L, Dd, x, with_dot: bool = False):
                         device=x.device) if with_dot else None)
     launch("wl_mult3d", L, Dd, x, z, part, *S)
     mult3d.launches += 1
+    mult3d.shapes.add(S)
     return (z, torch.sum(part)) if with_dot else z
 
 
@@ -150,7 +154,56 @@ def increment3d(L, Dd, eps, x, r):
     r_out = torch.empty_like(r)
     launch("wl_increment3d", L, Dd, eps, r, r_out, *S)
     increment3d.launches += 1
+    increment3d.shapes.add(S)
     return x + eps, r_out
+
+
+# --- analytic far-field Poisson operator: ana_mult3d -----------------------
+
+# threads of one ana_mult3d block along axes 1 and 2 (csrc/ana_stencil.cu)
+ANA_TILE = (8, 32)
+
+def _ana_mult3d_plain(x, c, perdir=(), with_dot=False):
+    """Plain version of `ana_mult3d`, in the TPU kernel's association:
+    ``t = lo0·x[i-1] + hi0·x[i+1] + lo1·x[j-1] + …`` left to right,
+    ``nf = lo0 + hi0 + …``, ``z = c·t − (c·nf)·x``."""
+    from ..grid import interior_view, pad_interior, field_dot
+    from .poisson import _wall_coeffs
+    S, D = tuple(x.shape), x.ndim
+    off = lambda d, v: tuple(v if a == d else 0 for a in range(D))
+    t = nf = None
+    for d in range(D):
+        # 0/1 face flags: the far-field coefficients of c = 1
+        lo, hi = _wall_coeffs(S, d, perdir, x.dtype, 1.0, x.device)
+        a = lo * interior_view(x, D, off(d, -1))
+        t = a if t is None else t + a
+        t = t + hi * interior_view(x, D, off(d, +1))
+        nf = lo if nf is None else nf + lo
+        nf = nf + hi
+    z = pad_interior(c * t - (c * nf) * interior_view(x, D))
+    return (z, field_dot(z, x)) if with_dot else z
+
+
+@_counted
+def ana_mult3d(x, c, perdir: tuple = (), with_dot: bool = False):
+    """z = A·x for the constant-coefficient far-field operator of a banded
+    level (face coefficient ``c``, wall faces zero from the index, no
+    coefficient reads), zero ghosts; with ``with_dot`` also ⟨A·x, x⟩ over
+    the interior (per-block partial sums).  Periodic ghosts of ``x`` must
+    be filled by the caller."""
+    S = tuple(x.shape)
+    if _on_cpu("ana_mult3d", x):
+        return _ana_mult3d_plain(x, c, perdir, with_dot)
+    _check("ana_mult3d", S, x=(x, S))
+    z = torch.empty_like(x)
+    blocks = S[0] * -(-S[1] // ANA_TILE[0]) * -(-S[2] // ANA_TILE[1])
+    part = (torch.empty(blocks, dtype=x.dtype, device=x.device)
+            if with_dot else None)
+    periodic = sum(1 << d for d in perdir)
+    launch("wl_ana_mult3d", x, z, part, float(c), periodic, *S)
+    ana_mult3d.launches += 1
+    ana_mult3d.shapes.add(S)
+    return (z, torch.sum(part)) if with_dot else z
 
 
 # --- CFL reduction -------------------------------------------------------------
@@ -172,6 +225,7 @@ def cfl3d(u):
                        device=u.device)
     launch("wl_cfl3d", u, part, *S)
     cfl3d.launches += 1
+    cfl3d.shapes.add(S)
     return torch.amax(part)
 
 
@@ -195,6 +249,7 @@ def bc3d(u, A, save_exit: bool = False, perdir: tuple = ()):
     out = torch.empty_like(u)
     launch("wl_bc3d", u, out, _vector_on(A, u, "bc3d"), *S)
     bc3d.launches += 1
+    bc3d.shapes.add(S)
     return out
 
 
@@ -217,6 +272,7 @@ def div3d(u, p, dt):
     x = torch.empty_like(p)
     launch("wl_div3d", u, p, _scalar_on(dt, p, "div3d"), z, x, *S)
     div3d.launches += 1
+    div3d.shapes.add(S)
     return z, x
 
 
@@ -239,6 +295,7 @@ def project3d(L, x, u, dt):
     launch("wl_project3d", L, x, u, _scalar_on(dt, x, "project3d"), u_out, p,
            *S)
     project3d.launches += 1
+    project3d.shapes.add(S)
     return u_out, p
 
 
@@ -276,13 +333,15 @@ def conv_diff3d(u, nu, limiter, perdir: tuple = ()):
     r = torch.empty_like(u)
     launch("wl_conv_diff3d", u, r, float(nu), lim, *S)
     conv_diff3d.launches += 1
+    conv_diff3d.shapes.add(S)
     return r
 
 
 def kernel_wrappers() -> dict:
     """Name → wrapper of every kernel of the main path (each wrapper has a
-    ``.launches`` counter)."""
+    ``.launches`` counter and a ``.shapes`` set)."""
     from .pcg_kernel import pcg_fused
     return {"mult3d": mult3d, "increment3d": increment3d, "cfl3d": cfl3d,
             "bc3d": bc3d, "div3d": div3d, "project3d": project3d,
-            "conv_diff3d": conv_diff3d, "pcg_fused": pcg_fused}
+            "conv_diff3d": conv_diff3d, "pcg_fused": pcg_fused,
+            "ana_mult3d": ana_mult3d}

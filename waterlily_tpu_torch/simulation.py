@@ -1,10 +1,10 @@
 """User-facing Simulation API.
 
 PyTorch counterpart of `waterlily_tpu.simulation` (reference
-src/WaterLily.jl:59-121), dense single-device path.  A `Simulation` couples
-the velocity and length scales, the flow state, the body and the multigrid
-level stack; every field lives on the ``device`` it is given.  Steps run
-eagerly (the JAX package's jit, scan and unroll machinery has no
+src/WaterLily.jl:59-121), single device, dense and banded paths.  A
+`Simulation` couples the velocity and length scales, the flow state, the
+body and the multigrid level stack; every field lives on its ``device``.
+Steps run eagerly (the JAX package's jit, scan and unroll machinery has no
 counterpart here).
 """
 from __future__ import annotations
@@ -13,15 +13,18 @@ import math
 
 import torch
 
-from .body import NoBody, measure_fields
+from .body import (NoBody, measure_fields, measure_fields_banded,
+                   band_box_shape)
 from .flow import FlowConfig, flow_init, mom_step
+from .grid import box_slices
 from .ops.convect import quick
 from .ops.multigrid import build_levels
 
 __all__ = ["Simulation", "sim_time", "BANDED_MIN_CELLS"]
 
-# Interior cell count from which the JAX package runs a body's BDIM blend and
-# remeasure on a band window (its `bbox` path), not ported yet (ROADMAP A12).
+# Interior cell count from which a body's BDIM blend and remeasure run on a
+# window around the body (the banded path), as in the JAX package: below
+# it the window's extra ops cost more than the traffic they save.
 BANDED_MIN_CELLS = 600_000
 
 
@@ -36,21 +39,23 @@ class Simulation:
     width; ``perdir`` periodic directions; ``exitBC`` convective outlet;
     ``ulam`` initial velocity ``uλ(i,x)``; ``body`` immersed geometry;
     ``dtype``; ``limiter``; ``tol``/``itmx`` pressure-solver tolerance and
-    iteration cap; ``fixed_iters`` a fixed number of solver iterations.
+    iteration cap; ``fixed_iters`` a fixed number of solver iterations;
+    ``device`` where every field lives (default ``"cuda"``).
 
-    ``device`` is required: nothing is placed implicitly.
-
-    ``bbox``: the JAX package switches a body on a grid of at least
-    `BANDED_MIN_CELLS` interior cells to its banded BDIM path unless
-    ``bbox=False``.  That path is not ported, so such a configuration
-    raises `NotImplementedError` instead of silently computing something
-    else; pass ``bbox=False`` for the dense path (equal results).
+    ``bbox``: a body on a grid of at least `BANDED_MIN_CELLS` interior
+    cells takes the banded path: the BDIM blend and the remeasure run on a
+    static-shape window (sized at t=0, plus a margin of 3 cells, or
+    ``bbox`` cells when it is an int) that follows the body.  ``False``
+    keeps the dense path (equal results); ``"force"`` takes the banded path
+    at any size.  ``banded_levels=True`` also runs the Poisson levels on
+    which the window pays as banded operators (`ops.poisson`).
     """
 
     def __init__(self, dims, u_BC, L, dt=0.25, nu=0.0, g=None, U=None,
                  epsilon=1.0, perdir=(), ulam=None, exitBC=False, body=None,
                  dtype=torch.float32, limiter=quick, tol=1e-4, itmx=32,
-                 bbox=True, fixed_iters=None, *, device):
+                 bbox=True, fixed_iters=None, banded_levels=False,
+                 device="cuda"):
         D = len(dims)
         if callable(u_BC) and callable(ulam):
             raise ValueError("u_BC and ulam cannot both be functions")
@@ -63,18 +68,24 @@ class Simulation:
         self.body = NoBody() if body is None else body
         self.device = torch.device(device)
         self._dims = tuple(dims)
-        big = math.prod(self._dims) >= BANDED_MIN_CELLS
+        S = tuple(n + 2 for n in dims)
+        big = math.prod(self._dims) >= BANDED_MIN_CELLS or bbox == "force"
+        bbox_shape = None
         if bbox and big and not isinstance(self.body, NoBody):
-            raise NotImplementedError(
-                f"a body on a {self._dims} grid takes the JAX package's banded "
-                "BDIM path, which is not ported yet (ROADMAP A12); pass "
-                "bbox=False for the dense path, which gives the same results")
+            margin = (bbox if isinstance(bbox, int)
+                      and not isinstance(bbox, bool) else 3)
+            bbox_shape = band_box_shape(self.body, S, 0.0, self.epsilon,
+                                        dtype, margin=margin,
+                                        device=self.device)
         self.cfg = FlowConfig(
-            D=D, S=tuple(n + 2 for n in dims), device=self.device,
+            D=D, S=S, device=self.device,
             nu=float(nu), U=u_BC, g=g, perdir=tuple(perdir),
             exitBC=bool(exitBC), dtype=dtype, limiter=limiter,
             tol=float(tol), itmx=int(itmx),
-            fixed_iters=None if fixed_iters is None else int(fixed_iters))
+            fixed_iters=None if fixed_iters is None else int(fixed_iters),
+            bbox_shape=bbox_shape)
+        # the window of the banded Poisson levels (None: dense levels)
+        self._lv_box = bbox_shape if banded_levels else None
         self.flow = flow_init(self.cfg, ulam, dt)
         self.levels = None
         self.measure(0.0)
@@ -96,20 +107,48 @@ class Simulation:
 
     # -- stepping ----------------------------------------------------------
 
-    def _fields(self, t):
+    def _measure_all(self, t):
+        """``(V, μ₀, μ₁, d_center, corner)``: narrow-band measurement and
+        its window corner (host ints) when the body window is on (the
+        reference's d² < (2+ε)² gate), dense measurement and None
+        otherwise."""
         cfg = self.cfg
-        V, m0, m1, _ = measure_fields(self.body, cfg.S, t, self.epsilon,
-                                      cfg.perdir, cfg.exitBC, cfg.dtype,
-                                      cfg.device)
-        return V, m0, m1, build_levels(m0, cfg.perdir)
+        if cfg.bbox_shape is not None:
+            return measure_fields_banded(self.body, cfg.S, t, self.epsilon,
+                                         cfg.perdir, cfg.exitBC, cfg.dtype,
+                                         cfg.bbox_shape, cfg.device)
+        return (*measure_fields(self.body, cfg.S, t, self.epsilon, cfg.perdir,
+                                cfg.exitBC, cfg.dtype, cfg.device), None)
+
+    def _band_covered(self, d_center, bb) -> bool:
+        """True iff every band cell lies inside the static window (the
+        window's shape is sized at t=0; a band that grows past it would get
+        far-field constants outside it)."""
+        if bb is None:
+            return True
+        outside = d_center < (2.0 + self.epsilon)
+        outside[box_slices(bb, self.cfg.bbox_shape)] = False
+        return not bool(outside.any())
+
+    _BAND_ERR = ("body band outgrew its static window: the d<2+eps region "
+                 "is no longer covered by cfg.bbox_shape (sized at t=0). "
+                 "Widen the margin (Simulation(bbox=<margin cells>)) or "
+                 "disable the banded path (bbox=False). Steps taken after "
+                 "the band escaped ran on truncated physics — the current "
+                 "state is NOT trustworthy; restart from a checkpoint.")
 
     def measure(self, t=None):
         """Re-measure the body and rebuild the Poisson levels (reference
-        `measure!(sim)`), at ``t`` (default: the time of the next step)."""
+        `measure!(sim)`), at ``t`` (default: the time of the next step).
+        All or nothing: a band that outgrew the window raises
+        `RuntimeError` and leaves the state and levels as they were."""
         if t is None:
             t = self.flow.t + self.flow.dt
-        V, m0, m1, self.levels = self._fields(t)
-        self.flow = self.flow.replace(V=V, mu0=m0, mu1=m1)
+        V, m0, m1, dc, bb = self._measure_all(t)
+        if not self._band_covered(dc, bb):
+            raise RuntimeError(self._BAND_ERR)
+        self.levels = build_levels(m0, self.cfg.perdir, self._lv_box, bb)
+        self.flow = self.flow.replace(V=V, mu0=m0, mu1=m1, bbox=bb)
         return self
 
     def _advance(self, remeasure: bool):

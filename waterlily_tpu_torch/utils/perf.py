@@ -9,6 +9,11 @@ import torch
 
 __all__ = ["mlups", "time_steps", "device_profile", "idle_share"]
 
+# Profiler sessions per measurement: a short session run right after
+# others now and then records no device activity on the H100, so an
+# empty session is run again before `device_profile` gives up.
+PROFILE_ATTEMPTS = 3
+
 
 def mlups(dims, n_steps: int, seconds: float) -> float:
     """Million cell-updates per second for ``n_steps`` over grid ``dims``."""
@@ -46,23 +51,28 @@ def device_profile(fn, n=1):
     """Run ``fn`` ``n`` times under `torch.profiler` (CUDA activity only)
     and return ``(device ms per call, {op name: device ms per call})``
     summed over every kernel, copy and fill the calls put on the card.
-    Raises when the profiler records no device activity."""
+    A session that records no device activity is run again, up to
+    `PROFILE_ATTEMPTS` sessions in all; then it raises.  A session can
+    also lose the events of its first calls, and then reads low, never
+    high."""
     from torch.profiler import ProfilerActivity, profile
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(n):
-            fn()
+    for _ in range(PROFILE_ATTEMPTS):
         torch.cuda.synchronize()
-    by_name = {}
-    for e in prof.key_averages():
-        us = getattr(e, "self_device_time_total", None)
-        if us is None:
-            us = e.self_cuda_time_total
-        if us > 0:
-            by_name[e.key] = us / 1e3 / n
-    if not by_name:
-        raise RuntimeError("torch.profiler recorded no device activity")
-    return sum(by_name.values()), by_name
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(n):
+                fn()
+            torch.cuda.synchronize()
+        by_name = {}
+        for e in prof.key_averages():
+            us = getattr(e, "self_device_time_total", None)
+            if us is None:
+                us = e.self_cuda_time_total
+            if us > 0:
+                by_name[e.key] = us / 1e3 / n
+        if by_name:
+            return sum(by_name.values()), by_name
+    raise RuntimeError(f"torch.profiler recorded no device activity in "
+                       f"{PROFILE_ATTEMPTS} sessions")
 
 
 def idle_share(sim, n_steps: int, remeasure=False) -> dict:
@@ -89,10 +99,13 @@ def idle_share(sim, n_steps: int, remeasure=False) -> dict:
     torch.cuda.synchronize()
     wall = start.elapsed_time(end) / n_steps
     timed = sim.pois_n[n_pois:]
-    sim.flow, sim.levels = flow, levels
-    del sim.pois_n[n_pois:], sim.dts[n_dts:]
-    busy, by_name = device_profile(
-        lambda: sim.steps(n_steps, remeasure=remeasure))
+
+    def from_start():
+        sim.flow, sim.levels = flow, levels
+        del sim.pois_n[n_pois:], sim.dts[n_dts:]
+        sim.steps(n_steps, remeasure=remeasure)
+
+    busy, by_name = device_profile(from_start)
     if sim.pois_n[n_pois:] != timed:
         raise RuntimeError(f"the profiled steps solved differently: pois_n "
                            f"{sim.pois_n[n_pois:]} vs {timed}")
