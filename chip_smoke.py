@@ -22,13 +22,28 @@ Phases, each of which raises (and so exits non-zero) on failure:
    narrow-band measurement, dense levels), the same with
    ``banded_levels=True`` (pois_n within the ±2/≤4 rule), and
    ``heaving_sphere_3d(radius=24)`` re-measured every step;
-7. every kernel against its plain version again, at every shape a path
-   of 4-6 launched it at (258³, 130³, 66³, ...), with the tolerances of 3;
+6.1 the periodic 3D path: ``tgv_3d(64)`` (66³, every 3D kernel in its
+   periodic form) 5 steps on the card against 3 CPU steps from the same
+   state as in 4, then ``tgv_3d(256)`` 3 steps (finite u, p, dt);
+6.2 the convective outlet: ``sphere_3d(96, 64, exitBC=True)`` (``bc3d``
+   with ``save_exit``) 3 steps against the CPU from one state;
+6.3 the 2D paths (the 2D ``pcg_fused``): ``circle_2d(96, 64)``,
+   ``tgv_2d(64)`` and ``oscillating_plate_2d(32)`` re-measured every step,
+   each 3 steps against the CPU from one state, and the circle's
+   ``metrics.total_force`` on the card against the CPU (1e-4 relative);
+7. every kernel against its plain version again, every variant at every
+   shape a path of 4-6.3 launched it at (258³, 130³, 66³, ..., the 2D
+   levels), with the tolerances of 3;
 8. timing: ms/step, MLUPS, ns/DOF and the card's idle share at (96,64,64),
-   256³ dense and banded (in turns), 256³ ``banded_levels=True`` and the
-   256³ heaving sphere with its remeasure, and each kernel next to its
-   plain version and its bound at (98,66,66) and at the largest shape a
-   path launched it at (the shape the kernels line reports).
+   256³ dense and banded (in turns), 256³ ``banded_levels=True``, the
+   256³ heaving sphere with its remeasure and ``tgv_3d(256)`` (with its
+   kinetic energy before and after); ``circle_2d(96, 64)`` to tU/L = 50
+   twice (wall seconds with construction; ms/step, idle share and the
+   mean Cd over the last 10 tU/L); the plate's and ``tgv_2d(64)``'s
+   ms/step; each kernel next to its plain version and its bound at
+   (98,66,66) and at the largest shape a path launched it at (the shape
+   the kernels line reports), and the periodic and 2D forms at 258³,
+   (34,34,34) and (98,66).
 
 Every path runs with the launch counters set to 0 and the launched shapes
 cleared just before it, both read just after; a kernel of the path that
@@ -51,6 +66,11 @@ PCG_LEVEL = (50, 34, 34)     # the first coarse level, the PCG kernel's
 RAGGED = (37, 29, 35)        # non-cubic, 37555 cells: a ragged last block
 PCG_RAGGED = (23, 17, 29)
 BIG = (258, 258, 258)        # ghost-padded 256³
+# the periodic and 2D forms of pcg_fused: 258³'s 34³ level, JAX's periodic
+# test shape, the 2D circle's two finest levels, a ragged 2D shape and
+# JAX's 2D test shape
+PCG_PERIODIC = ((34, 34, 34), (10, 10, 10))
+PCG_2D = ((98, 66), (50, 34), (37, 29), (10, 14))
 
 
 def log(msg=""):
@@ -193,9 +213,7 @@ def run_slice(torch, dev):
     f = sim.flow
     S = sim.cfg.S
     assert tuple(f.u.shape) == (3,) + S and tuple(f.p.shape) == S
-    for k in ("u", "p", "dt"):
-        if not bool(torch.isfinite(getattr(f, k)).all()):
-            raise AssertionError(f"non-finite {k} after 20 steps")
+    finite(torch, sim, "sphere_3d(96, 64) after 20 steps")
     vs_cpu(torch, sim, init, init_levels)
     return sim
 
@@ -271,6 +289,124 @@ def run_banded_big(torch, dev):
     torch.cuda.empty_cache()
 
 
+def finite(torch, sim, label):
+    for k in ("u", "p", "dt"):
+        if not bool(torch.isfinite(getattr(sim.flow, k)).all()):
+            raise AssertionError(f"non-finite {k}: {label}")
+
+
+def run_periodic(torch, dev):
+    """tgv_3d(64) against the CPU, then tgv_3d(256): every 3D kernel in
+    its periodic form (66³ and 258³ take the stencil kernels, 34³ and
+    below pcg_fused)."""
+    from waterlily_tpu_torch import tgv_3d
+
+    def drive():
+        sim = tgv_3d(64, device=dev)
+        init, init_levels = sim.flow, sim.levels
+        sim.steps(5)
+        return sim, init, init_levels
+
+    sim, init, init_levels = on_path(torch, "tgv_3d(64)", DENSE, drive)
+    finite(torch, sim, "tgv_3d(64)")
+    vs_cpu(torch, sim, init, init_levels)
+    del sim, init, init_levels
+    torch.cuda.empty_cache()
+
+    def drive_big():
+        t0 = time.perf_counter()
+        sim = tgv_3d(256, device=dev)
+        torch.cuda.synchronize()
+        log(f"constructed tgv_3d(256) in {time.perf_counter() - t0:.1f} s")
+        sim.steps(3)
+        return sim
+
+    sim = on_path(torch, "tgv_3d(256)", DENSE, drive_big)
+    finite(torch, sim, "tgv_3d(256)")
+    log(f"tgv_3d(256), 3 steps: pois_n {sim.pois_n}, dt {sim.dts}")
+    del sim
+    torch.cuda.empty_cache()
+
+
+def run_outlet(torch, dev):
+    """The convective outlet (bc3d with save_exit, exit_bc) against the
+    CPU from one state."""
+    from waterlily_tpu_torch import sphere_3d
+    label = "sphere_3d(96, 64, exitBC=True)"
+
+    def drive():
+        sim = sphere_3d(96, 64, exitBC=True, device=dev)
+        init, init_levels = sim.flow, sim.levels
+        sim.steps(3, remeasure=False)
+        return sim, init, init_levels
+
+    sim, init, init_levels = on_path(torch, label, DENSE, drive)
+    finite(torch, sim, label)
+    vs_cpu(torch, sim, init, init_levels)
+
+
+def twin_vs_cpu(torch, sim, twin, init, init_levels, n, remeasure):
+    """The card's first ``n`` steps (``sim`` ran exactly ``n``) against
+    ``n`` steps of ``twin``, the same case on the CPU, from the same state,
+    both re-measured each step with ``remeasure``: pois_n, dt, max|du|,
+    max|dp|."""
+    from waterlily_tpu_torch.convert import flow_to, levels_to
+    cpu = torch.device("cpu")
+    twin.flow, twin.levels = flow_to(init, cpu), levels_to(init_levels, cpu)
+    t0 = time.perf_counter()
+    twin.steps(n, remeasure=remeasure)
+    log(f"{n} CPU steps in {time.perf_counter() - t0:.1f} s: pois_n "
+        f"{twin.pois_n}, dt {twin.dts[1:]}")
+    log(f"GPU {n} steps: pois_n {sim.pois_n}, dt {sim.dts[1:]}")
+    if not pois_ok(sim.pois_n, twin.pois_n):
+        raise AssertionError(f"pois_n GPU {sim.pois_n} vs CPU {twin.pois_n}")
+    for a, b in zip(sim.dts[1:], twin.dts[1:]):
+        if abs(a - b) > 1e-5 * abs(b):
+            raise AssertionError(f"dt GPU {sim.dts} vs CPU {twin.dts}")
+    du = float((sim.flow.u.cpu() - twin.flow.u).abs().max())
+    dp = float((sim.flow.p.cpu() - twin.flow.p).abs().max())
+    log(f"after {n} steps: max|du| = {du:.3e}, max|dp| = {dp:.3e} "
+        f"(max|p| {float(twin.flow.p.abs().max()):.3e})")
+
+
+CASES_2D = (("circle_2d(96, 64)", "circle_2d", (96, 64), False),
+            ("tgv_2d(64)", "tgv_2d", (64,), False),
+            ("oscillating_plate_2d(32), remeasure", "oscillating_plate_2d",
+             (32,), True))
+
+
+def run_2d(torch, dev):
+    """Each 2D case 3 steps on the card (every level on the 2D
+    pcg_fused) against the CPU from one state; the circle's forces on the
+    card against the CPU on the same state."""
+    import waterlily_tpu_torch as wt
+    from waterlily_tpu_torch.metrics import total_force
+    for label, case, args, remeasure in CASES_2D:
+        make = getattr(wt, case)
+
+        def drive():
+            sim = make(*args, device=dev)
+            init, init_levels = sim.flow, sim.levels
+            sim.steps(3, remeasure=remeasure)
+            return sim, init, init_levels
+
+        sim, init, init_levels = on_path(torch, label, ("pcg_fused",), drive)
+        finite(torch, sim, label)
+        twin = make(*args, device="cpu")
+        twin_vs_cpu(torch, sim, twin, init, init_levels, 3, remeasure)
+        if case != "circle_2d":
+            continue
+        fg = total_force(sim.flow.u, sim.flow.p, sim.cfg.nu, sim.body,
+                         sim.time).cpu()
+        fc = total_force(sim.flow.u.cpu(), sim.flow.p.cpu(), sim.cfg.nu,
+                         twin.body, sim.time)
+        rel = float((fg - fc).abs().max() / fc.abs().max())
+        log(f"{label} total_force on the card {fg.tolist()} vs CPU "
+            f"{fc.tolist()}: max relative difference {rel:.3e}")
+        if not rel <= 1e-4:
+            raise AssertionError(f"{label}: total_force differs by {rel}")
+
+
 def step_profile(sim, n, label, remeasure=False):
     """The card's idle share over ``n`` steps: device busy time and wall
     time of the same steps (`utils.perf.idle_share`), and the ops that
@@ -335,6 +471,19 @@ def timing(torch, dev, sim):
                 f"{t['plain_wall_ms']:.4f} ms")
             torch.cuda.empty_cache()
         times[name] = t
+    # the periodic, outlet and 2D forms at the shapes of their paths
+    for name, S, variant in (("bc3d", BIG, "p012"), ("bc3d", BIG, "exit"),
+                             ("conv_diff3d", BIG, "quick_p012"),
+                             ("pcg_fused", (34, 34, 34), "x_p012"),
+                             ("pcg_fused", (98, 66), "x"),
+                             ("pcg_fused", (66, 66), "x_p01")):
+        t = time_pair(name, S, dev, variant=variant)
+        b, by = bound_ms(name, S)
+        log(f"  {name:<12} {str(S):<15} form {variant}, device (profiler): "
+            f"kernel {t['ms']:.4f} ms, plain {t['plain_ms']:.4f} ms, bound "
+            f"{b:.4f} ms ({by}); wall per call: kernel {t['wall_ms']:.4f} "
+            f"ms, plain {t['plain_wall_ms']:.4f} ms")
+        torch.cuda.empty_cache()
     # ana_mult3d without the dot (the bound counts the same bytes)
     t = time_pair("ana_mult3d", BIG, dev, variant=1)
     log(f"  ana_mult3d   {str(BIG):<15} without the dot, device (profiler): "
@@ -383,7 +532,78 @@ def timing(torch, dev, sim):
         f"{hv.cfg.bbox_shape})")
     step_profile(hv, 5, "heaving_sphere_3d(radius=64), remeasure",
                  remeasure=True)
+    del hv
+    timing_periodic_2d(torch, dev)
     return times
+
+
+def timing_periodic_2d(torch, dev):
+    import waterlily_tpu_torch as wt
+    from waterlily_tpu_torch.metrics import ke
+
+    tg = construct(torch, "tgv_3d(256)", lambda: wt.tgv_3d(256, device=dev))
+    ke0 = float(torch.sum(ke(tg.flow.u)))
+    report_steps(torch, tg, "tgv_3d(256)", 10, 2)
+    peak(torch, "tgv_3d(256)")
+    step_profile(tg, 5, "tgv_3d(256)")
+    ke1 = float(torch.sum(ke(tg.flow.u)))
+    log(f"tgv_3d(256): interior kinetic energy {ke0!r} at step 0, {ke1!r} "
+        f"after {len(tg.pois_n)} steps (tU/L {tg.sim_time!r})")
+    del tg
+
+    for run in (1, 2):
+        sim = circle_horizon(torch, dev, run)
+    step_profile(sim, 50, "circle_2d(96, 64) after tU/L=50")
+    del sim
+
+    plate = construct(torch, "oscillating_plate_2d(32)",
+                      lambda: wt.oscillating_plate_2d(32, device=dev))
+    report_steps(torch, plate, "oscillating_plate_2d(32), remeasure", 20, 5,
+                 remeasure=True)
+    step_profile(plate, 10, "oscillating_plate_2d(32), remeasure",
+                 remeasure=True)
+    tv = construct(torch, "tgv_2d(64)", lambda: wt.tgv_2d(64, device=dev))
+    report_steps(torch, tv, "tgv_2d(64)", 50, 10)
+    step_profile(tv, 20, "tgv_2d(64)")
+
+
+def circle_horizon(torch, dev, run, t_end=50.0, chunk=100):
+    """``circle_2d(96, 64)`` from construction to tU/L = ``t_end`` in
+    chunks of ``chunk`` steps (bench.py's 2D yardstick, the reference's
+    README.md:133-137; the kernels are built already), then 10-step chunks
+    over the last 10 tU/L, whose states are kept for the forces: the wall
+    seconds with and without construction, ms/step, and the mean drag and
+    lift coefficients ``2·force/(U²·L)`` over the kept states, computed
+    after the clock stops."""
+    from waterlily_tpu_torch import circle_2d
+    from waterlily_tpu_torch.metrics import total_force
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    sim = circle_2d(96, 64, device=dev)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    kept = []
+    while sim.sim_time < t_end:
+        late = sim.sim_time >= t_end - 10
+        sim.steps(10 if late else chunk, remeasure=False)
+        if sim.sim_time >= t_end - 10:
+            kept.append((sim.flow.u.clone(), sim.flow.p.clone(), sim.time))
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    n = len(sim.pois_n)
+    scale = 2 / (sim.U ** 2 * sim.L)
+    f = torch.stack([total_force(u, p, sim.cfg.nu, sim.body, t)
+                     for u, p, t in kept]).cpu() * scale
+    cd, cl = float(-f[:, 0].mean()), float(f[:, 1].mean())
+    iters = [sum(c) for c in sim.pois_n]
+    log(f"circle_2d(96, 64) to tU/L={sim.sim_time:.4f}, run {run}: "
+        f"{t2 - t0:.3f} s wall with construction ({t1 - t0:.3f} s of it), "
+        f"{n} steps, {(t2 - t1) / n * 1e3:.4f} ms/step, "
+        f"{sum(iters) / n:.3f} pressure iterations/step; over the last 10 "
+        f"tU/L ({len(kept)} states): mean Cd {cd:.5f}, mean Cl {cl:.5f}, "
+        f"Cl in [{float(f[:, 1].min()):.5f}, {float(f[:, 1].max()):.5f}]")
+    finite(torch, sim, "circle_2d(96, 64)")
+    return sim
 
 
 def main() -> int:
@@ -412,14 +632,20 @@ def main() -> int:
     log("== 3. kernels vs plain versions")
     from waterlily_tpu_torch.kernels.check import KERNELS
     check_kernels(torch, dev, {
-        k: (PCG_LEVEL, PCG_RAGGED) if k == "pcg_fused" else (FINE, RAGGED)
-        for k in KERNELS})
+        k: (PCG_LEVEL, PCG_RAGGED) + PCG_PERIODIC + PCG_2D
+        if k == "pcg_fused" else (FINE, RAGGED) for k in KERNELS})
     log("== 4. the dense slice: sphere_3d(96, 64)")
     sim = run_slice(torch, dev)
     log("== 5. the banded slice, small")
     run_banded_small(torch, dev)
     log("== 6. the banded paths at full size")
     run_banded_big(torch, dev)
+    log("== 6.1 the periodic 3D path: tgv_3d")
+    run_periodic(torch, dev)
+    log("== 6.2 the convective outlet: sphere_3d(96, 64, exitBC=True)")
+    run_outlet(torch, dev)
+    log("== 6.3 the 2D paths")
+    run_2d(torch, dev)
     log("== 7. kernels vs plain versions at the paths' shapes")
     check_kernels(torch, dev, PATH_SHAPES)
     log("== 8. timing")

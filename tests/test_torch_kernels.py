@@ -40,8 +40,17 @@ def test_stencil_kernel_matches_plain(name, S, device):
     _check(name, S, device)
 
 
-@pytest.mark.parametrize("S", [(50, 34, 34), (23, 17, 29)])
+@pytest.mark.parametrize("S", [(50, 34, 34), (23, 17, 29), (34, 34, 34),
+                               (10, 10, 10)])
 def test_pcg_kernel_matches_plain(S, device):
+    """Walls and periodic axes (0, 1, 2), within 1e-5."""
+    _check("pcg_fused", S, device)
+
+
+@pytest.mark.parametrize("S", [(98, 66), (50, 34), (37, 29), (10, 14)])
+def test_pcg_kernel_2d_matches_plain(S, device):
+    """The 2D smooth: walls and periodic axes (1,) and (0, 1), within
+    1e-5 (the 2D circle's levels, a ragged shape, JAX's test shape)."""
     _check("pcg_fused", S, device)
 
 
@@ -51,15 +60,27 @@ def test_ana_mult3d_matches_plain(S, device):
     _check("ana_mult3d", S, device)
 
 
-def test_unported_variants_raise(device):
+@pytest.mark.parametrize("S", [FINE, RAGGED])
+def test_periodic_and_exit_forms_launch(S, device):
+    """The periodic and save_exit bc3d, the periodic conv_diff3d and the
+    2D and periodic pcg_fused launch their kernels on CUDA tensors (their
+    values are held by the cases above); f64 still raises (bf16 and f64
+    streams are not kernel forms)."""
+    from waterlily_tpu_torch.kernels.check import inputs
     from waterlily_tpu_torch.ops import stencil_kernels as sk
+    from waterlily_tpu_torch.ops import pcg_kernel as pk
     from waterlily_tpu_torch.ops import convect
-    u = torch.zeros((3,) + RAGGED, device=device)
-    with pytest.raises(NotImplementedError, match="B10"):
-        sk.bc3d(u, (0.0, 0.0, 0.0), perdir=(0,))
-    with pytest.raises(NotImplementedError, match="B12"):
-        sk.bc3d(u, (0.0, 0.0, 0.0), save_exit=True)
-    with pytest.raises(NotImplementedError, match="B10"):
-        sk.conv_diff3d(u, 0.01, convect.quick, perdir=(1,))
+    u = inputs(S, 0, device)["u"]
+    n_bc, n_conv = sk.bc3d.launches, sk.conv_diff3d.launches
+    sk.bc3d(u, (0.0, 0.0, 0.0), perdir=(0,))
+    sk.bc3d(u, (1.0, 0.0, 0.0), save_exit=True)
+    sk.conv_diff3d(u, 0.01, convect.quick, perdir=(1,))
+    assert sk.bc3d.launches == n_bc + 2
+    assert sk.conv_diff3d.launches == n_conv + 1
+    d2 = inputs((10, 14), 0, device)
+    lev, r = d2["level"]((1,))
+    n_pcg = pk.pcg_fused.launches
+    pk.pcg_fused(lev, torch.zeros_like(r), r)
+    assert pk.pcg_fused.launches == n_pcg + 1
     with pytest.raises(TypeError, match="float32"):
         sk.cfl3d(u.double())

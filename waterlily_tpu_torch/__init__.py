@@ -1,13 +1,17 @@
 """waterlily_tpu_torch: the PyTorch and CUDA port of waterlily_tpu.
 
-Single-device 3D path, dense and banded, of the immersed-boundary
-incompressible flow solver (BDIM bodies, QUICK convection-diffusion, geometric-multigrid
-pressure projection), with hand-written CUDA kernels for the stencils the
-JAX package runs as Pallas kernels.  Imports torch and numpy only.
+Single-device 2D and 3D paths, dense and banded, walls, periodic axes and
+the convective outlet, of the immersed-boundary incompressible flow solver
+(BDIM bodies, QUICK convection-diffusion, geometric-multigrid pressure
+projection), body forces (`metrics`), with hand-written CUDA kernels for
+the stencils the JAX package runs as Pallas kernels.  Imports torch and
+numpy only.
 """
 from .simulation import Simulation, sim_time  # noqa: F401
 from .body import AutoBody, NoBody  # noqa: F401
-from .models.cases import sphere_3d, heaving_sphere_3d  # noqa: F401
+from .models.cases import (circle_2d, tgv_2d, tgv_3d, sphere_3d,  # noqa: F401
+                           donut_3d, oscillating_plate_2d, heaving_sphere_3d)
 
-__all__ = ["Simulation", "sim_time", "AutoBody", "NoBody", "sphere_3d",
-           "heaving_sphere_3d"]
+__all__ = ["Simulation", "sim_time", "AutoBody", "NoBody", "circle_2d",
+           "tgv_2d", "tgv_3d", "sphere_3d", "donut_3d",
+           "oscillating_plate_2d", "heaving_sphere_3d"]

@@ -48,11 +48,11 @@ SIGNATURES = {
     "wl_increment3d": [_P, _P, _P, _P, _P] + _S3,
     "wl_ana_mult3d": [_P, _P, _P, _F, _I] + _S3,
     "wl_cfl3d": [_P, _P] + _S3,
-    "wl_bc3d": [_P, _P, _P] + _S3,
+    "wl_bc3d": [_P, _P, _P, _I, _I] + _S3,
     "wl_div3d": [_P, _P, _P, _P, _P] + _S3,
     "wl_project3d": [_P, _P, _P, _P, _P, _P] + _S3,
-    "wl_conv_diff3d": [_P, _P, _F, _I] + _S3,
-    "wl_pcg3d": [_P, _P, _P, _P, _P, _P, _P] + _S3 + [_I],
+    "wl_conv_diff3d": [_P, _P, _F, _I, _I] + _S3,
+    "wl_pcg": [_P, _P, _P, _P, _P, _P, _P, _I] + _S3 + [_I, _I],
 }
 
 _build_seconds = [0.0]

@@ -45,6 +45,21 @@ SOURCES = {
                    "waterlily_tpu/ops/pallas_stencil.py:622"),
 }
 
+# Periodic axes of the checked variants: bc3d's and conv_diff3d's are the
+# JAX package's own test sets (tests/test_pallas_stencil.py), pcg_fused's
+# those of the 3D and 2D Taylor-Green cases and tests/test_pallas.py.
+BC_PERDIRS = ((), (1,), (0, 2), (0, 1, 2))
+CONV_PERDIRS = ((0,), (1,), (2,), (0, 2), (0, 1, 2))
+PCG_PERDIRS = {3: ((0, 1, 2),), 2: ((1,), (0, 1))}
+
+
+def _tag(perdir=(), save_exit=False) -> str:
+    """A variant's output suffix: ``p`` and its periodic axes, ``exit``."""
+    return "_".join(filter(None, ("p" + "".join(map(str, perdir))
+                                  if perdir else "",
+                                  "exit" if save_exit else "")))
+
+
 # ("exact", None): equal values; ("rel", r): max|a-b| <= r*max|b|;
 # ("abs", a): max|a-b| <= a.  Sums taken in another order than torch.sum
 # (the mult3d dot, pcg's dots) are the only inexact outputs.
@@ -59,29 +74,44 @@ TOLERANCE = {
     "ana_mult3d.z": ("exact", None), "ana_mult3d.dot": ("rel", 1e-5),
     "ana_mult3d.z_c2": ("exact", None),
     "ana_mult3d.z_periodic": ("exact", None),
+    **{f"bc3d.{_tag(p, e)}": ("exact", None)
+       for p in BC_PERDIRS for e in (False, True) if p or e},
+    **{f"conv_diff3d.{lim}_{_tag(p)}": ("exact", None)
+       for lim in ("quick", "vanleer") for p in CONV_PERDIRS},
+    **{f"pcg_fused.{o}_{_tag(p)}": ("abs", 1e-5)
+       for ps in PCG_PERDIRS.values() for p in ps for o in "xr"},
 }
 
 
 def inputs(S, seed, device) -> dict:
-    """Seeded fields at ghost-padded shape ``S``: a level built from
-    positive face coefficients with wall-normal ghosts zeroed (a μ₀), a
-    right-hand side and residual with zero ghosts, a velocity, a pressure
-    and a time step on the device."""
+    """Seeded fields at ghost-padded shape ``S`` (2D or 3D): a level built
+    from positive face coefficients with wall-normal ghosts zeroed (a μ₀),
+    a right-hand side and residual with zero ghosts, a velocity, a pressure
+    and a time step on the device.  ``level(perdir)`` builds the level and
+    residual of the same coefficients and right-hand side with periodic
+    axes ``perdir``."""
     rng = np.random.default_rng(seed)
     S = tuple(S)
+    D = len(S)
     f32 = np.float32
     t = lambda a: torch.from_numpy(np.ascontiguousarray(a, f32)).to(device)
     inner = np.zeros(S, bool)
-    inner[1:-1, 1:-1, 1:-1] = True
-    L = bc_vector_planes(t(rng.uniform(0.5, 1.5, (3,) + S)), (0.0,) * 3)
-    lev = poisson.make_level(L.contiguous())
+    inner[(slice(1, -1),) * D] = True
+    L_raw = t(rng.uniform(0.5, 1.5, (D,) + S))
     rhs = t(np.where(inner, rng.standard_normal(S) * 0.1, 0.0))
-    r = poisson.residual(lev, torch.zeros_like(rhs), rhs).contiguous()
+
+    def level(perdir=()):
+        L = bc_vector_planes(L_raw, (0.0,) * D, perdir=perdir)
+        lev = poisson.make_level(L.contiguous(), perdir)
+        r = poisson.residual(lev, torch.zeros_like(rhs), rhs).contiguous()
+        return lev, r
+
+    lev, r = level()
     return {
-        "lev": lev, "r": r,
+        "lev": lev, "r": r, "level": level,
         "x": t(rng.standard_normal(S)),
         "eps": t(np.where(inner, rng.standard_normal(S) * 0.1, 0.0)),
-        "u": t(rng.standard_normal((3,) + S)),
+        "u": t(rng.standard_normal((D,) + S)),
         "p": t(rng.standard_normal(S)),
         "dt": torch.full((), 0.37, dtype=torch.float32, device=device),
         "A": (1.0, 0.0, 0.0), "nu": 0.01,
@@ -90,16 +120,34 @@ def inputs(S, seed, device) -> dict:
 
 def variants(name, d) -> list:
     """``[(outputs, kernel call, plain call), ...]`` of kernel ``name`` on
-    inputs ``d``; each call returns one tensor or a tuple matching
-    ``outputs``.  The first variant is the one timed."""
+    inputs ``d``, every variant the kernel has at their rank (only
+    pcg_fused has 2D ones); each call returns one tensor or a tuple
+    matching ``outputs``.  The first variant is the one timed by
+    default."""
     lev = d["lev"]
     L, Dd, x, r, eps, u, p, dt = (lev.L, lev.D, d["x"], d["r"], d["eps"],
                                   d["u"], d["p"], d["dt"])
+    D = x.ndim
     x0 = torch.zeros_like(r)
-    conv = lambda lim: (
-        (lim.__name__,),
-        lambda: sk.conv_diff3d(u, d["nu"], lim),
-        lambda: sk._conv_diff3d_plain(u, d["nu"], lim))
+
+    def pcg(perdir=()):
+        lv, rr = d["level"](perdir) if perdir else (lev, r)
+        tag = _tag(perdir)
+        return (tuple("_".join(filter(None, (o, tag))) for o in "xr"),
+                lambda: pk.pcg_fused(lv, x0, rr),
+                lambda: poisson.pcg(lv, x0, rr))
+
+    if D == 2:
+        return [pcg()] + [pcg(q) for q in PCG_PERDIRS[2]] \
+            if name == "pcg_fused" else []
+    conv = lambda lim, perdir=(): (
+        ("_".join(filter(None, (lim.__name__, _tag(perdir)))),),
+        lambda: sk.conv_diff3d(u, d["nu"], lim, perdir),
+        lambda: sk._conv_diff3d_plain(u, d["nu"], lim, perdir))
+    bc = lambda perdir, save_exit: (
+        (_tag(perdir, save_exit),),
+        lambda: sk.bc3d(u, d["A"], save_exit, perdir),
+        lambda: bc_vector_planes(u, d["A"], save_exit, perdir))
     return {
         "mult3d": [(("z", "dot"), lambda: sk.mult3d(L, Dd, x, with_dot=True),
                     lambda: sk._mult3d_plain(L, Dd, x, with_dot=True))],
@@ -107,15 +155,15 @@ def variants(name, d) -> list:
                          lambda: sk.increment3d(L, Dd, eps, x, r),
                          lambda: sk._increment3d_plain(L, Dd, eps, x, r))],
         "cfl3d": [((), lambda: sk.cfl3d(u), lambda: sk._cfl3d_plain(u))],
-        "bc3d": [((), lambda: sk.bc3d(u, d["A"]),
-                  lambda: bc_vector_planes(u, d["A"]))],
+        "bc3d": [bc(q, e) for q in BC_PERDIRS for e in (False, True)],
         "div3d": [(("z", "x"), lambda: sk.div3d(u, p, dt),
                    lambda: sk._div3d_plain(u, p, dt))],
         "project3d": [(("u", "p"), lambda: sk.project3d(L, x, u, dt),
                        lambda: sk._project3d_plain(L, x, u, dt))],
-        "conv_diff3d": [conv(convect.quick), conv(convect.vanleer)],
-        "pcg_fused": [(("x", "r"), lambda: pk.pcg_fused(lev, x0, r),
-                       lambda: poisson.pcg(lev, x0, r))],
+        "conv_diff3d": [conv(convect.quick), conv(convect.vanleer)]
+        + [conv(lim, q) for lim in (convect.quick, convect.vanleer)
+           for q in CONV_PERDIRS],
+        "pcg_fused": [pcg()] + [pcg(q) for q in PCG_PERDIRS[3]],
         "ana_mult3d": [
             (("z", "dot"), lambda: sk.ana_mult3d(x, 1.0, with_dot=True),
              lambda: sk._ana_mult3d_plain(x, 1.0, with_dot=True)),
@@ -149,6 +197,9 @@ _WORK = {
     "pcg_fused": (9, 150),      # L(3), D, iD, x, r in; x, r out
     "ana_mult3d": (2, 22),      # x in, z out
 }
+# the same at a 2D shape (only pcg_fused has a 2D form): L(2) instead of
+# L(3), and two neighbours (four operations) fewer in each of six matvecs
+_WORK_2D = {"pcg_fused": (8, 126)}
 
 
 def bound_ms(name, S) -> tuple[float, str]:
@@ -156,7 +207,7 @@ def bound_ms(name, S) -> tuple[float, str]:
     variant at shape ``S``: the larger of its bytes over the memory rate
     and its operations over the f32 rate, in ms, and which of the two
     bounds it ("bytes" or "operations")."""
-    fields, flops = _WORK[name]
+    fields, flops = (_WORK_2D if len(S) == 2 else _WORK)[name]
     n = math.prod(S)
     t_bytes = 4 * fields * n / HBM_BYTES_PER_S * 1e3
     t_ops = flops * n / F32_FLOPS_PER_S * 1e3
@@ -213,15 +264,28 @@ def _timed(fn, n):
     return start.elapsed_time(end) / n
 
 
+def _variant(name, d, variant):
+    """Variant ``variant`` of `variants`: its index, or its first output's
+    name ("" for a variant with none)."""
+    vs = variants(name, d)
+    if isinstance(variant, int):
+        return vs[variant]
+    for v in vs:
+        if (v[0] or ("",))[0] == variant:
+            return v
+    raise KeyError(f"{name} has no variant {variant!r}")
+
+
 def time_pair(name, S, device, n=20, variant=0) -> dict:
-    """Per-call times of kernel ``name`` and its plain version at shape
+    """Per-call times of kernel ``name``'s variant ``variant`` (index or
+    first output name, `_variant`) and its plain version at shape
     ``S``: device time from `torch.profiler` (the card's busy time for
     one call: every kernel, fill and copy it launches) and wall time per
     call from CUDA events over ``n`` back-to-back calls (includes the host
     dispatch).  Measured in turns plain, kernel, kernel, plain after a
     warm-up; the device time is the larger of each side's two sessions
     (a session that lost events reads low), the wall time their mean."""
-    _, kern, plain = variants(name, inputs(S, 0, device))[variant]
+    _, kern, plain = _variant(name, inputs(S, 0, device), variant)
     kern(), plain()
     torch.cuda.synchronize()
     p1 = device_profile(plain, n)[0]

@@ -57,8 +57,9 @@ def _on_cpu(name: str, t: torch.Tensor) -> bool:
     raise ValueError(f"{name}: tensors on {t.device} are not supported")
 
 
-def _check(name: str, S: tuple, **tensors) -> None:
-    """Kernel arguments: f32, contiguous, one CUDA device, expected shape."""
+def _check(name: str, S: tuple, ranks=(3,), **tensors) -> None:
+    """Kernel arguments: f32, contiguous, one CUDA device, expected shape,
+    a field rank in ``ranks``."""
     dev = None
     for arg, (t, shape) in tensors.items():
         if tuple(t.shape) != tuple(shape):
@@ -73,8 +74,9 @@ def _check(name: str, S: tuple, **tensors) -> None:
             dev = t.device
         elif t.device != dev:
             raise ValueError(f"{name}: {arg} is on {t.device}, not {dev}")
-    if len(S) != 3:
-        raise ValueError(f"{name}: the kernel takes 3D fields, got S={S}")
+    if len(S) not in ranks:
+        raise ValueError(f"{name}: the kernel takes fields of rank "
+                         f"{' or '.join(map(str, ranks))}, got S={S}")
 
 
 def _scalar_on(v, like: torch.Tensor, name: str) -> torch.Tensor:
@@ -101,6 +103,12 @@ def _vector_on(A, like: torch.Tensor, name: str) -> torch.Tensor:
         return torch.tensor([float(a) for a in A], dtype=torch.float32).to(
             like.device, non_blocking=True)
     return torch.cat([_scalar_on(a, like, name) for a in A])
+
+
+def _axis_bits(perdir) -> int:
+    """The kernels' periodic-axes argument: bit d set for each axis d in
+    ``perdir``."""
+    return sum(1 << d for d in set(perdir))
 
 
 def _counted(fn):
@@ -199,8 +207,7 @@ def ana_mult3d(x, c, perdir: tuple = (), with_dot: bool = False):
     blocks = S[0] * -(-S[1] // ANA_TILE[0]) * -(-S[2] // ANA_TILE[1])
     part = (torch.empty(blocks, dtype=x.dtype, device=x.device)
             if with_dot else None)
-    periodic = sum(1 << d for d in perdir)
-    launch("wl_ana_mult3d", x, z, part, float(c), periodic, *S)
+    launch("wl_ana_mult3d", x, z, part, float(c), _axis_bits(perdir), *S)
     ana_mult3d.launches += 1
     ana_mult3d.shapes.add(S)
     return (z, torch.sum(part)) if with_dot else z
@@ -234,20 +241,16 @@ def cfl3d(u):
 @_counted
 def bc3d(u, A, save_exit: bool = False, perdir: tuple = ()):
     """BC-filled copy of the (3, S0, S1, S2) velocity field in one sweep,
-    equal to `ops.bc.bc_vector_planes` bit for bit."""
+    equal to `ops.bc.bc_vector_planes` bit for bit: walls, periodic axes
+    (``perdir``) and the convective outlet's kept plane (``save_exit``)."""
     S = tuple(u.shape[1:])
     if _on_cpu("bc3d", u):
         from .bc import bc_vector_planes
         return bc_vector_planes(u, A, save_exit, perdir)
-    if perdir:
-        raise NotImplementedError("periodic bc3d is not ported yet "
-                                  "(ROADMAP B10)")
-    if save_exit:
-        raise NotImplementedError("bc3d with save_exit is not ported yet "
-                                  "(ROADMAP B12)")
     _check("bc3d", S, u=(u, (3,) + S))
     out = torch.empty_like(u)
-    launch("wl_bc3d", u, out, _vector_on(A, u, "bc3d"), *S)
+    launch("wl_bc3d", u, out, _vector_on(A, u, "bc3d"), _axis_bits(perdir),
+           int(bool(save_exit)), *S)
     bc3d.launches += 1
     bc3d.shapes.add(S)
     return out
@@ -321,17 +324,16 @@ def _limiter_code(limiter) -> int:
 @_counted
 def conv_diff3d(u, nu, limiter, perdir: tuple = ()):
     """Full convection-diffusion tendency of all three components (QUICK or
-    van Leer), zero wherever the reference writes nothing."""
+    van Leer), zero wherever the reference writes nothing; periodic axes
+    (``perdir``) take the ϕuP wrap and the top-face copy of face 1's
+    flux."""
     S = tuple(u.shape[1:])
     if _on_cpu("conv_diff3d", u):
         return _conv_diff3d_plain(u, nu, limiter, perdir)
-    if perdir:
-        raise NotImplementedError("periodic conv_diff3d is not ported yet "
-                                  "(ROADMAP B10)")
     _check("conv_diff3d", S, u=(u, (3,) + S))
     lim = _limiter_code(limiter)
     r = torch.empty_like(u)
-    launch("wl_conv_diff3d", u, r, float(nu), lim, *S)
+    launch("wl_conv_diff3d", u, r, float(nu), lim, _axis_bits(perdir), *S)
     conv_diff3d.launches += 1
     conv_diff3d.shapes.add(S)
     return r
