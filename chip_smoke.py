@@ -31,9 +31,18 @@ Phases, each of which raises (and so exits non-zero) on failure:
    ``tgv_2d(64)`` and ``oscillating_plate_2d(32)`` re-measured every step,
    each 3 steps against the CPU from one state, and the circle's
    ``metrics.total_force`` on the card against the CPU (1e-4 relative);
+6.4 the blocked-level PCG paths (the `ops.attic` kernels and bf16 search
+   directions): ``sphere_3d(256, 256)`` from one initial state, 3 steps in
+   each of (a) the default, (b) ``poisson.KDOT = KAXPY = True``, (c)
+   ``poisson.PCG_BLOCKED = True``, (d) ``smoother_bf16=True`` and (e) (d)
+   with (c), each against (a): pois_n within the ±2/≤4 rule, finite u, p,
+   dt, max|du| < 1e-3 for (b), (c) and < 1e-2 for (d), (e); then
+   ``sphere_3d(96, 64)`` in (b), (c) and (d) against the CPU's plain f32
+   path from one state, as in 4;
 7. every kernel against its plain version again, every variant at every
-   shape a path of 4-6.3 launched it at (258³, 130³, 66³, ..., the 2D
-   levels), with the tolerances of 3;
+   shape a path of 4-6.4 launched it at (258³, 130³, 66³, ..., the 2D
+   levels), with the tolerances of 3, and ``pcg_blocked`` against the
+   per-pass ``pcg`` at the shapes ``pcg_dir_mult`` ran at;
 8. timing: ms/step, MLUPS, ns/DOF and the card's idle share at (96,64,64),
    256³ dense and banded (in turns), 256³ ``banded_levels=True``, the
    256³ heaving sphere with its remeasure and ``tgv_3d(256)`` (with its
@@ -42,8 +51,10 @@ Phases, each of which raises (and so exits non-zero) on failure:
    mean Cd over the last 10 tU/L); the plate's and ``tgv_2d(64)``'s
    ms/step; each kernel next to its plain version and its bound at
    (98,66,66) and at the largest shape a path launched it at (the shape
-   the kernels line reports), and the periodic and 2D forms at 258³,
-   (34,34,34) and (98,66).
+   the kernels line reports), the periodic, 2D and bf16 forms at 258³,
+   (34,34,34) and (98,66), and ``torch.dot`` beside ``dot3d``; the 256³
+   sphere in configurations (a)-(e) of 6.4 in turns (a, ..., e, e, ...,
+   a), each with its idle share and pois_n.
 
 Every path runs with the launch counters set to 0 and the launched shapes
 cleared just before it, both read just after; a kernel of the path that
@@ -54,6 +65,7 @@ prints no result and exits 2.  Imports no JAX.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import math
@@ -103,13 +115,13 @@ CHECKED = {}
 
 
 def check_kernels(torch, dev, shapes):
-    """Each kernel against its plain version at every shape in
-    ``shapes[name]`` not checked yet."""
-    from waterlily_tpu_torch.kernels.check import KERNELS, compare
+    """Each kernel (and composite) against its plain version at every
+    shape in ``shapes[name]`` not checked yet."""
+    from waterlily_tpu_torch.kernels.check import KERNELS, COMPOSITES, compare
     failures = []
-    for name in KERNELS:
+    for name in KERNELS + COMPOSITES:
         done = CHECKED.setdefault(name, set())
-        for S in sorted(set(shapes[name]) - done, key=math.prod):
+        for S in sorted(set(shapes.get(name, ())) - done, key=math.prod):
             for row in compare(name, S, 1, dev):
                 log(f"  {row['output']:<20} {str(row['shape']):<15} "
                     f"max|d|={row['max_abs_err']:.3e} ulp={row['max_ulp']} "
@@ -132,6 +144,19 @@ def pois_ok(a, b):
 DENSE = ("mult3d", "increment3d", "cfl3d", "bc3d", "div3d", "project3d",
          "conv_diff3d", "pcg_fused")
 BANDED_LEVELS = ("ana_mult3d", "cfl3d", "bc3d", "conv_diff3d", "pcg_fused")
+# the blocked-level PCG configurations of phase 6.4: (label, poisson
+# seams set, smoother_bf16, kernels the path must launch beyond DENSE's
+# conv/projection ones); (a) is the default every other is held against
+PCG_CONFIGS = (
+    ("a default", {}, False, DENSE),
+    ("b KDOT+KAXPY", {"KDOT": True, "KAXPY": True}, False,
+     ("dot3d", "pcg_axpy", "mult3d")),
+    ("c PCG_BLOCKED", {"PCG_BLOCKED": True}, False,
+     ("pcg_dir_mult", "pcg_update")),
+    ("d smoother_bf16", {}, True, ("mult3d", "increment3d")),
+    ("e smoother_bf16+PCG_BLOCKED", {"PCG_BLOCKED": True}, True,
+     ("pcg_dir_mult", "pcg_update", "increment3d")),
+)
 PATH_LAUNCHES = {}
 PATH_SHAPES = {}    # kernel -> every shape a path launched it at
 
@@ -407,6 +432,97 @@ def run_2d(torch, dev):
             raise AssertionError(f"{label}: total_force differs by {rel}")
 
 
+@contextlib.contextmanager
+def seams(flags):
+    """`ops.poisson`'s seams (``KDOT``, ``KAXPY``, ``PCG_BLOCKED``) set to
+    ``flags`` inside the block and restored after it, whatever happens."""
+    from waterlily_tpu_torch.ops import poisson
+    old = {k: getattr(poisson, k) for k in flags}
+    try:
+        for k, v in flags.items():
+            setattr(poisson, k, v)
+        yield
+    finally:
+        for k, v in old.items():
+            setattr(poisson, k, v)
+
+
+# the kernels of the blocked-level PCG iteration (ops/attic.py)
+PCG_ITERATION = ("pcg_dir_mult", "pcg_update", "dot3d", "pcg_axpy")
+
+
+def _check_bf16_levels(sim, bf16, label):
+    """Every blocked level carries the configuration's direction type (and
+    at 258³ at least one level is blocked)."""
+    flags = [(l.blocked, l.bf16_eps) for l in sim.levels]
+    log(f"{label}: (blocked, bf16_eps) per level {flags}")
+    if not any(b for b, _ in flags) or any(e != (b and bf16)
+                                           for b, e in flags):
+        raise AssertionError(f"{label}: levels {flags}")
+
+
+def run_pcg_paths(torch, dev):
+    """Phase 6.4: the 256³ sphere in configurations (a)-(e) from one
+    initial state, each held against (a); then the (96,64,64) sphere in
+    (b)-(d) against the CPU's plain f32 path."""
+    from waterlily_tpu_torch import sphere_3d
+    from waterlily_tpu_torch.grid import interior_view
+    ref = ref_init = None
+    for name, flags, bf16, expect in PCG_CONFIGS:
+        label = f"sphere_3d(256, 256) {name}"
+
+        def drive():
+            sim = sphere_3d(256, 256, smoother_bf16=bf16, device=dev)
+            init = sim.flow
+            sim.steps(3, remeasure=False)
+            return sim, init
+
+        with seams(flags):
+            sim, init = on_path(torch, label, expect, drive)
+        finite(torch, sim, label)
+        _check_bf16_levels(sim, bf16, label)
+        log(f"{label}: pois_n {sim.pois_n}, dt {sim.dts[1:]}")
+        if ref is None:
+            new = [k for k in PCG_ITERATION if PATH_LAUNCHES[label][k]]
+            if new:
+                raise AssertionError(f"the default path launched {new}")
+            ref, ref_init = sim, init
+            continue
+        same = (torch.equal(init.u, ref_init.u)
+                and torch.equal(init.mu0, ref_init.mu0))
+        du = _max_du(sim, ref)
+        # p is fixed by the solve up to a constant: max|dp| and its spread
+        # about its interior mean
+        dpi = interior_view(sim.flow.p - ref.flow.p, 3)
+        dp = float(dpi.abs().max())
+        dpc = float((dpi - dpi.mean()).abs().max())
+        lim = 1e-2 if bf16 else 1e-3
+        log(f"{label} vs (a), 3 steps from the same state ({same}): pois_n "
+            f"{sim.pois_n} vs {ref.pois_n}, max|du| = {du:.3e} (limit "
+            f"{lim:g}), max|dp| = {dp:.3e}, max|dp - mean dp| = {dpc:.3e}")
+        if not same or not pois_ok(sim.pois_n, ref.pois_n) or not du < lim:
+            raise AssertionError(f"{label} differs from (a)")
+        del sim, init
+        torch.cuda.empty_cache()
+    del ref, ref_init
+    torch.cuda.empty_cache()
+
+    for name, flags, bf16, expect in PCG_CONFIGS[1:4]:
+        label = f"sphere_3d(96, 64) {name}"
+
+        def drive():
+            sim = sphere_3d(96, 64, smoother_bf16=bf16, device=dev)
+            init, init_levels = sim.flow, sim.levels
+            sim.steps(3, remeasure=False)
+            return sim, init, init_levels
+
+        with seams(flags):
+            sim, init, init_levels = on_path(torch, label, expect, drive)
+            finite(torch, sim, label)
+            _check_bf16_levels(sim, bf16, label)
+            vs_cpu(torch, sim, init, init_levels)
+
+
 def step_profile(sim, n, label, remeasure=False):
     """The card's idle share over ``n`` steps: device busy time and wall
     time of the same steps (`utils.perf.idle_share`), and the ops that
@@ -450,7 +566,8 @@ def peak(torch, label):
 
 def timing(torch, dev, sim):
     from waterlily_tpu_torch import sphere_3d, heaving_sphere_3d
-    from waterlily_tpu_torch.kernels.check import KERNELS, time_pair, bound_ms
+    from waterlily_tpu_torch.kernels.check import (KERNELS, LIBRARY, time_pair,
+                                                   time_library, bound_ms)
 
     report_steps(torch, sim, "sphere_3d(96, 64)", 50, 10)
     step_profile(sim, 20, "sphere_3d(96, 64)")
@@ -464,21 +581,31 @@ def timing(torch, dev, sim):
             t = time_pair(name, S, dev)
             t["shape"] = S
             t["bound_ms"], t["bound_by"] = bound_ms(name, S)
+            if name in LIBRARY:
+                t["library_ms"] = time_library(name, S, dev)
             log(f"  {name:<12} {str(S):<15} device (profiler): kernel "
                 f"{t['ms']:.4f} ms, plain {t['plain_ms']:.4f} ms, bound "
-                f"{t['bound_ms']:.4f} ms ({t['bound_by']}); wall per call: "
-                f"kernel {t['wall_ms']:.4f} ms, plain "
+                f"{t['bound_ms']:.4f} ms ({t['bound_by']})"
+                + (f", library call {t['library_ms']:.4f} ms"
+                   if name in LIBRARY else "")
+                + f"; wall per call: kernel {t['wall_ms']:.4f} ms, plain "
                 f"{t['plain_wall_ms']:.4f} ms")
             torch.cuda.empty_cache()
         times[name] = t
-    # the periodic, outlet and 2D forms at the shapes of their paths
+    # the periodic, outlet, 2D and bf16 forms at the shapes of their paths
     for name, S, variant in (("bc3d", BIG, "p012"), ("bc3d", BIG, "exit"),
                              ("conv_diff3d", BIG, "quick_p012"),
                              ("pcg_fused", (34, 34, 34), "x_p012"),
                              ("pcg_fused", (98, 66), "x"),
-                             ("pcg_fused", (66, 66), "x_p01")):
+                             ("pcg_fused", (66, 66), "x_p01"),
+                             ("mult3d", BIG, "z_bf16"),
+                             ("increment3d", BIG, "x_bf16"),
+                             ("pcg_dir_mult", BIG, "eps_bf16"),
+                             ("pcg_update", BIG, "x_bf16"),
+                             ("pcg_axpy", BIG, "x_bf16"),
+                             ("dot3d", BIG, "ab"), ("dot3d", BIG, "rid")):
         t = time_pair(name, S, dev, variant=variant)
-        b, by = bound_ms(name, S)
+        b, by = bound_ms(name, S, variant)
         log(f"  {name:<12} {str(S):<15} form {variant}, device (profiler): "
             f"kernel {t['ms']:.4f} ms, plain {t['plain_ms']:.4f} ms, bound "
             f"{b:.4f} ms ({by}); wall per call: kernel {t['wall_ms']:.4f} "
@@ -505,6 +632,7 @@ def timing(torch, dev, sim):
     step_profile(dense, 5, "sphere_3d(256, 256, bbox=False)")
     step_profile(band, 5, "sphere_3d(256, 256)")
     del dense, band
+    timing_pcg_paths(torch, dev)
 
     lv = construct(torch, "sphere_3d(256, 256, banded_levels=True)",
                    lambda: sphere_3d(256, 256, banded_levels=True,
@@ -535,6 +663,26 @@ def timing(torch, dev, sim):
     del hv
     timing_periodic_2d(torch, dev)
     return times
+
+
+def timing_pcg_paths(torch, dev):
+    """The 256³ sphere in configurations (a)-(e) of phase 6.4, in turns
+    (a, ..., e, e, ..., a), then each one's idle share."""
+    from waterlily_tpu_torch import sphere_3d
+    sims = {name: construct(torch, f"sphere_3d(256, 256) {name}",
+                            lambda bf16=bf16: sphere_3d(
+                                256, 256, smoother_bf16=bf16, device=dev))
+            for name, _flags, bf16, _expect in PCG_CONFIGS}
+    for name, flags, _bf16, _expect in PCG_CONFIGS + PCG_CONFIGS[::-1]:
+        with seams(flags):
+            report_steps(torch, sims[name], f"sphere_3d(256, 256) {name}",
+                         10, 2)
+    for name, flags, _bf16, _expect in PCG_CONFIGS:
+        with seams(flags):
+            step_profile(sims[name], 5, f"sphere_3d(256, 256) {name}")
+    peak(torch, "the five sphere_3d(256, 256) configurations")
+    del sims
+    torch.cuda.empty_cache()
 
 
 def timing_periodic_2d(torch, dev):
@@ -630,10 +778,10 @@ def main() -> int:
     log(f"kernel library ready in {time.perf_counter() - t0:.1f} s "
         f"(nvcc {build_seconds():.1f} s)")
     log("== 3. kernels vs plain versions")
-    from waterlily_tpu_torch.kernels.check import KERNELS
+    from waterlily_tpu_torch.kernels.check import KERNELS, COMPOSITES
     check_kernels(torch, dev, {
         k: (PCG_LEVEL, PCG_RAGGED) + PCG_PERIODIC + PCG_2D
-        if k == "pcg_fused" else (FINE, RAGGED) for k in KERNELS})
+        if k == "pcg_fused" else (FINE, RAGGED) for k in KERNELS + COMPOSITES})
     log("== 4. the dense slice: sphere_3d(96, 64)")
     sim = run_slice(torch, dev)
     log("== 5. the banded slice, small")
@@ -646,21 +794,26 @@ def main() -> int:
     run_outlet(torch, dev)
     log("== 6.3 the 2D paths")
     run_2d(torch, dev)
+    log("== 6.4 the blocked-level PCG paths: seams and bf16 directions")
+    run_pcg_paths(torch, dev)
     log("== 7. kernels vs plain versions at the paths' shapes")
-    check_kernels(torch, dev, PATH_SHAPES)
+    check_kernels(torch, dev, {**PATH_SHAPES,
+                               "pcg_blocked": PATH_SHAPES["pcg_dir_mult"]})
     log("== 8. timing")
     times = timing(torch, dev, sim)
 
     from waterlily_tpu_torch.kernels.check import SOURCES
     launches = {k: sum(c[k] for c in PATH_LAUNCHES.values()) for k in SOURCES}
-    # no single PyTorch call computes any of these functions (variable or
-    # wall-masked coefficients, BC stages, limiters, a whole smooth)
+    # one PyTorch call computes dot3d's timed form (torch.dot, kernels/
+    # check.LIBRARY); none computes the others (variable or wall-masked
+    # coefficients, BC stages, limiters, a whole smooth, fused sweeps)
     kernels = [{"name": k, "route": "cuda", "source": SOURCES[k][0],
                 "replaces": SOURCES[k][1], "launches": launches[k],
                 "max_abs_err": WORST[k], "ms": times[k]["ms"],
                 "plain_ms": times[k]["plain_ms"],
                 "bound_ms": times[k]["bound_ms"],
-                "bound_by": times[k]["bound_by"], "library_ms": None}
+                "bound_by": times[k]["bound_by"],
+                "library_ms": times[k].get("library_ms")}
                for k in SOURCES]
     log(card)
     log(json.dumps({"kernels": kernels}))

@@ -18,6 +18,9 @@ FINE = (98, 66, 66)
 RAGGED = (37, 29, 35)
 STENCILS = ["mult3d", "increment3d", "cfl3d", "bc3d", "div3d", "project3d",
             "conv_diff3d"]
+# the blocked-level PCG iteration (ops/attic.py) and its composite smoother
+PCG_ITERATION = ["pcg_dir_mult", "pcg_update", "dot3d", "pcg_axpy",
+                 "pcg_blocked"]
 
 
 @pytest.fixture
@@ -38,6 +41,30 @@ def _check(name, S, device):
 @pytest.mark.parametrize("S", [FINE, RAGGED])
 def test_stencil_kernel_matches_plain(name, S, device):
     _check(name, S, device)
+
+
+@pytest.mark.parametrize("name", PCG_ITERATION)
+@pytest.mark.parametrize("S", [FINE, RAGGED])
+def test_pcg_iteration_kernel_matches_plain(name, S, device):
+    """Every form (f32 and bf16 directions, beta 0 and not, the three dot
+    modes): elementwise outputs exact, sums within 1e-5 relative,
+    pcg_blocked within 1e-5 of the per-pass pcg."""
+    _check(name, S, device)
+
+
+def test_bf16_forms_launch_and_refuse(device):
+    """mult3d and increment3d launch on a bf16 x / eps (their values are
+    held by the cases above) and raise on bf16 coefficients, naming the
+    unported operator shadows."""
+    from waterlily_tpu_torch.kernels.check import inputs
+    from waterlily_tpu_torch.ops import stencil_kernels as sk
+    d = inputs(FINE, 0, device)
+    L, Dd, x16 = d["lev"].L, d["lev"].D, d["x"].to(torch.bfloat16)
+    n_mult = sk.mult3d.launches
+    z = sk.mult3d(L, Dd, x16)
+    assert z.dtype == torch.float32 and sk.mult3d.launches == n_mult + 1
+    with pytest.raises(TypeError, match="B9"):
+        sk.mult3d(L.to(torch.bfloat16), Dd, x16)
 
 
 @pytest.mark.parametrize("S", [(50, 34, 34), (23, 17, 29), (34, 34, 34),

@@ -22,7 +22,7 @@ __all__ = ["flow_from_numpy", "levels_from_numpy", "flow_to", "levels_to"]
 
 FLOW_FIELDS = ("u", "p", "V", "mu0", "mu1", "dt", "t")
 # per-level values besides L, D and iD (JAX's static level fields)
-LEVEL_EXTRAS = ("banded", "c", "box_shape", "box_start")
+LEVEL_EXTRAS = ("banded", "c", "box_shape", "box_start", "bf16_eps")
 
 
 def _t(a, device) -> torch.Tensor:
@@ -46,8 +46,9 @@ def flow_from_numpy(fields: dict, device) -> FlowState:
 
 def levels_from_numpy(levels: list, device, perdir: tuple = ()) -> tuple:
     """Poisson levels from numpy arrays of each JAX level's ``L``, ``D``
-    and ``iD``, and its ``banded``, ``c``, ``box_shape`` and ``box_start``
-    where given."""
+    and ``iD``, and its ``banded``, ``c``, ``box_shape``, ``box_start`` and
+    ``bf16_eps`` where given (``bf16_eps`` takes effect on the levels the
+    port's kernel gate makes blocked)."""
     return tuple(
         make_level(_t(lev["L"], device), perdir, Dd=_t(lev["D"], device),
                    iD=_t(lev["iD"], device),
@@ -64,8 +65,10 @@ def flow_to(state: FlowState, device) -> FlowState:
 
 
 def levels_to(levels: tuple, device) -> tuple:
-    """Copies of ``levels`` on ``device``, the kernel gate re-evaluated."""
+    """Copies of ``levels`` on ``device``, the kernel gate re-evaluated
+    (``bf16_eps`` is kept where the copy is blocked)."""
     return tuple(
         make_level(l.L.to(device), l.perdir, l.banded, l.c, l.box_shape,
-                   l.box_start, Dd=l.D.to(device), iD=l.iD.to(device))
+                   l.box_start, Dd=l.D.to(device), iD=l.iD.to(device),
+                   bf16_eps=l.bf16_eps)
         for l in levels)

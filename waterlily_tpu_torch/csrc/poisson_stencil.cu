@@ -2,22 +2,27 @@
 // <A x, x>, and r - A eps.
 //
 // Replaces waterlily_tpu/ops/pallas_stencil.py `mult3d_pallas` (`_mult_kernel`,
-// `_mult_block`) and `increment3d_pallas` (`_rsub_kernel`), f32 and whole-grid.
+// `_mult_block`) and `increment3d_pallas` (`_rsub_kernel`), whole-grid, with
+// x / eps in f32 or in bf16 (the smoother's search direction stored in bf16,
+// `PoissonLevel.bf16_eps`): a bf16 operand is upcast in registers and the
+// operator applied in f32, so z, r and the dot stay f32, as in the TPU kernel.
 //
 // Bound on the H100: memory.  Per cell the operator reads L (3 floats), D
 // and x (7 taps, six of them shared with neighbouring cells) and writes z:
 // at least 6 floats = 24 B/cell moved against ~13 flops, far below the
-// card's flop-to-byte balance.  Design: one thread per cell with threadIdx.x
-// along axis 2, so the x taps of a warp along axes 1 and 2 and the L[+]
-// reads hit lines the neighbouring warps already brought into L1/L2; the dot
-// partial is reduced in the block and written once per block, so the PCG
-// denominator costs no second pass over z and x.  Ghost cells are written as
-// exact zeros by a branch (no multiply by a mask) and never read neighbours.
+// card's flop-to-byte balance (a bf16 x saves 2 of them).  Design: one thread
+// per cell with threadIdx.x along axis 2, so the x taps of a warp along axes
+// 1 and 2 and the L[+] reads hit lines the neighbouring warps already brought
+// into L1/L2; the dot partial is reduced in the block and written once per
+// block, so the PCG denominator costs no second pass over z and x.  Ghost
+// cells are written as exact zeros by a branch (no multiply by a mask) and
+// never read neighbours.
 #include "common.cuh"
 
+template <typename T>
 __global__ void mult_kernel(const float* __restrict__ L,
                             const float* __restrict__ Dd,
-                            const float* __restrict__ x, float* __restrict__ z,
+                            const T* __restrict__ x, float* __restrict__ z,
                             float* __restrict__ partial, Shape3 g) {
   __shared__ float sh[WL_THREADS];
   const long long c = (long long)blockIdx.x * blockDim.x + threadIdx.x;
@@ -28,7 +33,7 @@ __global__ void mult_kernel(const float* __restrict__ L,
     float v = 0.f;
     if (is_interior(g, idx)) {
       v = ax_cell(L, Dd, x, g, c);
-      dot = v * x[c];
+      dot = v * ld(x[c]);
     }
     z[c] = v;
   }
@@ -38,9 +43,10 @@ __global__ void mult_kernel(const float* __restrict__ L,
   }
 }
 
+template <typename T>
 __global__ void rsub_kernel(const float* __restrict__ L,
                             const float* __restrict__ Dd,
-                            const float* __restrict__ eps,
+                            const T* __restrict__ eps,
                             const float* __restrict__ r,
                             float* __restrict__ r_out, Shape3 g) {
   const long long c = (long long)blockIdx.x * blockDim.x + threadIdx.x;
@@ -57,20 +63,30 @@ extern "C" const char* wl_error_string(int code) {
   return cudaGetErrorString((cudaError_t)code);
 }
 
-extern "C" int wl_mult3d(const float* L, const float* Dd, const float* x,
-                         float* z, float* partial, int S0, int S1, int S2,
-                         void* stream) {
+// x_bf16: x is bf16 (else f32)
+extern "C" int wl_mult3d(const float* L, const float* Dd, const void* x,
+                         float* z, float* partial, int x_bf16, int S0, int S1,
+                         int S2, void* stream) {
   const Shape3 g = make_shape(S0, S1, S2);
-  mult_kernel<<<blocks_for(g.N), WL_THREADS, 0, (cudaStream_t)stream>>>(
-      L, Dd, x, z, partial, g);
+  if (x_bf16)
+    mult_kernel<<<blocks_for(g.N), WL_THREADS, 0, (cudaStream_t)stream>>>(
+        L, Dd, (const __nv_bfloat16*)x, z, partial, g);
+  else
+    mult_kernel<<<blocks_for(g.N), WL_THREADS, 0, (cudaStream_t)stream>>>(
+        L, Dd, (const float*)x, z, partial, g);
   return (int)cudaGetLastError();
 }
 
-extern "C" int wl_increment3d(const float* L, const float* Dd, const float* eps,
-                              const float* r, float* r_out, int S0, int S1,
-                              int S2, void* stream) {
+// eps_bf16: eps is bf16 (else f32)
+extern "C" int wl_increment3d(const float* L, const float* Dd, const void* eps,
+                              const float* r, float* r_out, int eps_bf16,
+                              int S0, int S1, int S2, void* stream) {
   const Shape3 g = make_shape(S0, S1, S2);
-  rsub_kernel<<<blocks_for(g.N), WL_THREADS, 0, (cudaStream_t)stream>>>(
-      L, Dd, eps, r, r_out, g);
+  if (eps_bf16)
+    rsub_kernel<<<blocks_for(g.N), WL_THREADS, 0, (cudaStream_t)stream>>>(
+        L, Dd, (const __nv_bfloat16*)eps, r, r_out, g);
+  else
+    rsub_kernel<<<blocks_for(g.N), WL_THREADS, 0, (cudaStream_t)stream>>>(
+        L, Dd, (const float*)eps, r, r_out, g);
   return (int)cudaGetLastError();
 }

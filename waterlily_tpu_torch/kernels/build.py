@@ -44,8 +44,12 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _S3 = [_I, _I, _I]
 # C signatures (argument types before the trailing stream pointer)
 SIGNATURES = {
-    "wl_mult3d": [_P, _P, _P, _P, _P] + _S3,
-    "wl_increment3d": [_P, _P, _P, _P, _P] + _S3,
+    "wl_mult3d": [_P, _P, _P, _P, _P, _I] + _S3,
+    "wl_increment3d": [_P, _P, _P, _P, _P, _I] + _S3,
+    "wl_pcg_dir_mult": [_P] * 9 + [_I, _I] + _S3,
+    "wl_pcg_update": [_P] * 9 + [_I] + _S3,
+    "wl_dot3d": [_P, _P, _P, _I, _I] + _S3,
+    "wl_pcg_axpy": [_P] * 9 + [_I] + _S3,
     "wl_ana_mult3d": [_P, _P, _P, _F, _I] + _S3,
     "wl_cfl3d": [_P, _P] + _S3,
     "wl_bc3d": [_P, _P, _P, _I, _I] + _S3,

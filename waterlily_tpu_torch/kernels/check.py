@@ -15,13 +15,14 @@ import torch
 
 from ..ops import stencil_kernels as sk
 from ..ops import pcg_kernel as pk
+from ..ops import attic as at
 from ..ops import poisson, convect
 from ..ops.bc import bc_vector_planes
 from ..utils.perf import device_profile
 
-__all__ = ["KERNELS", "TOLERANCE", "SOURCES", "inputs", "variants", "compare",
-           "time_pair", "ulp_diff", "bound_ms", "HBM_BYTES_PER_S",
-           "F32_FLOPS_PER_S"]
+__all__ = ["KERNELS", "COMPOSITES", "TOLERANCE", "SOURCES", "LIBRARY",
+           "inputs", "variants", "compare", "time_pair", "time_library",
+           "ulp_diff", "bound_ms", "HBM_BYTES_PER_S", "F32_FLOPS_PER_S"]
 
 # csrc file and the TPU kernel (file:line of its function) of each wrapper
 SOURCES = {
@@ -43,7 +44,22 @@ SOURCES = {
                   "waterlily_tpu/ops/pallas_kernels.py:127"),
     "ana_mult3d": ("waterlily_tpu_torch/csrc/ana_stencil.cu",
                    "waterlily_tpu/ops/pallas_stencil.py:622"),
+    "pcg_dir_mult": ("waterlily_tpu_torch/csrc/pcg_iter.cu",
+                     "waterlily_tpu/ops/attic.py:132"),
+    "pcg_update": ("waterlily_tpu_torch/csrc/pcg_iter.cu",
+                   "waterlily_tpu/ops/attic.py:172"),
+    "dot3d": ("waterlily_tpu_torch/csrc/reduce.cu",
+              "waterlily_tpu/ops/attic.py:456"),
+    "pcg_axpy": ("waterlily_tpu_torch/csrc/reduce.cu",
+                 "waterlily_tpu/ops/attic.py:493"),
 }
+
+# Checked like a kernel, but built from kernels: the fused-iteration
+# smoother against the per-pass `poisson.pcg` (f32 directions: with bf16
+# ones the two forms' sums, taken in other orders, can round a direction
+# value to neighbouring bf16 values; the step-level runs of chip_smoke.py
+# hold that form).
+COMPOSITES = ("pcg_blocked",)
 
 # Periodic axes of the checked variants: bc3d's and conv_diff3d's are the
 # JAX package's own test sets (tests/test_pallas_stencil.py), pcg_fused's
@@ -62,7 +78,9 @@ def _tag(perdir=(), save_exit=False) -> str:
 
 # ("exact", None): equal values; ("rel", r): max|a-b| <= r*max|b|;
 # ("abs", a): max|a-b| <= a.  Sums taken in another order than torch.sum
-# (the mult3d dot, pcg's dots) are the only inexact outputs.
+# (the matvec dots, pcg's dots, the attic kernels' sums) are the only
+# inexact outputs; every elementwise output is exact (--fmad=false), bf16
+# forms included.
 TOLERANCE = {
     "mult3d.z": ("exact", None), "mult3d.dot": ("rel", 1e-5),
     "increment3d.x": ("exact", None), "increment3d.r": ("exact", None),
@@ -80,6 +98,19 @@ TOLERANCE = {
        for lim in ("quick", "vanleer") for p in CONV_PERDIRS},
     **{f"pcg_fused.{o}_{_tag(p)}": ("abs", 1e-5)
        for ps in PCG_PERDIRS.values() for p in ps for o in "xr"},
+    "mult3d.z_bf16": ("exact", None), "mult3d.dot_bf16": ("rel", 1e-5),
+    "increment3d.x_bf16": ("exact", None),
+    "increment3d.r_bf16": ("exact", None),
+    **{f"pcg_dir_mult.{o}{t}": (("rel", 1e-5) if o in ("den", "rho")
+                                else ("exact", None))
+       for o in ("eps", "z", "den", "rho")
+       for t in ("", "_b0", "_bf16", "_b0_bf16")},
+    **{f"{k}.{o}{t}": ("rel", 1e-5) if o == "rho" else ("exact", None)
+       for k in ("pcg_update", "pcg_axpy") for o in ("x", "r", "rho")
+       for t in ("", "_bf16")},
+    "dot3d.aa": ("rel", 1e-5), "dot3d.ab": ("rel", 1e-5),
+    "dot3d.rid": ("rel", 1e-5),
+    "pcg_blocked.x": ("abs", 1e-5), "pcg_blocked.r": ("abs", 1e-5),
 }
 
 
@@ -107,14 +138,17 @@ def inputs(S, seed, device) -> dict:
         return lev, r
 
     lev, r = level()
+    eps = t(np.where(inner, rng.standard_normal(S) * 0.1, 0.0))
     return {
         "lev": lev, "r": r, "level": level,
         "x": t(rng.standard_normal(S)),
-        "eps": t(np.where(inner, rng.standard_normal(S) * 0.1, 0.0)),
+        "eps": eps, "eps16": eps.to(torch.bfloat16),
         "u": t(rng.standard_normal((D,) + S)),
         "p": t(rng.standard_normal(S)),
         "dt": torch.full((), 0.37, dtype=torch.float32, device=device),
         "A": (1.0, 0.0, 0.0), "nu": 0.01,
+        # drawn last, so the fields above stay those of earlier seeds
+        "z": t(np.where(inner, rng.standard_normal(S), 0.0)),
     }
 
 
@@ -129,6 +163,8 @@ def variants(name, d) -> list:
                                   d["u"], d["p"], d["dt"])
     D = x.ndim
     x0 = torch.zeros_like(r)
+    x16, eps16, iD, z = x.to(torch.bfloat16), d["eps16"], lev.iD, d["z"]
+    s = dt    # beta and upd: a 0-d device scalar, as in a smooth
 
     def pcg(perdir=()):
         lv, rr = d["level"](perdir) if perdir else (lev, r)
@@ -148,12 +184,47 @@ def variants(name, d) -> list:
         (_tag(perdir, save_exit),),
         lambda: sk.bc3d(u, d["A"], save_exit, perdir),
         lambda: bc_vector_planes(u, d["A"], save_exit, perdir))
+    def dir_mult(tag, eps_prev, beta, bf16):
+        return (tuple(o + tag for o in ("eps", "z", "den", "rho")),
+                lambda: at.pcg_dir_mult(L, Dd, eps_prev, r, iD, beta, bf16),
+                lambda: at._pcg_dir_mult_plain(L, Dd, eps_prev, r, iD, beta,
+                                               bf16))
+
+    def axpy_rho(name, tag, e):
+        return (tuple(o + tag for o in ("x", "r", "rho")),
+                lambda: getattr(at, name)(x, r, e, z, iD, s),
+                lambda: at._axpy_rho_plain(x, r, e, z, iD, s))
+
+    def dot(mode, a, b):
+        return ((mode,), lambda: at.dot3d(a, b, mode),
+                lambda: at._dot3d_plain(a, b, mode))
+
     return {
         "mult3d": [(("z", "dot"), lambda: sk.mult3d(L, Dd, x, with_dot=True),
-                    lambda: sk._mult3d_plain(L, Dd, x, with_dot=True))],
+                    lambda: sk._mult3d_plain(L, Dd, x, with_dot=True)),
+                   (("z_bf16", "dot_bf16"),
+                    lambda: sk.mult3d(L, Dd, x16, with_dot=True),
+                    lambda: sk._mult3d_plain(L, Dd, x16, with_dot=True))],
         "increment3d": [(("x", "r"),
                          lambda: sk.increment3d(L, Dd, eps, x, r),
-                         lambda: sk._increment3d_plain(L, Dd, eps, x, r))],
+                         lambda: sk._increment3d_plain(L, Dd, eps, x, r)),
+                        (("x_bf16", "r_bf16"),
+                         lambda: sk.increment3d(L, Dd, eps16, x, r),
+                         lambda: sk._increment3d_plain(L, Dd, eps16, x, r))],
+        # the timed (first) form is the iteration's: beta != 0, f32
+        "pcg_dir_mult": [dir_mult("", eps, s, False),
+                         dir_mult("_b0", r, 0.0, False),
+                         dir_mult("_bf16", eps16, s, True),
+                         dir_mult("_b0_bf16", r, 0.0, True)],
+        "pcg_update": [axpy_rho("pcg_update", "", eps),
+                       axpy_rho("pcg_update", "_bf16", eps16)],
+        "pcg_axpy": [axpy_rho("pcg_axpy", "", eps),
+                     axpy_rho("pcg_axpy", "_bf16", eps16)],
+        # aa first (the solver's r.r, timed beside torch.dot); ab on a
+        # field with non-zero ghosts, which both forms mask
+        "dot3d": [dot("aa", r, r), dot("ab", x, eps), dot("rid", r, iD)],
+        "pcg_blocked": [(("x", "r"), lambda: at.pcg_blocked(lev, x0, r),
+                         lambda: poisson.pcg(lev, x0, r))],
         "cfl3d": [((), lambda: sk.cfl3d(u), lambda: sk._cfl3d_plain(u))],
         "bc3d": [bc(q, e) for q in BC_PERDIRS for e in (False, True)],
         "div3d": [(("z", "x"), lambda: sk.div3d(u, p, dt),
@@ -196,18 +267,32 @@ _WORK = {
     "conv_diff3d": (6, 200),    # u(3) in, r(3) out
     "pcg_fused": (9, 150),      # L(3), D, iD, x, r in; x, r out
     "ana_mult3d": (2, 22),      # x in, z out
+    "pcg_dir_mult": (9, 21),    # L(3), D, eps_prev, r, iD in; eps, z out
+    "pcg_update": (7, 8),       # x, r, eps, z, iD in; x, r out
+    "dot3d": (1, 2),            # aa: a in
+    "pcg_axpy": (7, 8),         # x, r, eps, z, iD in; x, r out
 }
 # the same at a 2D shape (only pcg_fused has a 2D form): L(2) instead of
 # L(3), and two neighbours (four operations) fewer in each of six matvecs
 _WORK_2D = {"pcg_fused": (8, 126)}
+# forms whose bytes differ from the first variant's (by first output): a
+# bf16 field counts half, and dot3d's two-operand modes read two fields
+_WORK_FORMS = {
+    ("mult3d", "z_bf16"): (5.5, 15), ("increment3d", "x_bf16"): (8.5, 15),
+    ("pcg_dir_mult", "eps_bf16"): (8, 21), ("pcg_update", "x_bf16"): (6.5, 8),
+    ("pcg_axpy", "x_bf16"): (6.5, 8), ("dot3d", "ab"): (2, 2),
+    ("dot3d", "rid"): (2, 3),
+}
 
 
-def bound_ms(name, S) -> tuple[float, str]:
+def bound_ms(name, S, variant=None) -> tuple[float, str]:
     """The least time the card could take for kernel ``name``'s timed
-    variant at shape ``S``: the larger of its bytes over the memory rate
-    and its operations over the f32 rate, in ms, and which of the two
-    bounds it ("bytes" or "operations")."""
-    fields, flops = (_WORK_2D if len(S) == 2 else _WORK)[name]
+    variant (or the form whose first output is ``variant``) at shape
+    ``S``: the larger of its bytes over the memory rate and its operations
+    over the f32 rate, in ms, and which of the two bounds it ("bytes" or
+    "operations")."""
+    fields, flops = _WORK_FORMS.get(
+        (name, variant), (_WORK_2D if len(S) == 2 else _WORK)[name])
     n = math.prod(S)
     t_bytes = 4 * fields * n / HBM_BYTES_PER_S * 1e3
     t_ops = flops * n / F32_FLOPS_PER_S * 1e3
@@ -274,6 +359,22 @@ def _variant(name, d, variant):
         if (v[0] or ("",))[0] == variant:
             return v
     raise KeyError(f"{name} has no variant {variant!r}")
+
+
+# One PyTorch call that computes a kernel's timed form on the same inputs,
+# timed beside it as a yardstick and used nowhere in the port: dot3d's aa
+# form on a ghost-zero field is torch.dot over the flat array.
+LIBRARY = {"dot3d": lambda d: (
+    lambda: torch.dot(d["r"].view(-1), d["r"].view(-1)))}
+
+
+def time_library(name, S, device, n=20) -> float:
+    """Device ms per call (profiler, the larger of two sessions) of
+    ``LIBRARY[name]`` on the inputs `time_pair` gives the kernel."""
+    fn = LIBRARY[name](inputs(S, 0, device))
+    fn()
+    torch.cuda.synchronize()
+    return max(device_profile(fn, n)[0], device_profile(fn, n)[0])
 
 
 def time_pair(name, S, device, n=20, variant=0) -> dict:

@@ -9,6 +9,11 @@ As in the JAX package, the PCG smoother's early exits are a monotone
 ``dead`` flag held in 0-d tensors, so a smooth never synchronises with the
 host.  ``r``, ``z`` and every ``mult`` output are zero in the ghost cells,
 so whole-array dots equal the reference's interior dots.
+
+Three module flags route the PCG iteration of blocked levels through the
+kernels of `ops.attic`, as the JAX package's ``KDOT``/``KAXPY`` and its
+`attic.pcg_blocked` dispatch do.  All three are off by default: they are
+seams for A/B runs (`chip_smoke.py` phase 6.4), not the default path.
 """
 from __future__ import annotations
 
@@ -21,10 +26,22 @@ from ..grid import (interior_view, mask_interior, inside_count, field_dot,
 from .bc import bc_scalar_periodic
 from . import stencil_kernels as sk
 from . import pcg_kernel as pk
+from . import attic as at
 
 __all__ = ["PoissonLevel", "make_level", "mult", "residual", "increment",
            "pressure_grad_interior", "jacobi", "fdot", "pcg", "smooth",
-           "poisson_solve"]
+           "poisson_solve", "KDOT", "KAXPY", "PCG_BLOCKED"]
+
+# Solver dots of blocked levels (`fdot`, PCG's rho) by the `attic.dot3d`
+# kernel instead of `grid.field_dot` (the JAX package's flag of that name).
+KDOT = False
+# PCG's axpy pair and next rho on blocked levels in one `attic.pcg_axpy`
+# sweep (the JAX package's flag of that name).
+KAXPY = False
+# `smooth` of a blocked, non-periodic, non-banded level by the two-sweep
+# fused iteration `attic.pcg_blocked` (the dispatch the JAX package's
+# scripts/ab_pcgiter.py makes).
+PCG_BLOCKED = False
 
 
 def _off(D, i, v):
@@ -38,6 +55,11 @@ class PoissonLevel:
     ``blocked`` selects the stencil kernels (`stencil_kernels.use_blocked`:
     big 3D f32 levels on a CUDA device).
 
+    ``bf16_eps`` (blocked levels only) stores the smoother's search
+    direction in bf16: every ``eps`` is rounded before it is used, and x, r
+    and ``z = A·eps`` stay f32, computed from the same rounded direction
+    that updates x, so ``r == rhs − A·x`` holds to f32 precision.
+
     ``banded`` selects the sparse immersed-boundary operator: away from the
     body band the face coefficients are exactly the constant ``c`` (μ₀ is
     exactly 1 there and each restriction scales it by 2^(D-2)), zero on
@@ -49,6 +71,7 @@ class PoissonLevel:
     D: torch.Tensor      # (*S) diagonal, zero in ghosts
     iD: torch.Tensor     # (*S) guarded inverse diagonal (0 inside bodies)
     blocked: bool = False
+    bf16_eps: bool = False
     perdir: tuple = ()
     banded: bool = False
     c: float = 1.0
@@ -68,12 +91,13 @@ def _diag(L: torch.Tensor) -> torch.Tensor:
 
 def make_level(L: torch.Tensor, perdir: tuple = (), banded: bool = False,
                c: float = 1.0, box_shape=None, box_start=None, Dd=None,
-               iD=None) -> PoissonLevel:
+               iD=None, bf16_eps: bool = False) -> PoissonLevel:
     """Build a level from face coefficients (reference ``set_diag!``).
-    f32 search directions throughout: the JAX package's bf16 directions are
-    a TPU-only option (ROADMAP B9).  A banded level (``banded`` with a
-    ``box_shape``) is never blocked.  ``Dd`` and ``iD``, where given (a
-    level carried across, `convert.py`), are taken as they are."""
+    ``bf16_eps`` takes effect on blocked levels only, as in JAX (where it
+    is the default, on TPU blocked levels); the port's default is f32
+    search directions.  A banded level (``banded`` with a ``box_shape``)
+    is never blocked.  ``Dd`` and ``iD``, where given (a level carried
+    across, `convert.py`), are taken as they are."""
     if Dd is None:
         Dd = _diag(L)
         eps = torch.finfo(L.dtype).eps
@@ -89,6 +113,7 @@ def make_level(L: torch.Tensor, perdir: tuple = (), banded: bool = False,
     blocked = (not banded) and sk.use_blocked(tuple(L.shape[1:]), L.dtype,
                                               L.device)
     return PoissonLevel(L=L, D=Dd, iD=iD, blocked=blocked,
+                        bf16_eps=bool(bf16_eps) and blocked,
                         perdir=tuple(perdir), banded=banded, c=float(c),
                         box_shape=box_shape, box_start=box_start)
 
@@ -240,8 +265,12 @@ def residual(lev: PoissonLevel, x: torch.Tensor, z: torch.Tensor) -> torch.Tenso
 
 def increment(lev: PoissonLevel, x, r, eps):
     """(x + eps, r − A eps) (reference ``increment!``).  ``eps`` must be
-    zero in non-periodic ghosts."""
+    zero in non-periodic ghosts; on a `bf16_eps` level it is rounded to
+    bf16 first (Jacobi's r∘iD and the V-cycle's correction too), so x and
+    r see the same rounded eps."""
     if lev.blocked:
+        if lev.bf16_eps:
+            eps = eps.to(torch.bfloat16)
         eps = bc_scalar_periodic(eps, lev.perdir)
         return sk.increment3d(lev.L, lev.D, eps, x, r)
     return x + eps, r - mult(lev, eps)
@@ -281,19 +310,33 @@ def jacobi(lev: PoissonLevel, x, r, it: int = 1):
 
 
 def fdot(lev: PoissonLevel, a, b) -> torch.Tensor:
-    """Solver dot product (ghost-zero operands)."""
+    """Solver dot product (ghost-zero operands): the `attic.dot3d` kernel
+    on blocked levels under ``KDOT``, `grid.field_dot` otherwise."""
+    if KDOT and lev.blocked:
+        return at.dot3d(a, b)
     return field_dot(a, b)
+
+
+def _rho_rid(lev: PoissonLevel, r, z) -> torch.Tensor:
+    """⟨r, r∘iD⟩ for PCG's rho given ``z = r∘iD``; under ``KDOT`` on a
+    blocked level the kernel re-reads r and iD instead of taking z."""
+    if KDOT and lev.blocked:
+        return at.dot3d(r, lev.iD, mode="rid")
+    return field_dot(r, z)
 
 
 def pcg(lev: PoissonLevel, x, r, it: int = 6):
     """Jacobi-preconditioned conjugate gradient smoother (reference
     src/Poisson.jl:123-143), early exits as a monotone ``dead`` mask held on
-    the device; the plain version of `pcg_kernel.pcg_fused`."""
+    the device; the plain version of `pcg_kernel.pcg_fused`.  A `bf16_eps`
+    level rounds each new direction to bf16 and upcasts it wherever it
+    meets an f32 scalar (JAX's promotion); ``KAXPY`` and ``KDOT`` route a
+    blocked level's axpy pair and dots through `ops.attic`."""
     dt = x.dtype
     teneps = 10 * torch.finfo(dt).eps
     z = _rid(lev, r)
-    eps = z
-    rho = field_dot(r, z)
+    eps = z.to(torch.bfloat16) if lev.bf16_eps else z
+    rho = _rho_rid(lev, r, z)
     dead = torch.abs(rho) < teneps
     for i in range(it):
         eps = bc_scalar_periodic(eps, lev.perdir)
@@ -308,25 +351,35 @@ def pcg(lev: PoissonLevel, x, r, it: int = 6):
                             rho / torch.where(denom == 0, 1.0, denom)).to(dt)
         dead = dead | (torch.abs(alpha) < 1e-2) | (torch.abs(alpha) > 1e2)
         upd = torch.where(dead, 0.0, alpha).to(dt)
-        x = x + upd * eps
-        r = r - upd * z
-        if i == it - 1:
-            break
-        z2 = _rid(lev, r)
-        rho2 = field_dot(r, z2)
+        last = i == it - 1
+        if KAXPY and lev.blocked and not last:
+            x, r, rho2 = at.pcg_axpy(x, r, eps, z, lev.iD, upd)
+            z2 = _rid(lev, r)
+        else:
+            x = x + upd * sk._wide(eps)
+            r = r - upd * z
+            if last:
+                break
+            z2 = _rid(lev, r)
+            rho2 = _rho_rid(lev, r, z2)
         dead = dead | (torch.abs(rho2) < teneps)
         beta = torch.where(dead, 0.0,
                            rho2 / torch.where(rho == 0, 1.0, rho)).to(dt)
-        eps = mask_interior(beta * eps + z2)
+        eps = mask_interior(beta * sk._wide(eps) + z2)
+        if lev.bf16_eps:
+            eps = eps.to(torch.bfloat16)
         rho = torch.where(dead, rho, rho2)
     return x, r
 
 
 def smooth(lev: PoissonLevel, x, r, it: int = 6):
     """Default smoother (reference ``smooth! = pcg!``): the one-launch PCG
-    kernel on small CUDA levels, `pcg` elsewhere."""
+    kernel on small CUDA levels, `attic.pcg_blocked` on blocked dense
+    non-periodic levels under ``PCG_BLOCKED``, `pcg` elsewhere."""
     if pk.use_pcg_fused(tuple(x.shape), x.dtype, x.device):
         return pk.pcg_fused(lev, x, r, it)
+    if PCG_BLOCKED and lev.blocked and not lev.perdir and not lev.banded:
+        return at.pcg_blocked(lev, x, r, it)
     return pcg(lev, x, r, it)
 
 

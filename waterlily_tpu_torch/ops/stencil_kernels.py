@@ -57,17 +57,22 @@ def _on_cpu(name: str, t: torch.Tensor) -> bool:
     raise ValueError(f"{name}: tensors on {t.device} are not supported")
 
 
-def _check(name: str, S: tuple, ranks=(3,), **tensors) -> None:
-    """Kernel arguments: f32, contiguous, one CUDA device, expected shape,
-    a field rank in ``ranks``."""
+def _check(name: str, S: tuple, ranks=(3,), bf16=(), **tensors) -> None:
+    """Kernel arguments: f32 (or bf16 for the arguments named in ``bf16``,
+    the search-direction streams), contiguous, one CUDA device, expected
+    shape, a field rank in ``ranks``."""
     dev = None
     for arg, (t, shape) in tensors.items():
         if tuple(t.shape) != tuple(shape):
             raise ValueError(f"{name}: {arg} has shape {tuple(t.shape)}, "
                              f"expected {tuple(shape)}")
-        if t.dtype != torch.float32:
+        if t.dtype != torch.float32 and not (arg in bf16
+                                             and t.dtype == torch.bfloat16):
+            kinds = "float32 or bfloat16" if arg in bf16 else "float32"
+            why = (" (the bf16 operator shadows L16/D16/iD16 are not "
+                   "ported: ROADMAP B9)" if t.dtype == torch.bfloat16 else "")
             raise TypeError(f"{name}: {arg} is {t.dtype}; the kernel takes "
-                            "float32 (bf16 streams: ROADMAP B9)")
+                            f"{kinds}{why}")
         if not t.is_contiguous():
             raise ValueError(f"{name}: {arg} is not contiguous")
         if dev is None:
@@ -119,9 +124,28 @@ def _counted(fn):
 
 # --- Poisson operator: mult3d / increment3d ---------------------------------
 
+def _bf16(t: torch.Tensor) -> int:
+    """The kernels' stream-type flag: 1 for a bf16 tensor, 0 for f32."""
+    return int(t.dtype == torch.bfloat16)
+
+
+def _wide(t: torch.Tensor) -> torch.Tensor:
+    """A bf16 tensor (a search direction stored in bf16) upcast to f32
+    (exact), any other as it is."""
+    return t.float() if t.dtype == torch.bfloat16 else t
+
+
+def _blocks(S) -> int:
+    """Blocks of `THREADS` one-thread-per-cell threads over shape ``S``."""
+    return -(-math.prod(S) // THREADS)
+
+
 def _mult3d_plain(L, Dd, x, with_dot=False):
+    """A bf16 ``x`` (a search direction stored in bf16) is upcast first and
+    the operator applied in f32, as in the kernel."""
     from .poisson import _mult_interior_arrays
     from ..grid import pad_interior, field_dot
+    x = _wide(x)
     z = pad_interior(_mult_interior_arrays(L, Dd, x))
     return (z, field_dot(z, x)) if with_dot else z
 
@@ -130,37 +154,39 @@ def _mult3d_plain(L, Dd, x, with_dot=False):
 def mult3d(L, Dd, x, with_dot: bool = False):
     """z = A·x for the 7-point variable-coefficient Poisson operator with
     zero ghosts; with ``with_dot`` also ⟨A·x, x⟩ as a 0-d tensor (per-block
-    partial sums, reduced on the device).  Periodic ghosts of ``x`` must be
+    partial sums, reduced on the device).  ``x`` may be bf16 (upcast in
+    registers; z and the dot are f32).  Periodic ghosts of ``x`` must be
     filled by the caller."""
     S = tuple(x.shape)
     if _on_cpu("mult3d", x):
         return _mult3d_plain(L, Dd, x, with_dot)
-    _check("mult3d", S, L=(L, (3,) + S), D=(Dd, S), x=(x, S))
-    z = torch.empty_like(x)
-    part = (torch.empty(-(-math.prod(S) // THREADS), dtype=x.dtype,
-                        device=x.device) if with_dot else None)
-    launch("wl_mult3d", L, Dd, x, z, part, *S)
+    _check("mult3d", S, bf16=("x",), L=(L, (3,) + S), D=(Dd, S), x=(x, S))
+    z = torch.empty(S, dtype=torch.float32, device=x.device)
+    part = (torch.empty(_blocks(S), dtype=torch.float32, device=x.device)
+            if with_dot else None)
+    launch("wl_mult3d", L, Dd, x, z, part, _bf16(x), *S)
     mult3d.launches += 1
     mult3d.shapes.add(S)
     return (z, torch.sum(part)) if with_dot else z
 
 
 def _increment3d_plain(L, Dd, eps, x, r):
+    # f32 x + bf16 eps promotes to f32 in PyTorch as in JAX (eps exact)
     return x + eps, r - _mult3d_plain(L, Dd, eps)
 
 
 @_counted
 def increment3d(L, Dd, eps, x, r):
     """(x + eps, r − A·eps): the stencil half runs in the kernel, the axpy
-    is a plain tensor op.  Returns new tensors (nothing is updated in
-    place)."""
+    is a plain tensor op.  ``eps`` may be bf16 (upcast; x and r stay f32).
+    Returns new tensors (nothing is updated in place)."""
     S = tuple(x.shape)
     if _on_cpu("increment3d", x):
         return _increment3d_plain(L, Dd, eps, x, r)
-    _check("increment3d", S, L=(L, (3,) + S), D=(Dd, S), eps=(eps, S),
-           x=(x, S), r=(r, S))
+    _check("increment3d", S, bf16=("eps",), L=(L, (3,) + S), D=(Dd, S),
+           eps=(eps, S), x=(x, S), r=(r, S))
     r_out = torch.empty_like(r)
-    launch("wl_increment3d", L, Dd, eps, r, r_out, *S)
+    launch("wl_increment3d", L, Dd, eps, r, r_out, _bf16(eps), *S)
     increment3d.launches += 1
     increment3d.shapes.add(S)
     return x + eps, r_out
@@ -228,8 +254,7 @@ def cfl3d(u):
     if _on_cpu("cfl3d", u):
         return _cfl3d_plain(u)
     _check("cfl3d", S, u=(u, (3,) + S))
-    part = torch.empty(-(-math.prod(S) // THREADS), dtype=u.dtype,
-                       device=u.device)
+    part = torch.empty(_blocks(S), dtype=u.dtype, device=u.device)
     launch("wl_cfl3d", u, part, *S)
     cfl3d.launches += 1
     cfl3d.shapes.add(S)
@@ -340,10 +365,12 @@ def conv_diff3d(u, nu, limiter, perdir: tuple = ()):
 
 
 def kernel_wrappers() -> dict:
-    """Name → wrapper of every kernel of the main path (each wrapper has a
-    ``.launches`` counter and a ``.shapes`` set)."""
+    """Name → wrapper of every kernel of the port's paths (each wrapper has
+    a ``.launches`` counter and a ``.shapes`` set), the blocked-level PCG
+    iteration's (`ops.attic`) included."""
     from .pcg_kernel import pcg_fused
+    from .attic import kernel_wrappers as attic_wrappers
     return {"mult3d": mult3d, "increment3d": increment3d, "cfl3d": cfl3d,
             "bc3d": bc3d, "div3d": div3d, "project3d": project3d,
             "conv_diff3d": conv_diff3d, "pcg_fused": pcg_fused,
-            "ana_mult3d": ana_mult3d}
+            "ana_mult3d": ana_mult3d, **attic_wrappers()}

@@ -49,13 +49,20 @@ class Simulation:
     keeps the dense path (equal results); ``"force"`` takes the banded path
     at any size.  ``banded_levels=True`` also runs the Poisson levels on
     which the window pays as banded operators (`ops.poisson`).
+
+    ``smoother_bf16=True`` stores the pressure smoother's search direction
+    in bf16 on the blocked levels (big 3D f32 levels on a CUDA device;
+    `PoissonLevel.bf16_eps`), as the JAX package does by default on its
+    TPU blocked levels.  The port's default is ``False``: f32 directions
+    everywhere, until a benchmark decides otherwise.  It has no effect on
+    the CPU, where no level is blocked.
     """
 
     def __init__(self, dims, u_BC, L, dt=0.25, nu=0.0, g=None, U=None,
                  epsilon=1.0, perdir=(), ulam=None, exitBC=False, body=None,
                  dtype=torch.float32, limiter=quick, tol=1e-4, itmx=32,
                  bbox=True, fixed_iters=None, banded_levels=False,
-                 device="cuda"):
+                 smoother_bf16=False, device="cuda"):
         D = len(dims)
         if callable(u_BC) and callable(ulam):
             raise ValueError("u_BC and ulam cannot both be functions")
@@ -86,6 +93,7 @@ class Simulation:
             bbox_shape=bbox_shape)
         # the window of the banded Poisson levels (None: dense levels)
         self._lv_box = bbox_shape if banded_levels else None
+        self._smoother_bf16 = bool(smoother_bf16)
         self.flow = flow_init(self.cfg, ulam, dt)
         self.levels = None
         self.measure(0.0)
@@ -147,7 +155,8 @@ class Simulation:
         V, m0, m1, dc, bb = self._measure_all(t)
         if not self._band_covered(dc, bb):
             raise RuntimeError(self._BAND_ERR)
-        self.levels = build_levels(m0, self.cfg.perdir, self._lv_box, bb)
+        self.levels = build_levels(m0, self.cfg.perdir, self._lv_box, bb,
+                                   bf16_eps=self._smoother_bf16)
         self.flow = self.flow.replace(V=V, mu0=m0, mu1=m1, bbox=bb)
         return self
 
