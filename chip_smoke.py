@@ -31,18 +31,27 @@ Phases, each of which raises (and so exits non-zero) on failure:
    ``tgv_2d(64)`` and ``oscillating_plate_2d(32)`` re-measured every step,
    each 3 steps against the CPU from one state, and the circle's
    ``metrics.total_force`` on the card against the CPU (1e-4 relative);
-6.4 the blocked-level PCG paths (the `ops.attic` kernels and bf16 search
-   directions): ``sphere_3d(256, 256)`` from one initial state, 3 steps in
-   each of (a) the default, (b) ``poisson.KDOT = KAXPY = True``, (c)
-   ``poisson.PCG_BLOCKED = True``, (d) ``smoother_bf16=True`` and (e) (d)
-   with (c), each against (a): pois_n within the ±2/≤4 rule, finite u, p,
-   dt, max|du| < 1e-3 for (b), (c) and < 1e-2 for (d), (e); then
-   ``sphere_3d(96, 64)`` in (b), (c) and (d) against the CPU's plain f32
-   path from one state, as in 4;
+6.4 the blocked-level PCG paths (the `ops.attic` kernels, bf16 search
+   directions and bf16 operator shadows): ``sphere_3d(256, 256)`` from one
+   initial state, 3 steps in each of (a) the default, (b) ``poisson.KDOT =
+   KAXPY = True``, (c) ``poisson.PCG_BLOCKED = True``, (d)
+   ``smoother_bf16=True``, (e) (d) with (c), (f) ``op_bf16=True``, (g)
+   ``poisson.STREAM = True`` (the carried-rows operator), (h) (f) with (g)
+   and (i) (f) with (c), each against (a): finite u, p, dt; pois_n within
+   the ±2/≤4 rule and max|du| < 1e-3 for (b), (c), (g), < 1e-2 for (d),
+   (e); for the rounded operator (f), (h), (i) pois_n within ±2 per solve
+   (the total |Δpois_n| logged) and max|du| < 1e-2; every blocked level
+   carries the configuration's direction type and shadows, the kernels
+   launched in the configuration's forms (bf16 L exactly where shadowed)
+   and (g), (h) launched no halo-row ``mult3d``/``increment3d``; then
+   ``sphere_3d(96, 64)`` in (b), (c), (d), (f) and (g) against the CPU
+   from one state, as in 4 ((f)'s CPU twin with the kernel gate patched,
+   so its levels are blocked and keep their shadows);
 7. every kernel against its plain version again, every variant at every
    shape a path of 4-6.4 launched it at (258³, 130³, 66³, ..., the 2D
-   levels), with the tolerances of 3, and ``pcg_blocked`` against the
-   per-pass ``pcg`` at the shapes ``pcg_dir_mult`` ran at;
+   levels) and the probes at 258³, with the tolerances of 3, and
+   ``pcg_blocked`` against the per-pass ``pcg`` at the shapes
+   ``pcg_dir_mult`` ran at;
 8. timing: ms/step, MLUPS, ns/DOF and the card's idle share at (96,64,64),
    256³ dense and banded (in turns), 256³ ``banded_levels=True``, the
    256³ heaving sphere with its remeasure and ``tgv_3d(256)`` (with its
@@ -52,13 +61,17 @@ Phases, each of which raises (and so exits non-zero) on failure:
    ms/step; each kernel next to its plain version and its bound at
    (98,66,66) and at the largest shape a path launched it at (the shape
    the kernels line reports), the periodic, 2D and bf16 forms at 258³,
-   (34,34,34) and (98,66), and ``torch.dot`` beside ``dot3d``; the 256³
-   sphere in configurations (a)-(e) of 6.4 in turns (a, ..., e, e, ...,
-   a), each with its idle share and pois_n.
+   (34,34,34) and (98,66), the operator-shadow, bf16-iD and carried-rows
+   forms at 258³ and (98,66,66), ``torch.dot`` beside ``dot3d`` and
+   ``torch.mul`` beside ``copy_probe``; the probes' rates in GB/s and each
+   kernel's bytes over its time as a share of the copy probe's rate; the
+   256³ sphere in configurations (a)-(i) of 6.4 in turns (a, ..., i, i,
+   ..., a), each with its idle share and pois_n.
 
 Every path runs with the launch counters set to 0 and the launched shapes
-cleared just before it, both read just after; a kernel of the path that
-never launched fails the run.  The
+and forms cleared just before it, all read just after; a kernel of the
+path that never launched fails the run (the probes run on no path: their
+launches are phase 8's).  The
 line before the last is a JSON object with one entry per kernel; the last
 line is ``{"ok": true, "device": {...}}``.  Without a CUDA device the script
 prints no result and exits 2.  Imports no JAX.
@@ -87,6 +100,13 @@ PCG_2D = ((98, 66), (50, 34), (37, 29), (10, 14))
 
 def log(msg=""):
     print(msg, flush=True)
+
+
+T0 = time.perf_counter()
+
+
+def phase(title):
+    log(f"== {title} (at {time.perf_counter() - T0:.1f} s)")
 
 
 def card_record(torch):
@@ -145,31 +165,42 @@ DENSE = ("mult3d", "increment3d", "cfl3d", "bc3d", "div3d", "project3d",
          "conv_diff3d", "pcg_fused")
 BANDED_LEVELS = ("ana_mult3d", "cfl3d", "bc3d", "conv_diff3d", "pcg_fused")
 # the blocked-level PCG configurations of phase 6.4: (label, poisson
-# seams set, smoother_bf16, kernels the path must launch beyond DENSE's
-# conv/projection ones); (a) is the default every other is held against
+# seams set, smoother_bf16, op_bf16, kernels the path must launch beyond
+# DENSE's conv/projection ones); (a) is the default every other is held
+# against
+STREAMS = ("mult3d_stream", "increment3d_stream")
 PCG_CONFIGS = (
-    ("a default", {}, False, DENSE),
-    ("b KDOT+KAXPY", {"KDOT": True, "KAXPY": True}, False,
+    ("a default", {}, False, False, DENSE),
+    ("b KDOT+KAXPY", {"KDOT": True, "KAXPY": True}, False, False,
      ("dot3d", "pcg_axpy", "mult3d")),
-    ("c PCG_BLOCKED", {"PCG_BLOCKED": True}, False,
+    ("c PCG_BLOCKED", {"PCG_BLOCKED": True}, False, False,
      ("pcg_dir_mult", "pcg_update")),
-    ("d smoother_bf16", {}, True, ("mult3d", "increment3d")),
-    ("e smoother_bf16+PCG_BLOCKED", {"PCG_BLOCKED": True}, True,
+    ("d smoother_bf16", {}, True, False, ("mult3d", "increment3d")),
+    ("e smoother_bf16+PCG_BLOCKED", {"PCG_BLOCKED": True}, True, False,
+     ("pcg_dir_mult", "pcg_update", "increment3d")),
+    ("f op_bf16", {}, False, True, ("mult3d", "increment3d")),
+    ("g STREAM", {"STREAM": True}, False, False, STREAMS),
+    ("h op_bf16+STREAM", {"STREAM": True}, False, True, STREAMS),
+    ("i op_bf16+PCG_BLOCKED", {"PCG_BLOCKED": True}, False, True,
      ("pcg_dir_mult", "pcg_update", "increment3d")),
 )
+# the configurations also held against the CPU at (96,64,64)
+CPU_CONFIGS = ("b", "c", "d", "f", "g")
 PATH_LAUNCHES = {}
 PATH_SHAPES = {}    # kernel -> every shape a path launched it at
+PATH_FORMS = {}     # path -> kernel -> the bf16 forms it launched
 
 
 def on_path(torch, label, expect, fn):
     """Run ``fn`` (a user-facing path) with every launch counter set to 0
-    and every launched-shape set cleared just before, both read just
-    after; fail if a kernel in ``expect`` never launched."""
+    and every launched-shape and -form set cleared just before, all read
+    just after; fail if a kernel in ``expect`` never launched."""
     from waterlily_tpu_torch.ops.stencil_kernels import kernel_wrappers
     kernels = kernel_wrappers()
     for w in kernels.values():
         w.launches = 0
         w.shapes.clear()
+        w.forms.clear()
     out = fn()
     torch.cuda.synchronize()
     counts = {k: w.launches for k, w in kernels.items()}
@@ -177,6 +208,11 @@ def on_path(torch, label, expect, fn):
     log(f"  at shapes: " + "; ".join(
         f"{k} {sorted(w.shapes, key=math.prod)}"
         for k, w in kernels.items() if w.shapes))
+    PATH_FORMS[label] = {k: set(w.forms) for k, w in kernels.items()
+                         if w.forms}
+    log("  bf16 forms (names of the bf16 arguments): " + "; ".join(
+        f"{k} {sorted(f)}" for k, f in PATH_FORMS[label].items()
+        if f != {()}))
     idle = [k for k in expect if counts[k] == 0]
     if idle:
         raise AssertionError(f"kernels never launched on {label}: {idle}")
@@ -434,8 +470,9 @@ def run_2d(torch, dev):
 
 @contextlib.contextmanager
 def seams(flags):
-    """`ops.poisson`'s seams (``KDOT``, ``KAXPY``, ``PCG_BLOCKED``) set to
-    ``flags`` inside the block and restored after it, whatever happens."""
+    """`ops.poisson`'s seams (``KDOT``, ``KAXPY``, ``PCG_BLOCKED``,
+    ``STREAM``) set to ``flags`` inside the block and restored after it,
+    whatever happens."""
     from waterlily_tpu_torch.ops import poisson
     old = {k: getattr(poisson, k) for k in flags}
     try:
@@ -447,32 +484,77 @@ def seams(flags):
             setattr(poisson, k, v)
 
 
-# the kernels of the blocked-level PCG iteration (ops/attic.py)
-PCG_ITERATION = ("pcg_dir_mult", "pcg_update", "dot3d", "pcg_axpy")
+@contextlib.contextmanager
+def blocked_on_cpu(on):
+    """With ``on``, the kernel gate `stencil_kernels.use_blocked` made to
+    ignore the device inside the block: a CPU copy of a blocked level stays
+    blocked and keeps its operator shadows (`convert.levels_to`), and its
+    wrappers run their plain versions."""
+    from waterlily_tpu_torch.ops import stencil_kernels as sk
+    old = sk.use_blocked
+    try:
+        if on:
+            sk.use_blocked = lambda S, dtype, device: old(S, dtype, "cuda")
+        yield
+    finally:
+        sk.use_blocked = old
 
 
-def _check_bf16_levels(sim, bf16, label):
-    """Every blocked level carries the configuration's direction type (and
-    at 258³ at least one level is blocked)."""
-    flags = [(l.blocked, l.bf16_eps) for l in sim.levels]
-    log(f"{label}: (blocked, bf16_eps) per level {flags}")
-    if not any(b for b, _ in flags) or any(e != (b and bf16)
-                                           for b, e in flags):
+# the blocked-level kernels the default path must not launch (ops/attic.py)
+PCG_ITERATION = ("pcg_dir_mult", "pcg_update", "dot3d", "pcg_axpy") + STREAMS
+# the kernels that read a level's operator (L, or its shadow L16)
+OPERATOR = ("mult3d", "increment3d", "pcg_dir_mult") + STREAMS
+
+
+def _check_levels(sim, bf16, op16, label):
+    """Every blocked level carries the configuration's direction type and
+    operator shadows (and at 258³ at least one level is blocked)."""
+    flags = [(l.blocked, l.bf16_eps, l.L16 is not None) for l in sim.levels]
+    log(f"{label}: (blocked, bf16_eps, L16) per level {flags}")
+    if not any(b for b, _, _ in flags) or any(
+            e != (b and bf16 and not op16) or s != (b and op16)
+            for b, e, s in flags):
         raise AssertionError(f"{label}: levels {flags}")
 
 
+def _check_forms(label, flags, op16):
+    """The operator kernels ran on the bf16 L exactly where the levels are
+    shadowed, and under ``STREAM`` no halo-row operator kernel ran (nor a
+    carried-rows one without it)."""
+    forms = PATH_FORMS[label]
+    for k in OPERATOR:
+        if any(("L" in f) != op16 for f in forms.get(k, ())):
+            raise AssertionError(f"{label}: {k} launched forms {forms[k]}")
+    off = ("mult3d", "increment3d") if flags.get("STREAM") else STREAMS
+    ran = [k for k in off if PATH_LAUNCHES[label][k]]
+    if ran:
+        raise AssertionError(f"{label}: launched {ran}")
+
+
+def _config_kw(bf16, op16):
+    """`Simulation` keywords of a phase-6.4 configuration."""
+    return {"smoother_bf16": bf16, **({"op_bf16": True} if op16 else {})}
+
+
+def pois_per_solve(a, b):
+    """Within ±2 in every solve (the rounded operator's gate: JAX's TPU
+    records expect about +1 a solve, so the total is logged, not gated)."""
+    return all(abs(x - y) <= 2 for ra, rb in zip(a, b)
+               for x, y in zip(ra, rb))
+
+
 def run_pcg_paths(torch, dev):
-    """Phase 6.4: the 256³ sphere in configurations (a)-(e) from one
+    """Phase 6.4: the 256³ sphere in configurations (a)-(i) from one
     initial state, each held against (a); then the (96,64,64) sphere in
-    (b)-(d) against the CPU's plain f32 path."""
+    `CPU_CONFIGS` against the CPU."""
     from waterlily_tpu_torch import sphere_3d
     from waterlily_tpu_torch.grid import interior_view
     ref = ref_init = None
-    for name, flags, bf16, expect in PCG_CONFIGS:
+    for name, flags, bf16, op16, expect in PCG_CONFIGS:
         label = f"sphere_3d(256, 256) {name}"
 
         def drive():
-            sim = sphere_3d(256, 256, smoother_bf16=bf16, device=dev)
+            sim = sphere_3d(256, 256, device=dev, **_config_kw(bf16, op16))
             init = sim.flow
             sim.steps(3, remeasure=False)
             return sim, init
@@ -480,7 +562,8 @@ def run_pcg_paths(torch, dev):
         with seams(flags):
             sim, init = on_path(torch, label, expect, drive)
         finite(torch, sim, label)
-        _check_bf16_levels(sim, bf16, label)
+        _check_levels(sim, bf16, op16, label)
+        _check_forms(label, flags, op16)
         log(f"{label}: pois_n {sim.pois_n}, dt {sim.dts[1:]}")
         if ref is None:
             new = [k for k in PCG_ITERATION if PATH_LAUNCHES[label][k]]
@@ -496,22 +579,28 @@ def run_pcg_paths(torch, dev):
         dpi = interior_view(sim.flow.p - ref.flow.p, 3)
         dp = float(dpi.abs().max())
         dpc = float((dpi - dpi.mean()).abs().max())
-        lim = 1e-2 if bf16 else 1e-3
+        lim = 1e-2 if bf16 or op16 else 1e-3
+        dn = sum(abs(x - y) for ra, rb in zip(sim.pois_n, ref.pois_n)
+                 for x, y in zip(ra, rb))
         log(f"{label} vs (a), 3 steps from the same state ({same}): pois_n "
-            f"{sim.pois_n} vs {ref.pois_n}, max|du| = {du:.3e} (limit "
-            f"{lim:g}), max|dp| = {dp:.3e}, max|dp - mean dp| = {dpc:.3e}")
-        if not same or not pois_ok(sim.pois_n, ref.pois_n) or not du < lim:
+            f"{sim.pois_n} vs {ref.pois_n} (total |Δpois_n| {dn}), max|du| "
+            f"= {du:.3e} (limit {lim:g}), max|dp| = {dp:.3e}, max|dp - "
+            f"mean dp| = {dpc:.3e}")
+        pois = (pois_per_solve if op16 else pois_ok)(sim.pois_n, ref.pois_n)
+        if not same or not pois or not du < lim:
             raise AssertionError(f"{label} differs from (a)")
         del sim, init
         torch.cuda.empty_cache()
     del ref, ref_init
     torch.cuda.empty_cache()
 
-    for name, flags, bf16, expect in PCG_CONFIGS[1:4]:
+    for name, flags, bf16, op16, expect in PCG_CONFIGS:
+        if name[0] not in CPU_CONFIGS:
+            continue
         label = f"sphere_3d(96, 64) {name}"
 
         def drive():
-            sim = sphere_3d(96, 64, smoother_bf16=bf16, device=dev)
+            sim = sphere_3d(96, 64, device=dev, **_config_kw(bf16, op16))
             init, init_levels = sim.flow, sim.levels
             sim.steps(3, remeasure=False)
             return sim, init, init_levels
@@ -519,8 +608,14 @@ def run_pcg_paths(torch, dev):
         with seams(flags):
             sim, init, init_levels = on_path(torch, label, expect, drive)
             finite(torch, sim, label)
-            _check_bf16_levels(sim, bf16, label)
-            vs_cpu(torch, sim, init, init_levels)
+            _check_levels(sim, bf16, op16, label)
+            _check_forms(label, flags, op16)
+            if op16:
+                log("CPU twin: the card's levels copied with the kernel gate "
+                    "patched to ignore the device, so the CPU fine level is "
+                    "blocked, keeps L16/D16/iD16 and runs the plain forms")
+            with blocked_on_cpu(op16):
+                vs_cpu(torch, sim, init, init_levels)
 
 
 def step_profile(sim, n, label, remeasure=False):
@@ -564,18 +659,42 @@ def peak(torch, label):
         "allocated")
 
 
+# the forms timed besides each kernel's first variant: (kernel, shape,
+# first output of the form); the operator-shadow, bf16-iD and carried-rows
+# forms at 258³ and at the dense slice's shape
+TIMED_FORMS = (
+    ("bc3d", BIG, "p012"), ("bc3d", BIG, "exit"),
+    ("conv_diff3d", BIG, "quick_p012"),
+    ("pcg_fused", (34, 34, 34), "x_p012"), ("pcg_fused", (98, 66), "x"),
+    ("pcg_fused", (66, 66), "x_p01"),
+    ("mult3d", BIG, "z_bf16"), ("increment3d", BIG, "x_bf16"),
+    ("pcg_dir_mult", BIG, "eps_bf16"), ("pcg_update", BIG, "x_bf16"),
+    ("pcg_axpy", BIG, "x_bf16"), ("dot3d", BIG, "ab"), ("dot3d", BIG, "rid"),
+) + tuple((name, S, form) for S in (BIG, FINE) for name, form in (
+    ("mult3d", "z_L16"), ("increment3d", "x_L16"),
+    ("pcg_dir_mult", "eps_L16"), ("pcg_update", "x_iD16"),
+    ("pcg_axpy", "x_iD16"), ("dot3d", "rid_iD16"),
+    ("mult3d_stream", "z_nodot"), ("mult3d_stream", "z_L16"),
+    ("mult3d_stream", "z_nodot_L16"), ("increment3d_stream", "x_L16")))
+PROBES = ("copy_probe", "roll_probe")
+PROBE_LAUNCHES = {}   # the probes' launches in phase 8
+
+
 def timing(torch, dev, sim):
     from waterlily_tpu_torch import sphere_3d, heaving_sphere_3d
+    from waterlily_tpu_torch.kernels import probes
     from waterlily_tpu_torch.kernels.check import (KERNELS, LIBRARY, time_pair,
                                                    time_library, bound_ms)
 
+    for w in probes.kernel_wrappers().values():
+        w.launches = 0
     report_steps(torch, sim, "sphere_3d(96, 64)", 50, 10)
     step_profile(sim, 20, "sphere_3d(96, 64)")
     # each kernel at the dense slice's shape, then at the largest shape a
-    # path launched it at (the kernels line's shape)
-    times = {}
+    # path launched it at (the kernels line's shape; 258³ for the probes)
+    times, rows = {}, []
     for name in KERNELS:
-        largest = max(PATH_SHAPES[name], key=math.prod)
+        largest = max(PATH_SHAPES.get(name) or {BIG}, key=math.prod)
         for S in dict.fromkeys((PCG_LEVEL if name == "pcg_fused" else FINE,
                                 largest)):
             t = time_pair(name, S, dev)
@@ -590,27 +709,22 @@ def timing(torch, dev, sim):
                    if name in LIBRARY else "")
                 + f"; wall per call: kernel {t['wall_ms']:.4f} ms, plain "
                 f"{t['plain_wall_ms']:.4f} ms")
+            rows.append((name, S, None, t["ms"]))
             torch.cuda.empty_cache()
         times[name] = t
-    # the periodic, outlet, 2D and bf16 forms at the shapes of their paths
-    for name, S, variant in (("bc3d", BIG, "p012"), ("bc3d", BIG, "exit"),
-                             ("conv_diff3d", BIG, "quick_p012"),
-                             ("pcg_fused", (34, 34, 34), "x_p012"),
-                             ("pcg_fused", (98, 66), "x"),
-                             ("pcg_fused", (66, 66), "x_p01"),
-                             ("mult3d", BIG, "z_bf16"),
-                             ("increment3d", BIG, "x_bf16"),
-                             ("pcg_dir_mult", BIG, "eps_bf16"),
-                             ("pcg_update", BIG, "x_bf16"),
-                             ("pcg_axpy", BIG, "x_bf16"),
-                             ("dot3d", BIG, "ab"), ("dot3d", BIG, "rid")):
+    # the periodic, outlet, 2D, bf16, shadow and carried-rows forms
+    for name, S, variant in TIMED_FORMS:
         t = time_pair(name, S, dev, variant=variant)
         b, by = bound_ms(name, S, variant)
         log(f"  {name:<12} {str(S):<15} form {variant}, device (profiler): "
             f"kernel {t['ms']:.4f} ms, plain {t['plain_ms']:.4f} ms, bound "
             f"{b:.4f} ms ({by}); wall per call: kernel {t['wall_ms']:.4f} "
             f"ms, plain {t['plain_wall_ms']:.4f} ms")
+        rows.append((name, S, variant, t["ms"]))
         torch.cuda.empty_cache()
+    PROBE_LAUNCHES.update({k: w.launches
+                           for k, w in probes.kernel_wrappers().items()})
+    bandwidth_shares(rows)
     # ana_mult3d without the dot (the bound counts the same bytes)
     t = time_pair("ana_mult3d", BIG, dev, variant=1)
     log(f"  ana_mult3d   {str(BIG):<15} without the dot, device (profiler): "
@@ -665,22 +779,43 @@ def timing(torch, dev, sim):
     return times
 
 
+def bandwidth_shares(rows):
+    """The probes' measured rates (GB/s), and each 3D kernel or form timed
+    at 258³ or (98,66,66): the bytes it must move over its time, as a
+    share of the copy probe's rate at that shape."""
+    from waterlily_tpu_torch.kernels.check import bytes_moved, HBM_BYTES_PER_S
+    rate = {(name, S, v): bytes_moved(name, S, v) / (ms * 1e6)
+            for name, S, v, ms in rows}
+    copy = {S: r for (name, S, v), r in rate.items() if name == "copy_probe"}
+    for (name, S, v), r in rate.items():
+        if name in PROBES:
+            log(f"  {name} {S}: {r:.1f} GB/s measured "
+                f"({r * 1e9 / HBM_BYTES_PER_S:.3f} of the data sheet's "
+                f"{HBM_BYTES_PER_S / 1e12:.2f} TB/s)")
+    log("  bytes moved over time, as a share of the copy probe's rate:")
+    for (name, S, v), r in rate.items():
+        if S in copy and name not in PROBES:
+            log(f"    {name:<18} {v or 'timed form':<12} {str(S):<15} "
+                f"{r:8.1f} GB/s = {r / copy[S]:.3f} of copy_probe")
+
+
 def timing_pcg_paths(torch, dev):
-    """The 256³ sphere in configurations (a)-(e) of phase 6.4, in turns
-    (a, ..., e, e, ..., a), then each one's idle share."""
+    """The 256³ sphere in configurations (a)-(i) of phase 6.4, in turns
+    (a, ..., i, i, ..., a), then each one's idle share."""
     from waterlily_tpu_torch import sphere_3d
     sims = {name: construct(torch, f"sphere_3d(256, 256) {name}",
-                            lambda bf16=bf16: sphere_3d(
-                                256, 256, smoother_bf16=bf16, device=dev))
-            for name, _flags, bf16, _expect in PCG_CONFIGS}
-    for name, flags, _bf16, _expect in PCG_CONFIGS + PCG_CONFIGS[::-1]:
+                            lambda bf16=bf16, op16=op16: sphere_3d(
+                                256, 256, device=dev,
+                                **_config_kw(bf16, op16)))
+            for name, _flags, bf16, op16, _expect in PCG_CONFIGS}
+    for name, flags, _bf16, _op16, _expect in PCG_CONFIGS + PCG_CONFIGS[::-1]:
         with seams(flags):
             report_steps(torch, sims[name], f"sphere_3d(256, 256) {name}",
                          10, 2)
-    for name, flags, _bf16, _expect in PCG_CONFIGS:
+    for name, flags, _bf16, _op16, _expect in PCG_CONFIGS:
         with seams(flags):
             step_profile(sims[name], 5, f"sphere_3d(256, 256) {name}")
-    peak(torch, "the five sphere_3d(256, 256) configurations")
+    peak(torch, f"the {len(sims)} sphere_3d(256, 256) configurations")
     del sims
     torch.cuda.empty_cache()
 
@@ -769,44 +904,49 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
-    log("== 1. card")
+    phase("1. card")
     card = card_record(torch)
-    log("== 2. kernel build")
+    phase("2. kernel build")
     from waterlily_tpu_torch.kernels.build import library, build_seconds
     t0 = time.perf_counter()
     library()
     log(f"kernel library ready in {time.perf_counter() - t0:.1f} s "
         f"(nvcc {build_seconds():.1f} s)")
-    log("== 3. kernels vs plain versions")
+    phase("3. kernels vs plain versions")
     from waterlily_tpu_torch.kernels.check import KERNELS, COMPOSITES
     check_kernels(torch, dev, {
         k: (PCG_LEVEL, PCG_RAGGED) + PCG_PERIODIC + PCG_2D
         if k == "pcg_fused" else (FINE, RAGGED) for k in KERNELS + COMPOSITES})
-    log("== 4. the dense slice: sphere_3d(96, 64)")
+    phase("4. the dense slice: sphere_3d(96, 64)")
     sim = run_slice(torch, dev)
-    log("== 5. the banded slice, small")
+    phase("5. the banded slice, small")
     run_banded_small(torch, dev)
-    log("== 6. the banded paths at full size")
+    phase("6. the banded paths at full size")
     run_banded_big(torch, dev)
-    log("== 6.1 the periodic 3D path: tgv_3d")
+    phase("6.1 the periodic 3D path: tgv_3d")
     run_periodic(torch, dev)
-    log("== 6.2 the convective outlet: sphere_3d(96, 64, exitBC=True)")
+    phase("6.2 the convective outlet: sphere_3d(96, 64, exitBC=True)")
     run_outlet(torch, dev)
-    log("== 6.3 the 2D paths")
+    phase("6.3 the 2D paths")
     run_2d(torch, dev)
-    log("== 6.4 the blocked-level PCG paths: seams and bf16 directions")
+    phase("6.4 the blocked-level PCG paths: seams, bf16 directions, "
+          "operator shadows, carried rows")
     run_pcg_paths(torch, dev)
-    log("== 7. kernels vs plain versions at the paths' shapes")
+    phase("7. kernels vs plain versions at the paths' shapes")
     check_kernels(torch, dev, {**PATH_SHAPES,
-                               "pcg_blocked": PATH_SHAPES["pcg_dir_mult"]})
-    log("== 8. timing")
+                               "pcg_blocked": PATH_SHAPES["pcg_dir_mult"],
+                               **{k: (BIG,) for k in PROBES}})
+    phase("8. timing")
     times = timing(torch, dev, sim)
+    phase("end of timing")
 
     from waterlily_tpu_torch.kernels.check import SOURCES
     launches = {k: sum(c[k] for c in PATH_LAUNCHES.values()) for k in SOURCES}
-    # one PyTorch call computes dot3d's timed form (torch.dot, kernels/
-    # check.LIBRARY); none computes the others (variable or wall-masked
-    # coefficients, BC stages, limiters, a whole smooth, fused sweeps)
+    launches.update(PROBE_LAUNCHES)
+    # one PyTorch call computes dot3d's timed form (torch.dot) and
+    # copy_probe's (torch.mul; kernels/check.LIBRARY); none computes the
+    # others (variable or wall-masked coefficients, BC stages, limiters, a
+    # whole smooth, fused sweeps, wrapped in-plane neighbours)
     kernels = [{"name": k, "route": "cuda", "source": SOURCES[k][0],
                 "replaces": SOURCES[k][1], "launches": launches[k],
                 "max_abs_err": WORST[k], "ms": times[k]["ms"],

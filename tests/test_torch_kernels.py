@@ -21,6 +21,10 @@ STENCILS = ["mult3d", "increment3d", "cfl3d", "bc3d", "div3d", "project3d",
 # the blocked-level PCG iteration (ops/attic.py) and its composite smoother
 PCG_ITERATION = ["pcg_dir_mult", "pcg_update", "dot3d", "pcg_axpy",
                  "pcg_blocked"]
+# the carried-rows operator (ops/attic.py) and the bandwidth probes
+# (kernels/probes.py)
+STREAMS = ["mult3d_stream", "increment3d_stream"]
+PROBES = ["copy_probe", "roll_probe"]
 
 
 @pytest.fixture
@@ -53,18 +57,77 @@ def test_pcg_iteration_kernel_matches_plain(name, S, device):
 
 
 def test_bf16_forms_launch_and_refuse(device):
-    """mult3d and increment3d launch on a bf16 x / eps (their values are
-    held by the cases above) and raise on bf16 coefficients, naming the
-    unported operator shadows."""
+    """mult3d and increment3d launch on a bf16 x / eps and on a bf16 L (a
+    level's L16; their values are held by the cases above) and record the
+    forms; a bf16 D, L16 without iD16 in pcg_dir_mult and a bf16 b in
+    dot3d's ab mode raise."""
     from waterlily_tpu_torch.kernels.check import inputs
     from waterlily_tpu_torch.ops import stencil_kernels as sk
+    from waterlily_tpu_torch.ops import attic as at
     d = inputs(FINE, 0, device)
     L, Dd, x16 = d["lev"].L, d["lev"].D, d["x"].to(torch.bfloat16)
     n_mult = sk.mult3d.launches
     z = sk.mult3d(L, Dd, x16)
-    assert z.dtype == torch.float32 and sk.mult3d.launches == n_mult + 1
-    with pytest.raises(TypeError, match="B9"):
-        sk.mult3d(L.to(torch.bfloat16), Dd, x16)
+    z16 = sk.mult3d(d["L16"], d["D16"], d["x"])
+    assert z.dtype == z16.dtype == torch.float32
+    assert sk.mult3d.launches == n_mult + 2
+    assert {("x",), ("L",)} <= sk.mult3d.forms
+    with pytest.raises(TypeError, match="float32"):
+        sk.mult3d(d["L16"], d["D16"].to(torch.bfloat16), d["x"])
+    with pytest.raises(TypeError, match="iD16"):
+        at.pcg_dir_mult(d["L16"], d["D16"], d["eps"], d["r"], d["lev"].iD,
+                        0.5)
+    with pytest.raises(TypeError, match="float32"):
+        at.dot3d(d["x"], d["iD16"], "ab")
+
+
+@pytest.mark.parametrize("name", STREAMS)
+@pytest.mark.parametrize("S", [FINE, RAGGED, (7, 9, 40), (65, 3, 33)])
+def test_stream_kernel_matches_plain(name, S, device):
+    """The carried-rows operator with and without the dot, f32 and bf16 L,
+    at every shape (ragged tiles and chunks, a one-column interior): z, x
+    and r exact, the dot within 1e-5 relative."""
+    _check(name, S, device)
+
+
+@pytest.mark.parametrize("name", PROBES)
+@pytest.mark.parametrize("S", [FINE, RAGGED])
+def test_probe_matches_plain(name, S, device):
+    """The bandwidth probes exact (RAGGED's cell count leaves the copy a
+    tail of three cells)."""
+    _check(name, S, device)
+
+
+def test_stream_seam_launches_and_refuses(device, monkeypatch):
+    """Under ``poisson.STREAM`` a blocked level's mult, residual, increment
+    and pcg launch the carried-rows kernels and not the halo-row ones, on
+    the f32 operator and on the shadows; a level the kernel cannot take
+    (f64) raises."""
+    import dataclasses
+    from waterlily_tpu_torch.kernels.check import inputs
+    from waterlily_tpu_torch.ops import poisson
+    from waterlily_tpu_torch.ops import stencil_kernels as sk
+    from waterlily_tpu_torch.ops import attic as at
+    d = inputs(FINE, 0, device)
+    monkeypatch.setattr(poisson, "STREAM", True)
+    lev, r = d["lev"], d["r"]
+    lev16 = poisson.make_level(lev.L, op_bf16=True)
+    assert lev.blocked and lev16.L16 is not None
+    counts = lambda: (sk.mult3d.launches, sk.increment3d.launches,
+                      at.mult3d_stream.launches,
+                      at.increment3d_stream.launches)
+    for lv in (lev, lev16):
+        before = counts()
+        poisson.residual(lv, d["x"], r)
+        poisson.increment(lv, d["x"], r, d["eps"])
+        poisson.pcg(lv, torch.zeros_like(r), r, it=2)
+        after = counts()
+        assert after[:2] == before[:2]
+        assert after[2] == before[2] + 3 and after[3] == before[3] + 1
+    assert ("L",) in at.mult3d_stream.forms
+    bad = dataclasses.replace(lev, L=lev.L.double(), D=lev.D.double())
+    with pytest.raises(TypeError, match="float32"):
+        poisson.mult(bad, d["x"].double())
 
 
 @pytest.mark.parametrize("S", [(50, 34, 34), (23, 17, 29), (34, 34, 34),

@@ -26,6 +26,12 @@ LEVEL_EXTRAS = ("banded", "c", "box_shape", "box_start", "bf16_eps")
 
 
 def _t(a, device) -> torch.Tensor:
+    """A tensor of numpy array ``a`` on ``device``, bit for bit (a bf16
+    array, numpy's ``ml_dtypes`` bfloat16, through its 16-bit pattern)."""
+    a = np.asarray(a)
+    if a.dtype.name == "bfloat16":
+        return torch.from_numpy(a.view(np.int16).copy()).view(
+            torch.bfloat16).to(device)
     return torch.from_numpy(np.array(a, copy=True)).to(device)
 
 
@@ -44,14 +50,27 @@ def flow_from_numpy(fields: dict, device) -> FlowState:
                      bbox=_ints(fields.get("bbox")))
 
 
+SHADOWS = ("L16", "D16", "iD16")
+
+
+def _shadows(lev, device) -> dict:
+    """``make_level`` arguments that carry a level's operator shadows bit
+    for bit, or that give it none."""
+    if lev.get("L16") is None:
+        return {"op_bf16": False}
+    return {"op_bf16": True, **{k: _t(lev[k], device) for k in SHADOWS}}
+
+
 def levels_from_numpy(levels: list, device, perdir: tuple = ()) -> tuple:
     """Poisson levels from numpy arrays of each JAX level's ``L``, ``D``
-    and ``iD``, and its ``banded``, ``c``, ``box_shape``, ``box_start`` and
-    ``bf16_eps`` where given (``bf16_eps`` takes effect on the levels the
-    port's kernel gate makes blocked)."""
+    and ``iD``, its operator shadows ``L16``, ``D16``, ``iD16`` where given
+    (bit for bit; a level given none gets none), and its ``banded``, ``c``,
+    ``box_shape``, ``box_start`` and ``bf16_eps`` where given (the shadows
+    and ``bf16_eps`` take effect on the levels the port's kernel gate makes
+    blocked)."""
     return tuple(
         make_level(_t(lev["L"], device), perdir, Dd=_t(lev["D"], device),
-                   iD=_t(lev["iD"], device),
+                   iD=_t(lev["iD"], device), **_shadows(lev, device),
                    **{k: lev[k] for k in LEVEL_EXTRAS if k in lev})
         for lev in levels)
 
@@ -65,10 +84,17 @@ def flow_to(state: FlowState, device) -> FlowState:
 
 
 def levels_to(levels: tuple, device) -> tuple:
-    """Copies of ``levels`` on ``device``, the kernel gate re-evaluated
-    (``bf16_eps`` is kept where the copy is blocked)."""
+    """Copies of ``levels`` on ``device``, the kernel gate re-evaluated:
+    ``bf16_eps`` and the operator shadows are kept where the copy is
+    blocked; a level that could not carry shadows (not blocked) gets them
+    by the module default, as `multigrid.update_levels` decides."""
+    def shadows(l):
+        if l.L16 is None:
+            return {"op_bf16": False if l.blocked else None}
+        return {"op_bf16": True, **{k: getattr(l, k).to(device)
+                                    for k in SHADOWS}}
     return tuple(
         make_level(l.L.to(device), l.perdir, l.banded, l.c, l.box_shape,
                    l.box_start, Dd=l.D.to(device), iD=l.iD.to(device),
-                   bf16_eps=l.bf16_eps)
+                   bf16_eps=l.bf16_eps, **shadows(l))
         for l in levels)

@@ -1,7 +1,8 @@
 // Index, mask and reduction helpers shared by the waterlily_tpu_torch kernels.
 //
 // Layout (the JAX package's): a scalar field is a contiguous (S0, S1, S2)
-// f32 array (bf16 for a search direction stored in bf16) with one ghost
+// f32 array (bf16 for a search direction stored in bf16 and for a level's
+// operator shadows L16 and iD16) with one ghost
 // cell on each side of every axis, axis 2 fastest;
 // a vector field is (3, S0, S1, S2), component-major.  Flat index
 // c = (i*S1 + j)*S2 + k.  One thread handles one output cell, so neighbouring
@@ -56,24 +57,25 @@ __device__ inline float ld(__nv_bfloat16 v) { return __bfloat162float(v); }
 // z = A x at an interior cell of the 7-point variable-coefficient Poisson
 // operator, with the association of waterlily_tpu.ops.poisson
 // `_mult_interior_arrays`: s = x*D, then per axis s = (s + x[-]*L) + x[+]*L[+].
-// ``xv(i)`` gives x at flat index i as a float.  An interior cell's six
-// neighbours always lie inside the array.
-template <typename F>
-__device__ inline float ax_cell_at(const float* L, const float* Dd, F xv,
+// ``xv(i)`` gives x at flat index i as a float.  L is f32, or bf16 (a level's
+// operator shadow L16, upcast in registers: the bf16-rounded operator applied
+// in f32).  An interior cell's six neighbours always lie inside the array.
+template <typename TL, typename F>
+__device__ inline float ax_cell_at(const TL* L, const float* Dd, F xv,
                                    const Shape3& g, long long c) {
   float s = xv(c) * Dd[c];
   for (int a = 0; a < 3; ++a) {
-    const float* La = L + a * g.N;
+    const TL* La = L + a * g.N;
     const long long st = g.st[a];
-    s = s + xv(c - st) * La[c];
-    s = s + xv(c + st) * La[c + st];
+    s = s + xv(c - st) * ld(La[c]);
+    s = s + xv(c + st) * ld(La[c + st]);
   }
   return s;
 }
 
 // The same from a stored x (f32, or bf16 upcast in registers).
-template <typename T>
-__device__ inline float ax_cell(const float* L, const float* Dd, const T* x,
+template <typename TL, typename T>
+__device__ inline float ax_cell(const TL* L, const float* Dd, const T* x,
                                 const Shape3& g, long long c) {
   return ax_cell_at(L, Dd, [x](long long i) { return ld(x[i]); }, g, c);
 }

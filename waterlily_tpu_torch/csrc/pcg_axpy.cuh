@@ -4,7 +4,8 @@
 // fused-iteration sweep) and `wl_pcg_axpy` (reduce.cu): the two TPU kernels
 // they replace, waterlily_tpu/ops/attic.py `_pcg_update_kernel` and
 // `_axpy_rid_kernel`, compute this same function in the same operation
-// order.  eps may be bf16 (upcast in registers); x', r' and the sums are f32.
+// order.  eps may be bf16 (upcast in registers), and so may iD (a level's
+// operator shadow iD16); x', r' and the sums are f32.
 //
 // Bound on the H100: memory (5 fields read, 2 written, ~7 flops a cell).
 // One thread per cell; x' and r' go to new arrays (never in place), and the
@@ -15,12 +16,12 @@
 
 #include "common.cuh"
 
-template <typename TE>
+template <typename TE, typename TI>
 __global__ void axpy_rho_kernel(const float* __restrict__ x,
                                 const float* __restrict__ r,
                                 const TE* __restrict__ eps,
                                 const float* __restrict__ z,
-                                const float* __restrict__ iD,
+                                const TI* __restrict__ iD,
                                 const float* __restrict__ upd_p,
                                 float* __restrict__ x_out,
                                 float* __restrict__ r_out,
@@ -35,24 +36,41 @@ __global__ void axpy_rho_kernel(const float* __restrict__ x,
     r_out[c] = rn;
     int idx[3];
     unflatten(g, c, idx);
-    if (is_interior(g, idx)) rho = rn * (rn * iD[c]);
+    if (is_interior(g, idx)) rho = rn * (rn * ld(iD[c]));
   }
   const float s = block_sum(rho, sh);
   if (threadIdx.x == 0) partial[blockIdx.x] = s;
 }
 
-// eps_bf16: eps is bf16 (else f32)
+template <typename TE, typename TI>
+inline void launch_axpy_rho_t(const float* x, const float* r, const void* eps,
+                              const float* z, const void* iD, const float* upd,
+                              float* x_out, float* r_out, float* partial,
+                              const Shape3& g, cudaStream_t s) {
+  axpy_rho_kernel<<<blocks_for(g.N), WL_THREADS, 0, s>>>(
+      x, r, (const TE*)eps, z, (const TI*)iD, upd, x_out, r_out, partial, g);
+}
+
+// eps_bf16: eps is bf16 (else f32); iD_bf16: iD is bf16 (else f32)
 inline int launch_axpy_rho(const float* x, const float* r, const void* eps,
-                           const float* z, const float* iD, const float* upd,
+                           const float* z, const void* iD, const float* upd,
                            float* x_out, float* r_out, float* partial,
-                           int eps_bf16, int S0, int S1, int S2,
+                           int eps_bf16, int iD_bf16, int S0, int S1, int S2,
                            void* stream) {
   const Shape3 g = make_shape(S0, S1, S2);
-  if (eps_bf16)
-    axpy_rho_kernel<<<blocks_for(g.N), WL_THREADS, 0, (cudaStream_t)stream>>>(
-        x, r, (const __nv_bfloat16*)eps, z, iD, upd, x_out, r_out, partial, g);
+  const cudaStream_t s = (cudaStream_t)stream;
+  using bf = __nv_bfloat16;
+  if (eps_bf16 && iD_bf16)
+    launch_axpy_rho_t<bf, bf>(x, r, eps, z, iD, upd, x_out, r_out, partial, g,
+                              s);
+  else if (iD_bf16)
+    launch_axpy_rho_t<float, bf>(x, r, eps, z, iD, upd, x_out, r_out, partial,
+                                 g, s);
+  else if (eps_bf16)
+    launch_axpy_rho_t<bf, float>(x, r, eps, z, iD, upd, x_out, r_out, partial,
+                                 g, s);
   else
-    axpy_rho_kernel<<<blocks_for(g.N), WL_THREADS, 0, (cudaStream_t)stream>>>(
-        x, r, (const float*)eps, z, iD, upd, x_out, r_out, partial, g);
+    launch_axpy_rho_t<float, float>(x, r, eps, z, iD, upd, x_out, r_out,
+                                    partial, g, s);
   return (int)cudaGetLastError();
 }

@@ -6,13 +6,16 @@
 // direction in bf16, applies A to the (rounded) direction in f32, and writes
 // eps, z = A eps and per-block partials of <z, eps> (the next alpha's
 // denominator) and <r, r*iD> (the rho seed at beta = 0, from the UNROUNDED
-// product, as the TPU kernel takes it).  `wl_pcg_update` replaces
-// `pcg_update` (`_pcg_update_kernel`): the axpy pair and the next rho
-// (pcg_axpy.cuh).
+// product, as the TPU kernel takes it).  On a level with operator shadows
+// (`PoissonLevel.L16`) L and iD are the bf16 L16 and iD16 (D the f32 D16),
+// upcast in registers as the TPU kernel's `_mult_block` and `_pcg_rebuild`
+// do.  `wl_pcg_update` replaces `pcg_update` (`_pcg_update_kernel`): the
+// axpy pair and the next rho (pcg_axpy.cuh).
 //
 // Bound on the H100: memory.  The first sweep reads L (3 fields), D,
 // eps_prev, r and iD and writes eps and z: 9 fields a cell (8 with a bf16
-// direction) against ~20 flops, far below the card's flop-to-byte balance.
+// direction, 7 with bf16 L and iD) against ~20 flops, far below the card's
+// flop-to-byte balance.
 // Design: one thread per cell, threadIdx.x along axis 2.  Where the TPU
 // kernel carries the rebuilt direction's halo rows in VMEM, a thread here
 // rebuilds eps at each of its six neighbours from eps_prev, r and iD, whose
@@ -44,12 +47,13 @@ __device__ inline void put(__nv_bfloat16* p, float v) {
   *p = __float2bfloat16_rn(v);  // v is bf16-representable: exact
 }
 
-template <typename TP, typename TO>
-__global__ void dir_mult_kernel(const float* __restrict__ L,
+// TP: eps_prev's type, TO: eps's, TC: the coefficients L and iD's
+template <typename TP, typename TO, typename TC>
+__global__ void dir_mult_kernel(const TC* __restrict__ L,
                                 const float* __restrict__ Dd,
                                 const TP* __restrict__ ep,
                                 const float* __restrict__ r,
-                                const float* __restrict__ iD,
+                                const TC* __restrict__ iD,
                                 const float* __restrict__ beta_p,
                                 TO* __restrict__ eps, float* __restrict__ z,
                                 float* __restrict__ partial, Shape3 g,
@@ -59,7 +63,7 @@ __global__ void dir_mult_kernel(const float* __restrict__ L,
   const long long c = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   // the rebuilt (and stored-precision) direction at flat index i
   auto e = [&](long long i) {
-    return as_stored<TO>(beta * ld(ep[i]) + r[i] * iD[i]);
+    return as_stored<TO>(beta * ld(ep[i]) + r[i] * ld(iD[i]));
   };
   float den = 0.f, rre = 0.f;
   if (c < g.N) {
@@ -72,7 +76,7 @@ __global__ void dir_mult_kernel(const float* __restrict__ L,
       v = ax_cell_at(L, Dd, e, g, c);
       den = v * ec;
       const float rc = r[c];
-      rre = rc * (rc * iD[c]);
+      rre = rc * (rc * ld(iD[c]));
     }
     z[c] = v;
   }
@@ -84,44 +88,63 @@ __global__ void dir_mult_kernel(const float* __restrict__ L,
   }
 }
 
-template <typename TP, typename TO>
-static void launch_dir_mult(const float* L, const float* Dd, const void* ep,
-                            const float* r, const float* iD,
+template <typename TP, typename TO, typename TC>
+static void launch_dir_mult(const void* L, const float* Dd, const void* ep,
+                            const float* r, const void* iD,
                             const float* beta, void* eps, float* z,
                             float* partial, const Shape3& g,
                             cudaStream_t stream) {
   const int nb = blocks_for(g.N);
-  dir_mult_kernel<TP, TO><<<nb, WL_THREADS, 0, stream>>>(
-      L, Dd, (const TP*)ep, r, iD, beta, (TO*)eps, z, partial, g, nb);
+  dir_mult_kernel<TP, TO, TC><<<nb, WL_THREADS, 0, stream>>>(
+      (const TC*)L, Dd, (const TP*)ep, r, (const TC*)iD, beta, (TO*)eps, z,
+      partial, g, nb);
 }
 
-// ep_bf16: eps_prev is bf16; out_bf16: eps is written (and rounded) in bf16.
-// partial holds 2 * blocks floats: the <z, eps> partials, then <r, r*iD>'s.
-extern "C" int wl_pcg_dir_mult(const float* L, const float* Dd, const void* ep,
-                               const float* r, const float* iD,
-                               const float* beta, void* eps, float* z,
-                               float* partial, int ep_bf16, int out_bf16,
-                               int S0, int S1, int S2, void* stream) {
-  const Shape3 g = make_shape(S0, S1, S2);
-  const cudaStream_t s = (cudaStream_t)stream;
+template <typename TC>
+static void dispatch_dir_mult(const void* L, const float* Dd, const void* ep,
+                              const float* r, const void* iD,
+                              const float* beta, void* eps, float* z,
+                              float* partial, int ep_bf16, int out_bf16,
+                              const Shape3& g, cudaStream_t s) {
   using bf = __nv_bfloat16;
   if (ep_bf16 && out_bf16)
-    launch_dir_mult<bf, bf>(L, Dd, ep, r, iD, beta, eps, z, partial, g, s);
+    launch_dir_mult<bf, bf, TC>(L, Dd, ep, r, iD, beta, eps, z, partial, g, s);
   else if (out_bf16)
-    launch_dir_mult<float, bf>(L, Dd, ep, r, iD, beta, eps, z, partial, g, s);
+    launch_dir_mult<float, bf, TC>(L, Dd, ep, r, iD, beta, eps, z, partial, g,
+                                   s);
   else if (ep_bf16)
-    launch_dir_mult<bf, float>(L, Dd, ep, r, iD, beta, eps, z, partial, g, s);
+    launch_dir_mult<bf, float, TC>(L, Dd, ep, r, iD, beta, eps, z, partial, g,
+                                   s);
   else
-    launch_dir_mult<float, float>(L, Dd, ep, r, iD, beta, eps, z, partial, g,
-                                  s);
+    launch_dir_mult<float, float, TC>(L, Dd, ep, r, iD, beta, eps, z, partial,
+                                      g, s);
+}
+
+// ep_bf16: eps_prev is bf16; out_bf16: eps is written (and rounded) in bf16;
+// coef_bf16: L and iD are bf16 (the level's L16 and iD16; D is f32).
+// partial holds 2 * blocks floats: the <z, eps> partials, then <r, r*iD>'s.
+extern "C" int wl_pcg_dir_mult(const void* L, const float* Dd, const void* ep,
+                               const float* r, const void* iD,
+                               const float* beta, void* eps, float* z,
+                               float* partial, int ep_bf16, int out_bf16,
+                               int coef_bf16, int S0, int S1, int S2,
+                               void* stream) {
+  const Shape3 g = make_shape(S0, S1, S2);
+  const cudaStream_t s = (cudaStream_t)stream;
+  if (coef_bf16)
+    dispatch_dir_mult<__nv_bfloat16>(L, Dd, ep, r, iD, beta, eps, z, partial,
+                                     ep_bf16, out_bf16, g, s);
+  else
+    dispatch_dir_mult<float>(L, Dd, ep, r, iD, beta, eps, z, partial, ep_bf16,
+                             out_bf16, g, s);
   return (int)cudaGetLastError();
 }
 
 extern "C" int wl_pcg_update(const float* x, const float* r, const void* eps,
-                             const float* z, const float* iD, const float* upd,
+                             const float* z, const void* iD, const float* upd,
                              float* x_out, float* r_out, float* partial,
-                             int eps_bf16, int S0, int S1, int S2,
+                             int eps_bf16, int iD_bf16, int S0, int S1, int S2,
                              void* stream) {
   return launch_axpy_rho(x, r, eps, z, iD, upd, x_out, r_out, partial,
-                         eps_bf16, S0, S1, S2, stream);
+                         eps_bf16, iD_bf16, S0, S1, S2, stream);
 }

@@ -4,23 +4,25 @@
 // Replaces waterlily_tpu/ops/pallas_stencil.py `mult3d_pallas` (`_mult_kernel`,
 // `_mult_block`) and `increment3d_pallas` (`_rsub_kernel`), whole-grid, with
 // x / eps in f32 or in bf16 (the smoother's search direction stored in bf16,
-// `PoissonLevel.bf16_eps`): a bf16 operand is upcast in registers and the
-// operator applied in f32, so z, r and the dot stay f32, as in the TPU kernel.
+// `PoissonLevel.bf16_eps`) and L in f32 or in bf16 (a level's operator shadow
+// L16, `PoissonLevel.L16`, with its f32 diagonal D16): a bf16 operand is
+// upcast in registers and the operator applied in f32, so z, r and the dot
+// stay f32, as in the TPU kernel.
 //
 // Bound on the H100: memory.  Per cell the operator reads L (3 floats), D
 // and x (7 taps, six of them shared with neighbouring cells) and writes z:
 // at least 6 floats = 24 B/cell moved against ~13 flops, far below the
-// card's flop-to-byte balance (a bf16 x saves 2 of them).  Design: one thread
-// per cell with threadIdx.x along axis 2, so the x taps of a warp along axes
-// 1 and 2 and the L[+] reads hit lines the neighbouring warps already brought
-// into L1/L2; the dot partial is reduced in the block and written once per
-// block, so the PCG denominator costs no second pass over z and x.  Ghost
-// cells are written as exact zeros by a branch (no multiply by a mask) and
-// never read neighbours.
+// card's flop-to-byte balance (a bf16 x saves 2 of them, a bf16 L 6).
+// Design: one thread per cell with threadIdx.x along axis 2, so the x taps of
+// a warp along axes 1 and 2 and the L[+] reads hit lines the neighbouring
+// warps already brought into L1/L2; the dot partial is reduced in the block
+// and written once per block, so the PCG denominator costs no second pass
+// over z and x.  Ghost cells are written as exact zeros by a branch (no
+// multiply by a mask) and never read neighbours.
 #include "common.cuh"
 
-template <typename T>
-__global__ void mult_kernel(const float* __restrict__ L,
+template <typename TL, typename T>
+__global__ void mult_kernel(const TL* __restrict__ L,
                             const float* __restrict__ Dd,
                             const T* __restrict__ x, float* __restrict__ z,
                             float* __restrict__ partial, Shape3 g) {
@@ -43,8 +45,8 @@ __global__ void mult_kernel(const float* __restrict__ L,
   }
 }
 
-template <typename T>
-__global__ void rsub_kernel(const float* __restrict__ L,
+template <typename TL, typename T>
+__global__ void rsub_kernel(const TL* __restrict__ L,
                             const float* __restrict__ Dd,
                             const T* __restrict__ eps,
                             const float* __restrict__ r,
@@ -57,36 +59,60 @@ __global__ void rsub_kernel(const float* __restrict__ L,
   r_out[c] = r[c] - ae;
 }
 
+template <typename TL, typename T>
+static void launch_mult(const void* L, const float* Dd, const void* x, float* z,
+                        float* partial, const Shape3& g, cudaStream_t s) {
+  mult_kernel<<<blocks_for(g.N), WL_THREADS, 0, s>>>(
+      (const TL*)L, Dd, (const T*)x, z, partial, g);
+}
+
+template <typename TL, typename T>
+static void launch_rsub(const void* L, const float* Dd, const void* eps,
+                        const float* r, float* r_out, const Shape3& g,
+                        cudaStream_t s) {
+  rsub_kernel<<<blocks_for(g.N), WL_THREADS, 0, s>>>(
+      (const TL*)L, Dd, (const T*)eps, r, r_out, g);
+}
+
 extern "C" int wl_threads() { return WL_THREADS; }
 
 extern "C" const char* wl_error_string(int code) {
   return cudaGetErrorString((cudaError_t)code);
 }
 
-// x_bf16: x is bf16 (else f32)
-extern "C" int wl_mult3d(const float* L, const float* Dd, const void* x,
-                         float* z, float* partial, int x_bf16, int S0, int S1,
-                         int S2, void* stream) {
+// L_bf16: L is bf16 (else f32); x_bf16: x is bf16 (else f32)
+extern "C" int wl_mult3d(const void* L, const float* Dd, const void* x,
+                         float* z, float* partial, int L_bf16, int x_bf16,
+                         int S0, int S1, int S2, void* stream) {
   const Shape3 g = make_shape(S0, S1, S2);
-  if (x_bf16)
-    mult_kernel<<<blocks_for(g.N), WL_THREADS, 0, (cudaStream_t)stream>>>(
-        L, Dd, (const __nv_bfloat16*)x, z, partial, g);
+  const cudaStream_t s = (cudaStream_t)stream;
+  using bf = __nv_bfloat16;
+  if (L_bf16 && x_bf16)
+    launch_mult<bf, bf>(L, Dd, x, z, partial, g, s);
+  else if (L_bf16)
+    launch_mult<bf, float>(L, Dd, x, z, partial, g, s);
+  else if (x_bf16)
+    launch_mult<float, bf>(L, Dd, x, z, partial, g, s);
   else
-    mult_kernel<<<blocks_for(g.N), WL_THREADS, 0, (cudaStream_t)stream>>>(
-        L, Dd, (const float*)x, z, partial, g);
+    launch_mult<float, float>(L, Dd, x, z, partial, g, s);
   return (int)cudaGetLastError();
 }
 
-// eps_bf16: eps is bf16 (else f32)
-extern "C" int wl_increment3d(const float* L, const float* Dd, const void* eps,
-                              const float* r, float* r_out, int eps_bf16,
-                              int S0, int S1, int S2, void* stream) {
+// L_bf16: L is bf16 (else f32); eps_bf16: eps is bf16 (else f32)
+extern "C" int wl_increment3d(const void* L, const float* Dd, const void* eps,
+                              const float* r, float* r_out, int L_bf16,
+                              int eps_bf16, int S0, int S1, int S2,
+                              void* stream) {
   const Shape3 g = make_shape(S0, S1, S2);
-  if (eps_bf16)
-    rsub_kernel<<<blocks_for(g.N), WL_THREADS, 0, (cudaStream_t)stream>>>(
-        L, Dd, (const __nv_bfloat16*)eps, r, r_out, g);
+  const cudaStream_t s = (cudaStream_t)stream;
+  using bf = __nv_bfloat16;
+  if (L_bf16 && eps_bf16)
+    launch_rsub<bf, bf>(L, Dd, eps, r, r_out, g, s);
+  else if (L_bf16)
+    launch_rsub<bf, float>(L, Dd, eps, r, r_out, g, s);
+  else if (eps_bf16)
+    launch_rsub<float, bf>(L, Dd, eps, r, r_out, g, s);
   else
-    rsub_kernel<<<blocks_for(g.N), WL_THREADS, 0, (cudaStream_t)stream>>>(
-        L, Dd, (const float*)eps, r, r_out, g);
+    launch_rsub<float, float>(L, Dd, eps, r, r_out, g, s);
   return (int)cudaGetLastError();
 }

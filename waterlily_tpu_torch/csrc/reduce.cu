@@ -3,7 +3,9 @@
 // `wl_dot3d` replaces waterlily_tpu/ops/attic.py `dot3d_pallas`
 // (`_dot_kernel`): per-block partials of an interior dot in three modes,
 // aa = sum a*a, ab = sum a*b, rid = sum a*(a*b) (the PCG rho <r, r*iD>
-// without writing the product), in the TPU kernel's multiply order.
+// without writing the product), in the TPU kernel's multiply order; in rid
+// mode b may be bf16 (a level's iD16 shadow, upcast in registers as the TPU
+// kernel does).
 // `wl_pcg_axpy` replaces `pcg_axpy_pallas` (`_axpy_rid_kernel`): the axpy
 // pair and the next rho (pcg_axpy.cuh, shared with the fused iteration's
 // second sweep).
@@ -27,9 +29,9 @@
 // MODE: 0 aa, 1 ab, 2 rid.  Block q takes the interior rows
 // r = q, q + gridDim.x, ..., row r being (i, j) = (r / (S1-2) + 1,
 // r % (S1-2) + 1).
-template <int MODE>
+template <int MODE, typename TB>
 __global__ void dot_kernel(const float* __restrict__ a,
-                           const float* __restrict__ b,
+                           const TB* __restrict__ b,
                            float* __restrict__ partial, Shape3 g) {
   __shared__ float sh[WL_THREADS];
   const int rows1 = g.S[1] - 2, nrows = (g.S[0] - 2) * rows1;
@@ -42,39 +44,45 @@ __global__ void dot_kernel(const float* __restrict__ a,
       if (MODE == 0)
         v += ac * ac;
       else if (MODE == 1)
-        v += ac * b[row + k];
+        v += ac * ld(b[row + k]);
       else
-        v += ac * (ac * b[row + k]);
+        v += ac * (ac * ld(b[row + k]));
     }
   }
   const float s = block_sum(v, sh);
   if (threadIdx.x == 0) partial[blockIdx.x] = s;
 }
 
-// b is not read in mode 0 (may be NULL); partial holds ``blocks`` floats
-extern "C" int wl_dot3d(const float* a, const float* b, float* partial,
-                        int mode, int blocks, int S0, int S1, int S2,
-                        void* stream) {
+// b is not read in mode 0 (may be NULL), bf16 in mode 2 with b_bf16 (else
+// f32); partial holds ``blocks`` floats
+extern "C" int wl_dot3d(const float* a, const void* b, float* partial,
+                        int mode, int b_bf16, int blocks, int S0, int S1,
+                        int S2, void* stream) {
   const Shape3 g = make_shape(S0, S1, S2);
   int threads = 32;  // a power of two covering a row, at most WL_THREADS
   while (threads < S2 - 2 && threads < WL_THREADS) threads *= 2;
   const cudaStream_t s = (cudaStream_t)stream;
+  const float* bf = (const float*)b;
+  if (b_bf16 && mode != 2) return (int)cudaErrorInvalidValue;
   if (mode == 0)
-    dot_kernel<0><<<blocks, threads, 0, s>>>(a, b, partial, g);
+    dot_kernel<0, float><<<blocks, threads, 0, s>>>(a, bf, partial, g);
   else if (mode == 1)
-    dot_kernel<1><<<blocks, threads, 0, s>>>(a, b, partial, g);
+    dot_kernel<1, float><<<blocks, threads, 0, s>>>(a, bf, partial, g);
+  else if (mode == 2 && b_bf16)
+    dot_kernel<2, __nv_bfloat16><<<blocks, threads, 0, s>>>(
+        a, (const __nv_bfloat16*)b, partial, g);
   else if (mode == 2)
-    dot_kernel<2><<<blocks, threads, 0, s>>>(a, b, partial, g);
+    dot_kernel<2, float><<<blocks, threads, 0, s>>>(a, bf, partial, g);
   else
     return (int)cudaErrorInvalidValue;
   return (int)cudaGetLastError();
 }
 
 extern "C" int wl_pcg_axpy(const float* x, const float* r, const void* eps,
-                           const float* z, const float* iD, const float* upd,
+                           const float* z, const void* iD, const float* upd,
                            float* x_out, float* r_out, float* partial,
-                           int eps_bf16, int S0, int S1, int S2,
+                           int eps_bf16, int iD_bf16, int S0, int S1, int S2,
                            void* stream) {
   return launch_axpy_rho(x, r, eps, z, iD, upd, x_out, r_out, partial,
-                         eps_bf16, S0, S1, S2, stream);
+                         eps_bf16, iD_bf16, S0, S1, S2, stream);
 }

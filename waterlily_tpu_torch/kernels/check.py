@@ -8,6 +8,7 @@ plain version when a kernel fails.
 """
 from __future__ import annotations
 
+import dataclasses
 import math
 
 import numpy as np
@@ -19,10 +20,12 @@ from ..ops import attic as at
 from ..ops import poisson, convect
 from ..ops.bc import bc_vector_planes
 from ..utils.perf import device_profile
+from . import probes
 
 __all__ = ["KERNELS", "COMPOSITES", "TOLERANCE", "SOURCES", "LIBRARY",
            "inputs", "variants", "compare", "time_pair", "time_library",
-           "ulp_diff", "bound_ms", "HBM_BYTES_PER_S", "F32_FLOPS_PER_S"]
+           "ulp_diff", "bound_ms", "bytes_moved", "HBM_BYTES_PER_S",
+           "F32_FLOPS_PER_S"]
 
 # csrc file and the TPU kernel (file:line of its function) of each wrapper
 SOURCES = {
@@ -52,13 +55,21 @@ SOURCES = {
               "waterlily_tpu/ops/attic.py:456"),
     "pcg_axpy": ("waterlily_tpu_torch/csrc/reduce.cu",
                  "waterlily_tpu/ops/attic.py:493"),
+    "mult3d_stream": ("waterlily_tpu_torch/csrc/stream_stencil.cu",
+                      "waterlily_tpu/ops/attic.py:353"),
+    "increment3d_stream": ("waterlily_tpu_torch/csrc/stream_stencil.cu",
+                           "waterlily_tpu/ops/attic.py:401"),
+    "copy_probe": ("waterlily_tpu_torch/csrc/probes.cu",
+                   "scripts/bench_kernels.py:108"),
+    "roll_probe": ("waterlily_tpu_torch/csrc/probes.cu",
+                   "scripts/bench_kernels.py:128"),
 }
 
 # Checked like a kernel, but built from kernels: the fused-iteration
 # smoother against the per-pass `poisson.pcg` (f32 directions: with bf16
 # ones the two forms' sums, taken in other orders, can round a direction
 # value to neighbouring bf16 values; the step-level runs of chip_smoke.py
-# hold that form).
+# hold that form), on an f32 level and on one with operator shadows.
 COMPOSITES = ("pcg_blocked",)
 
 # Periodic axes of the checked variants: bc3d's and conv_diff3d's are the
@@ -111,6 +122,24 @@ TOLERANCE = {
     "dot3d.aa": ("rel", 1e-5), "dot3d.ab": ("rel", 1e-5),
     "dot3d.rid": ("rel", 1e-5),
     "pcg_blocked.x": ("abs", 1e-5), "pcg_blocked.r": ("abs", 1e-5),
+    # the operator-shadow forms (bf16 L with the f32 D16, bf16 iD)
+    "mult3d.z_L16": ("exact", None), "mult3d.dot_L16": ("rel", 1e-5),
+    "increment3d.x_L16": ("exact", None),
+    "increment3d.r_L16": ("exact", None),
+    **{f"pcg_dir_mult.{o}{t}": (("rel", 1e-5) if o in ("den", "rho")
+                                else ("exact", None))
+       for o in ("eps", "z", "den", "rho") for t in ("_L16", "_b0_L16")},
+    **{f"{k}.{o}_iD16": ("rel", 1e-5) if o == "rho" else ("exact", None)
+       for k in ("pcg_update", "pcg_axpy") for o in ("x", "r", "rho")},
+    "dot3d.rid_iD16": ("rel", 1e-5),
+    "pcg_blocked.x_L16": ("abs", 1e-5), "pcg_blocked.r_L16": ("abs", 1e-5),
+    # the carried-rows operator, with and without the dot, f32 and bf16 L
+    **{f"mult3d_stream.{o}{t}": ("rel", 1e-5) if o == "dot"
+       else ("exact", None)
+       for o in ("z", "dot", "z_nodot") for t in ("", "_L16")},
+    **{f"increment3d_stream.{o}{t}": ("exact", None)
+       for o in ("x", "r") for t in ("", "_L16")},
+    "copy_probe": ("exact", None), "roll_probe": ("exact", None),
 }
 
 
@@ -118,9 +147,11 @@ def inputs(S, seed, device) -> dict:
     """Seeded fields at ghost-padded shape ``S`` (2D or 3D): a level built
     from positive face coefficients with wall-normal ghosts zeroed (a μ₀),
     a right-hand side and residual with zero ghosts, a velocity, a pressure
-    and a time step on the device.  ``level(perdir)`` builds the level and
-    residual of the same coefficients and right-hand side with periodic
-    axes ``perdir``."""
+    and a time step on the device, and the level's operator shadows
+    (``L16``, ``D16``, ``iD16``, built at any shape: the kernel gate gives a
+    level its shadows only where it is blocked).  ``level(perdir)`` builds
+    the level and residual of the same coefficients and right-hand side
+    with periodic axes ``perdir``."""
     rng = np.random.default_rng(seed)
     S = tuple(S)
     D = len(S)
@@ -139,8 +170,10 @@ def inputs(S, seed, device) -> dict:
 
     lev, r = level()
     eps = t(np.where(inner, rng.standard_normal(S) * 0.1, 0.0))
+    L16, D16, iD16 = poisson.operator_shadows(lev.L) if D == 3 else (None,) * 3
     return {
         "lev": lev, "r": r, "level": level,
+        "L16": L16, "D16": D16, "iD16": iD16,
         "x": t(rng.standard_normal(S)),
         "eps": eps, "eps16": eps.to(torch.bfloat16),
         "u": t(rng.standard_normal((D,) + S)),
@@ -164,6 +197,7 @@ def variants(name, d) -> list:
     D = x.ndim
     x0 = torch.zeros_like(r)
     x16, eps16, iD, z = x.to(torch.bfloat16), d["eps16"], lev.iD, d["z"]
+    L16, D16, iD16 = d["L16"], d["D16"], d["iD16"]
     s = dt    # beta and upd: a 0-d device scalar, as in a smooth
 
     def pcg(perdir=()):
@@ -184,47 +218,88 @@ def variants(name, d) -> list:
         (_tag(perdir, save_exit),),
         lambda: sk.bc3d(u, d["A"], save_exit, perdir),
         lambda: bc_vector_planes(u, d["A"], save_exit, perdir))
-    def dir_mult(tag, eps_prev, beta, bf16):
+    def dir_mult(tag, eps_prev, beta, bf16, op=(L, Dd, iD)):
+        Lc, Dc, iDc = op
         return (tuple(o + tag for o in ("eps", "z", "den", "rho")),
-                lambda: at.pcg_dir_mult(L, Dd, eps_prev, r, iD, beta, bf16),
-                lambda: at._pcg_dir_mult_plain(L, Dd, eps_prev, r, iD, beta,
-                                               bf16))
+                lambda: at.pcg_dir_mult(Lc, Dc, eps_prev, r, iDc, beta, bf16),
+                lambda: at._pcg_dir_mult_plain(Lc, Dc, eps_prev, r, iDc,
+                                               beta, bf16))
 
-    def axpy_rho(name, tag, e):
+    def axpy_rho(name, tag, e, iDa=iD):
         return (tuple(o + tag for o in ("x", "r", "rho")),
-                lambda: getattr(at, name)(x, r, e, z, iD, s),
-                lambda: at._axpy_rho_plain(x, r, e, z, iD, s))
+                lambda: getattr(at, name)(x, r, e, z, iDa, s),
+                lambda: at._axpy_rho_plain(x, r, e, z, iDa, s))
 
-    def dot(mode, a, b):
-        return ((mode,), lambda: at.dot3d(a, b, mode),
+    def dot(mode, a, b, tag=""):
+        return ((mode + tag,), lambda: at.dot3d(a, b, mode),
                 lambda: at._dot3d_plain(a, b, mode))
+
+    def stream(tag, Lc, Dc, with_dot):
+        outs = ("z" + tag, "dot" + tag) if with_dot else ("z_nodot" + tag,)
+        return (outs, lambda: at.mult3d_stream(Lc, Dc, x, with_dot),
+                lambda: sk._mult3d_plain(Lc, Dc, x, with_dot))
+
+    def probe(fn, plain):
+        return ((), lambda: fn(x), lambda: plain(x))
+
+    # a blocked level with the operator shadows (pcg_blocked reads the
+    # level's flags, not the kernel gate)
+    lev16 = dataclasses.replace(lev, blocked=True, bf16_eps=False, L16=L16,
+                                D16=D16, iD16=iD16)
 
     return {
         "mult3d": [(("z", "dot"), lambda: sk.mult3d(L, Dd, x, with_dot=True),
                     lambda: sk._mult3d_plain(L, Dd, x, with_dot=True)),
                    (("z_bf16", "dot_bf16"),
                     lambda: sk.mult3d(L, Dd, x16, with_dot=True),
-                    lambda: sk._mult3d_plain(L, Dd, x16, with_dot=True))],
+                    lambda: sk._mult3d_plain(L, Dd, x16, with_dot=True)),
+                   (("z_L16", "dot_L16"),
+                    lambda: sk.mult3d(L16, D16, x, with_dot=True),
+                    lambda: sk._mult3d_plain(L16, D16, x, with_dot=True))],
         "increment3d": [(("x", "r"),
                          lambda: sk.increment3d(L, Dd, eps, x, r),
                          lambda: sk._increment3d_plain(L, Dd, eps, x, r)),
                         (("x_bf16", "r_bf16"),
                          lambda: sk.increment3d(L, Dd, eps16, x, r),
-                         lambda: sk._increment3d_plain(L, Dd, eps16, x, r))],
+                         lambda: sk._increment3d_plain(L, Dd, eps16, x, r)),
+                        (("x_L16", "r_L16"),
+                         lambda: sk.increment3d(L16, D16, eps, x, r),
+                         lambda: sk._increment3d_plain(L16, D16, eps, x, r))],
         # the timed (first) form is the iteration's: beta != 0, f32
         "pcg_dir_mult": [dir_mult("", eps, s, False),
                          dir_mult("_b0", r, 0.0, False),
                          dir_mult("_bf16", eps16, s, True),
-                         dir_mult("_b0_bf16", r, 0.0, True)],
+                         dir_mult("_b0_bf16", r, 0.0, True),
+                         dir_mult("_L16", eps, s, False, (L16, D16, iD16)),
+                         dir_mult("_b0_L16", r, 0.0, False,
+                                  (L16, D16, iD16))],
         "pcg_update": [axpy_rho("pcg_update", "", eps),
-                       axpy_rho("pcg_update", "_bf16", eps16)],
+                       axpy_rho("pcg_update", "_bf16", eps16),
+                       axpy_rho("pcg_update", "_iD16", eps, iD16)],
         "pcg_axpy": [axpy_rho("pcg_axpy", "", eps),
-                     axpy_rho("pcg_axpy", "_bf16", eps16)],
+                     axpy_rho("pcg_axpy", "_bf16", eps16),
+                     axpy_rho("pcg_axpy", "_iD16", eps, iD16)],
         # aa first (the solver's r.r, timed beside torch.dot); ab on a
         # field with non-zero ghosts, which both forms mask
-        "dot3d": [dot("aa", r, r), dot("ab", x, eps), dot("rid", r, iD)],
+        "dot3d": [dot("aa", r, r), dot("ab", x, eps), dot("rid", r, iD),
+                  dot("rid", r, iD16, "_iD16")],
         "pcg_blocked": [(("x", "r"), lambda: at.pcg_blocked(lev, x0, r),
-                         lambda: poisson.pcg(lev, x0, r))],
+                         lambda: poisson.pcg(lev, x0, r)),
+                        (("x_L16", "r_L16"),
+                         lambda: at.pcg_blocked(lev16, x0, r),
+                         lambda: poisson.pcg(lev16, x0, r))],
+        # the timed (first) form is the PCG iteration's, with the dot
+        "mult3d_stream": [stream("", L, Dd, True), stream("", L, Dd, False),
+                          stream("_L16", L16, D16, True),
+                          stream("_L16", L16, D16, False)],
+        "increment3d_stream": [
+            (("x", "r"), lambda: at.increment3d_stream(L, Dd, eps, x, r),
+             lambda: sk._increment3d_plain(L, Dd, eps, x, r)),
+            (("x_L16", "r_L16"),
+             lambda: at.increment3d_stream(L16, D16, eps, x, r),
+             lambda: sk._increment3d_plain(L16, D16, eps, x, r))],
+        "copy_probe": [probe(probes.copy_probe, probes._copy_probe_plain)],
+        "roll_probe": [probe(probes.roll_probe, probes._roll_probe_plain)],
         "cfl3d": [((), lambda: sk.cfl3d(u), lambda: sk._cfl3d_plain(u))],
         "bc3d": [bc(q, e) for q in BC_PERDIRS for e in (False, True)],
         "div3d": [(("z", "x"), lambda: sk.div3d(u, p, dt),
@@ -271,18 +346,43 @@ _WORK = {
     "pcg_update": (7, 8),       # x, r, eps, z, iD in; x, r out
     "dot3d": (1, 2),            # aa: a in
     "pcg_axpy": (7, 8),         # x, r, eps, z, iD in; x, r out
+    "mult3d_stream": (6, 15),   # L(3), D, x in; z out (with the dot)
+    "increment3d_stream": (9, 15),  # L(3), D, eps, x, r in; x, r out
+    "copy_probe": (2, 1),       # x in, o out
+    "roll_probe": (2, 6),       # x in, o out
 }
 # the same at a 2D shape (only pcg_fused has a 2D form): L(2) instead of
 # L(3), and two neighbours (four operations) fewer in each of six matvecs
 _WORK_2D = {"pcg_fused": (8, 126)}
-# forms whose bytes differ from the first variant's (by first output): a
-# bf16 field counts half, and dot3d's two-operand modes read two fields
+# forms whose work differs from the first variant's (by first output): a
+# bf16 field counts half (L16: 1.5 fields for 3, iD16: 0.5), dot3d's
+# two-operand modes read two fields, a matvec without its dot does two
+# operations a cell fewer
 _WORK_FORMS = {
     ("mult3d", "z_bf16"): (5.5, 15), ("increment3d", "x_bf16"): (8.5, 15),
     ("pcg_dir_mult", "eps_bf16"): (8, 21), ("pcg_update", "x_bf16"): (6.5, 8),
     ("pcg_axpy", "x_bf16"): (6.5, 8), ("dot3d", "ab"): (2, 2),
     ("dot3d", "rid"): (2, 3),
+    ("mult3d", "z_L16"): (4.5, 15), ("increment3d", "x_L16"): (7.5, 15),
+    ("pcg_dir_mult", "eps_L16"): (7, 21), ("pcg_update", "x_iD16"): (6.5, 8),
+    ("pcg_axpy", "x_iD16"): (6.5, 8), ("dot3d", "rid_iD16"): (1.5, 3),
+    ("mult3d_stream", "z_nodot"): (6, 13),
+    ("mult3d_stream", "z_L16"): (4.5, 15),
+    ("mult3d_stream", "z_nodot_L16"): (4.5, 13),
+    ("increment3d_stream", "x_L16"): (7.5, 15),
 }
+
+
+def _work(name, S, variant=None):
+    return _WORK_FORMS.get(
+        (name, variant), (_WORK_2D if len(S) == 2 else _WORK)[name])
+
+
+def bytes_moved(name, S, variant=None) -> float:
+    """Bytes kernel ``name``'s timed variant (or the form whose first output
+    is ``variant``) must move at shape ``S``: each input read once, each
+    output written once, a bf16 field at half."""
+    return 4 * _work(name, S, variant)[0] * math.prod(S)
 
 
 def bound_ms(name, S, variant=None) -> tuple[float, str]:
@@ -291,11 +391,8 @@ def bound_ms(name, S, variant=None) -> tuple[float, str]:
     ``S``: the larger of its bytes over the memory rate and its operations
     over the f32 rate, in ms, and which of the two bounds it ("bytes" or
     "operations")."""
-    fields, flops = _WORK_FORMS.get(
-        (name, variant), (_WORK_2D if len(S) == 2 else _WORK)[name])
-    n = math.prod(S)
-    t_bytes = 4 * fields * n / HBM_BYTES_PER_S * 1e3
-    t_ops = flops * n / F32_FLOPS_PER_S * 1e3
+    t_bytes = bytes_moved(name, S, variant) / HBM_BYTES_PER_S * 1e3
+    t_ops = _work(name, S, variant)[1] * math.prod(S) / F32_FLOPS_PER_S * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -363,9 +460,11 @@ def _variant(name, d, variant):
 
 # One PyTorch call that computes a kernel's timed form on the same inputs,
 # timed beside it as a yardstick and used nowhere in the port: dot3d's aa
-# form on a ghost-zero field is torch.dot over the flat array.
+# form on a ghost-zero field is torch.dot over the flat array, copy_probe
+# is torch.mul by the probe's scale.
 LIBRARY = {"dot3d": lambda d: (
-    lambda: torch.dot(d["r"].view(-1), d["r"].view(-1)))}
+    lambda: torch.dot(d["r"].view(-1), d["r"].view(-1))),
+    "copy_probe": lambda d: (lambda: torch.mul(d["x"], probes.C))}
 
 
 def time_library(name, S, device, n=20) -> float:

@@ -103,14 +103,16 @@ def _coarsen_box(box_start, box_shape, S_coarse):
 
 
 def build_levels(mu0: torch.Tensor, perdir: tuple = (), box_shape=None,
-                 box_start=None, bf16_eps: bool = False) -> tuple:
+                 box_start=None, bf16_eps: bool = False,
+                 op_bf16: bool | None = None) -> tuple:
     """The level stack from the fine face coefficients: the fine ``L`` is
     the BDIM zeroth moment ``μ₀``, each coarse ``L`` its restriction.
     ``box_shape``/``box_start`` (the body band window) make the levels on
     which it pays banded; the box coarsens with the grid and the far-field
     coefficient scales by 2^(D-2) per level.  ``bf16_eps`` stores the
-    smoother's search direction in bf16 on every blocked level
-    (`poisson.make_level`)."""
+    smoother's search direction in bf16 on every blocked level, ``op_bf16``
+    (None: `poisson.BF16_OP`) gives every blocked level bf16 operator
+    shadows, which exclude bf16 directions (`poisson.make_level`)."""
     S = tuple(mu0.shape[1:])
     nlev = n_levels(S)
     have_box = box_shape is not None and box_start is not None
@@ -121,7 +123,7 @@ def build_levels(mu0: torch.Tensor, perdir: tuple = (), box_shape=None,
         levels.append(make_level(L, perdir, banded=banded, c=c,
                                  box_shape=box_shape if banded else None,
                                  box_start=box_start if banded else None,
-                                 bf16_eps=bf16_eps))
+                                 bf16_eps=bf16_eps, op_bf16=op_bf16))
         if li == nlev - 1:
             break
         L = restrict_L(L, perdir)
@@ -135,11 +137,15 @@ def build_levels(mu0: torch.Tensor, perdir: tuple = (), box_shape=None,
 def update_levels(levels: tuple, mu0: torch.Tensor, box_start=None) -> tuple:
     """Re-restrict the coefficients after body motion (reference
     ``update!``), keeping the fine level's window (moved to ``box_start``
-    when given) and its search-direction precision."""
+    when given), its search-direction precision and, as JAX does, its
+    operator shadows: present or absent where the level could carry them
+    (blocked), the module default otherwise."""
     fine = levels[0]
+    op16 = (fine.L16 is not None) if fine.blocked else None
     return build_levels(mu0, fine.perdir, fine.box_shape,
                         box_start if box_start is not None
-                        else fine.box_start, bf16_eps=fine.bf16_eps)
+                        else fine.box_start, bf16_eps=fine.bf16_eps,
+                        op_bf16=op16)
 
 
 def vcycle(levels: tuple, l: int, x, r):

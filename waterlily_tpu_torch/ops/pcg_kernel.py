@@ -65,4 +65,5 @@ def pcg_fused(lev, x, r, it: int = 6):
 
 pcg_fused.launches = 0
 pcg_fused.shapes = set()
+pcg_fused.forms = set()
 

@@ -12,8 +12,11 @@ so whole-array dots equal the reference's interior dots.
 
 Three module flags route the PCG iteration of blocked levels through the
 kernels of `ops.attic`, as the JAX package's ``KDOT``/``KAXPY`` and its
-`attic.pcg_blocked` dispatch do.  All three are off by default: they are
+`attic.pcg_blocked` dispatch do, and a fourth, ``STREAM``, their operator
+through its carried-rows kernels.  All four are off by default: they are
 seams for A/B runs (`chip_smoke.py` phase 6.4), not the default path.
+``BF16_OP`` (off, as in JAX) is the default of the bf16 operator shadows
+(`PoissonLevel.L16`, ``Simulation(op_bf16=)``).
 """
 from __future__ import annotations
 
@@ -30,7 +33,14 @@ from . import attic as at
 
 __all__ = ["PoissonLevel", "make_level", "mult", "residual", "increment",
            "pressure_grad_interior", "jacobi", "fdot", "pcg", "smooth",
-           "poisson_solve", "KDOT", "KAXPY", "PCG_BLOCKED"]
+           "poisson_solve", "operator_shadows", "KDOT", "KAXPY",
+           "PCG_BLOCKED", "STREAM", "BF16_OP"]
+
+# Default of `make_level`'s ``op_bf16``: bf16 shadows of the operator
+# coefficients on blocked levels (the JAX package's flag of that name, off
+# there too: on the TPU the rounded operator cost iterations, pois_n about
+# (3,3) against (2,2) at 256³).
+BF16_OP = False
 
 # Solver dots of blocked levels (`fdot`, PCG's rho) by the `attic.dot3d`
 # kernel instead of `grid.field_dot` (the JAX package's flag of that name).
@@ -42,6 +52,11 @@ KAXPY = False
 # fused iteration `attic.pcg_blocked` (the dispatch the JAX package's
 # scripts/ab_pcgiter.py makes).
 PCG_BLOCKED = False
+# A·x (with and without the dot) and r − A·eps of blocked levels by the
+# carried-rows kernels `attic.mult3d_stream`/`increment3d_stream` instead
+# of the halo-row `mult3d`/`increment3d` (the JAX package keeps them but
+# dispatches them nowhere).
+STREAM = False
 
 
 def _off(D, i, v):
@@ -60,6 +75,17 @@ class PoissonLevel:
     and ``z = A·eps`` stay f32, computed from the same rounded direction
     that updates x, so ``r == rhs − A·x`` holds to f32 precision.
 
+    ``L16``, ``D16``, ``iD16`` (blocked f32 levels built with ``op_bf16``)
+    are bf16 shadows of the operator: ``L16`` is L rounded to bf16, ``D16``
+    the f32 diagonal derived from the rounded taps (rounding D itself breaks
+    the exact zero row sums and the smoother diverges), ``iD16`` the bf16
+    of its guarded inverse.  The blocked branches of `mult`, `residual`,
+    `increment` and the smoothers apply the rounded operator in f32 and
+    precondition with ``iD16``; L, D and iD stay f32 for the projection,
+    the restriction and the dead-cell masks.  A shadowed level has f32
+    search directions (``bf16_eps`` False): the two roundings together
+    lifted JAX's multigrid convergence floor above ``tol`` at 256³.
+
     ``banded`` selects the sparse immersed-boundary operator: away from the
     body band the face coefficients are exactly the constant ``c`` (μ₀ is
     exactly 1 there and each restriction scales it by 2^(D-2)), zero on
@@ -77,6 +103,9 @@ class PoissonLevel:
     c: float = 1.0
     box_shape: tuple | None = None
     box_start: tuple | None = None
+    L16: torch.Tensor | None = None
+    D16: torch.Tensor | None = None
+    iD16: torch.Tensor | None = None
 
 
 def _diag(L: torch.Tensor) -> torch.Tensor:
@@ -89,21 +118,38 @@ def _diag(L: torch.Tensor) -> torch.Tensor:
     return pad_interior(-s)
 
 
+def _guarded_inverse(Dd: torch.Tensor) -> torch.Tensor:
+    """1/D, zero where D·D < 2 eps (cells inside bodies)."""
+    guard = Dd * Dd < 2 * torch.finfo(Dd.dtype).eps
+    return torch.where(guard, 0.0, 1.0 / torch.where(guard, 1.0, Dd))
+
+
+def operator_shadows(L: torch.Tensor) -> tuple:
+    """``(L16, D16, iD16)`` of f32 face coefficients ``L``: L rounded to
+    bf16, the f32 diagonal of the ROUNDED taps (sums of bf16 values in f32
+    are exact, so the rows of the rounded operator sum to zero) and the
+    bf16 of its guarded inverse."""
+    L16 = L.to(torch.bfloat16)
+    D16 = _diag(L16.to(L.dtype))
+    return L16, D16, _guarded_inverse(D16).to(torch.bfloat16)
+
+
 def make_level(L: torch.Tensor, perdir: tuple = (), banded: bool = False,
                c: float = 1.0, box_shape=None, box_start=None, Dd=None,
-               iD=None, bf16_eps: bool = False) -> PoissonLevel:
+               iD=None, bf16_eps: bool = False, op_bf16: bool | None = None,
+               L16=None, D16=None, iD16=None) -> PoissonLevel:
     """Build a level from face coefficients (reference ``set_diag!``).
     ``bf16_eps`` takes effect on blocked levels only, as in JAX (where it
     is the default, on TPU blocked levels); the port's default is f32
-    search directions.  A banded level (``banded`` with a ``box_shape``)
-    is never blocked.  ``Dd`` and ``iD``, where given (a level carried
-    across, `convert.py`), are taken as they are."""
+    search directions.  ``op_bf16`` (None: the module default `BF16_OP`)
+    builds the operator shadows ``L16``/``D16``/``iD16`` on blocked f32
+    levels, as JAX's `make_level` does, and forces ``bf16_eps`` off there.
+    A banded level (``banded`` with a ``box_shape``) is never blocked.
+    ``Dd`` and ``iD``, and the shadows where given, are taken as they are
+    (a level carried across, `convert.py`)."""
     if Dd is None:
         Dd = _diag(L)
-        eps = torch.finfo(L.dtype).eps
-        guard = Dd * Dd < 2 * eps
-        iD = torch.where(guard, 0.0,
-                         1.0 / torch.where(guard, 1.0, Dd)).to(L.dtype)
+        iD = _guarded_inverse(Dd).to(L.dtype)
     if banded and box_shape is not None:
         banded = True
         box_shape = tuple(int(b) for b in box_shape)
@@ -112,10 +158,39 @@ def make_level(L: torch.Tensor, perdir: tuple = (), banded: bool = False,
         banded, box_shape, box_start = False, None, None
     blocked = (not banded) and sk.use_blocked(tuple(L.shape[1:]), L.dtype,
                                               L.device)
+    f32blk = blocked and L.dtype == torch.float32
+    shadow = f32blk and (BF16_OP if op_bf16 is None else bool(op_bf16))
+    if shadow and L16 is None:
+        L16, D16, iD16 = operator_shadows(L)
+    elif not shadow:
+        L16 = D16 = iD16 = None
     return PoissonLevel(L=L, D=Dd, iD=iD, blocked=blocked,
-                        bf16_eps=bool(bf16_eps) and blocked,
+                        bf16_eps=bool(bf16_eps) and f32blk and not shadow,
                         perdir=tuple(perdir), banded=banded, c=float(c),
-                        box_shape=box_shape, box_start=box_start)
+                        box_shape=box_shape, box_start=box_start,
+                        L16=L16, D16=D16, iD16=iD16)
+
+
+def _opLD(lev: PoissonLevel):
+    """(L, D) of the blocked stencil kernels: the bf16 shadow and its f32
+    diagonal where the level has them, the f32 arrays otherwise."""
+    if lev.L16 is not None:
+        return lev.L16, lev.D16
+    return lev.L, lev.D
+
+
+def _iDk(lev: PoissonLevel) -> torch.Tensor:
+    """The preconditioner the smoothers read: ``iD16`` where the level has
+    it, ``iD`` otherwise."""
+    return lev.iD16 if lev.iD16 is not None else lev.iD
+
+
+def _ax(lev: PoissonLevel, x: torch.Tensor, with_dot: bool = False):
+    """A·x of a blocked level (with ⟨A·x, x⟩ under ``with_dot``): the
+    halo-row `mult3d`, or under ``STREAM`` the carried-rows
+    `attic.mult3d_stream`, on the level's operator (`_opLD`)."""
+    mult3d = at.mult3d_stream if STREAM else sk.mult3d
+    return mult3d(*_opLD(lev), x, with_dot=with_dot)
 
 
 def _mult_interior_arrays(L, Dd, x) -> torch.Tensor:
@@ -216,11 +291,12 @@ def _banded_ax(lev: PoissonLevel, x: torch.Tensor, with_dot: bool = False):
 
 
 def _rid(lev: PoissonLevel, r: torch.Tensor) -> torch.Tensor:
-    """r * iD, the Jacobi-preconditioned residual.  Banded far field: 1/D
-    of the far-field diagonal (the dead-cell guard only trips inside the
-    body, which lies in the box)."""
+    """r * iD, the Jacobi-preconditioned residual (a shadowed level's bf16
+    iD16 upcast by the product's promotion; its zeros, the dead-cell guard,
+    are exact).  Banded far field: 1/D of the far-field diagonal (the
+    dead-cell guard only trips inside the body, which lies in the box)."""
     if not lev.banded:
-        return r * lev.iD
+        return r * _iDk(lev)
     D = r.ndim
     iD_far = 1.0 / _ana_D_interior(tuple(r.shape), lev.perdir, r.dtype,
                                    lev.c, r.device)
@@ -235,7 +311,7 @@ def mult(lev: PoissonLevel, x: torch.Tensor) -> torch.Tensor:
     if lev.banded:
         return _banded_ax(lev, x)
     if lev.blocked:
-        return sk.mult3d(lev.L, lev.D, x)
+        return _ax(lev, x)
     return pad_interior(_mult_interior_arrays(lev.L, lev.D, x))
 
 
@@ -252,7 +328,7 @@ def residual(lev: PoissonLevel, x: torch.Tensor, z: torch.Tensor) -> torch.Tenso
         r_int = _box_update(lev, r_int, rw)
     else:
         if lev.blocked:
-            ax = interior_view(sk.mult3d(lev.L, lev.D, xb), D)
+            ax = interior_view(_ax(lev, xb), D)
         else:
             ax = _mult_interior_arrays(lev.L, lev.D, xb)
         r_int = torch.where(interior_view(lev.iD, D) == 0, 0.0,
@@ -267,12 +343,14 @@ def increment(lev: PoissonLevel, x, r, eps):
     """(x + eps, r − A eps) (reference ``increment!``).  ``eps`` must be
     zero in non-periodic ghosts; on a `bf16_eps` level it is rounded to
     bf16 first (Jacobi's r∘iD and the V-cycle's correction too), so x and
-    r see the same rounded eps."""
+    r see the same rounded eps.  Blocked levels: `increment3d` (under
+    ``STREAM`` `attic.increment3d_stream`) on the level's operator."""
     if lev.blocked:
         if lev.bf16_eps:
             eps = eps.to(torch.bfloat16)
         eps = bc_scalar_periodic(eps, lev.perdir)
-        return sk.increment3d(lev.L, lev.D, eps, x, r)
+        inc = at.increment3d_stream if STREAM else sk.increment3d
+        return inc(*_opLD(lev), eps, x, r)
     return x + eps, r - mult(lev, eps)
 
 
@@ -319,9 +397,10 @@ def fdot(lev: PoissonLevel, a, b) -> torch.Tensor:
 
 def _rho_rid(lev: PoissonLevel, r, z) -> torch.Tensor:
     """⟨r, r∘iD⟩ for PCG's rho given ``z = r∘iD``; under ``KDOT`` on a
-    blocked level the kernel re-reads r and iD instead of taking z."""
+    blocked level the kernel re-reads r and iD (iD16 where the level has
+    it) instead of taking z."""
     if KDOT and lev.blocked:
-        return at.dot3d(r, lev.iD, mode="rid")
+        return at.dot3d(r, _iDk(lev), mode="rid")
     return field_dot(r, z)
 
 
@@ -330,8 +409,9 @@ def pcg(lev: PoissonLevel, x, r, it: int = 6):
     src/Poisson.jl:123-143), early exits as a monotone ``dead`` mask held on
     the device; the plain version of `pcg_kernel.pcg_fused`.  A `bf16_eps`
     level rounds each new direction to bf16 and upcasts it wherever it
-    meets an f32 scalar (JAX's promotion); ``KAXPY`` and ``KDOT`` route a
-    blocked level's axpy pair and dots through `ops.attic`."""
+    meets an f32 scalar (JAX's promotion); a shadowed level applies L16/D16
+    and preconditions with iD16; ``KAXPY`` and ``KDOT`` route a blocked
+    level's axpy pair and dots through `ops.attic`."""
     dt = x.dtype
     teneps = 10 * torch.finfo(dt).eps
     z = _rid(lev, r)
@@ -343,7 +423,7 @@ def pcg(lev: PoissonLevel, x, r, it: int = 6):
         if lev.banded:
             z, denom = _banded_ax(lev, eps, with_dot=True)
         elif lev.blocked:
-            z, denom = sk.mult3d(lev.L, lev.D, eps, with_dot=True)
+            z, denom = _ax(lev, eps, with_dot=True)
         else:
             z = mult(lev, eps)
             denom = field_dot(z, eps)
@@ -353,7 +433,7 @@ def pcg(lev: PoissonLevel, x, r, it: int = 6):
         upd = torch.where(dead, 0.0, alpha).to(dt)
         last = i == it - 1
         if KAXPY and lev.blocked and not last:
-            x, r, rho2 = at.pcg_axpy(x, r, eps, z, lev.iD, upd)
+            x, r, rho2 = at.pcg_axpy(x, r, eps, z, _iDk(lev), upd)
             z2 = _rid(lev, r)
         else:
             x = x + upd * sk._wide(eps)
@@ -374,9 +454,12 @@ def pcg(lev: PoissonLevel, x, r, it: int = 6):
 
 def smooth(lev: PoissonLevel, x, r, it: int = 6):
     """Default smoother (reference ``smooth! = pcg!``): the one-launch PCG
-    kernel on small CUDA levels, `attic.pcg_blocked` on blocked dense
-    non-periodic levels under ``PCG_BLOCKED``, `pcg` elsewhere."""
-    if pk.use_pcg_fused(tuple(x.shape), x.dtype, x.device):
+    kernel on small CUDA levels (never on a level with operator shadows:
+    it applies the f32 operator, and one solve must not mix the two, as
+    in JAX), `attic.pcg_blocked` on blocked dense non-periodic levels under
+    ``PCG_BLOCKED``, `pcg` elsewhere."""
+    if (lev.L16 is None
+            and pk.use_pcg_fused(tuple(x.shape), x.dtype, x.device)):
         return pk.pcg_fused(lev, x, r, it)
     if PCG_BLOCKED and lev.blocked and not lev.perdir and not lev.banded:
         return at.pcg_blocked(lev, x, r, it)

@@ -8,7 +8,9 @@ does not take (dtype, shape, layout, an unported variant) raises.
 
 Each wrapper counts its launches in a plain int attribute, ``.launches``,
 incremented only where the kernel is launched, and keeps the shapes it
-launched at in a set, ``.shapes``.
+launched at in a set, ``.shapes``; a wrapper with bf16 forms also keeps
+the forms it launched in ``.forms`` (each the names of the arguments that
+were bf16, ``()`` for all f32).
 
 The plain versions are the package's own whole-array forms (the functions
 `waterlily_tpu` runs through XLA on the CPU), with the same association as
@@ -58,9 +60,9 @@ def _on_cpu(name: str, t: torch.Tensor) -> bool:
 
 
 def _check(name: str, S: tuple, ranks=(3,), bf16=(), **tensors) -> None:
-    """Kernel arguments: f32 (or bf16 for the arguments named in ``bf16``,
-    the search-direction streams), contiguous, one CUDA device, expected
-    shape, a field rank in ``ranks``."""
+    """Kernel arguments: f32 (or bf16 for the arguments named in ``bf16``:
+    search directions and a level's operator shadows), contiguous, one CUDA
+    device, expected shape, a field rank in ``ranks``."""
     dev = None
     for arg, (t, shape) in tensors.items():
         if tuple(t.shape) != tuple(shape):
@@ -69,10 +71,8 @@ def _check(name: str, S: tuple, ranks=(3,), bf16=(), **tensors) -> None:
         if t.dtype != torch.float32 and not (arg in bf16
                                              and t.dtype == torch.bfloat16):
             kinds = "float32 or bfloat16" if arg in bf16 else "float32"
-            why = (" (the bf16 operator shadows L16/D16/iD16 are not "
-                   "ported: ROADMAP B9)" if t.dtype == torch.bfloat16 else "")
             raise TypeError(f"{name}: {arg} is {t.dtype}; the kernel takes "
-                            f"{kinds}{why}")
+                            f"{kinds}")
         if not t.is_contiguous():
             raise ValueError(f"{name}: {arg} is not contiguous")
         if dev is None:
@@ -119,7 +119,17 @@ def _axis_bits(perdir) -> int:
 def _counted(fn):
     fn.launches = 0
     fn.shapes = set()
+    fn.forms = set()
     return fn
+
+
+def _count(fn, S, **streams) -> None:
+    """One launch of wrapper ``fn`` at shape ``S``; ``streams`` are the
+    arguments that may be bf16, whose bf16 names make the launched form."""
+    fn.launches += 1
+    fn.shapes.add(S)
+    fn.forms.add(tuple(k for k, t in streams.items()
+                       if t.dtype == torch.bfloat16))
 
 
 # --- Poisson operator: mult3d / increment3d ---------------------------------
@@ -130,8 +140,8 @@ def _bf16(t: torch.Tensor) -> int:
 
 
 def _wide(t: torch.Tensor) -> torch.Tensor:
-    """A bf16 tensor (a search direction stored in bf16) upcast to f32
-    (exact), any other as it is."""
+    """A bf16 tensor (a search direction stored in bf16, an operator
+    shadow) upcast to f32 (exact), any other as it is."""
     return t.float() if t.dtype == torch.bfloat16 else t
 
 
@@ -141,12 +151,13 @@ def _blocks(S) -> int:
 
 
 def _mult3d_plain(L, Dd, x, with_dot=False):
-    """A bf16 ``x`` (a search direction stored in bf16) is upcast first and
-    the operator applied in f32, as in the kernel."""
+    """A bf16 ``x`` (a search direction stored in bf16) and a bf16 ``L`` (a
+    level's shadow L16) are upcast first and the operator applied in f32,
+    as in the kernel."""
     from .poisson import _mult_interior_arrays
     from ..grid import pad_interior, field_dot
     x = _wide(x)
-    z = pad_interior(_mult_interior_arrays(L, Dd, x))
+    z = pad_interior(_mult_interior_arrays(_wide(L), Dd, x))
     return (z, field_dot(z, x)) if with_dot else z
 
 
@@ -154,19 +165,20 @@ def _mult3d_plain(L, Dd, x, with_dot=False):
 def mult3d(L, Dd, x, with_dot: bool = False):
     """z = A·x for the 7-point variable-coefficient Poisson operator with
     zero ghosts; with ``with_dot`` also ⟨A·x, x⟩ as a 0-d tensor (per-block
-    partial sums, reduced on the device).  ``x`` may be bf16 (upcast in
-    registers; z and the dot are f32).  Periodic ghosts of ``x`` must be
-    filled by the caller."""
+    partial sums, reduced on the device).  ``x`` may be bf16 and so may
+    ``L`` (a level's shadow L16, with the f32 D16): upcast in registers, z
+    and the dot are f32.  Periodic ghosts of ``x`` must be filled by the
+    caller."""
     S = tuple(x.shape)
     if _on_cpu("mult3d", x):
         return _mult3d_plain(L, Dd, x, with_dot)
-    _check("mult3d", S, bf16=("x",), L=(L, (3,) + S), D=(Dd, S), x=(x, S))
+    _check("mult3d", S, bf16=("L", "x"), L=(L, (3,) + S), D=(Dd, S),
+           x=(x, S))
     z = torch.empty(S, dtype=torch.float32, device=x.device)
     part = (torch.empty(_blocks(S), dtype=torch.float32, device=x.device)
             if with_dot else None)
-    launch("wl_mult3d", L, Dd, x, z, part, _bf16(x), *S)
-    mult3d.launches += 1
-    mult3d.shapes.add(S)
+    launch("wl_mult3d", L, Dd, x, z, part, _bf16(L), _bf16(x), *S)
+    _count(mult3d, S, L=L, x=x)
     return (z, torch.sum(part)) if with_dot else z
 
 
@@ -178,17 +190,17 @@ def _increment3d_plain(L, Dd, eps, x, r):
 @_counted
 def increment3d(L, Dd, eps, x, r):
     """(x + eps, r − A·eps): the stencil half runs in the kernel, the axpy
-    is a plain tensor op.  ``eps`` may be bf16 (upcast; x and r stay f32).
-    Returns new tensors (nothing is updated in place)."""
+    is a plain tensor op.  ``eps`` may be bf16 and so may ``L`` (a level's
+    shadow L16): upcast, x and r stay f32.  Returns new tensors (nothing is
+    updated in place)."""
     S = tuple(x.shape)
     if _on_cpu("increment3d", x):
         return _increment3d_plain(L, Dd, eps, x, r)
-    _check("increment3d", S, bf16=("eps",), L=(L, (3,) + S), D=(Dd, S),
+    _check("increment3d", S, bf16=("L", "eps"), L=(L, (3,) + S), D=(Dd, S),
            eps=(eps, S), x=(x, S), r=(r, S))
     r_out = torch.empty_like(r)
-    launch("wl_increment3d", L, Dd, eps, r, r_out, _bf16(eps), *S)
-    increment3d.launches += 1
-    increment3d.shapes.add(S)
+    launch("wl_increment3d", L, Dd, eps, r, r_out, _bf16(L), _bf16(eps), *S)
+    _count(increment3d, S, L=L, eps=eps)
     return x + eps, r_out
 
 
@@ -365,12 +377,14 @@ def conv_diff3d(u, nu, limiter, perdir: tuple = ()):
 
 
 def kernel_wrappers() -> dict:
-    """Name → wrapper of every kernel of the port's paths (each wrapper has
-    a ``.launches`` counter and a ``.shapes`` set), the blocked-level PCG
-    iteration's (`ops.attic`) included."""
+    """Name → wrapper of every kernel of the port (each wrapper has a
+    ``.launches`` counter and ``.shapes`` and ``.forms`` sets): the blocked
+    levels' PCG iteration and carried-rows operator (`ops.attic`) and the
+    bandwidth probes (`kernels.probes`) included."""
     from .pcg_kernel import pcg_fused
     from .attic import kernel_wrappers as attic_wrappers
+    from ..kernels.probes import kernel_wrappers as probe_wrappers
     return {"mult3d": mult3d, "increment3d": increment3d, "cfl3d": cfl3d,
             "bc3d": bc3d, "div3d": div3d, "project3d": project3d,
             "conv_diff3d": conv_diff3d, "pcg_fused": pcg_fused,
-            "ana_mult3d": ana_mult3d, **attic_wrappers()}
+            "ana_mult3d": ana_mult3d, **attic_wrappers(), **probe_wrappers()}

@@ -56,13 +56,22 @@ class Simulation:
     TPU blocked levels.  The port's default is ``False``: f32 directions
     everywhere, until a benchmark decides otherwise.  It has no effect on
     the CPU, where no level is blocked.
+
+    ``op_bf16=True`` gives the blocked levels bf16 shadows of the Poisson
+    operator (`PoissonLevel.L16`/``D16``/``iD16``): the smoothers apply the
+    bf16-rounded operator in f32, reading half the coefficient bytes.
+    ``None`` (the default) follows `ops.poisson.BF16_OP` (False), as in the
+    JAX package.  It excludes ``smoother_bf16``: a shadowed level keeps f32
+    search directions (the two roundings together lifted JAX's multigrid
+    convergence floor above ``tol`` at 256³).  Like ``smoother_bf16`` it has
+    no effect on the CPU.
     """
 
     def __init__(self, dims, u_BC, L, dt=0.25, nu=0.0, g=None, U=None,
                  epsilon=1.0, perdir=(), ulam=None, exitBC=False, body=None,
                  dtype=torch.float32, limiter=quick, tol=1e-4, itmx=32,
                  bbox=True, fixed_iters=None, banded_levels=False,
-                 smoother_bf16=False, device="cuda"):
+                 smoother_bf16=False, op_bf16=None, device="cuda"):
         D = len(dims)
         if callable(u_BC) and callable(ulam):
             raise ValueError("u_BC and ulam cannot both be functions")
@@ -94,6 +103,7 @@ class Simulation:
         # the window of the banded Poisson levels (None: dense levels)
         self._lv_box = bbox_shape if banded_levels else None
         self._smoother_bf16 = bool(smoother_bf16)
+        self._op_bf16 = None if op_bf16 is None else bool(op_bf16)
         self.flow = flow_init(self.cfg, ulam, dt)
         self.levels = None
         self.measure(0.0)
@@ -156,7 +166,8 @@ class Simulation:
         if not self._band_covered(dc, bb):
             raise RuntimeError(self._BAND_ERR)
         self.levels = build_levels(m0, self.cfg.perdir, self._lv_box, bb,
-                                   bf16_eps=self._smoother_bf16)
+                                   bf16_eps=self._smoother_bf16,
+                                   op_bf16=self._op_bf16)
         self.flow = self.flow.replace(V=V, mu0=m0, mu1=m1, bbox=bb)
         return self
 
