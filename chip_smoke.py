@@ -60,21 +60,24 @@ Phases, each of which raises (and so exits non-zero) on failure:
    mean Cd over the last 10 tU/L); the plate's and ``tgv_2d(64)``'s
    ms/step; each kernel next to its plain version and its bound at
    (98,66,66) and at the largest shape a path launched it at (the shape
-   the kernels line reports), the periodic, 2D and bf16 forms at 258³,
-   (34,34,34) and (98,66), the operator-shadow, bf16-iD and carried-rows
-   forms at 258³ and (98,66,66), ``torch.dot`` beside ``dot3d`` and
-   ``torch.mul`` beside ``copy_probe``; the probes' rates in GB/s and each
-   kernel's bytes over its time as a share of the copy probe's rate; the
-   256³ sphere in configurations (a)-(i) of 6.4 in turns (a, ..., i, i,
-   ..., a), each with its idle share and pois_n.
+   the kernels line reports; each call on the next of three copies of its
+   inputs, so that at 258³ no call finds its operands in L2), the
+   periodic, 2D and bf16 forms at 258³, (34,34,34) and (98,66), the
+   operator-shadow, bf16-iD and carried-rows forms at 258³ and
+   (98,66,66), ``torch.dot`` beside ``dot3d`` and ``torch.mul`` beside
+   ``copy_probe``; the probes' rates in GB/s and each kernel's bytes over
+   its time as a share of the copy probe's rate; the 256³ sphere in
+   configurations (a)-(i) of 6.4 in turns (a, ..., i, i, ..., a), each
+   with its idle share and pois_n.
 
 Every path runs with the launch counters set to 0 and the launched shapes
 and forms cleared just before it, all read just after; a kernel of the
-path that never launched fails the run (the probes run on no path: their
-launches are phase 8's).  The
-line before the last is a JSON object with one entry per kernel; the last
-line is ``{"ok": true, "device": {...}}``.  Without a CUDA device the script
-prints no result and exits 2.  Imports no JAX.
+path that never launched fails the run.  The probes run on no path: the
+kernels line gives them 0 launches and their calls in phase 8 as
+``timing_launches``.  The line before the last is a JSON object with one
+entry per kernel; the last line is ``{"ok": true, "device": {...}}``.
+Without a CUDA device the script prints no result and exits 2.  Imports
+no JAX.
 """
 from __future__ import annotations
 
@@ -109,6 +112,10 @@ def phase(title):
     log(f"== {title} (at {time.perf_counter() - T0:.1f} s)")
 
 
+def stage(title):
+    log(f"-- {title} (at {time.perf_counter() - T0:.1f} s)")
+
+
 def card_record(torch):
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -136,12 +143,18 @@ CHECKED = {}
 
 def check_kernels(torch, dev, shapes):
     """Each kernel (and composite) against its plain version at every
-    shape in ``shapes[name]`` not checked yet."""
-    from waterlily_tpu_torch.kernels.check import KERNELS, COMPOSITES, compare
+    shape in ``shapes[name]`` not checked yet, shape by shape (each
+    shape's inputs are drawn once)."""
+    from waterlily_tpu_torch.kernels.check import (KERNELS, COMPOSITES,
+                                                   compare, clear_inputs)
+    todo = {name: set(shapes.get(name, ())) - CHECKED.setdefault(name, set())
+            for name in KERNELS + COMPOSITES}
     failures = []
-    for name in KERNELS + COMPOSITES:
-        done = CHECKED.setdefault(name, set())
-        for S in sorted(set(shapes.get(name, ())) - done, key=math.prod):
+    for S in sorted(set().union(*todo.values()), key=lambda S: (len(S),
+                                                               math.prod(S))):
+        for name in KERNELS + COMPOSITES:
+            if S not in todo[name]:
+                continue
             for row in compare(name, S, 1, dev):
                 log(f"  {row['output']:<20} {str(row['shape']):<15} "
                     f"max|d|={row['max_abs_err']:.3e} ulp={row['max_ulp']} "
@@ -149,8 +162,9 @@ def check_kernels(torch, dev, shapes):
                 WORST[name] = max(WORST.get(name, 0.0), row["max_abs_err"])
                 if not row["ok"]:
                     failures.append(row)
-            done.add(S)
-            torch.cuda.empty_cache()
+            CHECKED[name].add(S)
+        clear_inputs()
+        torch.cuda.empty_cache()
     if failures:
         raise AssertionError(f"kernel checks failed: {failures}")
 
@@ -677,14 +691,15 @@ TIMED_FORMS = (
     ("mult3d_stream", "z_nodot"), ("mult3d_stream", "z_L16"),
     ("mult3d_stream", "z_nodot_L16"), ("increment3d_stream", "x_L16")))
 PROBES = ("copy_probe", "roll_probe")
-PROBE_LAUNCHES = {}   # the probes' launches in phase 8
+PROBE_LAUNCHES = {}   # the probes' launches in phase 8 (on no path)
 
 
 def timing(torch, dev, sim):
     from waterlily_tpu_torch import sphere_3d, heaving_sphere_3d
     from waterlily_tpu_torch.kernels import probes
     from waterlily_tpu_torch.kernels.check import (KERNELS, LIBRARY, time_pair,
-                                                   time_library, bound_ms)
+                                                   time_library, bound_ms,
+                                                   clear_inputs)
 
     for w in probes.kernel_wrappers().values():
         w.launches = 0
@@ -692,6 +707,7 @@ def timing(torch, dev, sim):
     step_profile(sim, 20, "sphere_3d(96, 64)")
     # each kernel at the dense slice's shape, then at the largest shape a
     # path launched it at (the kernels line's shape; 258³ for the probes)
+    stage("kernels and forms against their plain versions")
     times, rows = {}, []
     for name in KERNELS:
         largest = max(PATH_SHAPES.get(name) or {BIG}, key=math.prod)
@@ -716,10 +732,10 @@ def timing(torch, dev, sim):
     for name, S, variant in TIMED_FORMS:
         t = time_pair(name, S, dev, variant=variant)
         b, by = bound_ms(name, S, variant)
-        log(f"  {name:<12} {str(S):<15} form {variant}, device (profiler): "
-            f"kernel {t['ms']:.4f} ms, plain {t['plain_ms']:.4f} ms, bound "
-            f"{b:.4f} ms ({by}); wall per call: kernel {t['wall_ms']:.4f} "
-            f"ms, plain {t['plain_wall_ms']:.4f} ms")
+        log(f"  {name:<12} {str(S):<15} form {variant}, device "
+            f"(profiler): kernel {t['ms']:.4f} ms, plain {t['plain_ms']:.4f} "
+            f"ms, bound {b:.4f} ms ({by}); wall per call: kernel "
+            f"{t['wall_ms']:.4f} ms, plain {t['plain_wall_ms']:.4f} ms")
         rows.append((name, S, variant, t["ms"]))
         torch.cuda.empty_cache()
     PROBE_LAUNCHES.update({k: w.launches
@@ -727,12 +743,15 @@ def timing(torch, dev, sim):
     bandwidth_shares(rows)
     # ana_mult3d without the dot (the bound counts the same bytes)
     t = time_pair("ana_mult3d", BIG, dev, variant=1)
-    log(f"  ana_mult3d   {str(BIG):<15} without the dot, device (profiler): "
-        f"kernel {t['ms']:.4f} ms, plain {t['plain_ms']:.4f} ms, bound "
-        f"{bound_ms('ana_mult3d', BIG)[0]:.4f} ms")
+    log(f"  ana_mult3d   {str(BIG):<15} without the dot, device "
+        f"(profiler): kernel {t['ms']:.4f} ms, plain {t['plain_ms']:.4f} ms, "
+        f"bound {bound_ms('ana_mult3d', BIG)[0]:.4f} ms")
+    clear_inputs()
+    torch.cuda.empty_cache()
     del sim
 
     # 256³: dense and banded BDIM in turns (dense, banded, banded, dense)
+    stage("256³ cells")
     dense = construct(torch, "sphere_3d(256, 256, bbox=False)",
                       lambda: sphere_3d(256, 256, bbox=False, device=dev))
     peak(torch, "sphere_3d(256, 256, bbox=False)")
@@ -746,8 +765,10 @@ def timing(torch, dev, sim):
     step_profile(dense, 5, "sphere_3d(256, 256, bbox=False)")
     step_profile(band, 5, "sphere_3d(256, 256)")
     del dense, band
+    stage("256³ sphere in configurations (a)-(i)")
     timing_pcg_paths(torch, dev)
 
+    stage("256³ banded levels, heaving sphere")
     lv = construct(torch, "sphere_3d(256, 256, banded_levels=True)",
                    lambda: sphere_3d(256, 256, banded_levels=True,
                                      device=dev))
@@ -775,6 +796,7 @@ def timing(torch, dev, sim):
     step_profile(hv, 5, "heaving_sphere_3d(radius=64), remeasure",
                  remeasure=True)
     del hv
+    stage("tgv_3d(256), 2D cases")
     timing_periodic_2d(torch, dev)
     return times
 
@@ -782,21 +804,25 @@ def timing(torch, dev, sim):
 def bandwidth_shares(rows):
     """The probes' measured rates (GB/s), and each 3D kernel or form timed
     at 258³ or (98,66,66): the bytes it must move over its time, as a
-    share of the copy probe's rate at that shape."""
+    share of the copy probe's rate at that shape.  Every time rotates over
+    `check.ROTATE` input sets: at 258³ each call's operands come from
+    device memory, at (98,66,66) they fit in L2 (the rates there are
+    L2-warm, not device memory's)."""
     from waterlily_tpu_torch.kernels.check import bytes_moved, HBM_BYTES_PER_S
     rate = {(name, S, v): bytes_moved(name, S, v) / (ms * 1e6)
             for name, S, v, ms in rows}
     copy = {S: r for (name, S, v), r in rate.items() if name == "copy_probe"}
+    warm = lambda S: " (L2-warm)" if S == FINE else ""
     for (name, S, v), r in rate.items():
         if name in PROBES:
-            log(f"  {name} {S}: {r:.1f} GB/s measured "
+            log(f"  {name} {S}{warm(S)}: {r:.1f} GB/s measured "
                 f"({r * 1e9 / HBM_BYTES_PER_S:.3f} of the data sheet's "
                 f"{HBM_BYTES_PER_S / 1e12:.2f} TB/s)")
     log("  bytes moved over time, as a share of the copy probe's rate:")
     for (name, S, v), r in rate.items():
         if S in copy and name not in PROBES:
             log(f"    {name:<18} {v or 'timed form':<12} {str(S):<15} "
-                f"{r:8.1f} GB/s = {r / copy[S]:.3f} of copy_probe")
+                f"{r:8.1f} GB/s = {r / copy[S]:.3f} of copy_probe{warm(S)}")
 
 
 def timing_pcg_paths(torch, dev):
@@ -941,8 +967,10 @@ def main() -> int:
     phase("end of timing")
 
     from waterlily_tpu_torch.kernels.check import SOURCES
-    launches = {k: sum(c[k] for c in PATH_LAUNCHES.values()) for k in SOURCES}
-    launches.update(PROBE_LAUNCHES)
+    # launches on the paths only: the probes, on no path, have 0 there and
+    # their phase-8 calls in a field of their own
+    launches = {k: sum(c.get(k, 0) for c in PATH_LAUNCHES.values())
+                for k in SOURCES}
     # one PyTorch call computes dot3d's timed form (torch.dot) and
     # copy_probe's (torch.mul; kernels/check.LIBRARY); none computes the
     # others (variable or wall-masked coefficients, BC stages, limiters, a
@@ -953,7 +981,9 @@ def main() -> int:
                 "plain_ms": times[k]["plain_ms"],
                 "bound_ms": times[k]["bound_ms"],
                 "bound_by": times[k]["bound_by"],
-                "library_ms": times[k].get("library_ms")}
+                "library_ms": times[k].get("library_ms"),
+                **({"timing_launches": PROBE_LAUNCHES[k]}
+                   if k in PROBES else {})}
                for k in SOURCES]
     log(card)
     log(json.dumps({"kernels": kernels}))

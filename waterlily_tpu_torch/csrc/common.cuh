@@ -112,3 +112,26 @@ __device__ inline float block_max(float v, float* sh) {
 inline int blocks_for(long long n) {
   return (int)((n + WL_THREADS - 1) / WL_THREADS);
 }
+
+// The stored type of an operand, passed to a generic lambda as a value.
+template <typename T>
+struct type_tag {
+  using type = T;
+};
+#define TAG_T(tag) typename decltype(tag)::type
+
+// Calls f(ta, tb) with ta, tb the type_tag of float or __nv_bfloat16 as
+// a_bf16 / b_bf16 say: the one dispatch of a kernel templated on two
+// operand types (f32, or bf16 upcast in registers).
+template <typename F>
+inline void dispatch_bf16(int a_bf16, int b_bf16, F f) {
+  using bf = __nv_bfloat16;
+  if (a_bf16 && b_bf16)
+    f(type_tag<bf>{}, type_tag<bf>{});
+  else if (a_bf16)
+    f(type_tag<bf>{}, type_tag<float>{});
+  else if (b_bf16)
+    f(type_tag<float>{}, type_tag<bf>{});
+  else
+    f(type_tag<float>{}, type_tag<float>{});
+}

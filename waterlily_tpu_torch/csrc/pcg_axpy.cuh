@@ -42,15 +42,6 @@ __global__ void axpy_rho_kernel(const float* __restrict__ x,
   if (threadIdx.x == 0) partial[blockIdx.x] = s;
 }
 
-template <typename TE, typename TI>
-inline void launch_axpy_rho_t(const float* x, const float* r, const void* eps,
-                              const float* z, const void* iD, const float* upd,
-                              float* x_out, float* r_out, float* partial,
-                              const Shape3& g, cudaStream_t s) {
-  axpy_rho_kernel<<<blocks_for(g.N), WL_THREADS, 0, s>>>(
-      x, r, (const TE*)eps, z, (const TI*)iD, upd, x_out, r_out, partial, g);
-}
-
 // eps_bf16: eps is bf16 (else f32); iD_bf16: iD is bf16 (else f32)
 inline int launch_axpy_rho(const float* x, const float* r, const void* eps,
                            const float* z, const void* iD, const float* upd,
@@ -58,19 +49,10 @@ inline int launch_axpy_rho(const float* x, const float* r, const void* eps,
                            int eps_bf16, int iD_bf16, int S0, int S1, int S2,
                            void* stream) {
   const Shape3 g = make_shape(S0, S1, S2);
-  const cudaStream_t s = (cudaStream_t)stream;
-  using bf = __nv_bfloat16;
-  if (eps_bf16 && iD_bf16)
-    launch_axpy_rho_t<bf, bf>(x, r, eps, z, iD, upd, x_out, r_out, partial, g,
-                              s);
-  else if (iD_bf16)
-    launch_axpy_rho_t<float, bf>(x, r, eps, z, iD, upd, x_out, r_out, partial,
-                                 g, s);
-  else if (eps_bf16)
-    launch_axpy_rho_t<bf, float>(x, r, eps, z, iD, upd, x_out, r_out, partial,
-                                 g, s);
-  else
-    launch_axpy_rho_t<float, float>(x, r, eps, z, iD, upd, x_out, r_out,
-                                    partial, g, s);
+  dispatch_bf16(eps_bf16, iD_bf16, [&](auto te, auto ti) {
+    axpy_rho_kernel<<<blocks_for(g.N), WL_THREADS, 0, (cudaStream_t)stream>>>(
+        x, r, (const TAG_T(te)*)eps, z, (const TAG_T(ti)*)iD, upd, x_out,
+        r_out, partial, g);
+  });
   return (int)cudaGetLastError();
 }

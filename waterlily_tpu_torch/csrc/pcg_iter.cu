@@ -88,38 +88,6 @@ __global__ void dir_mult_kernel(const TC* __restrict__ L,
   }
 }
 
-template <typename TP, typename TO, typename TC>
-static void launch_dir_mult(const void* L, const float* Dd, const void* ep,
-                            const float* r, const void* iD,
-                            const float* beta, void* eps, float* z,
-                            float* partial, const Shape3& g,
-                            cudaStream_t stream) {
-  const int nb = blocks_for(g.N);
-  dir_mult_kernel<TP, TO, TC><<<nb, WL_THREADS, 0, stream>>>(
-      (const TC*)L, Dd, (const TP*)ep, r, (const TC*)iD, beta, (TO*)eps, z,
-      partial, g, nb);
-}
-
-template <typename TC>
-static void dispatch_dir_mult(const void* L, const float* Dd, const void* ep,
-                              const float* r, const void* iD,
-                              const float* beta, void* eps, float* z,
-                              float* partial, int ep_bf16, int out_bf16,
-                              const Shape3& g, cudaStream_t s) {
-  using bf = __nv_bfloat16;
-  if (ep_bf16 && out_bf16)
-    launch_dir_mult<bf, bf, TC>(L, Dd, ep, r, iD, beta, eps, z, partial, g, s);
-  else if (out_bf16)
-    launch_dir_mult<float, bf, TC>(L, Dd, ep, r, iD, beta, eps, z, partial, g,
-                                   s);
-  else if (ep_bf16)
-    launch_dir_mult<bf, float, TC>(L, Dd, ep, r, iD, beta, eps, z, partial, g,
-                                   s);
-  else
-    launch_dir_mult<float, float, TC>(L, Dd, ep, r, iD, beta, eps, z, partial,
-                                      g, s);
-}
-
 // ep_bf16: eps_prev is bf16; out_bf16: eps is written (and rounded) in bf16;
 // coef_bf16: L and iD are bf16 (the level's L16 and iD16; D is f32).
 // partial holds 2 * blocks floats: the <z, eps> partials, then <r, r*iD>'s.
@@ -130,13 +98,20 @@ extern "C" int wl_pcg_dir_mult(const void* L, const float* Dd, const void* ep,
                                int coef_bf16, int S0, int S1, int S2,
                                void* stream) {
   const Shape3 g = make_shape(S0, S1, S2);
-  const cudaStream_t s = (cudaStream_t)stream;
-  if (coef_bf16)
-    dispatch_dir_mult<__nv_bfloat16>(L, Dd, ep, r, iD, beta, eps, z, partial,
-                                     ep_bf16, out_bf16, g, s);
-  else
-    dispatch_dir_mult<float>(L, Dd, ep, r, iD, beta, eps, z, partial, ep_bf16,
-                             out_bf16, g, s);
+  const int nb = blocks_for(g.N);
+  dispatch_bf16(ep_bf16, out_bf16, [&](auto tp, auto to) {
+    auto go = [&](auto tc) {
+      using TC = TAG_T(tc);
+      dir_mult_kernel<TAG_T(tp), TAG_T(to), TC>
+          <<<nb, WL_THREADS, 0, (cudaStream_t)stream>>>(
+              (const TC*)L, Dd, (const TAG_T(tp)*)ep, r, (const TC*)iD, beta,
+              (TAG_T(to)*)eps, z, partial, g, nb);
+    };
+    if (coef_bf16)
+      go(type_tag<__nv_bfloat16>{});
+    else
+      go(type_tag<float>{});
+  });
   return (int)cudaGetLastError();
 }
 

@@ -59,21 +59,6 @@ __global__ void rsub_kernel(const TL* __restrict__ L,
   r_out[c] = r[c] - ae;
 }
 
-template <typename TL, typename T>
-static void launch_mult(const void* L, const float* Dd, const void* x, float* z,
-                        float* partial, const Shape3& g, cudaStream_t s) {
-  mult_kernel<<<blocks_for(g.N), WL_THREADS, 0, s>>>(
-      (const TL*)L, Dd, (const T*)x, z, partial, g);
-}
-
-template <typename TL, typename T>
-static void launch_rsub(const void* L, const float* Dd, const void* eps,
-                        const float* r, float* r_out, const Shape3& g,
-                        cudaStream_t s) {
-  rsub_kernel<<<blocks_for(g.N), WL_THREADS, 0, s>>>(
-      (const TL*)L, Dd, (const T*)eps, r, r_out, g);
-}
-
 extern "C" int wl_threads() { return WL_THREADS; }
 
 extern "C" const char* wl_error_string(int code) {
@@ -85,16 +70,10 @@ extern "C" int wl_mult3d(const void* L, const float* Dd, const void* x,
                          float* z, float* partial, int L_bf16, int x_bf16,
                          int S0, int S1, int S2, void* stream) {
   const Shape3 g = make_shape(S0, S1, S2);
-  const cudaStream_t s = (cudaStream_t)stream;
-  using bf = __nv_bfloat16;
-  if (L_bf16 && x_bf16)
-    launch_mult<bf, bf>(L, Dd, x, z, partial, g, s);
-  else if (L_bf16)
-    launch_mult<bf, float>(L, Dd, x, z, partial, g, s);
-  else if (x_bf16)
-    launch_mult<float, bf>(L, Dd, x, z, partial, g, s);
-  else
-    launch_mult<float, float>(L, Dd, x, z, partial, g, s);
+  dispatch_bf16(L_bf16, x_bf16, [&](auto tl, auto tx) {
+    mult_kernel<<<blocks_for(g.N), WL_THREADS, 0, (cudaStream_t)stream>>>(
+        (const TAG_T(tl)*)L, Dd, (const TAG_T(tx)*)x, z, partial, g);
+  });
   return (int)cudaGetLastError();
 }
 
@@ -104,15 +83,9 @@ extern "C" int wl_increment3d(const void* L, const float* Dd, const void* eps,
                               int eps_bf16, int S0, int S1, int S2,
                               void* stream) {
   const Shape3 g = make_shape(S0, S1, S2);
-  const cudaStream_t s = (cudaStream_t)stream;
-  using bf = __nv_bfloat16;
-  if (L_bf16 && eps_bf16)
-    launch_rsub<bf, bf>(L, Dd, eps, r, r_out, g, s);
-  else if (L_bf16)
-    launch_rsub<bf, float>(L, Dd, eps, r, r_out, g, s);
-  else if (eps_bf16)
-    launch_rsub<float, bf>(L, Dd, eps, r, r_out, g, s);
-  else
-    launch_rsub<float, float>(L, Dd, eps, r, r_out, g, s);
+  dispatch_bf16(L_bf16, eps_bf16, [&](auto tl, auto te) {
+    rsub_kernel<<<blocks_for(g.N), WL_THREADS, 0, (cudaStream_t)stream>>>(
+        (const TAG_T(tl)*)L, Dd, (const TAG_T(te)*)eps, r, r_out, g);
+  });
   return (int)cudaGetLastError();
 }

@@ -154,36 +154,26 @@ stream_kernel(const TL* __restrict__ L, const float* __restrict__ Dd,
   }
 }
 
-template <typename TL, typename TX, bool INC>
+template <bool INC>
 static void launch_stream(const void* L, const float* Dd, const void* x,
                           const float* xa, const float* r, float* out,
-                          float* x_out, float* partial, const Shape3& g,
-                          int rows, cudaStream_t s) {
+                          float* x_out, float* partial, int L_bf16,
+                          int x_bf16, const Shape3& g, int rows,
+                          cudaStream_t s) {
   const dim3 grid((g.S[2] + ST_TK - 1) / ST_TK, (g.S[1] + ST_TJ - 1) / ST_TJ,
                   (g.S[0] + rows - 1) / rows);
-  stream_kernel<TL, TX, INC><<<grid, dim3(ST_TK, ST_TJ), 0, s>>>(
-      (const TL*)L, Dd, (const TX*)x, xa, r, out, x_out, partial, g, rows);
+  dispatch_bf16(L_bf16, x_bf16, [&](auto tl, auto tx) {
+    stream_kernel<TAG_T(tl), TAG_T(tx), INC>
+        <<<grid, dim3(ST_TK, ST_TJ), 0, s>>>(
+            (const TAG_T(tl)*)L, Dd, (const TAG_T(tx)*)x, xa, r, out, x_out,
+            partial, g, rows);
+  });
 }
 
-template <bool INC>
-static void dispatch_stream(const void* L, const float* Dd, const void* x,
-                            const float* xa, const float* r, float* out,
-                            float* x_out, float* partial, int L_bf16,
-                            int x_bf16, const Shape3& g, int rows,
-                            cudaStream_t s) {
-  using bf = __nv_bfloat16;
-  if (L_bf16 && x_bf16)
-    launch_stream<bf, bf, INC>(L, Dd, x, xa, r, out, x_out, partial, g, rows,
-                               s);
-  else if (L_bf16)
-    launch_stream<bf, float, INC>(L, Dd, x, xa, r, out, x_out, partial, g,
-                                  rows, s);
-  else if (x_bf16)
-    launch_stream<float, bf, INC>(L, Dd, x, xa, r, out, x_out, partial, g,
-                                  rows, s);
-  else
-    launch_stream<float, float, INC>(L, Dd, x, xa, r, out, x_out, partial, g,
-                                     rows, s);
+// The tile extent along axis 1 (axis = 1) or axis 2 (axis = 2): the caller
+// sizes the dot partials, one float per block, from it.
+extern "C" int wl_stream_tile(int axis) {
+  return axis == 1 ? ST_TJ : axis == 2 ? ST_TK : 0;
 }
 
 // z = A x; partial (NULL for none) holds one float per block of the grid
@@ -195,8 +185,8 @@ extern "C" int wl_mult3d_stream(const void* L, const float* Dd, const void* x,
                                 void* stream) {
   if (rows < 1) return (int)cudaErrorInvalidValue;
   const Shape3 g = make_shape(S0, S1, S2);
-  dispatch_stream<false>(L, Dd, x, nullptr, nullptr, z, nullptr, partial,
-                         L_bf16, x_bf16, g, rows, (cudaStream_t)stream);
+  launch_stream<false>(L, Dd, x, nullptr, nullptr, z, nullptr, partial,
+                       L_bf16, x_bf16, g, rows, (cudaStream_t)stream);
   return (int)cudaGetLastError();
 }
 
@@ -210,7 +200,7 @@ extern "C" int wl_increment3d_stream(const void* L, const float* Dd,
                                      void* stream) {
   if (rows < 1) return (int)cudaErrorInvalidValue;
   const Shape3 g = make_shape(S0, S1, S2);
-  dispatch_stream<true>(L, Dd, eps, x, r, r_out, x_out, nullptr, L_bf16,
-                        eps_bf16, g, rows, (cudaStream_t)stream);
+  launch_stream<true>(L, Dd, eps, x, r, r_out, x_out, nullptr, L_bf16,
+                      eps_bf16, g, rows, (cudaStream_t)stream);
   return (int)cudaGetLastError();
 }

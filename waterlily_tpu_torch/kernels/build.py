@@ -137,6 +137,8 @@ def library() -> ctypes.CDLL:
         fn.argtypes = args + [_P]
         fn.restype = _I
     lib.wl_threads.restype = _I
+    lib.wl_stream_tile.argtypes = [_I]
+    lib.wl_stream_tile.restype = _I
     lib.wl_error_string.argtypes = [_I]
     lib.wl_error_string.restype = ctypes.c_char_p
     if lib.wl_threads() != THREADS:

@@ -9,6 +9,8 @@ plain version when a kernel fails.
 from __future__ import annotations
 
 import dataclasses
+import functools
+import itertools
 import math
 
 import numpy as np
@@ -23,7 +25,8 @@ from ..utils.perf import device_profile
 from . import probes
 
 __all__ = ["KERNELS", "COMPOSITES", "TOLERANCE", "SOURCES", "LIBRARY",
-           "inputs", "variants", "compare", "time_pair", "time_library",
+           "inputs", "clear_inputs", "variants", "compare", "time_pair",
+           "time_library",
            "ulp_diff", "bound_ms", "bytes_moved", "HBM_BYTES_PER_S",
            "F32_FLOPS_PER_S"]
 
@@ -410,7 +413,8 @@ def compare(name, S, seed, device) -> list[dict]:
     output with its max |diff|, max ulp distance and pass verdict."""
     rows = []
     pairs = []
-    for outputs, kern, plain in variants(name, inputs(S, seed, device)):
+    d = _fresh_inputs(S, seed, device)
+    for outputs, kern, plain in variants(name, d):
         k_out, p_out = kern(), plain()
         if not isinstance(k_out, tuple):
             k_out, p_out = (k_out,), (p_out,)
@@ -467,34 +471,93 @@ LIBRARY = {"dot3d": lambda d: (
     "copy_probe": lambda d: (lambda: torch.mul(d["x"], probes.C))}
 
 
+# The timings rotate over this many copies of their inputs, each on its own
+# device memory, so that a call does not find the operands of the call
+# before it in the card's 50 MB L2: at 258³ one field is 69 MB and the
+# sets' fields together some 4 GB.  At (98,66,66) (1.7 MB a field) a call's
+# operands in all three sets still fit in L2, and those times are L2-warm,
+# as the multigrid's small levels are in a solve.
+ROTATE = 3
+
+
+def _fresh(v):
+    """``v`` on its own device memory: a tensor cloned, a level with its
+    tensors cloned, anything else as it is."""
+    if isinstance(v, torch.Tensor):
+        return v.clone()
+    if isinstance(v, poisson.PoissonLevel):
+        return dataclasses.replace(v, **{
+            f.name: getattr(v, f.name).clone()
+            for f in dataclasses.fields(v)
+            if isinstance(getattr(v, f.name), torch.Tensor)})
+    return v
+
+
+@functools.lru_cache(maxsize=4)
+def _seeded(S, seed, device) -> dict:
+    # drawing 258³ fields on the host takes seconds a shape
+    return inputs(S, seed, device)
+
+
+def clear_inputs():
+    """Free the inputs `compare` and the timings keep for reuse."""
+    _seeded.cache_clear()
+
+
+def _fresh_inputs(S, seed, device) -> dict:
+    """``inputs(S, seed, device)`` on device memory of its own: drawn once
+    a shape and seed (kept until `clear_inputs`), cloned for each use, so
+    that no call sees what an earlier one left in its inputs."""
+    return {k: _fresh(v)
+            for k, v in _seeded(tuple(S), seed, torch.device(device)).items()}
+
+
+def _input_sets(S, device) -> list[dict]:
+    """`ROTATE` sets of the same seeded inputs at shape ``S``."""
+    return [_fresh_inputs(S, 0, device) for _ in range(ROTATE)]
+
+
+def _rotating(fns):
+    """One call that calls ``fns`` in turn, a different one each time."""
+    it = itertools.cycle(fns)
+    return lambda: next(it)()
+
+
 def time_library(name, S, device, n=20) -> float:
-    """Device ms per call (profiler, the larger of two sessions) of
-    ``LIBRARY[name]`` on the inputs `time_pair` gives the kernel."""
-    fn = LIBRARY[name](inputs(S, 0, device))
-    fn()
+    """Device ms per call (profiler, the mean of two sessions) of
+    ``LIBRARY[name]`` on the inputs `time_pair` gives the kernel, rotating
+    over the same `ROTATE` sets."""
+    calls = [LIBRARY[name](d) for d in _input_sets(S, device)]
+    for fn in calls:
+        fn()
     torch.cuda.synchronize()
-    return max(device_profile(fn, n)[0], device_profile(fn, n)[0])
+    fn = _rotating(calls)
+    return (device_profile(fn, n)[0] + device_profile(fn, n)[0]) / 2
 
 
 def time_pair(name, S, device, n=20, variant=0) -> dict:
     """Per-call times of kernel ``name``'s variant ``variant`` (index or
-    first output name, `_variant`) and its plain version at shape
-    ``S``: device time from `torch.profiler` (the card's busy time for
-    one call: every kernel, fill and copy it launches) and wall time per
-    call from CUDA events over ``n`` back-to-back calls (includes the host
-    dispatch).  Measured in turns plain, kernel, kernel, plain after a
-    warm-up; the device time is the larger of each side's two sessions
-    (a session that lost events reads low), the wall time their mean."""
-    _, kern, plain = _variant(name, inputs(S, 0, device), variant)
-    kern(), plain()
+    first output name, `_variant`) and its plain version at shape ``S``,
+    over ``n`` back-to-back calls, each on the next of `ROTATE` input
+    sets: device time from `torch.profiler` (`utils.perf.device_profile`:
+    the card's busy time for one call, every kernel, fill and copy it
+    launches) and wall time from CUDA events (the host's dispatch
+    included).  Measured in turns plain, kernel, kernel, plain after a
+    warm-up, first wall, then device; each is the mean of its two
+    runs."""
+    sets = [_variant(name, d, variant) for d in _input_sets(S, device)]
+    for _, k, p in sets:
+        k(), p()
     torch.cuda.synchronize()
-    p1 = device_profile(plain, n)[0]
-    k1 = device_profile(kern, n)[0]
-    k2 = device_profile(kern, n)[0]
-    p2 = device_profile(plain, n)[0]
+    kern = _rotating([k for _, k, _ in sets])
+    plain = _rotating([p for _, _, p in sets])
     pw1 = _timed(plain, n)
     kw1 = _timed(kern, n)
     kw2 = _timed(kern, n)
     pw2 = _timed(plain, n)
-    return {"ms": max(k1, k2), "plain_ms": max(p1, p2),
+    p1 = device_profile(plain, n)[0]
+    k1 = device_profile(kern, n)[0]
+    k2 = device_profile(kern, n)[0]
+    p2 = device_profile(plain, n)[0]
+    return {"ms": (k1 + k2) / 2, "plain_ms": (p1 + p2) / 2,
             "wall_ms": (kw1 + kw2) / 2, "plain_wall_ms": (pw1 + pw2) / 2}

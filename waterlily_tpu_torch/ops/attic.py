@@ -30,10 +30,12 @@ operator shadows (`PoissonLevel.L16`, ``iD16``) pass as bf16 ``L`` and
 """
 from __future__ import annotations
 
+import functools
+
 import torch
 
 from ..grid import interior_view
-from ..kernels.build import launch
+from ..kernels.build import launch, library
 from .stencil_kernels import (_on_cpu, _check, _scalar_on, _counted, _count,
                               _bf16, _blocks, _wide, _mult3d_plain,
                               _increment3d_plain)
@@ -211,32 +213,39 @@ def pcg_axpy(x, r, eps, z, iD, upd):
 
 # --- the carried-rows operator: mult3d_stream, increment3d_stream ----------
 
-# the (axis 1, axis 2) columns of one carried-rows block (csrc/
-# stream_stencil.cu ST_TJ, ST_TK); the most and the fewest axis-0 rows a
-# block marches down, and the blocks a grid should give the card (about
-# 2.6 waves of the 132 SMs at 6 resident blocks each)
-STREAM_TILE = (8, 32)
+# the most and the fewest axis-0 rows a carried-rows block marches down,
+# and the blocks a grid should give the card (about 2.6 waves of the 132
+# SMs at 6 resident blocks each)
 STREAM_ROWS = (4, 32)
 STREAM_BLOCKS = 2048
 
 
-def _stream_rows(S) -> int:
+@functools.cache
+def _stream_tile() -> tuple[int, int]:
+    """The (axis 1, axis 2) columns of one carried-rows block, as the
+    kernel library was built with them (csrc/stream_stencil.cu ST_TJ,
+    ST_TK)."""
+    lib = library()
+    return lib.wl_stream_tile(1), lib.wl_stream_tile(2)
+
+
+def _stream_rows(S, tile) -> int:
     """Rows of each block's march: the fewest chunks of at most
-    ``STREAM_ROWS[1]`` rows, more where the grid's tiles would give the card
-    fewer than `STREAM_BLOCKS` blocks, down to chunks of
-    ``STREAM_ROWS[0]``; balanced over S[0].  258³ marches 9 chunks of 29
-    rows (2673 blocks), 130³ 22 of 6, 66³ 17 of 4: a small level's blocks
-    would otherwise be too few to fill the card, each walking many rows."""
+    ``STREAM_ROWS[1]`` rows, more where the grid's ``tile`` s would give
+    the card fewer than `STREAM_BLOCKS` blocks, down to chunks of
+    ``STREAM_ROWS[0]``; balanced over S[0].  With (8, 32) tiles 258³
+    marches 9 chunks of 29 rows (2673 blocks), 130³ 22 of 6, 66³ 17 of 4:
+    a small level's blocks would otherwise be too few to fill the card,
+    each walking many rows."""
     lo, hi = STREAM_ROWS
-    tiles = -(-S[1] // STREAM_TILE[0]) * -(-S[2] // STREAM_TILE[1])
+    tiles = -(-S[1] // tile[0]) * -(-S[2] // tile[1])
     chunks = max(-(-S[0] // hi),
                  min(-(-STREAM_BLOCKS // tiles), -(-S[0] // lo)))
     return -(-S[0] // chunks)
 
 
-def _stream_blocks(S, rows: int) -> int:
-    return (-(-S[0] // rows) * -(-S[1] // STREAM_TILE[0])
-            * -(-S[2] // STREAM_TILE[1]))
+def _stream_blocks(S, rows: int, tile) -> int:
+    return -(-S[0] // rows) * -(-S[1] // tile[0]) * -(-S[2] // tile[1])
 
 
 @_counted
@@ -252,9 +261,10 @@ def mult3d_stream(L, Dd, x, with_dot: bool = False):
         return _mult3d_plain(L, Dd, x, with_dot)
     _check("mult3d_stream", S, bf16=("L", "x"), L=(L, (3,) + S), D=(Dd, S),
            x=(x, S))
-    rows = _stream_rows(S)
+    tile = _stream_tile()
+    rows = _stream_rows(S, tile)
     z = torch.empty(S, dtype=torch.float32, device=x.device)
-    part = (torch.empty(_stream_blocks(S, rows), dtype=torch.float32,
+    part = (torch.empty(_stream_blocks(S, rows, tile), dtype=torch.float32,
                         device=x.device) if with_dot else None)
     launch("wl_mult3d_stream", L, Dd, x, z, part, _bf16(L), _bf16(x), rows,
            *S)
@@ -275,7 +285,7 @@ def increment3d_stream(L, Dd, eps, x, r):
     x_out = torch.empty_like(x)
     r_out = torch.empty_like(r)
     launch("wl_increment3d_stream", L, Dd, eps, x, r, x_out, r_out,
-           _bf16(L), _bf16(eps), _stream_rows(S), *S)
+           _bf16(L), _bf16(eps), _stream_rows(S, _stream_tile()), *S)
     _count(increment3d_stream, S, L=L, eps=eps)
     return x_out, r_out
 

@@ -377,14 +377,13 @@ def conv_diff3d(u, nu, limiter, perdir: tuple = ()):
 
 
 def kernel_wrappers() -> dict:
-    """Name → wrapper of every kernel of the port (each wrapper has a
-    ``.launches`` counter and ``.shapes`` and ``.forms`` sets): the blocked
-    levels' PCG iteration and carried-rows operator (`ops.attic`) and the
-    bandwidth probes (`kernels.probes`) included."""
+    """Name → wrapper of every kernel a solver path runs (each wrapper has
+    a ``.launches`` counter and ``.shapes`` and ``.forms`` sets): the
+    blocked levels' PCG iteration and carried-rows operator (`ops.attic`)
+    included.  The bandwidth probes run on no path (`kernels.probes`)."""
     from .pcg_kernel import pcg_fused
     from .attic import kernel_wrappers as attic_wrappers
-    from ..kernels.probes import kernel_wrappers as probe_wrappers
     return {"mult3d": mult3d, "increment3d": increment3d, "cfl3d": cfl3d,
             "bc3d": bc3d, "div3d": div3d, "project3d": project3d,
             "conv_diff3d": conv_diff3d, "pcg_fused": pcg_fused,
-            "ana_mult3d": ana_mult3d, **attic_wrappers(), **probe_wrappers()}
+            "ana_mult3d": ana_mult3d, **attic_wrappers()}
