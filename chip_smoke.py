@@ -9,10 +9,16 @@ Phases, each of which raises (and so exits non-zero) on failure:
 2. build of the hand-written kernels from ``waterlily_tpu_torch/csrc``;
 3. every kernel against its plain PyTorch version on the card at the
    dense slice's shapes and a ragged one (exact for the stencils, 1e-5
-   relative for the matvec dots, 1e-5 absolute for the PCG smooth);
+   relative for the matvec dots, 1e-5 absolute for the PCG smooth), and
+   ``conv_diff3d`` also where its column tiles and axis-0 chunks are cut
+   raggedly and where axis 0 is shorter than one chunk;
 4. the dense slice: ``sphere_3d(96, 64)`` constructed and stepped 20 times
    on the card with every kernel launch-counted, then 3 steps from the same
    initial state on the CPU (plain versions), compared: pois_n, dt, u, p;
+4.1 a user-defined limiter: ``sphere_3d(96, 64, limiter=minmod)`` 3 steps
+   on the card (the plain conv form: every dense kernel but
+   ``conv_diff3d`` launched, ``conv_diff3d`` not at all) against the CPU
+   from one state, as in 4;
 5. the banded slice, small: ``sphere_3d(48, 48, bbox="force",
    banded_levels=True)`` 3 steps on the card (``ana_mult3d`` launched) and
    on the CPU from one state, compared as in 4;
@@ -92,6 +98,9 @@ import time
 FINE = (98, 66, 66)          # ghost-padded (96, 64, 64)
 PCG_LEVEL = (50, 34, 34)     # the first coarse level, the PCG kernel's
 RAGGED = (37, 29, 35)        # non-cubic, 37555 cells: a ragged last block
+# conv_diff3d's ragged (8, 32) column tiles and axis-0 chunks, and an axis 0
+# shorter than its shortest chunk (4 planes)
+CONV_RAGGED = ((70, 41, 67), (3, 37, 70))
 PCG_RAGGED = (23, 17, 29)
 BIG = (258, 258, 258)        # ghost-padded 256³
 # the periodic and 2D forms of pcg_fused: 258³'s 34³ level, JAX's periodic
@@ -291,6 +300,32 @@ def run_slice(torch, dev):
     finite(torch, sim, "sphere_3d(96, 64) after 20 steps")
     vs_cpu(torch, sim, init, init_levels)
     return sim
+
+
+def run_user_limiter(torch, dev):
+    """A limiter no kernel has compiled in: the conv step runs its plain
+    form on the card (no ``conv_diff3d`` launch), every other dense kernel
+    runs, and 3 steps match the CPU from one state."""
+    from waterlily_tpu_torch import sphere_3d
+    label = "sphere_3d(96, 64, limiter=minmod)"
+
+    def minmod(u, c, d):
+        a, b = c - u, d - c
+        return c + 0.5 * torch.where(
+            a * b > 0, torch.sign(a) * torch.minimum(a.abs(), b.abs()), 0.0)
+
+    def drive():
+        sim = sphere_3d(96, 64, limiter=minmod, device=dev)
+        init, init_levels = sim.flow, sim.levels
+        sim.steps(3, remeasure=False)
+        return sim, init, init_levels
+
+    expect = tuple(k for k in DENSE if k != "conv_diff3d")
+    sim, init, init_levels = on_path(torch, label, expect, drive)
+    if PATH_LAUNCHES[label]["conv_diff3d"]:
+        raise AssertionError(f"{label} launched conv_diff3d")
+    finite(torch, sim, label)
+    vs_cpu(torch, sim, init, init_levels)
 
 
 def run_banded_small(torch, dev):
@@ -942,9 +977,13 @@ def main() -> int:
     from waterlily_tpu_torch.kernels.check import KERNELS, COMPOSITES
     check_kernels(torch, dev, {
         k: (PCG_LEVEL, PCG_RAGGED) + PCG_PERIODIC + PCG_2D
-        if k == "pcg_fused" else (FINE, RAGGED) for k in KERNELS + COMPOSITES})
+        if k == "pcg_fused" else (FINE, RAGGED)
+        + (CONV_RAGGED if k == "conv_diff3d" else ())
+        for k in KERNELS + COMPOSITES})
     phase("4. the dense slice: sphere_3d(96, 64)")
     sim = run_slice(torch, dev)
+    phase("4.1 a user-defined limiter: the plain conv form on the card")
+    run_user_limiter(torch, dev)
     phase("5. the banded slice, small")
     run_banded_small(torch, dev)
     phase("6. the banded paths at full size")

@@ -78,6 +78,70 @@ def test_accelerate():
                          torch.float32) is not None
 
 
+def _minmod_jax(u, c, d):
+    """A user-defined limiter (minmod-limited linear upwind), jnp ops."""
+    a, b = c - u, d - c
+    return c + 0.5 * jnp.where(a * b > 0, jnp.sign(a)
+                               * jnp.minimum(jnp.abs(a), jnp.abs(b)), 0.0)
+
+
+def _minmod_torch(u, c, d):
+    """The same limiter, torch ops."""
+    a, b = c - u, d - c
+    return c + 0.5 * torch.where(a * b > 0, torch.sign(a)
+                                 * torch.minimum(torch.abs(a), torch.abs(b)),
+                                 0.0)
+
+
+def _spy_kernel_gate(monkeypatch):
+    """The kernel gate forced on for CPU tensors and `sk.conv_diff3d`
+    wrapped to record its calls (it runs its plain version here); returns
+    the calls and the wrapper itself."""
+    calls = []
+    conv3d = sk.conv_diff3d
+    monkeypatch.setattr(sk, "use_blocked", lambda S, dtype, device: True)
+
+    def spy(*args, **kw):
+        calls.append(args[2])
+        return conv3d(*args, **kw)
+
+    monkeypatch.setattr(sk, "conv_diff3d", spy)
+    return calls, conv3d
+
+
+@pytest.mark.parametrize("dtype", [F32, F64])
+@pytest.mark.parametrize("perdir", [(), (0, 2)])
+def test_user_limiter_runs_plain_form(dtype, perdir, monkeypatch):
+    """A limiter the kernel does not compile in goes to the plain form even
+    where the kernel gate is open (no `conv_diff3d` call, no launch) and
+    matches JAX's conv_diff with the same limiter (STENCIL_RTOL: the same
+    slice form in both packages)."""
+    calls, kernel = _spy_kernel_gate(monkeypatch)
+    launches = kernel.launches
+    u = normal(8, (3,) + S3, dtype)
+    if perdir:
+        u = np.asarray(jbc_vector(jj(u), (0.0, 0.0, 0.0), False, perdir))
+    rj = jc.conv_diff(jj(u), 0.05, perdir, _minmod_jax)
+    rt = tc.conv_diff(tt(u), 0.05, perdir, _minmod_torch)
+    assert calls == [] and kernel.launches == launches
+    assert rt.dtype == tt(u).dtype
+    assert_rel(rt, rj, STENCIL_RTOL[dtype])
+    with pytest.raises(NotImplementedError):
+        sk._limiter_code(_minmod_torch)
+
+
+@pytest.mark.parametrize("name", ["quick", "vanleer"])
+def test_kernel_limiters_take_the_kernel(name, monkeypatch):
+    """Under the same open gate QUICK and van Leer still go to
+    `sk.conv_diff3d` (whose plain version runs on the CPU)."""
+    calls, _ = _spy_kernel_gate(monkeypatch)
+    jl, tl = LIMITERS[name]
+    u = normal(9, (3,) + S3)
+    rt = tc.conv_diff(tt(u), 0.05, (), tl)
+    assert calls == [tl]
+    assert_rel(rt, jc.conv_diff(jj(u), 0.05, (), jl), STENCIL_RTOL[F32])
+
+
 def test_conv_diff3d_limiter_codes():
     assert sk._limiter_code(tc.quick) == 0
     assert sk._limiter_code(tc.vanleer) == 1

@@ -25,6 +25,9 @@ PCG_ITERATION = ["pcg_dir_mult", "pcg_update", "dot3d", "pcg_axpy",
 # (kernels/probes.py)
 STREAMS = ["mult3d_stream", "increment3d_stream"]
 PROBES = ["copy_probe", "roll_probe"]
+# conv_diff3d's (8, 32) column tiles and axis-0 chunks (of 4 to 64 planes)
+# cut raggedly, and an axis 0 shorter than the shortest chunk
+CONV_RAGGED = [RAGGED, (70, 41, 67), (3, 37, 70)]
 
 
 @pytest.fixture
@@ -174,3 +177,46 @@ def test_periodic_and_exit_forms_launch(S, device):
     assert pk.pcg_fused.launches == n_pcg + 1
     with pytest.raises(TypeError, match="float32"):
         sk.cfl3d(u.double())
+
+
+@pytest.mark.parametrize("S", CONV_RAGGED)
+def test_conv_diff3d_ragged_tiles_and_chunks(S, device):
+    """The plane-marching conv_diff3d exact against its plain form, QUICK
+    and van Leer, walls and all seven periodic masks."""
+    _check("conv_diff3d", S, device)
+
+
+@pytest.mark.parametrize("S", [FINE, RAGGED])
+def test_dot3d_is_deterministic(S, device):
+    """Two calls on one input give the same bits in every mode (the last
+    block sums the partials in index order; no atomics in the sum)."""
+    from waterlily_tpu_torch.kernels.check import inputs
+    from waterlily_tpu_torch.ops import attic as at
+    d = inputs(S, 0, device)
+    r, iD = d["r"], d["lev"].iD
+    for a, b, mode in ((r, r, "aa"), (d["x"], d["eps"], "ab"),
+                       (r, iD, "rid"), (r, d["iD16"], "rid")):
+        one, two = at.dot3d(a, b, mode), at.dot3d(a, b, mode)
+        assert one.shape == () and torch.equal(one, two), (mode, one, two)
+
+
+def test_user_limiter_steps_without_the_conv_kernel(device):
+    """``sphere_3d(96, 64)`` with a user-defined limiter steps on the card
+    through the plain conv form (no `conv_diff3d` launch) and stays
+    finite; the kernel itself still refuses that limiter."""
+    from waterlily_tpu_torch import sphere_3d
+    from waterlily_tpu_torch.ops import stencil_kernels as sk
+
+    def minmod(u, c, d):
+        a, b = c - u, d - c
+        return c + 0.5 * torch.where(
+            a * b > 0, torch.sign(a) * torch.minimum(a.abs(), b.abs()), 0.0)
+
+    sim = sphere_3d(96, 64, limiter=minmod, device=device)
+    n, n_bc = sk.conv_diff3d.launches, sk.bc3d.launches
+    sim.steps(2, remeasure=False)
+    assert sk.conv_diff3d.launches == n and sk.bc3d.launches > n_bc
+    for t in (sim.flow.u, sim.flow.p):
+        assert bool(torch.isfinite(t).all())
+    with pytest.raises(NotImplementedError):
+        sk.conv_diff3d(sim.flow.u, 0.01, minmod)

@@ -50,7 +50,7 @@ SIGNATURES = {
     "wl_increment3d_stream": [_P] * 7 + [_I, _I, _I] + _S3,
     "wl_pcg_dir_mult": [_P] * 9 + [_I, _I, _I] + _S3,
     "wl_pcg_update": [_P] * 9 + [_I, _I] + _S3,
-    "wl_dot3d": [_P, _P, _P, _I, _I, _I] + _S3,
+    "wl_dot3d": [_P] * 5 + [_I, _I, _I] + _S3,
     "wl_pcg_axpy": [_P] * 9 + [_I, _I] + _S3,
     "wl_copy_probe": [_P, _P, _F] + _S3,
     "wl_roll_probe": [_P, _P, _F] + _S3,

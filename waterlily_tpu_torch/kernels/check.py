@@ -75,11 +75,12 @@ SOURCES = {
 # hold that form), on an f32 level and on one with operator shadows.
 COMPOSITES = ("pcg_blocked",)
 
-# Periodic axes of the checked variants: bc3d's and conv_diff3d's are the
-# JAX package's own test sets (tests/test_pallas_stencil.py), pcg_fused's
-# those of the 3D and 2D Taylor-Green cases and tests/test_pallas.py.
+# Periodic axes of the checked variants: bc3d's are the JAX package's own
+# test set (tests/test_pallas_stencil.py), conv_diff3d's every non-empty
+# mask (the walls are its first variants), pcg_fused's those of the 3D and
+# 2D Taylor-Green cases and tests/test_pallas.py.
 BC_PERDIRS = ((), (1,), (0, 2), (0, 1, 2))
-CONV_PERDIRS = ((0,), (1,), (2,), (0, 2), (0, 1, 2))
+CONV_PERDIRS = ((0,), (1,), (2,), (0, 1), (0, 2), (1, 2), (0, 1, 2))
 PCG_PERDIRS = {3: ((0, 1, 2),), 2: ((1,), (0, 1))}
 
 
@@ -333,8 +334,14 @@ F32_FLOPS_PER_S = 67e12
 # Work of the first (timed) variant of each kernel per cell: f32 fields it
 # must read once and write once, and its float operations (the dots' and
 # maxima's reduction counted as one add per cell).  pcg_fused counts all
-# six iterations of its smooth, conv_diff3d the nine face fluxes a cell
-# owns (about twenty operations each, the limiter included).
+# six iterations of its smooth.  conv_diff3d counts the nine face fluxes a
+# cell owns (three components, three axes), each evaluated once: two QUICK
+# limiters of 16 operations (5 for (5c + 2d - u) / 6 with the division as
+# one, 3 for 10c - 9u, 4 min/max for each median), the advecting velocity
+# (2), the wall face's central value (2), the upwind product and the
+# diffusive term (4): 40 a face; then 3 differences and 3 sums a component.
+# (That is the plain form's expression; the kernel picks the limiter's
+# arguments by the upwind sign first and runs one limiter a face.)
 _WORK = {
     "mult3d": (6, 15),          # L(3), D, x in; z out
     "increment3d": (9, 15),     # L(3), D, eps, x, r in; x, r out
@@ -342,7 +349,7 @@ _WORK = {
     "bc3d": (6, 0),             # u(3) in, u(3) out
     "div3d": (6, 6),            # u(3), p in; z, x out
     "project3d": (11, 10),      # L(3), x, u(3) in; u(3), p out
-    "conv_diff3d": (6, 200),    # u(3) in, r(3) out
+    "conv_diff3d": (6, 378),    # u(3) in, r(3) out; 9 * 40 + 3 * 6
     "pcg_fused": (9, 150),      # L(3), D, iD, x, r in; x, r out
     "ana_mult3d": (2, 22),      # x in, z out
     "pcg_dir_mult": (9, 21),    # L(3), D, eps_prev, r, iD in; eps, z out

@@ -164,9 +164,23 @@ def pcg_blocked(lev, x, r, it: int = 6):
 # --- solver dots and the axpy sweep: dot3d, pcg_axpy ----------------------------
 
 _DOT_MODES = {"aa": 0, "ab": 1, "rid": 2}
-# dot3d's blocks (at most one per interior row): each sums whole rows, so
-# the order of the sum depends on the shape alone (csrc/reduce.cu)
-DOT_BLOCKS = 1024
+# dot3d's blocks per SM (at most one block per interior row): each sums a
+# contiguous run of whole rows and the last block sums the partials, so the
+# order of the sum depends on the shape and the card's SM count alone
+# (csrc/reduce.cu)
+DOT_BLOCKS_PER_SM = 8
+
+
+@functools.cache
+def _sm_count(device: torch.device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+@functools.cache
+def _dot_counter(device: torch.device) -> torch.Tensor:
+    """The zeroed counter that elects dot3d's last block on ``device`` (the
+    kernel leaves it zeroed; dots run on one stream)."""
+    return torch.zeros(1, dtype=torch.int32, device=device)
 
 
 def _dot3d_plain(a, b, mode):
@@ -195,12 +209,15 @@ def dot3d(a, b, mode=None):
         return _dot3d_plain(a, b, mode)
     ops = {"a": (a, S)} if mode == "aa" else {"a": (a, S), "b": (b, S)}
     _check("dot3d", S, bf16=("b",) if mode == "rid" else (), **ops)
-    blocks = min((S[0] - 2) * (S[1] - 2), DOT_BLOCKS)
+    blocks = min((S[0] - 2) * (S[1] - 2),
+                 DOT_BLOCKS_PER_SM * _sm_count(a.device))
     part = torch.empty(blocks, dtype=torch.float32, device=a.device)
-    launch("wl_dot3d", a, None if mode == "aa" else b, part, _DOT_MODES[mode],
+    out = torch.empty((), dtype=torch.float32, device=a.device)
+    launch("wl_dot3d", a, None if mode == "aa" else b, part,
+           _dot_counter(a.device), out, _DOT_MODES[mode],
            0 if mode == "aa" else _bf16(b), blocks, *S)
     _count(dot3d, S, a=a, **({} if mode == "aa" else {"b": b}))
-    return torch.sum(part)
+    return out
 
 
 @_counted

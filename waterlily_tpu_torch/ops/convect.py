@@ -13,7 +13,8 @@ value for incoming flux on the wall faces ``k=1`` (ϕuL) and ``k=S-1``
 and copy face 1's flux to the top face.
 
 Big 3D f32 fields on a CUDA device run the `stencil_kernels.conv_diff3d`
-kernel.
+kernel with the QUICK and van Leer limiters; a user-defined limiter runs
+the plain form `conv_core`.
 """
 from __future__ import annotations
 
@@ -22,8 +23,8 @@ import torch
 from ..grid import axis_coord
 from . import stencil_kernels as sk
 
-__all__ = ["median3", "quick", "vanleer", "conv_core", "conv_diff",
-           "accelerate"]
+__all__ = ["median3", "quick", "vanleer", "KERNEL_LIMITERS", "conv_core",
+           "conv_diff", "accelerate"]
 
 
 def median3(a, b, c):
@@ -48,6 +49,11 @@ def vanleer(u, c, d):
     lim = c + (d - c) * (c - u) / denom
     keep = (c <= torch.minimum(u, d)) | (c >= torch.maximum(u, d))
     return torch.where(keep, c, lim)
+
+
+# the limiters the conv_diff3d kernel has compiled in, in the order of its
+# limiter codes (`stencil_kernels._limiter_code`)
+KERNEL_LIMITERS = (quick, vanleer)
 
 
 def conv_core(up, S: tuple, nu, perdir: tuple, limiter,
@@ -116,7 +122,10 @@ def conv_diff(u: torch.Tensor, nu, perdir: tuple = (),
     wherever the reference never writes (the BDIM first-moment stencil
     reads those cells)."""
     S = tuple(u.shape[1:])
-    if u.shape[0] == 3 and sk.use_blocked(S, u.dtype, u.device):
+    # any other limiter than the kernel's (a user's own) runs the plain
+    # form on every device; JAX traces it into its kernel
+    if (u.shape[0] == 3 and limiter in KERNEL_LIMITERS
+            and sk.use_blocked(S, u.dtype, u.device)):
         return sk.conv_diff3d(u, nu, limiter, perdir)
     up = torch.nn.functional.pad(u, (2, 2) * len(S))
     return conv_core(up, S, nu, perdir, limiter, u_wrap=u)

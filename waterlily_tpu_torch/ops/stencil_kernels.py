@@ -349,11 +349,10 @@ def _conv_diff3d_plain(u, nu, limiter, perdir=()):
 
 
 def _limiter_code(limiter) -> int:
-    from .convect import quick, vanleer
-    if limiter is quick:
-        return 0
-    if limiter is vanleer:
-        return 1
+    from .convect import KERNEL_LIMITERS
+    for code, known in enumerate(KERNEL_LIMITERS):
+        if limiter is known:
+            return code
     raise NotImplementedError(f"conv_diff3d has no kernel variant for the "
                               f"limiter {limiter!r}")
 
