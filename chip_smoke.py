@@ -10,15 +10,15 @@ Phases, each of which raises (and so exits non-zero) on failure:
 3. every kernel against its plain PyTorch version on the card at the
    dense slice's shapes and a ragged one (exact for the stencils, 1e-5
    relative for the matvec dots, 1e-5 absolute for the PCG smooth), and
-   ``conv_diff3d`` also where its column tiles and axis-0 chunks are cut
-   raggedly and where axis 0 is shorter than one chunk;
+   ``conv_diff3d`` (QUICK, van Leer and a user-defined limiter, each with
+   walls and every periodic mask) also where its column tiles and axis-0
+   chunks are cut raggedly and where axis 0 is shorter than one chunk;
 4. the dense slice: ``sphere_3d(96, 64)`` constructed and stepped 20 times
    on the card with every kernel launch-counted, then 3 steps from the same
    initial state on the CPU (plain versions), compared: pois_n, dt, u, p;
 4.1 a user-defined limiter: ``sphere_3d(96, 64, limiter=minmod)`` 3 steps
-   on the card (the plain conv form: every dense kernel but
-   ``conv_diff3d`` launched, ``conv_diff3d`` not at all) against the CPU
-   from one state, as in 4;
+   on the card (every dense kernel launched, ``conv_diff3d`` only with the
+   minmod limiter traced into it) against the CPU from one state, as in 4;
 5. the banded slice, small: ``sphere_3d(48, 48, bbox="force",
    banded_levels=True)`` 3 steps on the card (``ana_mult3d`` launched) and
    on the CPU from one state, compared as in 4;
@@ -233,9 +233,9 @@ def on_path(torch, label, expect, fn):
         for k, w in kernels.items() if w.shapes))
     PATH_FORMS[label] = {k: set(w.forms) for k, w in kernels.items()
                          if w.forms}
-    log("  bf16 forms (names of the bf16 arguments): " + "; ".join(
-        f"{k} {sorted(f)}" for k, f in PATH_FORMS[label].items()
-        if f != {()}))
+    log("  forms (the bf16 arguments; conv_diff3d's limiters): "
+        + "; ".join(f"{k} {sorted(f)}" for k, f in PATH_FORMS[label].items()
+                    if f != {()}))
     idle = [k for k in expect if counts[k] == 0]
     if idle:
         raise AssertionError(f"kernels never launched on {label}: {idle}")
@@ -303,16 +303,13 @@ def run_slice(torch, dev):
 
 
 def run_user_limiter(torch, dev):
-    """A limiter no kernel has compiled in: the conv step runs its plain
-    form on the card (no ``conv_diff3d`` launch), every other dense kernel
-    runs, and 3 steps match the CPU from one state."""
+    """A limiter no kernel has compiled in (`kernels.check.minmod`): the
+    conv step traces it into ``conv_diff3d``, which launches with it and
+    no other limiter, every dense kernel runs, and 3 steps match the CPU
+    from one state."""
     from waterlily_tpu_torch import sphere_3d
+    from waterlily_tpu_torch.kernels.check import minmod
     label = "sphere_3d(96, 64, limiter=minmod)"
-
-    def minmod(u, c, d):
-        a, b = c - u, d - c
-        return c + 0.5 * torch.where(
-            a * b > 0, torch.sign(a) * torch.minimum(a.abs(), b.abs()), 0.0)
 
     def drive():
         sim = sphere_3d(96, 64, limiter=minmod, device=dev)
@@ -320,10 +317,10 @@ def run_user_limiter(torch, dev):
         sim.steps(3, remeasure=False)
         return sim, init, init_levels
 
-    expect = tuple(k for k in DENSE if k != "conv_diff3d")
-    sim, init, init_levels = on_path(torch, label, expect, drive)
-    if PATH_LAUNCHES[label]["conv_diff3d"]:
-        raise AssertionError(f"{label} launched conv_diff3d")
+    sim, init, init_levels = on_path(torch, label, DENSE, drive)
+    if PATH_FORMS[label].get("conv_diff3d") != {"minmod"}:
+        raise AssertionError(f"{label} launched conv_diff3d with "
+                             f"{PATH_FORMS[label].get('conv_diff3d')}")
     finite(torch, sim, label)
     vs_cpu(torch, sim, init, init_levels)
 
@@ -713,7 +710,7 @@ def peak(torch, label):
 # forms at 258³ and at the dense slice's shape
 TIMED_FORMS = (
     ("bc3d", BIG, "p012"), ("bc3d", BIG, "exit"),
-    ("conv_diff3d", BIG, "quick_p012"),
+    ("conv_diff3d", BIG, "quick_p012"), ("conv_diff3d", BIG, "minmod"),
     ("pcg_fused", (34, 34, 34), "x_p012"), ("pcg_fused", (98, 66), "x"),
     ("pcg_fused", (66, 66), "x_p01"),
     ("mult3d", BIG, "z_bf16"), ("increment3d", BIG, "x_bf16"),
@@ -968,11 +965,20 @@ def main() -> int:
     phase("1. card")
     card = card_record(torch)
     phase("2. kernel build")
+    from concurrent.futures import ThreadPoolExecutor
     from waterlily_tpu_torch.kernels.build import library, build_seconds
+    from waterlily_tpu_torch.kernels.check import minmod
+    from waterlily_tpu_torch.kernels.limiter import entry_point
     t0 = time.perf_counter()
-    library()
-    log(f"kernel library ready in {time.perf_counter() - t0:.1f} s "
-        f"(nvcc {build_seconds():.1f} s)")
+    # the conv kernel with phase 4.1's user-defined limiter builds beside
+    # the library
+    with ThreadPoolExecutor(1) as pool:
+        user = pool.submit(entry_point, minmod)
+        library()
+        user.result()
+    log(f"kernel library and the minmod conv kernel ready in "
+        f"{time.perf_counter() - t0:.1f} s (library nvcc "
+        f"{build_seconds():.1f} s)")
     phase("3. kernels vs plain versions")
     from waterlily_tpu_torch.kernels.check import KERNELS, COMPOSITES
     check_kernels(torch, dev, {
@@ -982,7 +988,7 @@ def main() -> int:
         for k in KERNELS + COMPOSITES})
     phase("4. the dense slice: sphere_3d(96, 64)")
     sim = run_slice(torch, dev)
-    phase("4.1 a user-defined limiter: the plain conv form on the card")
+    phase("4.1 a user-defined limiter traced into conv_diff3d")
     run_user_limiter(torch, dev)
     phase("5. the banded slice, small")
     run_banded_small(torch, dev)

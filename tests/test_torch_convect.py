@@ -112,10 +112,12 @@ def _spy_kernel_gate(monkeypatch):
 @pytest.mark.parametrize("dtype", [F32, F64])
 @pytest.mark.parametrize("perdir", [(), (0, 2)])
 def test_user_limiter_runs_plain_form(dtype, perdir, monkeypatch):
-    """A limiter the kernel does not compile in goes to the plain form even
-    where the kernel gate is open (no `conv_diff3d` call, no launch) and
-    matches JAX's conv_diff with the same limiter (STENCIL_RTOL: the same
-    slice form in both packages)."""
+    """Where the kernel gate is open a user-defined limiter goes to
+    `sk.conv_diff3d` like the compiled-in ones (the kernel traces it in on
+    the card; on the CPU the wrapper runs its plain form, with no launch)
+    and matches JAX's conv_diff with the same limiter (STENCIL_RTOL: the
+    same slice form in both packages).  It is not compiled into the kernel
+    library: the wrapper builds it from `kernels.limiter`."""
     calls, kernel = _spy_kernel_gate(monkeypatch)
     launches = kernel.launches
     u = normal(8, (3,) + S3, dtype)
@@ -123,11 +125,73 @@ def test_user_limiter_runs_plain_form(dtype, perdir, monkeypatch):
         u = np.asarray(jbc_vector(jj(u), (0.0, 0.0, 0.0), False, perdir))
     rj = jc.conv_diff(jj(u), 0.05, perdir, _minmod_jax)
     rt = tc.conv_diff(tt(u), 0.05, perdir, _minmod_torch)
-    assert calls == [] and kernel.launches == launches
+    assert calls == [_minmod_torch] and kernel.launches == launches
     assert rt.dtype == tt(u).dtype
     assert_rel(rt, rj, STENCIL_RTOL[dtype])
     with pytest.raises(NotImplementedError):
         sk._limiter_code(_minmod_torch)
+
+
+def _clamped(u, c, d):
+    """A user-defined limiter with a clamp, divisions by a number and of a
+    number, logical operators and tensor constants."""
+    t = (c - u).clamp(min=-0.5, max=0.5) / 3.0 + 2.0 / (d * d + 1)
+    m = ~((u > c) & (c < d)) | (u == d)
+    return (torch.where(m, t, torch.full_like(c, 0.25))
+            - torch.zeros_like(u) * m)
+
+
+def _clamped_cuda_form(u, c, d):
+    """`_clamped` as PyTorch computes it on a CUDA tensor: ``t / 3.0`` is
+    ``t`` times the f32 reciprocal of 3, ``2.0 / t`` is ``2 * (1 / t)``."""
+    three = torch.tensor(np.float32(1) / np.float32(3))
+    t = (c - u).clamp(min=-0.5, max=0.5) * three + 2.0 * (1.0 / (d * d + 1))
+    m = ~((u > c) & (c < d)) | (u == d)
+    return (torch.where(m, t, torch.full_like(c, 0.25))
+            - torch.zeros_like(u) * m)
+
+
+@pytest.mark.parametrize("name", ["minmod", "quick", "vanleer", "clamped"])
+def test_limiter_lowering_matches_the_limiter(name):
+    """`kernels.limiter.lower` traces a limiter into the straight-line
+    program the conv kernel is built with; the program, run with the
+    kernel's order and rounding (`evaluate`), equals the limiter exactly
+    on inputs with equal and NaN taps, and renders to C with one
+    statement per operation."""
+    from waterlily_tpu_torch.kernels import limiter as lim
+    fn, want = {"minmod": (_minmod_torch, _minmod_torch),
+                "quick": (tc.quick, tc.quick),
+                "vanleer": (tc.vanleer, tc.vanleer),
+                "clamped": (_clamped, _clamped_cuda_form)}[name]
+    u, c, d = (tt(normal(s, (4000,))) for s in (11, 12, 13))
+    d[:40], c[40:80], u[80:90] = u[:40], u[40:80], float("nan")
+    prog = lim.lower(fn)
+    got, ref = lim.evaluate(prog, u, c, d), want(u, c, d)
+    assert torch.equal(torch.isnan(got), torch.isnan(ref))
+    ok = ~torch.isnan(ref)
+    assert torch.equal(got[ok], ref[ok])
+    src = lim.source(prog)
+    assert src.count("    const ") == len(prog.ops) - 3
+    assert f"int {lim.ENTRY}(" in src and "launch_conv<UserLimiter>" in src
+
+
+@pytest.mark.parametrize("case", ["exp", "control_flow", "reduction",
+                                  "bool_result", "f64_constant", "alpha"])
+def test_limiter_lowering_refuses(case):
+    """A limiter with no kernel form raises NotImplementedError: an
+    operation outside the set, control flow on tensor values, a reduction,
+    a result that is not an f32 field, a constant field of another dtype,
+    a keyword that changes the arithmetic."""
+    from waterlily_tpu_torch.kernels import limiter as lim
+    fn = {"exp": lambda u, c, d: c + torch.exp(d - c),
+          "control_flow": lambda u, c, d: c if bool((c > u).all()) else d,
+          "reduction": lambda u, c, d: c + torch.max(d),
+          "bool_result": lambda u, c, d: c > d,
+          "f64_constant": lambda u, c, d: c * torch.full_like(
+              c, 0.5, dtype=torch.float64),
+          "alpha": lambda u, c, d: torch.add(c, d, alpha=0.5)}[case]
+    with pytest.raises(NotImplementedError):
+        lim.lower(fn)
 
 
 @pytest.mark.parametrize("name", ["quick", "vanleer"])

@@ -181,8 +181,9 @@ def test_periodic_and_exit_forms_launch(S, device):
 
 @pytest.mark.parametrize("S", CONV_RAGGED)
 def test_conv_diff3d_ragged_tiles_and_chunks(S, device):
-    """The plane-marching conv_diff3d exact against its plain form, QUICK
-    and van Leer, walls and all seven periodic masks."""
+    """The plane-marching conv_diff3d exact against its plain form, QUICK,
+    van Leer and a user-defined limiter, walls and all seven periodic
+    masks."""
     _check("conv_diff3d", S, device)
 
 
@@ -200,23 +201,22 @@ def test_dot3d_is_deterministic(S, device):
         assert one.shape == () and torch.equal(one, two), (mode, one, two)
 
 
-def test_user_limiter_steps_without_the_conv_kernel(device):
+def test_user_limiter_steps_through_the_conv_kernel(device):
     """``sphere_3d(96, 64)`` with a user-defined limiter steps on the card
-    through the plain conv form (no `conv_diff3d` launch) and stays
-    finite; the kernel itself still refuses that limiter."""
+    through `conv_diff3d` with the limiter traced in (its values are held
+    exact by the cases above) and stays finite; a limiter with no kernel
+    form raises on the card."""
     from waterlily_tpu_torch import sphere_3d
+    from waterlily_tpu_torch.kernels.check import minmod
     from waterlily_tpu_torch.ops import stencil_kernels as sk
 
-    def minmod(u, c, d):
-        a, b = c - u, d - c
-        return c + 0.5 * torch.where(
-            a * b > 0, torch.sign(a) * torch.minimum(a.abs(), b.abs()), 0.0)
-
     sim = sphere_3d(96, 64, limiter=minmod, device=device)
-    n, n_bc = sk.conv_diff3d.launches, sk.bc3d.launches
+    n = sk.conv_diff3d.launches
+    sk.conv_diff3d.forms.clear()
     sim.steps(2, remeasure=False)
-    assert sk.conv_diff3d.launches == n and sk.bc3d.launches > n_bc
+    assert sk.conv_diff3d.launches == n + 4
+    assert sk.conv_diff3d.forms == {"minmod"}
     for t in (sim.flow.u, sim.flow.p):
         assert bool(torch.isfinite(t).all())
     with pytest.raises(NotImplementedError):
-        sk.conv_diff3d(sim.flow.u, 0.01, minmod)
+        sk.conv_diff3d(sim.flow.u, 0.01, lambda u, c, d: c + torch.exp(d))

@@ -11,8 +11,10 @@
 // second sweep).
 //
 // Bound on the H100: memory.  A dot reads one field (aa) or two and does
-// 2-3 flops a cell.  Design: a grid sized to the card (the caller's
-// ``blocks``, a multiple of the SM count), block q summing the contiguous
+// 2-3 flops a cell.  Design: a grid sized to the card and to the work (the
+// caller's ``blocks``: at most eight an SM, at least 16 rows a block, so
+// that a small level keeps its blocks' loads in flight and leaves the last
+// block few partials to sum), block q summing the contiguous
 // interior rows [q R / G, (q+1) R / G) of axis 2 (R rows, G blocks), its
 // threads striding along the rows.  Each thread loads DOT_UNROLL rows
 // before it adds any of them, so that every thread keeps several

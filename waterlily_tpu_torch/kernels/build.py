@@ -9,6 +9,9 @@ from the repository's own sources and a changed source never loads a stale
 library.  Nothing here runs at import time: CPU-only installs never build
 or load the library.
 
+`build_source` builds generated source the same way (a user-defined
+limiter compiled into the conv kernel, `kernels.limiter`).
+
 Every C entry point returns ``cudaGetLastError()`` after its launch;
 `launch` raises on a non-zero code, so a refused launch is never silent.
 """
@@ -25,7 +28,8 @@ from pathlib import Path
 
 import torch
 
-__all__ = ["library", "launch", "build_seconds", "THREADS", "NVCC_FLAGS"]
+__all__ = ["library", "build_source", "launch", "build_seconds", "THREADS",
+           "NVCC_FLAGS"]
 
 PKG = Path(__file__).resolve().parent.parent
 CSRC = PKG / "csrc"
@@ -147,6 +151,40 @@ def library() -> ctypes.CDLL:
     return lib
 
 
+@functools.cache
+def build_source(source: str, entry: str, argtypes: tuple) -> ctypes.CDLL:
+    """A library built from generated CUDA C++ ``source`` (which includes
+    ``csrc`` headers) with the kernels' flags, loaded, its C entry point
+    ``entry`` typed with ``argtypes`` and a trailing stream pointer.  Keyed
+    by a hash of the source, the ``csrc`` sources and the flags, so a
+    program built once is loaded from ``_build/`` after."""
+    h = hashlib.sha256(source.encode())
+    h.update(_library_path().name.encode())
+    out = BUILD_DIR / f"libwaterlily_gen_{h.hexdigest()[:16]}.so"
+    if not out.exists():
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        src = out.with_suffix(f".{os.getpid()}.cu")
+        tmp = out.with_suffix(f".{os.getpid()}.tmp")
+        src.write_text(source)
+        cmd = [_nvcc(), *NVCC_FLAGS, "-I", str(CSRC), "-o", str(tmp),
+               str(src)]
+        try:
+            proc = subprocess.run(cmd, capture_output=True, text=True)
+            if proc.returncode != 0:
+                raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
+                                   f"{' '.join(cmd)}\n{proc.stdout}\n"
+                                   f"{proc.stderr}")
+            os.replace(tmp, out)
+        finally:
+            src.unlink(missing_ok=True)
+            tmp.unlink(missing_ok=True)
+    lib = ctypes.CDLL(str(out))
+    fn = getattr(lib, entry)
+    fn.argtypes = list(argtypes) + [_P]
+    fn.restype = _I
+    return lib
+
+
 def build_seconds() -> float:
     """Seconds the last `nvcc` build in this process took (0 if the library
     was already built)."""
@@ -159,10 +197,11 @@ def _arg(a):
     return a
 
 
-def launch(name: str, *args) -> None:
-    """Call C entry point ``name`` on the current CUDA stream; tensors pass
-    as device pointers, ``None`` as NULL.  Raises on a launch error."""
-    fn = getattr(library(), name)
+def launch(name: str, *args, lib: ctypes.CDLL | None = None) -> None:
+    """Call C entry point ``name`` (of ``lib``, by default the kernel
+    library) on the current CUDA stream; tensors pass as device pointers,
+    ``None`` as NULL.  Raises on a launch error."""
+    fn = getattr(library() if lib is None else lib, name)
     stream = torch.cuda.current_stream().cuda_stream
     rc = fn(*[_arg(a) for a in args], ctypes.c_void_p(stream))
     if rc != 0:

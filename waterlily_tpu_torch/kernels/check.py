@@ -25,8 +25,8 @@ from ..utils.perf import device_profile
 from . import probes
 
 __all__ = ["KERNELS", "COMPOSITES", "TOLERANCE", "SOURCES", "LIBRARY",
-           "inputs", "clear_inputs", "variants", "compare", "time_pair",
-           "time_library",
+           "minmod", "inputs", "clear_inputs", "variants", "compare",
+           "time_pair", "time_library",
            "ulp_diff", "bound_ms", "bytes_moved", "HBM_BYTES_PER_S",
            "F32_FLOPS_PER_S"]
 
@@ -109,8 +109,9 @@ TOLERANCE = {
     "ana_mult3d.z_periodic": ("exact", None),
     **{f"bc3d.{_tag(p, e)}": ("exact", None)
        for p in BC_PERDIRS for e in (False, True) if p or e},
+    "conv_diff3d.minmod": ("exact", None),
     **{f"conv_diff3d.{lim}_{_tag(p)}": ("exact", None)
-       for lim in ("quick", "vanleer") for p in CONV_PERDIRS},
+       for lim in ("quick", "vanleer", "minmod") for p in CONV_PERDIRS},
     **{f"pcg_fused.{o}_{_tag(p)}": ("abs", 1e-5)
        for ps in PCG_PERDIRS.values() for p in ps for o in "xr"},
     "mult3d.z_bf16": ("exact", None), "mult3d.dot_bf16": ("rel", 1e-5),
@@ -145,6 +146,19 @@ TOLERANCE = {
        for o in ("x", "r") for t in ("", "_L16")},
     "copy_probe": ("exact", None), "roll_probe": ("exact", None),
 }
+
+
+def minmod(u, c, d):
+    """A user-defined limiter (minmod-limited linear upwind) in torch
+    operations, as a user writes one: no kernel has it compiled in, so
+    `conv_diff3d` traces it into its kernel (`kernels.limiter`)."""
+    a, b = c - u, d - c
+    return c + 0.5 * torch.where(
+        a * b > 0, torch.sign(a) * torch.minimum(a.abs(), b.abs()), 0.0)
+
+
+# conv_diff3d's checked limiters: the two compiled in and a user's own
+CONV_LIMITERS = (convect.quick, convect.vanleer, minmod)
 
 
 def inputs(S, seed, device) -> dict:
@@ -310,9 +324,8 @@ def variants(name, d) -> list:
                    lambda: sk._div3d_plain(u, p, dt))],
         "project3d": [(("u", "p"), lambda: sk.project3d(L, x, u, dt),
                        lambda: sk._project3d_plain(L, x, u, dt))],
-        "conv_diff3d": [conv(convect.quick), conv(convect.vanleer)]
-        + [conv(lim, q) for lim in (convect.quick, convect.vanleer)
-           for q in CONV_PERDIRS],
+        "conv_diff3d": [conv(lim) for lim in CONV_LIMITERS]
+        + [conv(lim, q) for lim in CONV_LIMITERS for q in CONV_PERDIRS],
         "pcg_fused": [pcg()] + [pcg(q) for q in PCG_PERDIRS[3]],
         "ana_mult3d": [
             (("z", "dot"), lambda: sk.ana_mult3d(x, 1.0, with_dot=True),

@@ -164,11 +164,14 @@ def pcg_blocked(lev, x, r, it: int = 6):
 # --- solver dots and the axpy sweep: dot3d, pcg_axpy ----------------------------
 
 _DOT_MODES = {"aa": 0, "ab": 1, "rid": 2}
-# dot3d's blocks per SM (at most one block per interior row): each sums a
-# contiguous run of whole rows and the last block sums the partials, so the
-# order of the sum depends on the shape and the card's SM count alone
-# (csrc/reduce.cu)
+# dot3d's grid: at most DOT_BLOCKS_PER_SM blocks per SM, and at least
+# DOT_ROWS_MIN interior rows a block, so that a small level is not cut into
+# more blocks (and partials for the last block to sum) than its rows fill.
+# Each block sums a contiguous run of whole rows and the last block sums the
+# partials, so the order of the sum depends on the shape and the card's SM
+# count alone (csrc/reduce.cu).
 DOT_BLOCKS_PER_SM = 8
+DOT_ROWS_MIN = 16
 
 
 @functools.cache
@@ -209,8 +212,9 @@ def dot3d(a, b, mode=None):
         return _dot3d_plain(a, b, mode)
     ops = {"a": (a, S)} if mode == "aa" else {"a": (a, S), "b": (b, S)}
     _check("dot3d", S, bf16=("b",) if mode == "rid" else (), **ops)
-    blocks = min((S[0] - 2) * (S[1] - 2),
-                 DOT_BLOCKS_PER_SM * _sm_count(a.device))
+    rows = (S[0] - 2) * (S[1] - 2)
+    blocks = max(1, min(DOT_BLOCKS_PER_SM * _sm_count(a.device),
+                        -(-rows // DOT_ROWS_MIN)))
     part = torch.empty(blocks, dtype=torch.float32, device=a.device)
     out = torch.empty((), dtype=torch.float32, device=a.device)
     launch("wl_dot3d", a, None if mode == "aa" else b, part,

@@ -13,8 +13,9 @@ value for incoming flux on the wall faces ``k=1`` (ϕuL) and ``k=S-1``
 and copy face 1's flux to the top face.
 
 Big 3D f32 fields on a CUDA device run the `stencil_kernels.conv_diff3d`
-kernel with the QUICK and van Leer limiters; a user-defined limiter runs
-the plain form `conv_core`.
+kernel with any limiter: QUICK and van Leer are compiled in, and a
+user-defined one is traced into the kernel at its first launch
+(`kernels.limiter`), as JAX traces it into its Pallas kernel.
 """
 from __future__ import annotations
 
@@ -122,10 +123,7 @@ def conv_diff(u: torch.Tensor, nu, perdir: tuple = (),
     wherever the reference never writes (the BDIM first-moment stencil
     reads those cells)."""
     S = tuple(u.shape[1:])
-    # any other limiter than the kernel's (a user's own) runs the plain
-    # form on every device; JAX traces it into its kernel
-    if (u.shape[0] == 3 and limiter in KERNEL_LIMITERS
-            and sk.use_blocked(S, u.dtype, u.device)):
+    if u.shape[0] == 3 and sk.use_blocked(S, u.dtype, u.device):
         return sk.conv_diff3d(u, nu, limiter, perdir)
     up = torch.nn.functional.pad(u, (2, 2) * len(S))
     return conv_core(up, S, nu, perdir, limiter, u_wrap=u)

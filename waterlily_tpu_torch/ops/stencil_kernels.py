@@ -10,7 +10,7 @@ Each wrapper counts its launches in a plain int attribute, ``.launches``,
 incremented only where the kernel is launched, and keeps the shapes it
 launched at in a set, ``.shapes``; a wrapper with bf16 forms also keeps
 the forms it launched in ``.forms`` (each the names of the arguments that
-were bf16, ``()`` for all f32).
+were bf16, ``()`` for all f32); ``conv_diff3d``'s are its limiters' names.
 
 The plain versions are the package's own whole-array forms (the functions
 `waterlily_tpu` runs through XLA on the CPU), with the same association as
@@ -349,29 +349,40 @@ def _conv_diff3d_plain(u, nu, limiter, perdir=()):
 
 
 def _limiter_code(limiter) -> int:
+    """The code of a limiter compiled into the kernel library (QUICK 0, van
+    Leer 1); raises for any other."""
     from .convect import KERNEL_LIMITERS
     for code, known in enumerate(KERNEL_LIMITERS):
         if limiter is known:
             return code
-    raise NotImplementedError(f"conv_diff3d has no kernel variant for the "
-                              f"limiter {limiter!r}")
+    raise NotImplementedError(f"conv_diff3d has no compiled-in variant for "
+                              f"the limiter {limiter!r}")
 
 
 @_counted
 def conv_diff3d(u, nu, limiter, perdir: tuple = ()):
-    """Full convection-diffusion tendency of all three components (QUICK or
-    van Leer), zero wherever the reference writes nothing; periodic axes
-    (``perdir``) take the ϕuP wrap and the top-face copy of face 1's
-    flux."""
+    """Full convection-diffusion tendency of all three components, zero
+    wherever the reference writes nothing; periodic axes (``perdir``) take
+    the ϕuP wrap and the top-face copy of face 1's flux.  QUICK and van
+    Leer are compiled in; any other limiter is traced into the same kernel
+    at its first launch (`kernels.limiter`), and one with no kernel form
+    raises.  ``.forms`` keeps the names of the limiters launched."""
+    from .convect import KERNEL_LIMITERS
     S = tuple(u.shape[1:])
     if _on_cpu("conv_diff3d", u):
         return _conv_diff3d_plain(u, nu, limiter, perdir)
     _check("conv_diff3d", S, u=(u, (3,) + S))
-    lim = _limiter_code(limiter)
     r = torch.empty_like(u)
-    launch("wl_conv_diff3d", u, r, float(nu), lim, _axis_bits(perdir), *S)
+    if limiter in KERNEL_LIMITERS:
+        launch("wl_conv_diff3d", u, r, float(nu), _limiter_code(limiter),
+               _axis_bits(perdir), *S)
+    else:
+        from ..kernels.limiter import ENTRY, entry_point
+        launch(ENTRY, u, r, float(nu), _axis_bits(perdir), *S,
+               lib=entry_point(limiter))
     conv_diff3d.launches += 1
     conv_diff3d.shapes.add(S)
+    conv_diff3d.forms.add(getattr(limiter, "__name__", repr(limiter)))
     return r
 
 
