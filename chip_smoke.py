@@ -9,13 +9,17 @@ Phases, each of which raises (and so exits non-zero) on failure:
 2. build of the hand-written kernels from ``waterlily_tpu_torch/csrc``;
 3. every kernel against its plain PyTorch version on the card at the
    dense slice's shapes and a ragged one (exact for the stencils, 1e-5
-   relative for the matvec dots, 1e-5 absolute for the PCG smooth), and
+   relative for the matvec dots, 1e-5 absolute for the PCG smooth):
+   ``bc3d`` (in place) in all 16 periodic/outlet forms,
    ``conv_diff3d`` (QUICK, van Leer and a user-defined limiter, each with
    walls and every periodic mask) also where its column tiles and axis-0
-   chunks are cut raggedly and where axis 0 is shorter than one chunk;
+   chunks are cut raggedly and where axis 0 is shorter than one chunk,
+   ``pcg_fused`` on one block and on a cooperative grid (both sides of
+   its threshold);
 4. the dense slice: ``sphere_3d(96, 64)`` constructed and stepped 20 times
-   on the card with every kernel launch-counted, then 3 steps from the same
-   initial state on the CPU (plain versions), compared: pois_n, dt, u, p;
+   on the card with every kernel launch-counted (every ``bc3d`` launch in
+   place), then 3 steps from the same initial state on the CPU (plain
+   versions), compared: pois_n, dt, u, p;
 4.1 a user-defined limiter: ``sphere_3d(96, 64, limiter=minmod)`` 3 steps
    on the card (every dense kernel launched, ``conv_diff3d`` only with the
    minmod limiter traced into it) against the CPU from one state, as in 4;
@@ -68,17 +72,18 @@ Phases, each of which raises (and so exits non-zero) on failure:
    (98,66,66) and at the largest shape a path launched it at (the shape
    the kernels line reports; each call on the next of three copies of its
    inputs, so that at 258³ no call finds its operands in L2), the
-   periodic, 2D and bf16 forms at 258³, (34,34,34) and (98,66), the
-   operator-shadow, bf16-iD and carried-rows forms at 258³ and
-   (98,66,66), ``torch.dot`` beside ``dot3d`` and ``torch.mul`` beside
-   ``copy_probe``; the probes' rates in GB/s and each kernel's bytes over
+   periodic, outlet, 2D and bf16 forms at 258³, (34,34,34) and (98,66),
+   ``pcg_fused`` at every shape a path launched it at, the
+   operator-shadow, bf16-iD and carried-rows forms at 258³ and (98,66,66), ``torch.dot`` beside ``dot3d`` and
+   ``torch.mul`` beside ``copy_probe``; the probes' rates in GB/s and each kernel's bytes over
    its time as a share of the copy probe's rate; the 256³ sphere in
    configurations (a)-(i) of 6.4 in turns (a, ..., i, i, ..., a), each
    with its idle share and pois_n.
 
 Every path runs with the launch counters set to 0 and the launched shapes
-and forms cleared just before it, all read just after; a kernel of the
-path that never launched fails the run.  The probes run on no path: the
+and forms cleared just before it, all read just after (``pcg_fused``'s
+launches also by shape, per step); a kernel of the path that never
+launched fails the run.  The probes run on no path: the
 kernels line gives them 0 launches and their calls in phase 8 as
 ``timing_launches``.  The line before the last is a JSON object with one
 entry per kernel; the last line is ``{"ok": true, "device": {...}}``.
@@ -108,6 +113,9 @@ BIG = (258, 258, 258)        # ghost-padded 256³
 # JAX's 2D test shape
 PCG_PERIODIC = ((34, 34, 34), (10, 10, 10))
 PCG_2D = ((98, 66), (50, 34), (37, 29), (10, 14))
+# pcg_fused on both sides of its one-block threshold
+# (`pcg_kernel.PCG_ONE_BLOCK_MAX` = 2048 cells): one block, then a grid
+PCG_THRESHOLD = ((8, 16, 16), (9, 16, 16))
 
 
 def log(msg=""):
@@ -224,6 +232,8 @@ def on_path(torch, label, expect, fn):
         w.launches = 0
         w.shapes.clear()
         w.forms.clear()
+    pcg = kernels["pcg_fused"]
+    pcg.by_shape.clear()
     out = fn()
     torch.cuda.synchronize()
     counts = {k: w.launches for k, w in kernels.items()}
@@ -231,9 +241,16 @@ def on_path(torch, label, expect, fn):
     log(f"  at shapes: " + "; ".join(
         f"{k} {sorted(w.shapes, key=math.prod)}"
         for k, w in kernels.items() if w.shapes))
+    sim = out[0] if isinstance(out, tuple) else out
+    steps = len(getattr(sim, "pois_n", ()))
+    if pcg.by_shape and steps:
+        log(f"  pcg_fused launches per step by shape ({steps} steps): "
+            + "; ".join(f"{S} {n / steps:g}" for S, n in sorted(
+                pcg.by_shape.items(), key=lambda kv: -math.prod(kv[0]))))
     PATH_FORMS[label] = {k: set(w.forms) for k, w in kernels.items()
                          if w.forms}
-    log("  forms (the bf16 arguments; conv_diff3d's limiters): "
+    log("  forms (the bf16 arguments; conv_diff3d's limiters; bc3d's "
+        "inplace or copy): "
         + "; ".join(f"{k} {sorted(f)}" for k, f in PATH_FORMS[label].items()
                     if f != {()}))
     idle = [k for k in expect if counts[k] == 0]
@@ -294,6 +311,10 @@ def run_slice(torch, dev):
         return sim, init, init_levels
 
     sim, init, init_levels = on_path(torch, "sphere_3d(96, 64)", DENSE, drive)
+    if PATH_FORMS["sphere_3d(96, 64)"]["bc3d"] != {"inplace"}:
+        raise AssertionError("the dense slice launched bc3d in the forms "
+                             f"{PATH_FORMS['sphere_3d(96, 64)']['bc3d']}, "
+                             "not only in place")
     f = sim.flow
     S = sim.cfg.S
     assert tuple(f.u.shape) == (3,) + S and tuple(f.p.shape) == S
@@ -732,6 +753,7 @@ def timing(torch, dev, sim):
     from waterlily_tpu_torch.kernels.check import (KERNELS, LIBRARY, time_pair,
                                                    time_library, bound_ms,
                                                    clear_inputs)
+    from waterlily_tpu_torch.ops.pcg_kernel import pcg_grid
 
     for w in probes.kernel_wrappers().values():
         w.launches = 0
@@ -770,6 +792,17 @@ def timing(torch, dev, sim):
             f"{t['wall_ms']:.4f} ms, plain {t['plain_wall_ms']:.4f} ms")
         rows.append((name, S, variant, t["ms"]))
         torch.cuda.empty_cache()
+    # pcg_fused at every shape a path launched it at (walls; the timed
+    # forms above hold the periodic ones)
+    for S in sorted(PATH_SHAPES.get("pcg_fused", ()),
+                    key=lambda S: (len(S), -math.prod(S))):
+        t = time_pair("pcg_fused", S, dev)
+        b, by = bound_ms("pcg_fused", S)
+        form = "one block" if pcg_grid(math.prod(S))[0] == 1 else "grid"
+        log(f"  pcg_fused    {str(S):<15} {form:<9} device (profiler): "
+            f"kernel {t['ms']:.4f} ms, plain {t['plain_ms']:.4f} ms, bound "
+            f"{b:.4f} ms ({by}); wall per call: kernel {t['wall_ms']:.4f} "
+            f"ms")
     PROBE_LAUNCHES.update({k: w.launches
                            for k, w in probes.kernel_wrappers().items()})
     bandwidth_shares(rows)
@@ -982,7 +1015,7 @@ def main() -> int:
     phase("3. kernels vs plain versions")
     from waterlily_tpu_torch.kernels.check import KERNELS, COMPOSITES
     check_kernels(torch, dev, {
-        k: (PCG_LEVEL, PCG_RAGGED) + PCG_PERIODIC + PCG_2D
+        k: (PCG_LEVEL, PCG_RAGGED) + PCG_PERIODIC + PCG_2D + PCG_THRESHOLD
         if k == "pcg_fused" else (FINE, RAGGED)
         + (CONV_RAGGED if k == "conv_diff3d" else ())
         for k in KERNELS + COMPOSITES})

@@ -139,3 +139,34 @@ def test_mom_step_from_one_state(dtype):
     np.testing.assert_allclose(npy(nt.p), npy(nj.p), atol=atol)
     # the step never writes into the state it was given
     assert np.array_equal(npy(st.u), u)
+
+
+@pytest.mark.parametrize("form", [{}, {"perdir": (1,)}, {"exitBC": True}])
+def test_mom_step_inplace_bc_leaves_state(form, monkeypatch):
+    """The step's in-place boundary fills write only fields the step made:
+    ``state.u``, ``V`` and ``μ₀`` come back unchanged, and the step equals
+    one whose fills all copy (walls, a periodic axis, the outlet)."""
+    from waterlily_tpu_torch.ops.multigrid import build_levels
+    torch.set_num_threads(1)
+    S = (18, 14, 10)
+    cfg = tf.FlowConfig(D=3, S=S, device=torch.device("cpu"), nu=0.02,
+                        U=(1.0, 0.0, 0.0), dtype=torch.float32, **form)
+    st = tf.flow_init(cfg)
+    V = tf.bc_vector(tt(normal(21, (3,) + S, F32, 0.1)), (0.0,) * 3,
+                     cfg.exitBC, cfg.perdir)
+    mu0 = tf.bc_vector(tt(uniform(20, (3,) + S, 0.2, 1.0, F32)), (0.0,) * 3,
+                       False, cfg.perdir)
+    st = st.replace(u=st.u + tt(normal(19, (3,) + S, F32, 0.1)), V=V,
+                    mu0=mu0)
+    levels = build_levels(st.mu0, cfg.perdir)
+    before = {k: getattr(st, k).clone() for k in ("u", "V", "mu0")}
+    new, aux = tf.mom_step(cfg, levels, st)
+    for k, v in before.items():
+        assert torch.equal(getattr(st, k), v), k
+    copying = tf.bc_vector
+    monkeypatch.setattr(tf, "bc_vector", lambda *a, inplace=False, **kw:
+                        copying(*a, **kw))
+    ref, aux_ref = tf.mom_step(cfg, levels, st)
+    assert aux["pois_n"] == aux_ref["pois_n"]
+    assert_exact(new.u, npy(ref.u))
+    assert_exact(new.p, npy(ref.p))

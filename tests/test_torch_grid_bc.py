@@ -92,6 +92,22 @@ def test_bc3d_plain_matches_pallas(S):
     assert_exact(sk.bc3d(tt(u), A), bc3d_pallas(jj(u), A, interpret=True))
 
 
+@pytest.mark.parametrize("dtype", [F32, F64])
+@pytest.mark.parametrize("perdir", [(), (1,), (0, 2)])
+@pytest.mark.parametrize("save_exit", [False, True])
+def test_bc_vector_inplace_bitwise(dtype, perdir, save_exit):
+    """``inplace=True`` fills the given tensor itself and returns it, equal
+    to JAX's `bc_vector` bit for bit (the bc3d wrapper's CPU form too)."""
+    u = normal(5, (3,) + S3, dtype)
+    A = (1.0, 0.5, -0.25)
+    ref = jbc.bc_vector(jj(u), A, save_exit, perdir)
+    for fill in (tbc.bc_vector, sk.bc3d):
+        t = tt(u)
+        out = fill(t, A, save_exit, perdir, inplace=True)
+        assert out is t
+        assert_exact(t, ref)
+
+
 def test_bc_vector_input_untouched():
     u = tt(normal(7, (3,) + S3))
     u0 = u.clone()

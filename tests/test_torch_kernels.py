@@ -7,6 +7,8 @@ Marked ``cuda``: without a CUDA device every case skips.  On a GPU machine
 
 The kernels build from ``waterlily_tpu_torch/csrc`` at first use.
 """
+import itertools
+
 import pytest
 import torch
 
@@ -145,6 +147,58 @@ def test_pcg_kernel_2d_matches_plain(S, device):
     """The 2D smooth: walls and periodic axes (1,) and (0, 1), within
     1e-5 (the 2D circle's levels, a ragged shape, JAX's test shape)."""
     _check("pcg_fused", S, device)
+
+
+@pytest.mark.parametrize("S", [(258, 258, 258), FINE, RAGGED, (35, 37, 31)])
+def test_bc3d_both_forms_match_plain(S, device):
+    """bc3d, exact against the plain form in all 16 periodic/save_exit
+    forms (each filling its own copy in place): 258³, the dense slice, and
+    ragged shapes."""
+    _check("bc3d", S, device)
+
+
+@pytest.mark.parametrize("S", [FINE, RAGGED])
+def test_bc3d_inplace_fills_its_input(S, device):
+    """In place, bc3d returns the tensor it was given, filled as the
+    copying form (the kernel on a clone) fills a new one; the copying form
+    leaves its input and equals the plain form, in all 16 forms;
+    Dirichlet values as numbers or as device scalars give the same bits."""
+    from waterlily_tpu_torch.kernels.check import inputs, BC_PERDIRS
+    from waterlily_tpu_torch.ops import stencil_kernels as sk
+    from waterlily_tpu_torch.ops.bc import bc_vector_planes
+    u = inputs(S, 0, device)["u"]
+    u0 = u.clone()
+    # Dirichlet values as numbers (passed with the launch) and as device
+    # scalars (a time-dependent U: read from a device array)
+    A_dev = tuple(torch.tensor(a, device=device) for a in (1.0, 0.5, 0.0))
+    for perdir, save_exit in itertools.product(BC_PERDIRS, (False, True)):
+        ref = sk.bc3d(u, (1.0, 0.5, 0.0), save_exit, perdir)
+        assert torch.equal(u, u0)
+        assert torch.equal(ref, bc_vector_planes(u, (1.0, 0.5, 0.0),
+                                                 save_exit, perdir))
+        assert torch.equal(sk.bc3d(u, A_dev, save_exit, perdir), ref)
+        for A in ((1.0, 0.5, 0.0), A_dev):
+            v = u.clone()
+            out = sk.bc3d(v, A, save_exit, perdir, inplace=True)
+            assert out is v and torch.equal(v, ref)
+    assert {"inplace", "copy"} <= sk.bc3d.forms
+
+
+@pytest.mark.parametrize("S", [(50, 34, 34), (34, 34, 34), (10, 10, 10),
+                               (98, 66), (50, 34)])
+def test_pcg_kernel_is_deterministic(S, device):
+    """Two calls give the same bits, on a grid of blocks and on one block
+    (3D walls and periodic, 2D walls and periodic): the level's sums are
+    added in one order in every block."""
+    from waterlily_tpu_torch.kernels.check import inputs, PCG_PERDIRS
+    from waterlily_tpu_torch.ops import pcg_kernel as pk
+    d = inputs(S, 0, device)
+    for perdir in ((),) + PCG_PERDIRS[len(S)]:
+        lev, r = d["level"](perdir)
+        x0 = d["x"]
+        one, two = pk.pcg_fused(lev, x0, r), pk.pcg_fused(lev, x0, r)
+        for a, b in zip(one, two):
+            assert torch.equal(a, b), (S, perdir)
 
 
 @pytest.mark.parametrize("S", [FINE, RAGGED])

@@ -118,9 +118,10 @@ def test_check_variants_cover_every_form():
                     assert torch.equal(a, b) and bool(torch.isfinite(a).all())
     n = {name: len(check.variants(name, check.inputs((12, 10, 14), 0, "cpu")))
          for name in ("bc3d", "conv_diff3d", "pcg_fused")}
-    # conv_diff3d: the two compiled-in limiters and a user's own, walls
-    # and all seven periodic masks
-    assert n == {"bc3d": 8, "conv_diff3d": 24, "pcg_fused": 2}
+    # bc3d: its 16 forms (8 periodic masks, with and without save_exit);
+    # conv_diff3d: the two compiled-in limiters and
+    # a user's own, walls and all seven periodic masks
+    assert n == {"bc3d": 16, "conv_diff3d": 24, "pcg_fused": 2}
     assert len(check.variants("pcg_fused",
                               check.inputs((10, 14), 0, "cpu"))) == 3
     assert check.bound_ms("pcg_fused", (98, 66))[1] == "bytes"

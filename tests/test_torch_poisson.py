@@ -150,6 +150,38 @@ def test_pcg_gate():
     assert not pk.use_pcg_fused((50, 34, 34), torch.float64, cuda)
 
 
+# (level, blocks, cells a thread) at the shapes the paths launch pcg_fused
+# at: 258³'s 34³ and smaller levels (the sphere's and tgv_3d(256)'s), the
+# (96,64,64) sphere's (50,34,34) and smaller, the 2D cases' levels
+@pytest.mark.parametrize("S,blocks,k", [
+    ((50, 34, 34), 226, 1), ((34, 34, 34), 154, 1), ((26, 18, 18), 33, 1),
+    ((18, 18, 18), 23, 1), ((14, 10, 10), 1, 2), ((10, 10, 10), 1, 1),
+    ((8, 6, 6), 1, 1), ((6, 6, 6), 1, 1), ((130, 130), 67, 1),
+    ((98, 66), 26, 1), ((66, 66), 18, 1), ((50, 34), 1, 2), ((34, 34), 1, 2),
+    ((18, 18), 1, 1), ((10, 10), 1, 1)])
+def test_pcg_grid_rule(S, blocks, k):
+    """The kernel's grid: up to PCG_ONE_BLOCK_MAX cells one block of
+    PCG_ONE_BLOCK_THREADS threads with the fewest cells a thread that cover
+    the level; above it one cell a thread over as many blocks of
+    PCG_THREADS as cover it; every cell owned by one thread."""
+    n = int(np.prod(S))
+    assert pk.pcg_grid(n) == (blocks, k)
+    one = n <= pk.PCG_ONE_BLOCK_MAX
+    assert (blocks == 1) == one
+    t = pk.PCG_ONE_BLOCK_THREADS if one else pk.PCG_THREADS
+    assert (blocks - 1) * k * t < n <= blocks * k * t
+    assert one or k == pk.PCG_GRID_CELLS
+
+
+def test_pcg_grid_rule_caps():
+    """A grid larger than the card holds at once doubles the cells a thread;
+    a level no launch covers raises."""
+    assert pk.pcg_grid(57_800, lambda k: 264) == (226, 1)
+    assert pk.pcg_grid(57_800, lambda k: 200) == (113, 2)
+    with pytest.raises(ValueError, match="covers"):
+        pk.pcg_grid(57_800, lambda k: 64)
+
+
 @pytest.mark.parametrize("dtype", [F32, F64])
 def test_restrict_prolongate(dtype):
     S = (18, 14, 10)

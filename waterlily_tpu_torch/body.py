@@ -202,7 +202,7 @@ def measure_fields(body, S, t=0.0, eps=1.0, perdir=(), exitBC=False,
     if isinstance(body, NoBody) or body is None:
         V = torch.zeros((D,) + S, dtype=dtype, device=device)
         m0 = bc_vector(torch.ones((D,) + S, dtype=dtype, device=device),
-                       (0.0,) * D, False, perdir)
+                       (0.0,) * D, False, perdir, inplace=True)
         m1 = torch.zeros((D, D) + S, dtype=dtype, device=device)
         return V, m0, m1, torch.zeros(S, dtype=dtype, device=device)
 
@@ -215,8 +215,8 @@ def measure_fields(body, S, t=0.0, eps=1.0, perdir=(), exitBC=False,
     m1_in = torch.zeros_like(m1)
     m1_in[interior(D, lead=2)] = m1[interior(D, lead=2)]
     V = mask_interior(V, D)
-    m0 = bc_vector(m0, (0.0,) * D, False, perdir)
-    V = bc_vector(V, (0.0,) * D, exitBC, perdir)
+    m0 = bc_vector(m0, (0.0,) * D, False, perdir, inplace=True)
+    V = bc_vector(V, (0.0,) * D, exitBC, perdir, inplace=True)
     return V, m0, m1_in, d_center
 
 
@@ -263,8 +263,8 @@ def measure_fields_banded(body, S, t, eps, perdir, exitBC, dtype, box_shape,
     V[box_slices(start, W, 1)] = Vw
     m1[box_slices(start, W, 2)] = m1w
     # window cells are interior: μ₁ and V ghosts are already zero
-    m0 = bc_vector(m0, (0.0,) * D, False, perdir)
-    V = bc_vector(V, (0.0,) * D, exitBC, perdir)
+    m0 = bc_vector(m0, (0.0,) * D, False, perdir, inplace=True)
+    V = bc_vector(V, (0.0,) * D, exitBC, perdir, inplace=True)
     return V, m0, m1, d_center, start
 
 

@@ -180,8 +180,10 @@ def mom_step(cfg: FlowConfig, levels, state: FlowState):
 
     Returns the advanced state and ``aux`` with the pressure-solver
     iteration counts ``pois_n = [predictor, corrector]`` (host ints) and the
-    next ``dt``.  Nothing is updated in place: ``state.u`` is read again by
-    the corrector's BDIM blend and by the outlet BC."""
+    next ``dt``.  Nothing of ``state`` is updated in place: ``state.u`` is
+    read again by the corrector's BDIM blend and by the outlet BC; the
+    boundary conditions fill in place only the fields the step itself has
+    just made."""
     D, dtype = cfg.D, cfg.dtype
     u0, p, dt, t = state.u, state.p, state.dt, state.t
     U = bc_tuple(cfg.U, t + dt, D, dtype)
@@ -197,11 +199,11 @@ def mom_step(cfg: FlowConfig, levels, state: FlowState):
     else:
         u = torch.where(imask, 0.0, u0)             # scale_u!(a, 0)
         u = bdim(u, u0, r, state.V, state.mu0, state.mu1, dt)
-    u = bc_vector(u, U, cfg.exitBC, cfg.perdir)
+    u = bc_vector(u, U, cfg.exitBC, cfg.perdir, inplace=True)
     if cfg.exitBC:
         u = exit_bc(u, u0, U, dt)
     u, p, n1 = project(levels, u, p, dt, cfg)
-    u = bc_vector(u, U, cfg.exitBC, cfg.perdir)
+    u = bc_vector(u, U, cfg.exitBC, cfg.perdir, inplace=True)
 
     # corrector u -> u¹
     r = conv_diff(u, cfg.nu, cfg.perdir, cfg.limiter)
@@ -212,9 +214,9 @@ def mom_step(cfg: FlowConfig, levels, state: FlowState):
     else:
         u = bdim(u, u0, r, state.V, state.mu0, state.mu1, dt)
         u = torch.where(imask, 0.5 * u, u)          # scale_u!(a, 0.5)
-    u = bc_vector(u, U, cfg.exitBC, cfg.perdir)
+    u = bc_vector(u, U, cfg.exitBC, cfg.perdir, inplace=True)
     u, p, n2 = project(levels, u, p, 0.5 * dt, cfg)
-    u = bc_vector(u, U, cfg.exitBC, cfg.perdir)
+    u = bc_vector(u, U, cfg.exitBC, cfg.perdir, inplace=True)
 
     dt_new = cfl(u, cfg.nu)
     new = state.replace(u=u, p=p, dt=dt_new, t=t + dt)
@@ -232,12 +234,12 @@ def flow_init(cfg: FlowConfig, ulam=None, dt0=0.25) -> FlowState:
     else:
         u = apply_field(ulam, (D,) + S, dtype, vector=True, device=dev)
     U0 = bc_tuple(cfg.U, torch.zeros((), dtype=dtype, device=dev), D, dtype)
-    u = bc_vector(u, U0, cfg.exitBC, cfg.perdir)
+    u = bc_vector(u, U0, cfg.exitBC, cfg.perdir, inplace=True)
     u = exit_bc(u, u, U0, 0.0)      # always applied at init (Flow.jl:115)
     p = torch.zeros(S, dtype=dtype, device=dev)
     V = torch.zeros((D,) + S, dtype=dtype, device=dev)
     mu0 = bc_vector(torch.ones((D,) + S, dtype=dtype, device=dev), (0.0,) * D,
-                    False, cfg.perdir)
+                    False, cfg.perdir, inplace=True)
     mu1 = torch.zeros((D, D) + S, dtype=dtype, device=dev)
     return FlowState(u=u, p=p, V=V, mu0=mu0, mu1=mu1,
                      dt=torch.tensor(dt0, dtype=dtype, device=dev),

@@ -60,11 +60,12 @@ SIGNATURES = {
     "wl_roll_probe": [_P, _P, _F] + _S3,
     "wl_ana_mult3d": [_P, _P, _P, _F, _I] + _S3,
     "wl_cfl3d": [_P, _P] + _S3,
-    "wl_bc3d": [_P, _P, _P, _I, _I] + _S3,
+    "wl_bc3d": [_P, _P, _F, _F, _F, _I, _I] + _S3,
     "wl_div3d": [_P, _P, _P, _P, _P] + _S3,
     "wl_project3d": [_P, _P, _P, _P, _P, _P] + _S3,
     "wl_conv_diff3d": [_P, _P, _F, _I, _I] + _S3,
-    "wl_pcg": [_P, _P, _P, _P, _P, _P, _P, _I] + _S3 + [_I, _I],
+    "wl_pcg": [_P] * 6 + [_I] + _S3 + [_I, _I, _I, _I],
+    "wl_grid_sync_probe": [_I, _I],
 }
 
 _build_seconds = [0.0]
@@ -141,6 +142,10 @@ def library() -> ctypes.CDLL:
         fn.argtypes = args + [_P]
         fn.restype = _I
     lib.wl_threads.restype = _I
+    lib.wl_pcg_threads.argtypes = [_I]
+    lib.wl_pcg_threads.restype = _I
+    lib.wl_pcg_coresident.argtypes = [_I, _I]
+    lib.wl_pcg_coresident.restype = _I
     lib.wl_stream_tile.argtypes = [_I]
     lib.wl_stream_tile.restype = _I
     lib.wl_error_string.argtypes = [_I]

@@ -3,6 +3,7 @@ each.
 
     python -m waterlily_tpu_torch.kernels.times conv_diff3d:258,258,258 \\
         conv_diff3d:258,258,258:quick_p012 dot3d:130,130,130:ab \\
+        bc3d:258,258,258:exit pcg_fused:50,34,34 barrier:113 \\
         case:sphere_3d:256,256 case:tgv_2d:64
 
 A kernel argument is ``kernel:shape[:variant]`` (the variant by index or
@@ -10,11 +11,17 @@ by its first output's name, as `kernels.check.variants` lists them); its
 line holds the kernel's and its plain version's device ms per call
 (`check.time_pair`: profiler, each call on the next of three copies of its
 inputs), its bound, and for a kernel with a one-call PyTorch yardstick
-(`check.LIBRARY`, timed on its first variant) that call's ms.  A case
-argument is ``case:name:args``, a model of the package's top level with
-integer arguments: its line holds ms/step (`utils.perf.time_steps`; 10
-steps after 2 in 3D, 50 after 10 in 2D) and the device busy ms/step and
-idle share of further steps (`utils.perf.idle_share`; 5 in 3D, 20 in 2D).
+(`check.LIBRARY`, timed on its first variant) that call's ms; a variant
+the checkout does not have gives a line with ``"missing": true``.  A
+``barrier:blocks`` argument times a trivial cooperative kernel of that
+many blocks (``csrc/pcg.cu`` `grid_sync_probe`, on no path): its launch
+alone and the cost of one grid barrier, the unit of `pcg_fused`'s sync
+floor.  A case argument is ``case:name:args``, a model of the package's
+top level with integer arguments: its line holds ms/step
+(`utils.perf.time_steps`; 10 steps after 2 in 3D, 50 after 10 in 2D), the
+device busy ms/step and idle share of further steps
+(`utils.perf.idle_share`; 5 in 3D, 20 in 2D) and the ops that take most
+of the busy time.
 ``--set module.NAME=value`` sets a module constant of the port first
 (``--set ops.attic.DOT_ROWS_MIN=8``).  The first line is the card's name
 and power limit.
@@ -57,6 +64,14 @@ def _kernel(spec: str, dev) -> dict:
     variant = rest[0] if rest else 0
     if isinstance(variant, str) and variant.isdigit():
         variant = int(variant)
+    # a kernel or variant the checkout lacks gives a "missing" line
+    names = ([(v[0] or ("",))[0] for v in check.variants(
+        name, check._fresh_inputs(S, 0, dev))] if name in check.SOURCES
+        else [])
+    if (variant >= len(names) if isinstance(variant, int)
+            else variant not in names):
+        return {"kernel": name, "shape": S, "variant": variant,
+                "missing": True}
     t = check.time_pair(name, S, dev, variant=variant)
     b, by = check.bound_ms(name, S, None if variant == 0 else variant)
     row = {"kernel": name, "shape": S, "variant": variant, **t,
@@ -66,6 +81,36 @@ def _kernel(spec: str, dev) -> dict:
     check.clear_inputs()
     torch.cuda.empty_cache()
     return row
+
+
+def _barrier(spec: str, dev, n=200, reps=20) -> dict:
+    """A cooperative launch of ``blocks`` blocks with no grid barrier and
+    with ``n``: device ms (profiler) of the empty launch and of one
+    barrier, and the wall ms per back-to-back launch (CUDA events)."""
+    import torch
+    from waterlily_tpu_torch.kernels.build import launch
+    from waterlily_tpu_torch.utils.perf import device_profile
+    blocks = int(spec.split(":")[1])
+
+    def wall(syncs):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(reps):
+            launch("wl_grid_sync_probe", blocks, syncs)
+        end.record()
+        torch.cuda.synchronize(dev)
+        return start.elapsed_time(end) / reps
+
+    def device(syncs):
+        return device_profile(
+            lambda: launch("wl_grid_sync_probe", blocks, syncs), reps)[0]
+
+    wall(n)  # warm-up
+    d0, dn = device(0), device(n)
+    return {"barrier_blocks": blocks, "launch_ms": d0,
+            "barrier_ms": (dn - d0) / n, "launch_wall_ms": wall(0),
+            "syncs": n}
 
 
 def _case(spec: str, dev) -> dict:
@@ -80,6 +125,8 @@ def _case(spec: str, dev) -> dict:
     row = {"case": f"{name}({args})", "ms_per_step": t["sec_per_step"] * 1e3,
            "busy_ms": r["busy_ms"], "wall_ms": r["wall_ms"],
            "idle_share": r["idle_share"], "pois_n": sim.pois_n[-1],
+           "by_op_ms": dict(sorted(r["by_name"].items(),
+                                   key=lambda kv: -kv[1])[:10]),
            "finite": bool(torch.isfinite(sim.flow.u).all())}
     del sim
     torch.cuda.empty_cache()
@@ -100,8 +147,9 @@ def run(argv) -> int:
           + (f"; set {sets}" if sets else ""), flush=True)
     dev = torch.device("cuda", 0)
     for spec in specs:
-        row = _case(spec, dev) if spec.startswith("case:") \
-            else _kernel(spec, dev)
+        kind = spec.split(":")[0]
+        row = (_case if kind == "case" else
+               _barrier if kind == "barrier" else _kernel)(spec, dev)
         print(json.dumps(row), flush=True)
     return 0
 

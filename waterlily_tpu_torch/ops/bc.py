@@ -2,9 +2,9 @@
 
 PyTorch counterpart of `waterlily_tpu.ops.bc` (reference ``BC!``,
 ``exitBC!`` and ``perBC!``).  The plain form applies the reference's
-sequential plane updates to a copy of the field; big 3D f32 fields on a
-CUDA device dispatch to the one-sweep kernel `stencil_kernels.bc3d`, which
-composes the same stages per cell.
+sequential plane updates to a copy of the field (or, asked to, to the
+field itself); big 3D f32 fields on a CUDA device dispatch to the kernel
+`stencil_kernels.bc3d`, which composes the same stages per cell.
 """
 from __future__ import annotations
 
@@ -22,12 +22,13 @@ def _pl(D: int, j: int, lo: int, lead: int = 0) -> tuple:
 
 
 def bc_vector(u: torch.Tensor, A, save_exit: bool = False,
-              perdir: tuple = ()) -> torch.Tensor:
+              perdir: tuple = (), inplace: bool = False) -> torch.Tensor:
     """Apply domain BCs to the ghost cells of a vector field ``u`` (D,*S)
-    and return a new tensor.
+    and return a new tensor; with ``inplace=True`` it may write into ``u``
+    instead and returns it (for a caller that reads ``u`` no more).
 
-    Fields that pass `stencil_kernels.use_blocked` go through the one-sweep
-    kernel.  Semantics (reference src/util.jl:192-210):
+    Fields that pass `stencil_kernels.use_blocked` go through the kernel
+    (in place, it writes only the ghost faces and Dirichlet planes).  Semantics (reference src/util.jl:192-210):
     periodic direction ``j`` copies the opposite interior plane; the normal
     component (``i==j``) is Dirichlet ``A[i]`` on the low ghost *and* first
     interior plane and on the high ghost plane (the high plane is kept for
@@ -37,17 +38,19 @@ def bc_vector(u: torch.Tensor, A, save_exit: bool = False,
     """
     S = tuple(u.shape[1:])
     if u.shape[0] == 3 and sk.use_blocked(S, u.dtype, u.device):
-        return sk.bc3d(u, A, save_exit, perdir)
-    return bc_vector_planes(u, A, save_exit, perdir)
+        return sk.bc3d(u, A, save_exit, perdir, inplace)
+    return bc_vector_planes(u, A, save_exit, perdir, inplace)
 
 
 def bc_vector_planes(u: torch.Tensor, A, save_exit: bool = False,
-                     perdir: tuple = ()) -> torch.Tensor:
+                     perdir: tuple = (), inplace: bool = False) -> torch.Tensor:
     """The sequential plane-update form of `bc_vector` (the plain version
-    of the `bc3d` kernel)."""
+    of the `bc3d` kernel): on a copy of ``u``, or with ``inplace`` on
+    ``u`` itself."""
     D = u.shape[0]
     S = u.shape[1:]
-    u = u.clone()
+    if not inplace:
+        u = u.clone()
     cpl = lambda i, j, lo: (slice(i, i + 1),) + _pl(D, j, lo)
     for i in range(D):
         for j in range(D):

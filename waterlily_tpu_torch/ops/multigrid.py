@@ -74,7 +74,8 @@ def restrict_L(L: torch.Tensor, perdir: tuple = ()) -> torch.Tensor:
                     dim=d + 1)
         comps.append(pad_interior(0.5 * v))
     a = torch.stack(comps, dim=0)
-    return bc_vector(a, (0.0,) * D, save_exit=False, perdir=perdir)
+    return bc_vector(a, (0.0,) * D, save_exit=False, perdir=perdir,
+                     inplace=True)
 
 
 def prolongate(x_coarse: torch.Tensor) -> torch.Tensor:

@@ -10,7 +10,8 @@ Each wrapper counts its launches in a plain int attribute, ``.launches``,
 incremented only where the kernel is launched, and keeps the shapes it
 launched at in a set, ``.shapes``; a wrapper with bf16 forms also keeps
 the forms it launched in ``.forms`` (each the names of the arguments that
-were bf16, ``()`` for all f32); ``conv_diff3d``'s are its limiters' names.
+were bf16, ``()`` for all f32); ``conv_diff3d``'s are its limiters' names,
+``bc3d``'s ``"inplace"`` or ``"copy"``.
 
 The plain versions are the package's own whole-array forms (the functions
 `waterlily_tpu` runs through XLA on the CPU), with the same association as
@@ -96,17 +97,13 @@ def _scalar_on(v, like: torch.Tensor, name: str) -> torch.Tensor:
 
 
 def _vector_on(A, like: torch.Tensor, name: str) -> torch.Tensor:
-    """A (3,) f32 device tensor of the BC values ``A`` (numbers or
-    one-element tensors)."""
+    """A (3,) f32 device tensor of the BC values ``A`` (a (3,) tensor, or
+    one-element tensors and numbers), with no host synchronisation."""
     if isinstance(A, torch.Tensor):
         if A.shape != (3,) or A.device != like.device:
             raise ValueError(f"{name}: A must be a (3,) tensor on "
                              f"{like.device}")
         return A.to(torch.float32).contiguous()
-    if all(not isinstance(a, torch.Tensor) for a in A):
-        # pageable host values, copied without a stream synchronisation
-        return torch.tensor([float(a) for a in A], dtype=torch.float32).to(
-            like.device, non_blocking=True)
     return torch.cat([_scalar_on(a, like, name) for a in A])
 
 
@@ -276,20 +273,34 @@ def cfl3d(u):
 # --- boundary conditions ----------------------------------------------------------
 
 @_counted
-def bc3d(u, A, save_exit: bool = False, perdir: tuple = ()):
-    """BC-filled copy of the (3, S0, S1, S2) velocity field in one sweep,
-    equal to `ops.bc.bc_vector_planes` bit for bit: walls, periodic axes
-    (``perdir``) and the convective outlet's kept plane (``save_exit``)."""
+def bc3d(u, A, save_exit: bool = False, perdir: tuple = (),
+         inplace: bool = False):
+    """The (3, S0, S1, S2) velocity field with its boundary conditions, in
+    one launch, equal to `ops.bc.bc_vector_planes` bit for bit: walls,
+    periodic axes (``perdir``) and the convective outlet's kept plane
+    (``save_exit``).  The kernel writes only the cells that change (ghost
+    faces and the Dirichlet plane): with ``inplace`` into ``u``, which it
+    returns, otherwise into a clone of ``u``.  Each launch adds its form,
+    ``"inplace"`` or ``"copy"``, to ``bc3d.forms``."""
     S = tuple(u.shape[1:])
     if _on_cpu("bc3d", u):
         from .bc import bc_vector_planes
-        return bc_vector_planes(u, A, save_exit, perdir)
+        return bc_vector_planes(u, A, save_exit, perdir, inplace)
     _check("bc3d", S, u=(u, (3,) + S))
-    out = torch.empty_like(u)
-    launch("wl_bc3d", u, out, _vector_on(A, u, "bc3d"), _axis_bits(perdir),
-           int(bool(save_exit)), *S)
+    if 3 * math.prod(S) >= 2 ** 31:
+        raise ValueError(f"bc3d: the kernel indexes fields of fewer than "
+                         f"2^31 values, got S={S}")
+    out = u if inplace else u.clone()
+    # numbers go with the launch; values on the device as a (3,) array
+    if any(isinstance(a, torch.Tensor) for a in A):
+        A_dev, A_host = _vector_on(A, u, "bc3d"), (0.0,) * 3
+    else:
+        A_dev, A_host = None, tuple(float(a) for a in A)
+    launch("wl_bc3d", out, A_dev, *A_host,
+           _axis_bits(perdir), int(bool(save_exit)), *S)
     bc3d.launches += 1
     bc3d.shapes.add(S)
+    bc3d.forms.add("inplace" if inplace else "copy")
     return out
 
 
