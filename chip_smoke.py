@@ -15,7 +15,11 @@ Phases, each of which raises (and so exits non-zero) on failure:
    walls and every periodic mask) also where its column tiles and axis-0
    chunks are cut raggedly and where axis 0 is shorter than one chunk,
    ``pcg_fused`` on one block and on a cooperative grid (both sides of
-   its threshold);
+   its threshold), ``cfl3d`` and every ``ana_mult3d`` form where their
+   column tiles and axis-0 chunks are cut raggedly and where axis 0 has
+   one or two interior planes; then ``cfl3d``, ``ana_mult3d`` (with and
+   without the dot) and ``dot3d`` are each one launch a call (the
+   profiler sees one kernel on the card);
 4. the dense slice: ``sphere_3d(96, 64)`` constructed and stepped 20 times
    on the card with every kernel launch-counted (every ``bc3d`` launch in
    place), then 3 steps from the same initial state on the CPU (plain
@@ -73,7 +77,8 @@ Phases, each of which raises (and so exits non-zero) on failure:
    the kernels line reports; each call on the next of three copies of its
    inputs, so that at 258³ no call finds its operands in L2), the
    periodic, outlet, 2D and bf16 forms at 258³, (34,34,34) and (98,66),
-   ``pcg_fused`` at every shape a path launched it at, the
+   ``pcg_fused``, ``cfl3d`` and ``ana_mult3d`` (with and without the
+   dot) at every shape a path launched them at, the
    operator-shadow, bf16-iD and carried-rows forms at 258³ and (98,66,66), ``torch.dot`` beside ``dot3d`` and
    ``torch.mul`` beside ``copy_probe``; the probes' rates in GB/s and each kernel's bytes over
    its time as a share of the copy probe's rate; the 256³ sphere in
@@ -81,7 +86,7 @@ Phases, each of which raises (and so exits non-zero) on failure:
    with its idle share and pois_n.
 
 Every path runs with the launch counters set to 0 and the launched shapes
-and forms cleared just before it, all read just after (``pcg_fused``'s
+and forms cleared just before it, all read just after (each kernel's
 launches also by shape, per step); a kernel of the path that never
 launched fails the run.  The probes run on no path: the
 kernels line gives them 0 launches and their calls in phase 8 as
@@ -116,6 +121,11 @@ PCG_2D = ((98, 66), (50, 34), (37, 29), (10, 14))
 # pcg_fused on both sides of its one-block threshold
 # (`pcg_kernel.PCG_ONE_BLOCK_MAX` = 2048 cells): one block, then a grid
 PCG_THRESHOLD = ((8, 16, 16), (9, 16, 16))
+# the plane-marching reductions (cfl3d, ana_mult3d): an axis 0 of one and
+# two interior planes, axes 1 and 2 off their (8, 32) column tiles, and 8
+# chunks of 9 interior planes over 65 (the last one of 2)
+MARCH_RAGGED = ((3, 37, 70), (4, 9, 40), (37, 29, 35), (70, 41, 67),
+                (67, 130, 130))
 
 
 def log(msg=""):
@@ -186,6 +196,28 @@ def check_kernels(torch, dev, shapes):
         raise AssertionError(f"kernel checks failed: {failures}")
 
 
+def one_launch(torch, dev):
+    """The one-launch reductions put one kernel on the card a call and no
+    PyTorch reduce after it (profiler, 5 calls at the dense slice's
+    shape)."""
+    from waterlily_tpu_torch.kernels.check import inputs
+    from waterlily_tpu_torch.ops import stencil_kernels as sk, attic as at
+    from waterlily_tpu_torch.utils.perf import device_profile
+    d = inputs(FINE, 0, dev)
+    u, x, r = d["u"], d["x"], d["r"]
+    for label, call in (
+            ("cfl3d", lambda: sk.cfl3d(u)),
+            ("ana_mult3d, dot", lambda: sk.ana_mult3d(x, 1.0, with_dot=True)),
+            ("ana_mult3d", lambda: sk.ana_mult3d(x, 1.0)),
+            ("dot3d aa", lambda: at.dot3d(r, r, "aa"))):
+        ops = device_profile(call, 5)[1]
+        log(f"  {label:<16} ops on the card a call: {sorted(ops)}")
+        if len(ops) != 1:
+            raise AssertionError(f"{label} is not one launch a call: {ops}")
+    del d
+    torch.cuda.empty_cache()
+
+
 def pois_ok(a, b):
     d = [abs(x - y) for ra, rb in zip(a, b) for x, y in zip(ra, rb)]
     return all(v == 0 for v in d) or (all(v <= 2 for v in d) and sum(d) <= 4)
@@ -232,21 +264,16 @@ def on_path(torch, label, expect, fn):
         w.launches = 0
         w.shapes.clear()
         w.forms.clear()
-    pcg = kernels["pcg_fused"]
-    pcg.by_shape.clear()
     out = fn()
     torch.cuda.synchronize()
     counts = {k: w.launches for k, w in kernels.items()}
     log(f"launches on {label}: {counts}")
-    log(f"  at shapes: " + "; ".join(
-        f"{k} {sorted(w.shapes, key=math.prod)}"
-        for k, w in kernels.items() if w.shapes))
     sim = out[0] if isinstance(out, tuple) else out
-    steps = len(getattr(sim, "pois_n", ()))
-    if pcg.by_shape and steps:
-        log(f"  pcg_fused launches per step by shape ({steps} steps): "
-            + "; ".join(f"{S} {n / steps:g}" for S, n in sorted(
-                pcg.by_shape.items(), key=lambda kv: -math.prod(kv[0]))))
+    steps = len(getattr(sim, "pois_n", ())) or 1
+    log(f"  launches per step by shape ({steps} steps): " + "; ".join(
+        f"{k} " + ", ".join(f"{S} {n / steps:g}" for S, n in sorted(
+            w.shapes.items(), key=lambda kv: -math.prod(kv[0])))
+        for k, w in kernels.items() if w.shapes))
     PATH_FORMS[label] = {k: set(w.forms) for k, w in kernels.items()
                          if w.forms}
     log("  forms (the bf16 arguments; conv_diff3d's limiters; bc3d's "
@@ -803,14 +830,23 @@ def timing(torch, dev, sim):
             f"kernel {t['ms']:.4f} ms, plain {t['plain_ms']:.4f} ms, bound "
             f"{b:.4f} ms ({by}); wall per call: kernel {t['wall_ms']:.4f} "
             f"ms")
+    # the plane-marching reductions at every shape a path launched them at
+    # (ana_mult3d also without the dot: the bound counts the same bytes)
+    for name, forms in (("cfl3d", ((0, ""),)),
+                        ("ana_mult3d", ((0, ""), (1, ", without the dot")))):
+        for S in sorted(PATH_SHAPES.get(name, ()), key=math.prod,
+                        reverse=True):
+            for v, form in forms:
+                t = time_pair(name, S, dev, variant=v)
+                log(f"  {name:<12} {str(S) + form:<15} device (profiler): "
+                    f"kernel {t['ms']:.4f} ms, plain {t['plain_ms']:.4f} "
+                    f"ms, bound {bound_ms(name, S)[0]:.4f} ms; wall per "
+                    f"call: kernel {t['wall_ms']:.4f} ms")
+            clear_inputs()
+            torch.cuda.empty_cache()
     PROBE_LAUNCHES.update({k: w.launches
                            for k, w in probes.kernel_wrappers().items()})
     bandwidth_shares(rows)
-    # ana_mult3d without the dot (the bound counts the same bytes)
-    t = time_pair("ana_mult3d", BIG, dev, variant=1)
-    log(f"  ana_mult3d   {str(BIG):<15} without the dot, device "
-        f"(profiler): kernel {t['ms']:.4f} ms, plain {t['plain_ms']:.4f} ms, "
-        f"bound {bound_ms('ana_mult3d', BIG)[0]:.4f} ms")
     clear_inputs()
     torch.cuda.empty_cache()
     del sim
@@ -1018,7 +1054,9 @@ def main() -> int:
         k: (PCG_LEVEL, PCG_RAGGED) + PCG_PERIODIC + PCG_2D + PCG_THRESHOLD
         if k == "pcg_fused" else (FINE, RAGGED)
         + (CONV_RAGGED if k == "conv_diff3d" else ())
+        + (MARCH_RAGGED if k in ("cfl3d", "ana_mult3d") else ())
         for k in KERNELS + COMPOSITES})
+    one_launch(torch, dev)
     phase("4. the dense slice: sphere_3d(96, 64)")
     sim = run_slice(torch, dev)
     phase("4.1 a user-defined limiter traced into conv_diff3d")

@@ -154,16 +154,18 @@ def test_update_levels_moves_the_window(sphere_pair):
 
 # --- ana_mult3d: the plain version against the Pallas kernel ----------------
 
+@pytest.mark.parametrize("S", [(13, 9, 11), (3, 37, 70), (37, 29, 35)])
 @pytest.mark.parametrize("block", [2, 5])
 @pytest.mark.parametrize("c", [1.0, 2.0])
 @pytest.mark.parametrize("with_dot", [False, True])
-def test_ana_mult3d_plain_vs_pallas(block, c, with_dot):
-    """Interpret mode; 13 rows at block 5 leave a ragged tail slab.  XLA's
+def test_ana_mult3d_plain_vs_pallas(S, block, c, with_dot):
+    """Interpret mode; 13 rows at block 5 leave a ragged tail slab, and the
+    other shapes are the kernel's ragged cases (one interior plane; axes 1
+    and 2 off its (8, 32) column tiles).  XLA's
     CPU backend contracts ``c·t − (c·nf)·x`` into one FMA, which the
     plain version (and the kernel, built without contraction) does not: z
     differs by at most that one rounding (atol/rtol 1e-6).  The dot sums in
     another order (rtol 1e-5)."""
-    S = (13, 9, 11)
     x = normal(5, S)
     ref = ana_mult3d_pallas(jj(x), c, with_dot=with_dot, interpret=True,
                             block=block)

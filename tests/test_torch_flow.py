@@ -78,11 +78,62 @@ def test_cfl_bitwise(dtype):
     assert_exact(sk.cfl3d(tt(u)), tf.cfl_flux_max(tt(u)))
 
 
-@pytest.mark.parametrize("S", [(18, 34, 34), (13, 10, 12)])
+# the kernel's ragged cases: an axis 0 of one and two interior planes,
+# axes 1 and 2 off its (8, 32) column tiles
+MARCH_RAGGED = [(3, 37, 70), (4, 9, 40), (37, 29, 35), (21, 10, 99)]
+
+
+@pytest.mark.parametrize("S", [(18, 34, 34), (13, 10, 12)] + MARCH_RAGGED)
 def test_cfl3d_plain_vs_pallas(S):
     u = normal(12, (3,) + S)
     assert_exact(sk.cfl3d(tt(u)), cfl3d_pallas(jj(u), S, interpret=True,
                                                block=4))
+
+
+@pytest.mark.parametrize("S", MARCH_RAGGED)
+def test_cfl3d_nan_plain_vs_pallas(S):
+    """A NaN in an interior cell comes out of both; one in a ghost cell no
+    interior term reads (u₀ on the plane i = 0) is ignored by both."""
+    u = normal(13, (3,) + S)
+    u[0, 0, 1, 1] = np.nan
+    got = sk.cfl3d(tt(u))
+    assert bool(torch.isfinite(got))
+    assert_exact(got, cfl3d_pallas(jj(u), S, interpret=True, block=4))
+    u[1, S[0] // 2, S[1] // 2, S[2] // 2] = np.nan
+    assert bool(torch.isnan(sk.cfl3d(tt(u))))
+    assert bool(jnp.isnan(cfl3d_pallas(jj(u), S, interpret=True, block=4)))
+
+
+# (shape, planes a chunk, blocks) of the marches' rule with (8, 32) tiles:
+# the path shapes (fine 256³ and its levels, the dense slice, the heaving
+# sphere, the banded 48³ check) and the ragged ones
+MARCH_GRIDS = [((258, 258, 258), 64, 1024), ((130, 130, 130), 16, 512),
+               ((66, 66, 66), 4, 256), ((98, 66, 66), 4, 384),
+               ((98, 98, 98), 7, 504), ((50, 50, 50), 4, 144),
+               ((67, 130, 130), 9, 512), ((3, 37, 70), 1, 15),
+               ((4, 9, 40), 2, 2), ((37, 29, 35), 4, 72)]
+
+
+@pytest.mark.parametrize("S, planes, blocks", MARCH_GRIDS)
+def test_march_planes_rule(S, planes, blocks):
+    """`cfl3d` and `ana_mult3d` march chunks of 4 to 64 interior planes
+    (fewer where axis 0 has fewer): as many chunks as a grid of 512 blocks
+    needs, balanced over axis 0's interior, which they tile (the last one
+    possibly shorter)."""
+    tile = (8, 32)
+    assert sk.march_planes(S, tile) == planes
+    assert sk.march_blocks(S, planes, tile) == blocks
+    n, lo, hi = S[0] - 2, *sk.MARCH_PLANES
+    chunks = -(-n // planes)
+    assert min(lo, n) <= planes <= hi
+    assert (chunks - 1) * planes < n <= chunks * planes
+
+
+def test_march_shapes_refuse():
+    """The marches need an interior on every axis: the wrappers refuse a
+    shape without one before they reach the card."""
+    with pytest.raises(ValueError, match="at least 3"):
+        sk._march("cfl3d", (2, 40, 40), "cpu", False)
 
 
 @pytest.mark.parametrize("dtype", [F32, F64])
@@ -170,3 +221,14 @@ def test_mom_step_inplace_bc_leaves_state(form, monkeypatch):
     assert aux["pois_n"] == aux_ref["pois_n"]
     assert_exact(new.u, npy(ref.u))
     assert_exact(new.p, npy(ref.p))
+
+
+def test_times_case_spec():
+    """`kernels.times` takes a case's keyword flags as Python literals, so
+    a configuration such as the banded-levels sphere can be timed against
+    another checkout."""
+    from waterlily_tpu_torch.kernels.times import case_spec
+    assert case_spec("case:sphere_3d:256,256:banded_levels=True") == (
+        "sphere_3d", (256, 256), {"banded_levels": True},
+        "sphere_3d(256,256, banded_levels=True)")
+    assert case_spec("case:tgv_2d:64") == ("tgv_2d", (64,), {}, "tgv_2d(64)")

@@ -274,3 +274,77 @@ def test_user_limiter_steps_through_the_conv_kernel(device):
         assert bool(torch.isfinite(t).all())
     with pytest.raises(NotImplementedError):
         sk.conv_diff3d(sim.flow.u, 0.01, lambda u, c, d: c + torch.exp(d))
+
+
+# the plane-marching reductions' ragged cases: an axis 0 of one and two
+# interior planes, axes 1 and 2 off their (8, 32) column tiles, and
+# 8 chunks of 9 interior planes over 65 (the last one of 2)
+MARCH_RAGGED = [(3, 37, 70), (4, 9, 40), (37, 29, 35), (70, 41, 67),
+                (67, 130, 130)]
+
+
+@pytest.mark.parametrize("name", ["cfl3d", "ana_mult3d"])
+@pytest.mark.parametrize("S", MARCH_RAGGED)
+def test_march_kernels_ragged(name, S, device):
+    """cfl3d exact, and every ana_mult3d form exact against its plain form
+    (z with the dot at c = 1; c = 2 with walls and each periodic mask),
+    the dot within 1e-5 relative."""
+    _check(name, S, device)
+
+
+@pytest.mark.parametrize("S", [(37, 29, 35), (70, 41, 67)])
+def test_march_kernels_ragged_chunks(S, device, monkeypatch):
+    """Chunks of 3 interior planes, the last one shorter: still exact."""
+    from waterlily_tpu_torch.ops import stencil_kernels as sk
+    monkeypatch.setattr(sk, "MARCH_PLANES", (3, 3))
+    _check("cfl3d", S, device)
+    _check("ana_mult3d", S, device)
+
+
+@pytest.mark.parametrize("S", [FINE, (3, 37, 70), (37, 29, 35)])
+def test_ana_mult3d_dot_is_deterministic(S, device):
+    """Two calls on one input give the same bits, z and the dot (the last
+    block sums the partials in index order; no atomics in the sum)."""
+    from waterlily_tpu_torch.kernels.check import inputs
+    from waterlily_tpu_torch.ops import stencil_kernels as sk
+    x = inputs(S, 0, device)["x"]
+    for c, perdir in ((1.0, ()), (2.0, (0, 1, 2))):
+        (z1, d1), (z2, d2) = (sk.ana_mult3d(x, c, perdir, True),
+                              sk.ana_mult3d(x, c, perdir, True))
+        assert d1.shape == () and torch.equal(d1, d2), (c, perdir, d1, d2)
+        assert torch.equal(z1, z2)
+
+
+@pytest.mark.parametrize("S", [FINE, (3, 37, 70), (37, 29, 35)])
+def test_cfl3d_nan(S, device):
+    """A NaN in a ghost cell that no interior term reads (u₀ on the plane
+    i = 0) is ignored, as by the plain form; one in an interior cell comes
+    out.  (The +δ taps do read the ghost plane S−1, as the plain form
+    does: the exact cases above hold that.)"""
+    from waterlily_tpu_torch.kernels.check import inputs
+    from waterlily_tpu_torch.ops import stencil_kernels as sk
+    u = inputs(S, 0, device)["u"].clone()
+    u[0, 0, 1, 1] = float("nan")
+    got = sk.cfl3d(u)
+    assert bool(torch.isfinite(got)) and torch.equal(got,
+                                                     sk._cfl3d_plain(u))
+    u[1, S[0] // 2, S[1] // 2, S[2] // 2] = float("nan")
+    assert bool(torch.isnan(sk.cfl3d(u)))
+
+
+def test_march_kernels_launch_once(device):
+    """cfl3d and ana_mult3d, with and without the dot, are one launch a
+    call: the launch counter, and the profiler sees one kernel on the card
+    and no PyTorch reduce after it."""
+    from waterlily_tpu_torch.kernels.check import inputs
+    from waterlily_tpu_torch.ops import stencil_kernels as sk
+    from waterlily_tpu_torch.utils.perf import device_profile
+    d = inputs(FINE, 0, device)
+    for w, call in ((sk.cfl3d, lambda: sk.cfl3d(d["u"])),
+                    (sk.ana_mult3d, lambda: sk.ana_mult3d(d["x"], 1.0,
+                                                          with_dot=True)),
+                    (sk.ana_mult3d, lambda: sk.ana_mult3d(d["x"], 1.0))):
+        n = w.launches
+        ops = device_profile(call, 5)[1]
+        assert w.launches == n + 5
+        assert len(ops) == 1, ops

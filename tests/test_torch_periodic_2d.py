@@ -117,11 +117,13 @@ def test_check_variants_cover_every_form():
                     assert ".".join(filter(None, (name, o))) in check.TOLERANCE
                     assert torch.equal(a, b) and bool(torch.isfinite(a).all())
     n = {name: len(check.variants(name, check.inputs((12, 10, 14), 0, "cpu")))
-         for name in ("bc3d", "conv_diff3d", "pcg_fused")}
+         for name in ("bc3d", "conv_diff3d", "pcg_fused", "ana_mult3d")}
     # bc3d: its 16 forms (8 periodic masks, with and without save_exit);
     # conv_diff3d: the two compiled-in limiters and
-    # a user's own, walls and all seven periodic masks
-    assert n == {"bc3d": 16, "conv_diff3d": 24, "pcg_fused": 2}
+    # a user's own, walls and all seven periodic masks; ana_mult3d: with
+    # the dot, then walls and the seven periodic masks without it
+    assert n == {"bc3d": 16, "conv_diff3d": 24, "pcg_fused": 2,
+                 "ana_mult3d": 9}
     assert len(check.variants("pcg_fused",
                               check.inputs((10, 14), 0, "cpu"))) == 3
     assert check.bound_ms("pcg_fused", (98, 66))[1] == "bytes"

@@ -1,101 +1,129 @@
 // Analytic far-field Poisson operator of a banded multigrid level:
 // z = A x for the constant face coefficient c, with the wall faces (index 1
-// and S-2 of a non-periodic axis) zero, and optionally per-block partials of
-// <A x, x> over the interior.
+// and S-2 of a non-periodic axis) zero, and optionally <A x, x> over the
+// interior.
 //
 // Replaces waterlily_tpu/ops/pallas_stencil.py `ana_mult3d_pallas`
 // (`_ana_kernel`), f32 and whole-grid, periodic axes included (a per-axis
 // flag: their faces are never zero and the caller fills x's ghosts).
 //
-// Launch: grid (ceil(S2/32), ceil(S1/8), S0) of 32 x 8 blocks; `partial`
-// holds one float per block, in the grid's row-major order.
-//
 // Bound on the H100: memory.  The operator reads no coefficient field: x in
-// and z out, 8 B per cell against ~20 flops, a third of mult3d's traffic.
-// Design: one thread per cell on a 3D launch grid, 32 x 8 threads over a
-// tile of axes (2, 1) and one grid row per index of axis 0, so a thread
-// finds its cell without integer division (the flat-index unflatten of the
-// other kernels costs more than this kernel's memory traffic).  The x taps
-// of a warp along axes 1 and 2 come from lines its neighbours already
-// brought into L1/L2; the face flags come from the index.  The association
-// is the TPU kernel's (t = lo0*x[i-1] + hi0*x[i+1] + ... left to right,
-// nf = lo0+hi0+..., z = c*t - (c*nf)*x): built with --fmad=false it equals
-// the plain version `_ana_mult3d_plain` bit for bit.  Ghost cells are
-// written as exact zeros by a branch and never read neighbours; threads past
-// the ragged edge of axes 1 and 2 write nothing; the dot partial is a
-// warp-shuffle sum written once per block.
-#include "common.cuh"
+// and z out, 8 B per cell against ~20 flops.  The first kernel (one thread
+// per cell on 32 x 8 tiles of the whole array, every x value fetched seven
+// times, the last tile of a 258 row running 2 of its 32 lanes, and the dot
+// as ~67k block partials summed by a second launch, torch.sum) took 0.1384
+// ms at 258^3 with the dot and 0.1016 without, against a 0.0410 ms bound.
+// Design: the plane march of march.cuh.  A thread carries x at planes i-1,
+// i and i+1 of its column in registers down its chunk (one new load a
+// plane); the in-plane taps are the tile's neighbouring rows and lanes of
+// plane i, loads that hit the lines the tile's own loads brought into L1 a
+// plane earlier.  The face flags of axes 1 and 2 come from the index once
+// a column, those of axis 0 once a plane.  z is written once: each
+// interior cell by its thread, and the ghost cells as exact zeros by the
+// threads of the interior cells next to them (march_zero_ghosts; the first
+// and last chunks also the ghost planes).  The dot accumulates in
+// registers over the march, then over the block by warp shuffles; the last
+// block sums the partials in index order: one launch, the same bits on
+// every call.
+// Exactness: the association is the TPU kernel's (t = lo0*x[i-1] +
+// hi0*x[i+1] + ... left to right, nf = lo0+hi0+..., z = c*t - (c*nf)*x;
+// nf is a sum of six 0/1 flags, exact in any order, so its axis-1 and -2
+// part is summed once a column): built with --fmad=false it equals the
+// plain version `_ana_mult3d_plain` bit for bit.
+#include "march.cuh"
 
-// threads of a block along axes 2 and 1 (stencil_kernels.ANA_TILE)
-#define ANA_TX 32
-#define ANA_TY 8   // ANA_TX * ANA_TY == WL_THREADS
-
-// Sum of v over the block, valid in thread (0, 0): shuffles within each
-// warp, then the first warp sums the WL_THREADS/32 warp partials.  One
-// barrier instead of the eight rounds of `block_sum`.
-__device__ inline float warp_block_sum(float v, float* sh) {
-  const int t = threadIdx.y * blockDim.x + threadIdx.x;
-  for (int o = 16; o > 0; o >>= 1) v = v + __shfl_down_sync(0xffffffffu, v, o);
-  if ((t & 31) == 0) sh[t >> 5] = v;
-  __syncthreads();
-  float s = 0.f;
-  if (t < 32) {
-    s = (t < WL_THREADS / 32) ? sh[t] : 0.f;
-    for (int o = 16; o > 0; o >>= 1)
-      s = s + __shfl_down_sync(0xffffffffu, s, o);
+// Zeros z's ghost cells next to interior column (j, k) at flat index `at`:
+// row 0 (j == 1) and row S1-1 (j == S1-2), column 0 (k == 1) and column
+// S2-1 (k == S2-2), and the corners between them.  Together the interior
+// columns' calls cover every ghost cell of a plane exactly once.
+__device__ inline void march_zero_ghosts(float* __restrict__ z, int at,
+                                         bool jl, bool jh, bool kl, bool kh,
+                                         int S2) {
+  if (jl) {
+    z[at - S2] = 0.f;
+    if (kl) z[at - S2 - 1] = 0.f;
+    if (kh) z[at - S2 + 1] = 0.f;
   }
-  return s;
+  if (jh) {
+    z[at + S2] = 0.f;
+    if (kl) z[at + S2 - 1] = 0.f;
+    if (kh) z[at + S2 + 1] = 0.f;
+  }
+  if (kl) z[at - 1] = 0.f;
+  if (kh) z[at + 1] = 0.f;
 }
 
-__global__ void ana_kernel(const float* __restrict__ x, float* __restrict__ z,
-                           float* __restrict__ partial, float c, int periodic,
-                           Shape3 g) {
-  __shared__ float sh[WL_THREADS / 32];
-  const int idx[3] = {(int)blockIdx.z,
-                      (int)(blockIdx.y * ANA_TY + threadIdx.y),
-                      (int)(blockIdx.x * ANA_TX + threadIdx.x)};
+template <bool DOT>
+__global__ void __launch_bounds__(MARCH_THREADS)
+ana_kernel(const float* __restrict__ x, float* __restrict__ z,
+           float* partial, unsigned int* count, float* out, float c,
+           int periodic, int S0, int S1, int S2, int planes) {
+  __shared__ float sh[MARCH_THREADS / 32];
+  const Column col = march_column(S0, S1, S2, planes);
+  const int P = S1 * S2;
   float dot = 0.f;
-  if (idx[1] < g.S[1] && idx[2] < g.S[2]) {
-    const long long cell = idx[0] * g.st[0] + idx[1] * g.st[1] + idx[2];
-    float v = 0.f;
-    if (is_interior(g, idx)) {
-      float lo[3], hi[3];
-      for (int a = 0; a < 3; ++a) {
-        const bool per = (periodic >> a) & 1;
-        lo[a] = (per || idx[a] != 1) ? 1.f : 0.f;
-        hi[a] = (per || idx[a] != g.S[a] - 2) ? 1.f : 0.f;
-      }
-      float t = lo[0] * x[cell - g.st[0]];
-      t = t + hi[0] * x[cell + g.st[0]];
-      float nf = lo[0];
-      nf = nf + hi[0];
-      for (int a = 1; a < 3; ++a) {
-        t = t + lo[a] * x[cell - g.st[a]];
-        t = t + hi[a] * x[cell + g.st[a]];
-        nf = nf + lo[a];
-        nf = nf + hi[a];
-      }
-      const float xc = x[cell];
-      v = c * t - (c * nf) * xc;
-      dot = v * xc;
+  if (col.in) {
+    const int j = col.j, k = col.k;
+    const bool jl = j == 1, jh = j == S1 - 2, kl = k == 1, kh = k == S2 - 2;
+    const bool per0 = periodic & 1, per1 = (periodic >> 1) & 1,
+               per2 = (periodic >> 2) & 1;
+    const float lo1 = (per1 || !jl) ? 1.f : 0.f;
+    const float hi1 = (per1 || !jh) ? 1.f : 0.f;
+    const float lo2 = (per2 || !kl) ? 1.f : 0.f;
+    const float hi2 = (per2 || !kh) ? 1.f : 0.f;
+    const float nf12 = lo1 + hi1 + lo2 + hi2;
+    const int cell = j * S2 + k;
+    if (col.i0 == 1) {   // ghost plane 0
+      z[cell] = 0.f;
+      march_zero_ghosts(z, cell, jl, jh, kl, kh, S2);
     }
-    z[cell] = v;
+    int at = col.i0 * P + cell;
+    float xm = x[at - P], xc = x[at];
+#pragma unroll 4
+    for (int i = col.i0; i < col.i1; ++i, at += P) {
+      const float xp = x[at + P];
+      const float lo0 = (per0 || i != 1) ? 1.f : 0.f;
+      const float hi0 = (per0 || i != S0 - 2) ? 1.f : 0.f;
+      float t = lo0 * xm;
+      t = t + hi0 * xp;
+      t = t + lo1 * x[at - S2];
+      t = t + hi1 * x[at + S2];
+      t = t + lo2 * x[at - 1];
+      t = t + hi2 * x[at + 1];
+      const float nf = (lo0 + hi0) + nf12;
+      const float v = c * t - (c * nf) * xc;
+      z[at] = v;
+      march_zero_ghosts(z, at, jl, jh, kl, kh, S2);
+      if (DOT) dot = dot + v * xc;
+      xm = xc;
+      xc = xp;
+    }
+    if (col.i1 == S0 - 1) {   // ghost plane S0-1 (at is its cell now)
+      z[at] = 0.f;
+      march_zero_ghosts(z, at, jl, jh, kl, kh, S2);
+    }
   }
-  if (partial != nullptr) {  // uniform across the block
-    const float s = warp_block_sum(dot, sh);
-    if (threadIdx.x == 0 && threadIdx.y == 0)
-      partial[((long long)blockIdx.z * gridDim.y + blockIdx.y) * gridDim.x +
-              blockIdx.x] = s;
-  }
+  if (DOT)
+    march_finish<SumOp>(block_reduce<SumOp>(dot, 0.f, sh), 0.f, partial,
+                        count, out, sh);
 }
 
+// partial, count, out: NULL for z alone; else one float a block of the
+// grid (`march_grid`), a zeroed counter (left zeroed) and the dot.  Calls
+// that share a counter run on one stream.
 extern "C" int wl_ana_mult3d(const float* x, float* z, float* partial,
-                             float c, int periodic, int S0, int S1, int S2,
+                             unsigned int* count, float* out, float c,
+                             int periodic, int planes, int S0, int S1, int S2,
                              void* stream) {
-  const Shape3 g = make_shape(S0, S1, S2);
-  const dim3 block(ANA_TX, ANA_TY);
-  const dim3 grid((S2 + ANA_TX - 1) / ANA_TX, (S1 + ANA_TY - 1) / ANA_TY, S0);
-  ana_kernel<<<grid, block, 0, (cudaStream_t)stream>>>(x, z, partial, c,
-                                                       periodic, g);
+  if (!march_shape_ok(S0, S1, S2, planes)) return (int)cudaErrorInvalidValue;
+  const dim3 grid = march_grid(S0, S1, S2, planes);
+  const dim3 block(MARCH_TK, MARCH_TJ);
+  const cudaStream_t s = (cudaStream_t)stream;
+  if (partial != nullptr)
+    ana_kernel<true><<<grid, block, 0, s>>>(x, z, partial, count, out, c,
+                                            periodic, S0, S1, S2, planes);
+  else
+    ana_kernel<false><<<grid, block, 0, s>>>(x, z, partial, count, out, c,
+                                             periodic, S0, S1, S2, planes);
   return (int)cudaGetLastError();
 }

@@ -3,42 +3,66 @@
 //
 // Replaces waterlily_tpu/ops/pallas_stencil.py `cfl3d_pallas` (`_cfl_kernel`).
 //
-// Bound on the H100: memory, 12 B/cell read (three velocity components; the
-// +d_i taps are neighbours' values, cached) and a handful of flops.  Design:
-// one thread per cell, a block-level tree max, one partial per block; the
-// caller takes the max of the small partial array on the device.  All terms
-// are >= 0, so ghost cells contribute 0 without changing the max, and max
-// does not depend on order: the result equals the plain version exactly.
-// The per-cell sum keeps waterlily_tpu.flow.cfl's association
-// s = t0; s += t1; s += t2.
-#include "common.cuh"
+// Bound on the H100: memory, 12 B/cell read (three velocity components) and
+// a handful of flops.  The first kernel (one thread per cell with a 64-bit
+// divide-based unflatten, the +d_0 tap a load from the next plane, a
+// shared-memory tree max per 256 cells and a second launch, torch.amax, over
+// the ~67k partials) took 0.1557 ms at 258^3, 0.40 of its 0.0615 ms bound.
+// Design: the plane march of march.cuh.  A thread carries u_0 of plane i+1
+// in a register to the next plane, so each u_0 is loaded once; the +d_1 and
+// +d_2 taps are the neighbouring row's and lane's values of the same plane,
+// loads that hit the lines the tile's own loads brought into L1.  The max
+// runs in registers down the march, then over the block by warp shuffles;
+// the last block takes the max of the partials: one launch per call.
+// Exactness: every term is >= 0 (or NaN), max does not depend on order,
+// and ghost cells never enter it, so the result equals the plain version
+// exactly; the per-cell sum keeps waterlily_tpu.flow.cfl's association
+// s = t0; s += t1; s += t2, and every max is PTX max.NaN (a NaN anywhere
+// in the interior sums comes out, as in torch.max).
+#include "march.cuh"
 
-__global__ void cfl_kernel(const float* __restrict__ u,
-                           float* __restrict__ partial, Shape3 g) {
-  __shared__ float sh[WL_THREADS];
-  const long long c = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  float m = 0.f;
-  if (c < g.N) {
-    int idx[3];
-    unflatten(g, c, idx);
-    if (is_interior(g, idx)) {
-      float s = 0.f;
-      for (int a = 0; a < 3; ++a) {
-        const float* ua = u + a * g.N;
-        const float t = tmax(0.f, ua[c + g.st[a]]) + tmax(0.f, -ua[c]);
-        s = (a == 0) ? t : s + t;
-      }
-      m = s;
+__global__ void __launch_bounds__(MARCH_THREADS)
+cfl_kernel(const float* __restrict__ u, float* partial, unsigned int* count,
+           float* out, int S0, int S1, int S2, int planes) {
+  __shared__ float sh[MARCH_THREADS / 32];
+  const Column c = march_column(S0, S1, S2, planes);
+  const int P = S1 * S2, N = S0 * P;
+  const float* __restrict__ u0 = u;
+  const float* __restrict__ u1 = u + N;
+  const float* __restrict__ u2 = u + 2 * N;
+  float m = 0.f;   // every term is >= 0: 0 is the max's identity
+  if (c.in) {
+    int at = c.i0 * P + c.j * S2 + c.k;
+    float a0 = u0[at];
+#pragma unroll 1   // unrolled by 4: 32 registers and 4% slower at 258^3
+    for (int i = c.i0; i < c.i1; ++i, at += P) {
+      const float n0 = u0[at + P];
+      float s = tmax(0.f, n0) + tmax(0.f, -a0);
+      s = s + (tmax(0.f, u1[at + S2]) + tmax(0.f, -u1[at]));
+      s = s + (tmax(0.f, u2[at + 1]) + tmax(0.f, -u2[at]));
+      m = tmax(m, s);
+      a0 = n0;
     }
   }
-  const float mx = block_max(m, sh);
-  if (threadIdx.x == 0) partial[blockIdx.x] = mx;
+  march_finish<MaxOp>(block_reduce<MaxOp>(m, 0.f, sh), 0.f, partial, count,
+                      out, sh);
 }
 
-extern "C" int wl_cfl3d(const float* u, float* partial, int S0, int S1, int S2,
+// partial: one float a block of the grid (`march_grid`); count: a zeroed
+// counter (left zeroed); out: the max.  Calls that share a counter run on
+// one stream.
+extern "C" int wl_cfl3d(const float* u, float* partial, unsigned int* count,
+                        float* out, int planes, int S0, int S1, int S2,
                         void* stream) {
-  const Shape3 g = make_shape(S0, S1, S2);
-  cfl_kernel<<<blocks_for(g.N), WL_THREADS, 0, (cudaStream_t)stream>>>(
-      u, partial, g);
+  if (!march_shape_ok(S0, S1, S2, planes)) return (int)cudaErrorInvalidValue;
+  cfl_kernel<<<march_grid(S0, S1, S2, planes), dim3(MARCH_TK, MARCH_TJ), 0,
+               (cudaStream_t)stream>>>(u, partial, count, out, S0, S1, S2,
+                                       planes);
   return (int)cudaGetLastError();
+}
+
+// The march tile, (axis 1, axis 2) columns of a block, for the wrappers'
+// grid sizing (ops/stencil_kernels.py `march_planes`).
+extern "C" int wl_march_tile(int axis) {
+  return axis == 1 ? MARCH_TJ : MARCH_TK;
 }

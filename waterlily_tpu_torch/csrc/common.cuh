@@ -86,28 +86,16 @@ __device__ inline float ax_cell(const TL* L, const float* Dd, const T* x,
   return ax_cell_at(L, Dd, [x](long long i) { return ld(x[i]); }, g, c);
 }
 
-// Deterministic tree reductions over a block (blockDim.x * blockDim.y a
-// power of two, sh holds that many floats; a 2D block reduces in the order
-// of its flat thread index threadIdx.y * blockDim.x + threadIdx.x).  Every
-// thread of the block must call them; all threads receive the result.
+// Deterministic tree sum over a block (blockDim.x * blockDim.y a power of
+// two, sh holds that many floats; a 2D block reduces in the order of its
+// flat thread index threadIdx.y * blockDim.x + threadIdx.x).  Every thread
+// of the block must call it; all threads receive the result.
 __device__ inline float block_sum(float v, float* sh) {
   const int t = threadIdx.y * blockDim.x + threadIdx.x;
   sh[t] = v;
   __syncthreads();
   for (int s = blockDim.x * blockDim.y / 2; s > 0; s >>= 1) {
     if (t < s) sh[t] = sh[t] + sh[t + s];
-    __syncthreads();
-  }
-  float out = sh[0];
-  __syncthreads();
-  return out;
-}
-
-__device__ inline float block_max(float v, float* sh) {
-  sh[threadIdx.x] = v;
-  __syncthreads();
-  for (int s = blockDim.x / 2; s > 0; s >>= 1) {
-    if (threadIdx.x < s) sh[threadIdx.x] = tmax(sh[threadIdx.x], sh[threadIdx.x + s]);
     __syncthreads();
   }
   float out = sh[0];

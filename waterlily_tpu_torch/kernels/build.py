@@ -58,8 +58,8 @@ SIGNATURES = {
     "wl_pcg_axpy": [_P] * 9 + [_I, _I] + _S3,
     "wl_copy_probe": [_P, _P, _F] + _S3,
     "wl_roll_probe": [_P, _P, _F] + _S3,
-    "wl_ana_mult3d": [_P, _P, _P, _F, _I] + _S3,
-    "wl_cfl3d": [_P, _P] + _S3,
+    "wl_ana_mult3d": [_P] * 5 + [_F, _I, _I] + _S3,
+    "wl_cfl3d": [_P] * 4 + [_I] + _S3,
     "wl_bc3d": [_P, _P, _F, _F, _F, _I, _I] + _S3,
     "wl_div3d": [_P, _P, _P, _P, _P] + _S3,
     "wl_project3d": [_P, _P, _P, _P, _P, _P] + _S3,
@@ -148,6 +148,8 @@ def library() -> ctypes.CDLL:
     lib.wl_pcg_coresident.restype = _I
     lib.wl_stream_tile.argtypes = [_I]
     lib.wl_stream_tile.restype = _I
+    lib.wl_march_tile.argtypes = [_I]
+    lib.wl_march_tile.restype = _I
     lib.wl_error_string.argtypes = [_I]
     lib.wl_error_string.restype = ctypes.c_char_p
     if lib.wl_threads() != THREADS:

@@ -76,7 +76,7 @@ SOURCES = {
 COMPOSITES = ("pcg_blocked",)
 
 # Periodic axes of the checked variants: bc3d's every mask (with and
-# without save_exit: the kernel's 16 forms),
+# without save_exit: the kernel's 16 forms), ana_mult3d's every mask,
 # conv_diff3d's every non-empty mask (the walls are its first variants),
 # pcg_fused's those of the 3D and 2D Taylor-Green cases and
 # tests/test_pallas.py.
@@ -106,8 +106,8 @@ TOLERANCE = {
     "conv_diff3d.quick": ("exact", None), "conv_diff3d.vanleer": ("exact", None),
     "pcg_fused.x": ("abs", 1e-5), "pcg_fused.r": ("abs", 1e-5),
     "ana_mult3d.z": ("exact", None), "ana_mult3d.dot": ("rel", 1e-5),
-    "ana_mult3d.z_c2": ("exact", None),
-    "ana_mult3d.z_periodic": ("exact", None),
+    **{"_".join(filter(None, ("ana_mult3d.z_c2", _tag(p)))): ("exact", None)
+       for p in BC_PERDIRS},
     **{f"bc3d.{_tag(p, e)}": ("exact", None)
        for p in BC_PERDIRS for e in (False, True) if p or e},
     "conv_diff3d.minmod": ("exact", None),
@@ -339,13 +339,14 @@ def variants(name, d) -> list:
         "conv_diff3d": [conv(lim) for lim in CONV_LIMITERS]
         + [conv(lim, q) for lim in CONV_LIMITERS for q in CONV_PERDIRS],
         "pcg_fused": [pcg()] + [pcg(q) for q in PCG_PERDIRS[3]],
+        # with the dot first (the PCG denominator's form, timed), then
+        # without it at c = 2, walls and every periodic mask
         "ana_mult3d": [
             (("z", "dot"), lambda: sk.ana_mult3d(x, 1.0, with_dot=True),
-             lambda: sk._ana_mult3d_plain(x, 1.0, with_dot=True)),
-            (("z_c2",), lambda: sk.ana_mult3d(x, 2.0),
-             lambda: sk._ana_mult3d_plain(x, 2.0)),
-            (("z_periodic",), lambda: sk.ana_mult3d(x, 2.0, (1,)),
-             lambda: sk._ana_mult3d_plain(x, 2.0, (1,)))],
+             lambda: sk._ana_mult3d_plain(x, 1.0, with_dot=True))]
+        + [(("_".join(filter(None, ("z_c2", _tag(q)))),),
+            lambda q=q: sk.ana_mult3d(x, 2.0, q),
+            lambda q=q: sk._ana_mult3d_plain(x, 2.0, q)) for q in BC_PERDIRS],
     }[name]
 
 

@@ -11,7 +11,7 @@ kernel's bytes over its time.  No solver path calls them.
 
 As in `ops.stencil_kernels`, each wrapper launches its kernel on a CUDA
 tensor, runs its plain version on a CPU tensor, raises on anything else,
-and counts its launches in ``.launches`` and its shapes in ``.shapes``.
+and counts its launches in ``.launches`` and by shape in ``.shapes``.
 """
 from __future__ import annotations
 
@@ -43,7 +43,7 @@ def copy_probe(x, c=C):
     o = torch.empty_like(x)
     launch("wl_copy_probe", x, o, float(c), *S)
     copy_probe.launches += 1
-    copy_probe.shapes.add(S)
+    copy_probe.shapes[S] += 1
     return o
 
 
@@ -64,7 +64,7 @@ def roll_probe(x, c=C):
     o = torch.empty_like(x)
     launch("wl_roll_probe", x, o, float(c), *S)
     roll_probe.launches += 1
-    roll_probe.shapes.add(S)
+    roll_probe.shapes[S] += 1
     return o
 
 

@@ -4,7 +4,8 @@ each.
     python -m waterlily_tpu_torch.kernels.times conv_diff3d:258,258,258 \\
         conv_diff3d:258,258,258:quick_p012 dot3d:130,130,130:ab \\
         bc3d:258,258,258:exit pcg_fused:50,34,34 barrier:113 \\
-        case:sphere_3d:256,256 case:tgv_2d:64
+        case:sphere_3d:256,256 case:sphere_3d:256,256:banded_levels=True \\
+        case:tgv_2d:64
 
 A kernel argument is ``kernel:shape[:variant]`` (the variant by index or
 by its first output's name, as `kernels.check.variants` lists them); its
@@ -16,8 +17,9 @@ the checkout does not have gives a line with ``"missing": true``.  A
 ``barrier:blocks`` argument times a trivial cooperative kernel of that
 many blocks (``csrc/pcg.cu`` `grid_sync_probe`, on no path): its launch
 alone and the cost of one grid barrier, the unit of `pcg_fused`'s sync
-floor.  A case argument is ``case:name:args``, a model of the package's
-top level with integer arguments: its line holds ms/step
+floor.  A case argument is ``case:name:args[:key=value...]``, a model of
+the package's top level with integer arguments and keyword flags (Python
+literals, ``banded_levels=True``): its line holds ms/step
 (`utils.perf.time_steps`; 10 steps after 2 in 3D, 50 after 10 in 2D), the
 device busy ms/step and idle share of further steps
 (`utils.perf.idle_share`; 5 in 3D, 20 in 2D) and the ops that take most
@@ -113,20 +115,29 @@ def _barrier(spec: str, dev, n=200, reps=20) -> dict:
             "syncs": n}
 
 
+def case_spec(spec: str) -> tuple[str, tuple, dict, str]:
+    """``case:name:args[:key=value...]`` as (model name, integer arguments,
+    keyword flags, label)."""
+    _, name, args, *flags = spec.split(":")
+    kw = {k: ast.literal_eval(v) for k, v in (f.split("=", 1) for f in flags)}
+    return (name, tuple(int(v) for v in args.split(",")), kw,
+            f"{name}({', '.join([args, *flags])})")
+
+
 def _case(spec: str, dev) -> dict:
     import torch
     import waterlily_tpu_torch as wt
     from waterlily_tpu_torch.utils.perf import time_steps, idle_share
-    _, name, args = spec.split(":")
-    sim = getattr(wt, name)(*(int(v) for v in args.split(",")), device=dev)
+    name, args, kw, label = case_spec(spec)
+    sim = getattr(wt, name)(*args, device=dev, **kw)
     three = len(sim.cfg.S) == 3
     t = time_steps(sim, 10 if three else 50, warmup=2 if three else 10)
     r = idle_share(sim, 5 if three else 20)
-    row = {"case": f"{name}({args})", "ms_per_step": t["sec_per_step"] * 1e3,
+    row = {"case": label, "ms_per_step": t["sec_per_step"] * 1e3,
            "busy_ms": r["busy_ms"], "wall_ms": r["wall_ms"],
            "idle_share": r["idle_share"], "pois_n": sim.pois_n[-1],
            "by_op_ms": dict(sorted(r["by_name"].items(),
-                                   key=lambda kv: -kv[1])[:10]),
+                                   key=lambda kv: -kv[1])[:15]),
            "finite": bool(torch.isfinite(sim.flow.u).all())}
     del sim
     torch.cuda.empty_cache()

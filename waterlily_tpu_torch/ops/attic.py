@@ -18,7 +18,7 @@ As in `ops.stencil_kernels`, each wrapper launches its hand-written CUDA
 kernel (``csrc/pcg_iter.cu``, ``csrc/reduce.cu``, ``csrc/stream_stencil.cu``)
 on CUDA tensors, runs its plain PyTorch version on CPU tensors and raises on
 any other device or on a CUDA tensor its kernel does not take; it counts its
-launches in ``.launches``, its shapes in ``.shapes`` and its bf16 forms in
+launches in ``.launches``, by shape in ``.shapes`` and its bf16 forms in
 ``.forms``.  Scalars (``beta``, ``upd``) may be 0-d device tensors, so a
 smooth never synchronises with the host.  Every sum is over the interior
 (ghost cells masked), taken in per-block partials and reduced on the
@@ -38,7 +38,7 @@ from ..grid import interior_view
 from ..kernels.build import launch, library
 from .stencil_kernels import (_on_cpu, _check, _scalar_on, _counted, _count,
                               _bf16, _blocks, _wide, _mult3d_plain,
-                              _increment3d_plain)
+                              _increment3d_plain, _counter)
 
 __all__ = ["pcg_dir_mult", "pcg_update", "pcg_blocked", "dot3d", "pcg_axpy",
            "mult3d_stream", "increment3d_stream", "kernel_wrappers"]
@@ -179,13 +179,6 @@ def _sm_count(device: torch.device) -> int:
     return torch.cuda.get_device_properties(device).multi_processor_count
 
 
-@functools.cache
-def _dot_counter(device: torch.device) -> torch.Tensor:
-    """The zeroed counter that elects dot3d's last block on ``device`` (the
-    kernel leaves it zeroed; dots run on one stream)."""
-    return torch.zeros(1, dtype=torch.int32, device=device)
-
-
 def _dot3d_plain(a, b, mode):
     A = interior_view(a, a.ndim)
     if mode == "aa":
@@ -218,7 +211,7 @@ def dot3d(a, b, mode=None):
     part = torch.empty(blocks, dtype=torch.float32, device=a.device)
     out = torch.empty((), dtype=torch.float32, device=a.device)
     launch("wl_dot3d", a, None if mode == "aa" else b, part,
-           _dot_counter(a.device), out, _DOT_MODES[mode],
+           _counter(a.device), out, _DOT_MODES[mode],
            0 if mode == "aa" else _bf16(b), blocks, *S)
     _count(dot3d, S, a=a, **({} if mode == "aa" else {"b": b}))
     return out

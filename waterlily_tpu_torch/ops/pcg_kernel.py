@@ -128,13 +128,11 @@ def pcg_fused(lev, x, r, it: int = 6):
     launch("wl_pcg", lev.L, lev.D, lev.iD, x, r, work, D, *S3,
            int(it), _axis_bits(lev.perdir), blocks, k)
     pcg_fused.launches += 1
-    pcg_fused.shapes.add(S)
-    pcg_fused.by_shape[S] += 1
+    pcg_fused.shapes[S] += 1
     return x, r
 
 
 pcg_fused.launches = 0
-pcg_fused.shapes = set()
+pcg_fused.shapes = collections.Counter()
 pcg_fused.forms = set()
-pcg_fused.by_shape = collections.Counter()  # launches at each shape
 

@@ -7,8 +7,9 @@ any other device raises.  There is no fallback: a CUDA tensor the kernel
 does not take (dtype, shape, layout, an unported variant) raises.
 
 Each wrapper counts its launches in a plain int attribute, ``.launches``,
-incremented only where the kernel is launched, and keeps the shapes it
-launched at in a set, ``.shapes``; a wrapper with bf16 forms also keeps
+incremented only where the kernel is launched, and its launches at each
+shape in a `collections.Counter`, ``.shapes``; a wrapper with bf16 forms
+also keeps
 the forms it launched in ``.forms`` (each the names of the arguments that
 were bf16, ``()`` for all f32); ``conv_diff3d``'s are its limiters' names,
 ``bc3d``'s ``"inplace"`` or ``"copy"``.
@@ -23,11 +24,13 @@ in place of "backend is TPU" and the same size, rank and dtype conditions.
 """
 from __future__ import annotations
 
+import collections
+import functools
 import math
 
 import torch
 
-from ..kernels.build import THREADS, launch
+from ..kernels.build import THREADS, launch, library
 
 __all__ = ["MIN_CELLS", "use_blocked", "mult3d", "increment3d",
            "ana_mult3d", "cfl3d", "bc3d", "div3d", "project3d", "conv_diff3d",
@@ -115,7 +118,7 @@ def _axis_bits(perdir) -> int:
 
 def _counted(fn):
     fn.launches = 0
-    fn.shapes = set()
+    fn.shapes = collections.Counter()
     fn.forms = set()
     return fn
 
@@ -124,7 +127,7 @@ def _count(fn, S, **streams) -> None:
     """One launch of wrapper ``fn`` at shape ``S``; ``streams`` are the
     arguments that may be bf16, whose bf16 names make the launched form."""
     fn.launches += 1
-    fn.shapes.add(S)
+    fn.shapes[S] += 1
     fn.forms.add(tuple(k for k, t in streams.items()
                        if t.dtype == torch.bfloat16))
 
@@ -201,10 +204,67 @@ def increment3d(L, Dd, eps, x, r):
     return x + eps, r_out
 
 
-# --- analytic far-field Poisson operator: ana_mult3d -----------------------
+# --- the plane-marching reductions: ana_mult3d, cfl3d ---------------------
 
-# threads of one ana_mult3d block along axes 1 and 2 (csrc/ana_stencil.cu)
-ANA_TILE = (8, 32)
+# Planes of each block's march (csrc/march.cuh): the fewest chunks of at
+# most MARCH_PLANES[1] interior planes, more where the column tiles alone
+# would give the card fewer than MARCH_BLOCKS blocks, down to chunks of
+# MARCH_PLANES[0].  A level of L2-resident planes is latency-bound: on the
+# H100, at 66³ and (98,66,66), blocks marching at least 4 planes each
+# (whose loads the compiler schedules together) beat 1-plane chunks by
+# 7-10% and grids of 1024 blocks by 30-40%.
+MARCH_PLANES = (4, 64)
+MARCH_BLOCKS = 512
+
+
+def march_planes(S, tile) -> int:
+    """Interior planes of each block's march at shape ``S`` with ``tile``
+    (axis 1, axis 2) interior columns a block, balanced over the interior.
+    With (8, 32) tiles 258³ marches 4 chunks of 64 planes (1024 blocks),
+    130³ 8 of 16 (512), 66³ 16 of 4 (256), (98,66,66) 24 of 4 (384)."""
+    lo, hi = MARCH_PLANES
+    n = S[0] - 2
+    tiles = -(-(S[1] - 2) // tile[0]) * -(-(S[2] - 2) // tile[1])
+    chunks = max(-(-n // hi), min(-(-MARCH_BLOCKS // tiles), -(-n // lo)))
+    return -(-n // chunks)
+
+
+def march_blocks(S, planes: int, tile) -> int:
+    """Blocks of the march's grid: column tiles times chunks."""
+    return (-(-(S[0] - 2) // planes) * -(-(S[1] - 2) // tile[0])
+            * -(-(S[2] - 2) // tile[1]))
+
+
+@functools.cache
+def _march_tile() -> tuple[int, int]:
+    """The (axis 1, axis 2) interior columns of one march block, as the
+    kernel library was built with them (csrc/march.cuh MARCH_TJ,
+    MARCH_TK)."""
+    lib = library()
+    return lib.wl_march_tile(1), lib.wl_march_tile(2)
+
+
+@functools.cache
+def _counter(device: torch.device) -> torch.Tensor:
+    """The zeroed counter that elects the last block of a one-launch
+    reduction (`cfl3d`, `ana_mult3d`, `ops.attic.dot3d`) on ``device``;
+    each kernel leaves it zeroed, and the reductions run on one stream."""
+    return torch.zeros(1, dtype=torch.int32, device=device)
+
+
+def _march(name: str, S, device, result: bool):
+    """(planes, partials and result buffer or None) of a march at ``S``:
+    the buffer's element 0 is the result, the rest one partial a block."""
+    if min(S) < 3 or 3 * math.prod(S) >= 2 ** 31:
+        raise ValueError(f"{name}: the kernel takes axes of at least 3 "
+                         f"cells and fewer than 2^31 values, got S={S}")
+    tile = _march_tile()
+    planes = march_planes(S, tile)
+    buf = (torch.empty(1 + march_blocks(S, planes, tile),
+                       dtype=torch.float32, device=device) if result
+           else None)
+    return planes, buf
+
 
 def _ana_mult3d_plain(x, c, perdir=(), with_dot=False):
     """Plain version of `ana_mult3d`, in the TPU kernel's association:
@@ -232,23 +292,20 @@ def ana_mult3d(x, c, perdir: tuple = (), with_dot: bool = False):
     """z = A·x for the constant-coefficient far-field operator of a banded
     level (face coefficient ``c``, wall faces zero from the index, no
     coefficient reads), zero ghosts; with ``with_dot`` also ⟨A·x, x⟩ over
-    the interior (per-block partial sums).  Periodic ghosts of ``x`` must
-    be filled by the caller."""
+    the interior as a 0-d tensor, in the same launch.  Periodic ghosts of
+    ``x`` must be filled by the caller."""
     S = tuple(x.shape)
     if _on_cpu("ana_mult3d", x):
         return _ana_mult3d_plain(x, c, perdir, with_dot)
     _check("ana_mult3d", S, x=(x, S))
+    planes, buf = _march("ana_mult3d", S, x.device, with_dot)
     z = torch.empty_like(x)
-    blocks = S[0] * -(-S[1] // ANA_TILE[0]) * -(-S[2] // ANA_TILE[1])
-    part = (torch.empty(blocks, dtype=x.dtype, device=x.device)
-            if with_dot else None)
-    launch("wl_ana_mult3d", x, z, part, float(c), _axis_bits(perdir), *S)
-    ana_mult3d.launches += 1
-    ana_mult3d.shapes.add(S)
-    return (z, torch.sum(part)) if with_dot else z
+    launch("wl_ana_mult3d", x, z, *((buf[1:], _counter(x.device), buf[0])
+                                    if with_dot else (None,) * 3),
+           float(c), _axis_bits(perdir), planes, *S)
+    _count(ana_mult3d, S)
+    return (z, buf[0]) if with_dot else z
 
-
-# --- CFL reduction -------------------------------------------------------------
 
 def _cfl3d_plain(u):
     from ..flow import cfl_flux_max
@@ -257,17 +314,16 @@ def _cfl3d_plain(u):
 
 @_counted
 def cfl3d(u):
-    """Interior max of the CFL flux-out sum as a 0-d tensor (per-block
-    partial maxes, reduced on the device)."""
+    """Interior max of the CFL flux-out sum as a 0-d tensor, in one
+    launch."""
     S = tuple(u.shape[1:])
     if _on_cpu("cfl3d", u):
         return _cfl3d_plain(u)
     _check("cfl3d", S, u=(u, (3,) + S))
-    part = torch.empty(_blocks(S), dtype=u.dtype, device=u.device)
-    launch("wl_cfl3d", u, part, *S)
-    cfl3d.launches += 1
-    cfl3d.shapes.add(S)
-    return torch.amax(part)
+    planes, buf = _march("cfl3d", S, u.device, True)
+    launch("wl_cfl3d", u, buf[1:], _counter(u.device), buf[0], planes, *S)
+    _count(cfl3d, S)
+    return buf[0]
 
 
 # --- boundary conditions ----------------------------------------------------------
@@ -299,7 +355,7 @@ def bc3d(u, A, save_exit: bool = False, perdir: tuple = (),
     launch("wl_bc3d", out, A_dev, *A_host,
            _axis_bits(perdir), int(bool(save_exit)), *S)
     bc3d.launches += 1
-    bc3d.shapes.add(S)
+    bc3d.shapes[S] += 1
     bc3d.forms.add("inplace" if inplace else "copy")
     return out
 
@@ -323,7 +379,7 @@ def div3d(u, p, dt):
     x = torch.empty_like(p)
     launch("wl_div3d", u, p, _scalar_on(dt, p, "div3d"), z, x, *S)
     div3d.launches += 1
-    div3d.shapes.add(S)
+    div3d.shapes[S] += 1
     return z, x
 
 
@@ -346,7 +402,7 @@ def project3d(L, x, u, dt):
     launch("wl_project3d", L, x, u, _scalar_on(dt, x, "project3d"), u_out, p,
            *S)
     project3d.launches += 1
-    project3d.shapes.add(S)
+    project3d.shapes[S] += 1
     return u_out, p
 
 
@@ -392,14 +448,14 @@ def conv_diff3d(u, nu, limiter, perdir: tuple = ()):
         launch(ENTRY, u, r, float(nu), _axis_bits(perdir), *S,
                lib=entry_point(limiter))
     conv_diff3d.launches += 1
-    conv_diff3d.shapes.add(S)
+    conv_diff3d.shapes[S] += 1
     conv_diff3d.forms.add(getattr(limiter, "__name__", repr(limiter)))
     return r
 
 
 def kernel_wrappers() -> dict:
     """Name → wrapper of every kernel a solver path runs (each wrapper has
-    a ``.launches`` counter and ``.shapes`` and ``.forms`` sets): the
+    a ``.launches`` counter, a ``.shapes`` counter and a ``.forms`` set): the
     blocked levels' PCG iteration and carried-rows operator (`ops.attic`)
     included.  The bandwidth probes run on no path (`kernels.probes`)."""
     from .pcg_kernel import pcg_fused
