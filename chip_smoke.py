@@ -15,11 +15,12 @@ Phases, each of which raises (and so exits non-zero) on failure:
    walls and every periodic mask) also where its column tiles and axis-0
    chunks are cut raggedly and where axis 0 is shorter than one chunk,
    ``pcg_fused`` on one block and on a cooperative grid (both sides of
-   its threshold), ``cfl3d`` and every ``ana_mult3d`` form where their
-   column tiles and axis-0 chunks are cut raggedly and where axis 0 has
-   one or two interior planes; then ``cfl3d``, ``ana_mult3d`` (with and
-   without the dot) and ``dot3d`` are each one launch a call (the
-   profiler sees one kernel on the card);
+   its threshold), ``cfl3d`` and every ``ana_mult3d`` and
+   ``pcg_dir_mult`` form where their column tiles and axis-0 chunks are
+   cut raggedly and where axis 0 has one or two interior planes; then
+   ``cfl3d``, ``ana_mult3d`` (with and without the dot), ``dot3d``,
+   ``pcg_update``, ``pcg_axpy`` and every ``pcg_dir_mult`` form are each
+   one launch a call (the profiler sees one kernel on the card);
 4. the dense slice: ``sphere_3d(96, 64)`` constructed and stepped 20 times
    on the card with every kernel launch-counted (every ``bc3d`` launch in
    place), then 3 steps from the same initial state on the CPU (plain
@@ -77,8 +78,9 @@ Phases, each of which raises (and so exits non-zero) on failure:
    the kernels line reports; each call on the next of three copies of its
    inputs, so that at 258³ no call finds its operands in L2), the
    periodic, outlet, 2D and bf16 forms at 258³, (34,34,34) and (98,66),
-   ``pcg_fused``, ``cfl3d`` and ``ana_mult3d`` (with and without the
-   dot) at every shape a path launched them at, the
+   ``pcg_fused``, ``cfl3d``, ``ana_mult3d`` (with and without the
+   dot) and ``pcg_dir_mult`` (f32, bf16 directions, operator shadows) at
+   every shape a path launched them at, the
    operator-shadow, bf16-iD and carried-rows forms at 258³ and (98,66,66), ``torch.dot`` beside ``dot3d`` and
    ``torch.mul`` beside ``copy_probe``; the probes' rates in GB/s and each kernel's bytes over
    its time as a share of the copy probe's rate; the 256³ sphere in
@@ -199,19 +201,27 @@ def check_kernels(torch, dev, shapes):
 def one_launch(torch, dev):
     """The one-launch reductions put one kernel on the card a call and no
     PyTorch reduce after it (profiler, 5 calls at the dense slice's
-    shape)."""
-    from waterlily_tpu_torch.kernels.check import inputs
+    shape): `cfl3d`, `ana_mult3d`, `dot3d`, every form of `pcg_dir_mult`
+    (beta a device scalar, or the number 0 at the smooth's start),
+    `pcg_update` and `pcg_axpy`."""
+    from waterlily_tpu_torch.kernels.check import inputs, variants
     from waterlily_tpu_torch.ops import stencil_kernels as sk, attic as at
     from waterlily_tpu_torch.utils.perf import device_profile
     d = inputs(FINE, 0, dev)
-    u, x, r = d["u"], d["x"], d["r"]
-    for label, call in (
+    u, x, r, eps, z, s = d["u"], d["x"], d["r"], d["eps"], d["z"], d["dt"]
+    iD = d["lev"].iD
+    dir_mult = [(f"pcg_dir_mult {outs[0]}", kern)
+                for outs, kern, _ in variants("pcg_dir_mult", d)]
+    for label, call in [
             ("cfl3d", lambda: sk.cfl3d(u)),
             ("ana_mult3d, dot", lambda: sk.ana_mult3d(x, 1.0, with_dot=True)),
             ("ana_mult3d", lambda: sk.ana_mult3d(x, 1.0)),
-            ("dot3d aa", lambda: at.dot3d(r, r, "aa"))):
+            ("dot3d aa", lambda: at.dot3d(r, r, "aa")),
+            ("pcg_update", lambda: at.pcg_update(x, r, eps, z, iD, s)),
+            ("pcg_axpy", lambda: at.pcg_axpy(x, r, eps, z, iD, s))
+    ] + dir_mult:
         ops = device_profile(call, 5)[1]
-        log(f"  {label:<16} ops on the card a call: {sorted(ops)}")
+        log(f"  {label:<21} ops on the card a call: {sorted(ops)}")
         if len(ops) != 1:
             raise AssertionError(f"{label} is not one launch a call: {ops}")
     del d
@@ -762,11 +772,10 @@ TIMED_FORMS = (
     ("pcg_fused", (34, 34, 34), "x_p012"), ("pcg_fused", (98, 66), "x"),
     ("pcg_fused", (66, 66), "x_p01"),
     ("mult3d", BIG, "z_bf16"), ("increment3d", BIG, "x_bf16"),
-    ("pcg_dir_mult", BIG, "eps_bf16"), ("pcg_update", BIG, "x_bf16"),
+    ("pcg_update", BIG, "x_bf16"),
     ("pcg_axpy", BIG, "x_bf16"), ("dot3d", BIG, "ab"), ("dot3d", BIG, "rid"),
 ) + tuple((name, S, form) for S in (BIG, FINE) for name, form in (
-    ("mult3d", "z_L16"), ("increment3d", "x_L16"),
-    ("pcg_dir_mult", "eps_L16"), ("pcg_update", "x_iD16"),
+    ("mult3d", "z_L16"), ("increment3d", "x_L16"), ("pcg_update", "x_iD16"),
     ("pcg_axpy", "x_iD16"), ("dot3d", "rid_iD16"),
     ("mult3d_stream", "z_nodot"), ("mult3d_stream", "z_L16"),
     ("mult3d_stream", "z_nodot_L16"), ("increment3d_stream", "x_L16")))
@@ -830,18 +839,22 @@ def timing(torch, dev, sim):
             f"kernel {t['ms']:.4f} ms, plain {t['plain_ms']:.4f} ms, bound "
             f"{b:.4f} ms ({by}); wall per call: kernel {t['wall_ms']:.4f} "
             f"ms")
-    # the plane-marching reductions at every shape a path launched them at
-    # (ana_mult3d also without the dot: the bound counts the same bytes)
+    # the plane-marching kernels at every shape a path launched them at
+    # (ana_mult3d also without the dot: the bound counts the same bytes;
+    # pcg_dir_mult also with bf16 directions and operator shadows)
     for name, forms in (("cfl3d", ((0, ""),)),
-                        ("ana_mult3d", ((0, ""), (1, ", without the dot")))):
+                        ("ana_mult3d", ((0, ""), (1, ", without the dot"))),
+                        ("pcg_dir_mult", ((0, ""), ("eps_bf16", ", bf16"),
+                                          ("eps_L16", ", L16")))):
         for S in sorted(PATH_SHAPES.get(name, ()), key=math.prod,
                         reverse=True):
             for v, form in forms:
                 t = time_pair(name, S, dev, variant=v)
+                b = bound_ms(name, S, v if isinstance(v, str) else None)[0]
                 log(f"  {name:<12} {str(S) + form:<15} device (profiler): "
                     f"kernel {t['ms']:.4f} ms, plain {t['plain_ms']:.4f} "
-                    f"ms, bound {bound_ms(name, S)[0]:.4f} ms; wall per "
-                    f"call: kernel {t['wall_ms']:.4f} ms")
+                    f"ms, bound {b:.4f} ms; wall per call: kernel "
+                    f"{t['wall_ms']:.4f} ms")
             clear_inputs()
             torch.cuda.empty_cache()
     PROBE_LAUNCHES.update({k: w.launches
@@ -1054,7 +1067,8 @@ def main() -> int:
         k: (PCG_LEVEL, PCG_RAGGED) + PCG_PERIODIC + PCG_2D + PCG_THRESHOLD
         if k == "pcg_fused" else (FINE, RAGGED)
         + (CONV_RAGGED if k == "conv_diff3d" else ())
-        + (MARCH_RAGGED if k in ("cfl3d", "ana_mult3d") else ())
+        + (MARCH_RAGGED if k in ("cfl3d", "ana_mult3d", "pcg_dir_mult")
+           else ())
         for k in KERNELS + COMPOSITES})
     one_launch(torch, dev)
     phase("4. the dense slice: sphere_3d(96, 64)")

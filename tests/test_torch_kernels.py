@@ -332,19 +332,104 @@ def test_cfl3d_nan(S, device):
     assert bool(torch.isnan(sk.cfl3d(u)))
 
 
+def _dir_mult_forms(d):
+    """(first output, kernel call) of each of the six `pcg_dir_mult` forms
+    the fused iteration launches (`check.variants`: beta a 0-d device
+    scalar, or the number 0 with eps_prev = r; f32 and bf16 directions, f32
+    operator and shadows) on inputs ``d``."""
+    from waterlily_tpu_torch.kernels.check import variants
+    return [(outs[0], kern) for outs, kern, _ in variants("pcg_dir_mult", d)]
+
+
 def test_march_kernels_launch_once(device):
-    """cfl3d and ana_mult3d, with and without the dot, are one launch a
-    call: the launch counter, and the profiler sees one kernel on the card
-    and no PyTorch reduce after it."""
+    """cfl3d and ana_mult3d, with and without the dot, every form of
+    pcg_dir_mult, and pcg_update and pcg_axpy are one launch a call: the
+    launch counter, and the profiler sees one kernel on the card and no
+    PyTorch reduce (or scalar fill) beside it."""
     from waterlily_tpu_torch.kernels.check import inputs
     from waterlily_tpu_torch.ops import stencil_kernels as sk
+    from waterlily_tpu_torch.ops import attic as at
     from waterlily_tpu_torch.utils.perf import device_profile
     d = inputs(FINE, 0, device)
-    for w, call in ((sk.cfl3d, lambda: sk.cfl3d(d["u"])),
-                    (sk.ana_mult3d, lambda: sk.ana_mult3d(d["x"], 1.0,
-                                                          with_dot=True)),
-                    (sk.ana_mult3d, lambda: sk.ana_mult3d(d["x"], 1.0))):
+    x, r, eps, z, iD, s = (d["x"], d["r"], d["eps"], d["z"], d["lev"].iD,
+                           d["dt"])
+    calls = [(sk.cfl3d, lambda: sk.cfl3d(d["u"])),
+             (sk.ana_mult3d, lambda: sk.ana_mult3d(x, 1.0, with_dot=True)),
+             (sk.ana_mult3d, lambda: sk.ana_mult3d(x, 1.0)),
+             (at.pcg_update, lambda: at.pcg_update(x, r, eps, z, iD, s)),
+             (at.pcg_axpy, lambda: at.pcg_axpy(x, r, eps, z, iD, s))]
+    calls += [(at.pcg_dir_mult, call) for _, call in _dir_mult_forms(d)]
+    for w, call in calls:
         n = w.launches
         ops = device_profile(call, 5)[1]
         assert w.launches == n + 5
         assert len(ops) == 1, ops
+
+
+# the blocked levels pcg_dir_mult runs at on the 256³ sphere (the dense
+# slice's FINE is checked above)
+BLOCKED_LEVELS = [(258, 258, 258), (130, 130, 130), (66, 66, 66)]
+
+
+@pytest.mark.parametrize("S", MARCH_RAGGED + BLOCKED_LEVELS)
+def test_pcg_dir_mult_march_matches_plain(S, device):
+    """The plane-marching pcg_dir_mult in all six forms where its column
+    tiles and axis-0 chunks are cut raggedly, where axis 0 has one or two
+    interior planes, and at the blocked levels: eps and z exact, the two
+    sums within 1e-5 relative."""
+    _check("pcg_dir_mult", S, device)
+
+
+@pytest.mark.parametrize("S", [FINE, (3, 37, 70), (37, 29, 35)])
+def test_pcg_iteration_sums_are_deterministic(S, device):
+    """Two calls on one input give the same bits: eps, z and both sums of
+    every pcg_dir_mult form, and the x, r and rho of pcg_update and
+    pcg_axpy (the last block sums the partials in index order; no atomics
+    in the sums)."""
+    from waterlily_tpu_torch.kernels.check import inputs
+    from waterlily_tpu_torch.ops import attic as at
+    d = inputs(S, 0, device)
+    x, r, eps, z, iD, s = (d["x"], d["r"], d["eps"], d["z"], d["lev"].iD,
+                           d["dt"])
+    calls = _dir_mult_forms(d) + [
+        ("pcg_update", lambda: at.pcg_update(x, r, eps, z, iD, s)),
+        ("pcg_axpy", lambda: at.pcg_axpy(x, r, d["eps16"], z, d["iD16"],
+                                         s))]
+    for name, call in calls:
+        one, two = call(), call()
+        assert one[2].shape == () and one[-1].shape == ()
+        for a, b in zip(one, two):
+            assert torch.equal(a, b), name
+
+
+@pytest.mark.parametrize("form", ["f32", "bf16", "L16"])
+def test_pcg_blocked_on_the_card_vs_cpu(form, device):
+    """The fused-iteration smoother on the card against the same smooth on
+    the CPU (plain forms) at the dense slice's fine level: f32 directions
+    and operator shadows within 1e-5; bf16 directions on the mean
+    difference (2e-6: the card's sums, in another order, can round a
+    direction value to the neighbouring bf16 value at a few cells)."""
+    import dataclasses
+    from waterlily_tpu_torch.kernels.check import inputs
+    from waterlily_tpu_torch.ops import attic as at
+
+    def level(dev):
+        d = inputs(FINE, 0, dev)
+        lev = dataclasses.replace(d["lev"], blocked=True,
+                                  bf16_eps=form == "bf16")
+        if form == "L16":
+            lev = dataclasses.replace(lev, L16=d["L16"], D16=d["D16"],
+                                      iD16=d["iD16"])
+        return lev, d["r"]
+
+    (lc, rc), (lg, rg) = level(torch.device("cpu")), level(device)
+    n = at.pcg_dir_mult.launches
+    xg, rg = at.pcg_blocked(lg, torch.zeros_like(rg), rg)
+    xc, rc = at.pcg_blocked(lc, torch.zeros_like(rc), rc)
+    assert at.pcg_dir_mult.launches == n + 6
+    for g, c in ((xg, xc), (rg, rc)):
+        diff = (g.cpu() - c).abs()
+        if form == "bf16":
+            assert float(diff.mean()) <= 2e-6, float(diff.mean())
+        else:
+            assert float(diff.max()) <= 1e-5, float(diff.max())

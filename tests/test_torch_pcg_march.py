@@ -1,0 +1,132 @@
+"""The plane march of the blocked levels' first PCG sweep (`ops.attic.
+pcg_dir_mult`, ``csrc/pcg_iter.cu``) and the one-launch sums of the fused
+iteration, on the CPU.
+
+A CUDA kernel cannot run here, so its cell ownership is emulated in numpy:
+the grid of `stencil_kernels.march_planes` with the (8, 32) column tiles of
+``csrc/march.cuh`` and the kernel's write rule (each interior column
+writes its cells of its chunk and, through `march_ghosts`, the ghost cells
+beside them; the first and last chunks also the ghost planes).  Every cell
+of ``eps`` and ``z``, ghosts included, must be written exactly once, and
+every interior cell's two dot terms counted once.  The wrappers' CPU forms
+return the plain forms' sums as 0-d tensors.
+"""
+import numpy as np
+import pytest
+import torch
+
+from waterlily_tpu_torch.ops import attic as ta
+from waterlily_tpu_torch.ops import poisson as tp
+from waterlily_tpu_torch.ops import stencil_kernels as sk
+
+from _torch_parity import normal, interior_only, tt, bc_coeffs
+
+TILE = (8, 32)   # csrc/march.cuh MARCH_TJ, MARCH_TK
+
+
+def _ownership(S):
+    """Per-cell counts of the kernel's writes of eps (z is written at the
+    same cells) and of its dot terms, over the whole grid of blocks."""
+    S0, S1, S2 = S
+    planes = sk.march_planes(S, TILE, ta.DIR_PLANES)
+    gx = -(-(S2 - 2) // TILE[1])
+    gy = -(-(S1 - 2) // TILE[0])
+    gz = -(-(S0 - 2) // planes)
+    # every thread of one chunk's blocks: its column (j, k) (march_column)
+    ty, tx = np.meshgrid(np.arange(TILE[0]), np.arange(TILE[1]),
+                         indexing="ij")
+    by, bx = np.meshgrid(np.arange(gy), np.arange(gx), indexing="ij")
+    j = (1 + by[..., None, None] * TILE[0] + ty).ravel()
+    k = (1 + bx[..., None, None] * TILE[1] + tx).ravel()
+    keep = (j <= S1 - 2) & (k <= S2 - 2)   # Column.in
+    j, k = j[keep], k[keep]
+    cell = j * S2 + k
+    jl, jh, kl, kh = j == 1, j == S1 - 2, k == 1, k == S2 - 2
+    # march_ghosts: (which columns, offset in the plane)
+    ring = ((jl, -S2), (jl & kl, -S2 - 1), (jl & kh, -S2 + 1),
+            (jh, S2), (jh & kl, S2 - 1), (jh & kh, S2 + 1),
+            (kl, -1), (kh, 1))
+    P = S1 * S2
+    writes = np.zeros((S0, P), np.int32)
+    terms = np.zeros((S0, P), np.int32)
+
+    def plane(i):   # the column's cell of plane i and its ghost ring
+        idx = np.concatenate([cell] + [cell[m] + o for m, o in ring])
+        writes[i] += np.bincount(idx, minlength=P)
+
+    for bz in range(gz):
+        i0 = 1 + bz * planes
+        i1 = min(i0 + planes, S0 - 1)
+        if i0 == 1:
+            plane(0)
+        for i in range(i0, i1):
+            plane(i)
+            terms[i] += np.bincount(cell, minlength=P)
+        if i1 == S0 - 1:
+            plane(S0 - 1)
+    return writes.reshape(S), terms.reshape(S)
+
+
+# the blocked levels of the 256³ sphere and the dense slice's fine level,
+# then ragged shapes: an axis 0 of one and two interior planes, axes 1 and
+# 2 off the (8, 32) tiles, a ragged last chunk
+@pytest.mark.parametrize("S", [(258, 258, 258), (130, 130, 130),
+                               (66, 66, 66), (98, 66, 66), (3, 37, 70),
+                               (4, 9, 40), (37, 29, 35), (70, 41, 67)])
+def test_dir_mult_march_writes_each_cell_once(S):
+    writes, terms = _ownership(S)
+    assert writes.min() == 1 and writes.max() == 1
+    inner = np.zeros(S, bool)
+    inner[1:-1, 1:-1, 1:-1] = True
+    assert np.array_equal(terms, inner.astype(np.int32))
+
+
+def _level(S, seed=0):
+    lev = tp.make_level(tt(bc_coeffs(seed, S)))
+    r = tt(interior_only(normal(seed + 1, S, scale=0.1)))
+    eps = tt(interior_only(normal(seed + 2, S, scale=0.1)))
+    return lev, r, eps
+
+
+# (beta, previous direction bf16, eps bf16, operator shadows): the six
+# forms the fused iteration launches
+FORMS = {"f32": (0.37, False, False, False),
+         "b0": (0.0, False, False, False),
+         "bf16": (0.37, True, True, False),
+         "b0_bf16": (0.0, False, True, False),
+         "L16": (0.37, False, False, True),
+         "b0_L16": (0.0, False, False, True)}
+
+
+@pytest.mark.parametrize("form", FORMS)
+def test_pcg_dir_mult_cpu_sums_are_0d(form):
+    """The CPU wrapper returns eps and z and the two sums as 0-d tensors,
+    equal to the plain form's, in each form; beta as a number or a 0-d
+    tensor."""
+    beta, prev16, bf16, op16 = FORMS[form]
+    S = (12, 10, 14)
+    lev, r, eps = _level(S)
+    L, Dd, iD = (tp.operator_shadows(lev.L) if op16
+                 else (lev.L, lev.D, lev.iD))
+    prev = r if beta == 0.0 else (eps.to(torch.bfloat16) if prev16 else eps)
+    ref = ta._pcg_dir_mult_plain(L, Dd, prev, r, iD, beta, bf16)
+    for b in (beta, torch.tensor(beta)):
+        got = ta.pcg_dir_mult(L, Dd, prev, r, iD, b, bf16)
+        assert got[0].dtype == (torch.bfloat16 if bf16 else torch.float32)
+        assert got[2].shape == () and got[3].shape == ()
+        for a, e in zip(got, ref):
+            assert torch.equal(a, e)
+
+
+@pytest.mark.parametrize("name", ["pcg_update", "pcg_axpy"])
+def test_axpy_rho_cpu_sum_is_0d(name):
+    S = (12, 10, 14)
+    lev, r, eps = _level(S)
+    x = tt(normal(5, S))
+    z = tt(interior_only(normal(6, S)))
+    upd = torch.tensor(0.37)
+    got = getattr(ta, name)(x, r, eps, z, lev.iD, upd)
+    ref = ta._axpy_rho_plain(x, r, eps, z, lev.iD, upd)
+    assert got[2].shape == ()
+    for a, e in zip(got, ref):
+        assert torch.equal(a, e)

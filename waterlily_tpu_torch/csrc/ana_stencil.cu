@@ -20,7 +20,7 @@
 // plane earlier.  The face flags of axes 1 and 2 come from the index once
 // a column, those of axis 0 once a plane.  z is written once: each
 // interior cell by its thread, and the ghost cells as exact zeros by the
-// threads of the interior cells next to them (march_zero_ghosts; the first
+// threads of the interior cells next to them (march_ghosts; the first
 // and last chunks also the ghost planes).  The dot accumulates in
 // registers over the march, then over the block by warp shuffles; the last
 // block sums the partials in index order: one launch, the same bits on
@@ -32,27 +32,6 @@
 // plain version `_ana_mult3d_plain` bit for bit.
 #include "march.cuh"
 
-// Zeros z's ghost cells next to interior column (j, k) at flat index `at`:
-// row 0 (j == 1) and row S1-1 (j == S1-2), column 0 (k == 1) and column
-// S2-1 (k == S2-2), and the corners between them.  Together the interior
-// columns' calls cover every ghost cell of a plane exactly once.
-__device__ inline void march_zero_ghosts(float* __restrict__ z, int at,
-                                         bool jl, bool jh, bool kl, bool kh,
-                                         int S2) {
-  if (jl) {
-    z[at - S2] = 0.f;
-    if (kl) z[at - S2 - 1] = 0.f;
-    if (kh) z[at - S2 + 1] = 0.f;
-  }
-  if (jh) {
-    z[at + S2] = 0.f;
-    if (kl) z[at + S2 - 1] = 0.f;
-    if (kh) z[at + S2 + 1] = 0.f;
-  }
-  if (kl) z[at - 1] = 0.f;
-  if (kh) z[at + 1] = 0.f;
-}
-
 template <bool DOT>
 __global__ void __launch_bounds__(MARCH_THREADS)
 ana_kernel(const float* __restrict__ x, float* __restrict__ z,
@@ -61,6 +40,7 @@ ana_kernel(const float* __restrict__ x, float* __restrict__ z,
   __shared__ float sh[MARCH_THREADS / 32];
   const Column col = march_column(S0, S1, S2, planes);
   const int P = S1 * S2;
+  const auto zero = [z](int a) { z[a] = 0.f; };
   float dot = 0.f;
   if (col.in) {
     const int j = col.j, k = col.k;
@@ -75,7 +55,7 @@ ana_kernel(const float* __restrict__ x, float* __restrict__ z,
     const int cell = j * S2 + k;
     if (col.i0 == 1) {   // ghost plane 0
       z[cell] = 0.f;
-      march_zero_ghosts(z, cell, jl, jh, kl, kh, S2);
+      march_ghosts(cell, jl, jh, kl, kh, S2, zero);
     }
     int at = col.i0 * P + cell;
     float xm = x[at - P], xc = x[at];
@@ -93,14 +73,14 @@ ana_kernel(const float* __restrict__ x, float* __restrict__ z,
       const float nf = (lo0 + hi0) + nf12;
       const float v = c * t - (c * nf) * xc;
       z[at] = v;
-      march_zero_ghosts(z, at, jl, jh, kl, kh, S2);
+      march_ghosts(at, jl, jh, kl, kh, S2, zero);
       if (DOT) dot = dot + v * xc;
       xm = xc;
       xc = xp;
     }
     if (col.i1 == S0 - 1) {   // ghost plane S0-1 (at is its cell now)
       z[at] = 0.f;
-      march_zero_ghosts(z, at, jl, jh, kl, kh, S2);
+      march_ghosts(at, jl, jh, kl, kh, S2, zero);
     }
   }
   if (DOT)

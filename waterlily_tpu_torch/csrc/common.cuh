@@ -103,6 +103,42 @@ __device__ inline float block_sum(float v, float* sh) {
   return out;
 }
 
+// Publishes a 1D block's sum ``s`` (from `block_sum`) as its partial and,
+// in the last block to finish (elected by ``count``, which it resets to 0),
+// sums every block's partial in index order into *out: a reduction over
+// the grid in one launch, with no atomics in the sum and its order fixed by
+// the grid.  Every thread of the block calls it; sh as for `block_sum`.
+// Calls that share a counter run on one stream.
+__device__ inline void finish_sum(float s, float* partial,
+                                  unsigned int* count, float* out,
+                                  float* sh) {
+  __shared__ bool last;
+  if (threadIdx.x == 0) {
+    partial[blockIdx.x] = s;
+    __threadfence();   // the partial is visible before the count says so
+    last = atomicAdd(count, 1u) == gridDim.x - 1;
+  }
+  __syncthreads();
+  if (!last) return;
+  // each thread adds partials t, t + B, t + 2B, ... in that order, with
+  // eight loads in flight (a 258^3 grid leaves ~67k partials)
+  const int n = (int)gridDim.x, B = (int)blockDim.x;
+  float w = 0.f;
+  for (int q0 = threadIdx.x; q0 < n; q0 += 8 * B) {
+    float v[8];
+#pragma unroll
+    for (int u = 0; u < 8; ++u)
+      v[u] = q0 + u * B < n ? __ldcg(&partial[q0 + u * B]) : 0.f;
+#pragma unroll
+    for (int u = 0; u < 8; ++u) w += v[u];
+  }
+  const float tot = block_sum(w, sh);
+  if (threadIdx.x == 0) {
+    *out = tot;
+    *count = 0u;
+  }
+}
+
 inline int blocks_for(long long n) {
   return (int)((n + WL_THREADS - 1) / WL_THREADS);
 }

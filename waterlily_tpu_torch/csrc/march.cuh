@@ -1,5 +1,6 @@
-// The plane march of the interior reductions cfl3d (cfl.cu) and
-// ana_mult3d (ana_stencil.cu), and their one-launch reduction.
+// The plane march of the interior reductions cfl3d (cfl.cu), ana_mult3d
+// (ana_stencil.cu) and pcg_dir_mult (pcg_iter.cu), and their one-launch
+// reduction.
 //
 // A block owns a MARCH_TJ x MARCH_TK tile of interior (axis 1, axis 2)
 // columns, one thread a column (a warp a row of the tile), and marches a
@@ -58,45 +59,99 @@ __device__ __forceinline__ float warp_reduce(float v) {
   return v;
 }
 
-// v reduced over the block (a fixed tree), valid in thread 0; every
-// thread calls it.  ``sh`` holds MARCH_THREADS / 32 floats.
-template <class Op>
-__device__ inline float block_reduce(float v, float id, float* sh) {
+// v[0..N) each reduced over the block (a fixed tree), valid in thread 0;
+// every thread calls it.  ``sh`` holds N * MARCH_THREADS / 32 floats.
+template <class Op, int N>
+__device__ inline void block_reduce_n(float (&v)[N], float id, float* sh) {
+  constexpr int W = MARCH_THREADS / 32;
   const int t = threadIdx.y * MARCH_TK + threadIdx.x;
-  v = warp_reduce<Op>(v);
-  if ((t & 31) == 0) sh[t >> 5] = v;
+#pragma unroll
+  for (int q = 0; q < N; ++q) v[q] = warp_reduce<Op>(v[q]);
+  if ((t & 31) == 0) {
+#pragma unroll
+    for (int q = 0; q < N; ++q) sh[q * W + (t >> 5)] = v[q];
+  }
   __syncthreads();
-  if (t < 32) v = warp_reduce<Op>(t < MARCH_THREADS / 32 ? sh[t] : id);
-  return v;
+  if (t < 32) {
+#pragma unroll
+    for (int q = 0; q < N; ++q)
+      v[q] = warp_reduce<Op>(t < W ? sh[q * W + t] : id);
+  }
 }
 
-// Publishes the block's partial ``r`` (thread 0's) and, in the last block
-// to finish, reduces every partial in index order into *out and resets
-// *count to 0.  Every thread of the block calls it, after `block_reduce`.
 template <class Op>
-__device__ inline void march_finish(float r, float id, float* partial,
-                                    unsigned int* count, float* out,
-                                    float* sh) {
+__device__ inline float block_reduce(float v, float id, float* sh) {
+  float a[1] = {v};
+  block_reduce_n<Op, 1>(a, id, sh);
+  return a[0];
+}
+
+// Publishes the block's N partials ``r`` (thread 0's, after
+// `block_reduce_n`) and, in the last block to finish, reduces each one's
+// partials in index order into out[0..N) and resets *count to 0.
+// ``partial`` holds N runs of one float a block; ``sh`` as for
+// `block_reduce_n`.  Every thread of the block calls it.
+template <class Op, int N>
+__device__ inline void march_finish_n(const float (&r)[N], float id,
+                                      float* partial, unsigned int* count,
+                                      float* out, float* sh) {
   __shared__ bool last;
   const int t = threadIdx.y * MARCH_TK + threadIdx.x;
   const unsigned int b =
       blockIdx.x + gridDim.x * (blockIdx.y + gridDim.y * blockIdx.z);
   const unsigned int n = gridDim.x * gridDim.y * gridDim.z;
   if (t == 0) {
-    partial[b] = r;
-    __threadfence();   // the partial is visible before the count says so
+#pragma unroll
+    for (int q = 0; q < N; ++q) partial[q * n + b] = r[q];
+    __threadfence();   // the partials are visible before the count says so
     last = atomicAdd(count, 1u) == n - 1;
   }
   __syncthreads();
   if (!last) return;
-  float v = id;
-  for (unsigned int q = t; q < n; q += MARCH_THREADS)
-    v = Op::f(v, __ldcg(&partial[q]));
-  v = block_reduce<Op>(v, id, sh);
+  float v[N];
+#pragma unroll
+  for (int q = 0; q < N; ++q) v[q] = id;
+  for (unsigned int p = t; p < n; p += MARCH_THREADS) {
+#pragma unroll
+    for (int q = 0; q < N; ++q)
+      v[q] = Op::f(v[q], __ldcg(&partial[q * n + p]));
+  }
+  block_reduce_n<Op, N>(v, id, sh);
   if (t == 0) {
-    *out = v;
+#pragma unroll
+    for (int q = 0; q < N; ++q) out[q] = v[q];
     *count = 0u;
   }
+}
+
+template <class Op>
+__device__ inline void march_finish(float r, float id, float* partial,
+                                    unsigned int* count, float* out,
+                                    float* sh) {
+  const float a[1] = {r};
+  march_finish_n<Op, 1>(a, id, partial, count, out, sh);
+}
+
+// Calls ``ghost(a)`` once for each ghost cell a next to interior column
+// (j, k) in the plane whose cell (j, k) is at flat index ``at``: row 0
+// (jl: j == 1) and row S1-1 (jh: j == S1-2), column 0 (kl: k == 1) and
+// column S2-1 (kh: k == S2-2), and the corners between them.  Together the
+// interior columns' calls cover every ghost cell of a plane exactly once.
+template <typename F>
+__device__ inline void march_ghosts(int at, bool jl, bool jh, bool kl,
+                                    bool kh, int S2, F ghost) {
+  if (jl) {
+    ghost(at - S2);
+    if (kl) ghost(at - S2 - 1);
+    if (kh) ghost(at - S2 + 1);
+  }
+  if (jh) {
+    ghost(at + S2);
+    if (kl) ghost(at + S2 - 1);
+    if (kh) ghost(at + S2 + 1);
+  }
+  if (kl) ghost(at - 1);
+  if (kh) ghost(at + 1);
 }
 
 // The launch grid of a march with ``planes`` planes a block.

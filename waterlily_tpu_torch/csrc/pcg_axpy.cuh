@@ -8,10 +8,18 @@
 // operator shadow iD16); x', r' and the sums are f32.
 //
 // Bound on the H100: memory (5 fields read, 2 written, ~7 flops a cell).
-// One thread per cell; x' and r' go to new arrays (never in place), and the
-// rho partial is reduced in the block (deterministic tree, no atomics) and
-// summed over blocks by the caller.  Ghost cells add nothing to the sum by a
-// branch, so a non-finite ghost value cannot reach it.
+// One wave of blocks, as many as the card holds at once (`axpy_coresident`),
+// strides over the cells, one cell a thread at a time; x' and r' go to new arrays (never in place), and
+// each thread's rho is reduced in the block (deterministic tree, no
+// atomics); the last block to finish sums the blocks' partials in index
+// order (`finish_sum`), so a sweep is one launch and its rho the same bits
+// on every call.  (The first form, a block a 256 cells, left ~67k partials
+// at 258^3 to a second launch, torch.sum; summed by the last block, the
+// blocks' ~67k atomics on the one counter serialised: 0.239 against 0.199
+// ms on the H100; 8 blocks an SM, of which 5 fit at 48 registers, left a
+// ragged second wave: 0.216 against 0.197 with a bf16 eps.)  Ghost cells
+// add nothing to the sum by a branch, so a non-finite ghost value cannot
+// reach it.
 #pragma once
 
 #include "common.cuh"
@@ -25,34 +33,52 @@ __global__ void axpy_rho_kernel(const float* __restrict__ x,
                                 const float* __restrict__ upd_p,
                                 float* __restrict__ x_out,
                                 float* __restrict__ r_out,
-                                float* __restrict__ partial, Shape3 g) {
+                                float* partial, unsigned int* count,
+                                float* out, Shape3 g) {
   __shared__ float sh[WL_THREADS];
   const float upd = *upd_p;
-  const long long c = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   float rho = 0.f;
-  if (c < g.N) {
+  for (long long c = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+       c < g.N; c += (long long)gridDim.x * blockDim.x) {
     x_out[c] = x[c] + upd * ld(eps[c]);
     const float rn = r[c] - upd * z[c];
     r_out[c] = rn;
     int idx[3];
     unflatten(g, c, idx);
-    if (is_interior(g, idx)) rho = rn * (rn * ld(iD[c]));
+    if (is_interior(g, idx)) rho = rho + rn * (rn * ld(iD[c]));
   }
-  const float s = block_sum(rho, sh);
-  if (threadIdx.x == 0) partial[blockIdx.x] = s;
+  finish_sum(block_sum(rho, sh), partial, count, out, sh);
 }
 
-// eps_bf16: eps is bf16 (else f32); iD_bf16: iD is bf16 (else f32)
+// Blocks of the sweep (eps, iD bf16 or f32) the card holds at once.
+inline int axpy_coresident(int eps_bf16, int iD_bf16) {
+  int dev = 0, sms = 0, per_sm = 0;
+  cudaGetDevice(&dev);
+  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  dispatch_bf16(eps_bf16, iD_bf16, [&](auto te, auto ti) {
+    cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &per_sm, axpy_rho_kernel<TAG_T(te), TAG_T(ti)>, WL_THREADS, 0);
+  });
+  return sms * per_sm;
+}
+
+// eps_bf16: eps is bf16 (else f32); iD_bf16: iD is bf16 (else f32);
+// blocks: the grid (the caller's: at most one a WL_THREADS cells); partial:
+// one float a block, count: a zeroed counter (left zeroed), out: the rho.
+// Calls that share a counter run on one stream.
 inline int launch_axpy_rho(const float* x, const float* r, const void* eps,
                            const float* z, const void* iD, const float* upd,
                            float* x_out, float* r_out, float* partial,
-                           int eps_bf16, int iD_bf16, int S0, int S1, int S2,
+                           unsigned int* count, float* out, int eps_bf16,
+                           int iD_bf16, int blocks, int S0, int S1, int S2,
                            void* stream) {
   const Shape3 g = make_shape(S0, S1, S2);
+  if (blocks < 1 || blocks > blocks_for(g.N))
+    return (int)cudaErrorInvalidValue;
   dispatch_bf16(eps_bf16, iD_bf16, [&](auto te, auto ti) {
-    axpy_rho_kernel<<<blocks_for(g.N), WL_THREADS, 0, (cudaStream_t)stream>>>(
+    axpy_rho_kernel<<<blocks, WL_THREADS, 0, (cudaStream_t)stream>>>(
         x, r, (const TAG_T(te)*)eps, z, (const TAG_T(ti)*)iD, upd, x_out,
-        r_out, partial, g);
+        r_out, partial, count, out, g);
   });
   return (int)cudaGetLastError();
 }

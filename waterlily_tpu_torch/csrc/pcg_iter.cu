@@ -4,32 +4,54 @@
 // (`_pcg_dir_mult_kernel`): it rebuilds the search direction
 // eps = beta*eps_prev + r*iD, rounds it to bf16 when the level stores its
 // direction in bf16, applies A to the (rounded) direction in f32, and writes
-// eps, z = A eps and per-block partials of <z, eps> (the next alpha's
+// eps, z = A eps (zero on the ghost cells), <z, eps> (the next alpha's
 // denominator) and <r, r*iD> (the rho seed at beta = 0, from the UNROUNDED
-// product, as the TPU kernel takes it).  On a level with operator shadows
-// (`PoissonLevel.L16`) L and iD are the bf16 L16 and iD16 (D the f32 D16),
-// upcast in registers as the TPU kernel's `_mult_block` and `_pcg_rebuild`
-// do.  `wl_pcg_update` replaces `pcg_update` (`_pcg_update_kernel`): the
-// axpy pair and the next rho (pcg_axpy.cuh).
+// product, as the TPU kernel takes it) over the interior.  On a level with
+// operator shadows (`PoissonLevel.L16`) L and iD are the bf16 L16 and iD16
+// (D the f32 D16), upcast in registers as the TPU kernel's `_mult_block`
+// and `_pcg_rebuild` do.  `wl_pcg_update` replaces `pcg_update`
+// (`_pcg_update_kernel`): the axpy pair and the next rho (pcg_axpy.cuh).
 //
 // Bound on the H100: memory.  The first sweep reads L (3 fields), D,
 // eps_prev, r and iD and writes eps and z: 9 fields a cell (8 with a bf16
-// direction, 7 with bf16 L and iD) against ~20 flops, far below the card's
-// flop-to-byte balance.
-// Design: one thread per cell, threadIdx.x along axis 2.  Where the TPU
-// kernel carries the rebuilt direction's halo rows in VMEM, a thread here
-// rebuilds eps at each of its six neighbours from eps_prev, r and iD, whose
-// lines the neighbouring threads of the warp and block bring into L1/L2: 18
-// extra reads that hit the caches instead of a second pass over memory.
-// Each rebuilt value is rounded before the stencil, so z, the x/r update
-// and the written eps all see one rounded direction (the bf16_eps contract
-// of waterlily_tpu.ops.poisson.PoissonLevel).  eps_prev must not alias eps:
-// neighbours read the previous direction while eps is written.  Both sums
-// are block trees (no atomics) reduced over blocks by the caller, masked to
-// the interior by a branch.
+// direction, 7 with bf16 L and iD) against ~21 flops, far below the card's
+// flop-to-byte balance.  The first kernel (one thread a cell with a 64-bit
+// divide-based unflatten, the direction rebuilt at the cell and at each of
+// its six neighbours: 21 loads of eps_prev, r and iD where 3 do, two
+// shared-memory tree sums per 256 cells and ~2 x 67k partials summed by a
+// second launch, torch.sum) took 0.3573 ms at 258^3, 0.52 of its 0.1846 ms
+// bound.
+// Design: the plane march of march.cuh.  A thread owns an interior column,
+// rebuilds (and rounds) the direction of each of its cells once, stores it
+// to eps, and carries it down its chunk of planes with L0 in registers:
+// e[i-1], e[i], e[i+1], L0[i] and L0[i+1], one new plane of loads a step.
+// The in-plane taps of the rebuilt direction: j+-1 rebuilt from the
+// neighbouring rows' eps_prev, r and iD, loads that hit the lines the
+// tile's own loads of the plane brought into L1; k+-1 from the
+// neighbouring lanes by warp shuffles (lanes 0 and 31 rebuild theirs) with
+// f32 coefficients, rebuilt from L1 like j+-1 with the bf16 shadows.  On
+// the H100 at 258^3 that took 0.270 ms with f32 operands (0.68 of the
+// bound), 0.302-0.316 with every tap rebuilt from L1, 0.336 from a
+// double-buffered shared tile with a one-cell halo (a barrier a plane) and
+// 0.342 with k+-1 by shuffles and j+-1 from a shared row buffer; with the
+// shadows the shuffles cost more than they save (0.272-0.291 against
+// 0.223).  The ghost cells are written by the threads of the interior
+// cells next to them (`march_ghosts`): eps the rebuilt direction, as the
+// plain form writes it over the whole array, z exact zeros; the first and
+// last chunks also write the ghost planes.  Both dots accumulate in
+// registers over the march, then over the block by warp shuffles; the
+// last block sums each one's partials in index order: one launch, the
+// same bits on every call.
+// Exactness: each direction value is rounded before the stencil, so z, the
+// x/r update and the written eps all see one rounded direction (the
+// bf16_eps contract of waterlily_tpu.ops.poisson.PoissonLevel), and z
+// keeps the association of `ax_cell_at` (common.cuh): built with
+// --fmad=false, eps and z equal the plain version bit for bit.  eps_prev
+// must not alias eps: neighbours read the previous direction while eps is
+// written.
 #include <type_traits>
 
-#include "common.cuh"
+#include "march.cuh"
 #include "pcg_axpy.cuh"
 
 // v as the direction is stored: unchanged in f32, rounded to nearest even
@@ -47,65 +69,129 @@ __device__ inline void put(__nv_bfloat16* p, float v) {
   *p = __float2bfloat16_rn(v);  // v is bf16-representable: exact
 }
 
-// TP: eps_prev's type, TO: eps's, TC: the coefficients L and iD's
+// TP: eps_prev's type, TO: eps's, TC: the coefficients L and iD's.
+// beta_p: the device scalar beta, or NULL for the number beta_v.  partial:
+// 2 floats a block (the <z, eps> partials, then <r, r*iD>'s), out: the two
+// sums.
 template <typename TP, typename TO, typename TC>
-__global__ void dir_mult_kernel(const TC* __restrict__ L,
-                                const float* __restrict__ Dd,
-                                const TP* __restrict__ ep,
-                                const float* __restrict__ r,
-                                const TC* __restrict__ iD,
-                                const float* __restrict__ beta_p,
-                                TO* __restrict__ eps, float* __restrict__ z,
-                                float* __restrict__ partial, Shape3 g,
-                                int nblocks) {
-  __shared__ float sh[WL_THREADS];
-  const float beta = *beta_p;
-  const long long c = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  // the rebuilt (and stored-precision) direction at flat index i
-  auto e = [&](long long i) {
-    return as_stored<TO>(beta * ld(ep[i]) + r[i] * ld(iD[i]));
+__global__ void __launch_bounds__(MARCH_THREADS)
+dir_mult_kernel(const TC* __restrict__ L, const float* __restrict__ Dd,
+                const TP* __restrict__ ep, const float* __restrict__ r,
+                const TC* __restrict__ iD, const float* __restrict__ beta_p,
+                float beta_v, TO* __restrict__ eps, float* __restrict__ z,
+                float* partial, unsigned int* count, float* out, int S0,
+                int S1, int S2, int planes) {
+  // k+-1 taps by warp shuffles with f32 coefficients, rebuilt from L1
+  // with the bf16 shadows (the faster of the two for each, above)
+  constexpr bool SHUFFLE = std::is_same<TC, float>::value;
+  __shared__ float sh[2 * MARCH_THREADS / 32];
+  const Column col = march_column(S0, S1, S2, planes);
+  const int P = S1 * S2, N = S0 * P;
+  const float beta = beta_p != nullptr ? *beta_p : beta_v;
+  const TC* __restrict__ L0 = L;
+  const TC* __restrict__ L1 = L + N;
+  const TC* __restrict__ L2 = L + 2 * N;
+  // the direction at flat index a, as stored
+  const auto e = [&](int a) {
+    return as_stored<TO>(beta * ld(ep[a]) + r[a] * ld(iD[a]));
   };
-  float den = 0.f, rre = 0.f;
-  if (c < g.N) {
-    int idx[3];
-    unflatten(g, c, idx);
-    const float ec = e(c);
-    put(eps + c, ec);
-    float v = 0.f;
-    if (is_interior(g, idx)) {
-      v = ax_cell_at(L, Dd, e, g, c);
-      den = v * ec;
-      const float rc = r[c];
-      rre = rc * (rc * ld(iD[c]));
+  const auto ghost = [&](int a) {
+    put(eps + a, e(a));
+    z[a] = 0.f;
+  };
+  const int j = col.j, k = col.k, lane = threadIdx.x;
+  const bool in = col.in;
+  const bool jl = j == 1, jh = j == S1 - 2, kl = k == 1, kh = k == S2 - 2;
+  float sums[2] = {0.f, 0.f};   // <z, eps>, <r, r*iD>
+  int at = col.i0 * P + j * S2 + k;
+  float em = 0.f, ec = 0.f, l0c = 0.f, qc = 0.f;
+  if (in) {
+    em = e(at - P);
+    if (col.i0 == 1) {   // ghost plane 0
+      put(eps + at - P, em);
+      z[at - P] = 0.f;
+      march_ghosts(at - P, jl, jh, kl, kh, S2, ghost);
     }
-    z[c] = v;
+    const float rc = r[at], idc = ld(iD[at]);
+    ec = as_stored<TO>(beta * ld(ep[at]) + rc * idc);
+    qc = rc * (rc * idc);
+    l0c = ld(L0[at]);
   }
-  const float s_den = block_sum(den, sh);
-  const float s_rre = block_sum(rre, sh);
-  if (threadIdx.x == 0) {
-    partial[blockIdx.x] = s_den;
-    partial[nblocks + blockIdx.x] = s_rre;
+#pragma unroll 2
+  for (int i = col.i0; i < col.i1; ++i, at += P) {
+    float en = 0.f, l0n = 0.f, qn = 0.f;
+    if (in) {
+      const float rn = r[at + P], idn = ld(iD[at + P]);
+      en = as_stored<TO>(beta * ld(ep[at + P]) + rn * idn);
+      qn = rn * (rn * idn);
+      l0n = ld(L0[at + P]);
+    }
+    float ekm, ekp;
+    if constexpr (SHUFFLE) {   // every lane of the warp takes part
+      ekm = __shfl_up_sync(0xffffffffu, ec, 1);
+      ekp = __shfl_down_sync(0xffffffffu, ec, 1);
+      if (in && lane == 0) ekm = e(at - 1);
+      if (in && (lane == MARCH_TK - 1 || kh)) ekp = e(at + 1);
+    }
+    if (in) {
+      const float ejm = e(at - S2), ejp = e(at + S2);
+      if constexpr (!SHUFFLE) {
+        ekm = e(at - 1);
+        ekp = e(at + 1);
+      }
+      // ax_cell_at's association
+      float s = ec * Dd[at];
+      s = s + em * l0c;
+      s = s + en * l0n;
+      s = s + ejm * ld(L1[at]);
+      s = s + ejp * ld(L1[at + S2]);
+      s = s + ekm * ld(L2[at]);
+      s = s + ekp * ld(L2[at + 1]);
+      put(eps + at, ec);
+      z[at] = s;
+      march_ghosts(at, jl, jh, kl, kh, S2, ghost);
+      sums[0] = sums[0] + s * ec;
+      sums[1] = sums[1] + qc;
+    }
+    em = ec;
+    ec = en;
+    l0c = l0n;
+    qc = qn;
   }
+  if (in && col.i1 == S0 - 1) {   // ghost plane S0-1: at is its cell now
+    put(eps + at, ec);
+    z[at] = 0.f;
+    march_ghosts(at, jl, jh, kl, kh, S2, ghost);
+  }
+  block_reduce_n<SumOp, 2>(sums, 0.f, sh);
+  march_finish_n<SumOp, 2>(sums, 0.f, partial, count, out, sh);
 }
 
 // ep_bf16: eps_prev is bf16; out_bf16: eps is written (and rounded) in bf16;
 // coef_bf16: L and iD are bf16 (the level's L16 and iD16; D is f32).
-// partial holds 2 * blocks floats: the <z, eps> partials, then <r, r*iD>'s.
+// beta: a device scalar, or NULL for the number beta_v.  partial: 2 floats
+// a block of the grid (`march_grid`), count: a zeroed counter (left
+// zeroed), out: <z, eps> then <r, r*iD>.  Calls that share a counter run
+// on one stream.
 extern "C" int wl_pcg_dir_mult(const void* L, const float* Dd, const void* ep,
                                const float* r, const void* iD,
                                const float* beta, void* eps, float* z,
-                               float* partial, int ep_bf16, int out_bf16,
-                               int coef_bf16, int S0, int S1, int S2,
-                               void* stream) {
-  const Shape3 g = make_shape(S0, S1, S2);
-  const int nb = blocks_for(g.N);
+                               float* partial, unsigned int* count,
+                               float* out, float beta_v, int ep_bf16,
+                               int out_bf16, int coef_bf16, int planes,
+                               int S0, int S1, int S2, void* stream) {
+  if (!march_shape_ok(S0, S1, S2, planes)) return (int)cudaErrorInvalidValue;
+  const dim3 grid = march_grid(S0, S1, S2, planes);
+  const dim3 block(MARCH_TK, MARCH_TJ);
+  const cudaStream_t s = (cudaStream_t)stream;
   dispatch_bf16(ep_bf16, out_bf16, [&](auto tp, auto to) {
+    using TP = TAG_T(tp);
+    using TO = TAG_T(to);
     auto go = [&](auto tc) {
       using TC = TAG_T(tc);
-      dir_mult_kernel<TAG_T(tp), TAG_T(to), TC>
-          <<<nb, WL_THREADS, 0, (cudaStream_t)stream>>>(
-              (const TC*)L, Dd, (const TAG_T(tp)*)ep, r, (const TC*)iD, beta,
-              (TAG_T(to)*)eps, z, partial, g, nb);
+      dir_mult_kernel<TP, TO, TC><<<grid, block, 0, s>>>(
+          (const TC*)L, Dd, (const TP*)ep, r, (const TC*)iD, beta, beta_v,
+          (TO*)eps, z, partial, count, out, S0, S1, S2, planes);
     };
     if (coef_bf16)
       go(type_tag<__nv_bfloat16>{});
@@ -118,8 +204,9 @@ extern "C" int wl_pcg_dir_mult(const void* L, const float* Dd, const void* ep,
 extern "C" int wl_pcg_update(const float* x, const float* r, const void* eps,
                              const float* z, const void* iD, const float* upd,
                              float* x_out, float* r_out, float* partial,
-                             int eps_bf16, int iD_bf16, int S0, int S1, int S2,
+                             unsigned int* count, float* out, int eps_bf16,
+                             int iD_bf16, int blocks, int S0, int S1, int S2,
                              void* stream) {
-  return launch_axpy_rho(x, r, eps, z, iD, upd, x_out, r_out, partial,
-                         eps_bf16, iD_bf16, S0, S1, S2, stream);
+  return launch_axpy_rho(x, r, eps, z, iD, upd, x_out, r_out, partial, count,
+                         out, eps_bf16, iD_bf16, blocks, S0, S1, S2, stream);
 }

@@ -50,7 +50,6 @@ __global__ void dot_kernel(const float* __restrict__ a,
                            unsigned int* count, float* out, int S0, int S1,
                            int S2) {
   __shared__ float sh[WL_THREADS];
-  __shared__ bool last;
   const int rows1 = S1 - 2, nrows = (S0 - 2) * rows1, P = S1 * S2;
   const int r0 = (int)((long long)blockIdx.x * nrows / gridDim.x);
   const int r1 = (int)((long long)(blockIdx.x + 1) * nrows / gridDim.x);
@@ -75,23 +74,7 @@ __global__ void dot_kernel(const float* __restrict__ a,
       for (int q = 0; q < DOT_UNROLL; ++q) v += t[q];
     }
   }
-  const float s = block_sum(v, sh);
-  if (threadIdx.x == 0) {
-    partial[blockIdx.x] = s;
-    __threadfence();   // the partial is visible before the count says so
-    last = atomicAdd(count, 1u) == gridDim.x - 1;
-  }
-  __syncthreads();
-  if (!last) return;
-  // the last block: every partial is written; sum them in index order
-  float w = 0.f;
-  for (int q = threadIdx.x; q < (int)gridDim.x; q += blockDim.x)
-    w += __ldcg(&partial[q]);
-  const float tot = block_sum(w, sh);
-  if (threadIdx.x == 0) {
-    *out = tot;
-    *count = 0u;
-  }
+  finish_sum(block_sum(v, sh), partial, count, out, sh);
 }
 
 // b is not read in mode 0 (may be NULL), bf16 in mode 2 with b_bf16 (else
@@ -128,8 +111,13 @@ extern "C" int wl_dot3d(const float* a, const void* b, float* partial,
 extern "C" int wl_pcg_axpy(const float* x, const float* r, const void* eps,
                            const float* z, const void* iD, const float* upd,
                            float* x_out, float* r_out, float* partial,
-                           int eps_bf16, int iD_bf16, int S0, int S1, int S2,
+                           unsigned int* count, float* out, int eps_bf16,
+                           int iD_bf16, int blocks, int S0, int S1, int S2,
                            void* stream) {
-  return launch_axpy_rho(x, r, eps, z, iD, upd, x_out, r_out, partial,
-                         eps_bf16, iD_bf16, S0, S1, S2, stream);
+  return launch_axpy_rho(x, r, eps, z, iD, upd, x_out, r_out, partial, count,
+                         out, eps_bf16, iD_bf16, blocks, S0, S1, S2, stream);
+}
+
+extern "C" int wl_axpy_coresident(int eps_bf16, int iD_bf16) {
+  return axpy_coresident(eps_bf16, iD_bf16);
 }

@@ -52,10 +52,10 @@ SIGNATURES = {
     "wl_increment3d": [_P] * 5 + [_I, _I] + _S3,
     "wl_mult3d_stream": [_P] * 5 + [_I, _I, _I] + _S3,
     "wl_increment3d_stream": [_P] * 7 + [_I, _I, _I] + _S3,
-    "wl_pcg_dir_mult": [_P] * 9 + [_I, _I, _I] + _S3,
-    "wl_pcg_update": [_P] * 9 + [_I, _I] + _S3,
+    "wl_pcg_dir_mult": [_P] * 11 + [_F] + [_I] * 4 + _S3,
+    "wl_pcg_update": [_P] * 11 + [_I, _I, _I] + _S3,
     "wl_dot3d": [_P] * 5 + [_I, _I, _I] + _S3,
-    "wl_pcg_axpy": [_P] * 9 + [_I, _I] + _S3,
+    "wl_pcg_axpy": [_P] * 11 + [_I, _I, _I] + _S3,
     "wl_copy_probe": [_P, _P, _F] + _S3,
     "wl_roll_probe": [_P, _P, _F] + _S3,
     "wl_ana_mult3d": [_P] * 5 + [_F, _I, _I] + _S3,
@@ -150,6 +150,8 @@ def library() -> ctypes.CDLL:
     lib.wl_stream_tile.restype = _I
     lib.wl_march_tile.argtypes = [_I]
     lib.wl_march_tile.restype = _I
+    lib.wl_axpy_coresident.argtypes = [_I, _I]
+    lib.wl_axpy_coresident.restype = _I
     lib.wl_error_string.argtypes = [_I]
     lib.wl_error_string.restype = ctypes.c_char_p
     if lib.wl_threads() != THREADS:

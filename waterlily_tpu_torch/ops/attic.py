@@ -21,12 +21,13 @@ any other device or on a CUDA tensor its kernel does not take; it counts its
 launches in ``.launches``, by shape in ``.shapes`` and its bf16 forms in
 ``.forms``.  Scalars (``beta``, ``upd``) may be 0-d device tensors, so a
 smooth never synchronises with the host.  Every sum is over the interior
-(ghost cells masked), taken in per-block partials and reduced on the
-device.  A search direction may be stored in bf16 (`PoissonLevel.bf16_eps`);
-it is upcast before it meets an f32 scalar, as JAX promotes
-``f32_scalar * bf16_array`` to f32 (PyTorch would keep bf16).  A level's
-operator shadows (`PoissonLevel.L16`, ``iD16``) pass as bf16 ``L`` and
-``iD``, upcast where they are read.
+(ghost cells masked), taken in per-block partials that the kernel's last
+block reduces in index order: each call is one launch, and its sums the
+same bits on every call.  A search direction may be stored in bf16
+(`PoissonLevel.bf16_eps`); it is upcast before it meets an f32 scalar, as
+JAX promotes ``f32_scalar * bf16_array`` to f32 (PyTorch would keep bf16).
+A level's operator shadows (`PoissonLevel.L16`, ``iD16``) pass as bf16
+``L`` and ``iD``, upcast where they are read.
 """
 from __future__ import annotations
 
@@ -38,7 +39,7 @@ from ..grid import interior_view
 from ..kernels.build import launch, library
 from .stencil_kernels import (_on_cpu, _check, _scalar_on, _counted, _count,
                               _bf16, _blocks, _wide, _mult3d_plain,
-                              _increment3d_plain, _counter)
+                              _increment3d_plain, _counter, _march)
 
 __all__ = ["pcg_dir_mult", "pcg_update", "pcg_blocked", "dot3d", "pcg_axpy",
            "mult3d_stream", "increment3d_stream", "kernel_wrappers"]
@@ -59,16 +60,24 @@ def _pcg_dir_mult_plain(L, Dd, eps_prev, r, iD, beta, bf16=False):
             _interior_sum(r * (r * iD)))
 
 
+# pcg_dir_mult's chunks: (fewest, most) interior planes a block marches
+# (`stencil_kernels.march_planes`); on the H100 at 258³, chunks of at most
+# 32 planes (2048 blocks) beat 64 (1024 blocks) with the operator shadows
+# (0.225 against 0.259 ms) and tie with f32 operands
+DIR_PLANES = (4, 32)
+
+
 @_counted
 def pcg_dir_mult(L, Dd, eps_prev, r, iD, beta, bf16: bool = False):
     """``(eps, z, ⟨z, eps⟩, ⟨r, r∘iD⟩)`` in one sweep: the search direction
     ``eps = beta·eps_prev + r∘iD`` (rounded to bf16 with ``bf16``), ``z =
     A·eps`` applied to the rounded direction in f32, and the two interior
-    dots, the second from the unrounded ``r∘iD`` (the rho seed at
-    ``beta = 0``, where ``eps_prev`` must be finite: pass ``r``).
+    dots as 0-d tensors, the second from the unrounded ``r∘iD`` (the rho
+    seed at ``beta = 0``, where ``eps_prev`` must be finite: pass ``r``).
     ``eps_prev`` may be bf16; a new ``eps`` is written (never in place).
     ``L`` and ``iD`` may be a level's bf16 shadows L16 and iD16 (both, with
-    the f32 D16), upcast where they are read."""
+    the f32 D16), upcast where they are read.  One launch: a number
+    ``beta`` goes with it, a device scalar is read by the kernel."""
     S = tuple(r.shape)
     if _on_cpu("pcg_dir_mult", r):
         return _pcg_dir_mult_plain(L, Dd, eps_prev, r, iD, beta, bf16)
@@ -79,16 +88,18 @@ def pcg_dir_mult(L, Dd, eps_prev, r, iD, beta, bf16: bool = False):
         raise TypeError(f"pcg_dir_mult: L is {L.dtype} and iD {iD.dtype}; "
                         "the kernel takes both f32 or both bf16 (a level's "
                         "L16 and iD16)")
+    planes, buf = _march("pcg_dir_mult", S, r.device, 2, DIR_PLANES)
     eps = torch.empty(S, dtype=torch.bfloat16 if bf16 else torch.float32,
                       device=r.device)
     z = torch.empty_like(r)
-    part = torch.empty((2, _blocks(S)), dtype=torch.float32, device=r.device)
+    on_device = isinstance(beta, torch.Tensor)
     launch("wl_pcg_dir_mult", L, Dd, eps_prev, r, iD,
-           _scalar_on(beta, r, "pcg_dir_mult"), eps, z, part,
-           _bf16(eps_prev), int(bool(bf16)), _bf16(L), *S)
+           _scalar_on(beta, r, "pcg_dir_mult") if on_device else None,
+           eps, z, buf[2:], _counter(r.device), buf[:2],
+           0.0 if on_device else float(beta), _bf16(eps_prev),
+           int(bool(bf16)), _bf16(L), planes, *S)
     _count(pcg_dir_mult, S, L=L, iD=iD, eps_prev=eps_prev, eps=eps)
-    sums = torch.sum(part, dim=1)
-    return eps, z, sums[0], sums[1]
+    return eps, z, buf[0], buf[1]
 
 
 def _axpy_rho_plain(x, r, eps, z, iD, upd):
@@ -100,8 +111,8 @@ def _axpy_rho_plain(x, r, eps, z, iD, upd):
 def _axpy_rho(wrapper, name, x, r, eps, z, iD, upd):
     """``(x + upd·eps, r − upd·z, ⟨r', r'∘iD⟩)``: the kernel shared by
     `pcg_update` and `pcg_axpy` (``csrc/pcg_axpy.cuh``), counted on
-    ``wrapper``; ``eps`` and ``iD`` (a level's iD16) may be bf16.  New x
-    and r are written (nothing in place)."""
+    ``wrapper``, in one launch; ``eps`` and ``iD`` (a level's iD16) may be
+    bf16.  New x and r are written (nothing in place)."""
     S = tuple(x.shape)
     if _on_cpu(name, x):
         return _axpy_rho_plain(x, r, eps, z, iD, upd)
@@ -109,11 +120,27 @@ def _axpy_rho(wrapper, name, x, r, eps, z, iD, upd):
            z=(z, S), iD=(iD, S))
     x_out = torch.empty_like(x)
     r_out = torch.empty_like(r)
-    part = torch.empty(_blocks(S), dtype=torch.float32, device=x.device)
+    # one wave of blocks striding over the cells: a block a 256 cells would
+    # leave ~67k partials at 258³, and as many atomics on the one counter
+    # that elects the last block, which serialise
+    blocks = min(_blocks(S), _axpy_coresident(x.device.index, _bf16(eps),
+                                              _bf16(iD)))
+    # the rho, then one partial a block
+    buf = torch.empty(1 + blocks, dtype=torch.float32, device=x.device)
     launch(f"wl_{name}", x, r, eps, z, iD, _scalar_on(upd, x, name), x_out,
-           r_out, part, _bf16(eps), _bf16(iD), *S)
+           r_out, buf[1:], _counter(x.device), buf[0], _bf16(eps), _bf16(iD),
+           blocks, *S)
     _count(wrapper, S, eps=eps, iD=iD)
-    return x_out, r_out, torch.sum(part)
+    return x_out, r_out, buf[0]
+
+
+@functools.cache
+def _axpy_coresident(device_index, eps_bf16: int, iD_bf16: int) -> int:
+    """Blocks of the axpy sweep's kernel (its eps and iD types) the card
+    holds at once (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``
+    times the SMs)."""
+    with torch.cuda.device(device_index):
+        return library().wl_axpy_coresident(eps_bf16, iD_bf16)
 
 
 @_counted

@@ -217,12 +217,14 @@ MARCH_PLANES = (4, 64)
 MARCH_BLOCKS = 512
 
 
-def march_planes(S, tile) -> int:
+def march_planes(S, tile, planes=None) -> int:
     """Interior planes of each block's march at shape ``S`` with ``tile``
-    (axis 1, axis 2) interior columns a block, balanced over the interior.
-    With (8, 32) tiles 258³ marches 4 chunks of 64 planes (1024 blocks),
-    130³ 8 of 16 (512), 66³ 16 of 4 (256), (98,66,66) 24 of 4 (384)."""
-    lo, hi = MARCH_PLANES
+    (axis 1, axis 2) interior columns a block, balanced over the interior;
+    ``planes`` the (fewest, most) planes of a chunk, `MARCH_PLANES` by
+    default.  With (8, 32) tiles 258³ marches 4 chunks of 64 planes (1024
+    blocks), 130³ 8 of 16 (512), 66³ 16 of 4 (256), (98,66,66) 24 of 4
+    (384)."""
+    lo, hi = planes or MARCH_PLANES
     n = S[0] - 2
     tiles = -(-(S[1] - 2) // tile[0]) * -(-(S[2] - 2) // tile[1])
     chunks = max(-(-n // hi), min(-(-MARCH_BLOCKS // tiles), -(-n // lo)))
@@ -247,21 +249,24 @@ def _march_tile() -> tuple[int, int]:
 @functools.cache
 def _counter(device: torch.device) -> torch.Tensor:
     """The zeroed counter that elects the last block of a one-launch
-    reduction (`cfl3d`, `ana_mult3d`, `ops.attic.dot3d`) on ``device``;
+    reduction (`cfl3d`, `ana_mult3d` and `ops.attic`'s `dot3d`,
+    `pcg_dir_mult`, `pcg_update`, `pcg_axpy`) on ``device``;
     each kernel leaves it zeroed, and the reductions run on one stream."""
     return torch.zeros(1, dtype=torch.int32, device=device)
 
 
-def _march(name: str, S, device, result: bool):
-    """(planes, partials and result buffer or None) of a march at ``S``:
-    the buffer's element 0 is the result, the rest one partial a block."""
+def _march(name: str, S, device, results: int, planes=None):
+    """(planes, results and partials buffer or None) of a march at ``S``
+    (chunks of `march_planes` with ``planes``) reducing ``results`` sums
+    or maxima: the buffer's first ``results`` elements are the results,
+    then the partials of each, one a block."""
     if min(S) < 3 or 3 * math.prod(S) >= 2 ** 31:
         raise ValueError(f"{name}: the kernel takes axes of at least 3 "
                          f"cells and fewer than 2^31 values, got S={S}")
     tile = _march_tile()
-    planes = march_planes(S, tile)
-    buf = (torch.empty(1 + march_blocks(S, planes, tile),
-                       dtype=torch.float32, device=device) if result
+    planes = march_planes(S, tile, planes)
+    buf = (torch.empty(results * (1 + march_blocks(S, planes, tile)),
+                       dtype=torch.float32, device=device) if results
            else None)
     return planes, buf
 
@@ -298,7 +303,7 @@ def ana_mult3d(x, c, perdir: tuple = (), with_dot: bool = False):
     if _on_cpu("ana_mult3d", x):
         return _ana_mult3d_plain(x, c, perdir, with_dot)
     _check("ana_mult3d", S, x=(x, S))
-    planes, buf = _march("ana_mult3d", S, x.device, with_dot)
+    planes, buf = _march("ana_mult3d", S, x.device, int(with_dot))
     z = torch.empty_like(x)
     launch("wl_ana_mult3d", x, z, *((buf[1:], _counter(x.device), buf[0])
                                     if with_dot else (None,) * 3),
@@ -320,7 +325,7 @@ def cfl3d(u):
     if _on_cpu("cfl3d", u):
         return _cfl3d_plain(u)
     _check("cfl3d", S, u=(u, (3,) + S))
-    planes, buf = _march("cfl3d", S, u.device, True)
+    planes, buf = _march("cfl3d", S, u.device, 1)
     launch("wl_cfl3d", u, buf[1:], _counter(u.device), buf[0], planes, *S)
     _count(cfl3d, S)
     return buf[0]
