@@ -15,11 +15,13 @@ Phases, each of which raises (and so exits non-zero) on failure:
    walls and every periodic mask) also where its column tiles and axis-0
    chunks are cut raggedly and where axis 0 is shorter than one chunk,
    ``pcg_fused`` on one block and on a cooperative grid (both sides of
-   its threshold), ``cfl3d`` and every ``ana_mult3d`` and
-   ``pcg_dir_mult`` form where their column tiles and axis-0 chunks are
-   cut raggedly and where axis 0 has one or two interior planes; then
+   its threshold), ``cfl3d`` and every ``ana_mult3d``, ``pcg_dir_mult``
+   and ``mult3d_stream`` form where their column tiles and axis-0 chunks
+   are cut raggedly and where axis 0 has one or two interior planes,
+   ``roll_probe`` where its row bands and warps are cut raggedly; then
    ``cfl3d``, ``ana_mult3d`` (with and without the dot), ``dot3d``,
-   ``pcg_update``, ``pcg_axpy`` and every ``pcg_dir_mult`` form are each
+   ``pcg_update``, ``pcg_axpy``, every ``pcg_dir_mult`` form and
+   ``mult3d_stream`` with the dot (f32 operator and shadows) are each
    one launch a call (the profiler sees one kernel on the card);
 4. the dense slice: ``sphere_3d(96, 64)`` constructed and stepped 20 times
    on the card with every kernel launch-counted (every ``bc3d`` launch in
@@ -79,10 +81,12 @@ Phases, each of which raises (and so exits non-zero) on failure:
    inputs, so that at 258³ no call finds its operands in L2), the
    periodic, outlet, 2D and bf16 forms at 258³, (34,34,34) and (98,66),
    ``pcg_fused``, ``cfl3d``, ``ana_mult3d`` (with and without the
-   dot) and ``pcg_dir_mult`` (f32, bf16 directions, operator shadows) at
-   every shape a path launched them at, the
+   dot), ``pcg_dir_mult`` (f32, bf16 directions, operator shadows) and
+   ``mult3d_stream`` (with the dot, f32 and shadows) at every shape a path
+   launched them at, the
    operator-shadow, bf16-iD and carried-rows forms at 258³ and (98,66,66), ``torch.dot`` beside ``dot3d`` and
-   ``torch.mul`` beside ``copy_probe``; the probes' rates in GB/s and each kernel's bytes over
+   ``torch.mul`` beside ``copy_probe``; the probes' rates in GB/s (the
+   roll's also as a share of the copy's) and each kernel's bytes over
    its time as a share of the copy probe's rate; the 256³ sphere in
    configurations (a)-(i) of 6.4 in turns (a, ..., i, i, ..., a), each
    with its idle share and pois_n.
@@ -123,11 +127,16 @@ PCG_2D = ((98, 66), (50, 34), (37, 29), (10, 14))
 # pcg_fused on both sides of its one-block threshold
 # (`pcg_kernel.PCG_ONE_BLOCK_MAX` = 2048 cells): one block, then a grid
 PCG_THRESHOLD = ((8, 16, 16), (9, 16, 16))
-# the plane-marching reductions (cfl3d, ana_mult3d): an axis 0 of one and
+# the plane marches (MARCHES below): an axis 0 of one and
 # two interior planes, axes 1 and 2 off their (8, 32) column tiles, and 8
 # chunks of 9 interior planes over 65 (the last one of 2)
 MARCH_RAGGED = ((3, 37, 70), (4, 9, 40), (37, 29, 35), (70, 41, 67),
                 (67, 130, 130))
+MARCHES = ("cfl3d", "ana_mult3d", "pcg_dir_mult", "mult3d_stream")
+# the roll probe's row bands and warps cut raggedly: a short last band,
+# warps across bands and planes, three-row and three-column planes
+ROLL_RAGGED = ((5, 9, 13), (4, 258, 37), (3, 37, 70), (7, 3, 33),
+               (5, 17, 3))
 
 
 def log(msg=""):
@@ -203,7 +212,8 @@ def one_launch(torch, dev):
     PyTorch reduce after it (profiler, 5 calls at the dense slice's
     shape): `cfl3d`, `ana_mult3d`, `dot3d`, every form of `pcg_dir_mult`
     (beta a device scalar, or the number 0 at the smooth's start),
-    `pcg_update` and `pcg_axpy`."""
+    `pcg_update`, `pcg_axpy` and `mult3d_stream` with the dot (f32
+    operator and shadows)."""
     from waterlily_tpu_torch.kernels.check import inputs, variants
     from waterlily_tpu_torch.ops import stencil_kernels as sk, attic as at
     from waterlily_tpu_torch.utils.perf import device_profile
@@ -218,7 +228,11 @@ def one_launch(torch, dev):
             ("ana_mult3d", lambda: sk.ana_mult3d(x, 1.0)),
             ("dot3d aa", lambda: at.dot3d(r, r, "aa")),
             ("pcg_update", lambda: at.pcg_update(x, r, eps, z, iD, s)),
-            ("pcg_axpy", lambda: at.pcg_axpy(x, r, eps, z, iD, s))
+            ("pcg_axpy", lambda: at.pcg_axpy(x, r, eps, z, iD, s)),
+            ("mult3d_stream, dot", lambda: at.mult3d_stream(
+                d["lev"].L, d["lev"].D, x, True)),
+            ("mult3d_stream L16, dot", lambda: at.mult3d_stream(
+                d["L16"], d["D16"], x, True))
     ] + dir_mult:
         ops = device_profile(call, 5)[1]
         log(f"  {label:<21} ops on the card a call: {sorted(ops)}")
@@ -841,11 +855,13 @@ def timing(torch, dev, sim):
             f"ms")
     # the plane-marching kernels at every shape a path launched them at
     # (ana_mult3d also without the dot: the bound counts the same bytes;
-    # pcg_dir_mult also with bf16 directions and operator shadows)
+    # pcg_dir_mult also with bf16 directions and operator shadows;
+    # mult3d_stream with the dot, also with the shadows)
     for name, forms in (("cfl3d", ((0, ""),)),
                         ("ana_mult3d", ((0, ""), (1, ", without the dot"))),
                         ("pcg_dir_mult", ((0, ""), ("eps_bf16", ", bf16"),
-                                          ("eps_L16", ", L16")))):
+                                          ("eps_L16", ", L16"))),
+                        ("mult3d_stream", ((0, ""), ("z_L16", ", L16")))):
         for S in sorted(PATH_SHAPES.get(name, ()), key=math.prod,
                         reverse=True):
             for v, form in forms:
@@ -931,7 +947,9 @@ def bandwidth_shares(rows):
         if name in PROBES:
             log(f"  {name} {S}{warm(S)}: {r:.1f} GB/s measured "
                 f"({r * 1e9 / HBM_BYTES_PER_S:.3f} of the data sheet's "
-                f"{HBM_BYTES_PER_S / 1e12:.2f} TB/s)")
+                f"{HBM_BYTES_PER_S / 1e12:.2f} TB/s"
+                + (f"; {r / copy[S]:.3f} of copy_probe's" if name !=
+                   "copy_probe" and S in copy else "") + ")")
     log("  bytes moved over time, as a share of the copy probe's rate:")
     for (name, S, v), r in rate.items():
         if S in copy and name not in PROBES:
@@ -1067,8 +1085,8 @@ def main() -> int:
         k: (PCG_LEVEL, PCG_RAGGED) + PCG_PERIODIC + PCG_2D + PCG_THRESHOLD
         if k == "pcg_fused" else (FINE, RAGGED)
         + (CONV_RAGGED if k == "conv_diff3d" else ())
-        + (MARCH_RAGGED if k in ("cfl3d", "ana_mult3d", "pcg_dir_mult")
-           else ())
+        + (MARCH_RAGGED if k in MARCHES else ())
+        + (ROLL_RAGGED if k == "roll_probe" else ())
         for k in KERNELS + COMPOSITES})
     one_launch(torch, dev)
     phase("4. the dense slice: sphere_3d(96, 64)")
@@ -1094,6 +1112,10 @@ def main() -> int:
                                **{k: (BIG,) for k in PROBES}})
     phase("8. timing")
     times = timing(torch, dev, sim)
+    from waterlily_tpu_torch.utils.perf import EVENT_FALLBACKS
+    log(f"device times the profiler could not record, taken with CUDA "
+        f"events instead (the host's dispatch included): "
+        f"{len(EVENT_FALLBACKS)}")
     phase("end of timing")
 
     from waterlily_tpu_torch.kernels.check import SOURCES

@@ -343,9 +343,10 @@ def _dir_mult_forms(d):
 
 def test_march_kernels_launch_once(device):
     """cfl3d and ana_mult3d, with and without the dot, every form of
-    pcg_dir_mult, and pcg_update and pcg_axpy are one launch a call: the
-    launch counter, and the profiler sees one kernel on the card and no
-    PyTorch reduce (or scalar fill) beside it."""
+    pcg_dir_mult, pcg_update and pcg_axpy, and mult3d_stream with the dot
+    (f32 operator and shadows) are one launch a call: the launch counter,
+    and the profiler sees one kernel on the card and no PyTorch reduce (or
+    scalar fill) beside it."""
     from waterlily_tpu_torch.kernels.check import inputs
     from waterlily_tpu_torch.ops import stencil_kernels as sk
     from waterlily_tpu_torch.ops import attic as at
@@ -357,7 +358,11 @@ def test_march_kernels_launch_once(device):
              (sk.ana_mult3d, lambda: sk.ana_mult3d(x, 1.0, with_dot=True)),
              (sk.ana_mult3d, lambda: sk.ana_mult3d(x, 1.0)),
              (at.pcg_update, lambda: at.pcg_update(x, r, eps, z, iD, s)),
-             (at.pcg_axpy, lambda: at.pcg_axpy(x, r, eps, z, iD, s))]
+             (at.pcg_axpy, lambda: at.pcg_axpy(x, r, eps, z, iD, s)),
+             (at.mult3d_stream,
+              lambda: at.mult3d_stream(d["lev"].L, d["lev"].D, x, True)),
+             (at.mult3d_stream,
+              lambda: at.mult3d_stream(d["L16"], d["D16"], x, True))]
     calls += [(at.pcg_dir_mult, call) for _, call in _dir_mult_forms(d)]
     for w, call in calls:
         n = w.launches
@@ -400,6 +405,40 @@ def test_pcg_iteration_sums_are_deterministic(S, device):
         assert one[2].shape == () and one[-1].shape == ()
         for a, b in zip(one, two):
             assert torch.equal(a, b), name
+
+
+@pytest.mark.parametrize("S", MARCH_RAGGED + BLOCKED_LEVELS)
+def test_mult3d_stream_march_matches_plain(S, device):
+    """The plane-marching mult3d_stream in all eight forms (f32 and bf16 L,
+    f32 and bf16 x, with and without the dot) where its column tiles and
+    axis-0 chunks are cut raggedly, where axis 0 has one or two interior
+    planes, and at the blocked levels: z exact, the dot within 1e-5
+    relative."""
+    _check("mult3d_stream", S, device)
+
+
+@pytest.mark.parametrize("S", [FINE, (3, 37, 70), (37, 29, 35)])
+def test_mult3d_stream_dot_is_deterministic(S, device):
+    """Two calls on one input give the same bits, z and the dot, in every
+    form with the dot (the last block sums the partials in index order)."""
+    from waterlily_tpu_torch.kernels.check import inputs, variants
+    d = inputs(S, 0, device)
+    for outs, kern, _ in variants("mult3d_stream", d):
+        if len(outs) == 2:
+            (z1, d1), (z2, d2) = kern(), kern()
+            assert d1.shape == () and torch.equal(d1, d2), outs
+            assert torch.equal(z1, z2), outs
+
+
+# the roll probe's row bands and warps cut raggedly: a short last band,
+# warps across bands and planes, three-row and three-column planes
+ROLL_RAGGED = [(5, 9, 13), (4, 258, 37), (3, 37, 70), (7, 3, 33),
+               (5, 17, 3), (258, 258, 258)]
+
+
+@pytest.mark.parametrize("S", ROLL_RAGGED)
+def test_roll_probe_ragged(S, device):
+    _check("roll_probe", S, device)
 
 
 @pytest.mark.parametrize("form", ["f32", "bf16", "L16"])

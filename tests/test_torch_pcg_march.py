@@ -19,52 +19,10 @@ from waterlily_tpu_torch.ops import attic as ta
 from waterlily_tpu_torch.ops import poisson as tp
 from waterlily_tpu_torch.ops import stencil_kernels as sk
 
-from _torch_parity import normal, interior_only, tt, bc_coeffs
+from _torch_parity import (normal, interior_only, tt, bc_coeffs,
+                           march_ownership)
 
 TILE = (8, 32)   # csrc/march.cuh MARCH_TJ, MARCH_TK
-
-
-def _ownership(S):
-    """Per-cell counts of the kernel's writes of eps (z is written at the
-    same cells) and of its dot terms, over the whole grid of blocks."""
-    S0, S1, S2 = S
-    planes = sk.march_planes(S, TILE, ta.DIR_PLANES)
-    gx = -(-(S2 - 2) // TILE[1])
-    gy = -(-(S1 - 2) // TILE[0])
-    gz = -(-(S0 - 2) // planes)
-    # every thread of one chunk's blocks: its column (j, k) (march_column)
-    ty, tx = np.meshgrid(np.arange(TILE[0]), np.arange(TILE[1]),
-                         indexing="ij")
-    by, bx = np.meshgrid(np.arange(gy), np.arange(gx), indexing="ij")
-    j = (1 + by[..., None, None] * TILE[0] + ty).ravel()
-    k = (1 + bx[..., None, None] * TILE[1] + tx).ravel()
-    keep = (j <= S1 - 2) & (k <= S2 - 2)   # Column.in
-    j, k = j[keep], k[keep]
-    cell = j * S2 + k
-    jl, jh, kl, kh = j == 1, j == S1 - 2, k == 1, k == S2 - 2
-    # march_ghosts: (which columns, offset in the plane)
-    ring = ((jl, -S2), (jl & kl, -S2 - 1), (jl & kh, -S2 + 1),
-            (jh, S2), (jh & kl, S2 - 1), (jh & kh, S2 + 1),
-            (kl, -1), (kh, 1))
-    P = S1 * S2
-    writes = np.zeros((S0, P), np.int32)
-    terms = np.zeros((S0, P), np.int32)
-
-    def plane(i):   # the column's cell of plane i and its ghost ring
-        idx = np.concatenate([cell] + [cell[m] + o for m, o in ring])
-        writes[i] += np.bincount(idx, minlength=P)
-
-    for bz in range(gz):
-        i0 = 1 + bz * planes
-        i1 = min(i0 + planes, S0 - 1)
-        if i0 == 1:
-            plane(0)
-        for i in range(i0, i1):
-            plane(i)
-            terms[i] += np.bincount(cell, minlength=P)
-        if i1 == S0 - 1:
-            plane(S0 - 1)
-    return writes.reshape(S), terms.reshape(S)
 
 
 # the blocked levels of the 256³ sphere and the dense slice's fine level,
@@ -74,7 +32,8 @@ def _ownership(S):
                                (66, 66, 66), (98, 66, 66), (3, 37, 70),
                                (4, 9, 40), (37, 29, 35), (70, 41, 67)])
 def test_dir_mult_march_writes_each_cell_once(S):
-    writes, terms = _ownership(S)
+    writes, terms, _ = march_ownership(
+        S, sk.march_planes(S, TILE, ta.DIR_PLANES), TILE)
     assert writes.min() == 1 and writes.max() == 1
     inner = np.zeros(S, bool)
     inner[1:-1, 1:-1, 1:-1] = True

@@ -1,13 +1,13 @@
-// Carried-rows Poisson operator: z = A x (with per-block partials of
-// <A x, x> on request) and (x + eps, r - A eps), every input row read once.
+// Carried-rows Poisson increment: (x + eps, r - A eps), every input row
+// read once.  (The carried-rows z = A x is the plane march of
+// stream_march.cu.)
 //
-// Replaces waterlily_tpu/ops/attic.py `mult3d_stream` (`_stream_mult_kernel`)
-// and `increment3d_stream` (`_stream_rsub_kernel`).  They compute what
-// `mult3d` / `increment3d` (poisson_stencil.cu) compute, in the same
-// association, with L in f32 or bf16 (a level's shadow L16, D the f32 D16)
-// and x / eps in f32 or bf16, upcast in registers; z, r, x + eps and the
-// dot are f32.  The increment also writes x + eps, which the TPU kernel left
-// to XLA, so eps is read once for both outputs.
+// Replaces waterlily_tpu/ops/attic.py `increment3d_stream`
+// (`_stream_rsub_kernel`).  It computes what `increment3d`
+// (poisson_stencil.cu) computes, in the same association, with L in f32 or
+// bf16 (a level's shadow L16, D the f32 D16) and eps in f32 or bf16, upcast
+// in registers; r and x + eps are f32.  It also writes x + eps, which the
+// TPU kernel left to XLA, so eps is read once for both outputs.
 //
 // The TPU kernel walks axis-0 slabs in order, one grid step ahead of its
 // output, and carries x rows [gB-1, (g+1)B) and a row of L0 in VMEM so that
@@ -26,12 +26,9 @@
 // twice, and those re-reads mostly hit L2, where the neighbouring tile or
 // chunk brought them.
 //
-// Bound on the H100: memory.  z = A x moves L (3 fields), D, x and z: 6
-// fields a cell (4.5 with bf16 L), against ~13 flops; the increment moves
-// L, D, eps, x, r and writes x and r: 9 (7.5).  With the dot each thread sums
-// over its march and the block reduces once at the end (a deterministic
-// tree; the caller sums the blocks' partials), not once per 256 cells.
-// Ghost outputs are written by a branch (z = 0, r unchanged) and the ragged
+// Bound on the H100: memory.  The increment moves L, D, eps, x, r and
+// writes x and r: 9 fields a cell (7.5 with bf16 L), against ~15 flops.
+// Ghost outputs are written by a branch (r unchanged) and the ragged
 // edges of tiles and chunks are masked by bounds checks, never by a multiply.
 // Every shape is taken: there is no divisibility condition.
 #include "common.cuh"
@@ -39,20 +36,17 @@
 #define ST_TJ 8    // tile extent along axis 1 (threadIdx.y)
 #define ST_TK 32   // tile extent along axis 2 (threadIdx.x)
 
-// TL: L's type; TX: x's (the increment's eps's); INC: false for z = A x
-// (out = z, optional partial), true for the increment (out = r - A eps,
-// x_out = x + eps).
-template <typename TL, typename TX, bool INC>
+// TL: L's type; TX: eps's (``x`` below: the increment's eps; ``xa``: its
+// x).  out = r - A eps, x_out = x + eps.
+template <typename TL, typename TX>
 __global__ void __launch_bounds__(ST_TJ * ST_TK)
 stream_kernel(const TL* __restrict__ L, const float* __restrict__ Dd,
               const TX* __restrict__ x, const float* __restrict__ xa,
               const float* __restrict__ r, float* __restrict__ out,
-              float* __restrict__ x_out, float* __restrict__ partial,
-              Shape3 g, int rows) {
+              float* __restrict__ x_out, Shape3 g, int rows) {
   __shared__ float sx[ST_TJ + 2][ST_TK + 2];  // x with a one-cell halo
   __shared__ float s1[ST_TJ + 1][ST_TK];      // L1 and its j+1 halo row
   __shared__ float s2[ST_TJ][ST_TK + 1];      // L2 and its k+1 halo column
-  __shared__ float sh[ST_TJ * ST_TK];
   const int tj = threadIdx.y, tk = threadIdx.x;
   const int j = blockIdx.y * ST_TJ + tj, k = blockIdx.x * ST_TK + tk;
   const int S0 = g.S[0], S1 = g.S[1], S2 = g.S[2];
@@ -77,7 +71,6 @@ stream_kernel(const TL* __restrict__ L, const float* __restrict__ Dd,
     xc = ld(x[i0 * P + col]);
     l0c = ld(L0[i0 * P + col]);
   }
-  float dot = 0.f;
   for (int i = i0; i < i1; ++i) {
     const long long c = i * P + col;
     float xp = 0.f, l0p = 0.f, l1 = 0.f, l2 = 0.f, d = 0.f, xav = 0.f,
@@ -91,10 +84,8 @@ stream_kernel(const TL* __restrict__ L, const float* __restrict__ Dd,
       l1 = ld(L1[c]);
       l2 = ld(L2[c]);
       d = Dd[c];
-      if (INC) {
-        xav = xa[c];
-        rv = r[c];
-      }
+      xav = xa[c];
+      rv = r[c];
     }
     if (h_jm) hjm = ld(x[c - S2]);
     if (h_jp) {
@@ -133,61 +124,20 @@ stream_kernel(const TL* __restrict__ L, const float* __restrict__ Dd,
         s = s + sx[tj + 1][tk] * s2[tj][tk];
         s = s + sx[tj + 1][tk + 2] * s2[tj][tk + 1];
         v = s;
-        if (!INC) dot += v * xc;
       }
-      if (INC) {
-        out[c] = rv - v;
-        x_out[c] = xav + xc;
-      } else {
-        out[c] = v;
-      }
+      out[c] = rv - v;
+      x_out[c] = xav + xc;
     }
     xm = xc;
     xc = xp;
     l0c = l0p;
   }
-  if (!INC && partial != nullptr) {  // uniform across the block
-    const float s = block_sum(dot, sh);
-    if (tj == 0 && tk == 0)
-      partial[((long long)blockIdx.z * gridDim.y + blockIdx.y) * gridDim.x +
-              blockIdx.x] = s;
-  }
-}
-
-template <bool INC>
-static void launch_stream(const void* L, const float* Dd, const void* x,
-                          const float* xa, const float* r, float* out,
-                          float* x_out, float* partial, int L_bf16,
-                          int x_bf16, const Shape3& g, int rows,
-                          cudaStream_t s) {
-  const dim3 grid((g.S[2] + ST_TK - 1) / ST_TK, (g.S[1] + ST_TJ - 1) / ST_TJ,
-                  (g.S[0] + rows - 1) / rows);
-  dispatch_bf16(L_bf16, x_bf16, [&](auto tl, auto tx) {
-    stream_kernel<TAG_T(tl), TAG_T(tx), INC>
-        <<<grid, dim3(ST_TK, ST_TJ), 0, s>>>(
-            (const TAG_T(tl)*)L, Dd, (const TAG_T(tx)*)x, xa, r, out, x_out,
-            partial, g, rows);
-  });
 }
 
 // The tile extent along axis 1 (axis = 1) or axis 2 (axis = 2): the caller
-// sizes the dot partials, one float per block, from it.
+// sizes the grid's chunks from it.
 extern "C" int wl_stream_tile(int axis) {
   return axis == 1 ? ST_TJ : axis == 2 ? ST_TK : 0;
-}
-
-// z = A x; partial (NULL for none) holds one float per block of the grid
-// (ceil(S2/ST_TK), ceil(S1/ST_TJ), ceil(S0/rows)).  L_bf16 / x_bf16: L / x
-// are bf16 (else f32).
-extern "C" int wl_mult3d_stream(const void* L, const float* Dd, const void* x,
-                                float* z, float* partial, int L_bf16,
-                                int x_bf16, int rows, int S0, int S1, int S2,
-                                void* stream) {
-  if (rows < 1) return (int)cudaErrorInvalidValue;
-  const Shape3 g = make_shape(S0, S1, S2);
-  launch_stream<false>(L, Dd, x, nullptr, nullptr, z, nullptr, partial,
-                       L_bf16, x_bf16, g, rows, (cudaStream_t)stream);
-  return (int)cudaGetLastError();
 }
 
 // (x_out, r_out) = (x + eps, r - A eps).  L_bf16 / eps_bf16: L / eps are
@@ -200,7 +150,13 @@ extern "C" int wl_increment3d_stream(const void* L, const float* Dd,
                                      void* stream) {
   if (rows < 1) return (int)cudaErrorInvalidValue;
   const Shape3 g = make_shape(S0, S1, S2);
-  launch_stream<true>(L, Dd, eps, x, r, r_out, x_out, nullptr, L_bf16,
-                      eps_bf16, g, rows, (cudaStream_t)stream);
+  const dim3 grid((S2 + ST_TK - 1) / ST_TK, (S1 + ST_TJ - 1) / ST_TJ,
+                  (S0 + rows - 1) / rows);
+  dispatch_bf16(L_bf16, eps_bf16, [&](auto tl, auto tx) {
+    stream_kernel<TAG_T(tl), TAG_T(tx)>
+        <<<grid, dim3(ST_TK, ST_TJ), 0, (cudaStream_t)stream>>>(
+            (const TAG_T(tl)*)L, Dd, (const TAG_T(tx)*)eps, x, r, r_out,
+            x_out, g, rows);
+  });
   return (int)cudaGetLastError();
 }

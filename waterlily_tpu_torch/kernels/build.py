@@ -50,7 +50,7 @@ _S3 = [_I, _I, _I]
 SIGNATURES = {
     "wl_mult3d": [_P] * 5 + [_I, _I] + _S3,
     "wl_increment3d": [_P] * 5 + [_I, _I] + _S3,
-    "wl_mult3d_stream": [_P] * 5 + [_I, _I, _I] + _S3,
+    "wl_mult3d_stream": [_P] * 7 + [_I] * 3 + _S3,
     "wl_increment3d_stream": [_P] * 7 + [_I, _I, _I] + _S3,
     "wl_pcg_dir_mult": [_P] * 11 + [_F] + [_I] * 4 + _S3,
     "wl_pcg_update": [_P] * 11 + [_I, _I, _I] + _S3,
@@ -150,6 +150,8 @@ def library() -> ctypes.CDLL:
     lib.wl_stream_tile.restype = _I
     lib.wl_march_tile.argtypes = [_I]
     lib.wl_march_tile.restype = _I
+    lib.wl_stream_coresident.argtypes = [_I] * 3
+    lib.wl_stream_coresident.restype = _I
     lib.wl_axpy_coresident.argtypes = [_I, _I]
     lib.wl_axpy_coresident.restype = _I
     lib.wl_error_string.argtypes = [_I]

@@ -58,7 +58,7 @@ SOURCES = {
               "waterlily_tpu/ops/attic.py:456"),
     "pcg_axpy": ("waterlily_tpu_torch/csrc/reduce.cu",
                  "waterlily_tpu/ops/attic.py:493"),
-    "mult3d_stream": ("waterlily_tpu_torch/csrc/stream_stencil.cu",
+    "mult3d_stream": ("waterlily_tpu_torch/csrc/stream_march.cu",
                       "waterlily_tpu/ops/attic.py:353"),
     "increment3d_stream": ("waterlily_tpu_torch/csrc/stream_stencil.cu",
                            "waterlily_tpu/ops/attic.py:401"),
@@ -139,10 +139,12 @@ TOLERANCE = {
        for k in ("pcg_update", "pcg_axpy") for o in ("x", "r", "rho")},
     "dot3d.rid_iD16": ("rel", 1e-5),
     "pcg_blocked.x_L16": ("abs", 1e-5), "pcg_blocked.r_L16": ("abs", 1e-5),
-    # the carried-rows operator, with and without the dot, f32 and bf16 L
+    # the carried-rows operator, with and without the dot, f32 and bf16 L,
+    # f32 and bf16 x
     **{f"mult3d_stream.{o}{t}": ("rel", 1e-5) if o == "dot"
        else ("exact", None)
-       for o in ("z", "dot", "z_nodot") for t in ("", "_L16")},
+       for o in ("z", "dot", "z_nodot")
+       for t in ("", "_L16", "_bf16", "_L16_bf16")},
     **{f"increment3d_stream.{o}{t}": ("exact", None)
        for o in ("x", "r") for t in ("", "_L16")},
     "copy_probe": ("exact", None), "roll_probe": ("exact", None),
@@ -264,10 +266,10 @@ def variants(name, d) -> list:
         return ((mode + tag,), lambda: at.dot3d(a, b, mode),
                 lambda: at._dot3d_plain(a, b, mode))
 
-    def stream(tag, Lc, Dc, with_dot):
+    def stream(tag, Lc, Dc, with_dot, xs=x):
         outs = ("z" + tag, "dot" + tag) if with_dot else ("z_nodot" + tag,)
-        return (outs, lambda: at.mult3d_stream(Lc, Dc, x, with_dot),
-                lambda: sk._mult3d_plain(Lc, Dc, x, with_dot))
+        return (outs, lambda: at.mult3d_stream(Lc, Dc, xs, with_dot),
+                lambda: sk._mult3d_plain(Lc, Dc, xs, with_dot))
 
     def probe(fn, plain):
         return ((), lambda: fn(x), lambda: plain(x))
@@ -318,10 +320,14 @@ def variants(name, d) -> list:
                         (("x_L16", "r_L16"),
                          lambda: at.pcg_blocked(lev16, x0, r),
                          lambda: poisson.pcg(lev16, x0, r))],
-        # the timed (first) form is the PCG iteration's, with the dot
-        "mult3d_stream": [stream("", L, Dd, True), stream("", L, Dd, False),
-                          stream("_L16", L16, D16, True),
-                          stream("_L16", L16, D16, False)],
+        # the timed (first) form is the PCG iteration's, with the dot; then
+        # without it, with the shadows, and with a bf16 x (a bf16 direction)
+        "mult3d_stream": [stream(t, Lc, Dc, dot, xs)
+                          for t, Lc, Dc, xs in (("", L, Dd, x),
+                                                ("_L16", L16, D16, x),
+                                                ("_bf16", L, Dd, x16),
+                                                ("_L16_bf16", L16, D16, x16))
+                          for dot in (True, False)],
         "increment3d_stream": [
             (("x", "r"), lambda: at.increment3d_stream(L, Dd, eps, x, r),
              lambda: sk._increment3d_plain(L, Dd, eps, x, r)),
@@ -437,6 +443,10 @@ _WORK_FORMS = {
     ("mult3d_stream", "z_nodot"): (6, 13),
     ("mult3d_stream", "z_L16"): (4.5, 15),
     ("mult3d_stream", "z_nodot_L16"): (4.5, 13),
+    ("mult3d_stream", "z_bf16"): (5.5, 15),
+    ("mult3d_stream", "z_nodot_bf16"): (5.5, 13),
+    ("mult3d_stream", "z_L16_bf16"): (4, 15),
+    ("mult3d_stream", "z_nodot_L16_bf16"): (4, 13),
     ("increment3d_stream", "x_L16"): (7.5, 15),
 }
 
@@ -598,7 +608,8 @@ def time_library(name, S, device, n=20) -> float:
         fn()
     torch.cuda.synchronize()
     fn = _rotating(calls)
-    return (device_profile(fn, n)[0] + device_profile(fn, n)[0]) / 2
+    return (device_profile(fn, n, events=True)[0]
+            + device_profile(fn, n, events=True)[0]) / 2
 
 
 def time_pair(name, S, device, n=20, variant=0) -> dict:
@@ -610,7 +621,8 @@ def time_pair(name, S, device, n=20, variant=0) -> dict:
     launches) and wall time from CUDA events (the host's dispatch
     included).  Measured in turns plain, kernel, kernel, plain after a
     warm-up, first wall, then device; each is the mean of its two
-    runs."""
+    runs.  A device time the profiler could not record is a CUDA-event
+    time (`device_profile`'s ``events``)."""
     sets = [_variant(name, d, variant) for d in _input_sets(S, device)]
     for _, k, p in sets:
         k(), p()
@@ -621,9 +633,9 @@ def time_pair(name, S, device, n=20, variant=0) -> dict:
     kw1 = _timed(kern, n)
     kw2 = _timed(kern, n)
     pw2 = _timed(plain, n)
-    p1 = device_profile(plain, n)[0]
-    k1 = device_profile(kern, n)[0]
-    k2 = device_profile(kern, n)[0]
-    p2 = device_profile(plain, n)[0]
+    p1 = device_profile(plain, n, events=True)[0]
+    k1 = device_profile(kern, n, events=True)[0]
+    k2 = device_profile(kern, n, events=True)[0]
+    p2 = device_profile(plain, n, events=True)[0]
     return {"ms": (k1 + k2) / 2, "plain_ms": (p1 + p2) / 2,
             "wall_ms": (kw1 + kw2) / 2, "plain_wall_ms": (pw1 + pw2) / 2}

@@ -254,17 +254,25 @@ def pcg_axpy(x, r, eps, z, iD, upd):
 
 # --- the carried-rows operator: mult3d_stream, increment3d_stream ----------
 
-# the most and the fewest axis-0 rows a carried-rows block marches down,
-# and the blocks a grid should give the card (about 2.6 waves of the 132
-# SMs at 6 resident blocks each)
+# mult3d_stream's chunks: (fewest, most) interior planes a block marches,
+# as many chunks as a wave of the blocks the card holds at once needs
+# (`stencil_kernels.march_planes` with `_stream_coresident` blocks); on
+# the H100 at 130³ 1024 blocks of 8 planes take 0.023 ms against 0.029
+# for 512 of 16, and at 258³ one wave of 64-plane chunks costs L16 3%
+STREAM_PLANES = (4, 32)
+
+# increment3d_stream's rows: the fewest and the most axis-0 rows a block
+# marches down, and the blocks a grid should give the card (about 2.6
+# waves of the 132 SMs at 6 resident blocks each); they serve only the
+# increment's kernel (csrc/stream_stencil.cu)
 STREAM_ROWS = (4, 32)
 STREAM_BLOCKS = 2048
 
 
 @functools.cache
 def _stream_tile() -> tuple[int, int]:
-    """The (axis 1, axis 2) columns of one carried-rows block, as the
-    kernel library was built with them (csrc/stream_stencil.cu ST_TJ,
+    """The (axis 1, axis 2) columns of one increment3d_stream block, as
+    the kernel library was built with them (csrc/stream_stencil.cu ST_TJ,
     ST_TK)."""
     lib = library()
     return lib.wl_stream_tile(1), lib.wl_stream_tile(2)
@@ -285,32 +293,47 @@ def _stream_rows(S, tile) -> int:
     return -(-S[0] // chunks)
 
 
-def _stream_blocks(S, rows: int, tile) -> int:
-    return -(-S[0] // rows) * -(-S[1] // tile[0]) * -(-S[2] // tile[1])
+@functools.cache
+def _stream_coresident(device_index, L_bf16: int, x_bf16: int,
+                       dot: int) -> int:
+    """Blocks of `mult3d_stream`'s kernel (its L and x types, with the dot
+    or without) the card holds at once (occupancy times the SMs)."""
+    with torch.cuda.device(device_index):
+        return library().wl_stream_coresident(L_bf16, x_bf16, dot)
+
+
+def _stream_march(S, L, x, with_dot: bool):
+    """(planes, results and partials buffer or None) of `mult3d_stream`'s
+    march at ``S``: chunks of at most ``STREAM_PLANES[1]`` planes, as
+    many as one wave of resident blocks needs (at 258³ 8 chunks of 32
+    planes, 2048 blocks; 130³ 16 of 8, 1024; 66³ 16 of 4, 256)."""
+    return _march("mult3d_stream", S, x.device, int(with_dot),
+                  STREAM_PLANES, _stream_coresident(
+                      x.device.index, _bf16(L), _bf16(x), int(with_dot)))
 
 
 @_counted
 def mult3d_stream(L, Dd, x, with_dot: bool = False):
     """z = A·x (and with ``with_dot`` ⟨A·x, x⟩ as a 0-d tensor), the
-    function of `stencil_kernels.mult3d`, by the carried-rows kernel: each
-    thread marches its (axis 1, axis 2) column down a chunk of axis-0 rows
-    with x and L0 carried in registers, so every input row is read once.
-    ``L`` (a level's L16) and ``x`` may be bf16; every shape is taken.
-    Periodic ghosts of ``x`` must be filled by the caller."""
+    function of `stencil_kernels.mult3d`, by the carried-rows kernel, a
+    plane march: each thread marches its interior (axis 1, axis 2) column
+    down a chunk of interior planes with x and L0 carried in registers, so
+    every input row is read once; the dot is reduced in the same launch.
+    ``L`` (a level's L16) and ``x`` may be bf16; every axis needs an
+    interior.  Periodic ghosts of ``x`` must be filled by the caller."""
     S = tuple(x.shape)
     if _on_cpu("mult3d_stream", x):
         return _mult3d_plain(L, Dd, x, with_dot)
     _check("mult3d_stream", S, bf16=("L", "x"), L=(L, (3,) + S), D=(Dd, S),
            x=(x, S))
-    tile = _stream_tile()
-    rows = _stream_rows(S, tile)
+    planes, buf = _stream_march(S, L, x, with_dot)
     z = torch.empty(S, dtype=torch.float32, device=x.device)
-    part = (torch.empty(_stream_blocks(S, rows, tile), dtype=torch.float32,
-                        device=x.device) if with_dot else None)
-    launch("wl_mult3d_stream", L, Dd, x, z, part, _bf16(L), _bf16(x), rows,
-           *S)
+    launch("wl_mult3d_stream", L, Dd, x, z,
+           *((buf[1:], _counter(x.device), buf[:1]) if with_dot
+             else (None,) * 3),
+           _bf16(L), _bf16(x), planes, *S)
     _count(mult3d_stream, S, L=L, x=x)
-    return (z, torch.sum(part)) if with_dot else z
+    return (z, buf[0]) if with_dot else z
 
 
 @_counted

@@ -217,17 +217,19 @@ MARCH_PLANES = (4, 64)
 MARCH_BLOCKS = 512
 
 
-def march_planes(S, tile, planes=None) -> int:
+def march_planes(S, tile, planes=None, blocks=None) -> int:
     """Interior planes of each block's march at shape ``S`` with ``tile``
     (axis 1, axis 2) interior columns a block, balanced over the interior;
     ``planes`` the (fewest, most) planes of a chunk, `MARCH_PLANES` by
+    default, and ``blocks`` the grid's blocks to reach, `MARCH_BLOCKS` by
     default.  With (8, 32) tiles 258³ marches 4 chunks of 64 planes (1024
     blocks), 130³ 8 of 16 (512), 66³ 16 of 4 (256), (98,66,66) 24 of 4
     (384)."""
     lo, hi = planes or MARCH_PLANES
     n = S[0] - 2
     tiles = -(-(S[1] - 2) // tile[0]) * -(-(S[2] - 2) // tile[1])
-    chunks = max(-(-n // hi), min(-(-MARCH_BLOCKS // tiles), -(-n // lo)))
+    want = -(-(blocks or MARCH_BLOCKS) // tiles)
+    chunks = max(-(-n // hi), min(want, -(-n // lo)))
     return -(-n // chunks)
 
 
@@ -250,21 +252,22 @@ def _march_tile() -> tuple[int, int]:
 def _counter(device: torch.device) -> torch.Tensor:
     """The zeroed counter that elects the last block of a one-launch
     reduction (`cfl3d`, `ana_mult3d` and `ops.attic`'s `dot3d`,
-    `pcg_dir_mult`, `pcg_update`, `pcg_axpy`) on ``device``;
+    `pcg_dir_mult`, `pcg_update`, `pcg_axpy`, `mult3d_stream`) on
+    ``device``;
     each kernel leaves it zeroed, and the reductions run on one stream."""
     return torch.zeros(1, dtype=torch.int32, device=device)
 
 
-def _march(name: str, S, device, results: int, planes=None):
+def _march(name: str, S, device, results: int, planes=None, blocks=None):
     """(planes, results and partials buffer or None) of a march at ``S``
-    (chunks of `march_planes` with ``planes``) reducing ``results`` sums
-    or maxima: the buffer's first ``results`` elements are the results,
-    then the partials of each, one a block."""
+    (chunks of `march_planes` with ``planes`` and ``blocks``) reducing
+    ``results`` sums or maxima: the buffer's first ``results`` elements
+    are the results, then the partials of each, one a block."""
     if min(S) < 3 or 3 * math.prod(S) >= 2 ** 31:
         raise ValueError(f"{name}: the kernel takes axes of at least 3 "
                          f"cells and fewer than 2^31 values, got S={S}")
     tile = _march_tile()
-    planes = march_planes(S, tile, planes)
+    planes = march_planes(S, tile, planes, blocks)
     buf = (torch.empty(results * (1 + march_blocks(S, planes, tile)),
                        dtype=torch.float32, device=device) if results
            else None)

@@ -4,6 +4,8 @@ steps."""
 from __future__ import annotations
 
 import math
+import sys
+import time
 
 import torch
 
@@ -11,8 +13,16 @@ __all__ = ["mlups", "time_steps", "device_profile", "idle_share"]
 
 # Profiler sessions per measurement: a short session run right after
 # others now and then records no device activity on the H100, so an
-# empty session is run again before `device_profile` gives up.
+# empty session is run again, with twice the calls and after a pause,
+# before `device_profile` gives up.  On the H100 one process once had
+# five empty sessions in a row for one kernel after hundreds of good
+# ones; a caller that only needs a time asks for CUDA events then.
 PROFILE_ATTEMPTS = 5
+PROFILE_PAUSE_S = 0.05
+# op name of a time that CUDA events took in the profiler's place
+EVENTS_KEY = "(CUDA events: the profiler recorded no device activity)"
+# (calls, sessions) of every measurement that fell back to CUDA events
+EVENT_FALLBACKS = []
 # Profiled windows per `idle_share`: a window of many steps can lose a
 # share of its events (on the H100 a 256³ window once read 18.69 busy
 # ms/step where others read 33.8), so it reads low, never high, and the
@@ -52,22 +62,41 @@ def time_steps(sim, n_steps: int, warmup: int = 10, remeasure=False) -> dict:
             "dims": dims, "steps": n_steps}
 
 
-def device_profile(fn, n=1):
+def _events_ms(fn, n):
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    for _ in range(n):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / n
+
+
+def device_profile(fn, n=1, events=False):
     """Run ``fn`` ``n`` times under `torch.profiler` (CUDA activity only)
     and return ``(device ms per call, {op name: device ms per call})``
     summed over every kernel, copy and fill the calls put on the card.
     A session can lose a few events of short kernels (on the H100, 17 of
     20 launches of a 6 µs kernel recorded), so an op's time per call is
     its mean time per event times its events per call, ``ceil(events /
-    n)``: exact when ``fn`` launches the same kernels at every call and no
-    op loses ``n`` events or more.  A session that records no device
-    activity is run again, up to `PROFILE_ATTEMPTS` sessions in all; then
-    it raises."""
+    calls)``: exact when ``fn`` launches the same kernels at every call
+    and no op loses as many events as there were calls.  A session that
+    records no device activity is run again with twice the calls, up to
+    `PROFILE_ATTEMPTS` sessions in all.  Then it raises, or with
+    ``events`` returns the CUDA-event time of ``n`` back-to-back calls
+    (the host's dispatch included) under the one name `EVENTS_KEY` and
+    notes it in `EVENT_FALLBACKS`."""
     from torch.profiler import ProfilerActivity, profile
-    for _ in range(PROFILE_ATTEMPTS):
+    calls = n
+    for attempt in range(PROFILE_ATTEMPTS):
+        if attempt:
+            time.sleep(PROFILE_PAUSE_S)
+            calls *= 2
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            for _ in range(n):
+            for _ in range(calls):
                 fn()
             torch.cuda.synchronize()
         by_name = {}
@@ -76,11 +105,17 @@ def device_profile(fn, n=1):
             if us is None:
                 us = e.self_cuda_time_total
             if us > 0:
-                by_name[e.key] = us / 1e3 / e.count * -(-e.count // n)
+                by_name[e.key] = us / 1e3 / e.count * -(-e.count // calls)
         if by_name:
             return sum(by_name.values()), by_name
-    raise RuntimeError(f"torch.profiler recorded no device activity in "
-                       f"{PROFILE_ATTEMPTS} sessions")
+        print(f"device_profile: session {attempt + 1} of {calls} calls "
+              f"recorded no device activity", file=sys.stderr)
+    if not events:
+        raise RuntimeError(f"torch.profiler recorded no device activity in "
+                           f"{PROFILE_ATTEMPTS} sessions")
+    EVENT_FALLBACKS.append((n, PROFILE_ATTEMPTS))
+    ms = _events_ms(fn, n)
+    return ms, {EVENTS_KEY: ms}
 
 
 def idle_share(sim, n_steps: int, remeasure=False) -> dict:
@@ -93,7 +128,8 @@ def idle_share(sim, n_steps: int, remeasure=False) -> dict:
     iteration counts, so every window did the same work; the simulation
     ends ``n_steps`` ahead.  Returns per-step ``wall_ms``,
     ``busy_ms`` and ``by_name`` (device ms by op), and ``idle_share`` =
-    1 - busy / wall."""
+    1 - busy / wall; busy and idle share are NaN (not measured) when no
+    session recorded device activity."""
     if sim.device.type != "cuda":
         raise ValueError(f"idle_share measures CUDA simulations; this one is "
                          f"on {sim.device}")
@@ -114,13 +150,16 @@ def idle_share(sim, n_steps: int, remeasure=False) -> dict:
         del sim.pois_n[n_pois:], sim.dts[n_dts:]
         sim.steps(n_steps, remeasure=remeasure)
 
-    busy, by_name = 0.0, {}
+    busy, by_name = math.nan, {}
     for _ in range(IDLE_SESSIONS):
-        b, ops = device_profile(from_start)
+        try:
+            b, ops = device_profile(from_start)
+        except RuntimeError:
+            b, ops = math.nan, {}
         if sim.pois_n[n_pois:] != timed:
             raise RuntimeError(f"the profiled steps solved differently: "
                                f"pois_n {sim.pois_n[n_pois:]} vs {timed}")
-        if b > busy:
+        if b > busy or math.isnan(busy):
             busy, by_name = b, ops
     busy /= n_steps
     return {"wall_ms": wall, "busy_ms": busy, "idle_share": 1 - busy / wall,
