@@ -15,13 +15,13 @@ Phases, each of which raises (and so exits non-zero) on failure:
    walls and every periodic mask) also where its column tiles and axis-0
    chunks are cut raggedly and where axis 0 is shorter than one chunk,
    ``pcg_fused`` on one block and on a cooperative grid (both sides of
-   its threshold), ``cfl3d`` and every ``ana_mult3d``, ``pcg_dir_mult``
-   and ``mult3d_stream`` form where their column tiles and axis-0 chunks
-   are cut raggedly and where axis 0 has one or two interior planes,
-   ``roll_probe`` where its row bands and warps are cut raggedly; then
-   ``cfl3d``, ``ana_mult3d`` (with and without the dot), ``dot3d``,
-   ``pcg_update``, ``pcg_axpy``, every ``pcg_dir_mult`` form and
-   ``mult3d_stream`` with the dot (f32 operator and shadows) are each
+   its threshold), ``cfl3d`` and every ``ana_mult3d``, ``pcg_dir_mult``,
+   ``mult3d`` and ``mult3d_stream`` form where their column tiles and
+   axis-0 chunks are cut raggedly and where axis 0 has one or two interior
+   planes, ``roll_probe`` where its row bands and warps are cut raggedly;
+   then ``cfl3d``, ``ana_mult3d`` (with and without the dot), ``dot3d``,
+   ``pcg_update``, ``pcg_axpy``, every ``pcg_dir_mult`` form, ``mult3d``
+   and ``mult3d_stream`` with the dot (f32 operator and shadows) are each
    one launch a call (the profiler sees one kernel on the card);
 4. the dense slice: ``sphere_3d(96, 64)`` constructed and stepped 20 times
    on the card with every kernel launch-counted (every ``bc3d`` launch in
@@ -30,6 +30,10 @@ Phases, each of which raises (and so exits non-zero) on failure:
 4.1 a user-defined limiter: ``sphere_3d(96, 64, limiter=minmod)`` 3 steps
    on the card (every dense kernel launched, ``conv_diff3d`` only with the
    minmod limiter traced into it) against the CPU from one state, as in 4;
+4.2 a callable domain velocity: the (96,64,64) sphere with ``u_BC(i, t) =
+   t if i == 0 else 0.0`` (components that are numbers; ``U=1``)
+   constructed and stepped 3 times on the card (every dense kernel
+   launched) against the CPU from one state, as in 4;
 5. the banded slice, small: ``sphere_3d(48, 48, bbox="force",
    banded_levels=True)`` 3 steps on the card (``ana_mult3d`` launched) and
    on the CPU from one state, compared as in 4;
@@ -60,7 +64,7 @@ Phases, each of which raises (and so exits non-zero) on failure:
    (the total |Δpois_n| logged) and max|du| < 1e-2; every blocked level
    carries the configuration's direction type and shadows, the kernels
    launched in the configuration's forms (bf16 L exactly where shadowed)
-   and (g), (h) launched no halo-row ``mult3d``/``increment3d``; then
+   and (g), (h) launched neither ``mult3d`` nor ``increment3d``; then
    ``sphere_3d(96, 64)`` in (b), (c), (d), (f) and (g) against the CPU
    from one state, as in 4 ((f)'s CPU twin with the kernel gate patched,
    so its levels are blocked and keep their shadows);
@@ -81,7 +85,8 @@ Phases, each of which raises (and so exits non-zero) on failure:
    inputs, so that at 258³ no call finds its operands in L2), the
    periodic, outlet, 2D and bf16 forms at 258³, (34,34,34) and (98,66),
    ``pcg_fused``, ``cfl3d``, ``ana_mult3d`` (with and without the
-   dot), ``pcg_dir_mult`` (f32, bf16 directions, operator shadows) and
+   dot), ``pcg_dir_mult`` (f32, bf16 directions, operator shadows),
+   ``mult3d`` (with and without the dot, and with the shadows) and
    ``mult3d_stream`` (with the dot, f32 and shadows) at every shape a path
    launched them at, the
    operator-shadow, bf16-iD and carried-rows forms at 258³ and (98,66,66), ``torch.dot`` beside ``dot3d`` and
@@ -132,7 +137,7 @@ PCG_THRESHOLD = ((8, 16, 16), (9, 16, 16))
 # chunks of 9 interior planes over 65 (the last one of 2)
 MARCH_RAGGED = ((3, 37, 70), (4, 9, 40), (37, 29, 35), (70, 41, 67),
                 (67, 130, 130))
-MARCHES = ("cfl3d", "ana_mult3d", "pcg_dir_mult", "mult3d_stream")
+MARCHES = ("cfl3d", "ana_mult3d", "pcg_dir_mult", "mult3d", "mult3d_stream")
 # the roll probe's row bands and warps cut raggedly: a short last band,
 # warps across bands and planes, three-row and three-column planes
 ROLL_RAGGED = ((5, 9, 13), (4, 258, 37), (3, 37, 70), (7, 3, 33),
@@ -212,8 +217,8 @@ def one_launch(torch, dev):
     PyTorch reduce after it (profiler, 5 calls at the dense slice's
     shape): `cfl3d`, `ana_mult3d`, `dot3d`, every form of `pcg_dir_mult`
     (beta a device scalar, or the number 0 at the smooth's start),
-    `pcg_update`, `pcg_axpy` and `mult3d_stream` with the dot (f32
-    operator and shadows)."""
+    `pcg_update`, `pcg_axpy`, and `mult3d` and `mult3d_stream` with the
+    dot (f32 operator and shadows)."""
     from waterlily_tpu_torch.kernels.check import inputs, variants
     from waterlily_tpu_torch.ops import stencil_kernels as sk, attic as at
     from waterlily_tpu_torch.utils.perf import device_profile
@@ -229,6 +234,10 @@ def one_launch(torch, dev):
             ("dot3d aa", lambda: at.dot3d(r, r, "aa")),
             ("pcg_update", lambda: at.pcg_update(x, r, eps, z, iD, s)),
             ("pcg_axpy", lambda: at.pcg_axpy(x, r, eps, z, iD, s)),
+            ("mult3d, dot", lambda: sk.mult3d(d["lev"].L, d["lev"].D, x,
+                                              True)),
+            ("mult3d L16, dot", lambda: sk.mult3d(d["L16"], d["D16"], x,
+                                                  True)),
             ("mult3d_stream, dot", lambda: at.mult3d_stream(
                 d["lev"].L, d["lev"].D, x, True)),
             ("mult3d_stream L16, dot", lambda: at.mult3d_stream(
@@ -393,6 +402,31 @@ def run_user_limiter(torch, dev):
     if PATH_FORMS[label].get("conv_diff3d") != {"minmod"}:
         raise AssertionError(f"{label} launched conv_diff3d with "
                              f"{PATH_FORMS[label].get('conv_diff3d')}")
+    finite(torch, sim, label)
+    vs_cpu(torch, sim, init, init_levels)
+
+
+def run_callable_bc(torch, dev):
+    """A domain velocity that is a function of time whose components are
+    numbers (the reference's ``i == 1 ? t : zero(T)`` form): the sphere of
+    ``sphere_3d(96, 64)`` in a flow accelerating from rest, constructed and
+    stepped on the card (the BC values go to the kernels as 0-d tensors on
+    the card) and held against the CPU from one state."""
+    from waterlily_tpu_torch import Simulation, AutoBody
+    label = "the (96,64,64) sphere, u_BC(i, t) = t if i == 0 else 0.0"
+    radius, center = 64 / 8, 64 / 2 - 1
+
+    def drive():
+        body = AutoBody(lambda x, t: torch.sqrt(torch.sum(
+            (x - center) ** 2, dim=0)) - radius)
+        sim = Simulation((96, 64, 64), lambda i, t: t if i == 0 else 0.0,
+                         2 * radius, U=1, nu=2 * radius / 100, body=body,
+                         device=dev)
+        init, init_levels = sim.flow, sim.levels
+        sim.steps(3, remeasure=False)
+        return sim, init, init_levels
+
+    sim, init, init_levels = on_path(torch, label, DENSE, drive)
     finite(torch, sim, label)
     vs_cpu(torch, sim, init, init_levels)
 
@@ -637,8 +671,9 @@ def _check_levels(sim, bf16, op16, label):
 
 def _check_forms(label, flags, op16):
     """The operator kernels ran on the bf16 L exactly where the levels are
-    shadowed, and under ``STREAM`` no halo-row operator kernel ran (nor a
-    carried-rows one without it)."""
+    shadowed, and under ``STREAM`` neither `mult3d` nor `increment3d` ran
+    (nor a carried-rows wrapper without it: `mult3d` launches the same
+    kernel as `mult3d_stream`, but counts its own launches)."""
     forms = PATH_FORMS[label]
     for k in OPERATOR:
         if any(("L" in f) != op16 for f in forms.get(k, ())):
@@ -856,11 +891,14 @@ def timing(torch, dev, sim):
     # the plane-marching kernels at every shape a path launched them at
     # (ana_mult3d also without the dot: the bound counts the same bytes;
     # pcg_dir_mult also with bf16 directions and operator shadows;
-    # mult3d_stream with the dot, also with the shadows)
+    # mult3d also without the dot and with the shadows; mult3d_stream with
+    # the dot, also with the shadows)
     for name, forms in (("cfl3d", ((0, ""),)),
                         ("ana_mult3d", ((0, ""), (1, ", without the dot"))),
                         ("pcg_dir_mult", ((0, ""), ("eps_bf16", ", bf16"),
                                           ("eps_L16", ", L16"))),
+                        ("mult3d", ((0, ""), ("z_nodot", ", no dot"),
+                                    ("z_L16", ", L16"))),
                         ("mult3d_stream", ((0, ""), ("z_L16", ", L16")))):
         for S in sorted(PATH_SHAPES.get(name, ()), key=math.prod,
                         reverse=True):
@@ -1093,6 +1131,8 @@ def main() -> int:
     sim = run_slice(torch, dev)
     phase("4.1 a user-defined limiter traced into conv_diff3d")
     run_user_limiter(torch, dev)
+    phase("4.2 a callable u_BC on the blocked path")
+    run_callable_bc(torch, dev)
     phase("5. the banded slice, small")
     run_banded_small(torch, dev)
     phase("6. the banded paths at full size")

@@ -223,6 +223,34 @@ def test_mom_step_inplace_bc_leaves_state(form, monkeypatch):
     assert_exact(new.p, npy(ref.p))
 
 
+@pytest.mark.parametrize("component", ["number", "tensor"])
+def test_bc_tuple_on_the_device_of_t(component):
+    """A callable ``U``'s components are 0-d tensors on the device of the
+    time ``t`` (``meta`` standing in for the card), whether a component is
+    a number (the reference's ``zero(T)``) or a tensor on another device,
+    so that `bc3d` takes them (`stencil_kernels._vector_on` raised for a
+    CPU component on the card); ``accelerate`` adds dU/dt there too.  On
+    the CPU the values are JAX's; a constant ``U`` stays numbers."""
+    from waterlily_tpu_torch.ops.convect import accelerate
+    other = 0.5 if component == "number" else torch.tensor(0.5)
+    U = lambda i, t: t if i == 0 else other * (i - 1)
+    t = torch.full((), 0.25, device="meta")
+    got = tf.bc_tuple(U, t, 3, torch.float32)
+    assert got[0] is t
+    for v in got:
+        assert isinstance(v, torch.Tensor) and v.shape == ()
+        assert v.device == t.device and v.dtype == torch.float32
+    like = torch.empty((3, 5, 5, 5), device="meta")
+    assert sk._vector_on(got, like, "bc3d").shape == (3,)
+    assert accelerate(like, t, None, U, torch.float32).device == t.device
+    ref = jf.bc_tuple(lambda i, t: t if i == 0 else 0.5 * (i - 1), 0.25, 3,
+                      jnp.float64)
+    cpu = tf.bc_tuple(U, torch.tensor(0.25, dtype=torch.float64), 3,
+                      torch.float64)
+    assert [float(v) for v in cpu] == [float(v) for v in ref]
+    assert tf.bc_tuple((1, 0, 0), t, 3, torch.float32) == (1.0, 0.0, 0.0)
+
+
 def test_times_case_spec():
     """`kernels.times` takes a case's keyword flags as Python literals, so
     a configuration such as the banded-levels sphere can be timed against
@@ -232,3 +260,15 @@ def test_times_case_spec():
         "sphere_3d", (256, 256), {"banded_levels": True},
         "sphere_3d(256,256, banded_levels=True)")
     assert case_spec("case:tgv_2d:64") == ("tgv_2d", (64,), {}, "tgv_2d(64)")
+
+
+@pytest.mark.parametrize("flags", ["", ":op_bf16=True"])
+def test_times_twin_spec(flags):
+    """`kernels.times`' ``twin:`` spec steps a case and its CPU twin from
+    one state (here both on the CPU, so they agree exactly), the CPU
+    levels keeping their shadows under ``op_bf16``."""
+    from waterlily_tpu_torch.kernels.times import _twin
+    torch.set_num_threads(1)
+    row = _twin("twin:sphere_3d:24,16" + flags, torch.device("cpu"))
+    assert row["pois_n"] == row["cpu_pois_n"] and len(row["pois_n"]) == 3
+    assert row["dt_rel"] == 0.0

@@ -7,6 +7,7 @@ Marked ``cuda``: without a CUDA device every case skips.  On a GPU machine
 
 The kernels build from ``waterlily_tpu_torch/csrc`` at first use.
 """
+import dataclasses
 import itertools
 
 import pytest
@@ -343,10 +344,10 @@ def _dir_mult_forms(d):
 
 def test_march_kernels_launch_once(device):
     """cfl3d and ana_mult3d, with and without the dot, every form of
-    pcg_dir_mult, pcg_update and pcg_axpy, and mult3d_stream with the dot
-    (f32 operator and shadows) are one launch a call: the launch counter,
-    and the profiler sees one kernel on the card and no PyTorch reduce (or
-    scalar fill) beside it."""
+    pcg_dir_mult, pcg_update and pcg_axpy, and mult3d and mult3d_stream
+    with the dot (f32 operator and shadows) are one launch a call: the
+    launch counter, and the profiler sees one kernel on the card and no
+    PyTorch reduce (or scalar fill) beside it."""
     from waterlily_tpu_torch.kernels.check import inputs
     from waterlily_tpu_torch.ops import stencil_kernels as sk
     from waterlily_tpu_torch.ops import attic as at
@@ -362,7 +363,9 @@ def test_march_kernels_launch_once(device):
              (at.mult3d_stream,
               lambda: at.mult3d_stream(d["lev"].L, d["lev"].D, x, True)),
              (at.mult3d_stream,
-              lambda: at.mult3d_stream(d["L16"], d["D16"], x, True))]
+              lambda: at.mult3d_stream(d["L16"], d["D16"], x, True)),
+             (sk.mult3d, lambda: sk.mult3d(d["lev"].L, d["lev"].D, x, True)),
+             (sk.mult3d, lambda: sk.mult3d(d["L16"], d["D16"], x, True))]
     calls += [(at.pcg_dir_mult, call) for _, call in _dir_mult_forms(d)]
     for w, call in calls:
         n = w.launches
@@ -428,6 +431,72 @@ def test_mult3d_stream_dot_is_deterministic(S, device):
             (z1, d1), (z2, d2) = kern(), kern()
             assert d1.shape == () and torch.equal(d1, d2), outs
             assert torch.equal(z1, z2), outs
+
+
+@pytest.mark.parametrize("S", MARCH_RAGGED + BLOCKED_LEVELS)
+def test_mult3d_march_matches_plain(S, device):
+    """mult3d, the default path's operator, on the plane march in all
+    eight forms (f32 and bf16 L, f32 and bf16 x, with and without the dot)
+    where its column tiles and axis-0 chunks are cut raggedly, where axis 0
+    has one or two interior planes, and at the blocked levels: z exact,
+    the dot within 1e-5 relative."""
+    _check("mult3d", S, device)
+
+
+@pytest.mark.parametrize("S", [FINE, (3, 37, 70), (37, 29, 35),
+                               (130, 130, 130)])
+def test_mult3d_and_mult3d_stream_same_bits(S, device):
+    """mult3d and mult3d_stream launch one kernel with one chunk rule: in
+    every form the same z and dot bits (so also on a second call), each
+    launch counted on its own wrapper."""
+    from waterlily_tpu_torch.kernels.check import inputs, variants
+    from waterlily_tpu_torch.ops import stencil_kernels as sk
+    from waterlily_tpu_torch.ops import attic as at
+    d = inputs(S, 0, device)
+    forms = zip(variants("mult3d", d), variants("mult3d_stream", d))
+    for (outs, halo, _), (outs_s, stream, _) in forms:
+        assert outs == outs_s
+        n = sk.mult3d.launches, at.mult3d_stream.launches
+        one, two = halo(), stream()
+        assert (sk.mult3d.launches, at.mult3d_stream.launches) == (
+            n[0] + 1, n[1] + 1)
+        one, two = ((one, two) if isinstance(one, tuple)
+                    else ((one,), (two,)))
+        for a, b in zip(one, two):
+            assert torch.equal(a, b), outs
+
+
+def test_callable_u_bc_on_the_card_vs_cpu(device):
+    """A domain velocity that is a function of time with a component that
+    is a number: a sphere at a blocked size (66x50x50 cells, bc3d and the
+    other kernels launched) constructs and steps on the card, and its 3
+    steps match 3 on the CPU from the same state: pois_n and dt."""
+    from waterlily_tpu_torch import AutoBody, Simulation
+    from waterlily_tpu_torch.convert import flow_to, levels_to
+    from waterlily_tpu_torch.flow import mom_step
+    from waterlily_tpu_torch.ops import stencil_kernels as sk
+    radius, center = 6.0, 23.0
+    body = AutoBody(lambda x, t: torch.sqrt(torch.sum((x - center) ** 2,
+                                                      dim=0)) - radius)
+    n = sk.bc3d.launches
+    sim = Simulation((64, 48, 48), lambda i, t: t if i == 0 else 0.0,
+                     2 * radius, U=1, nu=2 * radius / 100, body=body,
+                     device=device)
+    assert sk.use_blocked(sim.cfg.S, torch.float32, device)
+    init, levels = sim.flow, sim.levels
+    sim.steps(3, remeasure=False)
+    assert sk.bc3d.launches > n
+    cpu = torch.device("cpu")
+    state, lv = flow_to(init, cpu), levels_to(levels, cpu)
+    cfg = dataclasses.replace(sim.cfg, device=cpu)
+    pois, dts = [], []
+    for _ in range(3):
+        state, aux = mom_step(cfg, lv, state)
+        pois.append(aux["pois_n"])
+        dts.append(float(aux["dt"]))
+    assert sim.pois_n == pois
+    assert all(abs(a - b) <= 1e-5 * abs(b) for a, b in zip(sim.dts[1:], dts))
+    assert bool(torch.isfinite(sim.flow.u).all())
 
 
 # the roll probe's row bands and warps cut raggedly: a short last band,

@@ -12,7 +12,9 @@ block of that grid.  The roll probe: every thread one column of a band of
 rows, its k±1 taps from the neighbouring lanes where they hold this row's
 next columns; every output cell must be written once, and every tap must
 read the cell `torch.roll` reads.  The wrappers' CPU forms return the
-plain forms' sums as 0-d tensors.
+plain forms' sums as 0-d tensors.  `stencil_kernels.mult3d` launches the
+operator march too: its launches, recorded instead of run, must be
+`mult3d_stream`'s.
 """
 import numpy as np
 import pytest
@@ -89,6 +91,42 @@ def test_stream_march_refuses_shapes_without_interior(card):
     for S in ((2, 9, 40), (7, 2, 40), (7, 9, 2)):
         with pytest.raises(ValueError, match="at least 3"):
             ta._stream_march(S, torch.zeros((3,) + S), torch.zeros(S), True)
+
+
+@pytest.mark.parametrize("S", [(258, 258, 258), (130, 130, 130),
+                               (98, 66, 66), (3, 37, 70)])
+def test_mult3d_launches_the_operator_march(S, card, monkeypatch):
+    """`stencil_kernels.mult3d` on the card launches the entry point of
+    `mult3d_stream` with the same chunks, buffers and type flags, in all
+    eight forms, and counts each launch on itself alone (CPU tensors stand
+    in for the card's, and the launches are recorded, not run)."""
+    launched = []
+    monkeypatch.setattr(sk, "_on_cpu", lambda name, t: False)
+    monkeypatch.setattr(ta, "_on_cpu", lambda name, t: False)
+    monkeypatch.setattr(ta, "launch", lambda *a: launched.append(a))
+    arg = lambda a: ((tuple(a.shape), a.dtype) if isinstance(a, torch.Tensor)
+                     else a)
+    Dd = torch.empty(S)
+    for lt, xt in ((torch.float32, torch.float32),
+                   (torch.bfloat16, torch.float32),
+                   (torch.float32, torch.bfloat16),
+                   (torch.bfloat16, torch.bfloat16)):
+        L, x = torch.empty((3,) + S, dtype=lt), torch.empty(S, dtype=xt)
+        for dot in (True, False):
+            n = sk.mult3d.launches, ta.mult3d_stream.launches
+            out = sk.mult3d(L, Dd, x, dot)
+            assert (sk.mult3d.launches, ta.mult3d_stream.launches) == (
+                n[0] + 1, n[1])
+            ta.mult3d_stream(L, Dd, x, dot)
+            assert ta.mult3d_stream.launches == n[1] + 1
+            one, two = launched[-2:]
+            assert one[0] == "wl_mult3d_stream"
+            assert list(map(arg, one)) == list(map(arg, two))
+            assert one[-6:] == (lt == torch.bfloat16, xt == torch.bfloat16,
+                                _chunk_planes(S), *S)
+            if dot:
+                assert out[1].shape == ()
+    assert sk.mult3d.shapes[S] >= 8
 
 
 def _roll_grid(S):

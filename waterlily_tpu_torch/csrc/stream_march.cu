@@ -1,15 +1,20 @@
-// Carried-rows Poisson operator: z = A x, and <A x, x> over the interior on
-// request, as a plane march (march.cuh) in one launch.
+// Poisson operator: z = A x, and <A x, x> over the interior on request, as
+// a plane march (march.cuh) in one launch.
 //
-// Replaces waterlily_tpu/ops/attic.py `mult3d_stream` (`_stream_mult_kernel`).
-// It computes what `mult3d` (poisson_stencil.cu) computes, in the same
-// association, with L in f32 or bf16 (a level's shadow L16, D the f32 D16)
-// and x in f32 or bf16, upcast in registers; z and the dot are f32.
+// Replaces two TPU kernels of one function:
+// waterlily_tpu/ops/pallas_stencil.py `mult3d_pallas` (`_mult_kernel`), the
+// blocked levels' operator on the default path, launched by `mult3d`, and
+// waterlily_tpu/ops/attic.py `mult3d_stream` (`_stream_mult_kernel`), the
+// carried-rows form behind the STREAM seam, launched by `mult3d_stream`.
+// Both wrappers launch this entry point with one chunk rule
+// (`ops.attic._stream_march`) and keep their own launch counts.  L is f32
+// or bf16 (a level's shadow L16, D the f32 D16) and x f32 or bf16, upcast
+// in registers; z and the dot are f32.
 //
-// The TPU kernel walks axis-0 slabs in order and carries x rows and a row
-// of L0 in VMEM, so that every input row comes from HBM once.  Blocks here
-// run in parallel with no carry between them; the H100 form of "each row
-// read once" is the column march of march.cuh.
+// The carried-rows TPU kernel walks axis-0 slabs in order and carries x
+// rows and a row of L0 in VMEM, so that every input row comes from HBM
+// once.  Blocks here run in parallel with no carry between them; the H100
+// form of "each row read once" is the column march of march.cuh.
 //
 // Bound on the H100: memory.  z = A x moves L (3 fields), D, x and z: 6
 // fields a cell (4.5 with bf16 L), against ~15 flops.  The first kernel
@@ -17,7 +22,9 @@
 // so the ninth tile of a 258 row ran 2 of its 32 lanes, x, L1 and L2 staged
 // in shared plane tiles with a one-cell halo, two barriers a row, and one
 // dot partial a block summed by a second launch, torch.sum) took 0.1976 ms
-// at 258^3 (0.62 of its 0.1230 ms bound), 0.1886 with L16 (0.49).
+// at 258^3 (0.62 of its 0.1230 ms bound), 0.1886 with L16 (0.49); the
+// default path's one-thread-a-cell kernel (poisson_stencil.cu before it
+// took this one) 0.1894 and 0.1854 (0.50).
 // Design: an (8, 32) tile of interior columns a block, one thread a
 // column, marching a chunk of interior planes with x[i-1], x[i], x[i+1],
 // L0[i] and L0[i+1] in registers: each loaded once.  In-plane taps: j+-1
@@ -30,13 +37,18 @@
 // last chunks: each cell of z once.  The dot accumulates in registers down
 // the march, then over the block by warp shuffles; the last block sums the
 // partials in index order: one launch, the same bits on every call.  The
-// caller cuts the planes into chunks of at most 32, as many as a wave of
-// the blocks the card holds at once needs (`wl_stream_coresident`).
+// caller cuts the planes into chunks of 2 to 32, as many as a wave of the
+// blocks the card holds at once needs (`wl_stream_coresident`).
 // On the H100 at 258^3 that takes 0.155 ms with f32 L (0.79 of the bound)
 // and 0.133 with L16 (0.69), 32 registers; k+-1 and L2[k+1] loaded from
 // L1 took 0.161 and 0.139, though 0.0005 ms less at 66^3; chunks of 64
 // planes (1024 blocks, one wave) cost L16 3%, and at 130^3 512 blocks of
-// 16 planes took 0.029 ms against 0.023 for 1024 of 8.
+// 16 planes took 0.029 ms against 0.023 for 1024 of 8; at 66^3 chunks of 2
+// planes beat chunks of 4 by 10%.  Without the dot the march streams at
+// 0.81 of the bound at 258^3, where the flat one-thread-a-cell kernel it
+// replaced reached 0.86; unrolling the march by 4 or 1 (not 2), and
+// evict-first loads of L0, L2, D with evict-first stores of z, were
+// slower.
 // Exactness: the association of `ax_cell_at` (common.cuh); built with
 // --fmad=false z equals the plain version bit for bit.
 #include "march.cuh"

@@ -63,9 +63,13 @@ class FlowConfig:
 
 def bc_tuple(U, t, D, dtype):
     """The BC velocity at time ``t`` (reference `BCTuple`): Python numbers
-    for a constant ``U``, 0-d tensors for a callable."""
+    for a constant ``U``; for a callable, 0-d tensors on the device of
+    ``t`` (a tensor time), whether a component is a number or a tensor, so
+    that the kernels take them with no host synchronisation."""
     if callable(U):
-        return tuple(torch.as_tensor(U(i, t), dtype=dtype) for i in range(D))
+        dev = t.device if isinstance(t, torch.Tensor) else None
+        return tuple(torch.as_tensor(U(i, t), dtype=dtype, device=dev)
+                     for i in range(D))
     return tuple(float(Ui) for Ui in U)
 
 

@@ -48,7 +48,6 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _S3 = [_I, _I, _I]
 # C signatures (argument types before the trailing stream pointer)
 SIGNATURES = {
-    "wl_mult3d": [_P] * 5 + [_I, _I] + _S3,
     "wl_increment3d": [_P] * 5 + [_I, _I] + _S3,
     "wl_mult3d_stream": [_P] * 7 + [_I] * 3 + _S3,
     "wl_increment3d_stream": [_P] * 7 + [_I, _I, _I] + _S3,

@@ -32,7 +32,7 @@ __all__ = ["KERNELS", "COMPOSITES", "TOLERANCE", "SOURCES", "LIBRARY",
 
 # csrc file and the TPU kernel (file:line of its function) of each wrapper
 SOURCES = {
-    "mult3d": ("waterlily_tpu_torch/csrc/poisson_stencil.cu",
+    "mult3d": ("waterlily_tpu_torch/csrc/stream_march.cu",
                "waterlily_tpu/ops/pallas_stencil.py:161"),
     "increment3d": ("waterlily_tpu_torch/csrc/poisson_stencil.cu",
                     "waterlily_tpu/ops/pallas_stencil.py:198"),
@@ -98,7 +98,6 @@ def _tag(perdir=(), save_exit=False) -> str:
 # inexact outputs; every elementwise output is exact (--fmad=false), bf16
 # forms included.
 TOLERANCE = {
-    "mult3d.z": ("exact", None), "mult3d.dot": ("rel", 1e-5),
     "increment3d.x": ("exact", None), "increment3d.r": ("exact", None),
     "cfl3d": ("exact", None), "bc3d": ("exact", None),
     "div3d.z": ("exact", None), "div3d.x": ("exact", None),
@@ -115,7 +114,6 @@ TOLERANCE = {
        for lim in ("quick", "vanleer", "minmod") for p in CONV_PERDIRS},
     **{f"pcg_fused.{o}_{_tag(p)}": ("abs", 1e-5)
        for ps in PCG_PERDIRS.values() for p in ps for o in "xr"},
-    "mult3d.z_bf16": ("exact", None), "mult3d.dot_bf16": ("rel", 1e-5),
     "increment3d.x_bf16": ("exact", None),
     "increment3d.r_bf16": ("exact", None),
     **{f"pcg_dir_mult.{o}{t}": (("rel", 1e-5) if o in ("den", "rho")
@@ -129,7 +127,6 @@ TOLERANCE = {
     "dot3d.rid": ("rel", 1e-5),
     "pcg_blocked.x": ("abs", 1e-5), "pcg_blocked.r": ("abs", 1e-5),
     # the operator-shadow forms (bf16 L with the f32 D16, bf16 iD)
-    "mult3d.z_L16": ("exact", None), "mult3d.dot_L16": ("rel", 1e-5),
     "increment3d.x_L16": ("exact", None),
     "increment3d.r_L16": ("exact", None),
     **{f"pcg_dir_mult.{o}{t}": (("rel", 1e-5) if o in ("den", "rho")
@@ -139,10 +136,10 @@ TOLERANCE = {
        for k in ("pcg_update", "pcg_axpy") for o in ("x", "r", "rho")},
     "dot3d.rid_iD16": ("rel", 1e-5),
     "pcg_blocked.x_L16": ("abs", 1e-5), "pcg_blocked.r_L16": ("abs", 1e-5),
-    # the carried-rows operator, with and without the dot, f32 and bf16 L,
-    # f32 and bf16 x
-    **{f"mult3d_stream.{o}{t}": ("rel", 1e-5) if o == "dot"
-       else ("exact", None)
+    # the operator (`mult3d` and `mult3d_stream` launch the same march),
+    # with and without the dot, f32 and bf16 L, f32 and bf16 x
+    **{f"{k}.{o}{t}": ("rel", 1e-5) if o == "dot" else ("exact", None)
+       for k in ("mult3d", "mult3d_stream")
        for o in ("z", "dot", "z_nodot")
        for t in ("", "_L16", "_bf16", "_L16_bf16")},
     **{f"increment3d_stream.{o}{t}": ("exact", None)
@@ -266,10 +263,19 @@ def variants(name, d) -> list:
         return ((mode + tag,), lambda: at.dot3d(a, b, mode),
                 lambda: at._dot3d_plain(a, b, mode))
 
-    def stream(tag, Lc, Dc, with_dot, xs=x):
-        outs = ("z" + tag, "dot" + tag) if with_dot else ("z_nodot" + tag,)
-        return (outs, lambda: at.mult3d_stream(Lc, Dc, xs, with_dot),
-                lambda: sk._mult3d_plain(Lc, Dc, xs, with_dot))
+    def operator(fn):
+        # all eight forms of an operator wrapper: f32 and bf16 L (with the
+        # D16 of its shadows), f32 and bf16 x, with and without the dot
+        def form(tag, Lc, Dc, xs, with_dot):
+            outs = (("z" + tag, "dot" + tag) if with_dot
+                    else ("z_nodot" + tag,))
+            return (outs, lambda: fn(Lc, Dc, xs, with_dot),
+                    lambda: sk._mult3d_plain(Lc, Dc, xs, with_dot))
+        return [form(t, Lc, Dc, xs, dot)
+                for t, Lc, Dc, xs in (("", L, Dd, x), ("_L16", L16, D16, x),
+                                      ("_bf16", L, Dd, x16),
+                                      ("_L16_bf16", L16, D16, x16))
+                for dot in (True, False)]
 
     def probe(fn, plain):
         return ((), lambda: fn(x), lambda: plain(x))
@@ -280,14 +286,10 @@ def variants(name, d) -> list:
                                 D16=D16, iD16=iD16)
 
     return {
-        "mult3d": [(("z", "dot"), lambda: sk.mult3d(L, Dd, x, with_dot=True),
-                    lambda: sk._mult3d_plain(L, Dd, x, with_dot=True)),
-                   (("z_bf16", "dot_bf16"),
-                    lambda: sk.mult3d(L, Dd, x16, with_dot=True),
-                    lambda: sk._mult3d_plain(L, Dd, x16, with_dot=True)),
-                   (("z_L16", "dot_L16"),
-                    lambda: sk.mult3d(L16, D16, x, with_dot=True),
-                    lambda: sk._mult3d_plain(L16, D16, x, with_dot=True))],
+        # the timed (first) form is the PCG denominator's, with the dot;
+        # then without it, with the shadows, and with a bf16 x (a bf16
+        # direction)
+        "mult3d": operator(sk.mult3d),
         "increment3d": [(("x", "r"),
                          lambda: sk.increment3d(L, Dd, eps, x, r),
                          lambda: sk._increment3d_plain(L, Dd, eps, x, r)),
@@ -320,14 +322,8 @@ def variants(name, d) -> list:
                         (("x_L16", "r_L16"),
                          lambda: at.pcg_blocked(lev16, x0, r),
                          lambda: poisson.pcg(lev16, x0, r))],
-        # the timed (first) form is the PCG iteration's, with the dot; then
-        # without it, with the shadows, and with a bf16 x (a bf16 direction)
-        "mult3d_stream": [stream(t, Lc, Dc, dot, xs)
-                          for t, Lc, Dc, xs in (("", L, Dd, x),
-                                                ("_L16", L16, D16, x),
-                                                ("_bf16", L, Dd, x16),
-                                                ("_L16_bf16", L16, D16, x16))
-                          for dot in (True, False)],
+        # as mult3d's: the same kernel behind the STREAM seam
+        "mult3d_stream": operator(at.mult3d_stream),
         "increment3d_stream": [
             (("x", "r"), lambda: at.increment3d_stream(L, Dd, eps, x, r),
              lambda: sk._increment3d_plain(L, Dd, eps, x, r)),
@@ -415,7 +411,7 @@ _WORK = {
     "pcg_update": (7, 8),       # x, r, eps, z, iD in; x, r out
     "dot3d": (1, 2),            # aa: a in
     "pcg_axpy": (7, 8),         # x, r, eps, z, iD in; x, r out
-    "mult3d_stream": (6, 15),   # L(3), D, x in; z out (with the dot)
+    "mult3d_stream": (6, 15),   # as mult3d
     "increment3d_stream": (9, 15),  # L(3), D, eps, x, r in; x, r out
     "copy_probe": (2, 1),       # x in, o out
     "roll_probe": (2, 6),       # x in, o out
@@ -433,20 +429,17 @@ _WORK_2D = {"pcg_fused": (8, 126)}
 _WORK_FORMS = {
     **{("bc3d", _tag(p, e)): (lambda S, p=p, e=e: _bc_work(S, p, e))
        for p in BC_PERDIRS for e in (False, True) if p or e},
-    ("mult3d", "z_bf16"): (5.5, 15), ("increment3d", "x_bf16"): (8.5, 15),
+    ("increment3d", "x_bf16"): (8.5, 15),
     ("pcg_dir_mult", "eps_bf16"): (8, 21), ("pcg_update", "x_bf16"): (6.5, 8),
     ("pcg_axpy", "x_bf16"): (6.5, 8), ("dot3d", "ab"): (2, 2),
     ("dot3d", "rid"): (2, 3),
-    ("mult3d", "z_L16"): (4.5, 15), ("increment3d", "x_L16"): (7.5, 15),
+    ("increment3d", "x_L16"): (7.5, 15),
     ("pcg_dir_mult", "eps_L16"): (7, 21), ("pcg_update", "x_iD16"): (6.5, 8),
     ("pcg_axpy", "x_iD16"): (6.5, 8), ("dot3d", "rid_iD16"): (1.5, 3),
-    ("mult3d_stream", "z_nodot"): (6, 13),
-    ("mult3d_stream", "z_L16"): (4.5, 15),
-    ("mult3d_stream", "z_nodot_L16"): (4.5, 13),
-    ("mult3d_stream", "z_bf16"): (5.5, 15),
-    ("mult3d_stream", "z_nodot_bf16"): (5.5, 13),
-    ("mult3d_stream", "z_L16_bf16"): (4, 15),
-    ("mult3d_stream", "z_nodot_L16_bf16"): (4, 13),
+    **{(k, f"z{o}{t}"): (b, 13 if o else 15)
+       for k in ("mult3d", "mult3d_stream") for o in ("", "_nodot")
+       for t, b in (("", 6), ("_L16", 4.5), ("_bf16", 5.5),
+                    ("_L16_bf16", 4)) if o or t},
     ("increment3d_stream", "x_L16"): (7.5, 15),
 }
 

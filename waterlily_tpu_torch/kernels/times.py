@@ -5,7 +5,8 @@ each.
         conv_diff3d:258,258,258:quick_p012 dot3d:130,130,130:ab \\
         bc3d:258,258,258:exit pcg_fused:50,34,34 barrier:113 \\
         case:sphere_3d:256,256 case:sphere_3d:256,256:banded_levels=True \\
-        case:tgv_2d:64
+        case:tgv_2d:64 \\
+        call:ops.stencil_kernels.mult3d:258,258,258:L16,D16,x@bfloat16,False
 
 A kernel argument is ``kernel:shape[:variant]`` (the variant by index or
 by its first output's name, as `kernels.check.variants` lists them); its
@@ -17,13 +18,25 @@ the checkout does not have gives a line with ``"missing": true``.  A
 ``barrier:blocks`` argument times a trivial cooperative kernel of that
 many blocks (``csrc/pcg.cu`` `grid_sync_probe`, on no path): its launch
 alone and the cost of one grid barrier, the unit of `pcg_fused`'s sync
-floor.  A case argument is ``case:name:args[:key=value...]``, a model of
-the package's top level with integer arguments and keyword flags (Python
-literals, ``banded_levels=True``): its line holds ms/step
+floor.  A ``call:module.function:shape:args`` argument times one
+function of the port on `kernels.check.inputs`' seeded fields at that
+shape, each call on the next of three copies, device and wall ms per
+call: a form that one checkout's `check.variants` lacks is timed the
+same way in both (``args``: Python literals, or input names, a key of
+`check.inputs` or ``lev.L``, ``lev.D``, ``lev.iD``, with ``@dtype`` for a
+copy in that dtype).  A case argument is
+``case:name:args[:key=value...]``, a model of the package's top level
+with integer arguments and keyword flags (Python literals,
+``banded_levels=True``): its line holds ms/step
 (`utils.perf.time_steps`; 10 steps after 2 in 3D, 50 after 10 in 2D), the
 device busy ms/step and idle share of further steps
-(`utils.perf.idle_share`; 5 in 3D, 20 in 2D) and the ops that take most
-of the busy time.
+(`utils.perf.idle_share`; 5 in 3D, 20 in 2D), the ops that take most
+of the busy time and the pressure iterations of every step.  A
+``twin:name:args[:key=value...]`` argument steps the case 3 times on the
+card and 3 times on the CPU (plain versions) from the card's initial
+state and levels: both runs' pressure iterations and the largest
+relative difference of their time steps (with ``op_bf16=True`` the CPU
+levels stay blocked and keep their shadows).
 ``--set module.NAME=value`` sets a module constant of the port first
 (``--set ops.attic.DOT_ROWS_MIN=8``).  The first line is the card's name
 and power limit.
@@ -36,6 +49,7 @@ compared in one run on one card.
 from __future__ import annotations
 
 import ast
+import functools
 import importlib
 import json
 import os
@@ -115,6 +129,45 @@ def _barrier(spec: str, dev, n=200, reps=20) -> dict:
             "syncs": n}
 
 
+def _call(spec: str, dev, n=20) -> dict:
+    """Device ms per call (profiler, the mean of two sessions) and wall ms
+    (CUDA events) of ``call:module.function:shape:args``, rotating over
+    `check.ROTATE` input sets."""
+    import torch
+    from waterlily_tpu_torch.kernels import check
+    from waterlily_tpu_torch.utils.perf import device_profile
+    _, target, shape, args = spec.split(":")
+    module, name = target.rsplit(".", 1)
+    fn = getattr(importlib.import_module(f"waterlily_tpu_torch.{module}"),
+                 name)
+    S = tuple(int(v) for v in shape.split(","))
+
+    def value(d, arg):
+        key, _, dtype = arg.partition("@")
+        if key.startswith("lev."):
+            v = getattr(d["lev"], key[4:])
+        elif key in d:
+            v = d[key]
+        else:
+            return ast.literal_eval(arg)
+        return v.to(getattr(torch, dtype)) if dtype else v
+
+    calls = [functools.partial(fn, *(value(d, a) for a in args.split(",")))
+             for d in check._input_sets(S, dev)]
+    for c in calls:
+        c()
+    torch.cuda.synchronize()
+    f = check._rotating(calls)
+    wall = (check._timed(f, n) + check._timed(f, n)) / 2
+    ms = (device_profile(f, n, events=True)[0]
+          + device_profile(f, n, events=True)[0]) / 2
+    # the drawn inputs stay (`check.clear_inputs`) for the next call at S
+    del calls, f
+    torch.cuda.empty_cache()
+    return {"call": target, "shape": S, "args": args, "ms": ms,
+            "wall_ms": wall}
+
+
 def case_spec(spec: str) -> tuple[str, tuple, dict, str]:
     """``case:name:args[:key=value...]`` as (model name, integer arguments,
     keyword flags, label)."""
@@ -135,11 +188,51 @@ def _case(spec: str, dev) -> dict:
     r = idle_share(sim, 5 if three else 20)
     row = {"case": label, "ms_per_step": t["sec_per_step"] * 1e3,
            "busy_ms": r["busy_ms"], "wall_ms": r["wall_ms"],
-           "idle_share": r["idle_share"], "pois_n": sim.pois_n[-1],
+           "idle_share": r["idle_share"], "pois_n": sim.pois_n,
            "by_op_ms": dict(sorted(r["by_name"].items(),
                                    key=lambda kv: -kv[1])[:15]),
            "finite": bool(torch.isfinite(sim.flow.u).all())}
     del sim
+    torch.cuda.empty_cache()
+    return row
+
+
+def _twin(spec: str, dev, n=3) -> dict:
+    """``n`` steps of a case on the card and ``n`` on the CPU from the
+    card's initial state and levels: pois_n of both, dt's largest
+    relative difference and the CPU's seconds."""
+    import dataclasses
+    import time
+    import torch
+    import waterlily_tpu_torch as wt
+    from waterlily_tpu_torch.convert import flow_to, levels_to
+    from waterlily_tpu_torch.flow import mom_step
+    from waterlily_tpu_torch.ops import stencil_kernels as sk
+    name, args, kw, label = case_spec(spec)
+    sim = getattr(wt, name)(*args, device=dev, **kw)
+    init, levels = sim.flow, sim.levels
+    sim.steps(n, remeasure=False)
+    cpu = torch.device("cpu")
+    gate = sk.use_blocked
+    if kw.get("op_bf16"):
+        # a CPU copy of a shadowed level stays blocked, with its shadows
+        sk.use_blocked = lambda S, dtype, device: gate(S, dtype, "cuda")
+    t0 = time.perf_counter()
+    try:
+        state, lv = flow_to(init, cpu), levels_to(levels, cpu)
+        cfg = dataclasses.replace(sim.cfg, device=cpu)
+        pois, dts = [], []
+        for _ in range(n):
+            state, aux = mom_step(cfg, lv, state)
+            pois.append(aux["pois_n"])
+            dts.append(float(aux["dt"]))
+    finally:
+        sk.use_blocked = gate
+    row = {"twin": label, "pois_n": sim.pois_n, "cpu_pois_n": pois,
+           "dt_rel": max(abs(a - b) / abs(b)
+                         for a, b in zip(sim.dts[1:], dts)),
+           "cpu_s": time.perf_counter() - t0}
+    del sim, init, levels
     torch.cuda.empty_cache()
     return row
 
@@ -159,8 +252,8 @@ def run(argv) -> int:
     dev = torch.device("cuda", 0)
     for spec in specs:
         kind = spec.split(":")[0]
-        row = (_case if kind == "case" else
-               _barrier if kind == "barrier" else _kernel)(spec, dev)
+        row = {"case": _case, "barrier": _barrier, "call": _call,
+               "twin": _twin}.get(kind, _kernel)(spec, dev)
         print(json.dumps(row), flush=True)
     return 0
 

@@ -12,14 +12,17 @@ levels' PCG iteration and operator, reached through four module flags of
 ``KAXPY`` (`pcg_axpy` for the axpy pair and next rho), ``PCG_BLOCKED``
 (`pcg_blocked` as the smoother of blocked, non-periodic, non-banded
 levels) and ``STREAM`` (`mult3d_stream` and `increment3d_stream` for the
-blocked levels' A·x and r − A·eps).
+blocked levels' A·x and r − A·eps).  `mult3d_stream`'s kernel is also
+the default path's: `stencil_kernels.mult3d` launches it through the same
+helper (`_mult3d_march`), so ``STREAM`` now differs from the default only
+in `increment3d_stream`.
 
 As in `ops.stencil_kernels`, each wrapper launches its hand-written CUDA
-kernel (``csrc/pcg_iter.cu``, ``csrc/reduce.cu``, ``csrc/stream_stencil.cu``)
-on CUDA tensors, runs its plain PyTorch version on CPU tensors and raises on
-any other device or on a CUDA tensor its kernel does not take; it counts its
-launches in ``.launches``, by shape in ``.shapes`` and its bf16 forms in
-``.forms``.  Scalars (``beta``, ``upd``) may be 0-d device tensors, so a
+kernel (``csrc/pcg_iter.cu``, ``csrc/reduce.cu``, ``csrc/stream_march.cu``,
+``csrc/stream_stencil.cu``) on CUDA tensors, runs its plain PyTorch
+version on CPU tensors and raises on any other device or on a CUDA tensor
+its kernel does not take; it counts its launches in ``.launches``, by
+shape in ``.shapes`` and its bf16 forms in ``.forms``.  Scalars (``beta``, ``upd``) may be 0-d device tensors, so a
 smooth never synchronises with the host.  Every sum is over the interior
 (ghost cells masked), taken in per-block partials that the kernel's last
 block reduces in index order: each call is one launch, and its sums the
@@ -254,12 +257,16 @@ def pcg_axpy(x, r, eps, z, iD, upd):
 
 # --- the carried-rows operator: mult3d_stream, increment3d_stream ----------
 
-# mult3d_stream's chunks: (fewest, most) interior planes a block marches,
-# as many chunks as a wave of the blocks the card holds at once needs
-# (`stencil_kernels.march_planes` with `_stream_coresident` blocks); on
-# the H100 at 130³ 1024 blocks of 8 planes take 0.023 ms against 0.029
-# for 512 of 16, and at 258³ one wave of 64-plane chunks costs L16 3%
-STREAM_PLANES = (4, 32)
+# The operator march's chunks (`mult3d_stream`'s and `mult3d`'s): (fewest,
+# most) interior planes a block marches, as many chunks as a wave of the
+# blocks the card holds at once needs (`stencil_kernels.march_planes` with
+# `_stream_coresident` blocks).  On the H100 at 130³ 1024 blocks of 8
+# planes take 0.023 ms against 0.029 for 512 of 16, at 258³ one wave of
+# 64-plane chunks costs L16 3%; at 66³ and (98,66,66) chunks of 2 planes
+# take 0.0048 and 0.0058 ms with the dot (0.0033, 0.0041 without) against
+# 0.0053 and 0.0061 (0.0037, 0.0048) for chunks of 4, and chunks of 1
+# lose with the dot (0.0058 at 66³)
+STREAM_PLANES = (2, 32)
 
 # increment3d_stream's rows: the fewest and the most axis-0 rows a block
 # marches down, and the blocks a grid should give the card (about 2.6
@@ -302,14 +309,33 @@ def _stream_coresident(device_index, L_bf16: int, x_bf16: int,
         return library().wl_stream_coresident(L_bf16, x_bf16, dot)
 
 
-def _stream_march(S, L, x, with_dot: bool):
-    """(planes, results and partials buffer or None) of `mult3d_stream`'s
-    march at ``S``: chunks of at most ``STREAM_PLANES[1]`` planes, as
-    many as one wave of resident blocks needs (at 258³ 8 chunks of 32
-    planes, 2048 blocks; 130³ 16 of 8, 1024; 66³ 16 of 4, 256)."""
-    return _march("mult3d_stream", S, x.device, int(with_dot),
+def _stream_march(S, L, x, with_dot: bool, name: str = "mult3d_stream"):
+    """(planes, results and partials buffer or None) of the operator
+    march (`mult3d_stream`'s and `stencil_kernels.mult3d`'s) at ``S``:
+    chunks of at most ``STREAM_PLANES[1]`` planes, as many as one wave of
+    resident blocks needs (at 258³ 8 chunks of 32 planes, 2048 blocks;
+    130³ 16 of 8, 1024; 66³ 32 of 2, 512; (98,66,66) 48 of 2, 768).
+    ``name`` is the wrapper a refused shape's error names."""
+    return _march(name, S, x.device, int(with_dot),
                   STREAM_PLANES, _stream_coresident(
                       x.device.index, _bf16(L), _bf16(x), int(with_dot)))
+
+
+def _mult3d_march(fn, L, Dd, x, with_dot: bool):
+    """z = A·x (and with ``with_dot`` ⟨A·x, x⟩ as a 0-d tensor) of CUDA
+    tensors by the operator march (``csrc/stream_march.cu``), one launch
+    counted on wrapper ``fn``: `mult3d_stream`, or `stencil_kernels.mult3d`,
+    which shares the kernel and its chunk rule."""
+    S, name = tuple(x.shape), fn.__name__
+    _check(name, S, bf16=("L", "x"), L=(L, (3,) + S), D=(Dd, S), x=(x, S))
+    planes, buf = _stream_march(S, L, x, with_dot, name)
+    z = torch.empty(S, dtype=torch.float32, device=x.device)
+    launch("wl_mult3d_stream", L, Dd, x, z,
+           *((buf[1:], _counter(x.device), buf[:1]) if with_dot
+             else (None,) * 3),
+           _bf16(L), _bf16(x), planes, *S)
+    _count(fn, S, L=L, x=x)
+    return (z, buf[0]) if with_dot else z
 
 
 @_counted
@@ -320,20 +346,12 @@ def mult3d_stream(L, Dd, x, with_dot: bool = False):
     down a chunk of interior planes with x and L0 carried in registers, so
     every input row is read once; the dot is reduced in the same launch.
     ``L`` (a level's L16) and ``x`` may be bf16; every axis needs an
-    interior.  Periodic ghosts of ``x`` must be filled by the caller."""
-    S = tuple(x.shape)
+    interior.  Periodic ghosts of ``x`` must be filled by the caller.
+    `stencil_kernels.mult3d` launches the same kernel; the two wrappers
+    count their launches apart, so a path shows which one it took."""
     if _on_cpu("mult3d_stream", x):
         return _mult3d_plain(L, Dd, x, with_dot)
-    _check("mult3d_stream", S, bf16=("L", "x"), L=(L, (3,) + S), D=(Dd, S),
-           x=(x, S))
-    planes, buf = _stream_march(S, L, x, with_dot)
-    z = torch.empty(S, dtype=torch.float32, device=x.device)
-    launch("wl_mult3d_stream", L, Dd, x, z,
-           *((buf[1:], _counter(x.device), buf[:1]) if with_dot
-             else (None,) * 3),
-           _bf16(L), _bf16(x), planes, *S)
-    _count(mult3d_stream, S, L=L, x=x)
-    return (z, buf[0]) if with_dot else z
+    return _mult3d_march(mult3d_stream, L, Dd, x, with_dot)
 
 
 @_counted

@@ -144,6 +144,7 @@ def accelerate(r: torch.Tensor, t, g, U, dtype) -> torch.Tensor:
             a = a + g(i, tt)
         if callable(U):
             a = a + torch.func.grad(
-                lambda tau, i=i: torch.as_tensor(U(i, tau), dtype=dtype))(tt)
+                lambda tau, i=i: torch.as_tensor(U(i, tau), dtype=dtype,
+                                                 device=r.device))(tt)
         terms.append(a)
     return r + torch.stack(terms).reshape((D,) + (1,) * (r.ndim - 1)).to(r.dtype)

@@ -53,9 +53,10 @@ KAXPY = False
 # scripts/ab_pcgiter.py makes).
 PCG_BLOCKED = False
 # A·x (with and without the dot) and r − A·eps of blocked levels by the
-# carried-rows kernels `attic.mult3d_stream`/`increment3d_stream` instead
-# of the halo-row `mult3d`/`increment3d` (the JAX package keeps them but
-# dispatches them nowhere).
+# carried-rows wrappers `attic.mult3d_stream`/`increment3d_stream` instead
+# of `mult3d`/`increment3d` (the JAX package keeps them but dispatches them
+# nowhere).  `mult3d` launches `mult3d_stream`'s kernel, so the seam now
+# changes only the increment's kernel, and which wrapper counts A·x.
 STREAM = False
 
 
@@ -186,9 +187,9 @@ def _iDk(lev: PoissonLevel) -> torch.Tensor:
 
 
 def _ax(lev: PoissonLevel, x: torch.Tensor, with_dot: bool = False):
-    """A·x of a blocked level (with ⟨A·x, x⟩ under ``with_dot``): the
-    halo-row `mult3d`, or under ``STREAM`` the carried-rows
-    `attic.mult3d_stream`, on the level's operator (`_opLD`)."""
+    """A·x of a blocked level (with ⟨A·x, x⟩ under ``with_dot``):
+    `mult3d`, or under ``STREAM`` `attic.mult3d_stream` (the same kernel),
+    on the level's operator (`_opLD`)."""
     mult3d = at.mult3d_stream if STREAM else sk.mult3d
     return mult3d(*_opLD(lev), x, with_dot=with_dot)
 

@@ -164,22 +164,22 @@ def _mult3d_plain(L, Dd, x, with_dot=False):
 @_counted
 def mult3d(L, Dd, x, with_dot: bool = False):
     """z = A·x for the 7-point variable-coefficient Poisson operator with
-    zero ghosts; with ``with_dot`` also ⟨A·x, x⟩ as a 0-d tensor (per-block
-    partial sums, reduced on the device).  ``x`` may be bf16 and so may
-    ``L`` (a level's shadow L16, with the f32 D16): upcast in registers, z
-    and the dot are f32.  Periodic ghosts of ``x`` must be filled by the
-    caller."""
-    S = tuple(x.shape)
+    zero ghosts; with ``with_dot`` also ⟨A·x, x⟩ over the interior as a 0-d
+    tensor, reduced in the same launch.  ``x`` may be bf16 and so may ``L``
+    (a level's shadow L16, with the f32 D16): upcast in registers, z and
+    the dot are f32.  Periodic ghosts of ``x`` must be filled by the
+    caller.
+
+    The kernel is `ops.attic.mult3d_stream`'s plane march
+    (``csrc/stream_march.cu``), launched with its chunk rule; each wrapper
+    keeps its own counts.  Like every march it refuses a shape with an
+    axis under 3 cells or 3·N ≥ 2³¹ values (a ValueError): blocked levels
+    are 3D and ghost-padded, so every axis has at least 3 cells, and a
+    fine level past 2³¹/3 cells is refused by `cfl3d` on the same path."""
     if _on_cpu("mult3d", x):
         return _mult3d_plain(L, Dd, x, with_dot)
-    _check("mult3d", S, bf16=("L", "x"), L=(L, (3,) + S), D=(Dd, S),
-           x=(x, S))
-    z = torch.empty(S, dtype=torch.float32, device=x.device)
-    part = (torch.empty(_blocks(S), dtype=torch.float32, device=x.device)
-            if with_dot else None)
-    launch("wl_mult3d", L, Dd, x, z, part, _bf16(L), _bf16(x), *S)
-    _count(mult3d, S, L=L, x=x)
-    return (z, torch.sum(part)) if with_dot else z
+    from .attic import _mult3d_march    # attic imports this module
+    return _mult3d_march(mult3d, L, Dd, x, with_dot)
 
 
 def _increment3d_plain(L, Dd, eps, x, r):
@@ -251,7 +251,7 @@ def _march_tile() -> tuple[int, int]:
 @functools.cache
 def _counter(device: torch.device) -> torch.Tensor:
     """The zeroed counter that elects the last block of a one-launch
-    reduction (`cfl3d`, `ana_mult3d` and `ops.attic`'s `dot3d`,
+    reduction (`mult3d`, `cfl3d`, `ana_mult3d` and `ops.attic`'s `dot3d`,
     `pcg_dir_mult`, `pcg_update`, `pcg_axpy`, `mult3d_stream`) on
     ``device``;
     each kernel leaves it zeroed, and the reductions run on one stream."""
