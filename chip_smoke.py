@@ -68,11 +68,26 @@ Phases, each of which raises (and so exits non-zero) on failure:
    ``sphere_3d(96, 64)`` in (b), (c), (d), (f) and (g) against the CPU
    from one state, as in 4 ((f)'s CPU twin with the kernel gate patched,
    so its levels are blocked and keep their shadows);
+6.5 the sharded path (`waterlily_tpu_torch.parallel`, an in-process mesh
+   of 8 shards on the card), each held against the dense step on the card
+   from the same state over 3 steps (pois_n within the ±2/≤4 rule, the
+   total |Δpois_n| logged, dt within 1e-5, max|du| < 1e-3): (i)
+   ``sphere_3d(256, 256, bbox=False, mesh=mesh_for((258,)*3, 8))``, the
+   (2,2,2) mesh of 129³ blocks, with ``conv_diff3d``, ``div3d`` and
+   ``project3d`` launched only in their shard-local ("base") forms and
+   ``mult3d`` at the 131³ halo-extended blocks; (ii) ``tgv_3d(64)`` on its
+   (2,2,2) mesh and (iii) ``sphere_3d(96, 64, exitBC=True)`` on its, both
+   with the kernel forms forced (`parallel.shard_smooth.PALLAS`; their
+   blocks are under the kernel gate), ``conv_diff3d`` in its modular form
+   in (ii); (iv) ``bc_vector_local`` with ``bc3d``'s shard-local form at
+   every shard of the 258³ mesh, with and without ``save_exit``, bit for
+   bit the select cascade;
 7. every kernel against its plain version again, every variant at every
-   shape a path of 4-6.4 launched it at (258³, 130³, 66³, ..., the 2D
-   levels) and the probes at 258³, with the tolerances of 3, and
-   ``pcg_blocked`` against the per-pass ``pcg`` at the shapes
-   ``pcg_dir_mult`` ran at;
+   shape a path of 4-6.5 launched it at (258³, 130³, 66³, ..., the 2D
+   levels) and the probes at 258³, with the tolerances of 3, every
+   shard-local form at every shape and base a path launched it at
+   (exact), and ``pcg_blocked`` against the per-pass ``pcg`` at the
+   shapes ``pcg_dir_mult`` ran at;
 8. timing: ms/step, MLUPS, ns/DOF and the card's idle share at (96,64,64),
    256³ dense and banded (in turns), 256³ ``banded_levels=True``, the
    256³ heaving sphere with its remeasure and ``tgv_3d(256)`` (with its
@@ -94,7 +109,11 @@ Phases, each of which raises (and so exits non-zero) on failure:
    roll's also as a share of the copy's) and each kernel's bytes over
    its time as a share of the copy probe's rate; the 256³ sphere in
    configurations (a)-(i) of 6.4 in turns (a, ..., i, i, ..., a), each
-   with its idle share and pois_n.
+   with its idle share and pois_n; the shard-local forms at the sharded
+   path's shapes beside their plain versions and bounds, and the sharded
+   256³ step of 6.5 (i) in turns with (a) (dense, sharded, sharded,
+   dense): wall and busy ms/step, idle share, and the share of a step that
+   splitting the state into blocks and assembling it takes.
 
 Every path runs with the launch counters set to 0 and the launched shapes
 and forms cleared just before it, all read just after (each kernel's
@@ -285,6 +304,7 @@ CPU_CONFIGS = ("b", "c", "d", "f", "g")
 PATH_LAUNCHES = {}
 PATH_SHAPES = {}    # kernel -> every shape a path launched it at
 PATH_FORMS = {}     # path -> kernel -> the bf16 forms it launched
+PATH_BASES = {}     # kernel -> every (shape, shard-local form) launched
 
 
 def on_path(torch, label, expect, fn):
@@ -297,6 +317,7 @@ def on_path(torch, label, expect, fn):
         w.launches = 0
         w.shapes.clear()
         w.forms.clear()
+        w.bases.clear()
     out = fn()
     torch.cuda.synchronize()
     counts = {k: w.launches for k, w in kernels.items()}
@@ -319,6 +340,7 @@ def on_path(torch, label, expect, fn):
     PATH_LAUNCHES[label] = counts
     for k, w in kernels.items():
         PATH_SHAPES.setdefault(k, set()).update(w.shapes)
+        PATH_BASES.setdefault(k, set()).update(w.bases)
     return out
 
 
@@ -771,6 +793,180 @@ def run_pcg_paths(torch, dev):
                 vs_cpu(torch, sim, init, init_levels)
 
 
+# the sharded path's kernels (phase 6.5): the fine blocks' operator and the
+# shard-local forms, the replicated coarse levels' kernels (the 66³ and
+# (50,34,34) meshes' coarse levels are under the stencil kernels' gate)
+SHARD_FORMS = ("conv_diff3d", "div3d", "project3d")
+SHARDED = ("mult3d", "increment3d", "pcg_fused") + SHARD_FORMS
+SHARDED_SMALL = ("mult3d", "pcg_fused") + SHARD_FORMS
+
+
+@contextlib.contextmanager
+def shard_kernels():
+    """The sharded step's kernel forms forced on, whatever the blocks'
+    size (`parallel.shard_smooth.PALLAS`)."""
+    from waterlily_tpu_torch.parallel import shard_smooth
+    old = shard_smooth.PALLAS
+    try:
+        shard_smooth.PALLAS = "kernels"
+        yield
+    finally:
+        shard_smooth.PALLAS = old
+
+
+def sharded_vs_dense(torch, label, expect, make, mult_shape, modular=False):
+    """3 steps of the sharded simulation ``make()`` (launch-counted) and 3
+    dense steps on the card from its initial state and levels: pois_n
+    within the ±2/≤4 rule (the total |Δpois_n| logged), dt within 1e-5,
+    max|du| < 1e-3; `SHARD_FORMS` launched only in their shard-local forms
+    (``conv_diff3d`` also modular with ``modular``) and ``mult3d`` at the
+    halo-extended blocks' ``mult_shape``."""
+    from waterlily_tpu_torch.flow import mom_step
+
+    def drive():
+        t0 = time.perf_counter()
+        sim = make()
+        torch.cuda.synchronize()
+        log(f"constructed {label} in {time.perf_counter() - t0:.1f} s: mesh "
+            f"{sim.mesh}, sharded step {sim._sharded}")
+        init, init_levels = sim.flow, sim.levels
+        t0 = time.perf_counter()
+        sim.steps(3, remeasure=False)
+        torch.cuda.synchronize()
+        log(f"3 sharded steps in {time.perf_counter() - t0:.2f} s")
+        return sim, init, init_levels
+
+    from waterlily_tpu_torch.ops.stencil_kernels import kernel_wrappers
+    sim, init, init_levels = on_path(torch, label, expect, drive)
+    finite(torch, sim, label)
+    # the wrappers still hold this path's counts
+    kernels = kernel_wrappers()
+    for k in SHARD_FORMS:
+        w = kernels[k]
+        want = {"base", "modular"} if modular and k == "conv_diff3d" \
+            else {"base"}
+        if not want <= w.forms or sum(w.bases.values()) != w.launches:
+            raise AssertionError(f"{label}: {k} launched {w.launches} "
+                                 f"times, in the forms {w.forms}, "
+                                 f"{sum(w.bases.values())} shard-local")
+        log(f"  {k}: {w.launches} shard-local launches at "
+            f"{sorted(set(key[0] for key in w.bases))}, "
+            f"{len(set(key[2] for key in w.bases))} bases")
+    if mult_shape not in kernels["mult3d"].shapes:
+        raise AssertionError(f"{label}: mult3d never ran at {mult_shape}")
+    g, pois, dts = init, [], []
+    t0 = time.perf_counter()
+    for _ in range(3):
+        g, aux = mom_step(sim.cfg, init_levels, g)
+        pois.append(aux["pois_n"])
+        dts.append(float(aux["dt"]))
+    torch.cuda.synchronize()
+    du = float((sim.flow.u - g.u).abs().max())
+    dp = float((sim.flow.p - g.p).abs().max())
+    dn = sum(abs(x - y) for ra, rb in zip(sim.pois_n, pois)
+             for x, y in zip(ra, rb))
+    log(f"3 dense steps from the same state in "
+        f"{time.perf_counter() - t0:.2f} s: sharded pois_n {sim.pois_n} vs "
+        f"dense {pois} (total |Δpois_n| {dn}), dt {sim.dts[1:]} vs {dts}, "
+        f"max|du| = {du:.3e}, max|dp| = {dp:.3e}")
+    if not pois_ok(sim.pois_n, pois):
+        raise AssertionError(f"{label}: pois_n {sim.pois_n} vs {pois}")
+    for a, b in zip(sim.dts[1:], dts):
+        if abs(a - b) > 1e-5 * abs(b):
+            raise AssertionError(f"{label}: dt {sim.dts[1:]} vs {dts}")
+    if not du < 1e-3:
+        raise AssertionError(f"{label}: max|du| {du}")
+
+
+def bc_local_vs_cascade(torch, dev):
+    """``bc_vector_local`` with ``bc3d``'s shard-local form at every shard
+    of the 258³ mesh against the select cascade, bit for bit, without and
+    with ``save_exit``."""
+    from waterlily_tpu_torch.parallel.mesh import mesh_for
+    from waterlily_tpu_torch.parallel.shard_step import bc_vector_local
+    mesh = mesh_for(BIG, 8, dev)
+    g = torch.Generator(device=dev).manual_seed(3)
+    u = torch.randn((3,) + BIG, generator=g, device=dev)
+    A = (1.0, -0.25, 0.5)
+    u_l = mesh.split(u, 1)
+    del u
+
+    def drive():
+        return [bc_vector_local(mesh, BIG, u_l, A, e, pallas="kernels")
+                for e in (False, True)]
+
+    label = "bc_vector_local, bc3d's shard-local form, 258³ mesh"
+    outs = on_path(torch, label, ("bc3d",), drive)
+    for e, out in zip((False, True), outs):
+        ref = bc_vector_local(mesh, BIG, u_l, A, e, pallas="off")
+        bad = [s for s, (a, b) in enumerate(zip(out, ref))
+               if not torch.equal(a, b)]
+        log(f"  save_exit={e}: {len(out)} shards, bases "
+            f"{[mesh.base(s, BIG) for s in range(mesh.size)]}, differing "
+            f"shards {bad}")
+        if bad:
+            raise AssertionError(f"{label}: shards {bad} differ")
+    if "base" not in PATH_FORMS[label]["bc3d"]:
+        raise AssertionError(f"{label}: bc3d forms {PATH_FORMS[label]}")
+
+
+def run_sharded(torch, dev):
+    """Phase 6.5: (i) the full-width sphere on the (2,2,2) mesh, (ii) the
+    periodic and (iii) outlet paths with the kernel forms forced, (iv)
+    ``bc3d``'s shard-local form."""
+    from waterlily_tpu_torch import sphere_3d, tgv_3d
+    from waterlily_tpu_torch.parallel.mesh import mesh_for
+    stage("(i) sphere_3d(256, 256, bbox=False) on mesh_for((258,)*3, 8)")
+    sharded_vs_dense(
+        torch, "sphere_3d(256, 256, bbox=False), mesh (2,2,2)", SHARDED,
+        lambda: sphere_3d(256, 256, bbox=False, device=dev,
+                          mesh=mesh_for(BIG, 8, dev)), (131, 131, 131))
+    torch.cuda.empty_cache()
+    stage("(ii) tgv_3d(64) on mesh_for((66,)*3, 8), kernel forms forced")
+    with shard_kernels():
+        sharded_vs_dense(
+            torch, "tgv_3d(64), mesh (2,2,2)", SHARDED_SMALL,
+            lambda: tgv_3d(64, device=dev, mesh=mesh_for((66,) * 3, 8, dev)),
+            (35, 35, 35), modular=True)
+        stage("(iii) sphere_3d(96, 64, exitBC=True) on its mesh, kernel "
+              "forms forced")
+        sharded_vs_dense(
+            torch, "sphere_3d(96, 64, exitBC=True), mesh (2,2,2)",
+            SHARDED_SMALL,
+            lambda: sphere_3d(96, 64, exitBC=True, device=dev,
+                              mesh=mesh_for(FINE, 8, dev)), (51, 35, 35))
+    stage("(iv) bc3d's shard-local form at every shard of the 258³ mesh")
+    bc_local_vs_cascade(torch, dev)
+    torch.cuda.empty_cache()
+
+
+def check_shard_forms(torch, dev):
+    """Each shard-local form against its plain version at every shape and
+    base a path launched it at (`PATH_BASES`), exact."""
+    from waterlily_tpu_torch.kernels.check import (SHARD_KERNELS, compare,
+                                                   clear_inputs)
+    failures = []
+    for name in SHARD_KERNELS:
+        keys = sorted(PATH_BASES.get(name, ()), key=repr)
+        for S in sorted({key[0] for key in keys}, key=math.prod):
+            forms = [key[1:] for key in keys if key[0] == S]
+            worst, n = 0.0, 0
+            for form in forms:
+                for row in compare(name, S, 1, dev, form=form):
+                    worst = max(worst, row["max_abs_err"])
+                    n += 1
+                    if not row["ok"]:
+                        failures.append((row, form))
+            WORST[name] = max(WORST.get(name, 0.0), worst)
+            log(f"  {name:<12} {str(S):<15} {len(forms)} shard-local forms "
+                f"(bases {sorted({f[1] for f in forms})}), {n} outputs: "
+                f"max|d|={worst:.3e} [exact]")
+            clear_inputs()
+            torch.cuda.empty_cache()
+    if failures:
+        raise AssertionError(f"shard-local form checks failed: {failures}")
+
+
 def step_profile(sim, n, label, remeasure=False):
     """The card's idle share over ``n`` steps: device busy time and wall
     time of the same steps (`utils.perf.idle_share`), and the ops that
@@ -784,6 +980,7 @@ def step_profile(sim, n, label, remeasure=False):
     top = sorted(r["by_name"].items(), key=lambda kv: -kv[1])[:12]
     for name, ms in top:
         log(f"    {ms:9.4f} ms/step  {name[:90]}")
+    return r
 
 
 def report_steps(torch, sim, label, n, warmup, remeasure=False):
@@ -795,6 +992,7 @@ def report_steps(torch, sim, label, n, warmup, remeasure=False):
         f"{r['mlups']:.1f} MLUPS, {r['ns_per_dof']:.3f} ns/DOF "
         f"({n} steps after {warmup} warm-up; pois_n last "
         f"{sim.pois_n[-3:]})")
+    return r
 
 
 def construct(torch, label, make):
@@ -911,6 +1109,7 @@ def timing(torch, dev, sim):
                     f"{t['wall_ms']:.4f} ms")
             clear_inputs()
             torch.cuda.empty_cache()
+    timing_shard_forms(torch, dev)
     PROBE_LAUNCHES.update({k: w.launches
                            for k, w in probes.kernel_wrappers().items()})
     bandwidth_shares(rows)
@@ -933,6 +1132,8 @@ def timing(torch, dev, sim):
     step_profile(dense, 5, "sphere_3d(256, 256, bbox=False)")
     step_profile(band, 5, "sphere_3d(256, 256)")
     del dense, band
+    stage("256³ sphere on the (2,2,2) mesh, in turns with (a)")
+    timing_sharded(torch, dev)
     stage("256³ sphere in configurations (a)-(i)")
     timing_pcg_paths(torch, dev)
 
@@ -967,6 +1168,71 @@ def timing(torch, dev, sim):
     stage("tgv_3d(256), 2D cases")
     timing_periodic_2d(torch, dev)
     return times
+
+
+def timing_shard_forms(torch, dev):
+    """The shard-local forms at the sharded path's largest block shape (its
+    first base), beside their plain versions and bounds."""
+    from waterlily_tpu_torch.kernels.check import (SHARD_KERNELS, time_pair,
+                                                   bound_ms, clear_inputs)
+    for name in SHARD_KERNELS:
+        keys = sorted(PATH_BASES.get(name, ()), key=lambda k: (
+            -math.prod(k[0]), repr(k)))
+        if not keys:
+            continue
+        S, form = keys[0][0], keys[0][1:]
+        t = time_pair(name, S, dev, form=form)
+        b, by = bound_ms(name, S, form=form)
+        log(f"  {name:<12} {str(S):<15} shard-local form {form}, device "
+            f"(profiler): kernel {t['ms']:.4f} ms, plain {t['plain_ms']:.4f} "
+            f"ms, bound {b:.4f} ms ({by}); wall per call: kernel "
+            f"{t['wall_ms']:.4f} ms, plain {t['plain_wall_ms']:.4f} ms")
+        clear_inputs()
+        torch.cuda.empty_cache()
+
+
+def split_assemble_ms(torch, sim, n=5):
+    """Device and wall ms of what one sharded step moves between the global
+    state and the blocks: the split of u, p, V, μ₀, μ₁ and the fine level's
+    L, D, iD, and the assembly of u and p."""
+    from waterlily_tpu_torch.utils.perf import device_profile, _events_ms
+    mesh, f, lev = sim.mesh, sim.flow, sim.levels[0]
+
+    def once():
+        u, p = mesh.split(f.u, 1), mesh.split(f.p)
+        for a, lead in ((f.V, 1), (f.mu0, 1), (f.mu1, 2), (lev.L, 1),
+                        (lev.D, 0), (lev.iD, 0)):
+            mesh.split(a, lead)
+        mesh.assemble(u, 1)
+        mesh.assemble(p)
+
+    once()
+    return device_profile(once, n, events=True)[0], _events_ms(once, n)
+
+
+def timing_sharded(torch, dev):
+    """The sharded 256³ step of phase 6.5 (i) in turns with the default
+    dense 256³ sphere (a) (dense, sharded, sharded, dense), each one's idle
+    share, and the share of the sharded step that splitting and
+    assembling the state takes."""
+    from waterlily_tpu_torch import sphere_3d
+    from waterlily_tpu_torch.parallel.mesh import mesh_for
+    la, ls = ("sphere_3d(256, 256) (a)",
+              "sphere_3d(256, 256, bbox=False), mesh (2,2,2)")
+    dense = construct(torch, la, lambda: sphere_3d(256, 256, device=dev))
+    shard = construct(torch, ls, lambda: sphere_3d(
+        256, 256, bbox=False, device=dev, mesh=mesh_for(BIG, 8, dev)))
+    peak(torch, ls)
+    for sim_, label in ((dense, la), (shard, ls), (shard, ls), (dense, la)):
+        report_steps(torch, sim_, label, 10, 2)
+    step_profile(dense, 5, la)
+    r = step_profile(shard, 5, ls)
+    busy, wall = split_assemble_ms(torch, shard)
+    log(f"{ls}: split and assemble {busy:.4f} ms device, {wall:.4f} ms wall "
+        f"a step: {busy / r['busy_ms']:.4f} of the busy and "
+        f"{wall / r['wall_ms']:.4f} of the wall time a step")
+    del dense, shard
+    torch.cuda.empty_cache()
 
 
 def bandwidth_shares(rows):
@@ -1146,10 +1412,13 @@ def main() -> int:
     phase("6.4 the blocked-level PCG paths: seams, bf16 directions, "
           "operator shadows, carried rows")
     run_pcg_paths(torch, dev)
+    phase("6.5 the sharded path: the spatial decomposition on one card")
+    run_sharded(torch, dev)
     phase("7. kernels vs plain versions at the paths' shapes")
     check_kernels(torch, dev, {**PATH_SHAPES,
                                "pcg_blocked": PATH_SHAPES["pcg_dir_mult"],
                                **{k: (BIG,) for k in PROBES}})
+    check_shard_forms(torch, dev)
     phase("8. timing")
     times = timing(torch, dev, sim)
     from waterlily_tpu_torch.utils.perf import EVENT_FALLBACKS

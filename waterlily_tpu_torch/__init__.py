@@ -1,9 +1,10 @@
 """waterlily_tpu_torch: the PyTorch and CUDA port of waterlily_tpu.
 
-Single-device 2D and 3D paths, dense and banded, walls, periodic axes and
-the convective outlet, of the immersed-boundary incompressible flow solver
+The 2D and 3D paths, dense and banded, walls, periodic axes and the
+convective outlet, of the immersed-boundary incompressible flow solver
 (BDIM bodies, QUICK convection-diffusion, geometric-multigrid pressure
-projection), body forces (`metrics`), with hand-written CUDA kernels for
+projection), body forces (`metrics`) and the spatial decomposition
+(`parallel`, on an in-process mesh), with hand-written CUDA kernels for
 the stencils the JAX package runs as Pallas kernels.  Imports torch and
 numpy only.
 """

@@ -2,7 +2,8 @@
 // launch (the wrapper runs it on a clone for a copy).
 //
 // Replaces waterlily_tpu/ops/pallas_stencil.py `bc3d_pallas` (`_bc_kernel`),
-// whole grid, with its periodic and save_exit forms.
+// whole grid, with its periodic and save_exit forms, and its shard-local
+// (base) form.
 //
 // Semantics (waterlily_tpu.ops.bc.bc_vector): for each component c the
 // stages j = 0, 1, 2 run in order, each on the values the previous stage
@@ -46,12 +47,43 @@
 // one 32 B sector (read, then written back) for each of their ~0.4M cells
 // at 258³, and these scattered sectors take most of the time.
 //
+// Base form (walls and the outlet only, as in JAX): the array is one
+// shard's block of a grid of global sizes G whose cell 0 sits at global
+// index B.  The global ghost planes and Dirichlet plane that fall in the
+// block are its faces that are "present": the low face of axis a where
+// B[a] == 0 (it holds global planes 0 and 1: blocks are at least 2 cells
+// wide), the high face where B[a] + S[a] == G[a].  Every test above of a
+// plane 0, 1 or S-1 becomes a test of a present face, and the sources stay
+// the block's planes 1 and S-2, which on the shards that own the faces
+// are the global planes 1 and G-2 (the ownership argument of the TPU
+// kernel).  A block with no present face writes nothing; the race-freedom
+// argument holds face by face.  The whole grid is the case with every
+// face present, compiled apart (`AllFaces`: every face present at compile
+// time, an empty parameter after the others).  Measured at 258^3 on an
+// H100: the face flags tested at run time cost 7%; folded at compile time
+// but carried in BcShape (16 -> 40 bytes) 13%, with 1160 instructions
+// against 1168 before: the parameters' layout, not the code.
+//
 // Indices are 32-bit: the wrapper admits fields of fewer than 2^31 values.
 #include "common.cuh"
 
 struct BcShape {
   int S[3];
   int N;  // cells of one component
+};
+
+// The global faces a launch fills: every one on the whole grid (an empty
+// parameter), those in a shard's block (1 where the block holds the global
+// low or high face of the axis).
+struct AllFaces {
+  __host__ __device__ int lo(int) const { return 1; }
+  __host__ __device__ int hi(int) const { return 1; }
+};
+
+struct BlockFaces {
+  int l[3], h[3];
+  __host__ __device__ int lo(int a) const { return l[a]; }
+  __host__ __device__ int hi(int a) const { return h[a]; }
 };
 
 // The Dirichlet values A: three numbers passed with the launch, or (ptr not
@@ -67,26 +99,28 @@ __device__ inline float bc_value(const BcValues& A, int comp) {
 
 // The flat source index of component `comp`'s cell (i, j, k) after the
 // three stages, or -1 where the result is A[comp].
-template <int PER, int EXIT>
+template <int PER, int EXIT, class F>
 __device__ inline int bc_source(int comp, int i, int j, int k,
-                                const BcShape& g) {
+                                const BcShape& g, const F& fc) {
   int idx[3] = {i, j, k};
 #pragma unroll
   for (int a = 2; a >= 0; --a) {
     const int q = idx[a];
     const int hi = g.S[a] - 1;
+    const bool at_lo = fc.lo(a) && q == 0;
+    const bool at_hi = fc.hi(a) && q == hi;
     if ((PER >> a) & 1) {
-      if (q == 0) {
+      if (at_lo) {
         idx[a] = hi - 1;
-      } else if (q == hi) {
+      } else if (at_hi) {
         idx[a] = 1;
       }
     } else if (a == comp) {
       const bool kept = EXIT && comp == 0;  // the outlet plane
-      if (q <= 1 || (q == hi && !kept)) return -1;
-    } else if (q == 0) {
+      if ((fc.lo(a) && q <= 1) || (at_hi && !kept)) return -1;
+    } else if (at_lo) {
       idx[a] = 1;
-    } else if (q == hi) {
+    } else if (at_hi) {
       idx[a] = hi - 1;
     }
   }
@@ -99,16 +133,20 @@ __device__ inline int bc_source(int comp, int i, int j, int k,
 #define BC_RMAX (BC_TILE / BC_ROWS)  // rows a thread, at most
 
 // Strip f of component comp: the face or plane (axis a at index v; f == 4
-// the pair v = 0 and S-1), its row axis b and column axis c (the faster)
-// with their first index and extents, and the rows a thread takes (the
-// strided axis-2 strip one: four times its blocks, spread over the card).
-// nb == 0 for a strip with nothing to write.
+// the pair v = 0 and S-1, each where present), its row axis b and column
+// axis c (the faster) with their first index and extents, and the rows a
+// thread takes (the strided axis-2 strip one: four times its blocks, spread
+// over the card).  The rows and columns leave out the present faces of the
+// axes before a (of both axes on the Dirichlet strip).  nb == 0 for a strip
+// with nothing to write.
 struct BcStrip {
   int a, v, b, c, lo_b, lo_c, nb, nc, rows;
 };
 
+template <class F>
 __host__ __device__ inline BcStrip bc_strip_of(int comp, int f, int per,
-                                              const BcShape& g) {
+                                              const BcShape& g,
+                                              const F& fc) {
   BcStrip t;
   if (f < 5) {
     t.a = f >> 1;
@@ -119,10 +157,18 @@ __host__ __device__ inline BcStrip bc_strip_of(int comp, int f, int per,
   }
   t.b = t.a == 0 ? 1 : 0;
   t.c = t.a == 2 ? 1 : 2;
-  t.lo_b = (f == 5 || t.b < t.a) ? 1 : 0;
-  t.lo_c = (f == 5 || t.c < t.a) ? 1 : 0;
-  t.nb = g.S[t.b] - 2 * t.lo_b;
-  t.nc = g.S[t.c] - 2 * t.lo_c;
+  const bool xb = f == 5 || t.b < t.a, xc = f == 5 || t.c < t.a;
+  t.lo_b = xb ? fc.lo(t.b) : 0;
+  t.lo_c = xc ? fc.lo(t.c) : 0;
+  t.nb = g.S[t.b] - t.lo_b - (xb ? fc.hi(t.b) : 0);
+  t.nc = g.S[t.c] - t.lo_c - (xc ? fc.hi(t.c) : 0);
+  // the face is not in the block (the Dirichlet plane 1 lies in the block
+  // that holds plane 0)
+  const bool present =
+      f < 4    ? ((f & 1) ? fc.hi(t.a) : fc.lo(t.a))
+      : f == 4 ? (fc.lo(2) || fc.hi(2))
+               : fc.lo(comp);
+  if (!present) t.nb = 0;
   // no Dirichlet plane (periodic), or the axis-2 strip writes it
   if (f == 5 && (((per >> comp) & 1) || comp == 2)) t.nb = 0;
   if (t.nb < 0 || t.nc <= 0) t.nb = 0;
@@ -137,11 +183,12 @@ struct BcTiles {
   int cols[3 * BC_STRIPS];
 };
 
-inline BcTiles bc_tiles(int per, const BcShape& g) {
+template <class F>
+inline BcTiles bc_tiles(int per, const BcShape& g, const F& fc) {
   BcTiles t;
   t.first[0] = 0;
   for (int z = 0; z < 3 * BC_STRIPS; ++z) {
-    const BcStrip s = bc_strip_of(z / BC_STRIPS, z % BC_STRIPS, per, g);
+    const BcStrip s = bc_strip_of(z / BC_STRIPS, z % BC_STRIPS, per, g, fc);
     const int h = BC_ROWS * s.rows;  // rows of a tile
     t.cols[z] = (s.nc + BC_TILE - 1) / BC_TILE;
     t.first[z + 1] = t.first[z] + t.cols[z] * ((s.nb + h - 1) / h);
@@ -155,21 +202,27 @@ inline BcTiles bc_tiles(int per, const BcShape& g) {
 // writes, for each of its rows, k = 0 and S2-1, and for component 2 its
 // Dirichlet k = 1 too (in the sectors of k = 0), so component 2 has no
 // Dirichlet strip of its own.
-template <int PER, int EXIT>
+template <int PER, int EXIT, class F>
 __device__ inline void bc_strip(float* u, const BcValues& A,
-                                const BcShape& g, const BcTiles& tiles) {
+                                const BcShape& g, const BcTiles& tiles,
+                                const F& fc) {
   int z = 0;
   while ((int)blockIdx.x >= tiles.first[z + 1]) ++z;  // 18 strips at most
   const int comp = z / BC_STRIPS;
   const int f = z - comp * BC_STRIPS;
-  const BcStrip t = bc_strip_of(comp, f, PER, g);
+  const BcStrip t = bc_strip_of(comp, f, PER, g, fc);
   const int tile = blockIdx.x - tiles.first[z];
   const int tile_b = tile / tiles.cols[z];
   const int col = (tile - tile_b * tiles.cols[z]) * BC_TILE + threadIdx.x;
   if (col >= t.nc) return;
   const float Ac = bc_value(A, comp);
-  // cells a row: 1, or on the axis-2 strip 2 (3 with component 2's plane 1)
-  const int H = f != 4 ? 1 : (comp == 2 && !((PER >> 2) & 1)) ? 3 : 2;
+  // the planes of a row: the face's own, or on the axis-2 strip its present
+  // faces 0 and S-1 and component 2's Dirichlet plane 1 (with face 0)
+  const int lo2 = fc.lo(2), hi2 = fc.hi(2);
+  const bool d2 = comp == 2 && !((PER >> 2) & 1) && lo2;
+  const int H = f != 4 ? 1 : lo2 + hi2 + d2;
+  const int q0 = f != 4 ? t.v : lo2 ? 0 : g.S[2] - 1;
+  const int q1 = lo2 && hi2 ? g.S[2] - 1 : 1;
   int dst[BC_RMAX][3];
   float val[BC_RMAX][3];
 #pragma unroll
@@ -182,13 +235,13 @@ __device__ inline void bc_strip(float* u, const BcValues& A,
       if (m >= t.rows || row >= t.nb || h >= H) continue;
       // (i, j, k) from the face index, row and column, by selects (b is
       // axis 0 unless a is; c is axis 2 unless a is)
-      const int pa = h == 0 ? t.v : h == 1 ? g.S[t.a] - 1 : 1;
+      const int pa = h == 0 ? q0 : h == 1 ? q1 : 1;
       const int pb = t.lo_b + row, pc = t.lo_c + col;
       const int i = t.a == 0 ? pa : pb;
       const int j = t.a == 1 ? pa : (t.a == 0 ? pb : pc);
       const int k = t.a == 2 ? pa : pc;
       const int self = comp * g.N + (i * g.S[1] + j) * g.S[2] + k;
-      const int src = bc_source<PER, EXIT>(comp, i, j, k, g);
+      const int src = bc_source<PER, EXIT>(comp, i, j, k, g, fc);
       if (src < 0) {
         dst[m][h] = self;
         val[m][h] = Ac;
@@ -207,24 +260,30 @@ __device__ inline void bc_strip(float* u, const BcValues& A,
   }
 }
 
-// PER: bit a set for each periodic axis a; EXIT: save_exit.  Template
-// arguments, so that each form compiles to its own straight-line code.
-// No __restrict__: the launch reads and writes u.
-template <int PER, int EXIT>
-__global__ void bc_kernel(float* u, BcValues A, BcShape g, BcTiles tiles) {
-  bc_strip<PER, EXIT>(u, A, g, tiles);
+// PER: bit a set for each periodic axis a; EXIT: save_exit; F: the faces
+// (`AllFaces`, or a shard's `BlockFaces`).  Template arguments, so that
+// each form compiles to its own straight-line code.  No __restrict__: the
+// launch reads and writes u.
+template <int PER, int EXIT, class F>
+__global__ void bc_kernel(float* u, BcValues A, BcShape g, BcTiles tiles,
+                          F fc) {
+  bc_strip<PER, EXIT>(u, A, g, tiles, fc);
 }
 
 #define WL_BC_FORM(F)                                                    \
   case F:                                                                \
     bc_kernel<((F) & 7), ((F) >> 3)>                                     \
-        <<<tiles.first[3 * BC_STRIPS], blk, 0, s>>>(u, Av, g, tiles);    \
+        <<<tiles.first[3 * BC_STRIPS], blk, 0, s>>>(u, Av, g, tiles,     \
+                                                    AllFaces());         \
     break;
 
 // Fill u's ghost faces and Dirichlet planes in place.  A: the (3,) device
 // array of the Dirichlet values, or null and the values A0, A1, A2.
+// G0..G2: the global sizes, B0..B2: the global index of cell 0 (the whole
+// grid: G = S, B = 0; a periodic form takes only the whole grid).
 extern "C" int wl_bc3d(float* u, const float* A, float A0, float A1, float A2,
                        int periodic, int save_exit, int S0, int S1, int S2,
+                       int G0, int G1, int G2, int B0, int B1, int B2,
                        void* stream) {
   const BcValues Av = {A, {A0, A1, A2}};
   if ((long long)S0 * S1 * S2 * 3 >= (1LL << 31))
@@ -232,9 +291,32 @@ extern "C" int wl_bc3d(float* u, const float* A, float A0, float A1, float A2,
   BcShape g;
   g.S[0] = S0; g.S[1] = S1; g.S[2] = S2;
   g.N = S0 * S1 * S2;
+  const int G[3] = {G0, G1, G2}, B[3] = {B0, B1, B2};
+  BlockFaces fc;
+  bool base = false;
+  for (int a = 0; a < 3; ++a) {
+    fc.l[a] = B[a] == 0;
+    fc.h[a] = B[a] + g.S[a] == G[a];
+    base = base || !(fc.l[a] && fc.h[a]);
+    if (B[a] < 0 || B[a] + g.S[a] > G[a] || g.S[a] < 2)
+      return (int)cudaErrorInvalidValue;
+  }
   const dim3 blk(32, BC_ROWS);
-  const BcTiles tiles = bc_tiles(periodic, g);
   cudaStream_t s = (cudaStream_t)stream;
+  if (base) {
+    // the shard-local form has walls and the outlet only
+    if (periodic) return (int)cudaErrorInvalidValue;
+    const BcTiles tiles = bc_tiles(0, g, fc);
+    if (tiles.first[3 * BC_STRIPS] == 0) return (int)cudaSuccess;
+    if (save_exit)
+      bc_kernel<0, 1><<<tiles.first[3 * BC_STRIPS], blk, 0, s>>>(
+          u, Av, g, tiles, fc);
+    else
+      bc_kernel<0, 0><<<tiles.first[3 * BC_STRIPS], blk, 0, s>>>(
+          u, Av, g, tiles, fc);
+    return (int)cudaGetLastError();
+  }
+  const BcTiles tiles = bc_tiles(periodic, g, AllFaces());
   if (tiles.first[3 * BC_STRIPS] == 0) return (int)cudaSuccess;
   switch (periodic | (save_exit ? 8 : 0)) {
     WL_BC_FORM(0) WL_BC_FORM(1) WL_BC_FORM(2) WL_BC_FORM(3)

@@ -4,7 +4,7 @@
 //
 // Replaces waterlily_tpu/ops/pallas_stencil.py `conv_diff3d_pallas`
 // (`_conv_all_kernel`, `_conv_comp_kernel`), whole grid, periodic variants
-// included.
+// included, and its shard-local (base and modular) forms.
 //
 // Semantics (waterlily_tpu.ops.convect.conv_core): for sweep axis a the flux
 // of component c through the lower face of cell k is
@@ -56,6 +56,18 @@
 // periodic on all axes, 0.57 van Leer (kernels/times.py),
 // still some five times its memory bound: the limiters' instructions, their
 // dependent chains and the two barriers a plane set its time.
+// Base form: the array is a shard's block, halo-extended by two cells, of
+// a grid of global sizes G whose cell 0 sits at global index B (per axis);
+// the wall-face variants and the write support test global positions
+// (kf + B against G), and the caller trims the halo.  The whole grid is
+// the case B = 0, G = S, compiled apart (FORM 0: a whole-grid instance
+// with the base's integer adds took 64 registers for 61 and ran 2.4%
+// slower at 258^3).  Modular form (FORM 2, a base form): the halo planes
+// of the periodic axes hold the modular wrap values (global plane -m is
+// interior plane G-2-m, G-1+m is 1+m), so a periodic face takes the
+// uniform periodic flux with no wrap read and no copy of face 1's flux: the
+// face-1 far-upwind tap at -1 is plane G-3, and the top face's flux from
+// {G-3, G-2, G-1 = 1, G = 2} is face 1's, bit for bit.
 // Exactness against the plain form: the flux keeps its expression order,
 // the QUICK division stays a true division, min/max propagate NaN, and the
 // build has no multiply-add contraction (--fmad=false).
@@ -87,6 +99,8 @@ struct Grid {
   int S0, S1, S2;
   int P;   // plane stride S1*S2
   int N;   // cells of one component (3*N < 2^31)
+  int B0, B1, B2;   // global index of cell 0 (0 on the whole grid)
+  int G0, G1, G2;   // global sizes (S on the whole grid)
 };
 
 __device__ inline float median3(float a, float b, float c) {
@@ -139,7 +153,8 @@ __device__ inline float at(const float* __restrict__ u, const Grid& g, int c,
 // Face 1's flux of component c along periodic axis A at the transverse
 // position of (i, j, k): what faces 1 and S-1 of that axis carry.  Its
 // far-upwind tap wraps to plane S-3, which no tile holds, so the taps come
-// from memory; only the threads at those two faces call it.
+// from memory; only the threads at those two faces call it (whole grid:
+// the modular form needs no wrap).
 template <class L, int A>
 __device__ float periodic_face1(const float* __restrict__ u, const Grid& g,
                                 int c, int i, int j, int k, float nu) {
@@ -160,11 +175,25 @@ __device__ float periodic_face1(const float* __restrict__ u, const Grid& g,
 
 typedef float Plane[CV_HJ][CV_HK];   // one component's plane tile
 
+// The global position of array index q along axis A, and the global size
+// of the axis: the array's own on the whole grid (FORM 0), from the base
+// and the global sizes in a shard-local form (FORM 1 walls, 2 modular).
+template <int FORM, int A>
+__device__ __forceinline__ int gpos(const Grid& g, int q) {
+  return FORM ? q + (A == 0 ? g.B0 : A == 1 ? g.B1 : g.B2) : q;
+}
+
+template <int FORM, int A>
+__device__ __forceinline__ int gsize(const Grid& g) {
+  return FORM ? (A == 0 ? g.G0 : A == 1 ? g.G1 : g.G2)
+              : (A == 0 ? g.S0 : A == 1 ? g.S1 : g.S2);
+}
+
 // Component c's flux through the lower face along axis A (1 or 2) of the
-// cell at tile position (y, x) (halo offset included), global (i, j, k);
-// wprev is u_A at (i-1, j, k), the advecting velocity's second tap for
-// component 0 (not read for the others).
-template <class L, int PER, int A>
+// cell at tile position (y, x) (halo offset included), array position
+// (i, j, k); wprev is u_A at (i-1, j, k), the advecting velocity's second
+// tap for component 0 (not read for the others).
+template <class L, int PER, int FORM, int A>
 __device__ __forceinline__ float inplane_flux(const Plane* T, int y, int x,
                                               int c, float wprev,
                                               const float* __restrict__ u,
@@ -173,25 +202,26 @@ __device__ __forceinline__ float inplane_flux(const Plane* T, int y, int x,
   const int kf = A == 1 ? j : k;
   const int S = A == 1 ? g.S1 : g.S2;
   constexpr bool per = (PER >> A) & 1;
-  if (per && (kf == 1 || kf == S - 1))
+  if (per && FORM != 2 && (kf == 1 || kf == S - 1))
     return periodic_face1<L, A>(u, g, c, i, j, k, nu);
   constexpr int dy = A == 1, dx = A == 2;
   const float wb = c == 0 ? wprev : T[A][y - (c == 1)][x - (c == 2)];
   return flux<L, per>(T[c][y - 2 * dy][x - 2 * dx], T[c][y - dy][x - dx],
                       T[c][y][x], T[c][y + dy][x + dx],
-                      0.5f * (T[A][y][x] + wb), nu, kf, S);
+                      0.5f * (T[A][y][x] + wb), nu, gpos<FORM, A>(g, kf),
+                      gsize<FORM, A>(g));
 }
 
 // The three components' fluxes through axis-0 face f of this thread's
 // column from its taps at planes f-2, f-1, f, f+1 (registers) and plane f's
 // tile (u_0's in-plane neighbours, at tile position (y, x)).
-template <class L, int PER>
+template <class L, int PER, int FORM>
 __device__ __forceinline__ void axis0_faces(
     const float m2[3], const float m1[3], const float c0[3], const float p1[3],
     const Plane* T, int y, int x, const float* __restrict__ u, const Grid& g,
     int f, int j, int k, float nu, float out[3]) {
   constexpr bool per = PER & 1;
-  if (per && (f == 1 || f == g.S0 - 1)) {
+  if (per && FORM != 2 && (f == 1 || f == g.S0 - 1)) {
 #pragma unroll
     for (int c = 0; c < 3; ++c)
       out[c] = periodic_face1<L, 0>(u, g, c, f, j, k, nu);
@@ -201,10 +231,11 @@ __device__ __forceinline__ void axis0_faces(
 #pragma unroll
   for (int c = 0; c < 3; ++c)
     out[c] = flux<L, per>(m2[c], m1[c], c0[c], p1[c],
-                          0.5f * (c0[0] + wb[c]), nu, f, g.S0);
+                          0.5f * (c0[0] + wb[c]), nu, gpos<FORM, 0>(g, f),
+                          gsize<FORM, 0>(g));
 }
 
-template <class L, int PER>
+template <class L, int PER, int FORM>
 __global__ void __launch_bounds__(CV_THREADS, CV_MIN_BLOCKS)
 conv_kernel(const float* __restrict__ u, float* __restrict__ r, float nu,
             Grid g, int rows) {
@@ -271,8 +302,8 @@ conv_kernel(const float* __restrict__ u, float* __restrict__ r, float nu,
   }
   fill(tile[i0 & 1], i0, p1);
   __syncthreads();
-  axis0_faces<L, PER>(m1, c0, p1, p2, tile[i0 & 1], y, x, u, g, i0, j, k,
-                      nu, F0);
+  axis0_faces<L, PER, FORM>(m1, c0, p1, p2, tile[i0 & 1], y, x, u, g, i0, j,
+                           k, nu, F0);
   // from here m1, c0, p1 hold planes i-1, i, i+1
 #pragma unroll
   for (int c = 0; c < 3; ++c) {
@@ -287,29 +318,35 @@ conv_kernel(const float* __restrict__ u, float* __restrict__ r, float nu,
     for (int c = 0; c < 3; ++c) p2[c] = load(c, i + 2);
     fill(Tn, i + 1, p1);
     __syncthreads();   // plane i+1's tile is complete
-    axis0_faces<L, PER>(m1, c0, p1, p2, Tn, y, x, u, g, i + 1, j, k, nu,
-                        Fn);
+    axis0_faces<L, PER, FORM>(m1, c0, p1, p2, Tn, y, x, u, g, i + 1, j, k,
+                             nu, Fn);
 #pragma unroll
     for (int c = 0; c < 3; ++c) {
-      f1[c][tj][tk] = inplane_flux<L, PER, 1>(T, y, x, c, m1[1], u, g, i, j,
-                                              k, nu);
-      f2[c][tj][tk] = inplane_flux<L, PER, 2>(T, y, x, c, m1[2], u, g, i, j,
-                                              k, nu);
+      f1[c][tj][tk] = inplane_flux<L, PER, FORM, 1>(T, y, x, c, m1[1], u, g,
+                                                   i, j, k, nu);
+      f2[c][tj][tk] = inplane_flux<L, PER, FORM, 2>(T, y, x, c, m1[2], u, g,
+                                                   i, j, k, nu);
     }
     if (e_axis == 1) {
       const float wp = ec == 0 ? at(u, g, 1, i - 1, ej, ek) : 0.f;
-      f1[ec][CV_TJ][ex] = inplane_flux<L, PER, 1>(T, ey + 2, ex + 2, ec, wp,
-                                                  u, g, i, ej, ek, nu);
+      f1[ec][CV_TJ][ex] = inplane_flux<L, PER, FORM, 1>(
+          T, ey + 2, ex + 2, ec, wp, u, g, i, ej, ek, nu);
     } else if (e_axis == 2) {
       const float wp = ec == 0 ? at(u, g, 2, i - 1, ej, ek) : 0.f;
-      f2[ec][ey][CV_TK] = inplane_flux<L, PER, 2>(T, ey + 2, ex + 2, ec, wp,
-                                                  u, g, i, ej, ek, nu);
+      f2[ec][ey][CV_TK] = inplane_flux<L, PER, FORM, 2>(
+          T, ey + 2, ex + 2, ec, wp, u, g, i, ej, ek, nu);
     }
     __syncthreads();   // every face flux of plane i is in place
     if (in) {
-      const bool m0 = i >= 1 && i <= g.S0 - 2 && j >= 1 && k >= 1;
-      const bool mj = j >= 1 && j <= g.S1 - 2 && i >= 1 && k >= 1;
-      const bool mk = k >= 1 && k <= g.S2 - 2 && i >= 1 && j >= 1;
+      // the write support, in global positions
+      const int gi = gpos<FORM, 0>(g, i), gj = gpos<FORM, 1>(g, j),
+                gk = gpos<FORM, 2>(g, k);
+      const bool m0 = gi >= 1 && gi <= gsize<FORM, 0>(g) - 2 && gj >= 1 &&
+                      gk >= 1;
+      const bool mj = gj >= 1 && gj <= gsize<FORM, 1>(g) - 2 && gi >= 1 &&
+                      gk >= 1;
+      const bool mk = gk >= 1 && gk <= gsize<FORM, 2>(g) - 2 && gi >= 1 &&
+                      gj >= 1;
 #pragma unroll
       for (int c = 0; c < 3; ++c) {
         float acc = 0.f;
@@ -345,26 +382,38 @@ static int conv_rows(int S0, int S1, int S2) {
 
 #define WL_CONV_FORM(P)                                                  \
   case P:                                                                \
-    conv_kernel<L, P><<<grid, dim3(CV_TK, CV_TJ), 0, s>>>(u, r, nu, g,   \
-                                                          rows);         \
+    conv_kernel<L, (P) & 7, ((P) >> 3)>                                  \
+        <<<grid, dim3(CV_TK, CV_TJ), 0, s>>>(u, r, nu, g, rows);         \
     break;
 
 // Launches the kernel with limiter L on the periodic-axes mask ``periodic``
-// (bit a: axis a periodic); returns a cudaError_t.
+// (bit a: axis a periodic), in the modular form where ``modular`` (and an
+// axis is periodic), on an array of shape S that sits at global index B of
+// a grid of sizes G (the whole grid: G = S, B = 0); returns a cudaError_t.
 template <class L>
-int launch_conv(const float* u, float* r, float nu, int periodic, int S0,
-                int S1, int S2, void* stream) {
+int launch_conv(const float* u, float* r, float nu, int periodic, int modular,
+                int S0, int S1, int S2, int G0, int G1, int G2, int B0,
+                int B1, int B2, void* stream) {
   // 32-bit indexing: the three components must stay below 2^31 cells
   if ((long long)3 * S0 * S1 * S2 >= (1LL << 31))
     return (int)cudaErrorInvalidValue;
-  const Grid g = {S0, S1, S2, S1 * S2, S0 * S1 * S2};
+  const Grid g = {S0, S1, S2, S1 * S2, S0 * S1 * S2,
+                  B0, B1, B2, G0, G1, G2};
   const cudaStream_t s = (cudaStream_t)stream;
   const int rows = conv_rows(g.S0, g.S1, g.S2);
   const dim3 grid((g.S2 + CV_TK - 1) / CV_TK, (g.S1 + CV_TJ - 1) / CV_TJ,
                   (g.S0 + rows - 1) / rows);
-  switch (periodic) {
+  // FORM: 0 the whole grid, 1 a shard's block with walls, 2 with periodic
+  // axes (modular; a shard-local periodic call must be modular)
+  const bool whole = B0 == 0 && B1 == 0 && B2 == 0 && G0 == S0 &&
+                     G1 == S1 && G2 == S2 && !modular;
+  const int form = whole ? 0 : periodic ? 2 : 1;
+  if (form == 2 && !modular) return (int)cudaErrorInvalidValue;
+  switch (periodic | form << 3) {
     WL_CONV_FORM(0) WL_CONV_FORM(1) WL_CONV_FORM(2) WL_CONV_FORM(3)
     WL_CONV_FORM(4) WL_CONV_FORM(5) WL_CONV_FORM(6) WL_CONV_FORM(7)
+    WL_CONV_FORM(8) WL_CONV_FORM(17) WL_CONV_FORM(18) WL_CONV_FORM(19)
+    WL_CONV_FORM(20) WL_CONV_FORM(21) WL_CONV_FORM(22) WL_CONV_FORM(23)
     default:
       return (int)cudaErrorInvalidValue;
   }

@@ -1,7 +1,14 @@
 // Projection head and tail: (div u, p*dt) and (u - L grad x, x/dt).
 //
 // Replaces waterlily_tpu/ops/pallas_stencil.py `div3d_pallas` (`_div_kernel`)
-// and `project3d_pallas` (`_project_kernel`), f32 and whole-grid.
+// and `project3d_pallas` (`_project_kernel`), f32, on the whole grid and in
+// their shard-local (base) forms.
+//
+// Base form: the array is a halo-extended block of a grid of global sizes
+// G whose cell 0 sits at global index B (per axis); a cell takes the
+// interior branch where it is interior both in the array (every tap in
+// bounds) and in the global grid (1 <= idx + B <= G - 2).  The caller trims
+// the halo ring.  The whole grid is the case B = 0, G = S.
 //
 // Bound on the H100: memory.  div reads u (12 B) and p (4 B) and writes z and
 // x (8 B): 24 B/cell; project reads L, u (24 B) and x (4 B) and writes u and
@@ -14,16 +21,32 @@
 // ((t0 + t1) + t2) and the projection's u - L*(x - x[-d]).
 #include "common.cuh"
 
+// The global grid of a shard-local call (B = 0, G = S: the whole grid).
+struct Glob {
+  int B[3];
+  int G[3];
+};
+
+__device__ inline bool global_interior(const Glob& q, const int idx[3]) {
+  bool in = true;
+#pragma unroll
+  for (int a = 0; a < 3; ++a) {
+    const int gq = idx[a] + q.B[a];
+    in = in && gq >= 1 && gq <= q.G[a] - 2;
+  }
+  return in;
+}
+
 __global__ void div_kernel(const float* __restrict__ u,
                            const float* __restrict__ p,
                            const float* __restrict__ dt, float* __restrict__ z,
-                           float* __restrict__ x, Shape3 g) {
+                           float* __restrict__ x, Shape3 g, Glob q) {
   const long long c = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   if (c >= g.N) return;
   int idx[3];
   unflatten(g, c, idx);
   float v = 0.f;
-  if (is_interior(g, idx)) {
+  if (is_interior(g, idx) && global_interior(q, idx)) {
     for (int a = 0; a < 3; ++a) {
       const float* ua = u + a * g.N;
       const float t = ua[c + g.st[a]] - ua[c];
@@ -39,13 +62,13 @@ __global__ void project_kernel(const float* __restrict__ L,
                                const float* __restrict__ u,
                                const float* __restrict__ dt,
                                float* __restrict__ u_out,
-                               float* __restrict__ p, Shape3 g) {
+                               float* __restrict__ p, Shape3 g, Glob q) {
   const long long c = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   if (c >= g.N) return;
   int idx[3];
   unflatten(g, c, idx);
   const float xc = x[c];
-  const bool in = is_interior(g, idx);
+  const bool in = is_interior(g, idx) && global_interior(q, idx);
   for (int a = 0; a < 3; ++a) {
     const long long o = a * g.N + c;
     u_out[o] = in ? u[o] - L[o] * (xc - x[c - g.st[a]]) : u[o];
@@ -53,20 +76,26 @@ __global__ void project_kernel(const float* __restrict__ L,
   p[c] = xc / dt[0];
 }
 
+// G0..G2: the global sizes, B0..B2: the global index of cell 0 (the whole
+// grid: G = S, B = 0).
 extern "C" int wl_div3d(const float* u, const float* p, const float* dt,
-                        float* z, float* x, int S0, int S1, int S2,
+                        float* z, float* x, int S0, int S1, int S2, int G0,
+                        int G1, int G2, int B0, int B1, int B2,
                         void* stream) {
   const Shape3 g = make_shape(S0, S1, S2);
+  const Glob q = {{B0, B1, B2}, {G0, G1, G2}};
   div_kernel<<<blocks_for(g.N), WL_THREADS, 0, (cudaStream_t)stream>>>(
-      u, p, dt, z, x, g);
+      u, p, dt, z, x, g, q);
   return (int)cudaGetLastError();
 }
 
 extern "C" int wl_project3d(const float* L, const float* x, const float* u,
                             const float* dt, float* u_out, float* p, int S0,
-                            int S1, int S2, void* stream) {
+                            int S1, int S2, int G0, int G1, int G2, int B0,
+                            int B1, int B2, void* stream) {
   const Shape3 g = make_shape(S0, S1, S2);
+  const Glob q = {{B0, B1, B2}, {G0, G1, G2}};
   project_kernel<<<blocks_for(g.N), WL_THREADS, 0, (cudaStream_t)stream>>>(
-      L, x, u, dt, u_out, p, g);
+      L, x, u, dt, u_out, p, g, q);
   return (int)cudaGetLastError();
 }

@@ -59,10 +59,12 @@ SIGNATURES = {
     "wl_roll_probe": [_P, _P, _F] + _S3,
     "wl_ana_mult3d": [_P] * 5 + [_F, _I, _I] + _S3,
     "wl_cfl3d": [_P] * 4 + [_I] + _S3,
-    "wl_bc3d": [_P, _P, _F, _F, _F, _I, _I] + _S3,
-    "wl_div3d": [_P, _P, _P, _P, _P] + _S3,
-    "wl_project3d": [_P, _P, _P, _P, _P, _P] + _S3,
-    "wl_conv_diff3d": [_P, _P, _F, _I, _I] + _S3,
+    # the shard-local forms' kernels also take the global sizes and the
+    # global index of cell 0
+    "wl_bc3d": [_P, _P, _F, _F, _F, _I, _I] + _S3 * 3,
+    "wl_div3d": [_P, _P, _P, _P, _P] + _S3 * 3,
+    "wl_project3d": [_P, _P, _P, _P, _P, _P] + _S3 * 3,
+    "wl_conv_diff3d": [_P, _P, _F, _I, _I, _I] + _S3 * 3,
     "wl_pcg": [_P] * 6 + [_I] + _S3 + [_I, _I, _I, _I],
     "wl_grid_sync_probe": [_I, _I],
 }

@@ -25,7 +25,8 @@ from ..utils.perf import device_profile
 from . import probes
 
 __all__ = ["KERNELS", "COMPOSITES", "TOLERANCE", "SOURCES", "LIBRARY",
-           "minmod", "inputs", "clear_inputs", "variants", "compare",
+           "SHARD_KERNELS", "minmod", "inputs", "clear_inputs", "variants",
+           "shard_variants", "compare",
            "time_pair", "time_library",
            "ulp_diff", "bound_ms", "bytes_moved", "HBM_BYTES_PER_S",
            "F32_FLOPS_PER_S"]
@@ -145,7 +146,19 @@ TOLERANCE = {
     **{f"increment3d_stream.{o}{t}": ("exact", None)
        for o in ("x", "r") for t in ("", "_L16")},
     "copy_probe": ("exact", None), "roll_probe": ("exact", None),
+    # the shard-local forms (`shard_variants`)
+    "bc3d.base": ("exact", None), "bc3d.base_exit": ("exact", None),
+    "div3d.z_base": ("exact", None), "div3d.x_base": ("exact", None),
+    "project3d.u_base": ("exact", None), "project3d.p_base": ("exact", None),
+    **{f"conv_diff3d.{lim}_base{'_' + _tag(p) if p else ''}": ("exact", None)
+       for lim in ("quick", "vanleer", "minmod") for p in ((),) + CONV_PERDIRS},
 }
+
+# The kernels with shard-local forms (`parallel`).  A form is a key of the
+# wrapper's ``.bases`` without its shape: ``(S_glob, base)`` for div3d and
+# project3d, ``(S_glob, base, save_exit)`` for bc3d, ``(S_glob, base,
+# perdir)`` for conv_diff3d (modular where an axis is periodic).
+SHARD_KERNELS = ("bc3d", "div3d", "project3d", "conv_diff3d")
 
 
 def minmod(u, c, d):
@@ -352,6 +365,38 @@ def variants(name, d) -> list:
     }[name]
 
 
+def shard_variants(name, d, form) -> list:
+    """``[(outputs, kernel call, plain call), ...]`` of the shard-local
+    form ``form`` of kernel ``name`` (one of `SHARD_KERNELS`) on inputs
+    ``d``: bc3d's copy form on a block, div3d, project3d and each checked
+    limiter of conv_diff3d on a halo-extended block."""
+    S_glob, base, *extra = form
+    glob = dict(S_glob=tuple(S_glob), base=tuple(base))
+    u, p, dt, x, L = d["u"], d["p"], d["dt"], d["x"], d["lev"].L
+    if name == "bc3d":
+        save_exit = bool(extra[0])
+        return [(("base_exit" if save_exit else "base",),
+                 lambda: sk.bc3d(u, d["A"], save_exit, **glob),
+                 lambda: bc_vector_planes(u, d["A"], save_exit, (), False,
+                                          **glob))]
+    if name == "div3d":
+        return [(("z_base", "x_base"), lambda: sk.div3d(u, p, dt, **glob),
+                 lambda: sk._div3d_plain(u, p, dt, **glob))]
+    if name == "project3d":
+        return [(("u_base", "p_base"),
+                 lambda: sk.project3d(L, x, u, dt, **glob),
+                 lambda: sk._project3d_plain(L, x, u, dt, **glob))]
+    perdir = tuple(extra[0])
+    tag = "_base" + ("_" + _tag(perdir) if perdir else "")
+    return [((lim.__name__ + tag,),
+             lambda lim=lim: sk.conv_diff3d(u, d["nu"], lim, perdir,
+                                            modular=bool(perdir), **glob),
+             lambda lim=lim: sk._conv_diff3d_plain(u, d["nu"], lim, perdir,
+                                                   modular=bool(perdir),
+                                                   **glob))
+            for lim in CONV_LIMITERS]
+
+
 KERNELS = tuple(SOURCES)
 
 # The card's published peaks (H100 SXM data sheet, at the 700 W limit):
@@ -378,11 +423,43 @@ def _bc_written(S, perdir=(), save_exit=False) -> tuple[int, int]:
     return n - dirichlet, dirichlet
 
 
-def _bc_work(S, perdir=(), save_exit=False) -> tuple[float, int]:
+def _bc_written_base(S, S_glob, base, save_exit=False) -> tuple[int, int]:
+    """`_bc_written` of bc3d's shard-local form on a block at global index
+    ``base``: the cells of the global faces present in the block (and of
+    the Dirichlet plane 1 where the block holds plane 0), less the kept
+    outlet plane's cells on no other face."""
+    D = len(S)
+    ax = [np.arange(S[a]).reshape([-1 if b == a else 1 for b in range(D)])
+          for a in range(D)]
+    lo = [b == 0 for b in base]
+    hi = [b + n == g for b, n, g in zip(base, S, S_glob)]
+    face = [(ax[a] == 0) & lo[a] | (ax[a] == S[a] - 1) & hi[a]
+            for a in range(D)]
+    copied = dirichlet = 0
+    for c in range(D):
+        kept = save_exit and c == 0
+        dirc = (ax[c] <= 1) & lo[c] | (ax[c] == S[c] - 1) & hi[c] & (not kept)
+        written = np.broadcast_to(dirc, S).copy()
+        for a in range(D):
+            written |= face[a]
+        if kept:
+            others = np.zeros(S, bool)
+            for a in range(1, D):
+                others |= face[a]
+            written &= ~(face[0] & ~others & ~dirc)
+        nd = int(np.broadcast_to(dirc, S).sum())
+        copied += int(written.sum()) - nd
+        dirichlet += nd
+    return copied, dirichlet
+
+
+def _bc_work(S, perdir=(), save_exit=False, form=None) -> tuple[float, int]:
     """bc3d's fields a cell: a 4 B read and a 4 B write for each copied
     cell, a 4 B write for each Dirichlet one (~21 planes written at
-    most, not 6 fields a cell: a function of the shape)."""
-    copied, dirichlet = _bc_written(S, perdir, save_exit)
+    most, not 6 fields a cell: a function of the shape); ``form`` a
+    shard-local form (`SHARD_KERNELS`)."""
+    copied, dirichlet = (_bc_written(S, perdir, save_exit) if form is None
+                         else _bc_written_base(S, *form))
     return (2 * copied + dirichlet) / math.prod(S), 0
 
 
@@ -444,27 +521,33 @@ _WORK_FORMS = {
 }
 
 
-def _work(name, S, variant=None):
+def _work(name, S, variant=None, form=None):
+    """A shard-local form (``form``) does the work of the whole-grid form
+    at its shape, but bc3d's, which writes only the faces in its block."""
+    if name == "bc3d" and form is not None:
+        return _bc_work(S, form=form)
     w = _WORK_FORMS.get(
         (name, variant), (_WORK_2D if len(S) == 2 else _WORK)[name])
     return w(S) if callable(w) else w
 
 
-def bytes_moved(name, S, variant=None) -> float:
+def bytes_moved(name, S, variant=None, form=None) -> float:
     """Bytes kernel ``name``'s timed variant (or the form whose first output
-    is ``variant``) must move at shape ``S``: each input read once, each
-    output written once, a bf16 field at half."""
-    return 4 * _work(name, S, variant)[0] * math.prod(S)
+    is ``variant``, or the shard-local form ``form``) must move at shape
+    ``S``: each input read once, each output written once, a bf16 field at
+    half."""
+    return 4 * _work(name, S, variant, form)[0] * math.prod(S)
 
 
-def bound_ms(name, S, variant=None) -> tuple[float, str]:
+def bound_ms(name, S, variant=None, form=None) -> tuple[float, str]:
     """The least time the card could take for kernel ``name``'s timed
-    variant (or the form whose first output is ``variant``) at shape
-    ``S``: the larger of its bytes over the memory rate and its operations
-    over the f32 rate, in ms, and which of the two bounds it ("bytes" or
-    "operations")."""
-    t_bytes = bytes_moved(name, S, variant) / HBM_BYTES_PER_S * 1e3
-    t_ops = _work(name, S, variant)[1] * math.prod(S) / F32_FLOPS_PER_S * 1e3
+    variant (or the form whose first output is ``variant``, or the
+    shard-local form ``form``) at shape ``S``: the larger of its bytes over
+    the memory rate and its operations over the f32 rate, in ms, and which
+    of the two bounds it ("bytes" or "operations")."""
+    t_bytes = bytes_moved(name, S, variant, form) / HBM_BYTES_PER_S * 1e3
+    t_ops = (_work(name, S, variant, form)[1] * math.prod(S)
+             / F32_FLOPS_PER_S * 1e3)
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -477,13 +560,15 @@ def ulp_diff(a: torch.Tensor, b: torch.Tensor) -> int:
     return int(torch.max(torch.abs(ordered(a) - ordered(b))))
 
 
-def compare(name, S, seed, device) -> list[dict]:
-    """Run kernel ``name`` and its plain version at shape ``S``; one row per
-    output with its max |diff|, max ulp distance and pass verdict."""
+def compare(name, S, seed, device, form=None) -> list[dict]:
+    """Run kernel ``name`` and its plain version at shape ``S`` (every
+    variant, or the shard-local form ``form``); one row per output with its
+    max |diff|, max ulp distance and pass verdict."""
     rows = []
     pairs = []
     d = _fresh_inputs(S, seed, device)
-    for outputs, kern, plain in variants(name, d):
+    for outputs, kern, plain in (variants(name, d) if form is None
+                                 else shard_variants(name, d, form)):
         k_out, p_out = kern(), plain()
         if not isinstance(k_out, tuple):
             k_out, p_out = (k_out,), (p_out,)
@@ -519,10 +604,11 @@ def _timed(fn, n):
     return start.elapsed_time(end) / n
 
 
-def _variant(name, d, variant):
-    """Variant ``variant`` of `variants`: its index, or its first output's
-    name ("" for a variant with none)."""
-    vs = variants(name, d)
+def _variant(name, d, variant, form=None):
+    """Variant ``variant`` of `variants` (of `shard_variants` with
+    ``form``): its index, or its first output's name ("" for a variant
+    with none)."""
+    vs = variants(name, d) if form is None else shard_variants(name, d, form)
     if isinstance(variant, int):
         return vs[variant]
     for v in vs:
@@ -605,7 +691,7 @@ def time_library(name, S, device, n=20) -> float:
             + device_profile(fn, n, events=True)[0]) / 2
 
 
-def time_pair(name, S, device, n=20, variant=0) -> dict:
+def time_pair(name, S, device, n=20, variant=0, form=None) -> dict:
     """Per-call times of kernel ``name``'s variant ``variant`` (index or
     first output name, `_variant`) and its plain version at shape ``S``,
     over ``n`` back-to-back calls, each on the next of `ROTATE` input
@@ -615,8 +701,10 @@ def time_pair(name, S, device, n=20, variant=0) -> dict:
     included).  Measured in turns plain, kernel, kernel, plain after a
     warm-up, first wall, then device; each is the mean of its two
     runs.  A device time the profiler could not record is a CUDA-event
-    time (`device_profile`'s ``events``)."""
-    sets = [_variant(name, d, variant) for d in _input_sets(S, device)]
+    time (`device_profile`'s ``events``).  ``form``: a shard-local form
+    (`shard_variants`)."""
+    sets = [_variant(name, d, variant, form)
+            for d in _input_sets(S, device)]
     for _, k, p in sets:
         k(), p()
     torch.cuda.synchronize()

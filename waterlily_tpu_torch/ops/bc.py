@@ -43,12 +43,23 @@ def bc_vector(u: torch.Tensor, A, save_exit: bool = False,
 
 
 def bc_vector_planes(u: torch.Tensor, A, save_exit: bool = False,
-                     perdir: tuple = (), inplace: bool = False) -> torch.Tensor:
+                     perdir: tuple = (), inplace: bool = False,
+                     S_glob=None, base=None) -> torch.Tensor:
     """The sequential plane-update form of `bc_vector` (the plain version
     of the `bc3d` kernel): on a copy of ``u``, or with ``inplace`` on
-    ``u`` itself."""
+    ``u`` itself.
+
+    With ``S_glob`` and ``base`` (host ints; walls and the outlet only)
+    ``u`` is one shard's block of a grid of sizes ``S_glob`` whose cell 0
+    sits at global index ``base``: only the global ghost planes (and
+    Dirichlet plane 1) that fall in the block are updated, from its planes
+    1 and S-2 (the shard-local form of `waterlily_tpu.parallel`)."""
     D = u.shape[0]
     S = u.shape[1:]
+    lo = hi = (True,) * D
+    if base is not None:
+        lo = tuple(b == 0 for b in base)
+        hi = tuple(b + s == g for b, s, g in zip(base, S, S_glob))
     if not inplace:
         u = u.clone()
     cpl = lambda i, j, lo: (slice(i, i + 1),) + _pl(D, j, lo)
@@ -58,13 +69,16 @@ def bc_vector_planes(u: torch.Tensor, A, save_exit: bool = False,
                 u[cpl(i, j, 0)] = u[cpl(i, j, S[j] - 2)]
                 u[cpl(i, j, S[j] - 1)] = u[cpl(i, j, 1)]
             elif i == j:
-                u[cpl(i, j, 0)] = A[i]
-                u[cpl(i, j, 1)] = A[i]
-                if not (save_exit and i == 0):
+                if lo[j]:
+                    u[cpl(i, j, 0)] = A[i]
+                    u[cpl(i, j, 1)] = A[i]
+                if hi[j] and not (save_exit and i == 0):
                     u[cpl(i, j, S[j] - 1)] = A[i]
             else:
-                u[cpl(i, j, 0)] = u[cpl(i, j, 1)]
-                u[cpl(i, j, S[j] - 1)] = u[cpl(i, j, S[j] - 2)]
+                if lo[j]:
+                    u[cpl(i, j, 0)] = u[cpl(i, j, 1)]
+                if hi[j]:
+                    u[cpl(i, j, S[j] - 1)] = u[cpl(i, j, S[j] - 2)]
     return u
 
 

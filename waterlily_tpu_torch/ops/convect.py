@@ -58,13 +58,30 @@ KERNEL_LIMITERS = (quick, vanleer)
 
 
 def conv_core(up, S: tuple, nu, perdir: tuple, limiter,
-              u_wrap=None) -> torch.Tensor:
+              u_wrap=None, S_glob=None, base=None,
+              modular: bool = False) -> torch.Tensor:
     """Gather-form tendency on the whole grid from ``up``, the velocity
-    padded by 2 zero cells on every spatial axis; ``u_wrap`` (the unpadded
-    velocity) supplies the periodic far-upwind wraps."""
+    padded by 2 cells on every spatial axis (zeros; a shard's halos in the
+    shard-local form); ``u_wrap`` (the unpadded velocity) supplies the
+    periodic far-upwind wraps.
+
+    ``S_glob``/``base`` (host ints): the output's ``S`` cells are a window
+    of a grid of sizes ``S_glob`` whose cell 0 sits at global index
+    ``base``, and the wall-face variants and the write support test global
+    positions (the shard-local form of `waterlily_tpu.parallel`).
+    ``modular``: ``up``'s planes beyond the window hold the modular wrap
+    values of the periodic axes (global plane -m is interior plane
+    ``S_glob-2-m``, ``S_glob-1+m`` is ``1+m``), so a periodic face takes the
+    uniform periodic formula with no wrap read and no top-face copy: it
+    then equals the wrapped flux bit for bit."""
     D = len(S)
     A = slice(None)
     device = up.device
+    S_glob = tuple(S) if S_glob is None else tuple(S_glob)
+
+    def gidx(d):
+        k = axis_coord(S, d, device)
+        return k if base is None else k + base[d]
 
     def cells(c, offs=None):
         """Component(s) ``c`` on the cell grid shifted by ``offs[d]``
@@ -84,17 +101,21 @@ def conv_core(up, S: tuple, nu, perdir: tuple, limiter,
             0.5 * (cells(j, {j: s}) + cells(j, {j: s, i: -1})) if i != j
             else 0.5 * (cells(j, {j: s}) + cells(j, {j: s - 1}))
             for i in range(D)], dim=0)
-        kf = axis_coord(S, j, device) + s
+        kf = gidx(j) + s
         cd = 0.5 * (f + fm1)
-        if periodic:
+        if periodic and modular:
+            pos = limiter(fm2, fm1, f)
+            neg = limiter(fp1, f, fm1)
+        elif periodic:
             wrap = tuple(slice(S[d] - 3, S[d] - 2) if d == j else slice(None)
                          for d in range(D))
             fm2 = torch.where(kf == 1, u_wrap[(A,) + wrap], fm2)
             pos = limiter(fm2, fm1, f)
             neg = limiter(fp1, f, fm1)
         else:
-            pos = torch.where(kf == 1, cd, limiter(fm2, fm1, f))         # ϕuL
-            neg = torch.where(kf == S[j] - 1, cd, limiter(fp1, f, fm1))  # ϕuR
+            pos = torch.where(kf == 1, cd, limiter(fm2, fm1, f))    # ϕuL
+            neg = torch.where(kf == S_glob[j] - 1, cd,
+                              limiter(fp1, f, fm1))                 # ϕuR
         return torch.where(w > 0, w * pos, w * neg) - nu * (f - fm1)
 
     r = torch.zeros(up.shape[:1] + tuple(S), dtype=up.dtype, device=device)
@@ -102,16 +123,16 @@ def conv_core(up, S: tuple, nu, perdir: tuple, limiter,
         periodic = j in perdir
         Fk = face_flux(j, 0, periodic)
         Fk1 = face_flux(j, 1, periodic)
-        k = axis_coord(S, j, device)
-        if periodic:
+        if periodic and not modular:
             # the top face flux (face S-1) copies face 1's flux (Flow.jl:60)
             face1 = tuple(slice(1, 2) if d == j else slice(None)
                           for d in range(D))
-            Fk1 = torch.where(k + 1 == S[j] - 1, Fk[(A,) + face1], Fk1)
+            Fk1 = torch.where(gidx(j) + 1 == S_glob[j] - 1,
+                              Fk[(A,) + face1], Fk1)
         m = None
         for d in range(D):
-            kd = axis_coord(S, d, device)
-            md = (kd >= 1) & (kd <= S[d] - 2) if d == j else (kd >= 1)
+            kd = gidx(d)
+            md = (kd >= 1) & (kd <= S_glob[d] - 2) if d == j else (kd >= 1)
             m = md if m is None else m & md
         r = r + torch.where(m, Fk - Fk1, 0.0)
     return r

@@ -135,4 +135,5 @@ def pcg_fused(lev, x, r, it: int = 6):
 pcg_fused.launches = 0
 pcg_fused.shapes = collections.Counter()
 pcg_fused.forms = set()
+pcg_fused.bases = collections.Counter()
 

@@ -14,6 +14,16 @@ the forms it launched in ``.forms`` (each the names of the arguments that
 were bf16, ``()`` for all f32); ``conv_diff3d``'s are its limiters' names,
 ``bc3d``'s ``"inplace"`` or ``"copy"``.
 
+``bc3d``, ``div3d``, ``project3d`` and ``conv_diff3d`` also have the
+shard-local forms of `waterlily_tpu.parallel`: given ``S_glob`` and
+``base`` (host ints), the array is one shard's block (halo-extended for
+the last three) of a grid of sizes ``S_glob`` whose cell 0 sits at global
+index ``base``, and the boundary tests compare global positions;
+``conv_diff3d`` also takes ``modular`` (periodic axes with modular wrap
+halos).  Each such launch adds ``"base"`` (and ``"modular"``) to the
+wrapper's ``.forms`` and counts ``(shape, S_glob, base, form)`` in its
+``.bases``, a `collections.Counter`.
+
 The plain versions are the package's own whole-array forms (the functions
 `waterlily_tpu` runs through XLA on the CPU), with the same association as
 the kernels: with ``--fmad=false`` every kernel without an in-kernel sum
@@ -34,7 +44,7 @@ from ..kernels.build import THREADS, launch, library
 
 __all__ = ["MIN_CELLS", "use_blocked", "mult3d", "increment3d",
            "ana_mult3d", "cfl3d", "bc3d", "div3d", "project3d", "conv_diff3d",
-           "kernel_wrappers"]
+           "global_interior", "kernel_wrappers"]
 
 # Minimum ghost-padded cell count for the kernel tier (the JAX gate's own
 # floor): smaller levels run the plain forms on the device.
@@ -120,7 +130,42 @@ def _counted(fn):
     fn.launches = 0
     fn.shapes = collections.Counter()
     fn.forms = set()
+    fn.bases = collections.Counter()
     return fn
+
+
+def _global(S, S_glob, base) -> tuple:
+    """The six ints of a launch's global grid: its sizes and the global
+    index of the array's cell 0 (``S`` and zeros for a whole-grid call)."""
+    if base is None:
+        return tuple(S) + (0,) * len(S)
+    S_glob = tuple(S) if S_glob is None else tuple(int(g) for g in S_glob)
+    base = tuple(int(b) for b in base)
+    if len(S_glob) != len(S) or len(base) != len(S):
+        raise ValueError(f"S_glob {S_glob} and base {base} must have one "
+                         f"entry per axis of {S}")
+    return S_glob + base
+
+
+def _count_base(fn, S, glob, extra=()) -> None:
+    """One shard-local launch of wrapper ``fn`` with the global grid
+    ``glob`` (`_global`): ``"base"`` in ``.forms``, and its shape, global
+    sizes, base and ``extra`` (the form's other arguments) in ``.bases``."""
+    fn.forms.add("base")
+    fn.bases[(tuple(S), glob[:3], glob[3:]) + tuple(extra)] += 1
+
+
+def global_interior(S, S_glob, base, device=None) -> torch.Tensor:
+    """Mask of the cells of an array of shape ``S`` at global index
+    ``base`` that are interior in the grid of sizes ``S_glob``."""
+    m = None
+    for d in range(len(S)):
+        view = [1] * len(S)
+        view[d] = S[d]
+        g = (torch.arange(S[d], device=device) + base[d]).reshape(view)
+        md = (g >= 1) & (g <= S_glob[d] - 2)
+        m = md if m is None else m & md
+    return m
 
 
 def _count(fn, S, **streams) -> None:
@@ -338,22 +383,28 @@ def cfl3d(u):
 
 @_counted
 def bc3d(u, A, save_exit: bool = False, perdir: tuple = (),
-         inplace: bool = False):
+         inplace: bool = False, S_glob=None, base=None):
     """The (3, S0, S1, S2) velocity field with its boundary conditions, in
     one launch, equal to `ops.bc.bc_vector_planes` bit for bit: walls,
     periodic axes (``perdir``) and the convective outlet's kept plane
     (``save_exit``).  The kernel writes only the cells that change (ghost
     faces and the Dirichlet plane): with ``inplace`` into ``u``, which it
     returns, otherwise into a clone of ``u``.  Each launch adds its form,
-    ``"inplace"`` or ``"copy"``, to ``bc3d.forms``."""
+    ``"inplace"`` or ``"copy"``, to ``bc3d.forms``.  With ``S_glob`` and
+    ``base`` (walls and the outlet only) ``u`` is one shard's block and
+    only the global faces in it are filled, from its planes 1 and S-2."""
     S = tuple(u.shape[1:])
+    if base is not None and perdir:
+        raise ValueError("bc3d: the periodic form is whole-grid only")
     if _on_cpu("bc3d", u):
         from .bc import bc_vector_planes
-        return bc_vector_planes(u, A, save_exit, perdir, inplace)
+        return bc_vector_planes(u, A, save_exit, perdir, inplace, S_glob,
+                                base)
     _check("bc3d", S, u=(u, (3,) + S))
     if 3 * math.prod(S) >= 2 ** 31:
         raise ValueError(f"bc3d: the kernel indexes fields of fewer than "
                          f"2^31 values, got S={S}")
+    glob = _global(S, S_glob, base)
     out = u if inplace else u.clone()
     # numbers go with the launch; values on the device as a (3,) array
     if any(isinstance(a, torch.Tensor) for a in A):
@@ -361,66 +412,89 @@ def bc3d(u, A, save_exit: bool = False, perdir: tuple = (),
     else:
         A_dev, A_host = None, tuple(float(a) for a in A)
     launch("wl_bc3d", out, A_dev, *A_host,
-           _axis_bits(perdir), int(bool(save_exit)), *S)
+           _axis_bits(perdir), int(bool(save_exit)), *S, *glob)
     bc3d.launches += 1
     bc3d.shapes[S] += 1
     bc3d.forms.add("inplace" if inplace else "copy")
+    if base is not None:
+        _count_base(bc3d, S, glob, (bool(save_exit),))
     return out
 
 
 # --- projection head and tail -------------------------------------------------
 
-def _div3d_plain(u, p, dt):
+def _div3d_plain(u, p, dt, S_glob=None, base=None):
     from ..flow import div
-    return div(u), p * dt
+    z = div(u)
+    if base is not None:
+        z = torch.where(global_interior(tuple(p.shape), S_glob, base,
+                                        p.device), z, 0.0)
+    return z, p * dt
 
 
 @_counted
-def div3d(u, p, dt):
+def div3d(u, p, dt, S_glob=None, base=None):
     """(div(u) on the interior with zero ghosts, p·dt) in one sweep; ``dt``
-    may be a one-element device tensor (no host synchronisation)."""
+    may be a one-element device tensor (no host synchronisation).  With
+    ``S_glob`` and ``base`` the arrays are a shard's halo-extended block and
+    div(u) is kept where a cell is interior in the array and in the global
+    grid."""
     S = tuple(p.shape)
     if _on_cpu("div3d", u):
-        return _div3d_plain(u, p, dt)
+        return _div3d_plain(u, p, dt, S_glob, base)
     _check("div3d", S, u=(u, (3,) + S), p=(p, S))
+    glob = _global(S, S_glob, base)
     z = torch.empty_like(p)
     x = torch.empty_like(p)
-    launch("wl_div3d", u, p, _scalar_on(dt, p, "div3d"), z, x, *S)
+    launch("wl_div3d", u, p, _scalar_on(dt, p, "div3d"), z, x, *S, *glob)
     div3d.launches += 1
     div3d.shapes[S] += 1
+    if base is not None:
+        _count_base(div3d, S, glob)
     return z, x
 
 
-def _project3d_plain(L, x, u, dt):
+def _project3d_plain(L, x, u, dt, S_glob=None, base=None):
     from .poisson import pressure_grad_arrays
     from ..grid import pad_interior
-    return u - pad_interior(pressure_grad_arrays(L, x), lead=1), x / dt
+    un = u - pad_interior(pressure_grad_arrays(L, x), lead=1)
+    if base is not None:
+        un = torch.where(global_interior(tuple(x.shape), S_glob, base,
+                                         x.device), un, u)
+    return un, x / dt
 
 
 @_counted
-def project3d(L, x, u, dt):
+def project3d(L, x, u, dt, S_glob=None, base=None):
     """(u − L∘∇x on the interior, ghosts passed through; x/dt) in one
-    sweep.  Returns new tensors."""
+    sweep.  Returns new tensors.  With ``S_glob`` and ``base`` the arrays
+    are a shard's halo-extended block and u is corrected where a cell is
+    interior in the array and in the global grid."""
     S = tuple(x.shape)
     if _on_cpu("project3d", x):
-        return _project3d_plain(L, x, u, dt)
+        return _project3d_plain(L, x, u, dt, S_glob, base)
     _check("project3d", S, L=(L, (3,) + S), x=(x, S), u=(u, (3,) + S))
+    glob = _global(S, S_glob, base)
     u_out = torch.empty_like(u)
     p = torch.empty_like(x)
     launch("wl_project3d", L, x, u, _scalar_on(dt, x, "project3d"), u_out, p,
-           *S)
+           *S, *glob)
     project3d.launches += 1
     project3d.shapes[S] += 1
+    if base is not None:
+        _count_base(project3d, S, glob)
     return u_out, p
 
 
 # --- convection-diffusion ------------------------------------------------------
 
-def _conv_diff3d_plain(u, nu, limiter, perdir=()):
+def _conv_diff3d_plain(u, nu, limiter, perdir=(), S_glob=None, base=None,
+                       modular=False):
     from .convect import conv_core
     S = tuple(u.shape[1:])
     up = torch.nn.functional.pad(u, (2, 2) * len(S))
-    return conv_core(up, S, nu, perdir, limiter, u_wrap=u)
+    return conv_core(up, S, nu, perdir, limiter, u_wrap=u, S_glob=S_glob,
+                     base=base, modular=modular)
 
 
 def _limiter_code(limiter) -> int:
@@ -435,29 +509,45 @@ def _limiter_code(limiter) -> int:
 
 
 @_counted
-def conv_diff3d(u, nu, limiter, perdir: tuple = ()):
+def conv_diff3d(u, nu, limiter, perdir: tuple = (), S_glob=None, base=None,
+                modular: bool = False):
     """Full convection-diffusion tendency of all three components, zero
     wherever the reference writes nothing; periodic axes (``perdir``) take
     the ϕuP wrap and the top-face copy of face 1's flux.  QUICK and van
     Leer are compiled in; any other limiter is traced into the same kernel
     at its first launch (`kernels.limiter`), and one with no kernel form
-    raises.  ``.forms`` keeps the names of the limiters launched."""
+    raises.  ``.forms`` keeps the names of the limiters launched.
+
+    With ``S_glob`` and ``base`` ``u`` is a shard's block halo-extended by
+    two cells (the caller trims the output); a periodic axis then needs
+    ``modular``: its halo planes hold the modular wrap values and its faces
+    take the uniform periodic flux."""
     from .convect import KERNEL_LIMITERS
     S = tuple(u.shape[1:])
+    if perdir and base is not None and not modular:
+        raise ValueError("conv_diff3d: a shard-local periodic call needs "
+                         "modular wrap halos (modular=True)")
     if _on_cpu("conv_diff3d", u):
-        return _conv_diff3d_plain(u, nu, limiter, perdir)
+        return _conv_diff3d_plain(u, nu, limiter, perdir, S_glob, base,
+                                  modular)
     _check("conv_diff3d", S, u=(u, (3,) + S))
+    glob = _global(S, S_glob, base)
+    mod = int(bool(modular) and base is not None and bool(perdir))
     r = torch.empty_like(u)
     if limiter in KERNEL_LIMITERS:
         launch("wl_conv_diff3d", u, r, float(nu), _limiter_code(limiter),
-               _axis_bits(perdir), *S)
+               _axis_bits(perdir), mod, *S, *glob)
     else:
         from ..kernels.limiter import ENTRY, entry_point
-        launch(ENTRY, u, r, float(nu), _axis_bits(perdir), *S,
+        launch(ENTRY, u, r, float(nu), _axis_bits(perdir), mod, *S, *glob,
                lib=entry_point(limiter))
     conv_diff3d.launches += 1
     conv_diff3d.shapes[S] += 1
     conv_diff3d.forms.add(getattr(limiter, "__name__", repr(limiter)))
+    if base is not None:
+        _count_base(conv_diff3d, S, glob, (tuple(perdir),))
+    if mod:
+        conv_diff3d.forms.add("modular")
     return r
 
 

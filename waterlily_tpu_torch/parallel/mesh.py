@@ -1,0 +1,190 @@
+"""The shard mesh of the spatial decomposition and its collectives.
+
+PyTorch counterpart of `waterlily_tpu.parallel.mesh` (the mesh choice of
+`mesh_for`) and of the three `jax.lax` collectives its shard_map regions
+call.  A `ShardMesh` here is an in-process mesh: every shard of one process
+lives on one device, and a collective is a tensor move on that device (the
+analog of JAX's virtual CPU devices).  A sharded field is a list of local
+blocks in row-major shard order; the local functions of this package take
+lists and return lists, and each collective reads the whole list.  A value
+that every shard holds alike (a dot, a coarse multigrid level) is one
+tensor.  A mesh over processes (`torch.distributed`, one rank a GPU; not
+ported yet) implements the same interface for the one block a rank
+holds.
+
+GSPMD's sharding constraints (`constrain_state`, `constrain_levels`,
+`mom_step_auto`, `sharded_step_fn`) have no counterpart: the one-region
+step (`parallel.shard_step`) is the port's only sharded step.
+"""
+from __future__ import annotations
+
+import math
+
+import torch
+
+__all__ = ["ShardMesh", "mesh_for", "_spatial_names", "_local_shape"]
+
+NAMES = ("x", "y", "z")
+
+
+class ShardMesh:
+    """Shards per spatial axis (``shards[d]`` for axis ``d``; axes past the
+    tuple are unsharded), the device every block lives on, and a count of
+    replicas (JAX's trailing mesh axis ``"r"``, over which fields are
+    replicated: in one process the replicas are one computation).
+
+    ``names`` are the mesh's spatial axis names (``x``, ``y``, ``z`` by
+    default), one for each sharded axis, in JAX's positional mapping of
+    names to spatial axes."""
+
+    def __init__(self, shards, device="cuda", replicas: int = 1,
+                 names=None):
+        self.shards = tuple(int(k) for k in shards)
+        if not self.shards or min(self.shards) < 1 or replicas < 1:
+            raise ValueError(f"bad mesh: shards {shards}, replicas "
+                             f"{replicas}")
+        self.device = torch.device(device)
+        self.replicas = int(replicas)
+        self.names = tuple(names) if names is not None else \
+            NAMES[:len(self.shards)]
+
+    def __repr__(self):
+        return (f"ShardMesh(shards={self.shards}, device={self.device}, "
+                f"replicas={self.replicas})")
+
+    @property
+    def axis_names(self) -> tuple:
+        return self.names + (("r",) if self.replicas > 1 else ())
+
+    @property
+    def shape(self) -> dict:
+        """Axis name → size, as JAX's ``Mesh.shape``."""
+        sizes = dict(zip(self.names, self.shards))
+        if self.replicas > 1:
+            sizes["r"] = self.replicas
+        return sizes
+
+    @property
+    def size(self) -> int:
+        """Shards of a field (the replicas not counted)."""
+        return math.prod(self.shards)
+
+    def k(self, d: int) -> int:
+        """Shards along spatial axis ``d``."""
+        return self.shards[d] if d < len(self.shards) else 1
+
+    def coords(self, s: int) -> tuple:
+        """Per-axis index of shard ``s`` (row-major order)."""
+        out = []
+        for k in reversed(self.shards):
+            out.append(s % k)
+            s //= k
+        return tuple(reversed(out))
+
+    def index(self, coords) -> int:
+        s = 0
+        for c, k in zip(coords, self.shards):
+            s = s * k + c
+        return s
+
+    def axis_index(self, d: int) -> list:
+        """Each shard's index along axis ``d`` (JAX's ``axis_index``)."""
+        return [self.coords(s)[d] if d < len(self.shards) else 0
+                for s in range(self.size)]
+
+    def base(self, s: int, S) -> tuple:
+        """Global index of shard ``s``'s cell 0 on a grid of shape ``S``."""
+        c = self.coords(s)
+        return tuple((c[d] if d < len(c) else 0) * (S[d] // self.k(d))
+                     for d in range(len(S)))
+
+    # -- the shard_map region's in_specs and out_specs ---------------------
+
+    def _slices(self, s: int, S, lead: int) -> tuple:
+        b = self.base(s, S)
+        return (slice(None),) * lead + tuple(
+            slice(b[d], b[d] + S[d] // self.k(d)) for d in range(len(S)))
+
+    def split(self, a: torch.Tensor, lead: int = 0) -> list:
+        """The local blocks of global array ``a`` (``lead`` leading
+        component axes, then the spatial axes), each a contiguous copy."""
+        S = tuple(a.shape[lead:])
+        return [a[self._slices(s, S, lead)].clone(
+                    memory_format=torch.contiguous_format)
+                for s in range(self.size)]
+
+    def assemble(self, blocks: list, lead: int = 0) -> torch.Tensor:
+        """The global array of a list of local blocks."""
+        loc = tuple(blocks[0].shape[lead:])
+        S = tuple(n * self.k(d) for d, n in enumerate(loc))
+        out = torch.empty(tuple(blocks[0].shape[:lead]) + S,
+                          dtype=blocks[0].dtype, device=blocks[0].device)
+        for s, b in enumerate(blocks):
+            out[self._slices(s, S, lead)] = b
+        return out
+
+    # -- collectives --------------------------------------------------------
+
+    def ppermute(self, blocks: list, d: int, perm) -> list:
+        """``jax.lax.ppermute`` along axis ``d``: shard ``dst`` (its index on
+        ``d``) receives the block of shard ``src`` for each ``(src, dst)``
+        of ``perm``, the other coordinates kept.  A shard that receives
+        nothing gets ``None`` (JAX gives zeros there; every caller selects
+        another value at those shards)."""
+        src_of = {dst: src for src, dst in perm}
+        out = []
+        for s in range(self.size):
+            c = list(self.coords(s))
+            if c[d] in src_of:
+                c[d] = src_of[c[d]]
+                out.append(blocks[self.index(c)])
+            else:
+                out.append(None)
+        return out
+
+    def psum(self, values: list) -> torch.Tensor:
+        """``jax.lax.psum`` over every spatial axis: the sum of the shards'
+        values in row-major shard order, one tensor every shard holds."""
+        total = values[0]
+        for v in values[1:]:
+            total = total + v
+        return total
+
+    def pmax(self, values: list) -> torch.Tensor:
+        """``jax.lax.pmax`` over every spatial axis."""
+        total = values[0]
+        for v in values[1:]:
+            total = torch.maximum(total, v)
+        return total
+
+
+def mesh_for(S: tuple, n: int, device="cuda") -> ShardMesh:
+    """A mesh of ``n`` shards whose per-axis counts divide the padded grid
+    shape ``S``, chosen as `waterlily_tpu.parallel.mesh.mesh_for` chooses:
+    each axis in turn takes the largest power of 2 of what is left of
+    ``n`` that divides ``S[d]``; what remains is the replica count.
+    Ghost-padded multigrid sizes are 2 times an odd number, so each axis
+    takes at most 2 (258³ over 8: (2, 2, 2), local blocks 129³)."""
+    rem = int(n)
+    dims, names = [], []
+    for d, s in enumerate(S[:3]):
+        f = 1
+        while rem % 2 == 0 and s % (2 * f) == 0:
+            f *= 2
+            rem //= 2
+        if f > 1:
+            dims.append(f)
+            names.append(NAMES[d])
+    if not dims:
+        dims, names = [1], ["x"]
+    # JAX maps the mesh's spatial axes onto the grid's axes by position
+    shards = tuple(dims[d] if d < len(dims) else 1 for d in range(len(S)))
+    return ShardMesh(shards, device, replicas=rem, names=names)
+
+
+def _spatial_names(mesh: ShardMesh) -> tuple:
+    return tuple(n for n in mesh.axis_names if n != "r")
+
+
+def _local_shape(mesh: ShardMesh, S: tuple) -> tuple:
+    return tuple(S[k] // mesh.k(k) for k in range(len(S)))

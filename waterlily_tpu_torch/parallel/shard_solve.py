@@ -1,0 +1,212 @@
+"""The multigrid pressure solve on the shards' blocks.
+
+PyTorch counterpart of `waterlily_tpu.parallel.shard_solve` (JAX's one
+shard_map region for the whole `ml_solve`):
+
+- the fine level is sharded: each shard's block runs the operator and the
+  PCG smoother of `parallel.shard_smooth`, with halo planes and psum'd
+  dots;
+- every coarser level is replicated, which in one process means computed
+  once, by the dense operators (`replicate_level`: on a CUDA device the
+  dense ``mult3d``, ``increment3d`` and ``pcg_fused`` kernels);
+- the transfers are exact: restriction sums each coarse cell's children on
+  the one shard that holds its lower child (the upper child is local or
+  the first halo plane), scatters the owned cells into a zero coarse array
+  and psums the shards' arrays (adding zeros), so the replicated coarse
+  residual equals the dense restriction bit for bit; prolongation reads
+  the replicated coarse correction (a slice and a repeat per axis).
+"""
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+
+from ..ops import stencil_kernels as sk
+from .halo import halo_exchange, ghost_mask_local, per_fill_local
+from .mesh import ShardMesh
+from .shard_smooth import (can_shardmap, prep_local_op, pcg_local,
+                           increment_local, residual_local, _auto_pallas)
+
+__all__ = ["shardmap_ml_solve", "can_shard_solve", "replicate_level",
+           "ml_solve_local", "restrict_replicated", "prolongate_local"]
+
+
+def can_shard_solve(mesh: ShardMesh | None, levels) -> bool:
+    """Gate: a mesh that divides the fine level evenly (`can_shardmap`)."""
+    fine = levels[0]
+    return can_shardmap(mesh, tuple(fine.D.shape), fine.perdir)
+
+
+def replicate_level(lev):
+    """A coarse level as the replicated copy the sharded solve runs: dense
+    dispatch (no band), f32 directions, no operator shadows, and the
+    kernel gate decided again for the level's shape."""
+    S = tuple(lev.D.shape)
+    return dataclasses.replace(
+        lev, blocked=sk.use_blocked(S, lev.D.dtype, lev.D.device),
+        banded=False, bf16_eps=False, box_shape=None, box_start=None,
+        L16=None, D16=None, iD16=None)
+
+
+def _clamp(start: int, size: int, n: int) -> int:
+    """A start index clamped so that ``size`` entries fit in ``n``, as
+    ``jax.lax.dynamic_slice`` and ``dynamic_update_slice`` clamp."""
+    return min(max(start, 0), n - size)
+
+
+def _restrict_axis_local(v, d, b, Bf, M):
+    """Pair-sum axis ``d`` of a halo-extended block down one level.
+
+    ``v`` holds rows [b-1, b+Bf] along ``d`` (``b`` the block's first
+    global row); coarse interior cell ``c`` sums fine rows ``2c-1, 2c``
+    (reference ``restrict``).  This shard owns the coarse cells whose lower
+    child lies in its block.  Returns the owned rows (``Bf//2 + 1``, the
+    entries past the owned count or the coarse interior ``M`` zeroed) and
+    the first owned coarse row."""
+    nmax = Bf // 2 + 1
+    if Bf % 2:
+        # odd blocks: the window can overrun the halo'd extent by a row
+        v = torch.nn.functional.pad(
+            v, (0, 0) * (v.ndim - 1 - d) + (0, 1))
+        o0 = 2 - (b % 2)                  # local index of the first odd row
+        npair = Bf // 2 + (b % 2) * (Bf % 2)
+    else:
+        o0 = 2
+        npair = Bf // 2
+    c0 = b // 2 + 1
+    w = v.narrow(d, _clamp(o0, 2 * nmax, v.shape[d]), 2 * nmax)
+    s = w.reshape(w.shape[:d] + (nmax, 2) + w.shape[d + 1:]).sum(dim=d + 1)
+    view = [1] * s.ndim
+    view[d] = nmax
+    i = torch.arange(nmax, device=v.device).reshape(view)
+    valid = (i < npair) & (c0 + i <= M)
+    return torch.where(valid, s, 0.0).to(v.dtype), c0
+
+
+def restrict_replicated(mesh: ShardMesh, S, r_l: list) -> torch.Tensor:
+    """The dense-order restriction of a sharded fine residual, replicated:
+    each shard's owned pair sums scattered into a zero coarse array, the
+    arrays psum'd."""
+    D = r_l[0].ndim
+    Sc = tuple(1 + s // 2 for s in S)
+    vh = halo_exchange(r_l, mesh, D)
+    outs = []
+    for s, v in enumerate(vh):
+        base = mesh.base(s, S)
+        c0s = []
+        for d in range(D):
+            v, c0 = _restrict_axis_local(v, d, base[d], S[d] // mesh.k(d),
+                                         Sc[d] - 2)
+            c0s.append(c0)
+        out = torch.zeros(Sc, dtype=v.dtype, device=v.device)
+        out[tuple(slice(st, st + n) for st, n in
+                  ((_clamp(c, v.shape[d], Sc[d]), v.shape[d])
+                   for d, c in enumerate(c0s)))] = v
+        outs.append(out)
+    return mesh.psum(outs)
+
+
+def prolongate_local(mesh: ShardMesh, S, xc: torch.Tensor,
+                     masks=None) -> list:
+    """Each shard's block of the piecewise-constant injection of the
+    replicated coarse correction ``xc``: per axis, the owned coarse window,
+    repeated twice and aligned by the block's parity; the global ghost ring
+    zeroed."""
+    D = xc.ndim
+    loc = tuple(S[d] // mesh.k(d) for d in range(D))
+    if masks is None:
+        masks = ghost_mask_local(mesh, S, loc)
+    out = []
+    for s in range(mesh.size):
+        base = mesh.base(s, S)
+        v = xc
+        for d in range(D):
+            Bf, b = loc[d], base[d]
+            c0 = (b + 1) // 2
+            ncr = Bf // 2 + 1
+            w = v.narrow(d, _clamp(c0, ncr, v.shape[d]), ncr)
+            w = torch.repeat_interleave(w, 2, dim=d)
+            v = w.narrow(d, _clamp(b + 1 - 2 * c0, Bf, w.shape[d]), Bf)
+        out.append(torch.where(masks[s], v, 0.0).to(xc.dtype))
+    return out
+
+
+def ml_solve_local(mesh: ShardMesh, S, fL, fD, fiD, coarse, x_l, z_l,
+                   tol=1e-4, itmx=32, fixed=None, pallas="off",
+                   it_smooth=6, op=None, perdir=(), masks=None):
+    """`ops.multigrid.ml_solve` on the shards' fine blocks (``fL``, ``fD``,
+    ``fiD``) with the replicated coarser levels ``coarse``
+    (`replicate_level`): a V-cycle and the fine PCG smooth per outer
+    iteration, at least one, until ``r·r < tol``, ``itmx`` iterations or
+    an iteration that doubles ``r·r`` (the host reads r·r once an
+    iteration, as the dense solve does); ``fixed=k`` runs exactly ``k``.
+    ``op`` shares `prep_local_op`'s streams with the caller.  Returns
+    ``(x_l, r_l, n)``, ``x_l``'s periodic ghosts filled."""
+    from ..ops.multigrid import vcycle
+    from ..ops.poisson import smooth
+
+    D = x_l[0].ndim
+    if masks is None:
+        masks = ghost_mask_local(mesh, S, tuple(x_l[0].shape))
+    if op is None:
+        op = prep_local_op(mesh, fL, fD, D, pallas)
+    kw = dict(op=op, perdir=perdir, masks=masks)
+
+    def vcycle_local(x_l, r_l):
+        # the Jacobi pre-smooth of the fine level
+        x_l, r_l = increment_local(mesh, S, fL, fD, x_l, r_l,
+                                   [r * iD for r, iD in zip(r_l, fiD)],
+                                   pallas, **kw)
+        rc = restrict_replicated(mesh, S, r_l)
+        xc = torch.zeros_like(coarse[0].D)
+        if len(coarse) > 1:
+            xc, rc = vcycle(coarse, 0, xc, rc)
+        xc, rc = smooth(coarse[0], xc, rc, it_smooth)
+        eps_l = prolongate_local(mesh, S, xc, masks)
+        return increment_local(mesh, S, fL, fD, x_l, r_l, eps_l, pallas,
+                               **kw)
+
+    def outer(x_l, r_l):
+        x_l, r_l = vcycle_local(x_l, r_l)
+        return pcg_local(mesh, S, fL, fD, fiD, x_l, r_l, it_smooth, pallas,
+                         **kw)
+
+    def gdot2(r_l):
+        return mesh.psum([torch.sum(r * r) for r in r_l])
+
+    r_l = residual_local(mesh, S, fL, fD, fiD, x_l, z_l, pallas, **kw)
+    if fixed is not None:
+        for _ in range(fixed):
+            x_l, r_l = outer(x_l, r_l)
+        n = int(fixed)
+    else:
+        r2 = gdot2(r_l)
+        n, go = 0, True
+        while go:
+            x_l, r_l = outer(x_l, r_l)
+            r2p, r2 = r2, gdot2(r_l)
+            n += 1
+            # divergence safeguard: see ops.multigrid.ml_solve
+            go = n < itmx and bool((r2 >= tol) & ~(r2 > 2.0 * r2p))
+    if perdir:
+        x_l = per_fill_local(x_l, mesh, S, perdir)
+    return x_l, r_l, n
+
+
+def shardmap_ml_solve(mesh: ShardMesh, levels, x, z, tol=1e-4, itmx=32,
+                      fixed=None, pallas=None):
+    """`ops.multigrid.ml_solve` of global arrays on the shards (see the
+    module doc): split, `ml_solve_local`, assemble.  Returns ``(x, r,
+    n)``; the dots differ from the dense solve's only in the order of the
+    sum, the transfers are exact."""
+    fine = levels[0]
+    S = tuple(x.shape)
+    coarse = tuple(replicate_level(lev) for lev in levels[1:])
+    if pallas is None:
+        pallas = _auto_pallas(mesh, S, x.dtype)
+    x_l, r_l, n = ml_solve_local(
+        mesh, S, mesh.split(fine.L, 1), mesh.split(fine.D),
+        mesh.split(fine.iD), coarse, mesh.split(x), mesh.split(z), tol=tol,
+        itmx=itmx, fixed=fixed, pallas=pallas, perdir=fine.perdir)
+    return mesh.assemble(x_l), mesh.assemble(r_l), n

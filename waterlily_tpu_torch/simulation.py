@@ -1,7 +1,8 @@
 """User-facing Simulation API.
 
 PyTorch counterpart of `waterlily_tpu.simulation` (reference
-src/WaterLily.jl:59-121), single device, dense and banded paths.  A
+src/WaterLily.jl:59-121), dense and banded paths, and the spatial
+decomposition of `parallel` (``mesh=``).  A
 `Simulation` couples the velocity and length scales, the flow state, the
 body and the multigrid level stack; every field lives on its ``device``.
 Steps run eagerly (the JAX package's jit, scan and unroll machinery has no
@@ -65,14 +66,34 @@ class Simulation:
     search directions (the two roundings together lifted JAX's multigrid
     convergence floor above ``tol`` at 256³).  Like ``smoother_bf16`` it has
     no effect on the CPU.
+
+    ``mesh`` (a `parallel.ShardMesh`, e.g. ``parallel.mesh_for(S, 8,
+    device)`` for the padded shape ``S``): the step runs on the mesh's
+    shards, `parallel.shard_step.shardmap_mom_step`, whenever the mesh
+    divides the grid (`can_shard_step`; otherwise the dense step, which
+    gives the same result).  The state stays global.  As in JAX, a
+    sharded layout keeps the dense BDIM blend and dense Poisson levels (a
+    body still gets the narrow-band measurement), and its coarse levels
+    are replicated.  ``fixed_iters`` under a mesh is not ported (ROADMAP
+    A19, with A16) and raises `NotImplementedError`.
     """
 
     def __init__(self, dims, u_BC, L, dt=0.25, nu=0.0, g=None, U=None,
                  epsilon=1.0, perdir=(), ulam=None, exitBC=False, body=None,
                  dtype=torch.float32, limiter=quick, tol=1e-4, itmx=32,
                  bbox=True, fixed_iters=None, banded_levels=False,
-                 smoother_bf16=False, op_bf16=None, device="cuda"):
+                 smoother_bf16=False, op_bf16=None, device="cuda",
+                 mesh=None):
         D = len(dims)
+        if mesh is not None and fixed_iters is not None:
+            raise NotImplementedError(
+                "fixed_iters under a mesh is not ported (ROADMAP A19: "
+                "implicit_diff and fixed_iters under a mesh, with A16)")
+        dev = torch.device(device)
+        if mesh is not None and (mesh.device.type != dev.type or None not in (
+                mesh.device.index, dev.index) and mesh.device.index != dev.index):
+            raise ValueError(f"the mesh's device {mesh.device} is not the "
+                             f"simulation's {device}")
         if callable(u_BC) and callable(ulam):
             raise ValueError("u_BC and ulam cannot both be functions")
         if callable(u_BC) and U is None:
@@ -93,6 +114,11 @@ class Simulation:
             bbox_shape = band_box_shape(self.body, S, 0.0, self.epsilon,
                                         dtype, margin=margin,
                                         device=self.device)
+        self.mesh = mesh
+        # a sharded layout measures on the window but blends densely
+        self._measure_box = bbox_shape
+        if mesh is not None:
+            bbox_shape = None
         self.cfg = FlowConfig(
             D=D, S=S, device=self.device,
             nu=float(nu), U=u_BC, g=g, perdir=tuple(perdir),
@@ -102,6 +128,7 @@ class Simulation:
             bbox_shape=bbox_shape)
         # the window of the banded Poisson levels (None: dense levels)
         self._lv_box = bbox_shape if banded_levels else None
+        self._sharded = None
         self._smoother_bf16 = bool(smoother_bf16)
         self._op_bf16 = None if op_bf16 is None else bool(op_bf16)
         self.flow = flow_init(self.cfg, ulam, dt)
@@ -131,10 +158,10 @@ class Simulation:
         reference's d² < (2+ε)² gate), dense measurement and None
         otherwise."""
         cfg = self.cfg
-        if cfg.bbox_shape is not None:
+        if self._measure_box is not None:
             return measure_fields_banded(self.body, cfg.S, t, self.epsilon,
                                          cfg.perdir, cfg.exitBC, cfg.dtype,
-                                         cfg.bbox_shape, cfg.device)
+                                         self._measure_box, cfg.device)
         return (*measure_fields(self.body, cfg.S, t, self.epsilon, cfg.perdir,
                                 cfg.exitBC, cfg.dtype, cfg.device), None)
 
@@ -145,7 +172,7 @@ class Simulation:
         if bb is None:
             return True
         outside = d_center < (2.0 + self.epsilon)
-        outside[box_slices(bb, self.cfg.bbox_shape)] = False
+        outside[box_slices(bb, self._measure_box)] = False
         return not bool(outside.any())
 
     _BAND_ERR = ("body band outgrew its static window: the d<2+eps region "
@@ -169,12 +196,20 @@ class Simulation:
                                    bf16_eps=self._smoother_bf16,
                                    op_bf16=self._op_bf16)
         self.flow = self.flow.replace(V=V, mu0=m0, mu1=m1, bbox=bb)
+        if self.mesh is not None:
+            from .parallel.shard_step import can_shard_step
+            self._sharded = can_shard_step(self.cfg, self.mesh, self.levels)
         return self
 
     def _advance(self, remeasure: bool):
         if remeasure and not isinstance(self.body, NoBody):
             self.measure()
-        self.flow, aux = mom_step(self.cfg, self.levels, self.flow)
+        if self._sharded:
+            from .parallel.shard_step import shardmap_mom_step
+            self.flow, aux = shardmap_mom_step(self.cfg, self.mesh,
+                                               self.levels, self.flow)
+        else:
+            self.flow, aux = mom_step(self.cfg, self.levels, self.flow)
         self.pois_n.append(aux["pois_n"])
         return aux["dt"]
 
