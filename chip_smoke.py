@@ -82,8 +82,24 @@ Phases, each of which raises (and so exits non-zero) on failure:
    in (ii); (iv) ``bc_vector_local`` with ``bc3d``'s shard-local form at
    every shard of the 258³ mesh, with and without ``save_exit``, bit for
    bit the select cascade;
+6.6 the recording path, held against the CPU from one state as in 4:
+   (i) ``sphere_3d(96, 64, log=True)`` through ``run_record`` (7 steps, 3
+   samples; every dense kernel launched, no shard-local form) with the
+   total force in the ``"center"``, ``"surface"`` and ``"extrap"``
+   samplings, the pressure moment, Σ|ω| and Σλ₂ as fields: the same
+   sample times, pois_n as in 4, every field within 1e-4 relative, the
+   residual traces of the steps whose pois_n agree within 1e-3 (relative
+   to each solve's initial residual) and ``write_log``'s rows alike;
+   (iv) u, p and λ₂ through ``write_vti``/``read_vti`` and a
+   ``restart_from_vtk``, bit for bit; (ii) a checkpoint of the (96,64,64)
+   sphere after 3 steps restarted in a fresh sim, both then 3 steps: u,
+   p, dt and pois_n bit for bit; (iii) a CSG body (two spheres' union
+   minus a third) at (96,64,64) 3 steps against the CPU, its μ₀ within
+   1e-5 of the CPU's measurement and ``measure_sdf`` within 1 ulp of the
+   distance to the centre; (v) ``sphere_3d(256, 256)`` after 3 steps:
+   the total force in every sampling and λ₂ finite;
 7. every kernel against its plain version again, every variant at every
-   shape a path of 4-6.5 launched it at (258³, 130³, 66³, ..., the 2D
+   shape a path of 4-6.6 launched it at (258³, 130³, 66³, ..., the 2D
    levels) and the probes at 258³, with the tolerances of 3, every
    shard-local form at every shape and base a path launched it at
    (exact), and ``pcg_blocked`` against the per-pass ``pcg`` at the
@@ -113,7 +129,11 @@ Phases, each of which raises (and so exits non-zero) on failure:
    path's shapes beside their plain versions and bounds, and the sharded
    256³ step of 6.5 (i) in turns with (a) (dense, sharded, sharded,
    dense): wall and busy ms/step, idle share, and the share of a step that
-   splitting the state into blocks and assembling it takes.
+   splitting the state into blocks and assembling it takes; the recording
+   path: each metric's wall time (its band measure included) at
+   (98,66,66) and 258³, the 256³ sphere's Cd in the three samplings,
+   ``run_record``'s cost a sample (its stepping loop and its fields, in
+   turns with plain ``steps``) and checkpoint save and restart seconds.
 
 Every path runs with the launch counters set to 0 and the launched shapes
 and forms cleared just before it, all read just after (each kernel's
@@ -131,6 +151,8 @@ import contextlib
 import dataclasses
 import json
 import math
+import os
+import shutil
 import subprocess
 import sys
 import time
@@ -967,6 +989,354 @@ def check_shard_forms(torch, dev):
         raise AssertionError(f"shard-local form checks failed: {failures}")
 
 
+# phase 6.6: the samplings of the forces; the sphere's moments are taken
+# about the domain's origin, so that the lever arm makes them large
+SAMPLINGS = ("center", "surface", "extrap")
+RECORD_EVERY = 0.05     # tU/L between samples: 2 steps of the (96,64,64)
+RECORD_T = 0.15         # sphere at dt ~ 0.4 (tU/L 0.025 a step)
+
+
+def record_fields(torch):
+    """`run_record`'s fields: the total force in every sampling, the
+    pressure moment, Σ|ω| and Σλ₂ (with Σ|λ₂|, its comparison's scale)."""
+    from waterlily_tpu_torch import metrics as m
+
+    def force(s):
+        return lambda sim: m.total_force(sim.flow.u, sim.flow.p, sim.cfg.nu,
+                                         sim.body, sim.time, s)
+
+    def l2(sim):
+        v = m.lambda2(sim.flow.u)
+        return torch.stack([v.sum(), v.abs().sum()])
+
+    return {**{f"force {s}": force(s) for s in SAMPLINGS},
+            "moment": lambda sim: m.pressure_moment(
+                (0.0,) * sim.cfg.D, sim.flow.p, sim.body, sim.time),
+            "sum omega_mag": lambda sim: m.omega_mag(sim.flow.u).sum()[None],
+            "sum lambda2": l2}
+
+
+def trace_err(a, b):
+    """max|a - b| of two residual traces, relative to each solve's initial
+    residual (row 0)."""
+    import numpy as np
+    scale = np.maximum(np.abs(b[..., :1, :]), np.finfo(np.float32).tiny)
+    return float((np.abs(a.astype(np.float64) - b) / scale).max())
+
+
+def record_vs_cpu(torch, sim, twin, rec, rect, tmp):
+    """Phase 6.6 (i)'s comparison: the sample times, pois_n (phase 4's
+    rule), every field within 1e-4 of the CPU's (relative to its largest
+    value; Σλ₂ to Σ|λ₂|), the residual traces of the steps whose pois_n
+    agree within 1e-3, and `write_log`'s rows."""
+    import os
+    import numpy as np
+    from waterlily_tpu_torch.io.plots import read_log
+    log(f"samples at tU/L {rec['t']} (CPU {rect['t']}); pois_n "
+        f"{sim.pois_n} (CPU {twin.pois_n})")
+    if len(rec["t"]) != len(rect["t"]) or len(sim.pois_n) != len(twin.pois_n):
+        raise AssertionError("run_record sampled at other steps than on "
+                             "the CPU")
+    if not np.allclose(rec["t"], rect["t"], rtol=1e-5):
+        raise AssertionError(f"sample times {rec['t']} vs {rect['t']}")
+    if not pois_ok(sim.pois_n, twin.pois_n):
+        raise AssertionError(f"pois_n GPU {sim.pois_n} vs CPU {twin.pois_n}")
+    for name in rec:
+        if name == "t":
+            continue
+        g, c = np.stack(rec[name]), np.stack(rect[name])
+        if name == "sum lambda2":
+            rel = float(np.abs(g[:, 0] - c[:, 0]).max() / np.abs(c[:, 1]).max())
+        else:
+            rel = float(np.abs(g - c).max() / np.abs(c).max())
+        log(f"  {name:<15} last sample {g[-1].tolist()} (CPU "
+            f"{c[-1].tolist()}): max relative difference {rel:.3e}")
+        if not (np.isfinite(g).all() and rel <= 1e-4):
+            raise AssertionError(f"run_record field {name} differs: {rel}")
+    same = [i for i, (a, b) in enumerate(zip(sim.pois_n, twin.pois_n))
+            if a == b]
+    errs = [trace_err(sim.res_log[i], twin.res_log[i]) for i in same]
+    log(f"  residual traces of the {len(same)} steps whose pois_n agree: "
+        f"max relative difference {max(errs):.3e}")
+    if not max(errs) <= 1e-3:
+        raise AssertionError(f"residual traces differ: {errs}")
+    logs = []
+    for label, s in (("gpu", sim), ("cpu", twin)):
+        f = os.path.join(tmp, f"{label}.log")
+        s.write_log(f)
+        logs.append((f, read_log(f)))
+    (fg, lg), (fc, lc) = logs
+    heads = [open(f).readline() for f in (fg, fc)]
+    for blocks_g, blocks_c in zip(lg, lc):
+        if len(blocks_g) != len(blocks_c) or heads[0] != heads[1]:
+            raise AssertionError("write_log: other blocks than the CPU's")
+        for i in same:
+            bg, bc = np.array(blocks_g[i]), np.array(blocks_c[i])
+            if bg.shape != bc.shape or not (bg[:, 0] == bc[:, 0]).all() or (
+                    trace_err(bg[None, :, 1:], bc[None, :, 1:]) > 1e-3):
+                raise AssertionError(f"write_log rows of step {i} differ")
+    log(f"  write_log: {sum(map(len, lg))} blocks, the rows of the "
+        f"{len(same)} steps whose pois_n agree equal the CPU's (1e-3)")
+
+
+def run_recording(torch, dev):
+    """Phase 6.6: the recording path, (i) `run_record` of the logged
+    (96,64,64) sphere against the CPU from one state, (ii) a checkpoint
+    restart bit for bit, (iii) a CSG body against the CPU, (iv) VTK files
+    bit for bit, (v) the 256³ sphere's metrics finite."""
+    import tempfile
+    import numpy as np
+    import waterlily_tpu_torch as wt
+    from waterlily_tpu_torch import metrics, io
+    from waterlily_tpu_torch.convert import flow_to, levels_to
+    from waterlily_tpu_torch.ops.stencil_kernels import kernel_wrappers
+    cpu = torch.device("cpu")
+    fields = record_fields(torch)
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_")
+
+    stage("(i) run_record of sphere_3d(96, 64, log=True)")
+
+    def drive():
+        sim = wt.sphere_3d(96, 64, device=dev, log=True)
+        init, init_levels = sim.flow, sim.levels
+        t0 = time.perf_counter()
+        rec = sim.run_record(RECORD_T, every=RECORD_EVERY, fields=fields,
+                             remeasure=False)
+        torch.cuda.synchronize()
+        log(f"run_record to tU/L {RECORD_T} every {RECORD_EVERY}: "
+            f"{len(sim.pois_n)} steps, {len(rec['t'])} samples in "
+            f"{time.perf_counter() - t0:.2f} s")
+        return sim, init, init_levels, rec
+
+    label = "sphere_3d(96, 64, log=True), run_record"
+    sim, init, init_levels, rec = on_path(torch, label, DENSE, drive)
+    based = {k: sorted(w.bases) for k, w in kernel_wrappers().items()
+             if w.bases}
+    if based or sim._sharded:
+        raise AssertionError(f"the recording path ran shard-local forms: "
+                             f"{based}")
+    finite(torch, sim, label)
+    twin = wt.sphere_3d(96, 64, device="cpu", log=True)
+    twin.flow, twin.levels = flow_to(init, cpu), levels_to(init_levels, cpu)
+    t0 = time.perf_counter()
+    rect = twin.run_record(RECORD_T, every=RECORD_EVERY, fields=fields,
+                           remeasure=False)
+    log(f"the same run_record on the CPU in {time.perf_counter() - t0:.1f} s")
+    record_vs_cpu(torch, sim, twin, rec, rect, tmp)
+
+    stage("(iv) VTK: u, p and lambda2 written and read back")
+    snap = {"u": sim.flow.u, "p": sim.flow.p,
+            "lambda2": metrics.lambda2(sim.flow.u)}
+    f = os.path.join(tmp, "snap.vti")
+    io.write_vti(f, snap)
+    back = io.read_vti(f)
+    for k, v in snap.items():
+        if not np.array_equal(back[k], v.cpu().numpy()):
+            raise AssertionError(f"VTK round trip of {k} is not bit for bit")
+    again = wt.sphere_3d(96, 64, device=dev)
+    with contextlib.chdir(tmp):       # the collection is written here
+        io.VTKWriter("restart", dir="vtk").write(sim)
+        io.restart_from_vtk(again, "restart.pvd")
+    if not (torch.equal(again.flow.u, sim.flow.u)
+            and torch.equal(again.flow.p, sim.flow.p)):
+        raise AssertionError("restart_from_vtk: u or p not bit for bit")
+    log(f"write_vti/read_vti of {sorted(snap)} at {tuple(sim.flow.p.shape)}"
+        f" and restart_from_vtk: bit for bit")
+    del sim, twin, again, snap, back
+
+    stage("(ii) checkpoint after 3 steps, restart, 3 more steps each")
+    a = wt.sphere_3d(96, 64, device=dev)
+    a.steps(3, remeasure=False)
+    f = os.path.join(tmp, "ckpt.npz")
+    io.save_checkpoint(f, a)
+    b = io.restart_sim(wt.sphere_3d(96, 64, device=dev), f)
+    a.steps(3, remeasure=False)
+    b.steps(3, remeasure=False)
+    same = (torch.equal(a.flow.u, b.flow.u) and torch.equal(a.flow.p, b.flow.p)
+            and a.dts == b.dts and a.pois_n == b.pois_n)
+    log(f"restarted from the checkpoint: pois_n {b.pois_n[3:]} (writer "
+        f"{a.pois_n[3:]}), dt {b.dts[4:]} (writer {a.dts[4:]}); u, p, dt and "
+        f"pois_n bit for bit: {same}")
+    if not same:
+        raise AssertionError("checkpoint restart is not bit for bit")
+    del a, b
+
+    stage("(iii) a CSG body: two spheres' union minus a sphere")
+    make = csg_sim(torch)
+
+    def drive_csg():
+        s = make(dev)
+        init, init_levels = s.flow, s.levels
+        s.steps(3, remeasure=False)
+        return s, init, init_levels
+
+    csg, init, init_levels = on_path(torch, "CSG (96,64,64)", DENSE,
+                                     drive_csg)
+    finite(torch, csg, "CSG (96,64,64)")
+    twin = make(cpu)
+    du = float((init.mu0.cpu() - twin.flow.mu0).abs().max())
+    log(f"CSG mu0 measured on the card vs on the CPU: max|d| {du:.3e}")
+    if not du <= 1e-5:
+        raise AssertionError(f"CSG mu0 differs from the CPU's by {du}")
+    twin_vs_cpu(torch, csg, twin, init, init_levels, 3, False)
+    sg = wt.body.measure_sdf(csg.body, csg.cfg.S, 0.0, device=dev).cpu()
+    sc = wt.body.measure_sdf(twin.body, twin.cfg.S, 0.0, device=cpu)
+    dist = torch.abs(sc) + CSG_RMAX
+    ulp = dist.nextafter(torch.full_like(dist, math.inf)) - dist
+    dsd = (sg - sc).abs()
+    log(f"measure_sdf on the card vs the CPU: bit for bit "
+        f"{bool(torch.equal(sg, sc))}, max|d| {float(dsd.max()):.3e}, at "
+        f"most {float((dsd / ulp).max()):.2f} ulp of the distance to the "
+        f"centre (|sdf| + r)")
+    if not bool((dsd <= ulp).all()):
+        raise AssertionError("measure_sdf on the card differs from the CPU")
+    del csg, twin
+
+    stage("(v) sphere_3d(256, 256): forces in every sampling and lambda2")
+    big = wt.sphere_3d(256, 256, device=dev)
+    big.steps(3, remeasure=False)
+    finite(torch, big, "sphere_3d(256, 256)")
+    u, p, t = big.flow.u, big.flow.p, big.time
+    out = {s: metrics.total_force(u, p, big.cfg.nu, big.body, t, s)
+           for s in SAMPLINGS}
+    l2 = metrics.lambda2(u)
+    log("sphere_3d(256, 256) after 3 steps: total_force "
+        + ", ".join(f"{s} {v.tolist()}" for s, v in out.items())
+        + f"; lambda2 in [{float(l2.min()):.4e}, {float(l2.max()):.4e}]")
+    if not (all(bool(v.isfinite().all()) for v in out.values())
+            and bool(l2.isfinite().all())):
+        raise AssertionError("sphere_3d(256, 256): a metric is not finite")
+    del big, u, p, l2
+    shutil.rmtree(tmp)
+    torch.cuda.empty_cache()
+
+
+# phase 6.6 (iii): two spheres' union minus a third, in the (96,64,64)
+# domain of the dense slice
+CSG_SPHERES = (((31.0, 31.0, 31.0), 8.0), ((41.0, 31.0, 31.0), 6.0),
+               ((36.0, 31.0, 35.0), 4.0))
+CSG_RMAX = 8.0
+
+
+def csg_sim(torch):
+    """``make(device)``: the CSG body's `Simulation` on ``device``."""
+    import waterlily_tpu_torch as wt
+
+    def sphere(c, r, device):
+        c = torch.tensor(c, device=device)
+        return wt.AutoBody(lambda x, t: torch.sqrt(torch.sum((x - c) ** 2))
+                           - r)
+
+    def make(device):
+        s = [sphere(c, r, device) for c, r in CSG_SPHERES]
+        return wt.Simulation((96, 64, 64), (1, 0, 0), 16.0, nu=16.0 / 100,
+                             body=(s[0] + s[1]) - s[2], device=device)
+    return make
+
+
+def timing_recording(torch, dev):
+    """Phase 8's lines of the recording path: each metric's wall time
+    (its band measure included) at (96,64,64) and 258³, the 256³
+    sphere's Cd in the extrapolated and the centre sampling, run_record's
+    cost per sample, and checkpoint save and restart seconds."""
+    import tempfile
+    import waterlily_tpu_torch as wt
+    from waterlily_tpu_torch import metrics as m, io
+
+    def wall(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return time.perf_counter() - t0, out
+
+    for n, big in (((96, 64), False), ((256, 256), True)):
+        sim = wt.sphere_3d(*n, device=dev)
+        sim.steps(3, remeasure=False)
+        u, p, b, nu, t = sim.flow.u, sim.flow.p, sim.body, sim.cfg.nu, \
+            sim.time
+        S = tuple(p.shape)
+        x0 = (0.0,) * 3
+        calls = {"lambda2": lambda: m.lambda2(u),
+                 "omega_mag": lambda: m.omega_mag(u),
+                 "nds (band measure)": lambda: m.nds(b, S, t, u.dtype, dev),
+                 "pressure_moment": lambda: m.pressure_moment(x0, p, b, t),
+                 **{f"total_force {s}": (lambda s=s: m.total_force(
+                     u, p, nu, b, t, s)) for s in SAMPLINGS}}
+        if not big:
+            calls.update({"ke": lambda: m.ke(u),
+                          "curl": lambda: m.curl(0, u),
+                          "omega_theta": lambda: m.omega_theta(
+                              u, (1, 0, 0), (31.0, 31.0, 31.0)),
+                          **{f"pressure_force {s}": (lambda s=s:
+                              m.pressure_force(p, b, t, s))
+                             for s in SAMPLINGS},
+                          **{f"viscous_force {s}": (lambda s=s:
+                              m.viscous_force(u, nu, b, t, s))
+                             for s in SAMPLINGS}})
+        got = {}
+        for name, fn in calls.items():
+            fn()                                  # warm-up
+            sec, got[name] = wall(fn)
+            log(f"  {name:<24} at {S}: {sec * 1e3:.3f} ms wall")
+        if big:
+            area = math.pi * (sim.L / 2) ** 2
+            cd = {s: -2 * float(got[f"total_force {s}"][0])
+                  / (sim.U ** 2 * area) for s in SAMPLINGS}
+            log(f"sphere_3d(256, 256) after 3 steps (tU/L "
+                f"{sim.sim_time:.4f}, the impulsive start, not a settled "
+                f"drag): Cd extrap {cd['extrap']:.6f}, center "
+                f"{cd['center']:.6f}, surface {cd['surface']:.6f}")
+        del sim, u, p, calls, got
+        torch.cuda.empty_cache()
+
+    sim = wt.sphere_3d(96, 64, device=dev, log=True)
+    sim.steps(3, remeasure=False)
+    flow, levels = sim.flow, sim.levels
+    hist = (list(sim.dts), list(sim.pois_n), list(sim.res_log))
+    t_end = sim.sim_time + 1.0
+    fields = record_fields(torch)
+    rows = {"run_record, no fields": [], "steps": [],
+            "run_record, fields": []}
+    for label in list(rows) * 3:          # three rounds, in turns
+        sim.flow, sim.levels = flow, levels
+        sim.dts, sim.pois_n, sim.res_log = (list(h) for h in hist)
+        if label == "steps":
+            sec, _ = wall(lambda: sim.steps(n_steps, remeasure=False))
+        else:
+            sec, rec = wall(lambda: sim.run_record(
+                t_end, every=0.05, remeasure=False,
+                fields=fields if label == "run_record, fields" else {}))
+            n_steps = len(sim.pois_n) - len(hist[1])
+            n_samples = len(rec["t"])
+        rows[label].append(sec)
+    for label, secs in rows.items():
+        log(f"  {label:<22} {n_steps} steps of sphere_3d(96, 64, log=True):"
+            f" {', '.join(f'{v:.4f}' for v in secs)} s wall")
+    lo = {k: min(v) for k, v in rows.items()}
+    spread = max(max(v) - min(v) for v in rows.values())
+    log(f"run_record a sample ({n_samples} samples, {n_steps} steps; the "
+        f"least of 3 runs each): stepping loop "
+        f"{(lo['run_record, no fields'] - lo['steps']) / n_samples * 1e3:.3f}"
+        f" ms beside plain steps, the fields (3 forces, moment, |omega|, "
+        f"lambda2) "
+        f"{(lo['run_record, fields'] - lo['run_record, no fields']) / n_samples * 1e3:.3f}"
+        f" ms; the runs of one kind spread by up to "
+        f"{spread / n_samples * 1e3:.3f} ms a sample")
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_")
+    f = os.path.join(tmp, "ckpt.npz")
+    for _ in range(2):
+        save, _ = wall(lambda: io.save_checkpoint(f, sim))
+        fresh = wt.sphere_3d(96, 64, device=dev, log=True)
+        rest, _ = wall(lambda: io.restart_sim(fresh, f))
+        log(f"checkpoint of sphere_3d(96, 64): save {save:.4f} s, restart "
+            f"{rest:.4f} s ({os.path.getsize(f) / 2**20:.1f} MiB)")
+    shutil.rmtree(tmp)
+    del sim, fresh
+    torch.cuda.empty_cache()
+
+
 def step_profile(sim, n, label, remeasure=False):
     """The card's idle share over ``n`` steps: device busy time and wall
     time of the same steps (`utils.perf.idle_share`), and the ops that
@@ -1414,6 +1784,8 @@ def main() -> int:
     run_pcg_paths(torch, dev)
     phase("6.5 the sharded path: the spatial decomposition on one card")
     run_sharded(torch, dev)
+    phase("6.6 the recording path: run_record, checkpoint, CSG, VTK")
+    run_recording(torch, dev)
     phase("7. kernels vs plain versions at the paths' shapes")
     check_kernels(torch, dev, {**PATH_SHAPES,
                                "pcg_blocked": PATH_SHAPES["pcg_dir_mult"],
@@ -1421,6 +1793,8 @@ def main() -> int:
     check_shard_forms(torch, dev)
     phase("8. timing")
     times = timing(torch, dev, sim)
+    stage("the recording path")
+    timing_recording(torch, dev)
     from waterlily_tpu_torch.utils.perf import EVENT_FALLBACKS
     log(f"device times the profiler could not record, taken with CUDA "
         f"events instead (the host's dispatch included): "

@@ -3,7 +3,9 @@ import subprocess
 import sys
 from pathlib import Path
 
+import jax
 import jax.numpy as jnp
+import numpy as np
 import pytest
 import torch
 
@@ -14,7 +16,7 @@ from waterlily_tpu_torch import grid as tgrid
 from waterlily_tpu_torch.ops import bc as tbc
 from waterlily_tpu_torch.ops import stencil_kernels as sk
 
-from _torch_parity import (F32, F64, TORCH, JAX, normal, tt, jj,
+from _torch_parity import (F32, F64, TORCH, JAX, normal, tt, jj, npy,
                            assert_exact, assert_rel)
 
 S3 = (14, 12, 10)
@@ -54,6 +56,88 @@ def test_interior_views_and_norms():
     b = normal(4, S3, F64)
     assert_rel(tgrid.field_dot(tt(a), tt(b)), jgrid.field_dot(jj(a), jj(b)),
                1e-12)
+
+
+@pytest.mark.parametrize("dtype", [F32, F64])
+@pytest.mark.parametrize("S", [(14, 12, 10), (9, 7)])
+def test_plane_and_set_interior(dtype, S):
+    D = len(S)
+    for axis in range(D):
+        for idx in (0, 1, -1):
+            assert tgrid.plane(D, axis, idx) == jgrid.plane(D, axis, idx)
+    a = normal(5, (D,) + S, dtype)
+    v = normal(6, (D,) + tuple(s - 2 for s in S), dtype)
+    ta = tt(a)
+    assert_exact(tgrid.set_interior(ta, D, tt(v)),
+                 jgrid.set_interior(jj(a), D, jj(v)))
+    assert_exact(ta, a)                      # the input is left as it was
+    assert_exact(tgrid.set_interior(tt(a[0]), D, 2.5),
+                 jgrid.set_interior(jj(a[0]), D, 2.5))
+
+
+def test_interp():
+    """The reference's oracle (maintests.jl:58-64, the JAX test's
+    coordinates), on the port and against JAX."""
+    a = tgrid.apply_field(lambda i, x: x[i] + 1.5, (2, 5, 5), torch.float32,
+                          vector=True)
+    b = tgrid.apply_field(lambda x: x[0] + 1.5, (5, 5), torch.float32)
+    ja = jgrid.apply_field(lambda i, x: x[i] + 1.5, (2, 5, 5), jnp.float32,
+                           vector=True)
+    jb_ = jgrid.apply_field(lambda x: x[0] + 1.5, (5, 5), jnp.float32)
+    for x, va, vb in (([1.0, -0.5], [2.5, 1.0], 2.5),
+                      ([2.0, 1.5], [3.5, 3.0], 3.5)):
+        xt = torch.tensor(x)
+        np.testing.assert_allclose(npy(tgrid.interp(xt, a, vector=True)), va)
+        np.testing.assert_allclose(float(tgrid.interp(xt, b)), vb)
+        assert_exact(tgrid.interp(xt, a, vector=True),
+                     jgrid.interp(jnp.asarray(x, jnp.float32), ja,
+                                  vector=True))
+        assert_exact(tgrid.interp(xt, b),
+                     jgrid.interp(jnp.asarray(x, jnp.float32), jb_))
+
+
+def _edge_points(S, dtype, n=60):
+    """Points inside the padded grid, below index 0 (down to -1.5 cells
+    past the low edge, where JAX wraps) and past the end (where it
+    clamps), every axis mixed."""
+    rng = np.random.default_rng(len(S))
+    lo, hi = -2.0, np.array(S, float) + 1.0
+    inside = rng.uniform(0.0, np.array(S, float) - 2.0, (n, len(S)))
+    below = rng.uniform(lo, 0.0, (n, len(S)))
+    past = rng.uniform(np.array(S, float) - 1.5, hi, (n, len(S)))
+    mixed = np.where(rng.uniform(size=(n, len(S))) < 0.5, below, past)
+    return np.concatenate([inside, below, past, mixed]).astype(dtype)
+
+
+@pytest.mark.parametrize("dtype", [F32, F64])
+@pytest.mark.parametrize("S", [(9, 7), (8, 7, 6)])
+def test_interp_edges(dtype, S):
+    """Batched `interp` against JAX's point-wise one (vmapped) at both
+    edges: a corner index below 0 wraps once by the axis length, one past
+    the end clamps (JAX's gather), never reaching past the tensor.  Exact
+    in f64, 1e-6 relative in f32."""
+    D = len(S)
+    x = _edge_points(S, dtype)
+    f = normal(7, S, dtype)
+    v = normal(8, (D,) + S, dtype)
+    rtol = 1e-6 if dtype is F32 else 0.0
+    ref = jax.vmap(lambda p: jgrid.interp(p, jj(f)))(jj(x))
+    refv = jax.vmap(lambda p: jgrid.interp(p, jj(v), vector=True))(jj(x))
+    got = tgrid.interp(tt(x), tt(f))
+    gotv = tgrid.interp(tt(x), tt(v), vector=True)
+    assert got.shape == (x.shape[0],) and gotv.shape == x.shape
+    assert_rel(got, ref, rtol)
+    assert_rel(gotv, refv, rtol)
+    # the low edge wraps: index -1 reads the last plane of axis 0
+    p = np.zeros((1, D), dtype)
+    p[0, 0] = -1.5                           # cell-centre index -1
+    p[0, 1:] = 1.5
+    want = f[(-1,) + (2,) * (D - 1)]
+    np.testing.assert_array_equal(npy(tgrid.interp(tt(p), tt(f))), [want])
+    # the high edge clamps: past the end reads the last plane only
+    p[0, 0] = S[0] + 0.3
+    want = f[(S[0] - 1,) + (2,) * (D - 1)]
+    np.testing.assert_array_equal(npy(tgrid.interp(tt(p), tt(f))), [want])
 
 
 def test_apply_field():

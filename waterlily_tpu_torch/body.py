@@ -5,7 +5,10 @@ src/AutoBody.jl).  The sdf normal comes from `torch.func.grad`,
 the map Jacobian from `jacfwd` and the map's time derivative from `jvp`,
 all under `vmap` over the grid points, evaluated in chunks so that large
 grids stay within memory.  `measure_fields_banded` measures on a window
-around the body only.  CSG (`Bodies`) is not ported yet (ROADMAP A8).
+around the body only.  CSG bodies (`Bodies`: union, difference,
+intersection) measure each member and select the winner as the
+reference's ``reduce_sdf_map`` does; the gradient of a min/max is the
+active branch's, so this equals differentiating the composite.
 """
 from __future__ import annotations
 
@@ -19,9 +22,10 @@ from .grid import (loc_grid, interior, mask_interior, band_box_start,
                    box_slices)
 from .ops.bc import bc_vector
 
-__all__ = ["AbstractBody", "AutoBody", "NoBody", "sdf", "measure",
-           "measure_fields", "measure_fields_banded", "band_box_shape",
-           "kern", "kern0", "kern1", "mu0", "mu1"]
+__all__ = ["AbstractBody", "AutoBody", "Bodies", "NoBody", "sdf", "measure",
+           "measure_fields", "measure_fields_banded", "measure_sdf",
+           "band_box_shape", "kern", "kern0", "kern1", "mu0", "mu1",
+           "curvature"]
 
 # points per vmapped measurement batch: bounds the autodiff temporaries
 # (a few hundred bytes per point) at 256³-class grids
@@ -65,12 +69,19 @@ class NoBody(AbstractBody):
     """Body-free simulation marker."""
 
 
+def _as_ops(op):
+    if op not in ("+", "-", "∩", "∪", "union", "inter", "diff"):
+        raise ValueError(f"unsupported CSG op {op!r}")
+    return {"union": "+", "∪": "+", "inter": "∩", "diff": "-"}.get(op, op)
+
+
 class AutoBody(AbstractBody):
     """Implicit geometry from an sdf and an optional coordinate map.
 
     ``sdf(x, t) -> 0-d tensor`` and ``map(x, t) -> (D,) tensor`` are
     point-wise closures written with torch ops; ``compose=True`` uses
-    ``sdf(map(x,t), t)``."""
+    ``sdf(map(x,t), t)``.  ``a + b`` (`union`), ``a - b`` and
+    `intersect` build a flat `Bodies`; ``-a`` flips the sdf's sign."""
 
     def __init__(self, sdf: Callable, map: Callable | None = None,
                  compose: bool = True):
@@ -81,9 +92,74 @@ class AutoBody(AbstractBody):
         else:
             self.sdf = sdf
 
+    def __add__(self, other):
+        return _to_bodies(self) + _to_bodies(other)
+
+    def __sub__(self, other):
+        if isinstance(other, (AutoBody, Bodies)):
+            return _to_bodies(self) - _to_bodies(other)
+        return NotImplemented
+
+    def __neg__(self):
+        s = self.sdf
+        return AutoBody(lambda x, t: -s(x, t), self.map, compose=False)
+
+    def union(self, other):
+        return self + other
+
+    def intersect(self, other):
+        o = _to_bodies(other)
+        return Bodies([self, *o.bodies], ["∩"] + o.ops)
+
+
+def _to_bodies(b):
+    return b if isinstance(b, Bodies) else Bodies([b], [])
+
+
+class Bodies(AbstractBody):
+    """Flat list of `AutoBody` with pairwise CSG ops (reference
+    AutoBody.jl:55-68): ``ops[k-1]`` combines ``bodies[k]`` into the
+    running result, ``'+'``/``'∪'`` union, ``'-'`` difference, ``'∩'``
+    intersection (one op string for all, default union)."""
+
+    def __init__(self, bodies, ops=None):
+        if ops is None:
+            ops = ["+"] * (len(bodies) - 1)
+        elif isinstance(ops, str):
+            ops = [ops] * (len(bodies) - 1)
+        ops = [_as_ops(o) for o in ops]
+        if len(bodies) != len(ops) + 1:
+            raise ValueError("len(bodies) != len(ops)+1")
+        self.bodies = list(bodies)
+        self.ops = ops
+
+    def __add__(self, other):
+        o = _to_bodies(other)
+        return Bodies(self.bodies + o.bodies, self.ops + ["+"] + o.ops)
+
+    def __sub__(self, other):
+        o = _to_bodies(other)
+        return Bodies(self.bodies + o.bodies, self.ops + ["-"] + o.ops)
+
+    def sdf(self, x, t):
+        return sdf(self, x, t)
+
 
 def sdf(body, x, t=0.0):
-    """Signed distance of ``body`` at ``x``."""
+    """Signed distance of ``body`` at ``x`` (reference AutoBody.jl:39,99):
+    a `Bodies` folds its members' distances with min (union), max
+    (intersection) and max with the negated member (difference)."""
+    if isinstance(body, Bodies):
+        d = body.bodies[0].sdf(x, t)
+        for b, op in zip(body.bodies[1:], body.ops):
+            db = b.sdf(x, t)
+            if op == "+":
+                d = torch.minimum(d, db)
+            elif op == "∩":
+                d = torch.maximum(d, db)
+            else:
+                d = torch.maximum(d, -db)
+        return d
     return body.sdf(x, t)
 
 
@@ -141,11 +217,36 @@ def _measure_one(sdf_fn, map_fn, x, t, fastd2=None):
 
 
 def measure(body, x, t=0.0, fastd2=None):
-    """Geometric measurement ``(d, n, V)`` of ``body`` at point ``x``."""
+    """Geometric measurement ``(d, n, V)`` of ``body`` at point ``x``.
+
+    A `Bodies` measures each member and selects the winner by the
+    reference's ``reduce_sdf_map`` rules (AutoBody.jl:88-93): union keeps
+    the smaller raw distance, intersection the larger, difference flips
+    the subtracted member's distance and normal."""
+    t_ = torch.as_tensor(t, dtype=x.dtype, device=x.device)
     if isinstance(body, AutoBody):
-        t_ = torch.as_tensor(t, dtype=x.dtype, device=x.device)
         return _measure_one(body.sdf, body.map, x, t_, fastd2)
-    raise TypeError(f"cannot measure {type(body)} (CSG Bodies: ROADMAP A8)")
+    if isinstance(body, Bodies):
+        raws = [b.sdf(x, t_) for b in body.bodies]
+        meas = [_measure_one(b.sdf, b.map, x, t_, fastd2)
+                for b in body.bodies]
+        d_sel = raws[0]
+        dm, nm, Vm = meas[0]
+        for k, op in enumerate(body.ops, start=1):
+            rk = raws[k]
+            dk, nk, Vk = meas[k]
+            if op == "+":
+                take, cand = rk < d_sel, (rk, dk, nk, Vk)
+            elif op == "∩":
+                take, cand = rk > d_sel, (rk, dk, nk, Vk)
+            else:
+                take, cand = -rk > d_sel, (-rk, -dk, -nk, Vk)
+            d_sel = torch.where(take, cand[0], d_sel)
+            dm = torch.where(take, cand[1], dm)
+            nm = torch.where(take, cand[2], nm)
+            Vm = torch.where(take, cand[3], Vm)
+        return dm, nm, Vm
+    raise TypeError(f"cannot measure {type(body)}")
 
 
 def _chunked_vmap(fn, pts):
@@ -190,6 +291,18 @@ def _d_center(body, S, t_, dtype, device):
     centers = loc_grid(S, None, dtype, device).reshape(-1, len(S))
     return _chunked_vmap(lambda x: sdf(body, x, t_), centers).reshape(S).to(
         dtype)
+
+
+def measure_sdf(body, S, t=0.0, dtype=torch.float32, device=None):
+    """The sdf at the interior cell centres (reference ``measure_sdf!``,
+    Body.jl:68), zero ghosts."""
+    D = len(S)
+    pts = loc_grid(tuple(S), None, dtype, device)[interior(D)].reshape(-1, D)
+    t_ = torch.as_tensor(t, dtype=dtype, device=device)
+    vals = _chunked_vmap(lambda x: sdf(body, x, t_), pts)
+    out = torch.zeros(tuple(S), dtype=dtype, device=device)
+    out[interior(D)] = vals.reshape(tuple(s - 2 for s in S)).to(dtype)
+    return out
 
 
 def measure_fields(body, S, t=0.0, eps=1.0, perdir=(), exitBC=False,
@@ -291,3 +404,15 @@ def band_box_shape(body, S, t=0.0, eps=1.0, dtype=torch.float32, margin=3,
     if math.prod(s + 2 for s in shape) > max_frac * math.prod(S):
         return None
     return tuple(shape)
+
+
+def curvature(A):
+    """Mean and Gaussian curvature ``(H, K)`` from the sdf Hessian ``A``
+    (AutoBody.jl:140-146); ``K`` is 0 for a 2×2 Hessian."""
+    H = 0.5 * torch.trace(A)
+    if tuple(A.shape) == (3, 3):
+        K = (A[0, 0] * A[1, 1] + A[0, 0] * A[2, 2] + A[1, 1] * A[2, 2]
+             - A[0, 1] ** 2 - A[0, 2] ** 2 - A[1, 2] ** 2)
+    else:
+        K = torch.zeros_like(H)
+    return H, K

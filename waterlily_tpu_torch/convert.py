@@ -1,6 +1,7 @@
 """Carry state across from the JAX package as numpy arrays, or between
 devices.
 
+`to_numpy` brings a tensor (on any device) or a number to numpy.
 `flow_from_numpy` and `levels_from_numpy` take the fields of a
 `waterlily_tpu` ``FlowState`` / ``PoissonLevel`` as numpy arrays and plain
 values (for example ``{k: np.asarray(v) for k, v in state._asdict().items()}``)
@@ -18,11 +19,20 @@ import torch
 from .flow import FlowState
 from .ops.poisson import make_level
 
-__all__ = ["flow_from_numpy", "levels_from_numpy", "flow_to", "levels_to"]
+__all__ = ["to_numpy", "flow_from_numpy", "levels_from_numpy", "flow_to",
+           "levels_to"]
 
 FLOW_FIELDS = ("u", "p", "V", "mu0", "mu1", "dt", "t")
 # per-level values besides L, D and iD (JAX's static level fields)
 LEVEL_EXTRAS = ("banded", "c", "box_shape", "box_start", "bf16_eps")
+
+
+def to_numpy(a) -> np.ndarray:
+    """``a`` as a numpy array: a tensor through the host (``.cpu()``; a
+    CUDA tensor has no numpy view), anything else by `np.asarray`."""
+    if isinstance(a, torch.Tensor):
+        return a.detach().cpu().numpy()
+    return np.asarray(a)
 
 
 def _t(a, device) -> torch.Tensor:

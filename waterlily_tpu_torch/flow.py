@@ -59,6 +59,7 @@ class FlowConfig:
     itmx: int = 32
     fixed_iters: int | None = None
     bbox_shape: tuple | None = None  # body-band box extents (banded BDIM)
+    log: bool = False              # capture the solver's residual traces
 
 
 def bc_tuple(U, t, D, dtype):
@@ -139,7 +140,9 @@ def bdim_banded(cfg: FlowConfig, bbox, u, u0, r, V, mu0, mu1, dt,
 def project(levels, u, p, dt_eff, cfg: FlowConfig):
     """Pressure projection (reference `project!`): the Poisson unknown is
     the dt-scaled pressure, warm-started from the last step; the velocity
-    loses the μ₀-weighted pressure gradient.  Returns ``(u, p, n)``."""
+    loses the μ₀-weighted pressure gradient.  Returns ``(u, p, (n, tr))``,
+    ``tr`` the solver's residual trace under ``cfg.log`` (None
+    otherwise)."""
     lev = levels[0]
     fused = (not lev.banded
              and sk.use_blocked(tuple(p.shape), p.dtype, p.device))
@@ -148,14 +151,16 @@ def project(levels, u, p, dt_eff, cfg: FlowConfig):
     else:
         z = div(u)
         x = p * dt_eff
-    x, _r, n = ml_solve(levels, x, z, tol=cfg.tol, itmx=cfg.itmx,
-                        fixed=cfg.fixed_iters)
+    out = ml_solve(levels, x, z, tol=cfg.tol, itmx=cfg.itmx,
+                   fixed=cfg.fixed_iters, trace=cfg.log)
+    x, n = out[0], out[2]
+    tr = out[3] if cfg.log else None
     if fused:
         u, p = sk.project3d(lev.L, x, u, dt_eff)
     else:
         u = u - pad_interior(pressure_grad_interior(lev, x), lead=1)
         p = x / dt_eff
-    return u, p, n
+    return u, p, (n, tr)
 
 
 def cfl_flux_max(u: torch.Tensor) -> torch.Tensor:
@@ -183,11 +188,12 @@ def mom_step(cfg: FlowConfig, levels, state: FlowState):
     """One predictor/corrector time step (reference `mom_step!`).
 
     Returns the advanced state and ``aux`` with the pressure-solver
-    iteration counts ``pois_n = [predictor, corrector]`` (host ints) and the
-    next ``dt``.  Nothing of ``state`` is updated in place: ``state.u`` is
-    read again by the corrector's BDIM blend and by the outlet BC; the
-    boundary conditions fill in place only the fields the step itself has
-    just made."""
+    iteration counts ``pois_n = [predictor, corrector]`` (host ints), the
+    next ``dt`` and, under ``cfg.log``, ``res_trace``: the predictor's and
+    corrector's residual traces stacked, ``(2, itmx+1, 2)``.  Nothing of
+    ``state`` is updated in place: ``state.u`` is read again by the
+    corrector's BDIM blend and by the outlet BC; the boundary conditions
+    fill in place only the fields the step itself has just made."""
     D, dtype = cfg.D, cfg.dtype
     u0, p, dt, t = state.u, state.p, state.dt, state.t
     U = bc_tuple(cfg.U, t + dt, D, dtype)
@@ -206,7 +212,7 @@ def mom_step(cfg: FlowConfig, levels, state: FlowState):
     u = bc_vector(u, U, cfg.exitBC, cfg.perdir, inplace=True)
     if cfg.exitBC:
         u = exit_bc(u, u0, U, dt)
-    u, p, n1 = project(levels, u, p, dt, cfg)
+    u, p, (n1, tr1) = project(levels, u, p, dt, cfg)
     u = bc_vector(u, U, cfg.exitBC, cfg.perdir, inplace=True)
 
     # corrector u -> u¹
@@ -219,12 +225,15 @@ def mom_step(cfg: FlowConfig, levels, state: FlowState):
         u = bdim(u, u0, r, state.V, state.mu0, state.mu1, dt)
         u = torch.where(imask, 0.5 * u, u)          # scale_u!(a, 0.5)
     u = bc_vector(u, U, cfg.exitBC, cfg.perdir, inplace=True)
-    u, p, n2 = project(levels, u, p, 0.5 * dt, cfg)
+    u, p, (n2, tr2) = project(levels, u, p, 0.5 * dt, cfg)
     u = bc_vector(u, U, cfg.exitBC, cfg.perdir, inplace=True)
 
     dt_new = cfl(u, cfg.nu)
     new = state.replace(u=u, p=p, dt=dt_new, t=t + dt)
-    return new, {"pois_n": [n1, n2], "dt": dt_new}
+    aux = {"pois_n": [n1, n2], "dt": dt_new}
+    if cfg.log:
+        aux["res_trace"] = torch.stack([tr1, tr2])
+    return new, aux
 
 
 def flow_init(cfg: FlowConfig, ulam=None, dt0=0.25) -> FlowState:

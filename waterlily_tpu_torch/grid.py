@@ -19,10 +19,10 @@ import math
 import torch
 
 __all__ = [
-    "shift", "interior", "interior_view", "interior_mask", "mask_interior",
-    "pad_interior", "axis_coord", "loc_grid", "apply_field", "inside_count",
-    "field_dot", "l2", "linf", "band_box_start",
-    "box_slices",
+    "shift", "plane", "interior", "interior_view", "set_interior",
+    "interior_mask", "mask_interior", "pad_interior", "axis_coord",
+    "loc_grid", "apply_field", "interp", "inside_count", "field_dot", "l2",
+    "linf", "band_box_start", "box_slices",
 ]
 
 
@@ -31,6 +31,12 @@ def shift(f: torch.Tensor, axis: int, off: int) -> torch.Tensor:
     if off == 0:
         return f
     return torch.roll(f, -off, dims=axis)
+
+
+def plane(ndim: int, axis: int, idx) -> tuple:
+    """Index tuple selecting the hyperplane ``axis == idx`` of an ndim
+    array."""
+    return tuple(idx if a == axis else slice(None) for a in range(ndim))
 
 
 def interior(ndim: int, off=None, lead: int = 0) -> tuple:
@@ -47,6 +53,14 @@ def interior(ndim: int, off=None, lead: int = 0) -> tuple:
 def interior_view(a: torch.Tensor, D: int, off=None) -> torch.Tensor:
     """Interior of the trailing ``D`` spatial axes of ``a`` (a view)."""
     return a[interior(D, off, lead=a.ndim - D)]
+
+
+def set_interior(a: torch.Tensor, D: int, value) -> torch.Tensor:
+    """A copy of ``a`` with ``value`` written into the interior of its
+    trailing ``D`` spatial axes (``a`` itself is left as it was)."""
+    out = a.clone()
+    out[interior(D, lead=a.ndim - D)] = value
+    return out
 
 
 def axis_coord(shape: tuple, axis: int, device=None) -> torch.Tensor:
@@ -169,3 +183,55 @@ def l2(a: torch.Tensor, D: int | None = None) -> torch.Tensor:
 def linf(a: torch.Tensor) -> torch.Tensor:
     """Max-abs over the full array (reference ``L∞``)."""
     return torch.max(torch.abs(a))
+
+
+def _interp_scalar(coord: torch.Tensor, arr: torch.Tensor) -> torch.Tensor:
+    """Multilinear interpolation of ``arr`` at the 0-based index
+    coordinates ``coord`` (``(N, D)``), gathered on flat indices.
+
+    A corner index below 0 wraps once by the axis length and is then
+    clamped to ``[0, n-1]``, as JAX's gather normalises and clamps an
+    index: the low edge wraps (-1 reads the last cell), the high edge
+    clamps.  The clamp is explicit, so no index past the end reaches the
+    gather (on a CUDA tensor it would trip a device assert)."""
+    D = arr.ndim
+    i = torch.floor(coord)
+    y = coord - i
+    i = i.to(torch.int64)
+    flat = arr.reshape(-1)
+    out = torch.zeros(coord.shape[0], dtype=arr.dtype, device=arr.device)
+    for corner in range(2 ** D):
+        w, k = None, None
+        for d in range(D):
+            off = (corner >> d) & 1
+            wd = y[:, d] if off else 1.0 - y[:, d]
+            w = wd if w is None else w * wd
+            n = arr.shape[d]
+            idx = i[:, d] + off
+            idx = torch.clamp(torch.where(idx < 0, idx + n, idx), 0, n - 1)
+            k = idx if k is None else k * n + idx
+        out = out + flat[k] * w.to(arr.dtype)
+    return out
+
+
+def interp(x: torch.Tensor, arr: torch.Tensor,
+           vector: bool = False) -> torch.Tensor:
+    """Linear interpolation at the physical positions ``x`` (``(N, D)``, or
+    one point ``(D,)``): scalar fields are sampled at cell centres
+    (physical ``I-0.5``), each component of a vector field ``(D, *S)`` at
+    its face.  Returns ``(N,)`` (``(N, D)`` for a vector field), or a 0-d
+    (``(D,)``) tensor for one point."""
+    one = x.ndim == 1
+    pts = x.reshape(1, -1) if one else x
+    if vector:
+        D = arr.shape[0]
+        comps = []
+        for i in range(D):
+            off = torch.tensor([0.5 + (0.5 if j == i else 0.0)
+                                for j in range(D)], dtype=x.dtype,
+                               device=x.device)
+            comps.append(_interp_scalar(pts + off, arr[i]))
+        out = torch.stack(comps, dim=-1)
+    else:
+        out = _interp_scalar(pts + 0.5, arr)
+    return out[0] if one else out

@@ -13,7 +13,7 @@ import math
 
 import torch
 
-from ..grid import interior_view, pad_interior
+from ..grid import interior_view, pad_interior, field_dot
 from .bc import bc_vector, bc_scalar_periodic
 from .poisson import make_level, residual, jacobi, smooth, increment, fdot
 
@@ -163,26 +163,46 @@ def vcycle(levels: tuple, l: int, x, r):
     return increment(fine, x, r, eps)
 
 
-def ml_solve(levels: tuple, x, z, tol=1e-4, itmx=32, fixed=None):
+def _log_row(r, dtype):
+    """One row of the residual trace: ``[max|r|, ⟨r, r⟩]``."""
+    return torch.stack([torch.max(torch.abs(r)), field_dot(r, r)]).to(dtype)
+
+
+def ml_solve(levels: tuple, x, z, tol=1e-4, itmx=32, fixed=None,
+             trace=False):
     """Multigrid pressure solve (reference ``solver!``): V-cycle plus
     fine-level PCG per outer iteration, at least one iteration, until
     ``r·r < tol``, ``itmx`` iterations, or an iteration that doubles ``r·r``
     (divergence safeguard).  The adaptive loop syncs the host once per
     outer iteration; ``fixed=k`` runs exactly ``k`` iterations without a
-    sync.  Returns ``(x, r, n)``."""
+    sync.  Returns ``(x, r, n)``, and with ``trace=True`` also the
+    residual trace (reference ``@log``): an ``(itmx+1, 2)`` (``(fixed+1,
+    2)``) tensor on the device of ``x``, row 0 ``[max|r|, ⟨r, r⟩]`` of the
+    initial residual, row ``k+1`` after iteration ``k``, zeros after the
+    last iteration (no host sync of its own)."""
     fine = levels[0]
     r = residual(fine, x, z)
+    if trace:
+        tr = torch.zeros(((itmx if fixed is None else fixed) + 1, 2),
+                         dtype=x.dtype, device=x.device)
+        tr[0] = _log_row(r, x.dtype)
     if fixed is not None:
-        for _ in range(fixed):
+        for k in range(fixed):
             x, r = vcycle(levels, 0, x, r)
             x, r = smooth(fine, x, r)
-        return bc_scalar_periodic(x, fine.perdir), r, int(fixed)
+            if trace:
+                tr[k + 1] = _log_row(r, x.dtype)
+        out = (bc_scalar_periodic(x, fine.perdir), r, int(fixed))
+        return out + (tr,) if trace else out
     r2 = fdot(fine, r, r)
     n, go = 0, True
     while go:
         x, r = vcycle(levels, 0, x, r)
         x, r = smooth(fine, x, r)
         r2p, r2 = r2, fdot(fine, r, r)
+        if trace:
+            tr[n + 1] = _log_row(r, x.dtype)
         n += 1
         go = n < itmx and bool((r2 >= tol) & ~(r2 > 2.0 * r2p))
-    return bc_scalar_periodic(x, fine.perdir), r, n
+    out = (bc_scalar_periodic(x, fine.perdir), r, n)
+    return out + (tr,) if trace else out

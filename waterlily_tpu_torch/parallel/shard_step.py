@@ -37,10 +37,11 @@ __all__ = ["shardmap_mom_step", "can_shard_step", "bc_vector_local",
 
 def can_shard_step(cfg, mesh: ShardMesh | None, levels) -> bool:
     """Gate of the sharded step: a mesh that divides the fine level evenly
-    (`shard_smooth.can_shardmap`) and no fixed solver iteration count
-    (JAX keeps that on its GSPMD path, which the port has not)."""
+    (`shard_smooth.can_shardmap`), no fixed solver iteration count and no
+    residual-trace capture (``cfg.log``): JAX keeps both on its per-phase
+    GSPMD path, whose counterpart here is the dense step."""
     fine = levels[0]
-    return (mesh is not None and cfg.fixed_iters is None
+    return (mesh is not None and cfg.fixed_iters is None and not cfg.log
             and can_shardmap(mesh, tuple(fine.D.shape), fine.perdir))
 
 

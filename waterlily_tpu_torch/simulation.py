@@ -10,10 +10,12 @@ counterpart here).
 """
 from __future__ import annotations
 
+import dataclasses
 import math
 
 import torch
 
+from .convert import to_numpy
 from .body import (NoBody, measure_fields, measure_fields_banded,
                    band_box_shape)
 from .flow import FlowConfig, flow_init, mom_step
@@ -75,7 +77,14 @@ class Simulation:
     sharded layout keeps the dense BDIM blend and dense Poisson levels (a
     body still gets the narrow-band measurement), and its coarse levels
     are replicated.  ``fixed_iters`` under a mesh is not ported (ROADMAP
-    A19, with A16) and raises `NotImplementedError`.
+    A19, with A16) and raises `NotImplementedError`.  ``log`` keeps the
+    dense step, as JAX keeps its per-phase path.
+
+    ``log=True`` captures the pressure solver's residual traces (reference
+    ``@log``): `step` and `steps` append one ``(2, itmx+1, 2)`` numpy
+    array a step to ``res_log`` (predictor, corrector; rows ``[max|r|,
+    ⟨r, r⟩]``, zeros after the last iteration); `write_log` writes them in
+    the reference's log format.
     """
 
     def __init__(self, dims, u_BC, L, dt=0.25, nu=0.0, g=None, U=None,
@@ -83,7 +92,7 @@ class Simulation:
                  dtype=torch.float32, limiter=quick, tol=1e-4, itmx=32,
                  bbox=True, fixed_iters=None, banded_levels=False,
                  smoother_bf16=False, op_bf16=None, device="cuda",
-                 mesh=None):
+                 mesh=None, log=False):
         D = len(dims)
         if mesh is not None and fixed_iters is not None:
             raise NotImplementedError(
@@ -105,38 +114,61 @@ class Simulation:
         self.body = NoBody() if body is None else body
         self.device = torch.device(device)
         self._dims = tuple(dims)
-        S = tuple(n + 2 for n in dims)
-        big = math.prod(self._dims) >= BANDED_MIN_CELLS or bbox == "force"
-        bbox_shape = None
-        if bbox and big and not isinstance(self.body, NoBody):
-            margin = (bbox if isinstance(bbox, int)
-                      and not isinstance(bbox, bool) else 3)
-            bbox_shape = band_box_shape(self.body, S, 0.0, self.epsilon,
-                                        dtype, margin=margin,
-                                        device=self.device)
         self.mesh = mesh
-        # a sharded layout measures on the window but blends densely
-        self._measure_box = bbox_shape
-        if mesh is not None:
-            bbox_shape = None
+        self._bbox_arg = bbox
+        self._banded_levels = bool(banded_levels)
         self.cfg = FlowConfig(
-            D=D, S=S, device=self.device,
+            D=D, S=tuple(n + 2 for n in dims), device=self.device,
             nu=float(nu), U=u_BC, g=g, perdir=tuple(perdir),
             exitBC=bool(exitBC), dtype=dtype, limiter=limiter,
             tol=float(tol), itmx=int(itmx),
             fixed_iters=None if fixed_iters is None else int(fixed_iters),
-            bbox_shape=bbox_shape)
-        # the window of the banded Poisson levels (None: dense levels)
-        self._lv_box = bbox_shape if banded_levels else None
+            log=bool(log))
+        self._size_window(0.0)
         self._sharded = None
         self._smoother_bf16 = bool(smoother_bf16)
         self._op_bf16 = None if op_bf16 is None else bool(op_bf16)
         self.flow = flow_init(self.cfg, ulam, dt)
         self.levels = None
         self.measure(0.0)
-        # host-side histories of flow.Δt and the solver iteration counts
+        # host-side histories of flow.Δt, the solver iteration counts and
+        # (under log) the solver's residual traces
         self.dts = [float(dt)]
         self.pois_n = []
+        self.res_log = []
+
+    def _size_window(self, t0):
+        """Size the body's band window at time ``t0`` and set ``cfg``: a
+        body on a grid of at least `BANDED_MIN_CELLS` interior cells (or
+        ``bbox="force"``) gets the static window shape of
+        `band_box_shape` (margin 3, or ``bbox`` cells); a sharded layout
+        measures on the window but blends densely."""
+        bbox = self._bbox_arg
+        big = math.prod(self._dims) >= BANDED_MIN_CELLS or bbox == "force"
+        shape = None
+        if bbox and big and not isinstance(self.body, NoBody):
+            margin = (bbox if isinstance(bbox, int)
+                      and not isinstance(bbox, bool) else 3)
+            shape = band_box_shape(self.body, self.cfg.S, float(t0),
+                                   self.epsilon, self.cfg.dtype,
+                                   margin=margin, device=self.device)
+        self._measure_box = shape
+        bbox_shape = None if self.mesh is not None else shape
+        self.cfg = dataclasses.replace(self.cfg, bbox_shape=bbox_shape)
+        # the window of the banded Poisson levels (None: dense levels)
+        self._lv_box = bbox_shape if self._banded_levels else None
+
+    def set_body(self, body):
+        """Replace the immersed geometry: the band window is sized again
+        for the new body at the time of the next step, then the body is
+        measured there and the levels rebuilt (reference ``measure!(sim)``
+        semantics; with no body the fields stay as they were, as in
+        JAX)."""
+        self.body = NoBody() if body is None else body
+        self._size_window(float(self.flow.t) + float(self.flow.dt))
+        if not isinstance(self.body, NoBody):
+            self.measure()
+        return self
 
     # -- observability -----------------------------------------------------
 
@@ -211,11 +243,14 @@ class Simulation:
         else:
             self.flow, aux = mom_step(self.cfg, self.levels, self.flow)
         self.pois_n.append(aux["pois_n"])
-        return aux["dt"]
+        return aux
 
     def step(self, remeasure=True):
         """Advance one time step (reference `sim_step!(sim)`)."""
-        self.dts.append(float(self._advance(remeasure)))
+        aux = self._advance(remeasure)
+        self.dts.append(float(aux["dt"]))
+        if self.cfg.log:
+            self.res_log.append(aux["res_trace"].cpu().numpy())
         return self
 
     def sim_step(self, t_end=None, remeasure=True, max_steps=None,
@@ -232,12 +267,15 @@ class Simulation:
         return self
 
     def steps(self, n, remeasure=True):
-        """Advance ``n`` steps, reading the dt history back once at the
-        end (the solver's convergence checks still sync once per outer
-        iteration)."""
-        dts = [self._advance(remeasure) for _ in range(int(n))]
-        if dts:
-            self.dts.extend(torch.stack(dts).tolist())
+        """Advance ``n`` steps, reading the dt history (and, under ``log``,
+        the residual traces) back once at the end (the solver's
+        convergence checks still sync once per outer iteration)."""
+        auxs = [self._advance(remeasure) for _ in range(int(n))]
+        if auxs:
+            self.dts.extend(torch.stack([a["dt"] for a in auxs]).tolist())
+            if self.cfg.log:
+                self.res_log.extend(torch.stack(
+                    [a["res_trace"] for a in auxs]).cpu().numpy())
         return self
 
     def run_until(self, t_end, chunk=50, remeasure=True):
@@ -246,6 +284,52 @@ class Simulation:
         while self.sim_time < t_end:
             self.steps(chunk, remeasure=remeasure)
         return self
+
+    def run_record(self, t_end, every=0.5, fields=None, remeasure=True):
+        """Integrate to ``t_end`` sampling diagnostics every ``every``
+        tU/L.  ``fields`` maps names to callables ``fn(sim) -> value``;
+        each sample is kept as a numpy array.  Returns ``{"t": [...],
+        name: [...], ...}``.
+
+        The steps run in `steps` chunks, each sized for at most half the
+        rest of the interval at the current dt and doubling from 1 across
+        the run (JAX's chunk ramp, so that both packages sample at the same
+        steps): a growing dt cannot jump past a sample."""
+        fields = fields or {}
+        out = {"t": []}
+        for name in fields:
+            out[name] = []
+        ramp = 1
+        while self.sim_time < t_end:
+            target = min(self.sim_time + every, t_end)
+            while self.sim_time < target:
+                dt_nd = float(self.flow.dt) * self.U / self.L
+                n = max(1, min(ramp, int(0.5 * (target - self.sim_time)
+                                         / max(dt_nd, 1e-9))))
+                ramp = 2 * ramp
+                self.steps(n, remeasure=remeasure)
+            out["t"].append(self.sim_time)
+            for name, fn in fields.items():
+                out[name].append(to_numpy(fn(self)))
+        return out
+
+    def write_log(self, fname="WaterLily.log"):
+        """Write the captured residual traces in the reference's log format
+        (src/util.jl:16-24): the header ``p/c, iter, r∞, r₂``, then per step
+        a ``p`` and a ``c`` line each followed by ``, it, r∞, r₂`` rows up to
+        the first zero row."""
+        if not self.cfg.log:
+            raise ValueError("construct Simulation(log=True) to capture "
+                             "traces")
+        with open(fname, "w") as f:
+            f.write("p/c, iter, r∞, r₂\n")
+            for step_tr in self.res_log:
+                for phase, tr in zip("pc", step_tr):
+                    f.write(f"{phase}\n")
+                    for it, (linf_, r2) in enumerate(tr):
+                        if it > 0 and linf_ == 0 and r2 == 0:
+                            break
+                        f.write(f", {it}, {linf_}, {r2}\n")
 
 
 def sim_time(sim: Simulation) -> float:

@@ -1,15 +1,19 @@
 """Performance accounting: MLUPS, CUDA-event step timing, device busy
-time from `torch.profiler` and the card's idle share over a window of
-steps."""
+time from `torch.profiler`, the card's idle share over a window of steps
+and a profiler trace of a block (`trace_profile`)."""
 from __future__ import annotations
 
+import contextlib
 import math
+import os
 import sys
+import tempfile
 import time
 
 import torch
 
-__all__ = ["mlups", "time_steps", "device_profile", "idle_share"]
+__all__ = ["mlups", "time_steps", "device_profile", "idle_share",
+           "trace_profile"]
 
 # Profiler sessions per measurement: a short session run right after
 # others now and then records no device activity on the H100, so an
@@ -134,7 +138,7 @@ def idle_share(sim, n_steps: int, remeasure=False) -> dict:
         raise ValueError(f"idle_share measures CUDA simulations; this one is "
                          f"on {sim.device}")
     flow, levels = sim.flow, sim.levels
-    n_pois, n_dts = len(sim.pois_n), len(sim.dts)
+    n_pois, n_dts, n_log = len(sim.pois_n), len(sim.dts), len(sim.res_log)
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     torch.cuda.synchronize()
@@ -147,7 +151,7 @@ def idle_share(sim, n_steps: int, remeasure=False) -> dict:
 
     def from_start():
         sim.flow, sim.levels = flow, levels
-        del sim.pois_n[n_pois:], sim.dts[n_dts:]
+        del sim.pois_n[n_pois:], sim.dts[n_dts:], sim.res_log[n_log:]
         sim.steps(n_steps, remeasure=remeasure)
 
     busy, by_name = math.nan, {}
@@ -165,3 +169,22 @@ def idle_share(sim, n_steps: int, remeasure=False) -> dict:
     return {"wall_ms": wall, "busy_ms": busy, "idle_share": 1 - busy / wall,
             "by_name": {k: v / n_steps for k, v in by_name.items()},
             "pois_n": timed, "steps": n_steps}
+
+
+@contextlib.contextmanager
+def trace_profile(logdir=None):
+    """Record a `torch.profiler` trace of the block and write it to
+    ``logdir/trace.json`` (Chrome trace format; ``logdir`` defaults to
+    ``waterlily_trace`` in the temporary directory): CPU activity, and
+    CUDA activity where a card is present.  Yields ``logdir``."""
+    from torch.profiler import ProfilerActivity, profile
+    if logdir is None:
+        logdir = os.path.join(tempfile.gettempdir(), "waterlily_trace")
+    os.makedirs(logdir, exist_ok=True)
+    cuda = torch.cuda.is_available()
+    acts = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if cuda else [])
+    with profile(activities=acts) as prof:
+        yield logdir
+        if cuda:
+            torch.cuda.synchronize()
+    prof.export_chrome_trace(os.path.join(logdir, "trace.json"))
