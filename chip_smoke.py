@@ -98,6 +98,26 @@ Phases, each of which raises (and so exits non-zero) on failure:
    1e-5 of the CPU's measurement and ``measure_sdf`` within 1 ulp of the
    distance to the centre; (v) ``sphere_3d(256, 256)`` after 3 steps:
    the total force in every sampling and λ₂ finite;
+6.7 differentiability: the drag of the (96,64,64) sphere (ν = 0.16, a
+   radius-8 sphere at 31 whose radius is a tensor inside the sdf, solver
+   tolerance 1e-5) after `measure_fields`, `build_levels` and 2
+   `mom_step`s, differentiated in
+   ν and the radius: (i) with ``implicit_diff`` by ``torch.autograd``,
+   held against the same program on the card with every gate shut (all
+   plain forms, relative 1e-4), against the CPU in f32 (relative 1e-3,
+   pois_n within the ±2/≤4 rule) and against central FD on the card (h =
+   1e-2 of the parameter, relative 5e-2, the FD's spread at h/2 logged;
+   the gradient at tol 1e-4 and 1e-7 logged beside it);
+   ``mult3d``, ``increment3d`` and ``pcg_fused`` launched in the forward
+   and in the backward pass (the adjoint solves), ``conv_diff3d``,
+   ``bc3d``, ``div3d``, ``project3d`` and ``cfl3d`` never in the tracked
+   steps or the backward pass; (ii) with ``fixed_iters=2`` the reverse
+   gradient against `torch.func.jvp` of the same program (relative 1e-4);
+   (iii) ``mult3d`` handed a ``requires_grad`` L raises; (iv) the wall
+   seconds and peak memory of one reverse pass, ``implicit_diff`` against
+   ``fixed_iters`` at the forward's largest pois_n, and of one
+   ``implicit_diff`` reverse step of ``sphere_3d(256, 256, bbox=False)``
+   (or, where it does not fit, the largest ``sphere_3d(n, n)`` that does);
 7. every kernel against its plain version again, every variant at every
    shape a path of 4-6.6 launched it at (258³, 130³, 66³, ..., the 2D
    levels) and the probes at 258³, with the tolerances of 3, every
@@ -1211,6 +1231,259 @@ def run_recording(torch, dev):
     torch.cuda.empty_cache()
 
 
+# phase 6.7: the (96,64,64) sphere's drag as a function of ν and the
+# sphere's radius; the kernels the AD program must launch (the pressure
+# solves, forward and adjoint) and those it must not (a tracked field takes
+# the plain forms)
+AD_NU, AD_RADIUS, AD_CENTRE = 0.16, 8.0, 31.0
+# the solves' tolerance: the implicit gradient assumes converged solves; at
+# the default 1e-4 the radius gradient is 16.5% off its value at 1e-5 and
+# 18.5% off at 1e-7 on an H100 80GB HBM3 at 700 W (the phase logs both),
+# 1e-5 and 1e-7 differ by 1.7%, and at 1e-7 the f32 forward solve stalls
+# at itmx (PERF.md §6)
+AD_TOL = 1e-5
+AD_KERNELS = ("mult3d", "increment3d", "pcg_fused")
+AD_PLAIN = ("conv_diff3d", "bc3d", "div3d", "project3d", "cfl3d")
+AD_SIZES = (256, 192, 128)   # the big reverse step, largest first
+
+
+def drag_setup(torch, dev, nu, radius, **ad):
+    """``(cfg, body, levels, state)`` of the (96,64,64) sphere at rest with
+    viscosity ``nu`` and radius ``radius`` (0-d tensors) and the AD mode
+    ``ad``: `flow_init`, `measure_fields`, `build_levels`."""
+    from waterlily_tpu_torch.body import AutoBody, measure_fields
+    from waterlily_tpu_torch.flow import FlowConfig, flow_init
+    from waterlily_tpu_torch.ops.multigrid import build_levels
+    f32 = torch.float32
+    body = AutoBody(lambda x, t: torch.sqrt(torch.sum((x - AD_CENTRE) ** 2))
+                    - radius)
+    cfg = FlowConfig(D=3, S=FINE, device=dev, nu=nu, U=(1.0, 0.0, 0.0),
+                     dtype=f32, **{"tol": AD_TOL, **ad})
+    state = flow_init(cfg)
+    V, m0, m1, _ = measure_fields(body, FINE, 0.0, 1.0, (), False, f32, dev)
+    return cfg, body, build_levels(m0), state.replace(V=V, mu0=m0, mu1=m1)
+
+
+def drag_steps(cfg, body, levels, state, steps=2):
+    """``(drag, pois_n)`` after ``steps`` steps of `drag_setup`'s sphere."""
+    from waterlily_tpu_torch.flow import mom_step
+    from waterlily_tpu_torch.metrics import total_force
+    pois = []
+    for _ in range(steps):
+        state, aux = mom_step(cfg, levels, state)
+        pois.append(aux["pois_n"])
+    return total_force(state.u, state.p, cfg.nu, body, state.t)[0], pois
+
+
+def ad_params(torch, dev, nu=AD_NU, radius=AD_RADIUS, grad=True):
+    return tuple(torch.tensor(v, dtype=torch.float32, device=dev,
+                              requires_grad=grad) for v in (nu, radius))
+
+
+def drag_grad(torch, dev, **ad):
+    """``(drag, [d/dν, d/dradius], pois_n)`` by ``torch.autograd``."""
+    nu, radius = ad_params(torch, dev)
+    drag, pois = drag_steps(*drag_setup(torch, dev, nu, radius, **ad))
+    g = torch.autograd.grad(drag, (nu, radius))
+    return float(drag.detach()), [float(v) for v in g], pois
+
+
+def rel_err(a, b):
+    return max(abs(x - y) / abs(y) for x, y in zip(a, b))
+
+
+@contextlib.contextmanager
+def gates_shut():
+    """Every kernel gate closed inside the block (`use_blocked`,
+    `use_pcg_fused`): the whole program in its plain forms on the card."""
+    from waterlily_tpu_torch.ops import stencil_kernels as sk
+    from waterlily_tpu_torch.ops import pcg_kernel as pk
+    old = sk.use_blocked, pk.use_pcg_fused
+    try:
+        sk.use_blocked = pk.use_pcg_fused = lambda S, dtype, device: False
+        yield
+    finally:
+        sk.use_blocked, pk.use_pcg_fused = old
+
+
+def reverse_cost(torch, dev, label, **ad):
+    """Wall seconds and peak memory of one reverse pass of the drag."""
+    from waterlily_tpu_torch.ops.multigrid import ml_solve_implicit
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    ml_solve_implicit.adjoint_n.clear()
+    t0 = time.perf_counter()
+    drag, g, pois = drag_grad(torch, dev, **ad)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    gib = torch.cuda.max_memory_allocated() / 2 ** 30
+    adjoint = list(ml_solve_implicit.adjoint_n)
+    log(f"  {label}: one reverse pass {wall:.3f} s, peak {gib:.3f} GiB "
+        f"allocated; pois_n {pois}, adjoint {adjoint}; drag {drag!r}, "
+        f"gradient {g}")
+    if not all(math.isfinite(v) for v in g + [drag]):
+        raise AssertionError(f"{label}: non-finite gradient {g}")
+
+
+def big_reverse_step(torch, dev):
+    """One ``implicit_diff`` reverse step of ``sphere_3d(n, n, bbox=False)``
+    (d of the kinetic energy in the initial velocity) at the largest n of
+    `AD_SIZES` that fits in the card's memory: wall seconds, peak GiB."""
+    import gc
+    from waterlily_tpu_torch import sphere_3d
+    from waterlily_tpu_torch.flow import mom_step
+    from waterlily_tpu_torch.metrics import ke
+    from waterlily_tpu_torch.ops.multigrid import ml_solve_implicit
+    for n in AD_SIZES:
+        sim = sphere_3d(n, n, bbox=False, implicit_diff=True, device=dev)
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        ml_solve_implicit.adjoint_n.clear()
+        t0 = time.perf_counter()
+        try:
+            u0 = sim.flow.u.detach().requires_grad_()
+            state, aux = mom_step(sim.cfg, sim.levels,
+                                  sim.flow.replace(u=u0))
+            (g,) = torch.autograd.grad(torch.sum(ke(state.u)), u0)
+            torch.cuda.synchronize()
+            fits = True
+        except torch.cuda.OutOfMemoryError:
+            fits = False
+            state = u0 = None
+        wall = time.perf_counter() - t0
+        gib = torch.cuda.max_memory_allocated() / 2 ** 30
+        if fits:
+            log(f"  sphere_3d({n}, {n}, bbox=False) one implicit_diff "
+                f"reverse step: {wall:.3f} s, peak {gib:.3f} GiB allocated; "
+                f"pois_n {aux['pois_n']}, adjoint "
+                f"{list(ml_solve_implicit.adjoint_n)}")
+            if not bool(torch.isfinite(g).all()):
+                raise AssertionError(f"sphere_3d({n}, {n}): non-finite "
+                                     "gradient")
+            return
+        log(f"  sphere_3d({n}, {n}, bbox=False): one implicit_diff reverse "
+            f"step does not fit in the card's memory (peak {gib:.3f} GiB "
+            f"allocated when it ran out)")
+        del sim
+        gc.collect()
+        torch.cuda.empty_cache()
+    raise AssertionError(f"no reverse step of the sizes {AD_SIZES} fits")
+
+
+def run_differentiability(torch, dev):
+    """Phase 6.7: gradients of the (96,64,64) sphere's drag in ν and its
+    radius, (i) ``implicit_diff`` against the gates shut, the CPU and FD,
+    with the pressure kernels launched forward and backward, (ii)
+    ``fixed_iters=2`` reverse against `torch.func.jvp`, (iii) the guard,
+    (iv) the cost of a reverse pass."""
+    from waterlily_tpu_torch.ops.multigrid import ml_solve_implicit
+    from waterlily_tpu_torch.ops import stencil_kernels as sk
+    cpu = torch.device("cpu")
+
+    stage("(i) implicit_diff: the kernels in the forward and adjoint solves")
+    nu, radius = ad_params(torch, dev)
+    setup = drag_setup(torch, dev, nu, radius, implicit_diff=True)
+    ml_solve_implicit.adjoint_n.clear()
+    t0 = time.perf_counter()
+    drag, pois = on_path(torch, "6.7 implicit_diff forward", AD_KERNELS,
+                         lambda: drag_steps(*setup))
+    t1 = time.perf_counter()
+    g = on_path(torch, "6.7 implicit_diff backward", AD_KERNELS,
+                lambda: torch.autograd.grad(drag, (nu, radius)))
+    t2 = time.perf_counter()
+    adjoint = list(ml_solve_implicit.adjoint_n)
+    g = [float(v) for v in g]
+    for label in ("6.7 implicit_diff forward", "6.7 implicit_diff backward"):
+        ran = [k for k in AD_PLAIN if PATH_LAUNCHES[label][k]]
+        if ran:
+            raise AssertionError(f"{label} launched {ran} on tracked fields")
+    log(f"  drag {float(drag.detach())!r}, d/dν, d/dradius = {g}; forward "
+        f"{t1 - t0:.3f} s, backward {t2 - t1:.3f} s; pois_n {pois}, "
+        f"adjoint {adjoint}")
+    del setup, drag
+
+    stage("(i) against the gates shut, the CPU and FD")
+    with gates_shut():
+        _, g_plain, pois_plain = drag_grad(torch, dev, implicit_diff=True)
+    e = rel_err(g, g_plain)
+    log(f"  gates shut (every plain form on the card): {g_plain}, pois_n "
+        f"{pois_plain}: relative difference {e:.3e}")
+    if not e <= 1e-4:
+        raise AssertionError(f"card vs plain forms: {g} vs {g_plain}")
+    t0 = time.perf_counter()
+    _, g_cpu, pois_cpu = drag_grad(torch, cpu, implicit_diff=True)
+    e = rel_err(g, g_cpu)
+    log(f"  CPU f32 ({time.perf_counter() - t0:.1f} s): {g_cpu}, pois_n "
+        f"{pois_cpu}: relative difference {e:.3e}")
+    if not (e <= 1e-3 and pois_ok(pois, pois_cpu)):
+        raise AssertionError(f"card vs CPU: {g}, {pois} vs {g_cpu}, "
+                             f"{pois_cpu}")
+
+    def fd(which, h):
+        vals = []
+        for sgn in (1, -1):
+            q = [AD_NU, AD_RADIUS]
+            q[which] += sgn * h
+            with torch.no_grad():
+                vals.append(float(drag_steps(*drag_setup(
+                    torch, dev, *ad_params(torch, dev, *q, grad=False),
+                    implicit_diff=True))[0]))
+        return (vals[0] - vals[1]) / (2 * h)
+
+    for which, name in enumerate(("ν", "radius")):
+        h = 1e-2 * (AD_NU, AD_RADIUS)[which]
+        f1, f2 = fd(which, h), fd(which, h / 2)
+        e = abs(g[which] - f1) / abs(f1)
+        log(f"  d/d{name}: FD {f1!r} (h/2: {f2!r}, spread "
+            f"{abs(f1 - f2) / abs(f1):.3e}), autograd {g[which]!r}: "
+            f"relative difference {e:.3e}")
+        if not e <= 5e-2:
+            raise AssertionError(f"d/d{name}: autograd {g[which]} vs FD {f1}")
+
+    stage("(i) the solves' tolerance (logged, no gate)")
+    for tol in (1e-4, 1e-7):
+        _, g_tol, pois_tol = drag_grad(torch, dev, implicit_diff=True,
+                                       tol=tol, itmx=64)
+        log(f"  tol {tol:g}, itmx 64: {g_tol}, pois_n {pois_tol}: relative "
+            f"difference from tol {AD_TOL:g} {rel_err(g_tol, g):.3e}")
+
+    stage("(ii) fixed_iters=2: reverse against torch.func.jvp")
+    _, g_rev, _ = drag_grad(torch, dev, fixed_iters=2)
+    jv = []
+    for tangent in ((1.0, 0.0), (0.0, 1.0)):
+        _, d = torch.func.jvp(
+            lambda a, b: drag_steps(*drag_setup(torch, dev, a, b,
+                                                fixed_iters=2))[0],
+            ad_params(torch, dev, grad=False),
+            ad_params(torch, dev, *tangent, grad=False))
+        jv.append(float(d))
+    e = rel_err(g_rev, jv)
+    log(f"  reverse {g_rev}, jvp {jv}: relative difference {e:.3e}")
+    if not e <= 1e-4:
+        raise AssertionError(f"fixed_iters=2: reverse {g_rev} vs jvp {jv}")
+
+    stage("(iii) the guard on the card")
+    from waterlily_tpu_torch.kernels.check import inputs
+    d = inputs(FINE, 0, dev)
+    L = d["lev"].L.clone().requires_grad_()
+    try:
+        sk.mult3d(L, d["lev"].D, d["x"])
+    except RuntimeError as err:
+        log(f"  mult3d with a requires_grad L raises: {err}")
+    else:
+        raise AssertionError("mult3d launched on a requires_grad L")
+    del d, L
+
+    stage("(iv) the cost of a reverse pass")
+    k = max(max(p) for p in pois)
+    reverse_cost(torch, dev, "(96,64,64) implicit_diff", implicit_diff=True)
+    reverse_cost(torch, dev, f"(96,64,64) fixed_iters={k}", fixed_iters=k)
+    big_reverse_step(torch, dev)
+    torch.cuda.empty_cache()
+
+
 # phase 6.6 (iii): two spheres' union minus a third, in the (96,64,64)
 # domain of the dense slice
 CSG_SPHERES = (((31.0, 31.0, 31.0), 8.0), ((41.0, 31.0, 31.0), 6.0),
@@ -1786,6 +2059,8 @@ def main() -> int:
     run_sharded(torch, dev)
     phase("6.6 the recording path: run_record, checkpoint, CSG, VTK")
     run_recording(torch, dev)
+    phase("6.7 differentiability: implicit_diff, fixed_iters, jvp")
+    run_differentiability(torch, dev)
     phase("7. kernels vs plain versions at the paths' shapes")
     check_kernels(torch, dev, {**PATH_SHAPES,
                                "pcg_blocked": PATH_SHAPES["pcg_dir_mult"],

@@ -1,0 +1,42 @@
+"""The port's examples (`waterlily_tpu_torch.examples`, twins of the JAX
+package's ``examples/``) run to completion on the CPU with ``--quick``."""
+import math
+
+import numpy as np
+import pytest
+import torch
+
+from waterlily_tpu_torch.examples import (three_d_sphere, two_d_circle,
+                                          oscillating_plate, optimize_spin)
+
+CPU = ["--device", "cpu", "--quick"]
+
+
+def test_three_d_sphere():
+    sim = three_d_sphere.main(CPU)
+    assert sim.sim_time >= 0.5 and torch.isfinite(sim.flow.u).all()
+    assert sim.flow.u.device.type == "cpu"
+
+
+def test_two_d_circle():
+    rows = two_d_circle.main(CPU)
+    assert len(rows) == 2 and np.all(np.isfinite(rows))
+    assert all(1.0 < cd < 3.0 for _, cd, _ in rows)     # Cd of a circle
+
+
+def test_oscillating_plate():
+    rows = oscillating_plate.main(CPU)
+    assert len(rows) == 2 and np.all(np.isfinite(rows))
+
+
+@pytest.mark.parametrize("implicit", [False, True])
+def test_optimize_spin(implicit):
+    """Two descent iterations, and the loss falls."""
+    losses = optimize_spin.main(CPU + (["--implicit"] if implicit else []))
+    assert len(losses) == 2 and all(math.isfinite(v) for v in losses)
+    assert losses[1] < losses[0]
+
+
+def test_examples_default_to_the_card():
+    args = optimize_spin.parser(optimize_spin.__doc__).parse_args([])
+    assert args.device == "cuda" and not args.quick

@@ -516,7 +516,9 @@ def test_pcg_blocked_on_the_card_vs_cpu(form, device):
     the CPU (plain forms) at the dense slice's fine level: f32 directions
     and operator shadows within 1e-5; bf16 directions on the mean
     difference (2e-6: the card's sums, in another order, can round a
-    direction value to the neighbouring bf16 value at a few cells)."""
+    direction value to the neighbouring bf16 value at a few cells).  The
+    CPU reference runs on one thread (its sums' order, and so the bf16
+    roundings, depend on the thread count), the count restored after."""
     import dataclasses
     from waterlily_tpu_torch.kernels.check import inputs
     from waterlily_tpu_torch.ops import attic as at
@@ -533,7 +535,12 @@ def test_pcg_blocked_on_the_card_vs_cpu(form, device):
     (lc, rc), (lg, rg) = level(torch.device("cpu")), level(device)
     n = at.pcg_dir_mult.launches
     xg, rg = at.pcg_blocked(lg, torch.zeros_like(rg), rg)
-    xc, rc = at.pcg_blocked(lc, torch.zeros_like(rc), rc)
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        xc, rc = at.pcg_blocked(lc, torch.zeros_like(rc), rc)
+    finally:
+        torch.set_num_threads(threads)
     assert at.pcg_dir_mult.launches == n + 6
     for g, c in ((xg, xc), (rg, rc)):
         diff = (g.cpu() - c).abs()

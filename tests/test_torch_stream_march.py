@@ -101,8 +101,8 @@ def test_mult3d_launches_the_operator_march(S, card, monkeypatch):
     eight forms, and counts each launch on itself alone (CPU tensors stand
     in for the card's, and the launches are recorded, not run)."""
     launched = []
-    monkeypatch.setattr(sk, "_on_cpu", lambda name, t: False)
-    monkeypatch.setattr(ta, "_on_cpu", lambda name, t: False)
+    monkeypatch.setattr(sk, "_on_cpu", lambda name, t, *operands: False)
+    monkeypatch.setattr(ta, "_on_cpu", lambda name, t, *operands: False)
     monkeypatch.setattr(ta, "launch", lambda *a: launched.append(a))
     arg = lambda a: ((tuple(a.shape), a.dtype) if isinstance(a, torch.Tensor)
                      else a)

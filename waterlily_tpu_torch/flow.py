@@ -4,6 +4,14 @@ PyTorch counterpart of `waterlily_tpu.flow` (reference src/Flow.jl),
 single device, with the dense and the band-windowed BDIM blend.  `mom_step(cfg, levels, state) -> (state, aux)` runs
 eagerly; the only host synchronisations are the pressure solver's
 convergence checks (one per outer multigrid iteration).
+
+The step is differentiable: ``torch.autograd`` through a
+``cfg.fixed_iters`` step or an ``cfg.implicit_diff`` step (one adjoint
+pressure solve a projection, `ops.multigrid.ml_solve_implicit`), and
+``torch.func.jvp`` through the adaptive or the ``fixed_iters`` step.  A
+field that autograd tracks takes the plain forms (`ops.stencil_kernels.
+kernel_ok`); the pressure solve of ``implicit_diff`` runs the kernels in
+its forward and its adjoint solve.
 """
 from __future__ import annotations
 
@@ -17,7 +25,7 @@ from .grid import (interior_view, interior_mask, apply_field, pad_interior,
                    box_slices)
 from .ops.bc import bc_vector, exit_bc
 from .ops.convect import conv_diff, accelerate, quick
-from .ops.multigrid import ml_solve
+from .ops.multigrid import ml_solve, ml_solve_implicit
 from .ops.poisson import pressure_grad_interior
 from .ops import stencil_kernels as sk
 
@@ -47,8 +55,8 @@ class FlowConfig:
     """Static configuration of the step."""
     D: int
     S: tuple                       # ghost-padded spatial shape
-    device: Any                    # torch device of every field
-    nu: float = 0.0
+    device: Any = "cuda"           # torch device of every field
+    nu: Any = 0.0                  # a number, or a 0-d tensor to differentiate
     U: Any = None                  # tuple of BC velocities or callable (i,t)->u_i
     g: Callable | None = None      # body force g(i,t)
     perdir: tuple = ()
@@ -57,21 +65,27 @@ class FlowConfig:
     limiter: Callable = quick
     tol: float = 1e-4
     itmx: int = 32
-    fixed_iters: int | None = None
+    fixed_iters: int | None = None   # exactly k solver iterations, no host
+    # sync: reverse mode through the unrolled solve (and jvp)
     bbox_shape: tuple | None = None  # body-band box extents (banded BDIM)
     log: bool = False              # capture the solver's residual traces
+    implicit_diff: bool = False      # reverse mode by one adjoint solve a
+    # projection instead of the unroll (ops.multigrid.ml_solve_implicit)
 
 
 def bc_tuple(U, t, D, dtype):
     """The BC velocity at time ``t`` (reference `BCTuple`): Python numbers
     for a constant ``U``; for a callable, 0-d tensors on the device of
     ``t`` (a tensor time), whether a component is a number or a tensor, so
-    that the kernels take them with no host synchronisation."""
+    that the kernels take them with no host synchronisation.  A tensor
+    component of a constant ``U`` is kept as it is (it may be
+    differentiated)."""
     if callable(U):
         dev = t.device if isinstance(t, torch.Tensor) else None
         return tuple(torch.as_tensor(U(i, t), dtype=dtype, device=dev)
                      for i in range(D))
-    return tuple(float(Ui) for Ui in U)
+    return tuple(Ui if isinstance(Ui, torch.Tensor) else float(Ui)
+                 for Ui in U)
 
 
 def _off(D, i, v):
@@ -142,19 +156,25 @@ def project(levels, u, p, dt_eff, cfg: FlowConfig):
     the dt-scaled pressure, warm-started from the last step; the velocity
     loses the μ₀-weighted pressure gradient.  Returns ``(u, p, (n, tr))``,
     ``tr`` the solver's residual trace under ``cfg.log`` (None
-    otherwise)."""
+    otherwise).  ``cfg.implicit_diff`` solves by `ml_solve_implicit` with
+    the unfused divergence and correction around it, as JAX does."""
     lev = levels[0]
-    fused = (not lev.banded
-             and sk.use_blocked(tuple(p.shape), p.dtype, p.device))
+    fused = (not lev.banded and not cfg.implicit_diff
+             and sk.kernel_ok(tuple(p.shape), p.dtype, p.device, u, p,
+                              dt_eff, lev.L))
     if fused:
         z, x = sk.div3d(u, p, dt_eff)
     else:
         z = div(u)
         x = p * dt_eff
-    out = ml_solve(levels, x, z, tol=cfg.tol, itmx=cfg.itmx,
-                   fixed=cfg.fixed_iters, trace=cfg.log)
-    x, n = out[0], out[2]
-    tr = out[3] if cfg.log else None
+    if cfg.implicit_diff:
+        x, n = ml_solve_implicit(levels, x, z, tol=cfg.tol, itmx=cfg.itmx)
+        tr = None
+    else:
+        out = ml_solve(levels, x, z, tol=cfg.tol, itmx=cfg.itmx,
+                       fixed=cfg.fixed_iters, trace=cfg.log)
+        x, n = out[0], out[2]
+        tr = out[3] if cfg.log else None
     if fused:
         u, p = sk.project3d(lev.L, x, u, dt_eff)
     else:
@@ -175,9 +195,11 @@ def cfl_flux_max(u: torch.Tensor) -> torch.Tensor:
 
 
 def cfl(u, nu, dt_max=10.0):
-    """Adaptive time step (reference `CFL`/`flux_out`) as a 0-d tensor."""
+    """Adaptive time step (reference `CFL`/`flux_out`) as a 0-d tensor; a
+    ``u`` that autograd tracks takes `cfl_flux_max` (the max's
+    subgradient, as JAX's)."""
     S = tuple(u.shape[1:])
-    if u.shape[0] == 3 and sk.use_blocked(S, u.dtype, u.device):
+    if u.shape[0] == 3 and sk.kernel_ok(S, u.dtype, u.device, u):
         mx = sk.cfl3d(u)
     else:
         mx = cfl_flux_max(u)
@@ -193,12 +215,18 @@ def mom_step(cfg: FlowConfig, levels, state: FlowState):
     corrector's residual traces stacked, ``(2, itmx+1, 2)``.  Nothing of
     ``state`` is updated in place: ``state.u`` is read again by the
     corrector's BDIM blend and by the outlet BC; the boundary conditions
-    fill in place only the fields the step itself has just made."""
+    fill in place only the fields the step itself has just made, and
+    none that autograd tracks (a write into a tensor autograd saved would
+    fail its version check)."""
     D, dtype = cfg.D, cfg.dtype
     u0, p, dt, t = state.u, state.p, state.dt, state.t
     U = bc_tuple(cfg.U, t + dt, D, dtype)
     imask = interior_mask(cfg.S, cfg.device)
     banded = cfg.bbox_shape is not None
+
+    def bc(u):
+        return bc_vector(u, U, cfg.exitBC, cfg.perdir,
+                         inplace=not sk.ad_tracked(u))
 
     # predictor u -> u'
     r = conv_diff(u0, cfg.nu, cfg.perdir, cfg.limiter)
@@ -209,11 +237,11 @@ def mom_step(cfg: FlowConfig, levels, state: FlowState):
     else:
         u = torch.where(imask, 0.0, u0)             # scale_u!(a, 0)
         u = bdim(u, u0, r, state.V, state.mu0, state.mu1, dt)
-    u = bc_vector(u, U, cfg.exitBC, cfg.perdir, inplace=True)
+    u = bc(u)
     if cfg.exitBC:
         u = exit_bc(u, u0, U, dt)
     u, p, (n1, tr1) = project(levels, u, p, dt, cfg)
-    u = bc_vector(u, U, cfg.exitBC, cfg.perdir, inplace=True)
+    u = bc(u)
 
     # corrector u -> u¹
     r = conv_diff(u, cfg.nu, cfg.perdir, cfg.limiter)
@@ -224,9 +252,9 @@ def mom_step(cfg: FlowConfig, levels, state: FlowState):
     else:
         u = bdim(u, u0, r, state.V, state.mu0, state.mu1, dt)
         u = torch.where(imask, 0.5 * u, u)          # scale_u!(a, 0.5)
-    u = bc_vector(u, U, cfg.exitBC, cfg.perdir, inplace=True)
+    u = bc(u)
     u, p, (n2, tr2) = project(levels, u, p, 0.5 * dt, cfg)
-    u = bc_vector(u, U, cfg.exitBC, cfg.perdir, inplace=True)
+    u = bc(u)
 
     dt_new = cfl(u, cfg.nu)
     new = state.replace(u=u, p=p, dt=dt_new, t=t + dt)

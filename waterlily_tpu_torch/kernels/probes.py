@@ -35,7 +35,7 @@ def copy_probe(x, c=C):
     """``c·x`` of a contiguous 3D f32 field, as a new tensor (16-byte
     aligned on a CUDA device: the kernel moves four cells a thread)."""
     S = tuple(x.shape)
-    if _on_cpu("copy_probe", x):
+    if _on_cpu("copy_probe", x, c):
         return _copy_probe_plain(x, c)
     _check("copy_probe", S, x=(x, S))
     if x.data_ptr() % 16:
@@ -58,7 +58,7 @@ def roll_probe(x, c=C):
     field, the in-plane neighbours wrapping around the (axis 1, axis 2)
     plane, as a new tensor."""
     S = tuple(x.shape)
-    if _on_cpu("roll_probe", x):
+    if _on_cpu("roll_probe", x, c):
         return _roll_probe_plain(x, c)
     _check("roll_probe", S, x=(x, S))
     o = torch.empty_like(x)

@@ -36,7 +36,10 @@ of the busy time and the pressure iterations of every step.  A
 card and 3 times on the CPU (plain versions) from the card's initial
 state and levels: both runs' pressure iterations and the largest
 relative difference of their time steps (with ``op_bf16=True`` the CPU
-levels stay blocked and keep their shadows).
+levels stay blocked and keep their shadows).  A
+``remeasure:name:args[:key=value...]`` argument steps the case twice and
+then times six calls of its `Simulation.measure` (wall seconds each,
+synchronised), the moving-body remeasure alone.
 ``--set module.NAME=value`` sets a module constant of the port first
 (``--set ops.attic.DOT_ROWS_MIN=8``).  The first line is the card's name
 and power limit.
@@ -197,6 +200,27 @@ def _case(spec: str, dev) -> dict:
     return row
 
 
+def _remeasure(spec: str, dev, n=6) -> dict:
+    """Wall seconds of each of ``n`` calls of a case's `measure` after 2
+    steps."""
+    import time
+    import torch
+    import waterlily_tpu_torch as wt
+    name, args, kw, label = case_spec(spec)
+    sim = getattr(wt, name)(*args, device=dev, **kw)
+    sim.steps(2)
+    secs = []
+    for _ in range(n):
+        torch.cuda.synchronize(dev)
+        t0 = time.perf_counter()
+        sim.measure()
+        torch.cuda.synchronize(dev)
+        secs.append(time.perf_counter() - t0)
+    del sim
+    torch.cuda.empty_cache()
+    return {"remeasure": label, "s": secs, "median_s": sorted(secs)[n // 2]}
+
+
 def _twin(spec: str, dev, n=3) -> dict:
     """``n`` steps of a case on the card and ``n`` on the CPU from the
     card's initial state and levels: pois_n of both, dt's largest
@@ -253,7 +277,8 @@ def run(argv) -> int:
     for spec in specs:
         kind = spec.split(":")[0]
         row = {"case": _case, "barrier": _barrier, "call": _call,
-               "twin": _twin}.get(kind, _kernel)(spec, dev)
+               "twin": _twin, "remeasure": _remeasure}.get(
+                   kind, _kernel)(spec, dev)
         print(json.dumps(row), flush=True)
     return 0
 

@@ -82,7 +82,7 @@ def pcg_dir_mult(L, Dd, eps_prev, r, iD, beta, bf16: bool = False):
     the f32 D16), upcast where they are read.  One launch: a number
     ``beta`` goes with it, a device scalar is read by the kernel."""
     S = tuple(r.shape)
-    if _on_cpu("pcg_dir_mult", r):
+    if _on_cpu("pcg_dir_mult", r, L, Dd, eps_prev, iD, beta):
         return _pcg_dir_mult_plain(L, Dd, eps_prev, r, iD, beta, bf16)
     _check("pcg_dir_mult", S, bf16=("eps_prev", "L", "iD"),
            L=(L, (3,) + S), D=(Dd, S), eps_prev=(eps_prev, S), r=(r, S),
@@ -117,7 +117,7 @@ def _axpy_rho(wrapper, name, x, r, eps, z, iD, upd):
     ``wrapper``, in one launch; ``eps`` and ``iD`` (a level's iD16) may be
     bf16.  New x and r are written (nothing in place)."""
     S = tuple(x.shape)
-    if _on_cpu(name, x):
+    if _on_cpu(name, x, r, eps, z, iD, upd):
         return _axpy_rho_plain(x, r, eps, z, iD, upd)
     _check(name, S, bf16=("eps", "iD"), x=(x, S), r=(r, S), eps=(eps, S),
            z=(z, S), iD=(iD, S))
@@ -231,7 +231,7 @@ def dot3d(a, b, mode=None):
         raise ValueError(f"dot3d: mode {mode!r} is not one of "
                          f"{sorted(_DOT_MODES)}")
     S = tuple(a.shape)
-    if _on_cpu("dot3d", a):
+    if _on_cpu("dot3d", a, b):
         return _dot3d_plain(a, b, mode)
     ops = {"a": (a, S)} if mode == "aa" else {"a": (a, S), "b": (b, S)}
     _check("dot3d", S, bf16=("b",) if mode == "rid" else (), **ops)
@@ -349,7 +349,7 @@ def mult3d_stream(L, Dd, x, with_dot: bool = False):
     interior.  Periodic ghosts of ``x`` must be filled by the caller.
     `stencil_kernels.mult3d` launches the same kernel; the two wrappers
     count their launches apart, so a path shows which one it took."""
-    if _on_cpu("mult3d_stream", x):
+    if _on_cpu("mult3d_stream", x, L, Dd):
         return _mult3d_plain(L, Dd, x, with_dot)
     return _mult3d_march(mult3d_stream, L, Dd, x, with_dot)
 
@@ -360,7 +360,7 @@ def increment3d_stream(L, Dd, eps, x, r):
     by the carried-rows kernel, which also writes x + eps from the eps it
     reads once.  ``L`` and ``eps`` may be bf16.  Returns new tensors."""
     S = tuple(x.shape)
-    if _on_cpu("increment3d_stream", x):
+    if _on_cpu("increment3d_stream", x, L, Dd, eps, r):
         return _increment3d_plain(L, Dd, eps, x, r)
     _check("increment3d_stream", S, bf16=("L", "eps"), L=(L, (3,) + S),
            D=(Dd, S), eps=(eps, S), x=(x, S), r=(r, S))

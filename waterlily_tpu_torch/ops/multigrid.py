@@ -9,16 +9,20 @@ levels.
 """
 from __future__ import annotations
 
+import collections
+import dataclasses
 import math
 
 import torch
 
 from ..grid import interior_view, pad_interior, field_dot
 from .bc import bc_vector, bc_scalar_periodic
-from .poisson import make_level, residual, jacobi, smooth, increment, fdot
+from .poisson import (make_level, residual, jacobi, smooth, increment, fdot,
+                      _mult_interior_arrays)
 
 __all__ = ["n_levels", "coarse_shape", "restrict", "restrict_L", "prolongate",
-           "build_levels", "update_levels", "vcycle", "ml_solve"]
+           "build_levels", "update_levels", "vcycle", "ml_solve",
+           "ml_solve_implicit"]
 
 MAX_LEVELS = 10
 
@@ -206,3 +210,121 @@ def ml_solve(levels: tuple, x, z, tol=1e-4, itmx=32, fixed=None,
         go = n < itmx and bool((r2 >= tol) & ~(r2 > 2.0 * r2p))
     out = (bc_scalar_periodic(x, fine.perdir), r, n)
     return out + (tr,) if trace else out
+
+
+# --- implicit differentiation (the adjoint pressure solve) ------------------
+#
+# Reverse mode through `ml_solve(fixed=k)` keeps every smoother iterate of
+# every level for the backward pass.  At convergence the solution satisfies
+# A(L)·x* = P z (P: the residual's dead-cell mask and mean correction), so
+# the implicit-function theorem gives the cotangents from ONE more solve
+# with the same operator (A is symmetric) and the vjp of the operator:
+#
+#   λ = A⁻¹ P x̄             the adjoint solve, on the same level stack
+#   z̄ = mask(λ)             x* does not depend on z in dead cells
+#   (L̄, D̄) = ∂(−A·x*)ᵀ λ    A·x* is linear in (L, D)
+#   x̄₀ = 0                  the warm start does not move a converged solve
+#
+# Both solves run on a detached view of the level stack, so the kernels see
+# untracked tensors.  With a body the residual's mean correction makes the
+# solution map slightly non-symmetric; gradients of gauge-invariant outputs
+# (forces, kinetic energy: anything built from ∇p or the velocity) are
+# exact, as the JAX package notes (`waterlily_tpu.ops.multigrid`).
+
+
+def _detached(levels: tuple) -> tuple:
+    """The level stack with every tensor field detached (sharing storage,
+    the bf16 shadows included)."""
+    def det(lev):
+        return dataclasses.replace(lev, **{
+            f.name: getattr(lev, f.name).detach()
+            for f in dataclasses.fields(lev)
+            if isinstance(getattr(lev, f.name), torch.Tensor)})
+    return tuple(det(lev) for lev in levels)
+
+
+def _fold_periodic(xs, xbar, perdir):
+    """The cotangent ``xbar`` of ``bc_scalar_periodic(xs, perdir)`` taken
+    back to its argument: each periodic ghost's cotangent folded onto the
+    interior cell it copies (the transpose of the ghost fill)."""
+    if not perdir:
+        return xbar
+    with torch.enable_grad():
+        v = xs.detach().requires_grad_()
+        (out,) = torch.autograd.grad(bc_scalar_periodic(v, perdir), v, xbar)
+    return out
+
+
+class _ImplicitSolve(torch.autograd.Function):
+    """``(x*, n)`` of the adaptive `ml_solve`, differentiable in the fine
+    level's ``L`` and ``D`` and in ``z`` by the adjoint solve."""
+
+    @staticmethod
+    def forward(L, Dd, x, z, levels, tol, itmx):
+        xs, _r, n = ml_solve(_detached(levels), x.detach(), z.detach(),
+                             tol=tol, itmx=itmx)
+        return xs, n
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        _L, _D, _x, _z, levels, tol, itmx = inputs
+        ctx.levels, ctx.tol, ctx.itmx = _detached(levels), tol, itmx
+        ctx.save_for_backward(output[0])
+
+    @staticmethod
+    def backward(ctx, xbar, _nbar):
+        (xs,) = ctx.saved_tensors
+        levels = ctx.levels
+        fine = levels[0]
+        D = xs.ndim
+        xbar = _fold_periodic(xs, xbar.contiguous(), fine.perdir)
+        # the stopping test r·r >= tol is absolute and the cotangent scales
+        # with the loss: solve for the unit-norm right-hand side
+        s = torch.sqrt(field_dot(xbar, xbar))
+        safe = torch.where(s > 0, s, 1.0).to(xbar.dtype)
+        lam, _r, n = ml_solve(levels, torch.zeros_like(xs), xbar / safe,
+                              tol=ctx.tol, itmx=ctx.itmx)
+        ml_solve_implicit.adjoint_n.append(n)
+        lam = torch.where(s > 0, lam * safe, 0.0)
+        lam_int = torch.where(interior_view(fine.iD, D) == 0, 0.0,
+                              interior_view(lam, D))
+        xb = bc_scalar_periodic(xs, fine.perdir)
+        with torch.enable_grad():
+            L = fine.L.detach().requires_grad_()
+            Dd = fine.D.detach().requires_grad_()
+            Lbar, Dbar = torch.autograd.grad(
+                _mult_interior_arrays(L, Dd, xb), (L, Dd), -lam_int)
+        return Lbar, Dbar, None, pad_interior(lam_int), None, None, None
+
+    @staticmethod
+    def jvp(ctx, *tangents):
+        raise RuntimeError(
+            "ml_solve_implicit has no forward mode (as in the JAX package): "
+            "differentiate forward through the adaptive solve "
+            "(implicit_diff=False) or a fixed_iters one")
+
+
+def ml_solve_implicit(levels: tuple, x, z, tol=1e-4, itmx=32):
+    """Multigrid pressure solve whose gradient is one adjoint solve.
+
+    The primal is the adaptive `ml_solve` (kernels and all) on a detached
+    view of ``levels``; ``torch.autograd`` takes the gradient by the
+    implicit-function theorem: one adjoint `ml_solve` on the same stack
+    (the kernels again) and the vjp of the plain fine-level operator, so
+    memory does not grow with the iterations as a ``fixed=`` unroll's
+    does.  Cotangents reach ``z`` and the fine level's ``L`` and ``D``
+    (and through them `build_levels`' inputs: μ₀, a body's parameters);
+    the warm start ``x`` and the coarse levels get none.  Gradients
+    assume a converged solve (a tight ``tol`` for a sensitive loss).
+    Forward mode (`torch.func.jvp`, dual tensors) raises: use the adaptive
+    solve or ``fixed=``.  Returns ``(x, n)``, ``n`` the forward's
+    iteration count (host int).  ``ml_solve_implicit.adjoint_n`` keeps the
+    iteration counts of the last 1024 adjoint solves, oldest first (a
+    caller clears it before the backward pass it reads), as the kernel
+    wrappers keep their launch counts."""
+    fine = levels[0]
+    return _ImplicitSolve.apply(fine.L, fine.D, x, z, levels, float(tol),
+                                int(itmx))
+
+
+ml_solve_implicit.adjoint_n = collections.deque(maxlen=1024)

@@ -50,7 +50,9 @@ PCG_GRID_CELLS = 1
 
 
 def use_pcg_fused(S, dtype, device) -> bool:
-    """Gate: small f32 levels on a CUDA device (2D and 3D, as in JAX)."""
+    """Gate: small f32 levels on a CUDA device (2D and 3D, as in JAX).
+    Its caller (`ops.poisson.smooth`) also holds operands that autograd
+    tracks off the kernel (`stencil_kernels.ad_tracked`)."""
     return (torch.device(device).type == "cuda" and dtype == torch.float32
             and len(S) >= 2 and math.prod(S) <= PCG_MAX_CELLS)
 
@@ -105,13 +107,11 @@ def pcg_fused(lev, x, r, it: int = 6):
     grid.  `use_pcg_fused` sends it the levels of at most
     `PCG_MAX_CELLS` cells: all of a 2D grid's levels up to (130,130), and
     34³ and below of a 258³ grid."""
+    from .stencil_kernels import _on_cpu, _check, _axis_bits
     S = tuple(x.shape)
-    if x.device.type == "cpu":
+    if _on_cpu("pcg_fused", x, r, lev.L, lev.D, lev.iD):
         from .poisson import pcg
         return pcg(lev, x, r, it)
-    if x.device.type != "cuda":
-        raise ValueError(f"pcg_fused: tensors on {x.device} are not supported")
-    from .stencil_kernels import _check, _axis_bits
     D = len(S)
     if math.prod(S) >= 2 ** 31:
         raise ValueError(f"pcg_fused: the kernel indexes levels of fewer "

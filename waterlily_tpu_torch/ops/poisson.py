@@ -17,6 +17,12 @@ through its carried-rows kernels.  All four are off by default: they are
 seams for A/B runs (`chip_smoke.py` phase 6.4), not the default path.
 ``BF16_OP`` (off, as in JAX) is the default of the bf16 operator shadows
 (`PoissonLevel.L16`, ``Simulation(op_bf16=)``).
+
+A blocked level whose coefficients or operands autograd tracks
+(`stencil_kernels.ad_tracked`: a ``fixed_iters`` solve under
+``torch.autograd``, a `torch.func` transform) runs the kernels' plain
+versions on its own device, the same function in the same association;
+the kernels, which have no derivatives, see only untracked tensors.
 """
 from __future__ import annotations
 
@@ -172,6 +178,12 @@ def make_level(L: torch.Tensor, perdir: tuple = (), banded: bool = False,
                         L16=L16, D16=D16, iD16=iD16)
 
 
+def _tracked(lev: PoissonLevel, *fields) -> bool:
+    """True where autograd tracks the level's coefficients or ``fields``:
+    its kernels' plain versions run instead of the kernels."""
+    return sk.ad_tracked(lev.L, lev.D, *fields)
+
+
 def _opLD(lev: PoissonLevel):
     """(L, D) of the blocked stencil kernels: the bf16 shadow and its f32
     diagonal where the level has them, the f32 arrays otherwise."""
@@ -189,7 +201,10 @@ def _iDk(lev: PoissonLevel) -> torch.Tensor:
 def _ax(lev: PoissonLevel, x: torch.Tensor, with_dot: bool = False):
     """A·x of a blocked level (with ⟨A·x, x⟩ under ``with_dot``):
     `mult3d`, or under ``STREAM`` `attic.mult3d_stream` (the same kernel),
-    on the level's operator (`_opLD`)."""
+    on the level's operator (`_opLD`); their plain version where autograd
+    tracks the level or ``x``."""
+    if _tracked(lev, x):
+        return sk._mult3d_plain(*_opLD(lev), x, with_dot)
     mult3d = at.mult3d_stream if STREAM else sk.mult3d
     return mult3d(*_opLD(lev), x, with_dot=with_dot)
 
@@ -275,7 +290,7 @@ def _banded_ax(lev: PoissonLevel, x: torch.Tensor, with_dot: bool = False):
     the `ana_mult3d` kernel plus a window fix-up where the stencil-kernel
     gate holds, the plain far-field form elsewhere."""
     D = x.ndim
-    if sk.use_blocked(tuple(x.shape), x.dtype, x.device):
+    if sk.kernel_ok(tuple(x.shape), x.dtype, x.device, x, lev.L):
         zw = _box_ax(lev, x)
         box = box_slices(lev.box_start, lev.box_shape)
         if with_dot:
@@ -345,12 +360,15 @@ def increment(lev: PoissonLevel, x, r, eps):
     zero in non-periodic ghosts; on a `bf16_eps` level it is rounded to
     bf16 first (Jacobi's r∘iD and the V-cycle's correction too), so x and
     r see the same rounded eps.  Blocked levels: `increment3d` (under
-    ``STREAM`` `attic.increment3d_stream`) on the level's operator."""
+    ``STREAM`` `attic.increment3d_stream`) on the level's operator, their
+    plain version where autograd tracks the level or an operand."""
     if lev.blocked:
         if lev.bf16_eps:
             eps = eps.to(torch.bfloat16)
         eps = bc_scalar_periodic(eps, lev.perdir)
         inc = at.increment3d_stream if STREAM else sk.increment3d
+        if _tracked(lev, eps, x, r):
+            inc = sk._increment3d_plain
         return inc(*_opLD(lev), eps, x, r)
     return x + eps, r - mult(lev, eps)
 
@@ -391,7 +409,7 @@ def jacobi(lev: PoissonLevel, x, r, it: int = 1):
 def fdot(lev: PoissonLevel, a, b) -> torch.Tensor:
     """Solver dot product (ghost-zero operands): the `attic.dot3d` kernel
     on blocked levels under ``KDOT``, `grid.field_dot` otherwise."""
-    if KDOT and lev.blocked:
+    if KDOT and lev.blocked and not _tracked(lev, a, b):
         return at.dot3d(a, b)
     return field_dot(a, b)
 
@@ -400,7 +418,7 @@ def _rho_rid(lev: PoissonLevel, r, z) -> torch.Tensor:
     """⟨r, r∘iD⟩ for PCG's rho given ``z = r∘iD``; under ``KDOT`` on a
     blocked level the kernel re-reads r and iD (iD16 where the level has
     it) instead of taking z."""
-    if KDOT and lev.blocked:
+    if KDOT and lev.blocked and not _tracked(lev, r):
         return at.dot3d(r, _iDk(lev), mode="rid")
     return field_dot(r, z)
 
@@ -433,7 +451,8 @@ def pcg(lev: PoissonLevel, x, r, it: int = 6):
         dead = dead | (torch.abs(alpha) < 1e-2) | (torch.abs(alpha) > 1e2)
         upd = torch.where(dead, 0.0, alpha).to(dt)
         last = i == it - 1
-        if KAXPY and lev.blocked and not last:
+        if KAXPY and lev.blocked and not last and not _tracked(
+                lev, x, r, eps, z, upd):
             x, r, rho2 = at.pcg_axpy(x, r, eps, z, _iDk(lev), upd)
             z2 = _rid(lev, r)
         else:
@@ -458,7 +477,10 @@ def smooth(lev: PoissonLevel, x, r, it: int = 6):
     kernel on small CUDA levels (never on a level with operator shadows:
     it applies the f32 operator, and one solve must not mix the two, as
     in JAX), `attic.pcg_blocked` on blocked dense non-periodic levels under
-    ``PCG_BLOCKED``, `pcg` elsewhere."""
+    ``PCG_BLOCKED``, `pcg` elsewhere and wherever autograd tracks the level,
+    ``x`` or ``r``."""
+    if _tracked(lev, x, r):
+        return pcg(lev, x, r, it)
     if (lev.L16 is None
             and pk.use_pcg_fused(tuple(x.shape), x.dtype, x.device)):
         return pk.pcg_fused(lev, x, r, it)

@@ -31,6 +31,16 @@ equals its plain version bit for bit on the card.
 
 The dispatch gates mirror the JAX package's, with "tensor on a CUDA device"
 in place of "backend is TPU" and the same size, rank and dtype conditions.
+
+The kernels have no derivatives.  A wrapper handed an operand that
+autograd tracks (`ad_tracked`: ``requires_grad`` under grad mode, a
+forward-AD dual, a `torch.func` transform's tensor) off the CPU raises a
+`RuntimeError`; it never detaches.  The gates' callers (`kernel_ok`,
+`ops.poisson`'s level branches, `pcg_kernel.use_pcg_fused`'s caller) send
+a tracked field to the plain form on its own device instead, as the JAX
+package keeps its AD programs on the XLA forms (``pallas_ok=False``): the
+one route of a CUDA field off a kernel, visible in the launch counters,
+which count kernel launches only.
 """
 from __future__ import annotations
 
@@ -39,12 +49,13 @@ import functools
 import math
 
 import torch
+from torch.autograd import forward_ad
 
 from ..kernels.build import THREADS, launch, library
 
-__all__ = ["MIN_CELLS", "use_blocked", "mult3d", "increment3d",
-           "ana_mult3d", "cfl3d", "bc3d", "div3d", "project3d", "conv_diff3d",
-           "global_interior", "kernel_wrappers"]
+__all__ = ["MIN_CELLS", "use_blocked", "ad_tracked", "kernel_ok", "mult3d",
+           "increment3d", "ana_mult3d", "cfl3d", "bc3d", "div3d", "project3d",
+           "conv_diff3d", "global_interior", "kernel_wrappers"]
 
 # Minimum ghost-padded cell count for the kernel tier (the JAX gate's own
 # floor): smaller levels run the plain forms on the device.
@@ -55,19 +66,57 @@ def use_blocked(S, dtype, device) -> bool:
     """Gate of every stencil kernel in this module: big 3D f32 fields on a
     CUDA device.  (JAX's separate `use_bc3d`/`use_project3d` gates differ
     from this one only by minimum axis-0 lengths that fit its TPU slabs;
-    one-thread-per-cell kernels have no such minimum.)"""
+    one-thread-per-cell kernels have no such minimum.)  A field that
+    autograd tracks is held off the kernels by `kernel_ok`."""
     return (len(S) == 3 and dtype == torch.float32
             and torch.device(device).type == "cuda"
             and math.prod(S) >= MIN_CELLS)
 
 
+_wrapped = torch._C._functorch.is_functorch_wrapped_tensor
+
+
+def ad_tracked(*values) -> bool:
+    """True where autograd tracks any of ``values``: a tensor with
+    ``requires_grad`` while grad mode is on, a forward-AD dual, or a
+    `torch.func` transform's tensor (``jvp``, ``grad``, ``vmap``); tuples
+    and lists are looked into, anything else is untracked."""
+    grad_on = torch.is_grad_enabled()
+    # unpack_dual's own test: no dual level open, no dual tensor
+    duals = forward_ad._current_level >= 0
+    for v in values:
+        if isinstance(v, torch.Tensor):
+            if ((grad_on and v.requires_grad) or _wrapped(v)
+                    or (duals and forward_ad.unpack_dual(v).tangent
+                        is not None)):
+                return True
+        elif isinstance(v, (tuple, list)) and ad_tracked(*v):
+            return True
+    return False
+
+
+def kernel_ok(S, dtype, device, *operands) -> bool:
+    """`use_blocked`, closed to ``operands`` that autograd tracks: a
+    tracked field takes the plain form on its own device."""
+    return use_blocked(S, dtype, device) and not ad_tracked(*operands)
+
+
 # --- argument checks --------------------------------------------------------
 
-def _on_cpu(name: str, t: torch.Tensor) -> bool:
+def _on_cpu(name: str, t: torch.Tensor, *operands) -> bool:
     """True for a CPU tensor (plain version), False for CUDA (kernel);
-    raises for any other device."""
+    raises a `RuntimeError` where ``t`` or one of ``operands`` (tensors,
+    scalars, tuples of them) is tracked by autograd off the CPU, and a
+    `ValueError` for any device but the CPU and CUDA."""
     if t.device.type == "cpu":
         return True
+    if ad_tracked(t, *operands):
+        raise RuntimeError(
+            f"{name}: an operand is tracked by autograd (requires_grad, a "
+            f"forward-AD dual or a torch.func transform); the CUDA kernel "
+            f"has no derivative and does not detach.  Tracked fields take "
+            f"the plain forms through the kernel gates "
+            f"(stencil_kernels.kernel_ok)")
     if t.device.type == "cuda":
         return False
     raise ValueError(f"{name}: tensors on {t.device} are not supported")
@@ -221,7 +270,7 @@ def mult3d(L, Dd, x, with_dot: bool = False):
     axis under 3 cells or 3·N ≥ 2³¹ values (a ValueError): blocked levels
     are 3D and ghost-padded, so every axis has at least 3 cells, and a
     fine level past 2³¹/3 cells is refused by `cfl3d` on the same path."""
-    if _on_cpu("mult3d", x):
+    if _on_cpu("mult3d", x, L, Dd):
         return _mult3d_plain(L, Dd, x, with_dot)
     from .attic import _mult3d_march    # attic imports this module
     return _mult3d_march(mult3d, L, Dd, x, with_dot)
@@ -239,7 +288,7 @@ def increment3d(L, Dd, eps, x, r):
     shadow L16): upcast, x and r stay f32.  Returns new tensors (nothing is
     updated in place)."""
     S = tuple(x.shape)
-    if _on_cpu("increment3d", x):
+    if _on_cpu("increment3d", x, L, Dd, eps, r):
         return _increment3d_plain(L, Dd, eps, x, r)
     _check("increment3d", S, bf16=("L", "eps"), L=(L, (3,) + S), D=(Dd, S),
            eps=(eps, S), x=(x, S), r=(r, S))
@@ -348,7 +397,7 @@ def ana_mult3d(x, c, perdir: tuple = (), with_dot: bool = False):
     the interior as a 0-d tensor, in the same launch.  Periodic ghosts of
     ``x`` must be filled by the caller."""
     S = tuple(x.shape)
-    if _on_cpu("ana_mult3d", x):
+    if _on_cpu("ana_mult3d", x, c):
         return _ana_mult3d_plain(x, c, perdir, with_dot)
     _check("ana_mult3d", S, x=(x, S))
     planes, buf = _march("ana_mult3d", S, x.device, int(with_dot))
@@ -396,7 +445,7 @@ def bc3d(u, A, save_exit: bool = False, perdir: tuple = (),
     S = tuple(u.shape[1:])
     if base is not None and perdir:
         raise ValueError("bc3d: the periodic form is whole-grid only")
-    if _on_cpu("bc3d", u):
+    if _on_cpu("bc3d", u, A):
         from .bc import bc_vector_planes
         return bc_vector_planes(u, A, save_exit, perdir, inplace, S_glob,
                                 base)
@@ -440,7 +489,7 @@ def div3d(u, p, dt, S_glob=None, base=None):
     div(u) is kept where a cell is interior in the array and in the global
     grid."""
     S = tuple(p.shape)
-    if _on_cpu("div3d", u):
+    if _on_cpu("div3d", u, p, dt):
         return _div3d_plain(u, p, dt, S_glob, base)
     _check("div3d", S, u=(u, (3,) + S), p=(p, S))
     glob = _global(S, S_glob, base)
@@ -471,7 +520,7 @@ def project3d(L, x, u, dt, S_glob=None, base=None):
     are a shard's halo-extended block and u is corrected where a cell is
     interior in the array and in the global grid."""
     S = tuple(x.shape)
-    if _on_cpu("project3d", x):
+    if _on_cpu("project3d", x, L, u, dt):
         return _project3d_plain(L, x, u, dt, S_glob, base)
     _check("project3d", S, L=(L, (3,) + S), x=(x, S), u=(u, (3,) + S))
     glob = _global(S, S_glob, base)
@@ -527,7 +576,7 @@ def conv_diff3d(u, nu, limiter, perdir: tuple = (), S_glob=None, base=None,
     if perdir and base is not None and not modular:
         raise ValueError("conv_diff3d: a shard-local periodic call needs "
                          "modular wrap halos (modular=True)")
-    if _on_cpu("conv_diff3d", u):
+    if _on_cpu("conv_diff3d", u, nu):
         return _conv_diff3d_plain(u, nu, limiter, perdir, S_glob, base,
                                   modular)
     _check("conv_diff3d", S, u=(u, (3,) + S))

@@ -42,8 +42,31 @@ class Simulation:
     width; ``perdir`` periodic directions; ``exitBC`` convective outlet;
     ``ulam`` initial velocity ``uλ(i,x)``; ``body`` immersed geometry;
     ``dtype``; ``limiter``; ``tol``/``itmx`` pressure-solver tolerance and
-    iteration cap; ``fixed_iters`` a fixed number of solver iterations;
-    ``device`` where every field lives (default ``"cuda"``).
+    iteration cap; ``device`` where every field lives (default
+    ``"cuda"``).
+
+    ``fixed_iters=k`` runs exactly ``k`` pressure iterations a solve, with
+    no host synchronisation, instead of the adaptive loop: the whole step
+    is then differentiable in reverse mode (``torch.autograd`` through
+    `flow.mom_step`, every iterate of every level kept for the backward
+    pass) as well as forward (`torch.func.jvp`, which the adaptive step
+    also takes), beyond the reference's forward-only scope
+    (maintests.jl:254-278).
+
+    ``implicit_diff=True`` differentiates in reverse mode by the
+    implicit-function theorem instead: the solve keeps its adaptive loop
+    and its kernels, and the backward pass costs one adjoint Poisson solve
+    on the same level stack a projection
+    (`ops.multigrid.ml_solve_implicit`), so memory does not grow with the
+    iterations.  Gradients assume converged solves (tighten ``tol`` for a
+    sensitive loss); forward mode through it raises.  It excludes
+    ``fixed_iters`` and ``log``, refuses ``op_bf16=True`` (the adjoint
+    differentiates the f32 operator) and turns the module default of the
+    shadows off.
+
+    Hand-written kernels have no derivatives: a field that autograd tracks
+    takes the plain forms on its device (`ops.stencil_kernels.kernel_ok`),
+    except in the ``implicit_diff`` solves, which see detached tensors.
 
     ``bbox``: a body on a grid of at least `BANDED_MIN_CELLS` interior
     cells takes the banded path: the BDIM blend and the remeasure run on a
@@ -77,8 +100,9 @@ class Simulation:
     sharded layout keeps the dense BDIM blend and dense Poisson levels (a
     body still gets the narrow-band measurement), and its coarse levels
     are replicated.  ``fixed_iters`` under a mesh is not ported (ROADMAP
-    A19, with A16) and raises `NotImplementedError`.  ``log`` keeps the
-    dense step, as JAX keeps its per-phase path.
+    A19, with A16) and raises `NotImplementedError`, and so does
+    ``implicit_diff``.  ``log`` keeps the dense step, as JAX keeps its
+    per-phase path.
 
     ``log=True`` captures the pressure solver's residual traces (reference
     ``@log``): `step` and `steps` append one ``(2, itmx+1, 2)`` numpy
@@ -92,12 +116,22 @@ class Simulation:
                  dtype=torch.float32, limiter=quick, tol=1e-4, itmx=32,
                  bbox=True, fixed_iters=None, banded_levels=False,
                  smoother_bf16=False, op_bf16=None, device="cuda",
-                 mesh=None, log=False):
+                 mesh=None, log=False, implicit_diff=False):
         D = len(dims)
-        if mesh is not None and fixed_iters is not None:
+        if mesh is not None and (fixed_iters is not None or implicit_diff):
             raise NotImplementedError(
-                "fixed_iters under a mesh is not ported (ROADMAP A19: "
-                "implicit_diff and fixed_iters under a mesh, with A16)")
+                "fixed_iters and implicit_diff under a mesh are not ported "
+                "(ROADMAP A19 item 4: implicit_diff and fixed_iters under a "
+                "mesh)")
+        if implicit_diff and fixed_iters is not None:
+            raise ValueError("implicit_diff and fixed_iters are mutually "
+                             "exclusive reverse-mode paths; pick one")
+        if implicit_diff and log:
+            raise ValueError("implicit_diff does not capture residual "
+                             "traces; use log=False (or fixed_iters)")
+        if implicit_diff and op_bf16:
+            raise ValueError("op_bf16 and implicit_diff are incompatible: "
+                             "the adjoint differentiates the f32 operator")
         dev = torch.device(device)
         if mesh is not None and (mesh.device.type != dev.type or None not in (
                 mesh.device.index, dev.index) and mesh.device.index != dev.index):
@@ -119,15 +153,19 @@ class Simulation:
         self._banded_levels = bool(banded_levels)
         self.cfg = FlowConfig(
             D=D, S=tuple(n + 2 for n in dims), device=self.device,
-            nu=float(nu), U=u_BC, g=g, perdir=tuple(perdir),
+            nu=nu if isinstance(nu, torch.Tensor) else float(nu), U=u_BC,
+            g=g, perdir=tuple(perdir),
             exitBC=bool(exitBC), dtype=dtype, limiter=limiter,
             tol=float(tol), itmx=int(itmx),
             fixed_iters=None if fixed_iters is None else int(fixed_iters),
-            log=bool(log))
+            log=bool(log), implicit_diff=bool(implicit_diff))
         self._size_window(0.0)
         self._sharded = None
         self._smoother_bf16 = bool(smoother_bf16)
         self._op_bf16 = None if op_bf16 is None else bool(op_bf16)
+        if implicit_diff:
+            # the module default BF16_OP must not turn the shadows on
+            self._op_bf16 = False
         self.flow = flow_init(self.cfg, ulam, dt)
         self.levels = None
         self.measure(0.0)
