@@ -22,7 +22,13 @@ Phases, each of which raises (and so exits non-zero) on failure:
    then ``cfl3d``, ``ana_mult3d`` (with and without the dot), ``dot3d``,
    ``pcg_update``, ``pcg_axpy``, every ``pcg_dir_mult`` form, ``mult3d``
    and ``mult3d_stream`` with the dot (f32 operator and shadows) are each
-   one launch a call (the profiler sees one kernel on the card);
+   one launch a call (the profiler sees one kernel on the card); then
+   ``pcg_fused``'s member form (``pcg_members``, and ``pcg_fused`` under
+   ``torch.func.vmap``) against ``vmap`` of the plain ``pcg`` at the
+   ensemble sweep's (194,130) and (98,66) levels and the one-block
+   (50,34), with 1, 3 and 32 members, the operator shared and one a
+   member, member 1's residual zero (1e-5 absolute, that member exactly;
+   one launch a member chunk);
 4. the dense slice: ``sphere_3d(96, 64)`` constructed and stepped 20 times
    on the card with every kernel launch-counted (every ``bc3d`` launch in
    place), then 3 steps from the same initial state on the CPU (plain
@@ -118,8 +124,22 @@ Phases, each of which raises (and so exits non-zero) on failure:
    ``fixed_iters`` at the forward's largest pois_n, and of one
    ``implicit_diff`` reverse step of ``sphere_3d(256, 256, bbox=False)``
    (or, where it does not fit, the largest ``sphere_3d(n, n)`` that does);
+6.8 ensembles (`examples/ensemble_sweep.py` under ``torch.func.vmap``):
+   (i) the spinning cylinder at ``Dm=32`` ((194,130), f32,
+   ``fixed_iters=2``) for 32 spin ratios and 20 steps in one batched
+   program: each member's time-averaged (Cd, Cl) against its own run on
+   the card (1e-5 relative) and members 0, 15, 31 against the CPU
+   (1e-4), |Cl| growing with the spin, and ``pcg_fused`` launched only in
+   its member form, at each level one member's launches times the
+   level's member chunks; (ii) ms per ensemble step (its 20 steps and
+   their forces) against 32 times one member's, wall and busy, the idle
+   share and the peak memory; (iii) ``vmap(grad)`` of the kinetic energy
+   after one ``implicit_diff`` step of the periodic (130,130)
+   Taylor-Green vortex in ν, 4 members, f32: the member form launched in
+   the forward and the adjoint solves, each member's adjoint counts
+   recorded, against the per-member gradients on the card (1e-4);
 7. every kernel against its plain version again, every variant at every
-   shape a path of 4-6.6 launched it at (258³, 130³, 66³, ..., the 2D
+   shape a path of 4-6.8 launched it at (258³, 130³, 66³, ..., the 2D
    levels) and the probes at 258³, with the tolerances of 3, every
    shard-local form at every shape and base a path launched it at
    (exact), and ``pcg_blocked`` against the per-pass ``pcg`` at the
@@ -153,7 +173,11 @@ Phases, each of which raises (and so exits non-zero) on failure:
    path: each metric's wall time (its band measure included) at
    (98,66,66) and 258³, the 256³ sphere's Cd in the three samplings,
    ``run_record``'s cost a sample (its stepping loop and its fields, in
-   turns with plain ``steps``) and checkpoint save and restart seconds.
+   turns with plain ``steps``) and checkpoint save and restart seconds;
+   ``pcg_fused``'s member form at (194,130) and (98,66) with 32 members
+   (an operator each) beside ``vmap`` of the plain ``pcg``, its bound and
+   its sync floor (its launches times 12 grid barriers of the chunk's
+   blocks, ``kernels/times.py``'s ``barrier:``).
 
 Every path runs with the launch counters set to 0 and the launched shapes
 and forms cleared just before it, all read just after (each kernel's
@@ -161,7 +185,9 @@ launches also by shape, per step); a kernel of the path that never
 launched fails the run.  The probes run on no path: the
 kernels line gives them 0 launches and their calls in phase 8 as
 ``timing_launches``.  The line before the last is a JSON object with one
-entry per kernel; the last line is ``{"ok": true, "device": {...}}``.
+entry per kernel and one for ``pcg_fused``'s member form (its launches
+those of 6.8's batched paths, its time at (194,130) x 32); the last
+line is ``{"ok": true, "device": {...}}``.
 Without a CUDA device the script prints no result and exits 2.  Imports
 no JAX.
 """
@@ -347,6 +373,7 @@ PATH_LAUNCHES = {}
 PATH_SHAPES = {}    # kernel -> every shape a path launched it at
 PATH_FORMS = {}     # path -> kernel -> the bf16 forms it launched
 PATH_BASES = {}     # kernel -> every (shape, shard-local form) launched
+ENSEMBLE_LAUNCHES = {}  # phase 6.8's paths (the member form of pcg_fused)
 
 
 def on_path(torch, label, expect, fn):
@@ -1484,6 +1511,213 @@ def run_differentiability(torch, dev):
     torch.cuda.empty_cache()
 
 
+# the member-axis pcg_fused (phase 3, and its line in the kernels JSON):
+# the ensemble sweep's fine level (grid form), its next level and a
+# one-block 2D level, each with 1, 3 and 32 members, the operator shared
+# and one a member
+PCG_MEMBER_SHAPES = ((194, 130), (98, 66), (50, 34))
+PCG_MEMBERS = (1, 3, 32)
+MEMBERS_KEY = "pcg_fused (members)"
+MEMBER_TIMES = {}     # shape -> time_members' row (phase 8)
+
+
+def check_members(torch, dev):
+    """Phase 3: `pcg_fused`'s member form (`pcg_members` and `pcg_fused`
+    under `torch.func.vmap`) against `vmap` of the plain `poisson.pcg`,
+    1e-5 absolute, member 1's zero residual exactly, each route launching
+    once a member chunk."""
+    from waterlily_tpu_torch.kernels.check import compare_members
+    from waterlily_tpu_torch.ops.pcg_kernel import launch_chunks
+    failures = []
+    for S in PCG_MEMBER_SHAPES:
+        for M in PCG_MEMBERS:
+            for shared in (True, False):
+                for row in compare_members(S, M, shared, 1, dev):
+                    log(f"  {row['output']:<32} {str(S):<10} M={M:<3} "
+                        f"{'shared' if shared else 'own   '} max|d|="
+                        f"{row['max_abs_err']:.3e} launches "
+                        f"{row['launches']} (chunks "
+                        f"{row['expected_launches']}) "
+                        f"{'ok' if row['ok'] else 'FAIL'}")
+                    WORST[MEMBERS_KEY] = max(WORST.get(MEMBERS_KEY, 0.0),
+                                             row["max_abs_err"])
+                    if not row["ok"]:
+                        failures.append(row)
+        log(f"  {S}: 32 members in {launch_chunks(S, 32, dev)} launches")
+    torch.cuda.empty_cache()
+    if failures:
+        raise AssertionError(f"member-axis pcg_fused failed: {failures}")
+
+
+# phase 6.8: the ensemble sweep of examples/ensemble_sweep.py at the size
+# the JAX example names for a chip: Dm = 32 (S = (194, 130)), 32 members,
+# 20 fixed_iters=2 steps; members held against their own card runs and
+# three against the CPU; and vmap(grad) through implicit_diff
+ENS_DM, ENS_MEMBERS, ENS_STEPS = 32, 32, 20
+ENS_CPU = (0, 15, 31)
+ENS_PATHS = ("6.8 ensemble sweep", "6.8 vmap(implicit_diff) forward",
+             "6.8 vmap(grad(implicit_diff))")
+
+
+def _busy_wall(torch, fn):
+    """Device busy ms (`utils.perf.device_profile`) and wall ms (CUDA
+    events, after it) of one call of ``fn``."""
+    from waterlily_tpu_torch.utils.perf import device_profile
+    busy = device_profile(fn, 1, events=True)[0]
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    fn()
+    end.record()
+    torch.cuda.synchronize()
+    return busy, start.elapsed_time(end)
+
+
+def ens_ke(torch, dev, L=128, tol=1e-5):
+    """The kinetic energy after one implicit_diff step of the periodic
+    Taylor-Green vortex on (L+2)², f32 on ``dev``, as a function of ν
+    (the twin of tests/test_ensemble.py's ``ke_after``)."""
+    from waterlily_tpu_torch.flow import FlowConfig, flow_init, mom_step
+    from waterlily_tpu_torch.metrics import ke
+    from waterlily_tpu_torch.ops.multigrid import build_levels
+    kappa = 2 * math.pi / L
+
+    def ulam(i, x):
+        if i == 0:
+            return -torch.sin(kappa * x[0]) * torch.cos(kappa * x[1])
+        return torch.cos(kappa * x[0]) * torch.sin(kappa * x[1])
+
+    def ke_after(nu):
+        cfg = FlowConfig(D=2, S=(L + 2, L + 2), device=dev, nu=nu,
+                         U=(0.0, 0.0), perdir=(0, 1), dtype=torch.float32,
+                         tol=tol, itmx=32, implicit_diff=True)
+        state = flow_init(cfg, ulam)
+        levels = build_levels(state.mu0, cfg.perdir)
+        state, _aux = mom_step(cfg, levels, state)
+        return torch.sum(ke(state.u))
+    return ke_after
+
+
+def run_ensemble(torch, dev):
+    """Phase 6.8: (i) the sweep under `torch.func.vmap` against each
+    member's own card run (1e-5 relative) and three members' CPU runs
+    (1e-4), its `pcg_fused` launches those of one member times the member
+    chunks, all of the member form; (ii) its ms per step against 32 times
+    one member's, busy, idle share and peak memory; (iii) `vmap(grad)`
+    through implicit_diff, the member form launched in the forward and
+    the adjoint solves, against the per-member card gradients (1e-4)."""
+    from waterlily_tpu_torch.examples.ensemble_sweep import make_force_fn
+    from waterlily_tpu_torch.ops import pcg_kernel as pk
+    from waterlily_tpu_torch.ops.multigrid import ml_solve_implicit
+    cpu = torch.device("cpu")
+    xis = torch.linspace(0.5, 4.0, ENS_MEMBERS, device=dev)
+    force = make_force_fn(Dm=ENS_DM, n_steps=ENS_STEPS, device=dev)
+    sweep = lambda: torch.func.vmap(force)(xis)
+
+    stage(f"(i) Dm={ENS_DM}, {ENS_MEMBERS} members, {ENS_STEPS} steps")
+    on_path(torch, "6.8 one member alone", ("pcg_fused",),
+            lambda: force(xis[0]))
+    single = dict(pk.pcg_fused.shapes)
+    torch.cuda.reset_peak_memory_stats()
+    coeffs = on_path(torch, ENS_PATHS[0], ("pcg_fused",), sweep)
+    gib = torch.cuda.max_memory_allocated() / 2 ** 30
+    batched, forms = dict(pk.pcg_fused.shapes), set(pk.pcg_fused.forms)
+    want = {S: n * pk.launch_chunks(S, ENS_MEMBERS, dev)
+            for S, n in single.items()}
+    log(f"  pcg_fused launches by shape: one member {single}, the "
+        f"ensemble {batched} (one member's times its member chunks: "
+        f"{want}); forms {sorted(forms)}")
+    if batched != want or forms != {"members"}:
+        raise AssertionError(f"ensemble pcg_fused launches {batched} "
+                             f"(forms {forms}), expected {want}")
+    alone = torch.stack([force(x) for x in xis])
+    err = rel_err(coeffs.flatten().tolist(), alone.flatten().tolist())
+    log(f"  (Cd, Cl) xi {float(xis[0]):.2f}: {coeffs[0].tolist()}, xi "
+        f"{float(xis[-1]):.2f}: {coeffs[-1].tolist()}; vs each member "
+        f"alone on the card: max rel {err:.3e}")
+    if not bool(torch.isfinite(coeffs).all()) or err > 1e-5:
+        raise AssertionError(f"ensemble vs members alone: {err}")
+    cforce = make_force_fn(Dm=ENS_DM, n_steps=ENS_STEPS, device=cpu)
+    t0 = time.perf_counter()
+    cerr = max(rel_err(coeffs[i].tolist(), cforce(xis[i].cpu()).tolist())
+               for i in ENS_CPU)
+    log(f"  members {ENS_CPU} on the CPU ({time.perf_counter() - t0:.1f} "
+        f"s): max rel {cerr:.3e}")
+    if cerr > 1e-4:
+        raise AssertionError(f"ensemble vs CPU: {cerr}")
+    if not abs(float(coeffs[-1, 1])) > abs(float(coeffs[0, 1])):
+        raise AssertionError(f"|Cl| does not grow with xi: {coeffs}")
+
+    stage("(ii) time per ensemble step")
+    busy, wall = _busy_wall(torch, sweep)
+    busy1, wall1 = _busy_wall(torch, lambda: force(xis[0]))
+    n = ENS_STEPS
+    log(f"  ensemble of {ENS_MEMBERS}: {wall / n:.3f} ms/step wall, "
+        f"{busy / n:.3f} ms/step busy, idle share {1 - busy / wall:.4f}, "
+        f"peak {gib:.2f} GiB; one member: {wall1 / n:.3f} ms/step wall "
+        f"({busy1 / n:.3f} busy), {ENS_MEMBERS} x one member "
+        f"{ENS_MEMBERS * wall1 / n:.3f} ms/step wall "
+        f"({ENS_MEMBERS * busy1 / n:.3f} busy) (measurement, {n} steps and "
+        f"their forces, per step)")
+
+    stage("(iii) vmap(grad) through implicit_diff, 4 members, (130, 130)")
+    ke_after = ens_ke(torch, dev)
+    nus = torch.tensor([0.005, 0.01, 0.02, 0.04], device=dev)
+    on_path(torch, ENS_PATHS[1], ("pcg_fused",),
+            lambda: torch.func.vmap(ke_after)(nus))
+    fwd = pk.pcg_fused.launches
+    ml_solve_implicit.adjoint_n.clear()
+    gb = on_path(torch, ENS_PATHS[2], ("pcg_fused",),
+                 lambda: torch.func.vmap(torch.func.grad(ke_after))(nus))
+    both, adjoint = pk.pcg_fused.launches, list(ml_solve_implicit.adjoint_n)
+    if (pk.pcg_fused.forms != {"members"} or both <= fwd
+            or not all(len(a) == len(nus) for a in adjoint)):
+        raise AssertionError(f"implicit_diff under vmap: launches {fwd} "
+                             f"forward, {both} with the adjoint, forms "
+                             f"{pk.pcg_fused.forms}, adjoint_n {adjoint}")
+    gs = torch.stack([torch.func.grad(ke_after)(nu) for nu in nus])
+    gerr = rel_err(gb.tolist(), gs.tolist())
+    log(f"  dKE/dν {gb.tolist()}, per member {gs.tolist()}: max rel "
+        f"{gerr:.3e}; pcg_fused launches forward {fwd}, forward and "
+        f"adjoint {both}; adjoint counts {adjoint}")
+    if not bool(torch.isfinite(gb).all()) or gerr > 1e-4:
+        raise AssertionError(f"vmap(grad) vs per member: {gerr}")
+    for label in ENS_PATHS:
+        ENSEMBLE_LAUNCHES[label] = PATH_LAUNCHES.pop(label)
+    torch.cuda.empty_cache()
+
+
+def timing_members(torch, dev):
+    """Phase 8: the member form at the sweep's two finest levels, 32
+    members with an operator each, against `vmap` of the plain version;
+    its sync floor: the chunks' launches times the smooth's 12 grid
+    barriers at the chunk's block count (kernels/times.py ``barrier:``)."""
+    from waterlily_tpu_torch.kernels.check import (time_members,
+                                                   member_bound_ms)
+    from waterlily_tpu_torch.kernels.times import _barrier
+    from waterlily_tpu_torch.ops import pcg_kernel as pk
+    for S in PCG_MEMBER_SHAPES[:2]:
+        t = time_members(S, ENS_MEMBERS, dev)
+        t["bound_ms"], t["bound_by"] = member_bound_ms(S, ENS_MEMBERS)
+        blocks = pk.pcg_grid(math.prod(S),
+                             lambda k: pk._coresident(dev.index or 0,
+                                                      len(S), k))[0]
+        chunks = pk.launch_chunks(S, ENS_MEMBERS, dev)
+        per = -(-ENS_MEMBERS // chunks)
+        b = _barrier(f"barrier:{blocks * per}", dev)
+        t["sync_floor_ms"] = chunks * (b["launch_ms"] + 12 * b["barrier_ms"])
+        MEMBER_TIMES[S] = t
+        log(f"  pcg_fused    {str(S):<10} x {ENS_MEMBERS} members, "
+            f"{chunks} launches of {per} members x {blocks} blocks: kernel "
+            f"{t['ms']:.4f} ms, plain vmap(pcg) {t['plain_ms']:.4f} ms, "
+            f"bound {t['bound_ms']:.4f} ms ({t['bound_by']}), sync floor "
+            f"{t['sync_floor_ms']:.4f} ms ({b['barrier_ms'] * 1e3:.2f} us "
+            f"a barrier of {blocks * per} blocks, {b['launch_ms'] * 1e3:.2f}"
+            f" us a launch); wall per call {t['wall_ms']:.4f} ms")
+    torch.cuda.empty_cache()
+
+
 # phase 6.6 (iii): two spheres' union minus a third, in the (96,64,64)
 # domain of the dense slice
 CSG_SPHERES = (((31.0, 31.0, 31.0), 8.0), ((41.0, 31.0, 31.0), 6.0),
@@ -2036,6 +2270,8 @@ def main() -> int:
         + (ROLL_RAGGED if k == "roll_probe" else ())
         for k in KERNELS + COMPOSITES})
     one_launch(torch, dev)
+    stage("pcg_fused's member form (torch.func.vmap)")
+    check_members(torch, dev)
     phase("4. the dense slice: sphere_3d(96, 64)")
     sim = run_slice(torch, dev)
     phase("4.1 a user-defined limiter traced into conv_diff3d")
@@ -2061,6 +2297,8 @@ def main() -> int:
     run_recording(torch, dev)
     phase("6.7 differentiability: implicit_diff, fixed_iters, jvp")
     run_differentiability(torch, dev)
+    phase("6.8 ensembles: the sweep under torch.func.vmap")
+    run_ensemble(torch, dev)
     phase("7. kernels vs plain versions at the paths' shapes")
     check_kernels(torch, dev, {**PATH_SHAPES,
                                "pcg_blocked": PATH_SHAPES["pcg_dir_mult"],
@@ -2070,6 +2308,8 @@ def main() -> int:
     times = timing(torch, dev, sim)
     stage("the recording path")
     timing_recording(torch, dev)
+    stage("pcg_fused's member form")
+    timing_members(torch, dev)
     from waterlily_tpu_torch.utils.perf import EVENT_FALLBACKS
     log(f"device times the profiler could not record, taken with CUDA "
         f"events instead (the host's dispatch included): "
@@ -2095,6 +2335,19 @@ def main() -> int:
                 **({"timing_launches": PROBE_LAUNCHES[k]}
                    if k in PROBES else {})}
                for k in SOURCES]
+    # the member form of pcg_fused (phase 6.8's paths, the sweep's level)
+    S = PCG_MEMBER_SHAPES[0]
+    kernels.append({
+        "name": MEMBERS_KEY, "route": "cuda",
+        "source": SOURCES["pcg_fused"][0],
+        "replaces": SOURCES["pcg_fused"][1],
+        "launches": sum(c["pcg_fused"] for c in ENSEMBLE_LAUNCHES.values()),
+        "max_abs_err": WORST[MEMBERS_KEY], "ms": MEMBER_TIMES[S]["ms"],
+        "plain_ms": MEMBER_TIMES[S]["plain_ms"],
+        "bound_ms": MEMBER_TIMES[S]["bound_ms"],
+        "bound_by": MEMBER_TIMES[S]["bound_by"], "library_ms": None,
+        "shape": [ENS_MEMBERS, *S],
+        "sync_floor_ms": MEMBER_TIMES[S]["sync_floor_ms"]})
     log(card)
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {

@@ -97,7 +97,8 @@ def test_measure_fields_banded(case):
             (34, 30, 30), 0.0, (1,), False
     box = tb.band_box_shape(bt, S, t, dtype=torch.float32)
     assert box is not None
-    dense = tb.measure_fields(bt, S, t, 1.0, perdir, exit_, torch.float32)
+    dense = tb.measure_fields(bt, S, t, 1.0, perdir, exit_, torch.float32,
+                               "cpu")
     *band, start = tb.measure_fields_banded(bt, S, t, 1.0, perdir, exit_,
                                             torch.float32, box)
     assert start == tuple(band_box_start(band[3] < 3.0, box).tolist())

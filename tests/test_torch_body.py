@@ -69,7 +69,8 @@ def test_measure_fields(dtype, make):
     S = (16, 13, 10)
     sj, st = make(dtype)
     outj = jb.measure_fields(sj, S, 0.7, 1.0, dtype=JAX[dtype])
-    outt = tb.measure_fields(st, S, 0.7, 1.0, dtype=TORCH[dtype])
+    outt = tb.measure_fields(st, S, 0.7, 1.0, dtype=TORCH[dtype],
+                             device="cpu")
     atol = 1e-6 if dtype is F32 else 1e-12
     for a, b in zip(outt, outj):
         assert a.dtype == TORCH[dtype]
@@ -83,9 +84,9 @@ def test_measure_fields_chunked(monkeypatch):
     """Chunked evaluation gives the same fields as one batch."""
     S = (12, 10, 8)
     _, st = _spheres(F32)
-    whole = tb.measure_fields(st, S, 0.0, 1.0)
+    whole = tb.measure_fields(st, S, 0.0, 1.0, device="cpu")
     monkeypatch.setattr(tb, "CHUNK", 97)
-    chunked = tb.measure_fields(st, S, 0.0, 1.0)
+    chunked = tb.measure_fields(st, S, 0.0, 1.0, device="cpu")
     for a, b in zip(whole, chunked):
         assert torch.equal(a, b)
 
@@ -93,7 +94,7 @@ def test_measure_fields_chunked(monkeypatch):
 def test_nobody_fields():
     S = (10, 9, 8)
     outj = jb.measure_fields(jb.NoBody(), S)
-    outt = tb.measure_fields(tb.NoBody(), S)
+    outt = tb.measure_fields(tb.NoBody(), S, device="cpu")
     for a, b in zip(outt, outj):
         assert np.array_equal(npy(a), npy(b))
 
@@ -184,7 +185,7 @@ def test_curvature(dtype):
 def test_measure_sdf():
     """maintests.jl:221-225 on the port, and the field against JAX's."""
     j1, _, t1, _ = _oracle_bodies()
-    p = tb.measure_sdf(t1, (4, 5), dtype=torch.float64)
+    p = tb.measure_sdf(t1, (4, 5), dtype=torch.float64, device="cpu")
     I = (1, 2)  # reference CartesianIndex(2,3), 1-based
     x = loc_grid((4, 5), None, torch.float64)[I]
     assert float(p[I]) == float(t1.sdf(x, 0.0))
@@ -222,7 +223,7 @@ def test_csg_exact(dtype, op):
     J, T = _boxes(dtype)
     bj_, bt_ = CSG_OPS[op](J), CSG_OPS[op](T)
     S = (18, 14, 12)
-    assert_exact(tb.measure_sdf(bt_, S, 0.3, TORCH[dtype]),
+    assert_exact(tb.measure_sdf(bt_, S, 0.3, TORCH[dtype], "cpu"),
                  jb.measure_sdf(bj_, S, 0.3, JAX[dtype]))
     pts = np.random.default_rng(2).uniform(1.0, 14.0, (200, 3)).astype(dtype)
     ref = jax.vmap(lambda x: jb.measure(bj_, x, 0.3, 9.0))(jj(pts))
@@ -254,11 +255,12 @@ def test_csg_fields(dtype):
     (equal to the dense one)."""
     bj_, bt_ = _sphere_csg(dtype)
     S = (18, 14, 12)
-    sd = npy(tb.measure_sdf(bt_, S, 0.0, TORCH[dtype]))
+    sd = npy(tb.measure_sdf(bt_, S, 0.0, TORCH[dtype], "cpu"))
     ref = np.asarray(jb.measure_sdf(bj_, S, 0.0, JAX[dtype]))
     ulp = np.spacing((np.abs(ref) + 3.0).astype(dtype))
     assert np.all(np.abs(sd - ref) <= ulp)
-    outt = tb.measure_fields(bt_, S, 0.0, 1.0, dtype=TORCH[dtype])
+    outt = tb.measure_fields(bt_, S, 0.0, 1.0, dtype=TORCH[dtype],
+                             device="cpu")
     outj = jb.measure_fields(bj_, S, 0.0, 1.0, dtype=JAX[dtype])
     atol = 1e-6 if dtype is F32 else 1e-12
     for a, b in zip(outt, outj):

@@ -7,7 +7,8 @@ import pytest
 import torch
 
 from waterlily_tpu_torch.examples import (three_d_sphere, two_d_circle,
-                                          oscillating_plate, optimize_spin)
+                                          oscillating_plate, optimize_spin,
+                                          ensemble_sweep)
 
 CPU = ["--device", "cpu", "--quick"]
 
@@ -35,6 +36,15 @@ def test_optimize_spin(implicit):
     losses = optimize_spin.main(CPU + (["--implicit"] if implicit else []))
     assert len(losses) == 2 and all(math.isfinite(v) for v in losses)
     assert losses[1] < losses[0]
+
+
+def test_ensemble_sweep():
+    """Three spinning cylinders in one batched program: a finite table,
+    and |Cl| grows with the spin ratio."""
+    rows = ensemble_sweep.main(CPU)
+    assert len(rows) == 3 and np.all(np.isfinite(rows))
+    lift = [abs(cl) for _, _, cl in rows]
+    assert lift == sorted(lift) and lift[0] < lift[-1]
 
 
 def test_examples_default_to_the_card():

@@ -548,3 +548,72 @@ def test_pcg_blocked_on_the_card_vs_cpu(form, device):
             assert float(diff.mean()) <= 2e-6, float(diff.mean())
         else:
             assert float(diff.max()) <= 1e-5, float(diff.max())
+
+
+@pytest.mark.parametrize("shared", [True, False])
+@pytest.mark.parametrize("M", [1, 3, 32])
+@pytest.mark.parametrize("S", [(194, 130), (98, 66), (50, 34)])
+def test_pcg_members_match_plain(S, M, shared, device):
+    """pcg_fused's member form (`pcg_members`, and `pcg_fused` under
+    `torch.func.vmap`) against `vmap` of the plain version: the grid form
+    in member chunks, the one-block form, an operator shared and one a
+    member, member 1's zero residual exactly; one launch a chunk."""
+    from waterlily_tpu_torch.kernels.check import compare_members
+    rows = compare_members(S, M, shared, 1, device)
+    bad = [r for r in rows if not r["ok"]]
+    assert not bad, bad
+
+
+@pytest.mark.parametrize("S", [(194, 130), (98, 66)])
+def test_pcg_members_nested_vmap(S, device):
+    """`pcg_fused` under `vmap` of `vmap` (2 × 3 members, an operator a
+    member) on the card: the rules fold both levels into one member axis,
+    the kernel launches once for each member chunk of all six, and each
+    member agrees with its own plain `pcg` within 1e-5."""
+    from waterlily_tpu_torch.kernels.check import member_inputs
+    from waterlily_tpu_torch.ops import pcg_kernel as pk
+    from waterlily_tpu_torch.ops.poisson import PoissonLevel, pcg
+    d = member_inputs(S, 6, False, 1, device)
+    grid = lambda t: t.reshape((2, 3) + tuple(t.shape[1:]))
+    fn = lambda L, Dd, iD, x, r: pk.pcg_fused(
+        PoissonLevel(L=L, D=Dd, iD=iD), x, r)
+    n = pk.pcg_fused.launches
+    x, r = torch.func.vmap(torch.func.vmap(fn))(
+        *(grid(d[f]) for f in ("L", "D", "iD", "x", "r")))
+    assert pk.pcg_fused.launches - n == pk.launch_chunks(S, 6, device)
+    for m, lev in enumerate(d["levels"]):
+        own = pcg(lev, d["x"][m], d["r"][m])
+        for got, want in zip((x, r), own):
+            err = float((got[m // 3, m % 3] - want).abs().max())
+            assert err <= 1e-5, (m, err)
+
+
+def test_pcg_members_refuse(device):
+    """The member form raises on a field it does not take (f64, a D
+    without iD's member axis) and never runs the plain version on the
+    card."""
+    from waterlily_tpu_torch.kernels.check import member_inputs
+    from waterlily_tpu_torch.ops import pcg_kernel as pk
+    d = member_inputs((50, 34), 3, False, 0, device)
+    with pytest.raises(TypeError):
+        pk.pcg_members(d["L"].double(), d["D"].double(), d["iD"].double(),
+                       d["x"].double(), d["r"].double())
+    with pytest.raises(ValueError):
+        pk.pcg_members(d["L"], d["D"], d["iD"][0], d["x"], d["r"])
+    # a cooperative grid one member wider than the card holds at once: the
+    # launch itself refuses it (cudaErrorCooperativeLaunchTooLarge, 720)
+    from waterlily_tpu_torch.kernels.build import launch
+    S = (194, 130)
+    N, dev = S[0] * S[1], torch.device(device).index or 0
+    blocks, k = pk._launch_grid(N, dev, 2)
+    M = pk._coresident(dev, 2, k) // blocks + 1
+    g = member_inputs(S, M, False, 0, device)
+    work = torch.empty(2 * M * (N + blocks), dtype=torch.float32,
+                       device=device)
+    with pytest.raises(RuntimeError, match="CUDA error 720"):
+        launch("wl_pcg", g["L"], g["D"], g["iD"], g["x"], g["r"], work, 2,
+               *S, 1, 6, 0, blocks, k, M, N * 2, N)
+    # and leaves no error behind for the next launch to report
+    x, _r = pk.pcg_members(d["L"], d["D"], d["iD"], d["x"], d["r"])
+    torch.cuda.synchronize()
+    assert bool(torch.isfinite(x).all())

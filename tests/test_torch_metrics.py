@@ -57,7 +57,8 @@ def stepped(request):
 def test_nds(stepped):
     js, ts, _u, p, t = stepped
     S = p.shape
-    assert_rel(tm.nds(ts.body, S, t), jm.nds(js.body, S, t, f32), RTOL)
+    assert_rel(tm.nds(ts.body, S, t, device="cpu"), jm.nds(js.body, S, t, f32),
+               RTOL)
 
 
 def test_forces(stepped):

@@ -18,8 +18,8 @@ from typing import Callable
 import numpy as np
 import torch
 
-from .grid import (loc_grid, interior, mask_interior, band_box_start,
-                   box_slices)
+from .grid import (loc_grid, interior, mask_interior, pad_interior,
+                   band_box_start, box_slices)
 from .ops.bc import bc_vector
 
 __all__ = ["AbstractBody", "AutoBody", "Bodies", "NoBody", "sdf", "measure",
@@ -293,24 +293,24 @@ def _d_center(body, S, t_, dtype, device):
         dtype)
 
 
-def measure_sdf(body, S, t=0.0, dtype=torch.float32, device=None):
+def measure_sdf(body, S, t=0.0, dtype=torch.float32, device="cuda"):
     """The sdf at the interior cell centres (reference ``measure_sdf!``,
     Body.jl:68), zero ghosts."""
     D = len(S)
     pts = loc_grid(tuple(S), None, dtype, device)[interior(D)].reshape(-1, D)
     t_ = torch.as_tensor(t, dtype=dtype, device=device)
     vals = _chunked_vmap(lambda x: sdf(body, x, t_), pts)
-    out = torch.zeros(tuple(S), dtype=dtype, device=device)
-    out[interior(D)] = vals.reshape(tuple(s - 2 for s in S)).to(dtype)
-    return out
+    return pad_interior(vals.reshape(tuple(s - 2 for s in S)).to(dtype))
 
 
 def measure_fields(body, S, t=0.0, eps=1.0, perdir=(), exitBC=False,
-                   dtype=torch.float32, device=None):
+                   dtype=torch.float32, device="cuda"):
     """BDIM rasterization (reference ``measure!``, Body.jl:31-53): ``V``,
     ``μ₀`` and ``μ₁`` on the whole padded grid, measured at each face in
     the band ``d² < (2+eps)²``, deep-interior cells zeroed, vector BCs
-    applied.  Returns ``(V, mu0, mu1, d_center)``."""
+    applied.  Returns ``(V, mu0, mu1, d_center)``.  A pure function of
+    the body's parameters, so `torch.func.vmap` measures an ensemble of
+    bodies (every write goes into a field of the step's own making)."""
     D = len(S)
     if isinstance(body, NoBody) or body is None:
         V = torch.zeros((D,) + S, dtype=dtype, device=device)
@@ -325,8 +325,7 @@ def measure_fields(body, S, t=0.0, eps=1.0, perdir=(), exitBC=False,
                              tuple(S), d_center, t_, eps, dtype)
     # interior cells only: μ₁ ghosts stay zero, V ghosts are zero before the
     # BC fill (so an exitBC outlet plane stays 0)
-    m1_in = torch.zeros_like(m1)
-    m1_in[interior(D, lead=2)] = m1[interior(D, lead=2)]
+    m1_in = pad_interior(m1[interior(D, lead=2)], lead=2)
     V = mask_interior(V, D)
     m0 = bc_vector(m0, (0.0,) * D, False, perdir, inplace=True)
     V = bc_vector(V, (0.0,) * D, exitBC, perdir, inplace=True)

@@ -77,7 +77,10 @@ def levels_from_numpy(levels: list, device, perdir: tuple = ()) -> tuple:
     (bit for bit; a level given none gets none), and its ``banded``, ``c``,
     ``box_shape``, ``box_start`` and ``bf16_eps`` where given (the shadows
     and ``bf16_eps`` take effect on the levels the port's kernel gate makes
-    blocked)."""
+    blocked).  JAX's batched stack (``jax.vmap`` of ``build_levels``)
+    keeps its leading member axis: the levels' tensors carry it into
+    `torch.func.vmap` through `ops.poisson.level_tensors`, as does every
+    field of `flow_from_numpy`."""
     return tuple(
         make_level(_t(lev["L"], device), perdir, Dd=_t(lev["D"], device),
                    iD=_t(lev["iD"], device), **_shadows(lev, device),

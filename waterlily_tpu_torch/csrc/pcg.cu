@@ -17,6 +17,15 @@
 //   eps = interior ? beta*eps + z2 : 0; rho = dead ? rho : rho2.
 // Only x and r leave the kernel.
 //
+// An ensemble (`torch.func.vmap` over the solver) smooths M members of one
+// shape in one launch: blockIdx.y is the member (within the launch's chunk
+// of members), each member's x, r and scratch follow the previous one's,
+// and its L, D and iD start a member stride further on (0: one operator
+// shared by every member).  A member's sums and early exits are its own
+// (its partials, its `dead` flag); every block runs the same `it`
+// iterations and barriers whatever its member's exits, so the grid barrier
+// of a chunk of members never waits on a block that left.
+//
 // Bound on the H100: launch latency and the chain of level-wide sums the
 // algorithm needs (two a iteration), not memory: the coarse levels it
 // serves hold at most ~60k cells (1.4 MB for L, D, iD, x and r), all in
@@ -49,7 +58,8 @@
 //   fills commute: each rewrites one index), so x's ghosts move as the
 //   plain form moves them.
 // The kernel is a template on the rank D (2D levels keep their own interior
-// mask), on K, on the block size T and on GRID.
+// mask), on K, on the block size T and on GRID.  Member offsets are 64-bit;
+// a member's own cells are indexed in 32 bits.
 #include <cooperative_groups.h>
 
 #include "common.cuh"
@@ -154,9 +164,19 @@ __global__ void __launch_bounds__(T)
 pcg_kernel(const float* __restrict__ L, const float* __restrict__ Dd,
            const float* __restrict__ iD, float* __restrict__ x,
            float* __restrict__ r, float* E, float* Z2, float* P,
-           ShapeD<D> g, int it, int periodic) {
+           ShapeD<D> g, int it, int periodic, long long sL, long long sD) {
   __shared__ float sh[T / 32 + 2];
   const float teneps = 10.f * FLT_EPSILON;
+  // this block's member: its operator, fields, direction arrays, partials
+  const long long m = blockIdx.y;
+  L += m * sL;
+  Dd += m * sD;
+  iD += m * sD;
+  x += m * g.N;
+  r += m * g.N;
+  E += m * 2 * (long long)g.N;
+  Z2 += m * 2 * (long long)g.N;
+  P += m * 2 * (long long)gridDim.x;
   // the two halves of P: the rho sums and the denominators
   float* Prho = P;
   float* Pden = P + gridDim.x;
@@ -302,44 +322,58 @@ int pcg_coresident() {
   return sms * per_sm;
 }
 
+// The status of a cooperative launch that returned `e`.  A refused launch
+// also leaves its error as the thread's last one, which the next launch's
+// cudaGetLastError would report as its own: read it off here.
+static int coop_status(cudaError_t e) {
+  const cudaError_t last = cudaGetLastError();
+  return e != cudaSuccess ? (int)e : (int)last;
+}
+
+// A pass of the (D, K) instance over `members` members: one launch, a
+// grid of (blocks, members) blocks, cooperative where blocks > 1 (the
+// launch refuses, cudaErrorCooperativeLaunchTooLarge, a grid that would
+// not be co-resident on this card).
 template <int D, int K>
 int pcg_launch(const float* L, const float* Dd, const float* iD, float* x,
                float* r, float* E, float* Z2, float* P, const int* S, int it,
-               int periodic, int blocks, cudaStream_t s) {
+               int periodic, int blocks, int members, long long sL,
+               long long sD, cudaStream_t s) {
   ShapeD<D> g = make_shape_d<D>(S);
+  if (members < 1 || members > 65535) return (int)cudaErrorInvalidValue;
   if (blocks == 1) {
     if constexpr (K <= 2) {
       if (K * PCG_ONE_BLOCK_THREADS < g.N) return (int)cudaErrorInvalidValue;
       pcg_kernel<D, K, PCG_ONE_BLOCK_THREADS, false>
-          <<<1, PCG_ONE_BLOCK_THREADS, 0, s>>>(L, Dd, iD, x, r, E, Z2, P, g,
-                                               it, periodic);
+          <<<dim3(1, members), PCG_ONE_BLOCK_THREADS, 0, s>>>(
+              L, Dd, iD, x, r, E, Z2, P, g, it, periodic, sL, sD);
       return (int)cudaGetLastError();
     }
     return (int)cudaErrorInvalidValue;  // one block: 1 or 2 cells a thread
   }
   if ((long long)blocks * K * PCG_THREADS < g.N)
     return (int)cudaErrorInvalidValue;
-  void* args[] = {(void*)&L, (void*)&Dd, (void*)&iD, (void*)&x,
-                  (void*)&r, (void*)&E,  (void*)&Z2, (void*)&P,
-                  (void*)&g, (void*)&it, (void*)&periodic};
+  void* args[] = {(void*)&L,  (void*)&Dd, (void*)&iD,       (void*)&x,
+                  (void*)&r,  (void*)&E,  (void*)&Z2,       (void*)&P,
+                  (void*)&g,  (void*)&it, (void*)&periodic, (void*)&sL,
+                  (void*)&sD};
   const cudaError_t e = cudaLaunchCooperativeKernel(
-      (const void*)pcg_kernel<D, K, PCG_THREADS, true>, dim3(blocks),
-      dim3(PCG_THREADS),
-      args, 0, s);
-  return e != cudaSuccess ? (int)e : (int)cudaGetLastError();
+      (const void*)pcg_kernel<D, K, PCG_THREADS, true>, dim3(blocks, members),
+      dim3(PCG_THREADS), args, 0, s);
+  return coop_status(e);
 }
 
 // The instance for k cells a thread.
 template <int D>
 int pcg_launch_k(int k, const float* L, const float* Dd, const float* iD,
                  float* x, float* r, float* E, float* Z2, float* P,
-                 const int* S, int it, int periodic, int blocks,
-                 cudaStream_t s) {
+                 const int* S, int it, int periodic, int blocks, int members,
+                 long long sL, long long sD, cudaStream_t s) {
   switch (k) {
     case 1: return pcg_launch<D, 1>(L, Dd, iD, x, r, E, Z2, P, S, it,
-                                    periodic, blocks, s);
+                                    periodic, blocks, members, sL, sD, s);
     case 2: return pcg_launch<D, 2>(L, Dd, iD, x, r, E, Z2, P, S, it,
-                                    periodic, blocks, s);
+                                    periodic, blocks, members, sL, sD, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }
@@ -355,27 +389,32 @@ int pcg_coresident_k(int k) {
 
 // ndim 2 or 3; S2 is ignored for a 2D level.  `periodic`: bit d set for
 // each periodic axis d.  `blocks` == 1: the one-block form, 1024 threads
-// of `k` cells; more: the cooperative grid form, blocks of PCG_THREADS
-// threads of `k` cells (k 1 or 2: two cells a thread put a 60k-cell level
-// on 118 blocks, which fit on the card at any occupancy).  work: scratch
-// of 2 N + 2 blocks floats (N the level's cells): E, Z2, then the
-// partials P (one allocation a call).
+// of `k` cells a member; more: the cooperative grid form, `blocks` blocks
+// of PCG_THREADS threads of `k` cells a member (k 1 or 2: two cells a
+// thread put a 60k-cell level on 118 blocks, which fit on the card at any
+// occupancy).  `members` members of N cells each (N the level's cells):
+// x and r hold members * N floats, member after member; member m's L
+// starts at L + m * sL, its D and iD at + m * sD (sL = sD = 0: one
+// operator for all).  work: scratch of 2 N members + 2 blocks members
+// floats: each member's E and Z2, then each member's partials P (one
+// allocation a call).
 extern "C" int wl_pcg(const float* L, const float* Dd, const float* iD,
                       float* x, float* r, float* work, int ndim, int S0,
                       int S1, int S2, int it, int periodic, int blocks, int k,
+                      int members, long long sL, long long sD,
                       void* stream) {
   const int S[3] = {S0, S1, S2};
-  const int N = S0 * S1 * (ndim == 3 ? S2 : 1);
+  const long long N = (long long)S0 * S1 * (ndim == 3 ? S2 : 1);
   float* E = work;
   float* Z2 = work + N;
-  float* P = work + 2 * N;
+  float* P = work + 2 * N * members;
   cudaStream_t s = (cudaStream_t)stream;
   if (ndim == 3)
     return pcg_launch_k<3>(k, L, Dd, iD, x, r, E, Z2, P, S, it, periodic,
-                           blocks, s);
+                           blocks, members, sL, sD, s);
   if (ndim == 2)
     return pcg_launch_k<2>(k, L, Dd, iD, x, r, E, Z2, P, S, it, periodic,
-                           blocks, s);
+                           blocks, members, sL, sD, s);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -405,5 +444,5 @@ extern "C" int wl_grid_sync_probe(int blocks, int n, void* stream) {
   const cudaError_t e = cudaLaunchCooperativeKernel(
       (const void*)grid_sync_probe, dim3(blocks), dim3(PCG_THREADS), args, 0,
       (cudaStream_t)stream);
-  return e != cudaSuccess ? (int)e : (int)cudaGetLastError();
+  return coop_status(e);
 }

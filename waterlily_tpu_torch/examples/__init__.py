@@ -1,9 +1,10 @@
 """Runnable examples of the port, twins of the JAX package's
 ``examples/``: ``python -m waterlily_tpu_torch.examples.<name>`` with
 ``--device`` (default ``cuda``) and ``--quick`` (a reduced run):
-`three_d_sphere`, `two_d_circle` (``--gif``), `oscillating_plate` and
-`optimize_spin` (``--implicit``).  Each module's ``main(argv)`` returns
-what it printed, for tests."""
+`three_d_sphere`, `two_d_circle` (``--gif``), `oscillating_plate`,
+`optimize_spin` (``--implicit``) and `ensemble_sweep` (``--members``,
+``--dm``).  Each module's ``main(argv)`` returns what it printed, for
+tests."""
 import argparse
 
 

@@ -210,7 +210,9 @@ def mom_step(cfg: FlowConfig, levels, state: FlowState):
     """One predictor/corrector time step (reference `mom_step!`).
 
     Returns the advanced state and ``aux`` with the pressure-solver
-    iteration counts ``pois_n = [predictor, corrector]`` (host ints), the
+    iteration counts ``pois_n = [predictor, corrector]`` (host ints; under
+    `torch.func.vmap` with an adaptive solve each member's, a (2,)
+    tensor), the
     next ``dt`` and, under ``cfg.log``, ``res_trace``: the predictor's and
     corrector's residual traces stacked, ``(2, itmx+1, 2)``.  Nothing of
     ``state`` is updated in place: ``state.u`` is read again by the
@@ -258,7 +260,10 @@ def mom_step(cfg: FlowConfig, levels, state: FlowState):
 
     dt_new = cfl(u, cfg.nu)
     new = state.replace(u=u, p=p, dt=dt_new, t=t + dt)
-    aux = {"pois_n": [n1, n2], "dt": dt_new}
+    # a count is a tensor under torch.func.vmap (each member's own)
+    pois_n = ([n1, n2] if isinstance(n1, int) and isinstance(n2, int)
+              else torch.stack([torch.as_tensor(n1), torch.as_tensor(n2)]))
+    aux = {"pois_n": pois_n, "dt": dt_new}
     if cfg.log:
         aux["res_trace"] = torch.stack([tr1, tr2])
     return new, aux

@@ -45,6 +45,7 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "--fmad=false", "-shared", "-Xcompiler", "-fPIC"]
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_L = ctypes.c_longlong
 _S3 = [_I, _I, _I]
 # C signatures (argument types before the trailing stream pointer)
 SIGNATURES = {
@@ -65,7 +66,7 @@ SIGNATURES = {
     "wl_div3d": [_P, _P, _P, _P, _P] + _S3 * 3,
     "wl_project3d": [_P, _P, _P, _P, _P, _P] + _S3 * 3,
     "wl_conv_diff3d": [_P, _P, _F, _I, _I, _I] + _S3 * 3,
-    "wl_pcg": [_P] * 6 + [_I] + _S3 + [_I, _I, _I, _I],
+    "wl_pcg": [_P] * 6 + [_I] + _S3 + [_I] * 5 + [_L, _L],
     "wl_grid_sync_probe": [_I, _I],
 }
 

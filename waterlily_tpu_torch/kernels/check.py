@@ -29,7 +29,8 @@ __all__ = ["KERNELS", "COMPOSITES", "TOLERANCE", "SOURCES", "LIBRARY",
            "shard_variants", "compare",
            "time_pair", "time_library",
            "ulp_diff", "bound_ms", "bytes_moved", "HBM_BYTES_PER_S",
-           "F32_FLOPS_PER_S"]
+           "F32_FLOPS_PER_S", "member_inputs", "member_variants",
+           "compare_members", "member_bound_ms", "time_members"]
 
 # csrc file and the TPU kernel (file:line of its function) of each wrapper
 SOURCES = {
@@ -720,3 +721,99 @@ def time_pair(name, S, device, n=20, variant=0, form=None) -> dict:
     p2 = device_profile(plain, n, events=True)[0]
     return {"ms": (k1 + k2) / 2, "plain_ms": (p1 + p2) / 2,
             "wall_ms": (kw1 + kw2) / 2, "plain_wall_ms": (pw1 + pw2) / 2}
+
+
+# --- pcg_fused's member-axis form (an ensemble under torch.func.vmap) -------
+
+def member_inputs(S, members: int, shared: bool, seed, device) -> dict:
+    """``members`` members' levels at shape ``S``: one operator for all
+    (``shared``: ``L`` (D, *S), ``D`` and ``iD`` ``S``, member 0's) or one
+    a member (``(M, D, *S)``, ``(M, *S)``, each member's `inputs` of seed
+    ``seed + m``), x zero and each member's residual (``(M, *S)``; member
+    1's zero, so that its smooth exits at its first test while the others
+    iterate), and the `poisson.PoissonLevel` of each member's operator."""
+    ds = [inputs(S, seed + m, device) for m in range(members)]
+    levs = [ds[0]["lev"]] * members if shared else [d["lev"] for d in ds]
+    r = torch.stack([d["r"] for d in ds])
+    if members > 1:
+        r[1] = 0.0
+    op = lambda f: (getattr(levs[0], f) if shared
+                    else torch.stack([getattr(l, f) for l in levs]))
+    return {"L": op("L"), "D": op("D"), "iD": op("iD"),
+            "x": torch.zeros_like(r), "r": r.contiguous(), "levels": levs}
+
+
+def member_variants(d) -> list:
+    """``[(route, kernel call, plain call)]`` on `member_inputs` ``d``: the
+    member-axis wrapper `pcg_kernel.pcg_members`, and `pcg_fused` under
+    `torch.func.vmap` (its `vmap` rule), each against the plain version,
+    `vmap` of `ops.poisson.pcg`."""
+    L, Dd, iD, x, r = d["L"], d["D"], d["iD"], d["x"], d["r"]
+    S = tuple(x.shape[1:])
+    dims = tuple(0 if t.ndim > n else None
+                 for t, n in ((L, len(S) + 1), (Dd, len(S)), (iD, len(S))))
+
+    def via_vmap():
+        return torch.func.vmap(
+            lambda L, Dd, iD, x, r: pk.pcg_fused(
+                poisson.PoissonLevel(L=L, D=Dd, iD=iD), x, r),
+            in_dims=dims + (0, 0))(L, Dd, iD, x, r)
+
+    plain = lambda: pk._plain_members(L, Dd, iD, x, r, 6, ())
+    return [("pcg_members", lambda: pk.pcg_members(L, Dd, iD, x, r), plain),
+            ("vmap(pcg_fused)", via_vmap, plain)]
+
+
+def compare_members(S, members: int, shared: bool, seed, device) -> list:
+    """The member-axis `pcg_fused` against `vmap` of its plain version
+    (`member_variants`) at shape ``S``: a row per route and output, with
+    max |diff|, the launches the route made (`pcg_kernel.launch_chunks`'
+    count expected) and the verdict (1e-5 absolute, the kernel's
+    tolerance; member 1's zero residual exactly)."""
+    d = member_inputs(S, members, shared, seed, device)
+    rows = []
+    for route, kern, plain in member_variants(d):
+        before = pk.pcg_fused.launches
+        k_out = kern()
+        launches = pk.pcg_fused.launches - before
+        p_out = plain()
+        torch.cuda.synchronize(device)
+        for o, k, p in zip("xr", k_out, p_out):
+            err = float(torch.max(torch.abs(k - p)))
+            zero = members < 2 or bool(torch.equal(k[1], p[1]))
+            rows.append({
+                "output": f"pcg_fused.{o} ({route})", "shape": tuple(S),
+                "members": members, "shared": shared, "max_abs_err": err,
+                "launches": launches,
+                "expected_launches": pk.launch_chunks(S, members, device),
+                "ok": (err <= 1e-5 and zero
+                       and bool(torch.isfinite(k).all())
+                       and launches == pk.launch_chunks(S, members,
+                                                        device))})
+    return rows
+
+
+def member_bound_ms(S, members: int) -> tuple[float, str]:
+    """`bound_ms` of ``members`` smooths of shape ``S`` with an operator
+    a member: each member's fields read and written once, its operations
+    once."""
+    b, by = bound_ms("pcg_fused", S)
+    return b * members, by
+
+
+def time_members(S, members: int, device, n=20) -> dict:
+    """Device ms per call (profiler; CUDA events where it records
+    nothing) of the member-axis smooth of ``members`` members of shape
+    ``S``, an operator a member, and of its plain version (`vmap` of
+    `ops.poisson.pcg`), in turns plain, kernel, kernel, plain; and wall
+    ms of the kernel's call (CUDA events)."""
+    d = member_inputs(S, members, False, 0, device)
+    kern, plain = member_variants(d)[0][1:]
+    kern(), plain()
+    torch.cuda.synchronize()
+    wall = _timed(kern, n)
+    p1 = device_profile(plain, n, events=True)[0]
+    k1 = device_profile(kern, n, events=True)[0]
+    k2 = device_profile(kern, n, events=True)[0]
+    p2 = device_profile(plain, n, events=True)[0]
+    return {"ms": (k1 + k2) / 2, "plain_ms": (p1 + p2) / 2, "wall_ms": wall}

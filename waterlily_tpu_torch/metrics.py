@@ -19,6 +19,7 @@ import torch
 
 from .body import _chunked_vmap, kern, measure, sdf
 from .grid import interior, interior_view, loc_grid, shift, interp
+from .ops.stencil_kernels import vmapped
 
 __all__ = ["ke", "grad_tensor", "strain_rate", "lambda2", "curl", "omega",
            "omega_mag", "omega_theta", "nds", "pressure_force",
@@ -157,11 +158,19 @@ def _band_measure(body, S, t, dtype, device):
     `body.measure` (``fastd2=1``) returns ``(d, 0, 0)`` wherever ``d² > 1``,
     where ``kern(±1) = 0``; so only the cells with ``d² <= 1`` (one host
     read to find them) are measured with autodiff, the others keep the
-    sdf of a cheap pass.  The result is the whole-grid measurement's."""
+    sdf of a cheap pass.  The result is the whole-grid measurement's.
+    Under `torch.func.vmap` (an ensemble of bodies: the distances carry
+    the member axis) the band differs by member and no host read can
+    find it, so every cell is measured, as JAX measures."""
     D = len(S)
     pts = loc_grid(S, None, dtype, device).reshape(-1, D)
     t_ = torch.as_tensor(t, dtype=dtype, device=device)
     d = _chunked_vmap(lambda x: sdf(body, x, t_), pts).to(dtype)
+    if vmapped(d):
+        d, n, _ = _chunked_vmap(lambda x: measure(body, x, t_, 1.0), pts)
+        d = d.to(dtype)
+        w = kern(torch.clamp(d, -1, 1))
+        return w, n, pts - d[:, None] * n
     n = torch.zeros_like(pts)
     near = torch.nonzero(~(d * d > 1.0)).reshape(-1)
     if near.numel():
@@ -171,7 +180,7 @@ def _band_measure(body, S, t, dtype, device):
     return w, n, pts - d[:, None] * n
 
 
-def nds(body, S, t=0.0, dtype=torch.float32, device=None):
+def nds(body, S, t=0.0, dtype=torch.float32, device="cuda"):
     """BDIM-masked surface normal field ``n̂·kern(clamp(d,-1,1))`` at cell
     centres (reference `nds`, Metrics.jl:84-87), shape (D, *S)."""
     D = len(S)
@@ -187,10 +196,14 @@ def _band_sampler(sampling, n, xs, w):
     ``"surface"`` interpolates at the surface projection ``xs``,
     ``"extrap"`` extrapolates linearly to the surface from probes one and
     two cells outside it along the normal (``2·f(xs+n̂) − f(xs+2n̂)``), so
-    that no sample reads the BDIM-smeared band."""
+    that no sample reads the BDIM-smeared band.  Under `torch.func.vmap`
+    the band is every cell (its weight zero off the band)."""
     if sampling not in ("surface", "extrap"):
         raise ValueError(f"unknown sampling {sampling!r}")
-    band = torch.nonzero(w != 0).reshape(-1)
+    if vmapped(w):
+        band = torch.arange(w.shape[0], device=w.device)
+    else:
+        band = torch.nonzero(w != 0).reshape(-1)
     nb, xb = n[band], xs[band]
     if sampling == "surface":
         return band, lambda f: interp(xb, f)
@@ -201,8 +214,7 @@ def _scatter(vals, band, ncells):
     """A flat field of ``ncells`` zeros with ``vals`` at ``band``."""
     out = torch.zeros((ncells,) + tuple(vals.shape[1:]), dtype=vals.dtype,
                       device=vals.device)
-    out[band] = vals
-    return out
+    return out.index_put((band,), vals)
 
 
 def pressure_force(p, body, t=0.0, sampling="center"):

@@ -10,7 +10,6 @@ levels.
 from __future__ import annotations
 
 import collections
-import dataclasses
 import math
 
 import torch
@@ -18,7 +17,8 @@ import torch
 from ..grid import interior_view, pad_interior, field_dot
 from .bc import bc_vector, bc_scalar_periodic
 from .poisson import (make_level, residual, jacobi, smooth, increment, fdot,
-                      _mult_interior_arrays)
+                      _mult_interior_arrays, level_tensors, with_level_tensors,
+                      members_solve, vmap_loop)
 
 __all__ = ["n_levels", "coarse_shape", "restrict", "restrict_L", "prolongate",
            "build_levels", "update_levels", "vcycle", "ml_solve",
@@ -183,33 +183,51 @@ def ml_solve(levels: tuple, x, z, tol=1e-4, itmx=32, fixed=None,
     residual trace (reference ``@log``): an ``(itmx+1, 2)`` (``(fixed+1,
     2)``) tensor on the device of ``x``, row 0 ``[max|r|, ⟨r, r⟩]`` of the
     initial residual, row ``k+1`` after iteration ``k``, zeros after the
-    last iteration (no host sync of its own)."""
+    last iteration (no host sync of its own).
+
+    Under `torch.func.vmap` (an ensemble) the adaptive loop runs every
+    member at once through a `vmap` rule (`poisson.adaptive_members`):
+    each member stops by its own test and keeps its values from then on,
+    and ``n`` is each member's count, a tensor; under `vmap` of a
+    derivative it raises `NotImplementedError`."""
     fine = levels[0]
     r = residual(fine, x, z)
-    if trace:
-        tr = torch.zeros(((itmx if fixed is None else fixed) + 1, 2),
-                         dtype=x.dtype, device=x.device)
-        tr[0] = _log_row(r, x.dtype)
+    rows = [_log_row(r, x.dtype)] if trace else None
+
+    def finish(x, r, n):
+        out = (bc_scalar_periodic(x, fine.perdir), r, n)
+        if not trace:
+            return out
+        # the trace's rows, zeros after the last iteration (built out of
+        # place, as `vmap` needs)
+        tr = torch.stack(rows)
+        pad = (itmx if fixed is None else fixed) + 1 - tr.shape[0]
+        return out + (torch.cat([tr, tr.new_zeros((pad, 2))]),)
+
     if fixed is not None:
         for k in range(fixed):
             x, r = vcycle(levels, 0, x, r)
             x, r = smooth(fine, x, r)
             if trace:
-                tr[k + 1] = _log_row(r, x.dtype)
-        out = (bc_scalar_periodic(x, fine.perdir), r, int(fixed))
-        return out + (tr,) if trace else out
+                rows.append(_log_row(r, x.dtype))
+        return finish(x, r, int(fixed))
     r2 = fdot(fine, r, r)
+    if vmap_loop("ml_solve", levels, x, z):
+        out = members_solve(
+            levels, lambda lv, x, r: smooth(lv[0], *vcycle(lv, 0, x, r)),
+            x, r, r2, tol, itmx,
+            (lambda x, r: _log_row(r, x.dtype)) if trace else None)
+        return (bc_scalar_periodic(out[0], fine.perdir),) + tuple(out[1:])
     n, go = 0, True
     while go:
         x, r = vcycle(levels, 0, x, r)
         x, r = smooth(fine, x, r)
         r2p, r2 = r2, fdot(fine, r, r)
         if trace:
-            tr[n + 1] = _log_row(r, x.dtype)
+            rows.append(_log_row(r, x.dtype))
         n += 1
         go = n < itmx and bool((r2 >= tol) & ~(r2 > 2.0 * r2p))
-    out = (bc_scalar_periodic(x, fine.perdir), r, n)
-    return out + (tr,) if trace else out
+    return finish(x, r, n)
 
 
 # --- implicit differentiation (the adjoint pressure solve) ------------------
@@ -232,69 +250,73 @@ def ml_solve(levels: tuple, x, z, tol=1e-4, itmx=32, fixed=None,
 # exact, as the JAX package notes (`waterlily_tpu.ops.multigrid`).
 
 
-def _detached(levels: tuple) -> tuple:
-    """The level stack with every tensor field detached (sharing storage,
-    the bf16 shadows included)."""
-    def det(lev):
-        return dataclasses.replace(lev, **{
-            f.name: getattr(lev, f.name).detach()
-            for f in dataclasses.fields(lev)
-            if isinstance(getattr(lev, f.name), torch.Tensor)})
-    return tuple(det(lev) for lev in levels)
-
-
 def _fold_periodic(xs, xbar, perdir):
     """The cotangent ``xbar`` of ``bc_scalar_periodic(xs, perdir)`` taken
     back to its argument: each periodic ghost's cotangent folded onto the
     interior cell it copies (the transpose of the ghost fill)."""
     if not perdir:
         return xbar
-    with torch.enable_grad():
-        v = xs.detach().requires_grad_()
-        (out,) = torch.autograd.grad(bc_scalar_periodic(v, perdir), v, xbar)
-    return out
+    _, pull = torch.func.vjp(lambda v: bc_scalar_periodic(v, perdir), xs)
+    return pull(xbar)[0]
+
+
+def _counts(n):
+    """Iteration counts to keep on the host: a host int as it is, a count
+    tensor (each member's, under `torch.func.vmap`) as a list."""
+    if not isinstance(n, torch.Tensor):
+        return n
+    while torch._C._functorch.is_functorch_wrapped_tensor(n):
+        n = torch._C._functorch.get_unwrapped(n)
+    return n.tolist()
 
 
 class _ImplicitSolve(torch.autograd.Function):
     """``(x*, n)`` of the adaptive `ml_solve`, differentiable in the fine
-    level's ``L`` and ``D`` and in ``z`` by the adjoint solve."""
+    level's ``L`` and ``D`` and in ``z`` by the adjoint solve.  The level
+    stack passes as its tensors (``ops``, `poisson.level_tensors`) and
+    their layout (``spec``), so that `torch.func.vmap` sees which carry the
+    member axis; its `vmap` rule is generated: the forward and the adjoint
+    solve run batched, and each reaches `ml_solve`'s own `vmap` rule."""
+
+    generate_vmap_rule = True
 
     @staticmethod
-    def forward(L, Dd, x, z, levels, tol, itmx):
-        xs, _r, n = ml_solve(_detached(levels), x.detach(), z.detach(),
-                             tol=tol, itmx=itmx)
+    def forward(L, Dd, x, z, spec, tol, itmx, *ops):
+        levels = with_level_tensors(spec, [t.detach() for t in ops])
+        xs, _r, n = ml_solve(levels, x.detach(), z.detach(), tol=tol,
+                             itmx=itmx)
         return xs, n
 
     @staticmethod
     def setup_context(ctx, inputs, output):
-        _L, _D, _x, _z, levels, tol, itmx = inputs
-        ctx.levels, ctx.tol, ctx.itmx = _detached(levels), tol, itmx
-        ctx.save_for_backward(output[0])
+        ctx.spec, ctx.tol, ctx.itmx = inputs[4:7]
+        ctx.save_for_backward(output[0], *inputs[7:])
 
     @staticmethod
     def backward(ctx, xbar, _nbar):
-        (xs,) = ctx.saved_tensors
-        levels = ctx.levels
+        # the adjoint is not differentiated again: the kernels' solve
+        # takes detached operands
+        xs, *ops = (t.detach() for t in ctx.saved_tensors)
+        levels = with_level_tensors(ctx.spec, ops)
         fine = levels[0]
         D = xs.ndim
-        xbar = _fold_periodic(xs, xbar.contiguous(), fine.perdir)
+        xbar = _fold_periodic(xs, xbar.detach().contiguous(), fine.perdir)
         # the stopping test r·r >= tol is absolute and the cotangent scales
         # with the loss: solve for the unit-norm right-hand side
         s = torch.sqrt(field_dot(xbar, xbar))
         safe = torch.where(s > 0, s, 1.0).to(xbar.dtype)
         lam, _r, n = ml_solve(levels, torch.zeros_like(xs), xbar / safe,
                               tol=ctx.tol, itmx=ctx.itmx)
-        ml_solve_implicit.adjoint_n.append(n)
+        ml_solve_implicit.adjoint_n.append(_counts(n))
         lam = torch.where(s > 0, lam * safe, 0.0)
         lam_int = torch.where(interior_view(fine.iD, D) == 0, 0.0,
                               interior_view(lam, D))
         xb = bc_scalar_periodic(xs, fine.perdir)
-        with torch.enable_grad():
-            L = fine.L.detach().requires_grad_()
-            Dd = fine.D.detach().requires_grad_()
-            Lbar, Dbar = torch.autograd.grad(
-                _mult_interior_arrays(L, Dd, xb), (L, Dd), -lam_int)
-        return Lbar, Dbar, None, pad_interior(lam_int), None, None, None
+        _, pull = torch.func.vjp(
+            lambda L, Dd: _mult_interior_arrays(L, Dd, xb), fine.L, fine.D)
+        Lbar, Dbar = pull(-lam_int)
+        return ((Lbar, Dbar, None, pad_interior(lam_int), None, None, None)
+                + (None,) * len(ops))
 
     @staticmethod
     def jvp(ctx, *tangents):
@@ -318,13 +340,15 @@ def ml_solve_implicit(levels: tuple, x, z, tol=1e-4, itmx=32):
     assume a converged solve (a tight ``tol`` for a sensitive loss).
     Forward mode (`torch.func.jvp`, dual tensors) raises: use the adaptive
     solve or ``fixed=``.  Returns ``(x, n)``, ``n`` the forward's
-    iteration count (host int).  ``ml_solve_implicit.adjoint_n`` keeps the
-    iteration counts of the last 1024 adjoint solves, oldest first (a
-    caller clears it before the backward pass it reads), as the kernel
-    wrappers keep their launch counts."""
+    iteration count (host int; under `torch.func.vmap` each member's, a
+    tensor).  ``ml_solve_implicit.adjoint_n`` keeps the iteration counts
+    of the last 1024 adjoint solves, oldest first (under `vmap` a list of
+    the members' counts a solve), a caller clearing it before the backward
+    pass it reads, as the kernel wrappers keep their launch counts."""
     fine = levels[0]
-    return _ImplicitSolve.apply(fine.L, fine.D, x, z, levels, float(tol),
-                                int(itmx))
+    spec, ops = level_tensors(levels)
+    return _ImplicitSolve.apply(fine.L, fine.D, x, z, spec, float(tol),
+                                int(itmx), *ops)
 
 
 ml_solve_implicit.adjoint_n = collections.deque(maxlen=1024)

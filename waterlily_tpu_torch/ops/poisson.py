@@ -26,6 +26,7 @@ the kernels, which have no derivatives, see only untracked tensors.
 """
 from __future__ import annotations
 
+import dataclasses
 from dataclasses import dataclass
 
 import torch
@@ -39,7 +40,8 @@ from . import attic as at
 
 __all__ = ["PoissonLevel", "make_level", "mult", "residual", "increment",
            "pressure_grad_interior", "jacobi", "fdot", "pcg", "smooth",
-           "poisson_solve", "operator_shadows", "KDOT", "KAXPY",
+           "poisson_solve", "operator_shadows", "level_tensors",
+           "with_level_tensors", "adaptive_members", "KDOT", "KAXPY",
            "PCG_BLOCKED", "STREAM", "BF16_OP"]
 
 # Default of `make_level`'s ``op_bf16``: bf16 shadows of the operator
@@ -478,15 +480,182 @@ def smooth(lev: PoissonLevel, x, r, it: int = 6):
     it applies the f32 operator, and one solve must not mix the two, as
     in JAX), `attic.pcg_blocked` on blocked dense non-periodic levels under
     ``PCG_BLOCKED``, `pcg` elsewhere and wherever autograd tracks the level,
-    ``x`` or ``r``."""
+    ``x`` or ``r``.  Under `torch.func.vmap` alone (an ensemble,
+    `stencil_kernels.vmap_only`) the small CUDA levels still take
+    `pcg_kernel.pcg_fused`, whose `vmap` rule smooths the members in one
+    launch a chunk of them; `attic.pcg_blocked` has no member axis."""
+    if (lev.L16 is None
+            and pk.use_pcg_fused(tuple(x.shape), x.dtype, x.device)
+            and (not _tracked(lev, x, r)
+                 or sk.vmap_only(lev.L, lev.D, lev.iD, x, r))):
+        return pk.pcg_fused(lev, x, r, it)
     if _tracked(lev, x, r):
         return pcg(lev, x, r, it)
-    if (lev.L16 is None
-            and pk.use_pcg_fused(tuple(x.shape), x.dtype, x.device)):
-        return pk.pcg_fused(lev, x, r, it)
     if PCG_BLOCKED and lev.blocked and not lev.perdir and not lev.banded:
         return at.pcg_blocked(lev, x, r, it)
     return pcg(lev, x, r, it)
+
+
+# --- the adaptive loops under torch.func.vmap -------------------------------
+#
+# `poisson_solve` and `multigrid.ml_solve` stop when a host read of the
+# residual says so, which `vmap` cannot trace.  Under `vmap` (and no other
+# transform) both hand their loop to `_Adaptive`, whose `vmap` rules fold
+# every `vmap` level into one member axis and run it with that axis in the
+# open: each iteration is one `vmap` of the solver's iteration over every
+# member, a member that has stopped keeps its values (`torch.where`, bit
+# for bit), and the loop ends when every member has stopped, with one host
+# read an iteration.  JAX's batched `while_loop` does the same.  The level
+# tensors are arguments of the rule, so it sees which carry the member axis
+# and which every member shares.
+
+# tensor fields of a level, in the order `level_tensors` flattens them
+_LEVEL_TENSORS = ("L", "D", "iD", "L16", "D16", "iD16")
+
+
+def level_tensors(levels: tuple) -> tuple:
+    """``(spec, tensors)``: the level stack with its tensor fields taken
+    out (None) and those tensors, flat, for `with_level_tensors`."""
+    spec, flat = [], []
+    for lev in levels:
+        have = tuple(getattr(lev, f) is not None for f in _LEVEL_TENSORS)
+        flat += [getattr(lev, f) for f, h in zip(_LEVEL_TENSORS, have) if h]
+        spec.append((dataclasses.replace(
+            lev, **{f: None for f in _LEVEL_TENSORS}), have))
+    return tuple(spec), tuple(flat)
+
+
+def with_level_tensors(spec: tuple, tensors) -> tuple:
+    """The level stack of `level_tensors`' ``spec`` with ``tensors`` put
+    back."""
+    it = iter(tensors)
+    return tuple(dataclasses.replace(lev, **{
+        f: next(it) for f, h in zip(_LEVEL_TENSORS, have) if h})
+        for lev, have in spec)
+
+
+def _go_on(n, itmx, r2, r2p, tol):
+    """The adaptive loops' test to go on: fewer than ``itmx`` iterations,
+    ``r·r >= tol`` and no iteration that doubled ``r·r``."""
+    return (n < itmx) & (r2 >= tol) & ~(r2 > 2.0 * r2p)
+
+
+def adaptive_members(step, carry: tuple, r2, tol, itmx: int, rows=None):
+    """The adaptive loop over the members of ``carry`` (tensors with the
+    member axis first) and their ``r·r`` ``r2`` (``(M,)``): ``step(carry)
+    -> (carry, r2)`` is one iteration of every member; each member stops by
+    its own test (`_go_on`) after at least one iteration and keeps its
+    values from then on (`torch.where`); the loop ends when all have
+    stopped.  Returns ``(carry, n)``, ``n`` the ``(M,)`` int64 counts, and
+    with ``rows`` (``carry -> (M, 2)``, the residual trace's rows) also the
+    ``(M, itmx+1, 2)`` trace: row 0 of the initial carry, row ``k+1``
+    after each member's iteration ``k``, zeros after its last."""
+    M = r2.shape[0]
+    n = torch.zeros(M, dtype=torch.int64, device=r2.device)
+    active = torch.ones(M, dtype=torch.bool, device=r2.device)
+    if rows is not None:
+        first = rows(carry)
+        tr = torch.zeros((M, itmx + 1, 2), dtype=first.dtype,
+                         device=first.device)
+        tr[:, 0] = first
+        slot = torch.arange(itmx + 1, device=r2.device)
+    r2p = r2
+    while True:
+        new, r2n = step(carry)
+
+        def keep(a, b):
+            return torch.where(active.reshape((M,) + (1,) * (a.ndim - 1)),
+                               a, b)
+        carry = tuple(keep(a, b) for a, b in zip(new, carry))
+        r2p, r2 = keep(r2, r2p), keep(r2n, r2)
+        if rows is not None:
+            at_row = active[:, None] & (slot[None, :] == n[:, None] + 1)
+            tr = torch.where(at_row[..., None], rows(carry)[:, None], tr)
+        n = n + active
+        active = active & _go_on(n, itmx, r2, r2p, tol)
+        if not bool(active.any()):
+            break
+    return (carry, n) if rows is None else (carry, n, tr)
+
+
+class _Adaptive(torch.autograd.Function):
+    """An adaptive loop for `torch.func.vmap`: ``run(dims, x, r, r2,
+    *ops)`` runs it on ``x``, ``r`` and ``r2`` with a member axis first
+    and the level tensors ``ops``, those whose ``dims`` is 0 with a member
+    axis too (None: shared by every member), and returns member-axis
+    outputs.  The `vmap` rule folds its batch axis into the member axis
+    (`pcg_kernel.fold_members`) and applies the Function again, so that
+    nested `vmap` levels fold one by one and the loop runs once, over the
+    members of all of them."""
+
+    @staticmethod
+    def forward(run, dims, x, r, r2, *ops):
+        return run(dims, x, r, r2, *ops)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        pass
+
+    @staticmethod
+    def backward(ctx, *grads):
+        raise RuntimeError("the adaptive loop under vmap has no derivative")
+
+    @staticmethod
+    def vmap(info, in_dims, run, dims, x, r, r2, *ops):
+        B, dx = info.batch_size, in_dims[2]
+        M = x.shape[1 if dx == 0 else 0]
+        x, r, r2 = (pk.fold_members(t, d, True, B, M)
+                    for t, d in zip((x, r, r2), in_dims[2:5]))
+        ops = [pk.fold_members(t, d, m is not None, B, M)
+               for t, d, m in zip(ops, in_dims[5:], dims)]
+        dims = tuple(None if m is None and d is None else 0
+                     for m, d in zip(dims, in_dims[5:]))
+        out = _Adaptive.apply(run, dims, x, r, r2, *ops)
+        return (tuple(o.reshape((B, M) + tuple(o.shape[1:])) for o in out),
+                (0,) * len(out))
+
+
+def members_solve(levels: tuple, one, x, r, r2, tol, itmx: int, row=None):
+    """The adaptive loop of a solver under `torch.func.vmap`: ``one(levels,
+    x, r) -> (x, r)`` is its iteration, ``r2`` the members' ``r·r``, each
+    member stopped by its own test (`adaptive_members`) and the loop run
+    with the member axis in the open through `_Adaptive`'s `vmap` rule.
+    Returns ``(x, r, n)``, with ``row`` (``(x, r) -> [max|r|, r·r]``) also
+    the residual trace, each member's as `adaptive_members` gives it."""
+    spec, ops = level_tensors(levels)
+
+    def run(dims, x, r, r2, *ops):
+        def it(x, r, *ops):
+            lv = with_level_tensors(spec, ops)
+            x, r = one(lv, x, r)
+            return (x, r), fdot(lv[0], r, r)
+        step = torch.func.vmap(it, in_dims=(0, 0) + tuple(dims))
+        rows = (None if row is None
+                else lambda c: torch.func.vmap(row)(*c))
+        out = adaptive_members(lambda c: step(*c, *ops), (x, r), r2, tol,
+                               itmx, rows)
+        return out[0] + out[1:]
+    out = _Adaptive.apply(run, (None,) * len(ops), x[None], r[None],
+                          r2[None], *ops)
+    return tuple(o[0] for o in out)
+
+
+def vmap_loop(name: str, levels: tuple, *values) -> bool:
+    """True where an adaptive loop must run with the member axis in the
+    open (`_Adaptive`): ``values`` or the tensors of ``levels`` carry
+    `vmap` levels.  Raises `NotImplementedError` where they are also
+    differentiated (``grad``, ``jvp``; a backward pass's untracked
+    cotangents are not)."""
+    kinds = sk.tracked_by(*values, *(getattr(lv, f) for lv in levels
+                                     for f in _LEVEL_TENSORS))
+    if "vmap" not in kinds:
+        return False
+    if "ad" in kinds:
+        raise NotImplementedError(
+            f"{name}: torch.func.vmap over a derivative (grad, jvp) through "
+            f"the adaptive solve is not ported (ROADMAP A17, queue A); use "
+            f"fixed_iters, or implicit_diff for reverse mode")
+    return True
 
 
 def poisson_solve(lev: PoissonLevel, x, z, tol=1e-4, itmx=1000,
@@ -494,9 +663,14 @@ def poisson_solve(lev: PoissonLevel, x, z, tol=1e-4, itmx=1000,
     """Single-level iterative solve (reference ``solver!``): at least one
     smoothing pass, then until ``r·r < tol``, ``itmx`` passes, or a pass
     that doubles ``r·r`` (divergence safeguard).  Syncs the host once per
-    pass.  Returns ``(x, r, n_iters)``."""
+    pass.  Returns ``(x, r, n_iters)``, ``n_iters`` a host int, or under
+    `torch.func.vmap` each member's count (`adaptive_members`), a tensor."""
     r = residual(lev, x, z)
     r2 = fdot(lev, r, r)
+    if vmap_loop("poisson_solve", (lev,), x, z):
+        x, r, n = members_solve((lev,), lambda lv, x, r: smoother(lv[0], x, r),
+                                x, r, r2, tol, itmx)
+        return bc_scalar_periodic(x, lev.perdir), r, n
     n, go = 0, True
     while go:
         x, r = smoother(lev, x, r)

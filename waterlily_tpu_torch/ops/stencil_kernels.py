@@ -41,6 +41,15 @@ a tracked field to the plain form on its own device instead, as the JAX
 package keeps its AD programs on the XLA forms (``pallas_ok=False``): the
 one route of a CUDA field off a kernel, visible in the launch counters,
 which count kernel launches only.
+
+A field under `torch.func.vmap` (an ensemble's member axis) counts as
+tracked here too: these eight wrappers (`bc3d`, `conv_diff3d`, `mult3d`,
+`increment3d`, `div3d`, `project3d`, `cfl3d`, `ana_mult3d`) have no
+member-axis form yet, so `kernel_ok` sends a batched field to its plain
+form, which `vmap` batches.  Only the PCG smooth has one: its caller
+(`ops.poisson.smooth`) sends a field that carries `vmap` levels and no
+other (`vmap_only`) to `pcg_kernel.pcg_fused`, whose `vmap` rule launches
+the kernel once for a chunk of members.
 """
 from __future__ import annotations
 
@@ -53,9 +62,10 @@ from torch.autograd import forward_ad
 
 from ..kernels.build import THREADS, launch, library
 
-__all__ = ["MIN_CELLS", "use_blocked", "ad_tracked", "kernel_ok", "mult3d",
-           "increment3d", "ana_mult3d", "cfl3d", "bc3d", "div3d", "project3d",
-           "conv_diff3d", "global_interior", "kernel_wrappers"]
+__all__ = ["MIN_CELLS", "use_blocked", "tracked_by", "ad_tracked", "vmapped",
+           "vmap_only", "kernel_ok", "mult3d", "increment3d", "ana_mult3d",
+           "cfl3d", "bc3d", "div3d", "project3d", "conv_diff3d",
+           "global_interior", "kernel_wrappers"]
 
 # Minimum ghost-padded cell count for the kernel tier (the JAX gate's own
 # floor): smaller levels run the plain forms on the device.
@@ -73,7 +83,42 @@ def use_blocked(S, dtype, device) -> bool:
             and math.prod(S) >= MIN_CELLS)
 
 
-_wrapped = torch._C._functorch.is_functorch_wrapped_tensor
+_functorch = torch._C._functorch
+
+
+def _kinds(v: torch.Tensor, grad_on: bool, duals: bool) -> set:
+    """How ``v`` is tracked: ``"ad"`` for ``requires_grad`` under grad mode
+    and for a forward-AD dual (a ``jvp`` level's tensor is one), ``"vmap"``
+    for each `torch.func.vmap` level that batches it, ``"wrapped"`` for
+    any other `torch.func` level (a ``grad`` level's tensor that does not
+    require grad: a cotangent in a backward pass)."""
+    kinds = set()
+    if (grad_on and v.requires_grad) or (
+            duals and forward_ad.unpack_dual(v).tangent is not None):
+        kinds.add("ad")
+    t = v
+    while _functorch.is_functorch_wrapped_tensor(t):
+        kinds.add("vmap" if _functorch.is_batchedtensor(t) else "wrapped")
+        t = _functorch.get_unwrapped(t)
+    if grad_on and t.requires_grad:
+        kinds.add("ad")
+    return kinds
+
+
+def tracked_by(*values) -> set:
+    """The union of the ways ``values`` are tracked (``"ad"``, ``"vmap"``,
+    ``"wrapped"``; tuples and lists looked into, anything but a tensor
+    untracked)."""
+    grad_on = torch.is_grad_enabled()
+    # unpack_dual's own test: no dual level open, no dual tensor
+    duals = forward_ad._current_level >= 0
+    kinds = set()
+    for v in values:
+        if isinstance(v, torch.Tensor):
+            kinds |= _kinds(v, grad_on, duals)
+        elif isinstance(v, (tuple, list)):
+            kinds |= tracked_by(*v)
+    return kinds
 
 
 def ad_tracked(*values) -> bool:
@@ -81,23 +126,26 @@ def ad_tracked(*values) -> bool:
     ``requires_grad`` while grad mode is on, a forward-AD dual, or a
     `torch.func` transform's tensor (``jvp``, ``grad``, ``vmap``); tuples
     and lists are looked into, anything else is untracked."""
-    grad_on = torch.is_grad_enabled()
-    # unpack_dual's own test: no dual level open, no dual tensor
-    duals = forward_ad._current_level >= 0
-    for v in values:
-        if isinstance(v, torch.Tensor):
-            if ((grad_on and v.requires_grad) or _wrapped(v)
-                    or (duals and forward_ad.unpack_dual(v).tangent
-                        is not None)):
-                return True
-        elif isinstance(v, (tuple, list)) and ad_tracked(*v):
-            return True
-    return False
+    return bool(tracked_by(*values))
+
+
+def vmapped(*values) -> bool:
+    """True where some of ``values`` carry `torch.func.vmap` levels."""
+    return "vmap" in tracked_by(*values)
+
+
+def vmap_only(*values) -> bool:
+    """True where some of ``values`` carry `torch.func.vmap` levels (one or
+    nested) and none is tracked otherwise (no ``grad``/``jvp`` level, no
+    ``requires_grad`` under grad mode, no dual): an ensemble's fields,
+    which a kernel with a member axis may take."""
+    return tracked_by(*values) == {"vmap"}
 
 
 def kernel_ok(S, dtype, device, *operands) -> bool:
-    """`use_blocked`, closed to ``operands`` that autograd tracks: a
-    tracked field takes the plain form on its own device."""
+    """`use_blocked`, closed to ``operands`` that autograd tracks or
+    `vmap` batches (`ad_tracked`): such a field takes the plain form on
+    its own device."""
     return use_blocked(S, dtype, device) and not ad_tracked(*operands)
 
 
