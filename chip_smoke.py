@@ -28,7 +28,16 @@ Phases, each of which raises (and so exits non-zero) on failure:
    ensemble sweep's (194,130) and (98,66) levels and the one-block
    (50,34), with 1, 3 and 32 members, the operator shared and one a
    member, member 1's residual zero (1e-5 absolute, that member exactly;
-   one launch a member chunk);
+   one launch a member chunk); then the seven 3D stencils' member forms
+   (``mult3d`` with and without the dot, f32 and bf16 L and x,
+   ``increment3d``, ``cfl3d``, ``bc3d`` in place in its 16 forms,
+   ``div3d``, ``project3d``, ``conv_diff3d`` with QUICK, van Leer, minmod
+   and QUICK on every periodic mask), each ``torch.func.vmap`` of its
+   wrapper at (98,66,66) with 3 and 8 members and at (37,29,35) with 3,
+   the operator, dt, ν and BC values shared and one a member: against
+   ``vmap`` of the plain version at the kernel's tolerance of 3, against
+   each member's own launch exactly, one launch a call, ``bc3d``'s fill
+   seen in the batched field;
 4. the dense slice: ``sphere_3d(96, 64)`` constructed and stepped 20 times
    on the card with every kernel launch-counted (every ``bc3d`` launch in
    place), then 3 steps from the same initial state on the CPU (plain
@@ -138,6 +147,20 @@ Phases, each of which raises (and so exits non-zero) on failure:
    Taylor-Green vortex in ν, 4 members, f32: the member form launched in
    the forward and the adjoint solves, each member's adjoint counts
    recorded, against the per-member gradients on the card (1e-4);
+   (iv) phase 6.7's (96,64,64) sphere (`drag_setup` + `drag_steps`) as a
+   pure function of a parameter under ``torch.func.vmap`` at (98,66,66),
+   8 members: a radius sweep (7 to 9, each member its own body and
+   operator) and a ν sweep (0.08 to 0.32, one body, the operator
+   shared); with ``fixed_iters=2`` and 5 steps each of the seven 3D
+   stencils launched as often as by one member alone, ``mult3d``,
+   ``increment3d``, ``div3d``, ``project3d`` and ``cfl3d`` only in their
+   member form (``bc3d`` and ``conv_diff3d`` also in one-field launches
+   on the members' shared set-up fields), ``pcg_fused`` one member's
+   launches times the chunks, the drag within 1e-5 of each member alone;
+   with the adaptive solve (tol 1e-5) each member's pois_n equal to its
+   own card run's, drag within 1e-5, members 0 and 7 against the CPU
+   (drag 1e-4, pois_n ±2 a solve, ≤ 4 in all); busy and wall ms a step,
+   idle share and peak memory of each sweep against 8 x one member's;
 7. every kernel against its plain version again, every variant at every
    shape a path of 4-6.8 launched it at (258³, 130³, 66³, ..., the 2D
    levels) and the probes at 258³, with the tolerances of 3, every
@@ -177,7 +200,9 @@ Phases, each of which raises (and so exits non-zero) on failure:
    ``pcg_fused``'s member form at (194,130) and (98,66) with 32 members
    (an operator each) beside ``vmap`` of the plain ``pcg``, its bound and
    its sync floor (its launches times 12 grid barriers of the chunk's
-   blocks, ``kernels/times.py``'s ``barrier:``).
+   blocks, ``kernels/times.py``'s ``barrier:``); the seven stencils'
+   member forms at (98,66,66) x 8 beside ``vmap`` of their plain versions
+   and 8 times the one-field bound.
 
 Every path runs with the launch counters set to 0 and the launched shapes
 and forms cleared just before it, all read just after (each kernel's
@@ -185,8 +210,10 @@ launches also by shape, per step); a kernel of the path that never
 launched fails the run.  The probes run on no path: the
 kernels line gives them 0 launches and their calls in phase 8 as
 ``timing_launches``.  The line before the last is a JSON object with one
-entry per kernel and one for ``pcg_fused``'s member form (its launches
-those of 6.8's batched paths, its time at (194,130) x 32); the last
+entry per kernel, one for ``pcg_fused``'s member form (its launches
+those of 6.8's batched paths, its time at (194,130) x 32) and one for
+each of the seven stencils' member forms (``"<name> (members)"``: its
+member-form launches on the paths, its time at (98,66,66) x 8); the last
 line is ``{"ok": true, "device": {...}}``.
 Without a CUDA device the script prints no result and exits 2.  Imports
 no JAX.
@@ -373,7 +400,7 @@ PATH_LAUNCHES = {}
 PATH_SHAPES = {}    # kernel -> every shape a path launched it at
 PATH_FORMS = {}     # path -> kernel -> the bf16 forms it launched
 PATH_BASES = {}     # kernel -> every (shape, shard-local form) launched
-ENSEMBLE_LAUNCHES = {}  # phase 6.8's paths (the member form of pcg_fused)
+MEMBER_COUNTS = {}      # path -> kernel -> its launches in the member form
 
 
 def on_path(torch, label, expect, fn):
@@ -384,6 +411,7 @@ def on_path(torch, label, expect, fn):
     kernels = kernel_wrappers()
     for w in kernels.values():
         w.launches = 0
+        w.members = 0
         w.shapes.clear()
         w.forms.clear()
         w.bases.clear()
@@ -391,6 +419,10 @@ def on_path(torch, label, expect, fn):
     torch.cuda.synchronize()
     counts = {k: w.launches for k, w in kernels.items()}
     log(f"launches on {label}: {counts}")
+    MEMBER_COUNTS[label] = {k: w.members for k, w in kernels.items()
+                            if w.members}
+    if MEMBER_COUNTS[label]:
+        log(f"  of them in the member form: {MEMBER_COUNTS[label]}")
     sim = out[0] if isinstance(out, tuple) else out
     steps = len(getattr(sim, "pois_n", ())) or 1
     log(f"  launches per step by shape ({steps} steps): " + "; ".join(
@@ -401,7 +433,8 @@ def on_path(torch, label, expect, fn):
                          if w.forms}
     log("  forms (the bf16 arguments; conv_diff3d's limiters; bc3d's "
         "inplace or copy): "
-        + "; ".join(f"{k} {sorted(f)}" for k, f in PATH_FORMS[label].items()
+        + "; ".join(f"{k} {sorted(f, key=str)}"
+                    for k, f in PATH_FORMS[label].items()
                     if f != {()}))
     idle = [k for k in expect if counts[k] == 0]
     if idle:
@@ -1549,6 +1582,202 @@ def check_members(torch, dev):
         raise AssertionError(f"member-axis pcg_fused failed: {failures}")
 
 
+# the seven 3D stencils' member forms (phase 3, phase 8 and their rows
+# in the kernels JSON): the dense slice's fine level and a ragged shape,
+# each with 3 and 8 members, the operator (and dt, ν, BC values) shared and
+# one a member
+STENCIL_MEMBER_CASES = ((FINE, 3), (FINE, 8), (RAGGED, 3))
+SWEEP_MEMBERS, SWEEP_STEPS = 8, 5
+SWEEP_CPU = (0, 7)
+SEVEN = ("mult3d", "increment3d", "conv_diff3d", "bc3d", "div3d",
+         "project3d", "cfl3d")
+# launches of the setup on the members' shared fields (flow_init's u and
+# BCs; the ν sweep's one body) are one-field launches, once for all
+SETUP_FORMS = ("bc3d", "conv_diff3d")
+STENCIL_MEMBER_TIMES = {}    # name -> time_stencil_members' row (phase 8)
+
+
+def members_key(name):
+    return f"{name} (members)"
+
+
+def check_stencil_members(torch, dev):
+    """Phase 3: each of the seven stencils' member forms (`torch.func.vmap`
+    of its wrapper) against `vmap` of its plain version at the kernel's
+    tolerance and against each member's own launch exactly, one launch a
+    call, every form (`kernels.check.stencil_member_variants`)."""
+    from waterlily_tpu_torch.kernels.check import (STENCIL_MEMBERS,
+                                                   compare_stencil_members)
+    failures = []
+    for name in STENCIL_MEMBERS:
+        for S, M in STENCIL_MEMBER_CASES:
+            for shared in (True, False):
+                rows = compare_stencil_members(name, S, M, shared, 1, dev)
+                worst = max(r["max_abs_err"] for r in rows)
+                single = max(r["single_err"] for r in rows)
+                bad = [r for r in rows if not r["ok"]]
+                log(f"  {name:<12} {str(S):<13} M={M} "
+                    f"{'shared' if shared else 'own   '} {len(rows):>2} "
+                    f"outputs: max|d| vs vmap(plain) {worst:.3e}, vs the "
+                    f"members' own launches {single:.3e}, launches a call "
+                    f"{sorted({r['launches'] for r in rows})} "
+                    f"{'FAIL' if bad else 'ok'}")
+                WORST[members_key(name)] = max(
+                    WORST.get(members_key(name), 0.0), worst)
+                failures += bad
+        torch.cuda.empty_cache()
+    if failures:
+        raise AssertionError(f"stencil member forms failed: {failures}")
+
+
+def sweep_force(torch, kind, steps=SWEEP_STEPS, **ad):
+    """Phase 6.7's sphere (`drag_setup`, `drag_steps`) as a pure function
+    of the sweep's parameter: the radius (ν = AD_NU) or ν (radius
+    AD_RADIUS), on the parameter's device; returns the drag and each
+    step's pois_n, ``(steps, 2)``."""
+    def force(v):
+        nu, radius = (AD_NU, v) if kind == "radius" else (v, AD_RADIUS)
+        drag, pois = drag_steps(*drag_setup(torch, v.device, nu, radius,
+                                            **ad), steps)
+        return drag, (torch.stack([torch.as_tensor(n, device=v.device)
+                                   for n in pois]) if pois
+                      else torch.zeros((0, 2), dtype=torch.int64,
+                                       device=v.device))
+    return force
+
+
+def sweep_costs(torch, kind, vs):
+    """Busy and wall ms a step (the 5-step sweep less its setup and force
+    alone), idle share and peak GiB of the adaptive sweep over ``vs`` and
+    of its first member alone."""
+    run = lambda steps, v: sweep_force(torch, kind, steps)(v)
+    rows = {}
+    batched = lambda n: torch.func.vmap(lambda v: run(n, v))(vs)
+    for who, call in (("ensemble", batched),
+                      ("one member", lambda n: run(n, vs[0]))):
+        call(SWEEP_STEPS)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        b5, w5 = _busy_wall(torch, lambda: call(SWEEP_STEPS))
+        gib = torch.cuda.max_memory_allocated() / 2 ** 30
+        b0, w0 = _busy_wall(torch, lambda: call(0))
+        busy, wall = (b5 - b0) / SWEEP_STEPS, (w5 - w0) / SWEEP_STEPS
+        rows[who] = (busy, wall, gib)
+    (bm, wm, gm), (b1, w1, g1) = rows["ensemble"], rows["one member"]
+    M = len(vs)
+    log(f"  a step of the {kind} sweep ({M} members, adaptive): "
+        f"{wm:.3f} ms wall, {bm:.3f} ms busy, idle share "
+        f"{1 - bm / wm:.4f}, peak {gm:.3f} GiB; one member: {w1:.3f} ms "
+        f"wall, {b1:.3f} busy, idle {1 - b1 / w1:.4f}, peak {g1:.3f} GiB; "
+        f"{M} x one member {M * w1:.3f} ms wall ({M * b1:.3f} busy) "
+        f"(the {SWEEP_STEPS}-step sweep less its setup and force alone)")
+    SWEEP_COSTS[kind] = {"busy_ms": bm, "wall_ms": wm, "idle": 1 - bm / wm,
+                         "peak_gib": gm, "one_busy_ms": b1,
+                         "one_wall_ms": w1}
+
+
+SWEEP_COSTS = {}
+
+
+def run_sweeps(torch, dev):
+    """Phase 6.8 (iv): the (96,64,64) sphere's drag under
+    `torch.func.vmap` at FINE, 8 members: a radius sweep (each member its
+    own body and operator) and a ν sweep (one body, the operator shared, ν
+    a member's own).  With ``fixed_iters=2`` (5 steps) each of the seven
+    stencils launches as often as one member alone, the five of the step's
+    own fields only in the member form, `pcg_fused` one member's launches
+    times the chunks; with the adaptive solve (5 steps) each member's
+    pois_n equals its own card run's and its drag within 1e-5, members 0
+    and 7 against the CPU (drag 1e-4, pois_n ±2 a solve, ≤ 4 in all); then
+    each sweep's cost a step."""
+    from waterlily_tpu_torch.ops import pcg_kernel as pk
+    cpu = torch.device("cpu")
+    M = SWEEP_MEMBERS
+    for kind, lo, hi in (("radius", 7.0, 9.0), ("nu", 0.08, 0.32)):
+        vs = torch.linspace(lo, hi, M, device=dev)
+        stage(f"(iv) {kind} sweep at {FINE} x {M}, fixed_iters=2, "
+              f"{SWEEP_STEPS} steps")
+        fixed = sweep_force(torch, kind, fixed_iters=2)
+        one_label = f"6.8 (iv) {kind}: one member, fixed_iters=2"
+        ens_label = f"6.8 (iv) {kind} sweep, fixed_iters=2"
+        on_path(torch, one_label, SEVEN + ("pcg_fused",),
+                lambda: fixed(vs[0]))
+        one, one_forms = PATH_LAUNCHES[one_label], PATH_FORMS[one_label]
+        single_pcg = dict(pk.pcg_fused.shapes)
+        drag, _ = on_path(torch, ens_label, SEVEN + ("pcg_fused",),
+                          lambda: torch.func.vmap(fixed)(vs))
+        ens, forms = PATH_LAUNCHES[ens_label], PATH_FORMS[ens_label]
+        members = MEMBER_COUNTS[ens_label]
+        bad = []
+        for k in SEVEN:
+            allowed = {"members"} | (one_forms.get(k, set())
+                                     if k in SETUP_FORMS else set())
+            whole = k not in SETUP_FORMS
+            if (ens[k] != one[k] or "members" not in forms[k]
+                    or not forms[k] <= allowed
+                    or (whole and members.get(k, 0) != ens[k])):
+                bad.append((k, one[k], ens[k], members.get(k, 0),
+                            sorted(map(str, forms[k]))))
+        want = {S: n * pk.launch_chunks(S, M, dev)
+                for S, n in single_pcg.items()}
+        log(f"  the seven: one member {[one[k] for k in SEVEN]}, the "
+            f"ensemble {[ens[k] for k in SEVEN]} launches, "
+            f"{[members.get(k, 0) for k in SEVEN]} of them in the member "
+            f"form; forms {[sorted(map(str, forms[k])) for k in SEVEN]}; "
+            f"pcg_fused by shape {dict(pk.pcg_fused.shapes)} (one member's "
+            f"times the chunks: {want})")
+        if bad or dict(pk.pcg_fused.shapes) != want:
+            raise AssertionError(f"{kind} sweep launches: {bad}, pcg_fused "
+                                 f"{dict(pk.pcg_fused.shapes)} vs {want}")
+        alone = torch.stack([fixed(v)[0] for v in vs])
+        err = rel_err(drag.tolist(), alone.tolist())
+        log(f"  drag {drag.tolist()}; vs each member alone: max rel "
+            f"{err:.3e}")
+        if not bool(torch.isfinite(drag).all()) or err > 1e-5:
+            raise AssertionError(f"{kind} sweep vs members alone: {err}")
+        PATH_LAUNCHES.pop(ens_label)    # the kernels line's member rows
+
+        stage(f"(iv) {kind} sweep, the adaptive solve (tol {AD_TOL:g})")
+        adapt = sweep_force(torch, kind)
+        drag, pois = torch.func.vmap(adapt)(vs)
+        own = [adapt(v) for v in vs]
+        err = rel_err(drag.tolist(), [float(d) for d, _ in own])
+        same = all(torch.equal(pois[m], own[m][1]) for m in range(M))
+        log(f"  pois_n a member {[p.tolist() for p in pois]}; equal to each "
+            f"member's own card run: {same}; drag max rel {err:.3e}")
+        if not same or err > 1e-5:
+            raise AssertionError(f"{kind} adaptive sweep vs members alone: "
+                                 f"pois_n equal {same}, drag {err}")
+        t0 = time.perf_counter()
+        for m in SWEEP_CPU:
+            d_cpu, p_cpu = adapt(vs[m].cpu())
+            e = abs(float(drag[m]) - float(d_cpu)) / abs(float(d_cpu))
+            log(f"  member {m} on the CPU: drag {float(d_cpu)!r} vs "
+                f"{float(drag[m])!r} (rel {e:.3e}), pois_n {p_cpu.tolist()}"
+                f" vs {pois[m].tolist()}")
+            if e > 1e-4 or not pois_ok(pois[m].tolist(), p_cpu.tolist()):
+                raise AssertionError(f"{kind} member {m} vs the CPU")
+        log(f"  CPU runs {time.perf_counter() - t0:.1f} s")
+        sweep_costs(torch, kind, vs)
+        torch.cuda.empty_cache()
+
+
+def timing_stencil_members(torch, dev):
+    """Phase 8: each stencil's member form at FINE x 8 (an operator, step,
+    ν and BC values a member) against `vmap` of its plain version, beside
+    8 times the one-field bound."""
+    from waterlily_tpu_torch.kernels.check import (STENCIL_MEMBERS,
+                                                   time_stencil_members)
+    for name in STENCIL_MEMBERS:
+        t = time_stencil_members(name, FINE, SWEEP_MEMBERS, dev)
+        STENCIL_MEMBER_TIMES[name] = t
+        log(f"  {name:<12} {str(FINE)} x {SWEEP_MEMBERS} members: kernel "
+            f"{t['ms']:.4f} ms, plain vmap {t['plain_ms']:.4f} ms, bound "
+            f"{t['bound_ms']:.4f} ms ({t['bound_by']}); wall per call "
+            f"{t['wall_ms']:.4f} ms")
+        torch.cuda.empty_cache()
+
+
 # phase 6.8: the ensemble sweep of examples/ensemble_sweep.py at the size
 # the JAX example names for a chip: Dm = 32 (S = (194, 130)), 32 members,
 # 20 fixed_iters=2 steps; members held against their own card runs and
@@ -1684,7 +1913,7 @@ def run_ensemble(torch, dev):
     if not bool(torch.isfinite(gb).all()) or gerr > 1e-4:
         raise AssertionError(f"vmap(grad) vs per member: {gerr}")
     for label in ENS_PATHS:
-        ENSEMBLE_LAUNCHES[label] = PATH_LAUNCHES.pop(label)
+        PATH_LAUNCHES.pop(label)    # the kernels line's member rows
     torch.cuda.empty_cache()
 
 
@@ -2272,6 +2501,8 @@ def main() -> int:
     one_launch(torch, dev)
     stage("pcg_fused's member form (torch.func.vmap)")
     check_members(torch, dev)
+    stage("the seven stencils' member forms (torch.func.vmap)")
+    check_stencil_members(torch, dev)
     phase("4. the dense slice: sphere_3d(96, 64)")
     sim = run_slice(torch, dev)
     phase("4.1 a user-defined limiter traced into conv_diff3d")
@@ -2299,6 +2530,7 @@ def main() -> int:
     run_differentiability(torch, dev)
     phase("6.8 ensembles: the sweep under torch.func.vmap")
     run_ensemble(torch, dev)
+    run_sweeps(torch, dev)
     phase("7. kernels vs plain versions at the paths' shapes")
     check_kernels(torch, dev, {**PATH_SHAPES,
                                "pcg_blocked": PATH_SHAPES["pcg_dir_mult"],
@@ -2310,6 +2542,8 @@ def main() -> int:
     timing_recording(torch, dev)
     stage("pcg_fused's member form")
     timing_members(torch, dev)
+    stage("the seven stencils' member forms")
+    timing_stencil_members(torch, dev)
     from waterlily_tpu_torch.utils.perf import EVENT_FALLBACKS
     log(f"device times the profiler could not record, taken with CUDA "
         f"events instead (the host's dispatch included): "
@@ -2341,13 +2575,27 @@ def main() -> int:
         "name": MEMBERS_KEY, "route": "cuda",
         "source": SOURCES["pcg_fused"][0],
         "replaces": SOURCES["pcg_fused"][1],
-        "launches": sum(c["pcg_fused"] for c in ENSEMBLE_LAUNCHES.values()),
+        "launches": sum(c.get("pcg_fused", 0)
+                        for c in MEMBER_COUNTS.values()),
         "max_abs_err": WORST[MEMBERS_KEY], "ms": MEMBER_TIMES[S]["ms"],
         "plain_ms": MEMBER_TIMES[S]["plain_ms"],
         "bound_ms": MEMBER_TIMES[S]["bound_ms"],
         "bound_by": MEMBER_TIMES[S]["bound_by"], "library_ms": None,
         "shape": [ENS_MEMBERS, *S],
         "sync_floor_ms": MEMBER_TIMES[S]["sync_floor_ms"]})
+    # the seven stencils' member forms (phase 6.8 (iv)'s member-form
+    # launches; checked in phase 3, timed at FINE x 8 in phase 8); no one
+    # PyTorch call computes a batch of them
+    for k in SEVEN:
+        t = STENCIL_MEMBER_TIMES[k]
+        kernels.append({
+            "name": members_key(k), "route": "cuda",
+            "source": SOURCES[k][0], "replaces": SOURCES[k][1],
+            "launches": sum(c.get(k, 0) for c in MEMBER_COUNTS.values()),
+            "max_abs_err": WORST[members_key(k)], "ms": t["ms"],
+            "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
+            "bound_by": t["bound_by"], "library_ms": None,
+            "shape": [SWEEP_MEMBERS, *FINE]})
     log(card)
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {

@@ -617,3 +617,66 @@ def test_pcg_members_refuse(device):
     x, _r = pk.pcg_members(d["L"], d["D"], d["iD"], d["x"], d["r"])
     torch.cuda.synchronize()
     assert bool(torch.isfinite(x).all())
+
+
+# --- the seven 3D stencils' member forms (a 3D ensemble under vmap) ---------
+
+@pytest.mark.parametrize("shared", [True, False])
+@pytest.mark.parametrize("M", [1, 3, 8])
+@pytest.mark.parametrize("S", [FINE, RAGGED])
+@pytest.mark.parametrize("name", STENCILS)
+def test_stencil_members_match_single_launches(name, S, M, shared, device):
+    """Each stencil's member form (`torch.func.vmap` of its wrapper: one
+    launch for every member) equals each member's own launch bit for bit
+    (sums included: a member's reduction is its own launch's) and `vmap`
+    of the plain version within the kernel's tolerance, in every form of
+    `check.stencil_member_variants` (the operator, dt, ν and BC values
+    shared, or one a member; `bc3d` in place, seen in the batched field)."""
+    from waterlily_tpu_torch.kernels.check import compare_stencil_members
+    rows = compare_stencil_members(name, S, M, shared, 1, device)
+    bad = [r for r in rows if not r["ok"]]
+    assert not bad, bad
+    assert all(r["single_err"] == 0 and r["launches"] == 1 for r in rows)
+
+
+@pytest.mark.parametrize("S", MARCH_RAGGED)
+@pytest.mark.parametrize("name", ["mult3d", "cfl3d"])
+def test_march_members_ragged(name, S, device):
+    """The marches' member forms where column tiles and axis-0 chunks are
+    cut raggedly and where axis 0 has one or two interior planes: every
+    member's chunks and sums are its own launch's (3 members, an operator
+    a member)."""
+    from waterlily_tpu_torch.kernels.check import compare_stencil_members
+    rows = compare_stencil_members(name, S, 3, False, 1, device)
+    bad = [r for r in rows if not r["ok"] or r["single_err"] != 0]
+    assert not bad, bad
+
+
+@pytest.mark.parametrize("name", ["mult3d", "bc3d", "conv_diff3d"])
+def test_stencil_members_nested_vmap(name, device):
+    """`vmap` of `vmap` (2 × 3 members) through a stencil wrapper: the
+    rules fold both levels into one member axis and the kernel launches
+    once for all six, each member equal to its own launch (`bc3d` filled
+    in place in the batched field)."""
+    from waterlily_tpu_torch.kernels.check import (
+        stencil_member_inputs, stencil_member_variants, member_args)
+    from waterlily_tpu_torch.ops import stencil_kernels as sk
+    d = stencil_member_inputs(FINE, 6, False, 1, device)
+    outputs, fn, _plain, args, dims = stencil_member_variants(name, d)[0]
+    grid = lambda a, dd: (a.reshape((2, 3) + tuple(a.shape[1:]))
+                          if dd == 0 else a)
+    nested = [grid(a, dd) for a, dd in zip(member_args(args), dims)]
+    wrapper = sk.kernel_wrappers()[name]
+    n = wrapper.launches
+    out = torch.func.vmap(torch.func.vmap(fn, in_dims=dims),
+                          in_dims=dims)(*nested)
+    assert wrapper.launches - n == 1
+    out = out if isinstance(out, tuple) else (out,)
+    own_args = member_args(args)
+    for m in range(6):
+        own = fn(*[a[m] if dd == 0 else a for a, dd in zip(own_args, dims)])
+        own = own if isinstance(own, tuple) else (own,)
+        for got, want in zip(out, own):
+            assert torch.equal(got[m // 3, m % 3], want), (name, m)
+        if name == "bc3d":
+            assert torch.equal(nested[0][m // 3, m % 3], own[0])

@@ -71,21 +71,42 @@ def _shadows(lev, device) -> dict:
     return {"op_bf16": True, **{k: _t(lev[k], device) for k in SHADOWS}}
 
 
-def levels_from_numpy(levels: list, device, perdir: tuple = ()) -> tuple:
+def levels_from_numpy(levels: list, device, perdir: tuple = (),
+                      members: bool = False) -> tuple:
     """Poisson levels from numpy arrays of each JAX level's ``L``, ``D``
     and ``iD``, its operator shadows ``L16``, ``D16``, ``iD16`` where given
     (bit for bit; a level given none gets none), and its ``banded``, ``c``,
     ``box_shape``, ``box_start`` and ``bf16_eps`` where given (the shadows
     and ``bf16_eps`` take effect on the levels the port's kernel gate makes
-    blocked).  JAX's batched stack (``jax.vmap`` of ``build_levels``)
-    keeps its leading member axis: the levels' tensors carry it into
-    `torch.func.vmap` through `ops.poisson.level_tensors`, as does every
-    field of `flow_from_numpy`."""
-    return tuple(
-        make_level(_t(lev["L"], device), perdir, Dd=_t(lev["D"], device),
-                   iD=_t(lev["iD"], device), **_shadows(lev, device),
-                   **{k: lev[k] for k in LEVEL_EXTRAS if k in lev})
-        for lev in levels)
+    blocked).
+
+    With ``members`` the arrays carry JAX's batched stack's leading member
+    axis (``jax.vmap`` of ``build_levels``): each level's flags (blocked,
+    bf16 directions, shadows) are those `make_level` gives one member's
+    arrays, its tensors keep the member axis for `torch.func.vmap` (through
+    `ops.poisson.level_tensors`, as every field of `flow_from_numpy`), and
+    where the flags want shadows that JAX did not give, each member gets
+    its own (`ops.poisson.operator_shadows`)."""
+    from .ops.poisson import operator_shadows
+    out = []
+    for lev in levels:
+        one = {k: (v[0] if members and k in ("L", "D", "iD") + SHADOWS
+                   and v is not None else v) for k, v in lev.items()}
+        level = make_level(_t(one["L"], device), perdir,
+                           Dd=_t(one["D"], device), iD=_t(one["iD"], device),
+                           **_shadows(one, device),
+                           **{k: one[k] for k in LEVEL_EXTRAS if k in one})
+        if members:
+            full = {"L": _t(lev["L"], device), "D": _t(lev["D"], device),
+                    "iD": _t(lev["iD"], device)}
+            if level.L16 is not None:
+                full.update({k: _t(lev[k], device) for k in SHADOWS}
+                            if lev.get("L16") is not None else
+                            zip(SHADOWS, torch.func.vmap(operator_shadows)(
+                                full["L"])))
+            level = dataclasses.replace(level, **full)
+        out.append(level)
+    return tuple(out)
 
 
 def flow_to(state: FlowState, device) -> FlowState:

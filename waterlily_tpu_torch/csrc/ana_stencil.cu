@@ -84,8 +84,8 @@ ana_kernel(const float* __restrict__ x, float* __restrict__ z,
     }
   }
   if (DOT)
-    march_finish<SumOp>(block_reduce<SumOp>(dot, 0.f, sh), 0.f, partial,
-                        count, out, sh);
+    march_finish<SumOp>(col, block_reduce<SumOp>(dot, 0.f, sh), 0.f,
+                        partial, count, out, sh);
 }
 
 // partial, count, out: NULL for z alone; else one float a block of the

@@ -65,6 +65,12 @@
 // against 1168 before: the parameters' layout, not the code.
 //
 // Indices are 32-bit: the wrapper admits fields of fewer than 2^31 values.
+//
+// Members (an ensemble under torch.func.vmap, `bc3d`'s member form):
+// blockIdx.y is the member, u holds the members' fields one after another
+// (each filled in place) and a device array A one (3,) vector a member, at
+// member stride sA (0: one for all); numbers passed with the launch are
+// every member's.
 #include "common.cuh"
 
 struct BcShape {
@@ -266,27 +272,31 @@ __device__ inline void bc_strip(float* u, const BcValues& A,
 // launch reads and writes u.
 template <int PER, int EXIT, class F>
 __global__ void bc_kernel(float* u, BcValues A, BcShape g, BcTiles tiles,
-                          F fc) {
-  bc_strip<PER, EXIT>(u, A, g, tiles, fc);
+                          F fc, int sA) {
+  const int m = blockIdx.y;
+  if (A.ptr) A.ptr += m * sA;
+  bc_strip<PER, EXIT>(u + (long long)m * 3 * g.N, A, g, tiles, fc);
 }
 
 #define WL_BC_FORM(F)                                                    \
   case F:                                                                \
-    bc_kernel<((F) & 7), ((F) >> 3)>                                     \
-        <<<tiles.first[3 * BC_STRIPS], blk, 0, s>>>(u, Av, g, tiles,     \
-                                                    AllFaces());         \
+    bc_kernel<((F) & 7), ((F) >> 3)><<<grid, blk, 0, s>>>(               \
+        u, Av, g, tiles, AllFaces(), sA);                                \
     break;
 
 // Fill u's ghost faces and Dirichlet planes in place.  A: the (3,) device
 // array of the Dirichlet values, or null and the values A0, A1, A2.
-// G0..G2: the global sizes, B0..B2: the global index of cell 0 (the whole
-// grid: G = S, B = 0; a periodic form takes only the whole grid).
+// members: u holds that many fields one after another (one field: 1),
+// member m's values at A + m sA (sA 3, or 0: shared).  G0..G2: the global
+// sizes, B0..B2: the global index of cell 0 (the whole grid: G = S, B = 0;
+// a periodic form takes only the whole grid).
 extern "C" int wl_bc3d(float* u, const float* A, float A0, float A1, float A2,
-                       int periodic, int save_exit, int S0, int S1, int S2,
-                       int G0, int G1, int G2, int B0, int B1, int B2,
-                       void* stream) {
+                       int periodic, int save_exit, int members, int sA,
+                       int S0, int S1, int S2, int G0, int G1, int G2,
+                       int B0, int B1, int B2, void* stream) {
   const BcValues Av = {A, {A0, A1, A2}};
-  if ((long long)S0 * S1 * S2 * 3 >= (1LL << 31))
+  if ((long long)S0 * S1 * S2 * 3 >= (1LL << 31) || members < 1 ||
+      members > 65535)
     return (int)cudaErrorInvalidValue;
   BcShape g;
   g.S[0] = S0; g.S[1] = S1; g.S[2] = S2;
@@ -308,16 +318,16 @@ extern "C" int wl_bc3d(float* u, const float* A, float A0, float A1, float A2,
     if (periodic) return (int)cudaErrorInvalidValue;
     const BcTiles tiles = bc_tiles(0, g, fc);
     if (tiles.first[3 * BC_STRIPS] == 0) return (int)cudaSuccess;
+    const dim3 grid(tiles.first[3 * BC_STRIPS], members);
     if (save_exit)
-      bc_kernel<0, 1><<<tiles.first[3 * BC_STRIPS], blk, 0, s>>>(
-          u, Av, g, tiles, fc);
+      bc_kernel<0, 1><<<grid, blk, 0, s>>>(u, Av, g, tiles, fc, sA);
     else
-      bc_kernel<0, 0><<<tiles.first[3 * BC_STRIPS], blk, 0, s>>>(
-          u, Av, g, tiles, fc);
+      bc_kernel<0, 0><<<grid, blk, 0, s>>>(u, Av, g, tiles, fc, sA);
     return (int)cudaGetLastError();
   }
   const BcTiles tiles = bc_tiles(periodic, g, AllFaces());
   if (tiles.first[3 * BC_STRIPS] == 0) return (int)cudaSuccess;
+  const dim3 grid(tiles.first[3 * BC_STRIPS], members);
   switch (periodic | (save_exit ? 8 : 0)) {
     WL_BC_FORM(0) WL_BC_FORM(1) WL_BC_FORM(2) WL_BC_FORM(3)
     WL_BC_FORM(4) WL_BC_FORM(5) WL_BC_FORM(6) WL_BC_FORM(7)

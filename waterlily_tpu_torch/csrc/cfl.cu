@@ -19,14 +19,20 @@
 // exactly; the per-cell sum keeps waterlily_tpu.flow.cfl's association
 // s = t0; s += t1; s += t2, and every max is PTX max.NaN (a NaN anywhere
 // in the interior sums comes out, as in torch.max).
+// Members (an ensemble under torch.func.vmap, `cfl3d`'s member form): one
+// launch marches every member's field with a one-member launch's chunks
+// and gives each member its own max (march.cuh), equal to its own launch.
 #include "march.cuh"
 
+// MB: the member-axis instance (march.cuh).
+template <bool MB>
 __global__ void __launch_bounds__(MARCH_THREADS)
 cfl_kernel(const float* __restrict__ u, float* partial, unsigned int* count,
-           float* out, int S0, int S1, int S2, int planes) {
+           float* out, int S0, int S1, int S2, int planes, long long su) {
   __shared__ float sh[MARCH_THREADS / 32];
-  const Column c = march_column(S0, S1, S2, planes);
+  const Column c = march_column<MB>(S0, S1, S2, planes);
   const int P = S1 * S2, N = S0 * P;
+  if (MB) u += c.m * su;
   const float* __restrict__ u0 = u;
   const float* __restrict__ u1 = u + N;
   const float* __restrict__ u2 = u + 2 * N;
@@ -44,20 +50,29 @@ cfl_kernel(const float* __restrict__ u, float* partial, unsigned int* count,
       a0 = n0;
     }
   }
-  march_finish<MaxOp>(block_reduce<MaxOp>(m, 0.f, sh), 0.f, partial, count,
-                      out, sh);
+  march_finish<MaxOp>(c, block_reduce<MaxOp>(m, 0.f, sh), 0.f, partial,
+                      count, out, sh);
 }
 
-// partial: one float a block of the grid (`march_grid`); count: a zeroed
-// counter (left zeroed); out: the max.  Calls that share a counter run on
+// partial: one float a block of a member's grid (`march_grid`), member
+// after member; count: a zeroed counter a member (left zeroed); out: the
+// max of each member.  members: the fields at u, u + su, u + 2 su, ...
+// (one field and one max: members 1).  Calls that share a counter run on
 // one stream.
 extern "C" int wl_cfl3d(const float* u, float* partial, unsigned int* count,
-                        float* out, int planes, int S0, int S1, int S2,
-                        void* stream) {
-  if (!march_shape_ok(S0, S1, S2, planes)) return (int)cudaErrorInvalidValue;
-  cfl_kernel<<<march_grid(S0, S1, S2, planes), dim3(MARCH_TK, MARCH_TJ), 0,
-               (cudaStream_t)stream>>>(u, partial, count, out, S0, S1, S2,
-                                       planes);
+                        float* out, int planes, int members, long long su,
+                        int S0, int S1, int S2, void* stream) {
+  if (!march_shape_ok(S0, S1, S2, planes, members))
+    return (int)cudaErrorInvalidValue;
+  const dim3 grid = march_grid(S0, S1, S2, planes, members);
+  const dim3 block(MARCH_TK, MARCH_TJ);
+  const cudaStream_t s = (cudaStream_t)stream;
+  if (members > 1)
+    cfl_kernel<true><<<grid, block, 0, s>>>(u, partial, count, out, S0, S1,
+                                            S2, planes, su);
+  else
+    cfl_kernel<false><<<grid, block, 0, s>>>(u, partial, count, out, S0, S1,
+                                             S2, planes, su);
   return (int)cudaGetLastError();
 }
 

@@ -72,6 +72,18 @@
 // the QUICK division stays a true division, min/max propagate NaN, and the
 // build has no multiply-add contraction (--fmad=false).
 //
+// Members (an ensemble under torch.func.vmap, `conv_diff3d`'s member
+// form): the grid's z axis runs over each member's chunks in turn
+// (blockIdx.z = member * chunks + chunk), each member with a one-member
+// launch's chunks; u and r hold the members' fields one after another (u
+// at member stride su, 0 for one field every member shares), and nu is a
+// number every member shares or, from a device array, one a member (nu_dev
+// at stride snu).  Every member's r is its own launch's, bit for bit.  It
+// is an instance of its own (MB, whole grid only): the one-field instance
+// reads nu from the launch and its pointers as passed (offsetting them and
+// reading nu from memory in the one-field kernel spilled 3 of its
+// instances and cost it 6% at 258^3 on an H100 80GB HBM3, 700 W).
+//
 // The kernel template, shared by the built-in limiters' entry point
 // (conv_diff.cu) and the generated source of each user-defined limiter
 // (waterlily_tpu_torch/kernels/limiter.py).
@@ -235,17 +247,27 @@ __device__ __forceinline__ void axis0_faces(
                           gsize<FORM, 0>(g));
 }
 
-template <class L, int PER, int FORM>
+template <class L, int PER, int FORM, bool MB>
 __global__ void __launch_bounds__(CV_THREADS, CV_MIN_BLOCKS)
-conv_kernel(const float* __restrict__ u, float* __restrict__ r, float nu,
-            Grid g, int rows) {
+conv_kernel(const float* __restrict__ u, float* __restrict__ r,
+            float nu_host, const float* __restrict__ nu_dev, long long snu,
+            long long su, Grid g, int rows) {
   __shared__ Plane tile[2][3];                  // planes i and i+1
   __shared__ float f1[3][CV_TJ + 1][CV_TK];     // axis-1 lower-face fluxes
   __shared__ float f2[3][CV_TJ][CV_TK + 1];     // axis-2 lower-face fluxes
   const int tj = threadIdx.y, tk = threadIdx.x, t = tj * CV_TK + tk;
   const int j0 = blockIdx.y * CV_TJ, k0 = blockIdx.x * CV_TK;
   const int j = j0 + tj, k = k0 + tk;
-  const int i0 = blockIdx.z * rows;
+  int i0 = (int)blockIdx.z * rows;
+  float nu = nu_host;
+  if (MB) {
+    const int chunks = (g.S0 + rows - 1) / rows;
+    const int m = (int)blockIdx.z / chunks;
+    i0 = ((int)blockIdx.z - m * chunks) * rows;
+    u += m * su;
+    r += (long long)m * 3 * g.N;
+    if (nu_dev) nu = nu_dev[m * snu];
+  }
   const int i1 = min(i0 + rows, g.S0);
   const bool in = j < g.S1 && k < g.S2;
   const int col = j * g.S2 + k;
@@ -380,20 +402,24 @@ static int conv_rows(int S0, int S1, int S2) {
   return (S0 + chunks - 1) / chunks;
 }
 
-#define WL_CONV_FORM(P)                                                  \
+#define WL_CONV_FORM(P, MB)                                              \
   case P:                                                                \
-    conv_kernel<L, (P) & 7, ((P) >> 3)>                                  \
-        <<<grid, dim3(CV_TK, CV_TJ), 0, s>>>(u, r, nu, g, rows);         \
+    conv_kernel<L, (P) & 7, ((P) >> 3), MB>                              \
+        <<<grid, dim3(CV_TK, CV_TJ), 0, s>>>(u, r, nu, nu_dev, snu, su,  \
+                                             g, rows);                   \
     break;
 
 // Launches the kernel with limiter L on the periodic-axes mask ``periodic``
 // (bit a: axis a periodic), in the modular form where ``modular`` (and an
 // axis is periodic), on an array of shape S that sits at global index B of
-// a grid of sizes G (the whole grid: G = S, B = 0); returns a cudaError_t.
+// a grid of sizes G (the whole grid: G = S, B = 0), for ``members`` members
+// (one field: 1; u at member stride su, nu from nu_dev at stride snu where
+// nu_dev is not null); returns a cudaError_t.
 template <class L>
-int launch_conv(const float* u, float* r, float nu, int periodic, int modular,
-                int S0, int S1, int S2, int G0, int G1, int G2, int B0,
-                int B1, int B2, void* stream) {
+int launch_conv(const float* u, float* r, float nu, const float* nu_dev,
+                long long snu, int members, long long su, int periodic,
+                int modular, int S0, int S1, int S2, int G0, int G1, int G2,
+                int B0, int B1, int B2, void* stream) {
   // 32-bit indexing: the three components must stay below 2^31 cells
   if ((long long)3 * S0 * S1 * S2 >= (1LL << 31))
     return (int)cudaErrorInvalidValue;
@@ -401,19 +427,35 @@ int launch_conv(const float* u, float* r, float nu, int periodic, int modular,
                   B0, B1, B2, G0, G1, G2};
   const cudaStream_t s = (cudaStream_t)stream;
   const int rows = conv_rows(g.S0, g.S1, g.S2);
+  const int chunks = (g.S0 + rows - 1) / rows;
+  if (members < 1 || (long long)members * chunks > 65535)
+    return (int)cudaErrorInvalidValue;
   const dim3 grid((g.S2 + CV_TK - 1) / CV_TK, (g.S1 + CV_TJ - 1) / CV_TJ,
-                  (g.S0 + rows - 1) / rows);
+                  members * chunks);
   // FORM: 0 the whole grid, 1 a shard's block with walls, 2 with periodic
   // axes (modular; a shard-local periodic call must be modular)
   const bool whole = B0 == 0 && B1 == 0 && B2 == 0 && G0 == S0 &&
                      G1 == S1 && G2 == S2 && !modular;
   const int form = whole ? 0 : periodic ? 2 : 1;
   if (form == 2 && !modular) return (int)cudaErrorInvalidValue;
+  if (members > 1 || nu_dev) {   // the member-axis instance: whole grid
+    if (form != 0) return (int)cudaErrorInvalidValue;
+    switch (periodic) {
+      WL_CONV_FORM(0, true) WL_CONV_FORM(1, true) WL_CONV_FORM(2, true)
+      WL_CONV_FORM(3, true) WL_CONV_FORM(4, true) WL_CONV_FORM(5, true)
+      WL_CONV_FORM(6, true) WL_CONV_FORM(7, true)
+      default:
+        return (int)cudaErrorInvalidValue;
+    }
+    return (int)cudaGetLastError();
+  }
   switch (periodic | form << 3) {
-    WL_CONV_FORM(0) WL_CONV_FORM(1) WL_CONV_FORM(2) WL_CONV_FORM(3)
-    WL_CONV_FORM(4) WL_CONV_FORM(5) WL_CONV_FORM(6) WL_CONV_FORM(7)
-    WL_CONV_FORM(8) WL_CONV_FORM(17) WL_CONV_FORM(18) WL_CONV_FORM(19)
-    WL_CONV_FORM(20) WL_CONV_FORM(21) WL_CONV_FORM(22) WL_CONV_FORM(23)
+    WL_CONV_FORM(0, false) WL_CONV_FORM(1, false) WL_CONV_FORM(2, false)
+    WL_CONV_FORM(3, false) WL_CONV_FORM(4, false) WL_CONV_FORM(5, false)
+    WL_CONV_FORM(6, false) WL_CONV_FORM(7, false) WL_CONV_FORM(8, false)
+    WL_CONV_FORM(17, false) WL_CONV_FORM(18, false) WL_CONV_FORM(19, false)
+    WL_CONV_FORM(20, false) WL_CONV_FORM(21, false) WL_CONV_FORM(22, false)
+    WL_CONV_FORM(23, false)
     default:
       return (int)cudaErrorInvalidValue;
   }

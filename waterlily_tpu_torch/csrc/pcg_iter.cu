@@ -164,7 +164,7 @@ dir_mult_kernel(const TC* __restrict__ L, const float* __restrict__ Dd,
     march_ghosts(at, jl, jh, kl, kh, S2, ghost);
   }
   block_reduce_n<SumOp, 2>(sums, 0.f, sh);
-  march_finish_n<SumOp, 2>(sums, 0.f, partial, count, out, sh);
+  march_finish_n<SumOp, 2>(col, sums, 0.f, partial, count, out, sh);
 }
 
 // ep_bf16: eps_prev is bf16; out_bf16: eps is written (and rounded) in bf16;

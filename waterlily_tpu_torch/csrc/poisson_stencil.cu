@@ -26,16 +26,32 @@
 // taps of a warp along axes 1 and 2 and the L[+] reads hit lines the
 // neighbouring warps already brought into L1/L2.  Ghost cells take r as it
 // is, by a branch (no multiply by a mask), and never read neighbours.
+// Members (an ensemble under torch.func.vmap, `increment3d`'s member form):
+// blockIdx.y is the member; r_out holds the members' fields one after
+// another, and each input sits at its own member stride (0 for one every
+// member shares: an operator, or a field not batched).
 #include "common.cuh"
 
-template <typename TL, typename T>
+// MB: the member-axis instance (its pointers offset by the member; the
+// one-field instance leaves them in the constant bank).
+template <typename TL, typename T, bool MB>
 __global__ void rsub_kernel(const TL* __restrict__ L,
                             const float* __restrict__ Dd,
                             const T* __restrict__ eps,
                             const float* __restrict__ r,
-                            float* __restrict__ r_out, Shape3 g) {
+                            float* __restrict__ r_out, Shape3 g,
+                            long long sL, long long sD, long long se,
+                            long long sr) {
   const long long c = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   if (c >= g.N) return;
+  if (MB) {
+    const long long m = blockIdx.y;
+    L += m * sL;
+    Dd += m * sD;
+    eps += m * se;
+    r += m * sr;
+    r_out += m * g.N;
+  }
   int idx[3];
   unflatten(g, c, idx);
   const float ae = is_interior(g, idx) ? ax_cell(L, Dd, eps, g, c) : 0.f;
@@ -48,15 +64,28 @@ extern "C" const char* wl_error_string(int code) {
   return cudaGetErrorString((cudaError_t)code);
 }
 
-// L_bf16: L is bf16 (else f32); eps_bf16: eps is bf16 (else f32)
+// L_bf16: L is bf16 (else f32); eps_bf16: eps is bf16 (else f32).
+// members: r_out holds that many fields one after another (one field: 1);
+// member m reads L + m sL, Dd + m sD, eps + m se and r + m sr (elements;
+// 0: shared).
 extern "C" int wl_increment3d(const void* L, const float* Dd, const void* eps,
                               const float* r, float* r_out, int L_bf16,
-                              int eps_bf16, int S0, int S1, int S2,
-                              void* stream) {
+                              int eps_bf16, int members, long long sL,
+                              long long sD, long long se, long long sr,
+                              int S0, int S1, int S2, void* stream) {
   const Shape3 g = make_shape(S0, S1, S2);
+  if (members < 1 || members > 65535) return (int)cudaErrorInvalidValue;
+  const dim3 grid(blocks_for(g.N), members);
+  const cudaStream_t s = (cudaStream_t)stream;
   dispatch_bf16(L_bf16, eps_bf16, [&](auto tl, auto te) {
-    rsub_kernel<<<blocks_for(g.N), WL_THREADS, 0, (cudaStream_t)stream>>>(
-        (const TAG_T(tl)*)L, Dd, (const TAG_T(te)*)eps, r, r_out, g);
+    using TL = TAG_T(tl);
+    using TE = TAG_T(te);
+    if (members > 1)
+      rsub_kernel<TL, TE, true><<<grid, WL_THREADS, 0, s>>>(
+          (const TL*)L, Dd, (const TE*)eps, r, r_out, g, sL, sD, se, sr);
+    else
+      rsub_kernel<TL, TE, false><<<grid, WL_THREADS, 0, s>>>(
+          (const TL*)L, Dd, (const TE*)eps, r, r_out, g, sL, sD, se, sr);
   });
   return (int)cudaGetLastError();
 }

@@ -19,6 +19,10 @@
 // would synchronise every call).  Ghost cells take the pass-through branch
 // and read no neighbour.  Associations follow waterlily_tpu.flow.div
 // ((t0 + t1) + t2) and the projection's u - L*(x - x[-d]).
+// Members (an ensemble under torch.func.vmap, the member forms of `div3d`
+// and `project3d`, whole grid): blockIdx.y is the member; the outputs hold
+// the members' fields one after another, each input (dt too) sits at its
+// own member stride, 0 for one every member shares.
 #include "common.cuh"
 
 // The global grid of a shard-local call (B = 0, G = S: the whole grid).
@@ -40,9 +44,16 @@ __device__ inline bool global_interior(const Glob& q, const int idx[3]) {
 __global__ void div_kernel(const float* __restrict__ u,
                            const float* __restrict__ p,
                            const float* __restrict__ dt, float* __restrict__ z,
-                           float* __restrict__ x, Shape3 g, Glob q) {
+                           float* __restrict__ x, Shape3 g, Glob q,
+                           long long su, long long sp, long long sdt) {
   const long long c = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   if (c >= g.N) return;
+  const long long m = blockIdx.y;
+  u += m * su;
+  p += m * sp;
+  dt += m * sdt;
+  z += m * g.N;
+  x += m * g.N;
   int idx[3];
   unflatten(g, c, idx);
   float v = 0.f;
@@ -62,9 +73,18 @@ __global__ void project_kernel(const float* __restrict__ L,
                                const float* __restrict__ u,
                                const float* __restrict__ dt,
                                float* __restrict__ u_out,
-                               float* __restrict__ p, Shape3 g, Glob q) {
+                               float* __restrict__ p, Shape3 g, Glob q,
+                               long long sL, long long sx, long long su,
+                               long long sdt) {
   const long long c = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   if (c >= g.N) return;
+  const long long m = blockIdx.y;
+  L += m * sL;
+  x += m * sx;
+  u += m * su;
+  dt += m * sdt;
+  u_out += m * 3 * g.N;
+  p += m * g.N;
   int idx[3];
   unflatten(g, c, idx);
   const float xc = x[c];
@@ -76,26 +96,34 @@ __global__ void project_kernel(const float* __restrict__ L,
   p[c] = xc / dt[0];
 }
 
-// G0..G2: the global sizes, B0..B2: the global index of cell 0 (the whole
-// grid: G = S, B = 0).
+// members: the outputs hold that many fields one after another (one
+// field: 1); member m reads each input at m times its stride (elements; 0:
+// shared).  G0..G2: the global sizes, B0..B2: the global index of cell 0
+// (the whole grid: G = S, B = 0).
 extern "C" int wl_div3d(const float* u, const float* p, const float* dt,
-                        float* z, float* x, int S0, int S1, int S2, int G0,
-                        int G1, int G2, int B0, int B1, int B2,
+                        float* z, float* x, int members, long long su,
+                        long long sp, long long sdt, int S0, int S1, int S2,
+                        int G0, int G1, int G2, int B0, int B1, int B2,
                         void* stream) {
   const Shape3 g = make_shape(S0, S1, S2);
   const Glob q = {{B0, B1, B2}, {G0, G1, G2}};
-  div_kernel<<<blocks_for(g.N), WL_THREADS, 0, (cudaStream_t)stream>>>(
-      u, p, dt, z, x, g, q);
+  if (members < 1 || members > 65535) return (int)cudaErrorInvalidValue;
+  div_kernel<<<dim3(blocks_for(g.N), members), WL_THREADS, 0,
+               (cudaStream_t)stream>>>(u, p, dt, z, x, g, q, su, sp, sdt);
   return (int)cudaGetLastError();
 }
 
 extern "C" int wl_project3d(const float* L, const float* x, const float* u,
-                            const float* dt, float* u_out, float* p, int S0,
-                            int S1, int S2, int G0, int G1, int G2, int B0,
-                            int B1, int B2, void* stream) {
+                            const float* dt, float* u_out, float* p,
+                            int members, long long sL, long long sx,
+                            long long su, long long sdt, int S0, int S1,
+                            int S2, int G0, int G1, int G2, int B0, int B1,
+                            int B2, void* stream) {
   const Shape3 g = make_shape(S0, S1, S2);
   const Glob q = {{B0, B1, B2}, {G0, G1, G2}};
-  project_kernel<<<blocks_for(g.N), WL_THREADS, 0, (cudaStream_t)stream>>>(
-      L, x, u, dt, u_out, p, g, q);
+  if (members < 1 || members > 65535) return (int)cudaErrorInvalidValue;
+  project_kernel<<<dim3(blocks_for(g.N), members), WL_THREADS, 0,
+                   (cudaStream_t)stream>>>(L, x, u, dt, u_out, p, g, q, sL,
+                                           sx, su, sdt);
   return (int)cudaGetLastError();
 }

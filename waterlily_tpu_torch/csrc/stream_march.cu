@@ -51,19 +51,31 @@
 // slower.
 // Exactness: the association of `ax_cell_at` (common.cuh); built with
 // --fmad=false z equals the plain version bit for bit.
+// Members (an ensemble under torch.func.vmap, `mult3d`'s member form): one
+// launch marches every member's x (and L, D where each member has its own:
+// a member stride of 0 shares one operator) with a one-member launch's
+// chunks, writes each member's z and gives each member its own dot in a
+// one-member launch's order (march.cuh): bit for bit its own launch.
 #include "march.cuh"
 
 // TL: L's type, TX: x's.  DOT: reduce <z, x> into out (partial: one float
-// a block, count: the zeroed counter).
-template <typename TL, typename TX, bool DOT>
+// a block, count: the zeroed counter).  MB: the member-axis instance.
+template <typename TL, typename TX, bool DOT, bool MB>
 __global__ void __launch_bounds__(MARCH_THREADS)
 stream_mult_kernel(const TL* __restrict__ L, const float* __restrict__ Dd,
                    const TX* __restrict__ x, float* __restrict__ z,
                    float* partial, unsigned int* count, float* out, int S0,
-                   int S1, int S2, int planes) {
+                   int S1, int S2, int planes, long long sL, long long sD,
+                   long long sx) {
   __shared__ float sh[MARCH_THREADS / 32];
-  const Column col = march_column(S0, S1, S2, planes);
+  const Column col = march_column<MB>(S0, S1, S2, planes);
   const int P = S1 * S2, N = S0 * P;
+  if (MB) {
+    L += col.m * sL;
+    Dd += col.m * sD;
+    x += col.m * sx;
+    z += (long long)col.m * N;
+  }
   const TL* __restrict__ L0 = L;
   const TL* __restrict__ L1 = L + N;
   const TL* __restrict__ L2 = L + 2 * N;
@@ -121,51 +133,66 @@ stream_mult_kernel(const TL* __restrict__ L, const float* __restrict__ Dd,
     march_ghosts(at, jl, jh, kl, kh, S2, zero);
   }
   if (DOT)
-    march_finish<SumOp>(block_reduce<SumOp>(dot, 0.f, sh), 0.f, partial,
-                        count, out, sh);
+    march_finish<SumOp>(col, block_reduce<SumOp>(dot, 0.f, sh), 0.f,
+                        partial, count, out, sh);
 }
 
 // Calls f with the kernel instance for L's and x's types (bf16 where
-// L_bf16 / x_bf16, else f32), with the dot or without.
+// L_bf16 / x_bf16, else f32), with the dot or without, with the member
+// axis (mb) or without.
 template <typename F>
-static void with_stream_mult(int L_bf16, int x_bf16, bool dot, F f) {
+static void with_stream_mult(int L_bf16, int x_bf16, bool dot, bool mb,
+                             F f) {
   dispatch_bf16(L_bf16, x_bf16, [&](auto tl, auto tx) {
-    if (dot)
-      f(tl, tx, stream_mult_kernel<TAG_T(tl), TAG_T(tx), true>);
-    else
-      f(tl, tx, stream_mult_kernel<TAG_T(tl), TAG_T(tx), false>);
+    using TL = TAG_T(tl);
+    using TX = TAG_T(tx);
+    if (mb) {
+      if (dot)
+        f(tl, tx, stream_mult_kernel<TL, TX, true, true>);
+      else
+        f(tl, tx, stream_mult_kernel<TL, TX, false, true>);
+    } else if (dot) {
+      f(tl, tx, stream_mult_kernel<TL, TX, true, false>);
+    } else {
+      f(tl, tx, stream_mult_kernel<TL, TX, false, false>);
+    }
   });
 }
 
 // z = A x.  partial, count, out: NULL for z alone; else one float a block
-// of the grid (`march_grid`), a zeroed counter (left zeroed) and the dot.
-// L_bf16 / x_bf16: L / x are bf16 (else f32).  Calls that share a counter
-// run on one stream.
+// of a member's grid (`march_grid`), member after member, a zeroed counter
+// a member (left zeroed) and each member's dot.  L_bf16 / x_bf16: L / x are
+// bf16 (else f32).  members: z holds that many fields one after another;
+// member m reads L + m sL, Dd + m sD, x + m sx (elements; 0: shared; one
+// field: members 1).  Calls that share a counter run on one stream.
 extern "C" int wl_mult3d_stream(const void* L, const float* Dd, const void* x,
                                 float* z, float* partial, unsigned int* count,
-                                float* out, int L_bf16, int x_bf16,
-                                int planes, int S0, int S1, int S2,
-                                void* stream) {
-  if (!march_shape_ok(S0, S1, S2, planes)) return (int)cudaErrorInvalidValue;
-  const dim3 grid = march_grid(S0, S1, S2, planes);
+                                float* out, int members, long long sL,
+                                long long sD, long long sx, int L_bf16,
+                                int x_bf16, int planes, int S0, int S1,
+                                int S2, void* stream) {
+  if (!march_shape_ok(S0, S1, S2, planes, members))
+    return (int)cudaErrorInvalidValue;
+  const dim3 grid = march_grid(S0, S1, S2, planes, members);
   const dim3 block(MARCH_TK, MARCH_TJ);
   const cudaStream_t s = (cudaStream_t)stream;
-  with_stream_mult(L_bf16, x_bf16, partial != nullptr,
+  with_stream_mult(L_bf16, x_bf16, partial != nullptr, members > 1,
                    [&](auto tl, auto tx, auto kern) {
     kern<<<grid, block, 0, s>>>((const TAG_T(tl)*)L, Dd,
                                 (const TAG_T(tx)*)x, z, partial, count, out,
-                                S0, S1, S2, planes);
+                                S0, S1, S2, planes, sL, sD, sx);
   });
   return (int)cudaGetLastError();
 }
 
-// Blocks of the kernel instance (L's and x's types, with the dot or
-// without) the card holds at once: occupancy times the SMs.
+// Blocks of the one-field kernel instance (L's and x's types, with the dot
+// or without) the card holds at once: occupancy times the SMs (the chunk
+// rule of both instances, so that a member marches as its own launch).
 extern "C" int wl_stream_coresident(int L_bf16, int x_bf16, int dot) {
   int dev = 0, sms = 0, per_sm = 0;
   cudaGetDevice(&dev);
   cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  with_stream_mult(L_bf16, x_bf16, dot, [&](auto, auto, auto kern) {
+  with_stream_mult(L_bf16, x_bf16, dot, false, [&](auto, auto, auto kern) {
     cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kern,
                                                   MARCH_THREADS, 0);
   });

@@ -160,8 +160,8 @@ def project(levels, u, p, dt_eff, cfg: FlowConfig):
     the unfused divergence and correction around it, as JAX does."""
     lev = levels[0]
     fused = (not lev.banded and not cfg.implicit_diff
-             and sk.kernel_ok(tuple(p.shape), p.dtype, p.device, u, p,
-                              dt_eff, lev.L))
+             and sk.members_ok(tuple(p.shape), p.dtype, p.device, u, p,
+                               dt_eff, lev.L))
     if fused:
         z, x = sk.div3d(u, p, dt_eff)
     else:
@@ -199,7 +199,7 @@ def cfl(u, nu, dt_max=10.0):
     ``u`` that autograd tracks takes `cfl_flux_max` (the max's
     subgradient, as JAX's)."""
     S = tuple(u.shape[1:])
-    if u.shape[0] == 3 and sk.kernel_ok(S, u.dtype, u.device, u):
+    if u.shape[0] == 3 and sk.members_ok(S, u.dtype, u.device, u):
         mx = sk.cfl3d(u)
     else:
         mx = cfl_flux_max(u)
@@ -227,8 +227,12 @@ def mom_step(cfg: FlowConfig, levels, state: FlowState):
     banded = cfg.bbox_shape is not None
 
     def bc(u):
+        # in place on a field the step has just made, where autograd does
+        # not track it; under vmap alone where the BC values are every
+        # member's (a batched value cannot go into an unbatched field)
         return bc_vector(u, U, cfg.exitBC, cfg.perdir,
-                         inplace=not sk.ad_tracked(u))
+                         inplace=not sk.ad_tracked(u) or (
+                             sk.vmap_only(u) and not sk.vmapped(U)))
 
     # predictor u -> u'
     r = conv_diff(u0, cfg.nu, cfg.perdir, cfg.limiter)

@@ -49,8 +49,10 @@ _L = ctypes.c_longlong
 _S3 = [_I, _I, _I]
 # C signatures (argument types before the trailing stream pointer)
 SIGNATURES = {
-    "wl_increment3d": [_P] * 5 + [_I, _I] + _S3,
-    "wl_mult3d_stream": [_P] * 7 + [_I] * 3 + _S3,
+    # the member forms' kernels take the members and each operand's member
+    # stride (elements, c_longlong; 0: one operand every member shares)
+    "wl_increment3d": [_P] * 5 + [_I] * 3 + [_L] * 4 + _S3,
+    "wl_mult3d_stream": [_P] * 7 + [_I] + [_L] * 3 + [_I] * 3 + _S3,
     "wl_increment3d_stream": [_P] * 7 + [_I, _I, _I] + _S3,
     "wl_pcg_dir_mult": [_P] * 11 + [_F] + [_I] * 4 + _S3,
     "wl_pcg_update": [_P] * 11 + [_I, _I, _I] + _S3,
@@ -59,13 +61,13 @@ SIGNATURES = {
     "wl_copy_probe": [_P, _P, _F] + _S3,
     "wl_roll_probe": [_P, _P, _F] + _S3,
     "wl_ana_mult3d": [_P] * 5 + [_F, _I, _I] + _S3,
-    "wl_cfl3d": [_P] * 4 + [_I] + _S3,
+    "wl_cfl3d": [_P] * 4 + [_I, _I, _L] + _S3,
     # the shard-local forms' kernels also take the global sizes and the
     # global index of cell 0
-    "wl_bc3d": [_P, _P, _F, _F, _F, _I, _I] + _S3 * 3,
-    "wl_div3d": [_P, _P, _P, _P, _P] + _S3 * 3,
-    "wl_project3d": [_P, _P, _P, _P, _P, _P] + _S3 * 3,
-    "wl_conv_diff3d": [_P, _P, _F, _I, _I, _I] + _S3 * 3,
+    "wl_bc3d": [_P, _P, _F, _F, _F, _I, _I, _I, _I] + _S3 * 3,
+    "wl_div3d": [_P] * 5 + [_I] + [_L] * 3 + _S3 * 3,
+    "wl_project3d": [_P] * 6 + [_I] + [_L] * 4 + _S3 * 3,
+    "wl_conv_diff3d": [_P, _P, _F, _P, _L, _I, _L, _I, _I, _I] + _S3 * 3,
     "wl_pcg": [_P] * 6 + [_I] + _S3 + [_I] * 5 + [_L, _L],
     "wl_grid_sync_probe": [_I, _I],
 }

@@ -30,7 +30,11 @@ __all__ = ["KERNELS", "COMPOSITES", "TOLERANCE", "SOURCES", "LIBRARY",
            "time_pair", "time_library",
            "ulp_diff", "bound_ms", "bytes_moved", "HBM_BYTES_PER_S",
            "F32_FLOPS_PER_S", "member_inputs", "member_variants",
-           "compare_members", "member_bound_ms", "time_members"]
+           "compare_members", "member_bound_ms", "time_members",
+           "STENCIL_MEMBERS", "stencil_member_inputs",
+           "stencil_member_variants", "member_args",
+           "compare_stencil_members", "member_stencil_bound_ms",
+           "time_stencil_members"]
 
 # csrc file and the TPU kernel (file:line of its function) of each wrapper
 SOURCES = {
@@ -817,3 +821,190 @@ def time_members(S, members: int, device, n=20) -> dict:
     k2 = device_profile(kern, n, events=True)[0]
     p2 = device_profile(plain, n, events=True)[0]
     return {"ms": (k1 + k2) / 2, "plain_ms": (p1 + p2) / 2, "wall_ms": wall}
+
+
+# --- the seven stencils' member forms (a 3D ensemble under torch.func.vmap) --
+
+STENCIL_MEMBERS = ("mult3d", "increment3d", "cfl3d", "bc3d", "div3d",
+                   "project3d", "conv_diff3d")
+
+
+def stencil_member_inputs(S, members: int, shared: bool, seed, device):
+    """``members`` members' seeded fields at shape ``S`` (member m's those
+    of `inputs` of seed ``seed + m``), stacked on a leading member axis;
+    the operator (``L``, ``D`` and the shadows ``L16``, ``D16``), the time
+    step, ν and the BC values are member 0's for all where ``shared`` (the
+    step and ν a 0-d tensor and a number, the BC values numbers), one a
+    member otherwise (``(M,)`` and ``(M, 3)`` tensors)."""
+    ds = [inputs(S, seed + m, device) for m in range(members)]
+    st = lambda f: torch.stack([f(d) for d in ds]).contiguous()
+    op = lambda f: f(ds[0]) if shared else st(f)
+    f32 = dict(dtype=torch.float32, device=device)
+    return {
+        "M": members, "shared": shared,
+        "L": op(lambda d: d["lev"].L), "D": op(lambda d: d["lev"].D),
+        "L16": op(lambda d: d["L16"]), "D16": op(lambda d: d["D16"]),
+        **{k: st(lambda d, k=k: d[k]) for k in ("x", "eps", "eps16", "r",
+                                                "u", "p")},
+        "x16": st(lambda d: d["x"].to(torch.bfloat16)),
+        "dt": (ds[0]["dt"] if shared else
+               torch.tensor([0.37 + 0.01 * m for m in range(members)], **f32)),
+        "nu": (ds[0]["nu"] if shared else
+               torch.tensor([0.01 * (1 + m) for m in range(members)], **f32)),
+        "A": (ds[0]["A"] if shared else torch.tensor(
+            [[1.0 + 0.1 * m, 0.05 * m, -0.02 * m] for m in range(members)],
+            **f32)),
+    }
+
+
+def stencil_member_variants(name, d) -> list:
+    """``[(outputs, fn, plain, args, dims)]`` of stencil ``name``'s member
+    form on `stencil_member_inputs` ``d``: ``fn`` the wrapper and ``plain``
+    its plain version, both on one member's operands, ``args`` every
+    member's (an operand with a member axis where ``dims`` says 0, shared
+    where None), so that ``torch.func.vmap(fn, in_dims=dims)(*args)``
+    launches the member form.  The forms of `variants`: the operator with
+    and without the dot, f32 and bf16 L and x; the increment in f32, bf16
+    eps and L16; ``bc3d`` in place in all 16 periodic and outlet forms;
+    ``conv_diff3d`` with QUICK, van Leer and minmod, and QUICK on every
+    periodic mask."""
+    od = None if d["shared"] else 0     # the operator, dt, ν, A
+    if name == "mult3d":
+        return [(("z" + t, "dot" + t) if dot else ("z_nodot" + t,),
+                 lambda L, Dd, x, dot=dot: sk.mult3d(L, Dd, x, dot),
+                 lambda L, Dd, x, dot=dot: sk._mult3d_plain(L, Dd, x, dot),
+                 (d[Lk], d[Dk], d[xk]), (od, od, 0))
+                for t, Lk, Dk, xk in (("", "L", "D", "x"),
+                                      ("_L16", "L16", "D16", "x"),
+                                      ("_bf16", "L", "D", "x16"),
+                                      ("_L16_bf16", "L16", "D16", "x16"))
+                for dot in (True, False)]
+    if name == "increment3d":
+        return [(("x" + t, "r" + t), sk.increment3d, sk._increment3d_plain,
+                 (d[Lk], d[Dk], d[ek], d["x"], d["r"]), (od, od, 0, 0, 0))
+                for t, Lk, Dk, ek in (("", "L", "D", "eps"),
+                                      ("_bf16", "L", "D", "eps16"),
+                                      ("_L16", "L16", "D16", "eps"))]
+    if name == "cfl3d":
+        return [((), sk.cfl3d, sk._cfl3d_plain, (d["u"],), (0,))]
+    if name == "bc3d":
+        # in place on the members' own copy of u (each route fills a copy
+        # of its own, `member_args`); the fill is idempotent
+        def bc(perdir, save_exit):
+            def fill(fn):
+                return lambda u, A: fn(
+                    u, tuple(A) if isinstance(A, torch.Tensor) else A,
+                    save_exit, perdir, inplace=True)
+            return ((_tag(perdir, save_exit),), fill(sk.bc3d),
+                    fill(bc_vector_planes), (d["u"], d["A"]), (0, od))
+        return [bc(q, e) for q in BC_PERDIRS for e in (False, True)]
+    if name == "div3d":
+        return [(("z", "x"), sk.div3d, sk._div3d_plain,
+                 (d["u"], d["p"], d["dt"]), (0, 0, od))]
+    if name == "project3d":
+        return [(("u", "p"), sk.project3d, sk._project3d_plain,
+                 (d["L"], d["x"], d["u"], d["dt"]), (od, 0, 0, od))]
+    if name == "conv_diff3d":
+        def conv(lim, perdir=()):
+            return (("_".join(filter(None, (lim.__name__, _tag(perdir)))),),
+                    lambda u, nu: sk.conv_diff3d(u, nu, lim, perdir),
+                    lambda u, nu: sk._conv_diff3d_plain(u, nu, lim, perdir),
+                    (d["u"], d["nu"]), (0, od))
+        return ([conv(lim) for lim in CONV_LIMITERS]
+                + [conv(convect.quick, q) for q in CONV_PERDIRS])
+    raise KeyError(name)
+
+
+def member_args(args) -> list:
+    """Copies of a variant's ``args`` (tensors cloned), so that a route
+    that fills in place (``bc3d``) fills its own."""
+    return [a.clone() if isinstance(a, torch.Tensor) else a for a in args]
+
+
+def _outputs(out) -> tuple:
+    return out if isinstance(out, tuple) else (out,)
+
+
+def compare_stencil_members(name, S, members: int, shared: bool, seed,
+                            device) -> list[dict]:
+    """Stencil ``name``'s member form (``torch.func.vmap`` of its wrapper)
+    against ``vmap`` of its plain version, within the kernel's tolerance
+    (`TOLERANCE`), and against each member's own one-field call, exactly,
+    every form of `stencil_member_variants`; ``bc3d``'s fill also in the
+    batched field itself.  A row per form and output: max |d| to each,
+    the member form's launches (one a call on CUDA, none on the CPU) and
+    the verdict."""
+    d = stencil_member_inputs(S, members, shared, seed, device)
+    wrapper = sk.kernel_wrappers()[name]
+    cuda = torch.device(device).type == "cuda"
+    rows = []
+    for outputs, fn, plain, args, dims in stencil_member_variants(name, d):
+        kargs = member_args(args)
+        before = wrapper.launches
+        k_out = _outputs(torch.func.vmap(fn, in_dims=dims)(*kargs))
+        launches = wrapper.launches - before
+        p_out = _outputs(torch.func.vmap(plain, in_dims=dims)(
+            *member_args(args)))
+        sargs = member_args(args)
+        singles = [_outputs(fn(*[a[m] if dd == 0 else a
+                                 for a, dd in zip(sargs, dims)]))
+                   for m in range(members)]
+        if name == "bc3d":     # the batched field filled in place
+            outputs, k_out = outputs * 2, k_out + (kargs[0],)
+            p_out, singles = p_out * 2, [s * 2 for s in singles]
+        if cuda:
+            torch.cuda.synchronize(device)
+        for i, o in enumerate(outputs or ("",)):
+            key = ".".join(filter(None, (name, o)))
+            k, p = k_out[i].float(), p_out[i].float()
+            one = torch.stack([s[i] for s in singles]).float()
+            err = float(torch.max(torch.abs(k - p)))
+            kind, tol = TOLERANCE[key]
+            ok = (bool(torch.equal(k, p)) if kind == "exact"
+                  else err <= tol * float(torch.max(torch.abs(p)))
+                  if kind == "rel" else err <= tol)
+            own = bool(torch.equal(k, one))
+            rows.append({
+                "output": key + (" (members, in place)" if i >= 1
+                                 and name == "bc3d" else " (members)"),
+                "shape": tuple(S), "members": members, "shared": shared,
+                "max_abs_err": err,
+                "single_err": float(torch.max(torch.abs(k - one))),
+                "launches": launches,
+                "tolerance": kind if tol is None else f"{kind} {tol}",
+                "ok": (ok and own and launches == (1 if cuda else 0)
+                       and bool(torch.isfinite(k).all()))})
+    return rows
+
+
+def member_stencil_bound_ms(name, S, members: int) -> tuple[float, str]:
+    """`bound_ms` of stencil ``name``'s timed form times ``members``."""
+    b, by = bound_ms(name, S)
+    return b * members, by
+
+
+def time_stencil_members(name, S, members: int, device, n=20) -> dict:
+    """Device ms per call (profiler; CUDA events where it records
+    nothing) of stencil ``name``'s member form (its first variant of
+    `stencil_member_variants`, an operator, step, ν and BC values a
+    member) and of ``vmap`` of its plain version, in turns plain, kernel,
+    kernel, plain, each call on the next of `ROTATE` copies of its inputs;
+    wall ms a call of the member form (CUDA events)."""
+    d = stencil_member_inputs(S, members, False, 0, device)
+    _, fn, plain, args, dims = stencil_member_variants(name, d)[0]
+    sets = [member_args(args) for _ in range(ROTATE)]
+    kern = _rotating([functools.partial(torch.func.vmap(fn, in_dims=dims),
+                                        *a) for a in sets])
+    pl = _rotating([functools.partial(torch.func.vmap(plain, in_dims=dims),
+                                      *a) for a in sets])
+    for _ in range(ROTATE):
+        kern(), pl()
+    torch.cuda.synchronize()
+    wall = _timed(kern, n)
+    p1 = device_profile(pl, n, events=True)[0]
+    k1 = device_profile(kern, n, events=True)[0]
+    k2 = device_profile(kern, n, events=True)[0]
+    p2 = device_profile(pl, n, events=True)[0]
+    b, by = member_stencil_bound_ms(name, S, members)
+    return {"ms": (k1 + k2) / 2, "plain_ms": (p1 + p2) / 2, "wall_ms": wall,
+            "bound_ms": b, "bound_by": by}

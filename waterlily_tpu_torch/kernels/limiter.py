@@ -365,15 +365,20 @@ def source(prog: Program) -> str:
         "  }",
         "};",
         "",
-        f'extern "C" int {ENTRY}(const float* u, float* r, float nu,',
+        f'extern "C" int {ENTRY}(const float* u, float* r, float nu, '
+        "const float* nu_dev,",
+        "                                   long long snu, int members, "
+        "long long su,",
         "                                   int periodic, int modular, "
         "int S0, int S1,",
         "                                   int S2, int G0, int G1, int G2, "
         "int B0,",
         "                                   int B1, int B2, void* stream) {",
-        "  return launch_conv<UserLimiter>(u, r, nu, periodic, modular, S0, "
-        "S1, S2,",
-        "                                  G0, G1, G2, B0, B1, B2, stream);",
+        "  return launch_conv<UserLimiter>(u, r, nu, nu_dev, snu, members, "
+        "su,",
+        "                                  periodic, modular, S0, S1, S2, "
+        "G0, G1, G2,",
+        "                                  B0, B1, B2, stream);",
         "}",
         ""])
 
@@ -381,13 +386,17 @@ def source(prog: Program) -> str:
 @functools.lru_cache(maxsize=32)
 def entry_point(limiter):
     """The loaded library of ``conv_diff3d`` compiled with ``limiter``
-    (its `ENTRY` takes ``u, r, nu, periodic, modular``, the array's shape,
-    the global sizes, the global index of its cell 0 and ``stream``); built
+    (its `ENTRY` takes ``u, r, nu``, a device array of each member's nu
+    or NULL and its member stride, the members and u's member stride,
+    ``periodic, modular``, the array's shape, the global sizes, the global
+    index of its cell 0 and ``stream``, as ``wl_conv_diff3d`` less its
+    limiter code); built
     at the first call for each distinct program, from the checkout's
     ``csrc`` headers.  Raises `NotImplementedError` where the limiter has
     no kernel form."""
     import ctypes
     from .build import build_source
     _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    _L = ctypes.c_longlong
     return build_source(source(lower(limiter)), ENTRY,
-                        (_P, _P, _F) + (_I,) * 11)
+                        (_P, _P, _F, _P, _L, _I, _L) + (_I,) * 11)

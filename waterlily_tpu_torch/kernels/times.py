@@ -39,7 +39,20 @@ relative difference of their time steps (with ``op_bf16=True`` the CPU
 levels stay blocked and keep their shadows).  A
 ``remeasure:name:args[:key=value...]`` argument steps the case twice and
 then times six calls of its `Simulation.measure` (wall seconds each,
-synchronised), the moving-body remeasure alone.
+synchronised), the moving-body remeasure alone.  An
+``orders:S0,S1,S2`` argument runs the blocked-level smoother with bf16
+directions (`ops.attic.pcg_blocked`, one smooth of `check.inputs`' level
+and residual at that shape) on the card and on the CPU with 1, 2, 4 and
+8 threads: the mean |Δx| and |Δr| of every pair (the card's sums and
+the CPU's at each thread count add in other orders; a different order
+can round a direction value to the neighbouring bf16 value).  A
+``sweep:kind:M`` argument steps the (96,64,64) sphere's drag (a radius-8
+sphere at 31, ν 0.16, the adaptive solve at tol 1e-5) under
+``torch.func.vmap`` over M radii from 7 to 9 (``kind`` radius) or M values
+of ν from 0.08 to 0.32 (``nu``): busy and wall ms a step (5 steps less the
+set-up and force alone), idle share and peak GiB, beside one member alone;
+it uses only functions the port has had since its ensembles (so ``--trees``
+times a tree without the stencils' member forms the same way).
 ``--set module.NAME=value`` sets a module constant of the port first
 (``--set ops.attic.DOT_ROWS_MIN=8``).  The first line is the card's name
 and power limit.
@@ -261,6 +274,93 @@ def _twin(spec: str, dev, n=3) -> dict:
     return row
 
 
+def _orders(spec: str, dev) -> dict:
+    """Mean |Δx|, |Δr| between the bf16-direction smooth on the card and
+    on the CPU at 1, 2, 4 and 8 threads, every pair (each run's own sum
+    order), at the shape of ``orders:S0,S1,S2``."""
+    import dataclasses
+    import torch
+    from waterlily_tpu_torch.kernels.check import inputs
+    from waterlily_tpu_torch.ops import attic as at
+    S = tuple(int(v) for v in spec.split(":")[1].split(","))
+
+    def smooth(device):
+        d = inputs(S, 0, device)
+        lev = dataclasses.replace(d["lev"], blocked=True, bf16_eps=True)
+        x, r = at.pcg_blocked(lev, torch.zeros_like(d["r"]), d["r"])
+        return x.cpu(), r.cpu()
+
+    runs = {"card": smooth(dev)}
+    threads = torch.get_num_threads()
+    try:
+        for t in (1, 2, 4, 8):
+            torch.set_num_threads(t)
+            runs[f"cpu{t}"] = smooth(torch.device("cpu"))
+    finally:
+        torch.set_num_threads(threads)
+    names = list(runs)
+    return {"orders": list(S), "mean_abs_dx_dr": {
+        f"{a} vs {b}": [float((p - q).abs().mean())
+                        for p, q in zip(runs[a], runs[b])]
+        for i, a in enumerate(names) for b in names[i + 1:]}}
+
+
+def _sweep(spec: str, dev, steps=5) -> dict:
+    """Busy and wall ms a step of ``sweep:kind:M`` and of its first member
+    alone, the idle share and peak GiB (see the module docstring)."""
+    import torch
+    from waterlily_tpu_torch.body import AutoBody, measure_fields
+    from waterlily_tpu_torch.flow import FlowConfig, flow_init, mom_step
+    from waterlily_tpu_torch.metrics import total_force
+    from waterlily_tpu_torch.ops.multigrid import build_levels
+    from waterlily_tpu_torch.utils.perf import device_profile
+    _, kind, M = spec.split(":")
+    S, f32 = (98, 66, 66), torch.float32
+    lo, hi = (7.0, 9.0) if kind == "radius" else (0.08, 0.32)
+    vs = torch.linspace(lo, hi, int(M), device=dev)
+
+    def drag(v, n):
+        nu, radius = (0.16, v) if kind == "radius" else (v, 8.0)
+        body = AutoBody(lambda x, t: torch.sqrt(torch.sum((x - 31.0) ** 2))
+                        - radius)
+        cfg = FlowConfig(D=3, S=S, device=dev, nu=nu, U=(1.0, 0.0, 0.0),
+                         dtype=f32, tol=1e-5)
+        V, m0, m1, _ = measure_fields(body, S, 0.0, 1.0, (), False, f32, dev)
+        levels = build_levels(m0)
+        state = flow_init(cfg).replace(V=V, mu0=m0, mu1=m1)
+        for _ in range(n):
+            state, _aux = mom_step(cfg, levels, state)
+        return total_force(state.u, state.p, cfg.nu, body, state.t)[0]
+
+    def cost(call):
+        call(steps)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        out = {}
+        for n in (steps, 0):
+            busy = device_profile(lambda: call(n), 1, events=True)[0]
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            torch.cuda.synchronize()
+            start.record()
+            call(n)
+            end.record()
+            torch.cuda.synchronize()
+            out[n] = (busy, start.elapsed_time(end))
+            if n:
+                gib = torch.cuda.max_memory_allocated() / 2 ** 30
+        busy = (out[steps][0] - out[0][0]) / steps
+        wall = (out[steps][1] - out[0][1]) / steps
+        return {"busy_ms": busy, "wall_ms": wall, "idle": 1 - busy / wall,
+                "peak_gib": gib}
+    row = {"sweep": kind, "members": int(M), "steps": steps,
+           "ensemble": cost(lambda n: torch.func.vmap(
+               lambda v: drag(v, n))(vs)),
+           "one_member": cost(lambda n: drag(vs[0], n))}
+    torch.cuda.empty_cache()
+    return row
+
+
 def run(argv) -> int:
     import torch
     if not torch.cuda.is_available():
@@ -277,7 +377,8 @@ def run(argv) -> int:
     for spec in specs:
         kind = spec.split(":")[0]
         row = {"case": _case, "barrier": _barrier, "call": _call,
-               "twin": _twin, "remeasure": _remeasure}.get(
+               "twin": _twin, "remeasure": _remeasure,
+               "orders": _orders, "sweep": _sweep}.get(
                    kind, _kernel)(spec, dev)
         print(json.dumps(row), flush=True)
     return 0

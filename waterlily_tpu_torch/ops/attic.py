@@ -42,7 +42,8 @@ from ..grid import interior_view
 from ..kernels.build import launch, library
 from .stencil_kernels import (_on_cpu, _check, _scalar_on, _counted, _count,
                               _bf16, _blocks, _wide, _mult3d_plain,
-                              _increment3d_plain, _counter, _march)
+                              _increment3d_plain, _counter, _march, _each,
+                              _stride)
 
 __all__ = ["pcg_dir_mult", "pcg_update", "pcg_blocked", "dot3d", "pcg_axpy",
            "mult3d_stream", "increment3d_stream", "kernel_wrappers"]
@@ -309,33 +310,42 @@ def _stream_coresident(device_index, L_bf16: int, x_bf16: int,
         return library().wl_stream_coresident(L_bf16, x_bf16, dot)
 
 
-def _stream_march(S, L, x, with_dot: bool, name: str = "mult3d_stream"):
+def _stream_march(S, L, x, with_dot: bool, name: str = "mult3d_stream",
+                  members: int = 1):
     """(planes, results and partials buffer or None) of the operator
     march (`mult3d_stream`'s and `stencil_kernels.mult3d`'s) at ``S``:
     chunks of at most ``STREAM_PLANES[1]`` planes, as many as one wave of
     resident blocks needs (at 258³ 8 chunks of 32 planes, 2048 blocks;
-    130³ 16 of 8, 1024; 66³ 32 of 2, 512; (98,66,66) 48 of 2, 768).
-    ``name`` is the wrapper a refused shape's error names."""
+    130³ 16 of 8, 1024; 66³ 32 of 2, 512; (98,66,66) 48 of 2, 768), each
+    of ``members`` members with these chunks.  ``name`` is the wrapper a
+    refused shape's error names."""
     return _march(name, S, x.device, int(with_dot),
                   STREAM_PLANES, _stream_coresident(
-                      x.device.index, _bf16(L), _bf16(x), int(with_dot)))
+                      x.device.index, _bf16(L), _bf16(x), int(with_dot)),
+                  members)
 
 
-def _mult3d_march(fn, L, Dd, x, with_dot: bool):
-    """z = A·x (and with ``with_dot`` ⟨A·x, x⟩ as a 0-d tensor) of CUDA
-    tensors by the operator march (``csrc/stream_march.cu``), one launch
-    counted on wrapper ``fn``: `mult3d_stream`, or `stencil_kernels.mult3d`,
-    which shares the kernel and its chunk rule."""
-    S, name = tuple(x.shape), fn.__name__
-    _check(name, S, bf16=("L", "x"), L=(L, (3,) + S), D=(Dd, S), x=(x, S))
-    planes, buf = _stream_march(S, L, x, with_dot, name)
-    z = torch.empty(S, dtype=torch.float32, device=x.device)
+def _mult3d_march(fn, L, Dd, x, with_dot: bool, members: bool = False):
+    """z = A·x (and with ``with_dot`` ⟨A·x, x⟩) of CUDA tensors by the
+    operator march (``csrc/stream_march.cu``), one launch counted on
+    wrapper ``fn``: `mult3d_stream`, or `stencil_kernels.mult3d`, which
+    shares the kernel and its chunk rule.  ``x`` carries a member axis
+    (``(M, *S)``), ``L`` and ``Dd`` one or none (shared: a member stride of
+    0); z is ``(M, *S)`` and the dot ``(M,)``, each member's in the order of
+    its own launch; ``members``: a member form's launch (its form
+    ``"members"``)."""
+    M, S, name = x.shape[0], tuple(x.shape[1:]), fn.__name__
+    _check(name, S, bf16=("L", "x"), L=(L, _each(L, (3,) + S, M)),
+           D=(Dd, _each(Dd, S, M)), x=(x, (M,) + S))
+    planes, buf = _stream_march(S, L, x, with_dot, name, M)
+    z = torch.empty((M,) + S, dtype=torch.float32, device=x.device)
     launch("wl_mult3d_stream", L, Dd, x, z,
-           *((buf[1:], _counter(x.device), buf[:1]) if with_dot
+           *((buf[M:], _counter(x.device), buf[:M]) if with_dot
              else (None,) * 3),
+           M, _stride(L, 4), _stride(Dd, 3), _stride(x, 3),
            _bf16(L), _bf16(x), planes, *S)
-    _count(fn, S, L=L, x=x)
-    return (z, buf[0]) if with_dot else z
+    _count(fn, S, members, L=L, x=x)
+    return (z, buf[:M]) if with_dot else z
 
 
 @_counted
@@ -351,7 +361,8 @@ def mult3d_stream(L, Dd, x, with_dot: bool = False):
     count their launches apart, so a path shows which one it took."""
     if _on_cpu("mult3d_stream", x, L, Dd):
         return _mult3d_plain(L, Dd, x, with_dot)
-    return _mult3d_march(mult3d_stream, L, Dd, x, with_dot)
+    out = _mult3d_march(mult3d_stream, L, Dd, x[None], with_dot)
+    return (out[0][0], out[1][0]) if with_dot else out[0]
 
 
 @_counted

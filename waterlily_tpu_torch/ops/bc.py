@@ -27,9 +27,10 @@ def bc_vector(u: torch.Tensor, A, save_exit: bool = False,
     and return a new tensor; with ``inplace=True`` it may write into ``u``
     instead and returns it (for a caller that reads ``u`` no more).
 
-    Fields that pass `stencil_kernels.kernel_ok` go through the kernel
-    (in place, it writes only the ghost faces and Dirichlet planes); a
-    field or BC value that autograd tracks takes the plain form.  Semantics (reference src/util.jl:192-210):
+    Fields that pass `stencil_kernels.members_ok` go through the kernel
+    (in place, it writes only the ghost faces and Dirichlet planes; under
+    `vmap` alone its member form); a field or BC value that autograd
+    tracks takes the plain form.  Semantics (reference src/util.jl:192-210):
     periodic direction ``j`` copies the opposite interior plane; the normal
     component (``i==j``) is Dirichlet ``A[i]`` on the low ghost *and* first
     interior plane and on the high ghost plane (the high plane is kept for
@@ -38,7 +39,7 @@ def bc_vector(u: torch.Tensor, A, save_exit: bool = False,
     match the reference exactly.
     """
     S = tuple(u.shape[1:])
-    if u.shape[0] == 3 and sk.kernel_ok(S, u.dtype, u.device, u, A):
+    if u.shape[0] == 3 and sk.members_ok(S, u.dtype, u.device, u, A):
         return sk.bc3d(u, A, save_exit, perdir, inplace)
     return bc_vector_planes(u, A, save_exit, perdir, inplace)
 

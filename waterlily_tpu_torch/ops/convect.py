@@ -143,9 +143,10 @@ def conv_diff(u: torch.Tensor, nu, perdir: tuple = (),
     """Momentum tendency r = -div(convective flux) + nu*laplacian, zero
     wherever the reference never writes (the BDIM first-moment stencil
     reads those cells).  ``nu`` may be a 0-d tensor; a ``u`` or ``nu``
-    that autograd tracks takes the plain form (`stencil_kernels.kernel_ok`)."""
+    that autograd tracks takes the plain form, one under `vmap` alone the
+    kernel's member form (`stencil_kernels.members_ok`)."""
     S = tuple(u.shape[1:])
-    if u.shape[0] == 3 and sk.kernel_ok(S, u.dtype, u.device, u, nu):
+    if u.shape[0] == 3 and sk.members_ok(S, u.dtype, u.device, u, nu):
         return sk.conv_diff3d(u, nu, limiter, perdir)
     up = torch.nn.functional.pad(u, (2, 2) * len(S))
     return conv_core(up, S, nu, perdir, limiter, u_wrap=u)

@@ -184,6 +184,7 @@ def _launch(L, Dd, iD, x, r, it, perdir, members: bool):
         pcg_fused.launches += 1
         pcg_fused.shapes[S] += 1
         if members:
+            pcg_fused.members += 1
             pcg_fused.forms.add("members")
     return x, r
 
@@ -280,6 +281,7 @@ def pcg_fused(lev, x, r, it: int = 6):
 
 
 pcg_fused.launches = 0
+pcg_fused.members = 0
 pcg_fused.shapes = collections.Counter()
 pcg_fused.forms = set()
 pcg_fused.bases = collections.Counter()

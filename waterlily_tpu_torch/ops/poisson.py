@@ -186,6 +186,13 @@ def _tracked(lev: PoissonLevel, *fields) -> bool:
     return sk.ad_tracked(lev.L, lev.D, *fields)
 
 
+def _open(lev: PoissonLevel, *fields) -> bool:
+    """True where a blocked level's `mult3d` and `increment3d` take the
+    level and ``fields``: nothing tracks them, or `vmap` alone does (their
+    member forms)."""
+    return sk.tracked_by(lev.L, lev.D, *_opLD(lev), *fields) <= {"vmap"}
+
+
 def _opLD(lev: PoissonLevel):
     """(L, D) of the blocked stencil kernels: the bf16 shadow and its f32
     diagonal where the level has them, the f32 arrays otherwise."""
@@ -204,8 +211,9 @@ def _ax(lev: PoissonLevel, x: torch.Tensor, with_dot: bool = False):
     """A·x of a blocked level (with ⟨A·x, x⟩ under ``with_dot``):
     `mult3d`, or under ``STREAM`` `attic.mult3d_stream` (the same kernel),
     on the level's operator (`_opLD`); their plain version where autograd
-    tracks the level or ``x``."""
-    if _tracked(lev, x):
+    tracks the level or ``x``, and under `vmap` `mult3d`'s member form
+    (``STREAM``'s wrapper has none: plain)."""
+    if not _open(lev, x) or (STREAM and _tracked(lev, x)):
         return sk._mult3d_plain(*_opLD(lev), x, with_dot)
     mult3d = at.mult3d_stream if STREAM else sk.mult3d
     return mult3d(*_opLD(lev), x, with_dot=with_dot)
@@ -363,13 +371,14 @@ def increment(lev: PoissonLevel, x, r, eps):
     bf16 first (Jacobi's r∘iD and the V-cycle's correction too), so x and
     r see the same rounded eps.  Blocked levels: `increment3d` (under
     ``STREAM`` `attic.increment3d_stream`) on the level's operator, their
-    plain version where autograd tracks the level or an operand."""
+    plain version where autograd tracks the level or an operand, and under
+    `vmap` `increment3d`'s member form (``STREAM``'s wrapper has none)."""
     if lev.blocked:
         if lev.bf16_eps:
             eps = eps.to(torch.bfloat16)
         eps = bc_scalar_periodic(eps, lev.perdir)
         inc = at.increment3d_stream if STREAM else sk.increment3d
-        if _tracked(lev, eps, x, r):
+        if not _open(lev, eps, x, r) or (STREAM and _tracked(lev, eps, x, r)):
             inc = sk._increment3d_plain
         return inc(*_opLD(lev), eps, x, r)
     return x + eps, r - mult(lev, eps)
