@@ -96,7 +96,11 @@ Phases, each of which raises (and so exits non-zero) on failure:
    blocks are under the kernel gate), ``conv_diff3d`` in its modular form
    in (ii); (iv) ``bc_vector_local`` with ``bc3d``'s shard-local form at
    every shard of the 258³ mesh, with and without ``save_exit``, bit for
-   bit the select cascade;
+   bit the select cascade; (v) ``sphere_3d(96, 64, fixed_iters=2)`` on its
+   (2,2,2) mesh, JAX's per-phase path (``conv_diff3d`` only in its
+   shard-local form, in the conv + BDIM region, every other kernel
+   dense), 2 steps against the dense ``fixed_iters=2`` step from one
+   state (max|du| < 1e-3, dt within 1e-5);
 6.6 the recording path, held against the CPU from one state as in 4:
    (i) ``sphere_3d(96, 64, log=True)`` through ``run_record`` (7 steps, 3
    samples; every dense kernel launched, no shard-local form) with the
@@ -161,8 +165,23 @@ Phases, each of which raises (and so exits non-zero) on failure:
    own card run's, drag within 1e-5, members 0 and 7 against the CPU
    (drag 1e-4, pois_n ±2 a solve, ≤ 4 in all); busy and wall ms a step,
    idle share and peak memory of each sweep against 8 x one member's;
+6.9 the decomposition over processes (`parallel.dist.ProcessMesh`, ranks
+   spawned by `parallel.launch.run_ranks`): (i) 8 gloo ranks sharing the
+   card (each exchange staged through host memory) run
+   ``sphere_3d(256, 256, bbox=False)`` on the (2,2,2) process mesh of
+   129³ blocks for 2 steps, each rank's launch counters zeroed before and
+   read after (the shard-local forms launched on every rank, each rank's
+   launches logged by kernel): every rank's u and p blocks, dt and
+   pois_n bit for bit phase 6.5 (i)'s in-process run after its 2 steps;
+   (iv) in the same world a per-rank checkpoint written after step 1,
+   restarted and stepped once: bit for bit step 2; (ii) NCCL at world
+   size 1 (the only NCCL check one card allows): ``sphere_3d(96, 64)`` on
+   a one-rank process mesh against ``mesh_for(S, 1)`` in process, bit for
+   bit; (iii) ``examples/sharded_sphere.py --quick`` (8 gloo ranks on the
+   card) against the in-process mesh: dt and pois_n equal.  A failing or
+   hung rank fails the run;
 7. every kernel against its plain version again, every variant at every
-   shape a path of 4-6.8 launched it at (258³, 130³, 66³, ..., the 2D
+   shape a path of 4-6.9 launched it at (258³, 130³, 66³, ..., the 2D
    levels) and the probes at 258³, with the tolerances of 3, every
    shard-local form at every shape and base a path launched it at
    (exact), and ``pcg_blocked`` against the per-pass ``pcg`` at the
@@ -171,7 +190,7 @@ Phases, each of which raises (and so exits non-zero) on failure:
    256³ dense and banded (in turns), 256³ ``banded_levels=True``, the
    256³ heaving sphere with its remeasure and ``tgv_3d(256)`` (with its
    kinetic energy before and after); ``circle_2d(96, 64)`` to tU/L = 50
-   twice (wall seconds with construction; ms/step, idle share and the
+   (wall seconds with construction; ms/step, idle share and the
    mean Cd over the last 10 tU/L); the plate's and ``tgv_2d(64)``'s
    ms/step; each kernel next to its plain version and its bound at
    (98,66,66) and at the largest shape a path launched it at (the shape
@@ -197,6 +216,9 @@ Phases, each of which raises (and so exits non-zero) on failure:
    (98,66,66) and 258³, the 256³ sphere's Cd in the three samplings,
    ``run_record``'s cost a sample (its stepping loop and its fields, in
    turns with plain ``steps``) and checkpoint save and restart seconds;
+   phase 6.9 (i)'s world: a step's wall time, each rank's busy time (8
+   processes on one card), the card's idle share, each rank's peak
+   memory and the host-staged exchanges' bytes and wall time a step;
    ``pcg_fused``'s member form at (194,130) and (98,66) with 32 members
    (an operator each) beside ``vmap`` of the plain ``pcg``, its bound and
    its sync floor (its launches times 12 grid barriers of the chunk's
@@ -403,10 +425,9 @@ PATH_BASES = {}     # kernel -> every (shape, shard-local form) launched
 MEMBER_COUNTS = {}      # path -> kernel -> its launches in the member form
 
 
-def on_path(torch, label, expect, fn):
-    """Run ``fn`` (a user-facing path) with every launch counter set to 0
-    and every launched-shape and -form set cleared just before, all read
-    just after; fail if a kernel in ``expect`` never launched."""
+def zeroed_wrappers():
+    """Every kernel wrapper, its launch counters set to 0 and its
+    launched shapes, forms and bases cleared."""
     from waterlily_tpu_torch.ops.stencil_kernels import kernel_wrappers
     kernels = kernel_wrappers()
     for w in kernels.values():
@@ -415,6 +436,14 @@ def on_path(torch, label, expect, fn):
         w.shapes.clear()
         w.forms.clear()
         w.bases.clear()
+    return kernels
+
+
+def on_path(torch, label, expect, fn):
+    """Run ``fn`` (a user-facing path) with every launch counter set to 0
+    and every launched-shape and -form set cleared just before, all read
+    just after; fail if a kernel in ``expect`` never launched."""
+    kernels = zeroed_wrappers()
     out = fn()
     torch.cuda.synchronize()
     counts = {k: w.launches for k, w in kernels.items()}
@@ -916,13 +945,15 @@ def shard_kernels():
         shard_smooth.PALLAS = old
 
 
-def sharded_vs_dense(torch, label, expect, make, mult_shape, modular=False):
+def sharded_vs_dense(torch, label, expect, make, mult_shape, modular=False,
+                     snapshot=None):
     """3 steps of the sharded simulation ``make()`` (launch-counted) and 3
     dense steps on the card from its initial state and levels: pois_n
     within the ±2/≤4 rule (the total |Δpois_n| logged), dt within 1e-5,
     max|du| < 1e-3; `SHARD_FORMS` launched only in their shard-local forms
     (``conv_diff3d`` also modular with ``modular``) and ``mult3d`` at the
-    halo-extended blocks' ``mult_shape``."""
+    halo-extended blocks' ``mult_shape``.  ``snapshot`` (a path) gets u,
+    p, dts and pois_n after 2 steps (`torch.save`, on the host)."""
     from waterlily_tpu_torch.flow import mom_step
 
     def drive():
@@ -933,7 +964,14 @@ def sharded_vs_dense(torch, label, expect, make, mult_shape, modular=False):
             f"{sim.mesh}, sharded step {sim._sharded}")
         init, init_levels = sim.flow, sim.levels
         t0 = time.perf_counter()
-        sim.steps(3, remeasure=False)
+        if snapshot is None:
+            sim.steps(3, remeasure=False)
+        else:
+            sim.steps(2, remeasure=False)
+            torch.save({"u": sim.flow.u.cpu(), "p": sim.flow.p.cpu(),
+                        "dts": list(sim.dts), "pois_n": list(sim.pois_n)},
+                       snapshot)
+            sim.steps(1, remeasure=False)
         torch.cuda.synchronize()
         log(f"3 sharded steps in {time.perf_counter() - t0:.2f} s")
         return sim, init, init_levels
@@ -958,8 +996,9 @@ def sharded_vs_dense(torch, label, expect, make, mult_shape, modular=False):
         raise AssertionError(f"{label}: mult3d never ran at {mult_shape}")
     g, pois, dts = init, [], []
     t0 = time.perf_counter()
+    dense = dataclasses.replace(sim.cfg, mesh=None)
     for _ in range(3):
-        g, aux = mom_step(sim.cfg, init_levels, g)
+        g, aux = mom_step(dense, init_levels, g)
         pois.append(aux["pois_n"])
         dts.append(float(aux["dt"]))
     torch.cuda.synchronize()
@@ -1012,17 +1051,62 @@ def bc_local_vs_cascade(torch, dev):
         raise AssertionError(f"{label}: bc3d forms {PATH_FORMS[label]}")
 
 
-def run_sharded(torch, dev):
-    """Phase 6.5: (i) the full-width sphere on the (2,2,2) mesh, (ii) the
-    periodic and (iii) outlet paths with the kernel forms forced, (iv)
-    ``bc3d``'s shard-local form."""
+def per_phase_vs_dense(torch, dev):
+    """``fixed_iters=2`` under the (2,2,2) mesh: JAX's per-phase path
+    (`flow.mom_step` with `shardmap_conv_bdim`: ``conv_diff3d`` in its
+    shard-local form on the blocks, every other kernel dense), 2 steps
+    against the dense ``fixed_iters=2`` step from one state: max|du| <
+    1e-3 (logged with max|dp|), dt within 1e-5."""
+    from waterlily_tpu_torch import sphere_3d
+    from waterlily_tpu_torch.flow import mom_step
+    from waterlily_tpu_torch.parallel.mesh import mesh_for
+    label = "sphere_3d(96, 64, fixed_iters=2), mesh (2,2,2), per-phase"
+
+    def drive():
+        sim = sphere_3d(96, 64, device=dev, fixed_iters=2,
+                        mesh=mesh_for(FINE, 8, dev))
+        init, levels = sim.flow, sim.levels
+        sim.steps(2, remeasure=False)
+        return sim, init, levels
+
+    with shard_kernels():
+        sim, init, levels = on_path(torch, label, DENSE, drive)
+    from waterlily_tpu_torch.ops.stencil_kernels import kernel_wrappers
+    w = kernel_wrappers()["conv_diff3d"]    # still this path's counts
+    if sim._sharded or "base" not in w.forms \
+            or sum(w.bases.values()) != w.launches:
+        raise AssertionError(f"{label}: whole-step region {sim._sharded}; "
+                             f"conv_diff3d forms {w.forms}, "
+                             f"{sum(w.bases.values())} of {w.launches} "
+                             f"shard-local")
+    g, dts = init, []
+    dense = dataclasses.replace(sim.cfg, mesh=None)
+    for _ in range(2):
+        g, aux = mom_step(dense, levels, g)
+        dts.append(float(aux["dt"]))
+    du = float((sim.flow.u - g.u).abs().max())
+    dp = float((sim.flow.p - g.p).abs().max())
+    log(f"  {w.launches} conv_diff3d launches, all shard-local; against "
+        f"the dense fixed_iters=2 step: dt {sim.dts[1:]} vs {dts}, max|du| "
+        f"= {du:.3e}, max|dp| = {dp:.3e}")
+    if not du < 1e-3 or any(abs(a - b) > 1e-5 * abs(b)
+                             for a, b in zip(sim.dts[1:], dts)):
+        raise AssertionError(f"{label}: max|du| {du}, dt {sim.dts} vs {dts}")
+
+
+def run_sharded(torch, dev, snapshot):
+    """Phase 6.5: (i) the full-width sphere on the (2,2,2) mesh (its state
+    after 2 steps saved to ``snapshot`` for phase 6.9), (ii) the periodic
+    and (iii) outlet paths with the kernel forms forced, (iv) ``bc3d``'s
+    shard-local form."""
     from waterlily_tpu_torch import sphere_3d, tgv_3d
     from waterlily_tpu_torch.parallel.mesh import mesh_for
     stage("(i) sphere_3d(256, 256, bbox=False) on mesh_for((258,)*3, 8)")
     sharded_vs_dense(
         torch, "sphere_3d(256, 256, bbox=False), mesh (2,2,2)", SHARDED,
         lambda: sphere_3d(256, 256, bbox=False, device=dev,
-                          mesh=mesh_for(BIG, 8, dev)), (131, 131, 131))
+                          mesh=mesh_for(BIG, 8, dev)), (131, 131, 131),
+        snapshot=snapshot)
     torch.cuda.empty_cache()
     stage("(ii) tgv_3d(64) on mesh_for((66,)*3, 8), kernel forms forced")
     with shard_kernels():
@@ -1040,6 +1124,8 @@ def run_sharded(torch, dev):
     stage("(iv) bc3d's shard-local form at every shard of the 258³ mesh")
     bc_local_vs_cascade(torch, dev)
     torch.cuda.empty_cache()
+    stage("(v) fixed_iters=2 on the mesh: the per-phase conv + BDIM region")
+    per_phase_vs_dense(torch, dev)
 
 
 def check_shard_forms(torch, dev):
@@ -1067,6 +1153,250 @@ def check_shard_forms(torch, dev):
             torch.cuda.empty_cache()
     if failures:
         raise AssertionError(f"shard-local form checks failed: {failures}")
+
+
+# phase 6.9: the decomposition over processes.  The ranks are processes
+# of their own (`parallel.launch.run_ranks`, spawned): each loads the
+# kernel library phase 2 built, counts its own launches and returns them.
+RANKS = 8
+PROCESS_TIMES = {}   # phase 6.9's figures, logged again in phase 8
+RANK_TIMED_STEPS = 3
+RANK_CASE = (256, 256)   # phase 6.9 (i)'s sphere_3d(n, m): BIG
+
+
+def _read_wrappers(kernels):
+    return {"counts": {k: w.launches for k, w in kernels.items()},
+            "shapes": {k: dict(w.shapes) for k, w in kernels.items()},
+            "bases": {k: set(w.bases) for k, w in kernels.items()}}
+
+
+def _same_blocks(torch, sim, ru, rp):
+    """Bit for bit: this rank's u and p blocks against ``ru``, ``rp`` (host
+    tensors); the largest differences and the histories."""
+    u, p = sim.flow.u.cpu(), sim.flow.p.cpu()
+    return {"equal": torch.equal(u, ru) and torch.equal(p, rp),
+            "max_du": float((u - ru).abs().max()),
+            "max_dp": float((p - rp).abs().max()),
+            "dts": list(sim.dts), "pois_n": list(sim.pois_n)}
+
+
+def _ref_blocks(torch, mesh, path):
+    """This rank's blocks of the global u and p saved at ``path``."""
+    ref = torch.load(path, mmap=True)
+    (ru,), (rp,) = mesh.split(ref["u"], 1), mesh.split(ref["p"])
+    return ru, rp
+
+
+def rank_sphere_256(rank, world, dev, ref_path, ckpt, n_time, case):
+    """Phase 6.9 (i) and (iv) on one rank: ``sphere_3d(*case,
+    bbox=False)`` (`RANK_CASE`, the 256³ sphere) on its process mesh
+    ((2,2,2) on 8 ranks), 2 steps (a per-rank
+    checkpoint after the first) with the launch counters zeroed before
+    and read after, against phase 6.5 (i)'s in-process run; the restart
+    from the checkpoint stepped once against the same state; then the
+    step's wall time, this rank's busy time, its peak memory and the
+    exchanges' bytes and wall time."""
+    import torch
+    from waterlily_tpu_torch import sphere_3d
+    from waterlily_tpu_torch.io import restart_sim, save_checkpoint
+    from waterlily_tpu_torch.kernels.build import library
+    from waterlily_tpu_torch.parallel.dist import dist_mesh_for
+    from waterlily_tpu_torch.utils.perf import EVENTS_KEY, device_profile
+    library()
+    out = {"rank": rank}
+    kernels = zeroed_wrappers()
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    n, m = case
+    mesh = dist_mesh_for((n + 2, m + 2, m + 2), device=dev)
+    sim = sphere_3d(n, m, bbox=False, device=dev, mesh=mesh)
+    torch.cuda.synchronize(dev)
+    torch.cuda.empty_cache()
+    out["construct_s"] = time.perf_counter() - t0
+    out["peak_construct_gib"] = torch.cuda.max_memory_allocated(dev) / 2**30
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    sim.steps(1, remeasure=False)
+    save_checkpoint(ckpt, sim)
+    sim.steps(1, remeasure=False)
+    torch.cuda.synchronize(dev)
+    out["two_steps_s"] = time.perf_counter() - t0
+    out.update(_read_wrappers(kernels))
+    out["peak_step_gib"] = torch.cuda.max_memory_allocated(dev) / 2**30
+    out["vs_in_process"] = _same_blocks(torch, sim,
+                                        *_ref_blocks(torch, mesh, ref_path))
+    # (iv) the restart from the per-rank checkpoint, one step
+    u, p = sim.flow.u.cpu(), sim.flow.p.cpu()
+    dts, pois = list(sim.dts), list(sim.pois_n)
+    t0 = time.perf_counter()
+    restart_sim(sim, ckpt)
+    sim.steps(1, remeasure=False)
+    torch.cuda.synchronize(dev)
+    out["restart_s"] = time.perf_counter() - t0
+    out["restart"] = dict(_same_blocks(torch, sim, u, p),
+                          same_history=(sim.dts == dts
+                                        and sim.pois_n == pois))
+    # the step's cost on this rank
+    stats0 = dict(mesh.stats)
+    mesh.barrier()
+    torch.cuda.synchronize(dev)
+    t0 = time.perf_counter()
+    sim.steps(n_time, remeasure=False)
+    torch.cuda.synchronize(dev)
+    mesh.barrier()
+    wall = (time.perf_counter() - t0) / n_time
+    stats = {k: (mesh.stats[k] - stats0[k]) / n_time for k in stats0}
+    busy, by_name = device_profile(lambda: sim.steps(1, remeasure=False),
+                                   n_time, events=True)
+    out["timing"] = {"wall_ms": wall * 1e3, "busy_ms": busy,
+                     "events": EVENTS_KEY in by_name,
+                     "pois_n": sim.pois_n[-2 * n_time:], **stats}
+    return out
+
+
+def rank_nccl(rank, world, dev, ref_path):
+    """Phase 6.9 (ii): ``sphere_3d(96, 64)`` on the NCCL world of one rank,
+    2 steps, against ``mesh_for(S, 1)``'s in-process run."""
+    import torch
+    from waterlily_tpu_torch import sphere_3d
+    from waterlily_tpu_torch.kernels.build import library
+    from waterlily_tpu_torch.parallel.dist import dist_mesh_for
+    library()
+    kernels = zeroed_wrappers()
+    mesh = dist_mesh_for(FINE, device=dev)
+    sim = sphere_3d(96, 64, device=dev, mesh=mesh)
+    sim.steps(2, remeasure=False)
+    torch.cuda.synchronize(dev)
+    out = _read_wrappers(kernels)
+    out["mesh"] = repr(mesh)
+    out["vs_in_process"] = _same_blocks(torch, sim,
+                                        *_ref_blocks(torch, mesh, ref_path))
+    return out
+
+
+def _rank_report(label, res, expect):
+    """Each rank's launches by kernel; fail where a rank did not equal the
+    in-process run or left a kernel of ``expect`` unlaunched."""
+    for r in res:
+        v = r["vs_in_process"]
+        launched = {k: n for k, n in r["counts"].items() if n}
+        log(f"  rank {r.get('rank', 0)}: launches {launched}; vs in-process "
+            f"equal={v['equal']} (max|du| {v['max_du']:.3e}, max|dp| "
+            f"{v['max_dp']:.3e}), pois_n {v['pois_n']}, dt {v['dts'][1:]}")
+        idle = [k for k in expect if r["counts"][k] == 0]
+        if idle:
+            raise AssertionError(f"{label}, rank {r.get('rank', 0)}: "
+                                 f"kernels never launched: {idle}")
+        if not v["equal"]:
+            raise AssertionError(f"{label}, rank {r.get('rank', 0)}: not bit "
+                                 f"for bit the in-process run: {v}")
+        PATH_LAUNCHES[f"{label}, rank {r.get('rank', 0)}"] = r["counts"]
+        for k, shapes in r["shapes"].items():
+            PATH_SHAPES.setdefault(k, set()).update(shapes)
+        for k, bases in r["bases"].items():
+            PATH_BASES.setdefault(k, set()).update(bases)
+
+
+def run_process_mesh(torch, dev, snapshot):
+    """Phase 6.9: (i) 8 gloo ranks sharing the card run the 256³ sphere on
+    the (2,2,2) process mesh, bit for bit phase 6.5 (i)'s in-process run
+    (``snapshot``); (ii) NCCL at world size 1; (iii) the example
+    ``sharded_sphere --quick``; (iv) the per-rank checkpoint at 129³
+    blocks (in (i)'s world)."""
+    import tempfile
+    from waterlily_tpu_torch import sphere_3d
+    from waterlily_tpu_torch.examples import sharded_sphere
+    from waterlily_tpu_torch.parallel.launch import run_ranks
+    from waterlily_tpu_torch.parallel.mesh import mesh_for
+    torch.cuda.empty_cache()
+    ref = torch.load(snapshot)
+    label = "6.9 (i) sphere_3d(256, 256, bbox=False), 8 gloo ranks"
+    stage(f"(i) {label} sharing the card, (2,2,2) mesh of 129³ blocks, "
+          f"2 steps; (iv) the per-rank checkpoint")
+    with tempfile.TemporaryDirectory(prefix="wl_ranks_") as tmp:
+        t0 = time.perf_counter()
+        res = run_ranks(rank_sphere_256, RANKS, "gloo", dev, timeout=900.0,
+                        args=(snapshot, os.path.join(tmp, "ckpt"),
+                              RANK_TIMED_STEPS, RANK_CASE))
+        log(f"8 ranks done in {time.perf_counter() - t0:.1f} s (spawned, "
+            f"constructed in {max(r['construct_s'] for r in res):.1f} s, 2 "
+            f"steps in {max(r['two_steps_s'] for r in res):.1f} s, restart "
+            f"and a step in {max(r['restart_s'] for r in res):.1f} s)")
+    _rank_report(label, res, SHARDED)
+    for r in res:
+        v = r["vs_in_process"]
+        if v["pois_n"] != ref["pois_n"] or v["dts"] != ref["dts"]:
+            raise AssertionError(f"{label}: rank {r['rank']} pois_n "
+                                 f"{v['pois_n']} dt {v['dts']} vs in-process "
+                                 f"{ref['pois_n']} {ref['dts']}")
+        w = r["restart"]
+        if not (w["equal"] and w["same_history"]):
+            raise AssertionError(f"(iv) rank {r['rank']}: the restart is not "
+                                 f"bit for bit: {w}")
+    log(f"  in-process (phase 6.5 (i)) pois_n {ref['pois_n']}, dt "
+        f"{ref['dts'][1:]}: every rank equal bit for bit (u, p, dt, "
+        f"pois_n)")
+    log("  (iv) per-rank checkpoint after step 1, restarted and stepped "
+        "once: every rank bit for bit the uninterrupted step 2")
+    PROCESS_TIMES["ranks"] = res
+    del ref
+    stage("(ii) NCCL at world size 1: sphere_3d(96, 64) against "
+          "mesh_for(S, 1) in process (the only NCCL check one card allows)")
+    sim = sphere_3d(96, 64, device=dev, mesh=mesh_for(FINE, 1, dev))
+    sim.steps(2, remeasure=False)
+    with tempfile.TemporaryDirectory(prefix="wl_nccl_") as tmp:
+        path = os.path.join(tmp, "ref.pt")
+        torch.save({"u": sim.flow.u.cpu(), "p": sim.flow.p.cpu()}, path)
+        (r,) = run_ranks(rank_nccl, 1, "nccl", dev, timeout=300.0,
+                         args=(path,))
+    log(f"  {r['mesh']}")
+    _rank_report("6.9 (ii) sphere_3d(96, 64), NCCL world of 1", [r],
+                 ("mult3d", "pcg_fused") + SHARD_FORMS)
+    if (r["vs_in_process"]["pois_n"] != sim.pois_n
+            or r["vs_in_process"]["dts"] != sim.dts):
+        raise AssertionError(f"(ii) {r['vs_in_process']} vs {sim.pois_n} "
+                             f"{sim.dts}")
+    del sim
+    stage("(iii) examples/sharded_sphere --quick on the card")
+    out = sharded_sphere.main(["--quick"])
+    twin = sphere_3d(sharded_sphere.N, sharded_sphere.M, device=dev,
+                     mesh=mesh_for(sharded_sphere.S, RANKS, dev))
+    twin.steps(len(out["pois_n"]))
+    log(f"  in-process: dt {twin.dts[-1]:.6f}, pois_n {twin.pois_n}")
+    if out["dts"] != twin.dts or out["pois_n"] != twin.pois_n:
+        raise AssertionError(f"(iii) {out} vs in-process {twin.dts} "
+                             f"{twin.pois_n}")
+    torch.cuda.empty_cache()
+
+
+def timing_process_mesh():
+    """Phase 8's lines of phase 6.9 (i)'s world: a step's wall time, each
+    rank's busy time (8 processes sharing one card, not 8 cards), the
+    card's idle share, each rank's peak memory and the host-staged
+    exchanges' bytes and wall time a step."""
+    res = PROCESS_TIMES["ranks"]
+    wall = max(r["timing"]["wall_ms"] for r in res)
+    busy = [r["timing"]["busy_ms"] for r in res]
+    for r in res:
+        t = r["timing"]
+        log(f"  rank {r['rank']}: wall {t['wall_ms']:.1f} ms/step, busy "
+            f"{t['busy_ms']:.2f} ms/step"
+            f"{' (CUDA events: the profiler recorded nothing)' if t['events'] else ''}"
+            f", halo {t['halo_bytes'] / 2**20:.2f} MiB sent and "
+            f"{t['gather_bytes'] / 2**20:.2f} MiB gathered a step in "
+            f"{t['calls']:.0f} exchanges taking {t['comm_s'] * 1e3:.1f} ms "
+            f"wall a step (host-staged), peak {r['peak_construct_gib']:.2f} "
+            f"GiB constructing, {r['peak_step_gib']:.2f} GiB stepping, "
+            f"pois_n {t['pois_n']}")
+    from waterlily_tpu_torch.utils.perf import mlups
+    dims = tuple(n - 2 for n in BIG)
+    log(f"256³ sphere, 8 gloo ranks sharing the card, (2,2,2) mesh: wall "
+        f"{wall:.1f} ms/step, {mlups(dims, 1, wall / 1e3):.2f} MLUPS, "
+        f"{wall / 1e3 / (3 * math.prod(dims)) * 1e9:.3f} ns/DOF; busy "
+        f"{sum(busy):.2f} ms/step summed over the "
+        f"ranks (max {max(busy):.2f}); card idle share "
+        f"{1 - sum(busy) / wall:.4f}; exchanges {max(r['timing']['comm_s'] for r in res) * 1e3:.1f} "
+        f"ms wall a step on the slowest rank ({RANK_TIMED_STEPS} steps)")
 
 
 # phase 6.6: the samplings of the forces; the sphere's moments are taken
@@ -2402,8 +2732,9 @@ def timing_periodic_2d(torch, dev):
         f"after {len(tg.pois_n)} steps (tU/L {tg.sim_time!r})")
     del tg
 
-    for run in (1, 2):
-        sim = circle_horizon(torch, dev, run)
+    # one horizon: two were within 5% of each other, and the script's
+    # time is limited
+    sim = circle_horizon(torch, dev, 1)
     step_profile(sim, 50, "circle_2d(96, 64) after tU/L=50")
     del sim
 
@@ -2523,7 +2854,10 @@ def main() -> int:
           "operator shadows, carried rows")
     run_pcg_paths(torch, dev)
     phase("6.5 the sharded path: the spatial decomposition on one card")
-    run_sharded(torch, dev)
+    import tempfile
+    snapdir = tempfile.TemporaryDirectory(prefix="wl_snapshot_")
+    snapshot = os.path.join(snapdir.name, "sharded_256.pt")
+    run_sharded(torch, dev, snapshot)
     phase("6.6 the recording path: run_record, checkpoint, CSG, VTK")
     run_recording(torch, dev)
     phase("6.7 differentiability: implicit_diff, fixed_iters, jvp")
@@ -2531,6 +2865,10 @@ def main() -> int:
     phase("6.8 ensembles: the sweep under torch.func.vmap")
     run_ensemble(torch, dev)
     run_sweeps(torch, dev)
+    phase("6.9 the decomposition over processes: ProcessMesh, gloo and "
+          "NCCL")
+    run_process_mesh(torch, dev, snapshot)
+    snapdir.cleanup()
     phase("7. kernels vs plain versions at the paths' shapes")
     check_kernels(torch, dev, {**PATH_SHAPES,
                                "pcg_blocked": PATH_SHAPES["pcg_dir_mult"],
@@ -2544,6 +2882,8 @@ def main() -> int:
     timing_members(torch, dev)
     stage("the seven stencils' member forms")
     timing_stencil_members(torch, dev)
+    stage("the process mesh: phase 6.9 (i)'s world")
+    timing_process_mesh()
     from waterlily_tpu_torch.utils.perf import EVENT_FALLBACKS
     log(f"device times the profiler could not record, taken with CUDA "
         f"events instead (the host's dispatch included): "

@@ -8,7 +8,7 @@ import torch
 
 from waterlily_tpu_torch.examples import (three_d_sphere, two_d_circle,
                                           oscillating_plate, optimize_spin,
-                                          ensemble_sweep)
+                                          ensemble_sweep, sharded_sphere)
 
 CPU = ["--device", "cpu", "--quick"]
 
@@ -45,6 +45,26 @@ def test_ensemble_sweep():
     assert len(rows) == 3 and np.all(np.isfinite(rows))
     lift = [abs(cl) for _, _, cl in rows]
     assert lift == sorted(lift) and lift[0] < lift[-1]
+
+
+def test_sharded_sphere():
+    """8 gloo ranks on the CPU, 3 steps of the (50,34,34) sphere on the
+    (2,2,2) process mesh: dt and every pois_n equal the in-process mesh's
+    (one thread on both sides)."""
+    from waterlily_tpu_torch.models.cases import sphere_3d
+    from waterlily_tpu_torch.parallel.mesh import mesh_for
+    out = sharded_sphere.main(CPU + ["--backend", "gloo"])
+    assert out["mesh"] == {"x": 2, "y": 2, "z": 2}
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        ref = sphere_3d(48, 32, device="cpu",
+                        mesh=mesh_for(sharded_sphere.S, 8, "cpu"))
+        ref.steps(3)
+    finally:
+        torch.set_num_threads(threads)
+    assert out["dts"] == ref.dts and out["pois_n"] == ref.pois_n
+    assert sharded_sphere.default_backend("cpu", 8) == "gloo"
 
 
 def test_examples_default_to_the_card():

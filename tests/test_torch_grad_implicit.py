@@ -198,12 +198,15 @@ def test_implicit_full_step_grad_matches_fd():
     assert np.isclose(g, float(jg), rtol=1e-6), (g, float(jg))
 
 
-def test_simulation_implicit_diff_plumbs_and_validates():
+def test_simulation_implicit_diff_plumbs_and_validates(tmp_path):
     """`Simulation(implicit_diff=True)` steps like the default (the
     Function is transparent to the primal) and refuses what JAX refuses
-    (tests/test_grad.py:230); under a mesh it is not ported (ROADMAP A19
-    item 4)."""
+    (tests/test_grad.py:230); under the in-process mesh it steps on the
+    per-phase path, while a `ProcessMesh` refuses it (ROADMAP A19,
+    autograd across ranks)."""
+    from waterlily_tpu_torch.parallel.dist import ProcessMesh
     from waterlily_tpu_torch.parallel.mesh import mesh_for
+    from _torch_dist_ranks import one_rank_world
     kw = dict(device="cpu")
     with pytest.raises(ValueError):
         Simulation((8, 8), (1.0, 0.0), 8, implicit_diff=True, fixed_iters=1,
@@ -213,9 +216,15 @@ def test_simulation_implicit_diff_plumbs_and_validates():
     with pytest.raises(ValueError):
         Simulation((8, 8), (1.0, 0.0), 8, implicit_diff=True, op_bf16=True,
                    **kw)
-    with pytest.raises(NotImplementedError, match="A19"):
-        Simulation((64, 32, 32), (1.0, 0.0, 0.0), 8, implicit_diff=True,
-                   mesh=mesh_for((66, 34, 34), 8, "cpu"), **kw)
+    meshed = Simulation((64, 32, 32), (1.0, 0.0, 0.0), 8, implicit_diff=True,
+                        mesh=mesh_for((66, 34, 34), 8, "cpu"), **kw)
+    assert not meshed._sharded and meshed.cfg.mesh is meshed.mesh
+    meshed.step()
+    assert torch.isfinite(meshed.flow.u).all() and len(meshed.pois_n) == 1
+    with one_rank_world(tmp_path):
+        with pytest.raises(NotImplementedError, match="A19"):
+            Simulation((64, 32, 32), (1.0, 0.0, 0.0), 8, implicit_diff=True,
+                       mesh=ProcessMesh((1, 1, 1), "cpu"), **kw)
     sim = Simulation((8, 8), (1.0, 0.0), 8, implicit_diff=True, **kw)
     assert sim._op_bf16 is False and sim.cfg.implicit_diff
     sim = Simulation((8, 8), (1.0, 0.0), 8, nu=0.1, implicit_diff=True, **kw)

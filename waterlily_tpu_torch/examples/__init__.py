@@ -2,8 +2,9 @@
 ``examples/``: ``python -m waterlily_tpu_torch.examples.<name>`` with
 ``--device`` (default ``cuda``) and ``--quick`` (a reduced run):
 `three_d_sphere`, `two_d_circle` (``--gif``), `oscillating_plate`,
-`optimize_spin` (``--implicit``) and `ensemble_sweep` (``--members``,
-``--dm``).  Each module's ``main(argv)`` returns what it printed, for
+`optimize_spin` (``--implicit``), `ensemble_sweep` (``--members``,
+``--dm``) and `sharded_sphere` (``--ranks``, ``--backend``: the process
+mesh).  Each module's ``main(argv)`` returns what it printed, for
 tests."""
 import argparse
 

@@ -12,6 +12,13 @@ pressure solve a projection, `ops.multigrid.ml_solve_implicit`), and
 field that autograd tracks takes the plain forms (`ops.stencil_kernels.
 kernel_ok`); the pressure solve of ``implicit_diff`` runs the kernels in
 its forward and its adjoint solve.
+
+Under an in-process mesh (``cfg.mesh``, the per-phase sharded path that
+`Simulation` takes where the whole-step region is refused: ``log``,
+``fixed_iters``, ``implicit_diff``) conv_diff, accelerate and the BDIM
+blend run as one region over the shards' blocks
+(`parallel.shard_step.shardmap_conv_bdim`), the rest of the step dense,
+as JAX's `mom_step` does with its mesh.
 """
 from __future__ import annotations
 
@@ -28,6 +35,8 @@ from .ops.convect import conv_diff, accelerate, quick
 from .ops.multigrid import ml_solve, ml_solve_implicit
 from .ops.poisson import pressure_grad_interior
 from .ops import stencil_kernels as sk
+from .parallel import shard_step
+from .parallel.shard_smooth import can_shardmap
 
 __all__ = ["FlowState", "FlowConfig", "bc_tuple", "div", "bdim",
            "bdim_banded", "project", "cfl", "cfl_flux_max", "mom_step",
@@ -71,6 +80,8 @@ class FlowConfig:
     log: bool = False              # capture the solver's residual traces
     implicit_diff: bool = False      # reverse mode by one adjoint solve a
     # projection instead of the unroll (ops.multigrid.ml_solve_implicit)
+    mesh: Any = None                 # an in-process parallel.ShardMesh: the
+    # conv + BDIM region on its blocks (parallel.shard_step)
 
 
 def bc_tuple(U, t, D, dtype):
@@ -234,15 +245,30 @@ def mom_step(cfg: FlowConfig, levels, state: FlowState):
                          inplace=not sk.ad_tracked(u) or (
                              sk.vmap_only(u) and not sk.vmapped(U)))
 
+    # the sharded conv + BDIM region (JAX's per-phase path); a field that
+    # autograd tracks, or an implicit_diff step, takes the plain forms
+    shard_cb = (cfg.mesh is not None and not banded
+                and not cfg.mesh.distributed
+                and can_shardmap(cfg.mesh, tuple(cfg.S), cfg.perdir))
+
+    def conv_bdim(u, t_r, scale):
+        pallas = ("off" if cfg.implicit_diff or sk.ad_tracked(u) else None)
+        return shard_step.shardmap_conv_bdim(cfg, u, u0, state.V, state.mu0,
+                                             state.mu1, dt, t_r, scale,
+                                             pallas=pallas)
+
     # predictor u -> u'
-    r = conv_diff(u0, cfg.nu, cfg.perdir, cfg.limiter)
-    r = accelerate(r, t, cfg.g, cfg.U, dtype)
-    if banded:
-        u = bdim_banded(cfg, state.bbox, None, u0, r, state.V, state.mu0,
-                        state.mu1, dt)
+    if shard_cb:
+        u = conv_bdim(u0, t, None)
     else:
-        u = torch.where(imask, 0.0, u0)             # scale_u!(a, 0)
-        u = bdim(u, u0, r, state.V, state.mu0, state.mu1, dt)
+        r = conv_diff(u0, cfg.nu, cfg.perdir, cfg.limiter)
+        r = accelerate(r, t, cfg.g, cfg.U, dtype)
+        if banded:
+            u = bdim_banded(cfg, state.bbox, None, u0, r, state.V,
+                            state.mu0, state.mu1, dt)
+        else:
+            u = torch.where(imask, 0.0, u0)             # scale_u!(a, 0)
+            u = bdim(u, u0, r, state.V, state.mu0, state.mu1, dt)
     u = bc(u)
     if cfg.exitBC:
         u = exit_bc(u, u0, U, dt)
@@ -250,14 +276,17 @@ def mom_step(cfg: FlowConfig, levels, state: FlowState):
     u = bc(u)
 
     # corrector u -> u¹
-    r = conv_diff(u, cfg.nu, cfg.perdir, cfg.limiter)
-    r = accelerate(r, t + dt, cfg.g, cfg.U, dtype)
-    if banded:
-        u = bdim_banded(cfg, state.bbox, u, u0, r, state.V, state.mu0,
-                        state.mu1, dt, scale=0.5)
+    if shard_cb:
+        u = conv_bdim(u, t + dt, 0.5)
     else:
-        u = bdim(u, u0, r, state.V, state.mu0, state.mu1, dt)
-        u = torch.where(imask, 0.5 * u, u)          # scale_u!(a, 0.5)
+        r = conv_diff(u, cfg.nu, cfg.perdir, cfg.limiter)
+        r = accelerate(r, t + dt, cfg.g, cfg.U, dtype)
+        if banded:
+            u = bdim_banded(cfg, state.bbox, u, u0, r, state.V, state.mu0,
+                            state.mu1, dt, scale=0.5)
+        else:
+            u = bdim(u, u0, r, state.V, state.mu0, state.mu1, dt)
+            u = torch.where(imask, 0.5 * u, u)          # scale_u!(a, 0.5)
     u = bc(u)
     u, p, (n2, tr2) = project(levels, u, p, 0.5 * dt, cfg)
     u = bc(u)

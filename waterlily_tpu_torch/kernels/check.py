@@ -699,7 +699,9 @@ def time_library(name, S, device, n=20) -> float:
 def time_pair(name, S, device, n=20, variant=0, form=None) -> dict:
     """Per-call times of kernel ``name``'s variant ``variant`` (index or
     first output name, `_variant`) and its plain version at shape ``S``,
-    over ``n`` back-to-back calls, each on the next of `ROTATE` input
+    over ``n`` back-to-back calls of the kernel and ``n // 4`` of the
+    plain version (a reference, up to 60 ms a call at 258³), each on the
+    next of `ROTATE` input
     sets: device time from `torch.profiler` (`utils.perf.device_profile`:
     the card's busy time for one call, every kernel, fill and copy it
     launches) and wall time from CUDA events (the host's dispatch
@@ -715,14 +717,15 @@ def time_pair(name, S, device, n=20, variant=0, form=None) -> dict:
     torch.cuda.synchronize()
     kern = _rotating([k for _, k, _ in sets])
     plain = _rotating([p for _, _, p in sets])
-    pw1 = _timed(plain, n)
+    n_plain = max(1, n // 4)
+    pw1 = _timed(plain, n_plain)
     kw1 = _timed(kern, n)
     kw2 = _timed(kern, n)
-    pw2 = _timed(plain, n)
-    p1 = device_profile(plain, n, events=True)[0]
+    pw2 = _timed(plain, n_plain)
+    p1 = device_profile(plain, n_plain, events=True)[0]
     k1 = device_profile(kern, n, events=True)[0]
     k2 = device_profile(kern, n, events=True)[0]
-    p2 = device_profile(plain, n, events=True)[0]
+    p2 = device_profile(plain, n_plain, events=True)[0]
     return {"ms": (k1 + k2) / 2, "plain_ms": (p1 + p2) / 2,
             "wall_ms": (kw1 + kw2) / 2, "plain_wall_ms": (pw1 + pw2) / 2}
 

@@ -1,8 +1,8 @@
 """Halo exchange and the other neighbour moves of a shard's local block.
 
 PyTorch counterpart of `waterlily_tpu.parallel.halo`.  A sharded field is
-a list of local blocks (`parallel.mesh`); each function maps over the
-shards and moves the planes a shard needs from its neighbours with the
+a list of local blocks (`parallel.mesh`: one per shard of
+``mesh.local_shards``); each function maps over them and moves the planes a shard needs from its neighbours with the
 mesh's `ShardMesh.ppermute`.  The grid must shard evenly (`mesh_for`
 guarantees it): a block then holds ``S[d] / shards[d]`` planes of the
 ghost-padded global array, the global ghost ring lies inside the first and
@@ -52,10 +52,10 @@ def _ghost_mask(S, loc_shape, base, device) -> torch.Tensor:
 
 
 def ghost_mask_local(mesh: ShardMesh, S, loc_shape) -> list:
-    """Each shard's mask of the cells of its block NOT in the global ghost
-    ring (cached: a mask a shard and shape)."""
+    """Each local shard's mask of the cells of its block NOT in the global
+    ghost ring (cached: a mask a shard and shape)."""
     return [_ghost_mask(tuple(S), tuple(loc_shape), mesh.base(s, S),
-                        mesh.device) for s in range(mesh.size)]
+                        mesh.device) for s in mesh.local_shards]
 
 
 def halo_exchange(blocks: list, mesh: ShardMesh, D: int, width: int = 1,
@@ -97,20 +97,20 @@ def halo_exchange(blocks: list, mesh: ShardMesh, D: int, width: int = 1,
                                      for b in blocks], k_ax, [(k - 1, 0)])
                 whi = mesh.ppermute([b.narrow(axis, 2, width)
                                      for b in blocks], k_ax, [(0, k - 1)])
-                below = [wlo[s] if idx[s] == 0 else below[s]
-                         for s in range(mesh.size)]
-                above = [whi[s] if idx[s] == k - 1 else above[s]
-                         for s in range(mesh.size)]
+                below = [wlo[i] if c == 0 else below[i]
+                         for i, c in enumerate(idx)]
+                above = [whi[i] if c == k - 1 else above[i]
+                         for i, c in enumerate(idx)]
             else:
-                below = [None if idx[s] == 0 else below[s]
-                         for s in range(mesh.size)]
-                above = [None if idx[s] == k - 1 else above[s]
-                         for s in range(mesh.size)]
+                below = [None if c == 0 else below[i]
+                         for i, c in enumerate(idx)]
+                above = [None if c == k - 1 else above[i]
+                         for i, c in enumerate(idx)]
         elif periodic:
             below = [b.narrow(axis, n - 2 - width, width) for b in blocks]
             above = [b.narrow(axis, 2, width) for b in blocks]
         else:
-            below = above = [None] * mesh.size
+            below = above = [None] * len(blocks)
         zero = lambda b: torch.zeros_like(b.narrow(axis, 0, width))
         blocks = [torch.cat([lo if lo is not None else zero(b), b,
                              hi if hi is not None else zero(b)], dim=axis)
@@ -172,10 +172,10 @@ def shardmap_mult(mesh: ShardMesh, L, Dd, x) -> torch.Tensor:
                        for k in range(D))]
 
     out = []
-    for s in range(mesh.size):
+    for s, m in enumerate(masks):
         z = x_l[s] * Dd_l[s]
         for i in range(D):
             z = (z + sl(xh[s], i, -1) * L_l[s][i]
                  + sl(xh[s], i, +1) * up[i][s])
-        out.append(torch.where(masks[s], z, 0.0))
+        out.append(torch.where(m, z, 0.0))
     return mesh.assemble(out)

@@ -4,12 +4,13 @@ PyTorch counterpart of `waterlily_tpu.parallel.mesh` (the mesh choice of
 `mesh_for`) and of the three `jax.lax` collectives its shard_map regions
 call.  A `ShardMesh` here is an in-process mesh: every shard of one process
 lives on one device, and a collective is a tensor move on that device (the
-analog of JAX's virtual CPU devices).  A sharded field is a list of local
-blocks in row-major shard order; the local functions of this package take
-lists and return lists, and each collective reads the whole list.  A value
-that every shard holds alike (a dot, a coarse multigrid level) is one
-tensor.  A mesh over processes (`torch.distributed`, one rank a GPU; not
-ported yet) implements the same interface for the one block a rank
+analog of JAX's virtual CPU devices).  A sharded field is a list of the
+blocks a process holds (`ShardMesh.local_shards`: here every shard, in
+row-major shard order); the local functions of this package take lists and
+return lists, and each collective reads the whole list.  A value that every
+shard holds alike (a dot, a coarse multigrid level) is one tensor.  The
+mesh over processes (`parallel.dist.ProcessMesh`, a `torch.distributed`
+rank a block) implements the same interface for the one block a rank
 holds.
 
 GSPMD's sharding constraints (`constrain_state`, `constrain_levels`,
@@ -22,7 +23,8 @@ import math
 
 import torch
 
-__all__ = ["ShardMesh", "mesh_for", "_spatial_names", "_local_shape"]
+__all__ = ["ShardMesh", "mesh_for", "ordered_sum", "_spatial_names",
+           "_local_shape"]
 
 NAMES = ("x", "y", "z")
 
@@ -36,6 +38,10 @@ class ShardMesh:
     ``names`` are the mesh's spatial axis names (``x``, ``y``, ``z`` by
     default), one for each sharded axis, in JAX's positional mapping of
     names to spatial axes."""
+
+    # a process mesh keeps a Simulation's state as the rank's blocks; this
+    # one keeps it global (`from_state`, `to_state`)
+    distributed = False
 
     def __init__(self, shards, device="cuda", replicas: int = 1,
                  names=None):
@@ -69,6 +75,12 @@ class ShardMesh:
         """Shards of a field (the replicas not counted)."""
         return math.prod(self.shards)
 
+    @property
+    def local_shards(self) -> tuple:
+        """The shards whose blocks this process holds, in the order of a
+        sharded field's list: every shard here."""
+        return tuple(range(self.size))
+
     def k(self, d: int) -> int:
         """Shards along spatial axis ``d``."""
         return self.shards[d] if d < len(self.shards) else 1
@@ -88,9 +100,10 @@ class ShardMesh:
         return s
 
     def axis_index(self, d: int) -> list:
-        """Each shard's index along axis ``d`` (JAX's ``axis_index``)."""
+        """Each local shard's index along axis ``d`` (JAX's
+        ``axis_index``)."""
         return [self.coords(s)[d] if d < len(self.shards) else 0
-                for s in range(self.size)]
+                for s in self.local_shards]
 
     def base(self, s: int, S) -> tuple:
         """Global index of shard ``s``'s cell 0 on a grid of shape ``S``."""
@@ -111,17 +124,20 @@ class ShardMesh:
         S = tuple(a.shape[lead:])
         return [a[self._slices(s, S, lead)].clone(
                     memory_format=torch.contiguous_format)
-                for s in range(self.size)]
+                for s in self.local_shards]
 
     def assemble(self, blocks: list, lead: int = 0) -> torch.Tensor:
-        """The global array of a list of local blocks."""
-        loc = tuple(blocks[0].shape[lead:])
-        S = tuple(n * self.k(d) for d, n in enumerate(loc))
-        out = torch.empty(tuple(blocks[0].shape[:lead]) + S,
-                          dtype=blocks[0].dtype, device=blocks[0].device)
-        for s, b in enumerate(blocks):
-            out[self._slices(s, S, lead)] = b
-        return out
+        """The global array of a sharded field (every process gets it)."""
+        return _join(self.all_gather(blocks), self.shards, lead)
+
+    def from_state(self, a: torch.Tensor, lead: int = 0) -> list:
+        """A state field, as a Simulation on this mesh keeps it (global
+        here), as the list of local blocks."""
+        return self.split(a, lead)
+
+    def to_state(self, blocks: list, lead: int = 0) -> torch.Tensor:
+        """The inverse of `from_state`."""
+        return self.assemble(blocks, lead)
 
     # -- collectives --------------------------------------------------------
 
@@ -142,13 +158,16 @@ class ShardMesh:
                 out.append(None)
         return out
 
+    def all_gather(self, values: list) -> list:
+        """Every shard's value (tensors of one shape), in row-major shard
+        order, from the local shards' ``values``."""
+        return list(values)
+
     def psum(self, values: list) -> torch.Tensor:
         """``jax.lax.psum`` over every spatial axis: the sum of the shards'
-        values in row-major shard order, one tensor every shard holds."""
-        total = values[0]
-        for v in values[1:]:
-            total = total + v
-        return total
+        values in row-major shard order (`ordered_sum`), one tensor every
+        shard holds."""
+        return ordered_sum(self.all_gather(values))
 
     def pmax(self, values: list) -> torch.Tensor:
         """``jax.lax.pmax`` over every spatial axis."""
@@ -156,6 +175,25 @@ class ShardMesh:
         for v in values[1:]:
             total = torch.maximum(total, v)
         return total
+
+
+def ordered_sum(values: list) -> torch.Tensor:
+    """``values[0] + values[1] + ...`` from the first: the one order of
+    every psum, so that a process mesh sums bit for bit as this one."""
+    total = values[0]
+    for v in values[1:]:
+        total = total + v
+    return total
+
+
+def _join(blocks: list, shards: tuple, lead: int) -> torch.Tensor:
+    """The global array of every shard's block (row-major shard order):
+    the blocks concatenated along the last mesh axis first."""
+    for d in reversed(range(len(shards))):
+        k = shards[d]
+        blocks = [torch.cat(blocks[i:i + k], dim=lead + d) if k > 1
+                  else blocks[i] for i in range(0, len(blocks), k)]
+    return blocks[0]
 
 
 def mesh_for(S: tuple, n: int, device="cuda") -> ShardMesh:

@@ -13,8 +13,11 @@ forms on halo-extended blocks (`ops.stencil_kernels`' ``mult3d`` and the
 shard-local ``conv_diff3d``), which on CPU tensors are their plain
 versions (JAX's ``"interpret"``).  `_auto_pallas` chooses the kernels on
 a CUDA device when the halo-extended block passes the kernel gate.
+
 The standalone one-call wrappers (`shardmap_pcg`, `shardmap_increment`,
-`shardmap_residual`, `shardmap_conv_diff`) are not ported yet.
+`shardmap_residual`, `shardmap_conv_diff`) take global arrays and return
+global arrays on either mesh (on a process mesh every rank gets them):
+split, the local function, assemble.
 """
 from __future__ import annotations
 
@@ -27,7 +30,8 @@ from .mesh import ShardMesh, _spatial_names, _local_shape
 
 __all__ = ["can_shardmap", "prep_local_op", "local_mult", "pcg_local",
            "increment_local", "residual_local", "conv_diff_local",
-           "PALLAS"]
+           "shardmap_pcg", "shardmap_increment", "shardmap_residual",
+           "shardmap_conv_diff", "PALLAS"]
 
 # Override of the per-shard dispatch (None: `_auto_pallas`'s rule): "off"
 # or "kernels", for every region of the step.  JAX's `CONV_PALLAS` plays
@@ -202,7 +206,7 @@ def conv_diff_local(mesh: ShardMesh, S, u_l, nu, limiter, pallas: str,
     loc = tuple(u_l[0].shape[1:])
     uh = halo_exchange(u_l, mesh, D, width=2, perdir=perdir)
     out = []
-    for s, b in enumerate(uh):
+    for s, b in zip(mesh.local_shards, uh):
         base = mesh.base(s, S)
         if pallas != "off":
             r = sk.conv_diff3d(b, nu, limiter, perdir, S_glob=tuple(S),
@@ -213,3 +217,67 @@ def conv_diff_local(mesh: ShardMesh, S, u_l, nu, limiter, pallas: str,
             out.append(conv_core(b, loc, nu, perdir, limiter,
                                  S_glob=tuple(S), base=base, modular=True))
     return out
+
+
+def _level_blocks(mesh: ShardMesh, lev):
+    return mesh.split(lev.L, 1), mesh.split(lev.D), mesh.split(lev.iD)
+
+
+def _pallas_for(mesh: ShardMesh, S, dtype, pallas):
+    return _auto_pallas(mesh, tuple(S), dtype) if pallas is None else pallas
+
+
+def shardmap_pcg(mesh: ShardMesh, lev, x, r, it: int = 6,
+                 pallas: str | None = None):
+    """The Jacobi-preconditioned CG smoother of global arrays on the
+    shards' blocks (JAX's `shardmap_pcg`): `ops.poisson.pcg`'s algebra
+    with its dead-mask exits, f32 search directions (the sharded solve's),
+    dots as per-shard partials and a psum."""
+    S = tuple(x.shape)
+    L_l, Dd_l, iD_l = _level_blocks(mesh, lev)
+    x_l, r_l = pcg_local(mesh, S, L_l, Dd_l, iD_l, mesh.split(x),
+                         mesh.split(r), it,
+                         _pallas_for(mesh, S, x.dtype, pallas),
+                         perdir=lev.perdir)
+    return mesh.assemble(x_l), mesh.assemble(r_l)
+
+
+def shardmap_increment(mesh: ShardMesh, lev, x, r, eps,
+                       pallas: str | None = None):
+    """``x += eps; r -= A·eps`` of global arrays on the shards' blocks
+    (JAX's `shardmap_increment`).  ``eps`` must be ghost-zero; periodic
+    ghosts are filled by the matvec, as the dense `increment` does."""
+    S = tuple(x.shape)
+    L_l, Dd_l, _iD = _level_blocks(mesh, lev)
+    x_l, r_l = increment_local(mesh, S, L_l, Dd_l, mesh.split(x),
+                               mesh.split(r), mesh.split(eps),
+                               _pallas_for(mesh, S, x.dtype, pallas),
+                               perdir=lev.perdir)
+    return mesh.assemble(x_l), mesh.assemble(r_l)
+
+
+def shardmap_residual(mesh: ShardMesh, lev, x, z, pallas: str | None = None):
+    """Body-masked, mean-corrected ``r = z - A·x`` of global arrays on the
+    shards' blocks (JAX's `shardmap_residual`; reference ``residual!``),
+    the mean a psum."""
+    S = tuple(x.shape)
+    L_l, Dd_l, iD_l = _level_blocks(mesh, lev)
+    r_l = residual_local(mesh, S, L_l, Dd_l, iD_l, mesh.split(x),
+                         mesh.split(z), _pallas_for(mesh, S, x.dtype, pallas),
+                         perdir=lev.perdir)
+    return mesh.assemble(r_l)
+
+
+def shardmap_conv_diff(mesh: ShardMesh, u, nu, limiter,
+                       pallas: str | None = None, perdir=()):
+    """The conv_diff tendency of a global velocity on the shards' blocks
+    (JAX's `shardmap_conv_diff`): width-2 halos, modular wraps on periodic
+    axes (``u``'s ghosts periodic-filled, as the step's BC keeps them), the
+    flux with global-index boundary variants; ``pallas=None`` takes the
+    kernel form where the width-2 halo-extended block passes the gate."""
+    S = tuple(u.shape[1:])
+    if pallas is None:
+        pallas = _auto_pallas(mesh, S, u.dtype, extra=4)
+    r_l = conv_diff_local(mesh, S, mesh.split(u, 1), nu, limiter, pallas,
+                          tuple(perdir))
+    return mesh.assemble(r_l, 1)

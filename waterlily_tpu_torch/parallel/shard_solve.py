@@ -11,9 +11,10 @@ shard_map region for the whole `ml_solve`):
   dense ``mult3d``, ``increment3d`` and ``pcg_fused`` kernels);
 - the transfers are exact: restriction sums each coarse cell's children on
   the one shard that holds its lower child (the upper child is local or
-  the first halo plane), scatters the owned cells into a zero coarse array
-  and psums the shards' arrays (adding zeros), so the replicated coarse
-  residual equals the dense restriction bit for bit; prolongation reads
+  the first halo plane), gathers every shard's owned window, scatters each
+  into a zero coarse array and sums the arrays in the psum's order (adding
+  zeros), so the replicated coarse residual equals the dense restriction
+  bit for bit; prolongation reads
   the replicated coarse correction (a slice and a repeat per axis).
 """
 from __future__ import annotations
@@ -24,7 +25,7 @@ import torch
 
 from ..ops import stencil_kernels as sk
 from .halo import halo_exchange, ghost_mask_local, per_fill_local
-from .mesh import ShardMesh
+from .mesh import ShardMesh, ordered_sum
 from .shard_smooth import (can_shardmap, prep_local_op, pcg_local,
                            increment_local, residual_local, _auto_pallas)
 
@@ -55,6 +56,12 @@ def _clamp(start: int, size: int, n: int) -> int:
     return min(max(start, 0), n - size)
 
 
+def _first_owned(b: int) -> int:
+    """The first coarse row a block whose first fine row is ``b`` owns
+    (the coarse cell whose lower child is the block's first odd row)."""
+    return b // 2 + 1
+
+
 def _restrict_axis_local(v, d, b, Bf, M):
     """Pair-sum axis ``d`` of a halo-extended block down one level.
 
@@ -74,7 +81,7 @@ def _restrict_axis_local(v, d, b, Bf, M):
     else:
         o0 = 2
         npair = Bf // 2
-    c0 = b // 2 + 1
+    c0 = _first_owned(b)
     w = v.narrow(d, _clamp(o0, 2 * nmax, v.shape[d]), 2 * nmax)
     s = w.reshape(w.shape[:d] + (nmax, 2) + w.shape[d + 1:]).sum(dim=d + 1)
     view = [1] * s.ndim
@@ -86,25 +93,29 @@ def _restrict_axis_local(v, d, b, Bf, M):
 
 def restrict_replicated(mesh: ShardMesh, S, r_l: list) -> torch.Tensor:
     """The dense-order restriction of a sharded fine residual, replicated:
-    each shard's owned pair sums scattered into a zero coarse array, the
-    arrays psum'd."""
+    each shard's owned pair sums (its window, ``Bf//2 + 1`` rows an axis)
+    gathered from every shard, scattered into zero coarse arrays and the
+    arrays summed in the psum's order (JAX psums the scattered arrays:
+    the same sums, a window's bytes moved instead of a coarse array's)."""
     D = r_l[0].ndim
     Sc = tuple(1 + s // 2 for s in S)
     vh = halo_exchange(r_l, mesh, D)
-    outs = []
-    for s, v in enumerate(vh):
+    wins = []
+    for s, v in zip(mesh.local_shards, vh):
         base = mesh.base(s, S)
-        c0s = []
         for d in range(D):
-            v, c0 = _restrict_axis_local(v, d, base[d], S[d] // mesh.k(d),
-                                         Sc[d] - 2)
-            c0s.append(c0)
+            v, _c0 = _restrict_axis_local(v, d, base[d], S[d] // mesh.k(d),
+                                          Sc[d] - 2)
+        wins.append(v)
+    outs = []
+    for s, v in enumerate(mesh.all_gather(wins)):
+        c0s = [_first_owned(b) for b in mesh.base(s, S)]
         out = torch.zeros(Sc, dtype=v.dtype, device=v.device)
         out[tuple(slice(st, st + n) for st, n in
                   ((_clamp(c, v.shape[d], Sc[d]), v.shape[d])
                    for d, c in enumerate(c0s)))] = v
         outs.append(out)
-    return mesh.psum(outs)
+    return ordered_sum(outs)
 
 
 def prolongate_local(mesh: ShardMesh, S, xc: torch.Tensor,
@@ -118,7 +129,7 @@ def prolongate_local(mesh: ShardMesh, S, xc: torch.Tensor,
     if masks is None:
         masks = ghost_mask_local(mesh, S, loc)
     out = []
-    for s in range(mesh.size):
+    for m, s in zip(masks, mesh.local_shards):
         base = mesh.base(s, S)
         v = xc
         for d in range(D):
@@ -128,7 +139,7 @@ def prolongate_local(mesh: ShardMesh, S, xc: torch.Tensor,
             w = v.narrow(d, _clamp(c0, ncr, v.shape[d]), ncr)
             w = torch.repeat_interleave(w, 2, dim=d)
             v = w.narrow(d, _clamp(b + 1 - 2 * c0, Bf, w.shape[d]), Bf)
-        out.append(torch.where(masks[s], v, 0.0).to(xc.dtype))
+        out.append(torch.where(m, v, 0.0).to(xc.dtype))
     return out
 
 

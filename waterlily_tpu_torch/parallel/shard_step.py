@@ -1,10 +1,11 @@
-"""The whole momentum step on the shards' blocks.
+"""The whole momentum step on the shards' blocks, and the per-phase
+conv + BDIM region.
 
-PyTorch counterpart of `waterlily_tpu.parallel.shard_step` (JAX's one
-shard_map region per time step): conv_diff, BDIM, the boundary
-conditions, the outlet, both projections with their solves and the CFL
-reduction all run on the local blocks, with halo planes and global-index
-masks:
+PyTorch counterpart of `waterlily_tpu.parallel.shard_step`.  The whole
+step (JAX's one shard_map region per time step, `shardmap_mom_step`):
+conv_diff, BDIM, the boundary conditions, the outlet, both projections
+with their solves and the CFL reduction all run on the local blocks, with
+halo planes and global-index masks:
 
 - conv_diff and the solve are `shard_smooth.conv_diff_local` and
   `shard_solve.ml_solve_local`;
@@ -14,13 +15,24 @@ masks:
   least two cells wide), so it moves nothing but periodic planes;
 - the outlet's mass-flux mean is a psum, the CFL a local max and a pmax.
 
-The state stays global, as in JAX: the step splits it into blocks at entry
-and assembles it at exit (the region's ``in_specs`` and ``out_specs``).
-With the kernel forms (``pallas``) the projection head and tail run
-``div3d`` and ``project3d`` in their shard-local forms on the
-halo-extended blocks.
+On the in-process mesh the state stays global, as in JAX: the step
+splits it into blocks at entry and assembles it at exit (the region's
+``in_specs`` and ``out_specs``).  On a process mesh
+(`parallel.dist.ProcessMesh`) the state is the rank's blocks, taken and
+returned as they are (`ShardMesh.from_state`/``to_state``): no global
+field is built in a step.  With the kernel forms (``pallas``) the
+projection head and tail run ``div3d`` and ``project3d`` in their
+shard-local forms on the halo-extended blocks.
+
+`shardmap_conv_bdim` is JAX's per-phase region: conv_diff, accelerate
+and the BDIM blend (optionally the boundary conditions after it) on the
+blocks, global arrays in and out; `flow.mom_step` runs it under a mesh
+where the whole-step region is refused (``log``, ``fixed_iters``,
+``implicit_diff``), the rest of that step dense.
 """
 from __future__ import annotations
+
+import dataclasses
 
 import torch
 
@@ -32,17 +44,32 @@ from .shard_smooth import (can_shardmap, conv_diff_local, prep_local_op,
 from .shard_solve import ml_solve_local, replicate_level
 
 __all__ = ["shardmap_mom_step", "can_shard_step", "bc_vector_local",
-           "exit_bc_local"]
+           "exit_bc_local", "shardmap_conv_bdim", "local_levels"]
 
 
 def can_shard_step(cfg, mesh: ShardMesh | None, levels) -> bool:
-    """Gate of the sharded step: a mesh that divides the fine level evenly
-    (`shard_smooth.can_shardmap`), no fixed solver iteration count and no
-    residual-trace capture (``cfg.log``): JAX keeps both on its per-phase
-    GSPMD path, whose counterpart here is the dense step."""
+    """Gate of the whole-step region: a mesh that divides the fine level
+    evenly (`shard_smooth.can_shardmap`), no fixed solver iteration count,
+    no residual-trace capture (``cfg.log``) and no ``implicit_diff``: JAX
+    keeps these on its per-phase path (`flow.mom_step` with
+    `shardmap_conv_bdim`)."""
     fine = levels[0]
     return (mesh is not None and cfg.fixed_iters is None and not cfg.log
+            and not cfg.implicit_diff
             and can_shardmap(mesh, tuple(fine.D.shape), fine.perdir))
+
+
+def local_levels(mesh: ShardMesh, levels):
+    """A dense level stack in the form a Simulation on ``mesh`` keeps it:
+    unchanged on the in-process mesh; on a process mesh the fine level's
+    L, D and iD as the rank's blocks, the coarse levels whole (the sharded
+    solve replicates them)."""
+    if not mesh.distributed:
+        return levels
+    fine = levels[0]
+    (L,), (Dd,), (iD,) = (mesh.split(fine.L, 1), mesh.split(fine.D),
+                          mesh.split(fine.iD))
+    return (dataclasses.replace(fine, L=L, D=Dd, iD=iD),) + tuple(levels[1:])
 
 
 def _gidx(mesh: ShardMesh, S, loc_shape, d, s, device):
@@ -69,10 +96,11 @@ def bc_vector_local(mesh: ShardMesh, S, u_l: list, A, save_exit=False,
     `halo.per_fill_local` in the dense chain's stage position."""
     D = u_l[0].shape[0]
     loc = tuple(u_l[0].shape[1:])
+    shards = mesh.local_shards
     if pallas != "off" and D == 3 and not perdir:
         return [sk.bc3d(u.contiguous(), A, save_exit, S_glob=tuple(S),
                         base=mesh.base(s, S))
-                for s, u in enumerate(u_l)]
+                for s, u in zip(shards, u_l)]
     dev = u_l[0].device
     comps = []
     for i in range(D):
@@ -82,7 +110,7 @@ def bc_vector_local(mesh: ShardMesh, S, u_l: list, A, save_exit=False,
                 v = per_fill_local(v, mesh, S, (j,))
                 continue
             new = []
-            for s, vs in enumerate(v):
+            for s, vs in zip(shards, v):
                 g = _gidx(mesh, S, loc, j, s, dev)
                 if i == j:
                     hi = g == S[j] - 1
@@ -97,8 +125,8 @@ def bc_vector_local(mesh: ShardMesh, S, u_l: list, A, save_exit=False,
                 new.append(vs)
             v = new
         comps.append(v)
-    return [torch.stack([c[s] for c in comps], dim=0)
-            for s in range(mesh.size)]
+    return [torch.stack([c[i] for c in comps], dim=0)
+            for i in range(len(u_l))]
 
 
 def exit_bc_local(mesh: ShardMesh, S, u_l: list, u0_l: list, U, dt) -> list:
@@ -112,7 +140,7 @@ def exit_bc_local(mesh: ShardMesh, S, u_l: list, u0_l: list, U, dt) -> list:
     for d in range(1, D):
         cnt = cnt * (S[d] - 2)
     masks, news = [], []
-    for s, u0 in enumerate(u0_l):
+    for s, u0 in zip(mesh.local_shards, u0_l):
         m = _gidx(mesh, S, loc, 0, s, dev) == S[0] - 1
         for d in range(1, D):
             gd = _gidx(mesh, S, loc, d, s, dev)
@@ -145,7 +173,7 @@ def _bdim_blend_local(mesh: ShardMesh, S, u0_l, r_l, V_l, mu0_l, mu1_l,
     f = [u0 + dt * r - V for u0, r, V in zip(u0_l, r_l, V_l)]
     fh = halo_exchange(f, mesh, D)
     out = []
-    for s in range(mesh.size):
+    for s in range(len(f)):
         m = None
         for j in range(D):
             t = mu1_l[s][:, j] * (_sl(fh[s], loc, j, +1)
@@ -201,12 +229,57 @@ def _cfl_local(mesh: ShardMesh, S, u_l, nu, masks, dt_max=10.0):
     return torch.clamp_max(1.0 / (mesh.pmax(mx) + 5 * nu), dt_max)
 
 
+def shardmap_conv_bdim(cfg, u_in, u0, V, mu0, mu1, dt, t_eff, scale,
+                       pallas: str | None = None, bc=None):
+    """conv_diff + accelerate + the BDIM blend as one region over the
+    blocks of ``cfg.mesh`` (JAX's `shardmap_conv_bdim`): the tendency of
+    ``u_in`` at time ``t_eff`` (`shard_smooth.conv_diff_local`), the blend
+    from one halo round of ``f`` (`_bdim_blend_local`).
+
+    ``scale=None`` is the predictor (the reference's ``scale_u!(a, 0)``
+    and BDIM: interior := blend, ghosts keep ``u0``); ``scale=0.5`` the
+    corrector (interior := 0.5·(u_in + blend)).  ``bc=U`` also applies the
+    boundary conditions after the blend in the region (`bc_vector_local`,
+    and with ``cfg.exitBC`` in the predictor `exit_bc_local`).  Fields are
+    in the form the mesh keeps state in (`ShardMesh.from_state`: global
+    arrays on the in-process mesh).  ``pallas`` overrides the per-shard
+    dispatch; ``"off"`` keeps the plain forms (a field autograd tracks)."""
+    from ..ops.convect import accelerate
+    mesh = cfg.mesh
+    D, S, dtype = cfg.D, tuple(cfg.S), cfg.dtype
+    if pallas is None:
+        pallas = _auto_pallas(mesh, S, dtype, extra=4)
+    u0_l = mesh.from_state(u0, 1)
+    u_l = u0_l if u_in is u0 else mesh.from_state(u_in, 1)
+    r = conv_diff_local(mesh, S, u_l, cfg.nu, cfg.limiter, pallas,
+                        cfg.perdir)
+    r = [accelerate(rs, t_eff, cfg.g, cfg.U, dtype) for rs in r]
+    blend = _bdim_blend_local(mesh, S, u0_l, r, mesh.from_state(V, 1),
+                              mesh.from_state(mu0, 1),
+                              mesh.from_state(mu1, 2), dt)
+    masks = ghost_mask_local(mesh, S, tuple(u0_l[0].shape[1:]))
+    if scale is None:
+        un = [torch.where(m[None], b, u) for m, b, u in zip(masks, blend,
+                                                             u0_l)]
+    else:
+        un = [torch.where(m[None], scale * (u + b), u)
+              for m, b, u in zip(masks, blend, u_l)]
+    if bc is not None:
+        un = bc_vector_local(mesh, S, un, bc, cfg.exitBC, perdir=cfg.perdir)
+        if cfg.exitBC and scale is None:
+            un = exit_bc_local(mesh, S, un, u0_l, bc, dt)
+    return mesh.to_state(un, 1)
+
+
 def shardmap_mom_step(cfg, mesh: ShardMesh, levels, state, pallas=None):
     """One predictor/corrector time step (reference ``mom_step!``) on the
     shards' blocks: the phases of `flow.mom_step` in its order, with its
     time conventions.  Returns ``(state, aux)`` as `flow.mom_step` does.
-    ``pallas`` overrides the per-shard dispatch (`shard_smooth`): "off" or
-    "kernels"."""
+    ``state`` and the fine level are in the form ``mesh`` keeps them
+    (`ShardMesh.from_state`, `local_levels`: global on the in-process
+    mesh, the rank's blocks on a process mesh); the coarse levels are
+    whole.  ``pallas`` overrides the
+    per-shard dispatch (`shard_smooth`): "off" or "kernels"."""
     from ..flow import bc_tuple
     from ..ops.convect import accelerate
 
@@ -216,12 +289,12 @@ def shardmap_mom_step(cfg, mesh: ShardMesh, levels, state, pallas=None):
     if pallas is None:
         pallas = _auto_pallas(mesh, S, dtype)
     kern = pallas != "off"
-    u0 = mesh.split(state.u, 1)
-    p = mesh.split(state.p)
-    V, mu0 = mesh.split(state.V, 1), mesh.split(state.mu0, 1)
-    mu1 = mesh.split(state.mu1, 2)
-    fL, fD, fiD = mesh.split(fine.L, 1), mesh.split(fine.D), \
-        mesh.split(fine.iD)
+    u0 = mesh.from_state(state.u, 1)
+    p = mesh.from_state(state.p)
+    V, mu0 = mesh.from_state(state.V, 1), mesh.from_state(state.mu0, 1)
+    mu1 = mesh.from_state(state.mu1, 2)
+    fL, fD, fiD = (mesh.from_state(fine.L, 1), mesh.from_state(fine.D),
+                   mesh.from_state(fine.iD))
     dt, t = state.dt, state.t
     U = bc_tuple(cfg.U, t + dt, D, dtype)
     loc = tuple(p[0].shape)
@@ -229,16 +302,16 @@ def shardmap_mom_step(cfg, mesh: ShardMesh, levels, state, pallas=None):
     op = prep_local_op(mesh, fL, fD, D, pallas)
     # the halo-extended blocks' cell 0, a plane below each block's
     base_ext = [tuple(b - 1 for b in mesh.base(s, S))
-                for s in range(mesh.size)]
+                for s in mesh.local_shards]
     inner = (slice(1, -1),) * D
     pad1 = (1, 1) * D
 
     def solve_project(u, p, dt_eff):
         if kern:
             uh = halo_exchange(u, mesh, D)
-            zx = [sk.div3d(uh[s], torch.nn.functional.pad(p[s], pad1),
-                           dt_eff, S_glob=S, base=base_ext[s])
-                  for s in range(mesh.size)]
+            zx = [sk.div3d(uh[i], torch.nn.functional.pad(p[i], pad1),
+                           dt_eff, S_glob=S, base=b)
+                  for i, b in enumerate(base_ext)]
             z = [zz[inner] for zz, _x in zx]
             x = [xx[inner] for _z, xx in zx]
         else:
@@ -250,10 +323,10 @@ def shardmap_mom_step(cfg, mesh: ShardMesh, levels, state, pallas=None):
         if kern:
             Lh, _Dh = op
             xh = halo_exchange(x, mesh, D)
-            up = [sk.project3d(Lh[s], xh[s],
-                               torch.nn.functional.pad(u[s], pad1), dt_eff,
-                               S_glob=S, base=base_ext[s])
-                  for s in range(mesh.size)]
+            up = [sk.project3d(Lh[i], xh[i],
+                               torch.nn.functional.pad(u[i], pad1), dt_eff,
+                               S_glob=S, base=b)
+                  for i, b in enumerate(base_ext)]
             return ([un[(slice(None),) + inner] for un, _p in up],
                     [pn[inner] for _u, pn in up], n)
         u = _pressure_correct_local(mesh, S, fL, x, u, masks)
@@ -285,6 +358,6 @@ def shardmap_mom_step(cfg, mesh: ShardMesh, levels, state, pallas=None):
     u2 = bc(u2)
 
     dt_new = _cfl_local(mesh, S, u2, cfg.nu, masks)
-    new = state.replace(u=mesh.assemble(u2, 1), p=mesh.assemble(p),
+    new = state.replace(u=mesh.to_state(u2, 1), p=mesh.to_state(p),
                         dt=dt_new, t=t + dt)
     return new, {"pois_n": [n1, n2], "dt": dt_new}

@@ -99,10 +99,23 @@ class Simulation:
     gives the same result).  The state stays global.  As in JAX, a
     sharded layout keeps the dense BDIM blend and dense Poisson levels (a
     body still gets the narrow-band measurement), and its coarse levels
-    are replicated.  ``fixed_iters`` under a mesh is not ported (ROADMAP
-    A19, with A16) and raises `NotImplementedError`, and so does
-    ``implicit_diff``.  ``log`` keeps the dense step, as JAX keeps its
-    per-phase path.
+    are replicated.  ``log``, ``fixed_iters`` and ``implicit_diff`` take
+    JAX's per-phase path instead: `flow.mom_step` with conv_diff and the
+    BDIM blend as one region over the blocks
+    (`parallel.shard_step.shardmap_conv_bdim`), the rest of the step
+    dense; the derivatives flow through the region.
+
+    ``mesh`` may also be a `parallel.dist.ProcessMesh` (one block a
+    `torch.distributed` rank, e.g. ``parallel.dist.dist_mesh_for(S)``;
+    every rank of the mesh constructs the Simulation and steps it alike).
+    Construction and a remeasure build the dense fields on every rank and
+    keep the rank's blocks; between them a rank holds its blocks of the
+    state and of the fine level and the whole coarse levels.  ``flow``
+    then holds the rank's blocks; `global_flow` assembles the global
+    fields on every rank (output, not stepping).  The mesh must divide the
+    grid (`ValueError` otherwise), and ``log``, ``fixed_iters`` and
+    ``implicit_diff`` raise `NotImplementedError`: no derivative crosses a
+    rank (ROADMAP A19, autograd across ranks).
 
     ``log=True`` captures the pressure solver's residual traces (reference
     ``@log``): `step` and `steps` append one ``(2, itmx+1, 2)`` numpy
@@ -118,11 +131,12 @@ class Simulation:
                  smoother_bf16=False, op_bf16=None, device="cuda",
                  mesh=None, log=False, implicit_diff=False):
         D = len(dims)
-        if mesh is not None and (fixed_iters is not None or implicit_diff):
+        if getattr(mesh, "distributed", False) and (
+                fixed_iters is not None or implicit_diff or log):
             raise NotImplementedError(
-                "fixed_iters and implicit_diff under a mesh are not ported "
-                "(ROADMAP A19 item 4: implicit_diff and fixed_iters under a "
-                "mesh)")
+                "log, fixed_iters and implicit_diff on a ProcessMesh are not "
+                "ported: torch.distributed's point-to-point operations carry "
+                "no autograd (ROADMAP A19, autograd across ranks)")
         if implicit_diff and fixed_iters is not None:
             raise ValueError("implicit_diff and fixed_iters are mutually "
                              "exclusive reverse-mode paths; pick one")
@@ -158,7 +172,7 @@ class Simulation:
             exitBC=bool(exitBC), dtype=dtype, limiter=limiter,
             tol=float(tol), itmx=int(itmx),
             fixed_iters=None if fixed_iters is None else int(fixed_iters),
-            log=bool(log), implicit_diff=bool(implicit_diff))
+            log=bool(log), implicit_diff=bool(implicit_diff), mesh=mesh)
         self._size_window(0.0)
         self._sharded = None
         self._smoother_bf16 = bool(smoother_bf16)
@@ -169,6 +183,10 @@ class Simulation:
         self.flow = flow_init(self.cfg, ulam, dt)
         self.levels = None
         self.measure(0.0)
+        if self._distributed:
+            # the velocity and pressure as the rank's blocks too
+            (u,), (p,) = mesh.split(self.flow.u, 1), mesh.split(self.flow.p)
+            self.flow = self.flow.replace(u=u, p=p)
         # host-side histories of flow.Δt, the solver iteration counts and
         # (under log) the solver's residual traces
         self.dts = [float(dt)]
@@ -207,6 +225,21 @@ class Simulation:
         if not isinstance(self.body, NoBody):
             self.measure()
         return self
+
+    @property
+    def _distributed(self) -> bool:
+        return getattr(self.mesh, "distributed", False)
+
+    def global_flow(self):
+        """The state with global fields: ``flow`` itself, or on a process
+        mesh its blocks assembled on every rank."""
+        if not self._distributed:
+            return self.flow
+        mesh, f = self.mesh, self.flow
+        return f.replace(u=mesh.assemble([f.u], 1), p=mesh.assemble([f.p]),
+                         V=mesh.assemble([f.V], 1),
+                         mu0=mesh.assemble([f.mu0], 1),
+                         mu1=mesh.assemble([f.mu1], 2))
 
     # -- observability -----------------------------------------------------
 
@@ -256,19 +289,30 @@ class Simulation:
         """Re-measure the body and rebuild the Poisson levels (reference
         `measure!(sim)`), at ``t`` (default: the time of the next step).
         All or nothing: a band that outgrew the window raises
-        `RuntimeError` and leaves the state and levels as they were."""
+        `RuntimeError` and leaves the state and levels as they were.  On a
+        process mesh the dense fields and levels are built, then the rank
+        keeps its blocks (`parallel.shard_step.local_levels`)."""
         if t is None:
             t = self.flow.t + self.flow.dt
         V, m0, m1, dc, bb = self._measure_all(t)
         if not self._band_covered(dc, bb):
             raise RuntimeError(self._BAND_ERR)
-        self.levels = build_levels(m0, self.cfg.perdir, self._lv_box, bb,
-                                   bf16_eps=self._smoother_bf16,
-                                   op_bf16=self._op_bf16)
-        self.flow = self.flow.replace(V=V, mu0=m0, mu1=m1, bbox=bb)
+        levels = build_levels(m0, self.cfg.perdir, self._lv_box, bb,
+                              bf16_eps=self._smoother_bf16,
+                              op_bf16=self._op_bf16)
         if self.mesh is not None:
-            from .parallel.shard_step import can_shard_step
-            self._sharded = can_shard_step(self.cfg, self.mesh, self.levels)
+            from .parallel.shard_step import can_shard_step, local_levels
+            self._sharded = can_shard_step(self.cfg, self.mesh, levels)
+            if self._distributed:
+                if not self._sharded:
+                    raise ValueError(f"{self.mesh} does not divide the grid "
+                                     f"{self.cfg.S}")
+                mesh = self.mesh
+                (V,), (m0,) = mesh.split(V, 1), mesh.split(m0, 1)
+                (m1,) = mesh.split(m1, 2)
+                levels = local_levels(mesh, levels)
+        self.levels = levels
+        self.flow = self.flow.replace(V=V, mu0=m0, mu1=m1, bbox=bb)
         return self
 
     def _advance(self, remeasure: bool):
