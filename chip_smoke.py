@@ -37,7 +37,9 @@ Phases, each of which raises (and so exits non-zero) on failure:
    the operator, dt, ν and BC values shared and one a member: against
    ``vmap`` of the plain version at the kernel's tolerance of 3, against
    each member's own launch exactly, one launch a call, ``bc3d``'s fill
-   seen in the batched field;
+   seen in the batched field; and ``ana_mult3d``'s member form (with the
+   dot, and without it on walls and every periodic mask) the same way at
+   (98,66,66) with 1, 3 and 8 members and at (50,34,34) with 3 and 8;
 4. the dense slice: ``sphere_3d(96, 64)`` constructed and stepped 20 times
    on the card with every kernel launch-counted (every ``bc3d`` launch in
    place), then 3 steps from the same initial state on the CPU (plain
@@ -165,6 +167,28 @@ Phases, each of which raises (and so exits non-zero) on failure:
    own card run's, drag within 1e-5, members 0 and 7 against the CPU
    (drag 1e-4, pois_n ±2 a solve, ≤ 4 in all); busy and wall ms a step,
    idle share and peak memory of each sweep against 8 x one member's;
+   (v) the banded ensemble, each member its own body window (the
+   corners device tensors): (a) (iv)'s radius sweep (3 steps) with banded
+   BDIM and banded levels (the (98,66,66) and (50,34,34) levels banded, every
+   member's corners differing): with ``fixed_iters=2`` ``ana_mult3d``
+   launched as often as by one member alone, every launch in its member
+   form but one (the first residual's, on the warm start every member
+   shares before the first solve), the drag within 1e-5 of each member
+   alone; adaptive, each
+   member's pois_n equal to its own card run's and the drag within 1e-5,
+   the sweep against the dense (``bbox`` off) sweep (pois_n ±2/≤4,
+   max|du| < 1e-3), members 0 and 7 against the CPU, and its cost a step;
+   (b) the 256³ sphere's geometry (258³, centre 127, ν 0.64) swept over
+   the radii 28, 30, 32, 34, 2 adaptive steps (258³, 130³, 66³ and 34³
+   banded): each member's pois_n equal to its own card run's and the drag
+   within 1e-4 (the batched plain reductions sum in another order: 1.5e-5
+   measured); wall and busy ms a step, idle share and peak GiB against
+   4 x one member's, ``ana_mult3d``'s member launches by shape; (c)
+   ``vmap(jvp)`` of (a)'s adaptive drag in the radius (1 step, the
+   primal solve in the plain forms as the member's own ``jvp``): each
+   member's tangent and drag within 1e-4 of its own ``jvp`` on the card,
+   pois_n equal, member 0 against the CPU (drag 1e-4, tangent 1e-3), its
+   wall, busy and peak GiB;
 6.9 the decomposition over processes (`parallel.dist.ProcessMesh`, ranks
    spawned by `parallel.launch.run_ranks`): (i) 8 gloo ranks sharing the
    card (each exchange staged through host memory) run
@@ -222,9 +246,9 @@ Phases, each of which raises (and so exits non-zero) on failure:
    ``pcg_fused``'s member form at (194,130) and (98,66) with 32 members
    (an operator each) beside ``vmap`` of the plain ``pcg``, its bound and
    its sync floor (its launches times 12 grid barriers of the chunk's
-   blocks, ``kernels/times.py``'s ``barrier:``); the seven stencils'
-   member forms at (98,66,66) x 8 beside ``vmap`` of their plain versions
-   and 8 times the one-field bound.
+   blocks, ``kernels/times.py``'s ``barrier:``); the seven stencils' and
+   ``ana_mult3d``'s member forms at (98,66,66) x 8 beside ``vmap`` of
+   their plain versions and 8 times the one-field bound.
 
 Every path runs with the launch counters set to 0 and the launched shapes
 and forms cleared just before it, all read just after (each kernel's
@@ -234,8 +258,9 @@ kernels line gives them 0 launches and their calls in phase 8 as
 ``timing_launches``.  The line before the last is a JSON object with one
 entry per kernel, one for ``pcg_fused``'s member form (its launches
 those of 6.8's batched paths, its time at (194,130) x 32) and one for
-each of the seven stencils' member forms (``"<name> (members)"``: its
-member-form launches on the paths, its time at (98,66,66) x 8); the last
+each of the seven stencils' and ``ana_mult3d``'s member forms (``"<name>
+(members)"``: its member-form launches on the paths, its time at
+(98,66,66) x 8); the last
 line is ``{"ok": true, "device": {...}}``.
 Without a CUDA device the script prints no result and exits 2.  Imports
 no JAX.
@@ -1917,6 +1942,10 @@ def check_members(torch, dev):
 # each with 3 and 8 members, the operator (and dt, ν, BC values) shared and
 # one a member
 STENCIL_MEMBER_CASES = ((FINE, 3), (FINE, 8), (RAGGED, 3))
+# ana_mult3d's member form (no operator to share): the banded sweep's two
+# banded levels with 1, 3 and 8 members
+ANA_MEMBER_CASES = ((FINE, 1), (FINE, 3), (FINE, 8), (PCG_LEVEL, 3),
+                    (PCG_LEVEL, 8))
 SWEEP_MEMBERS, SWEEP_STEPS = 8, 5
 SWEEP_CPU = (0, 7)
 SEVEN = ("mult3d", "increment3d", "conv_diff3d", "bc3d", "div3d",
@@ -1940,8 +1969,9 @@ def check_stencil_members(torch, dev):
                                                    compare_stencil_members)
     failures = []
     for name in STENCIL_MEMBERS:
-        for S, M in STENCIL_MEMBER_CASES:
-            for shared in (True, False):
+        ana = name == "ana_mult3d"
+        for S, M in ANA_MEMBER_CASES if ana else STENCIL_MEMBER_CASES:
+            for shared in (False,) if ana else (True, False):
                 rows = compare_stencil_members(name, S, M, shared, 1, dev)
                 worst = max(r["max_abs_err"] for r in rows)
                 single = max(r["single_err"] for r in rows)
@@ -2090,6 +2120,334 @@ def run_sweeps(torch, dev):
         log(f"  CPU runs {time.perf_counter() - t0:.1f} s")
         sweep_costs(torch, kind, vs)
         torch.cuda.empty_cache()
+
+
+# phase 6.8 (v): the banded ensemble.  (a) 6.8 (iv)'s radius sweep with
+# banded BDIM and banded levels (each member its own body window: at FINE
+# the (98,66,66) and (50,34,34) levels are banded); (b) the 256³ sphere's
+# geometry (sphere_3d(256, 256): 258³, centre 127, ν 0.64) swept over 4
+# radii, 2 adaptive steps; (c) vmap(jvp) of (a)'s adaptive drag in the
+# radius
+BANDED_RADII = (7.0, 9.0)
+BIG_RADII = (28.0, 30.0, 32.0, 34.0)
+BIG_NU, BIG_CENTRE, BIG_STEPS = 0.64, 127.0, 2
+# (a)'s steps and (c)'s: (c) runs every pass but the solve's primal in the
+# plain forms, ~6 s a member's own jvp of 2 steps on the H100
+BANDED_STEPS, JVP_STEPS = 3, 1
+BANDED_PATHS = ("6.8 (v) banded radius sweep, fixed_iters=2",
+                "6.8 (v) banded 258^3 sweep")
+BANDED_COSTS = {}
+
+
+def sphere_body(torch, radius, centre):
+    from waterlily_tpu_torch.body import AutoBody
+    return AutoBody(lambda x, t: torch.sqrt(torch.sum((x - centre) ** 2))
+                    - radius)
+
+
+def banded_run(torch, S, nu, centre, box, steps, **cfg_kw):
+    """The sphere at ``centre`` in the domain ``S`` as a pure function of
+    its radius (a 0-d tensor on the card or the CPU): `measure_fields_banded`
+    → `build_levels` with the window's corner → `flow_init` → ``steps``
+    `mom_step`s → the drag, with banded BDIM and banded levels on the
+    ``box`` window (``box`` None: dense); returns ``(drag, pois_n (steps,
+    2), u, the banded levels' corners (n, 3))``."""
+    from waterlily_tpu_torch.body import measure_fields, measure_fields_banded
+    from waterlily_tpu_torch.flow import FlowConfig, flow_init, mom_step
+    from waterlily_tpu_torch.metrics import total_force
+    from waterlily_tpu_torch.ops.multigrid import build_levels
+    f32 = torch.float32
+
+    def run(v):
+        dev = v.device
+        body = sphere_body(torch, v, centre)
+        cfg = FlowConfig(D=3, S=S, device=dev, nu=nu, U=(1.0, 0.0, 0.0),
+                         dtype=f32, bbox_shape=box, **cfg_kw)
+        state = flow_init(cfg)
+        if box is None:
+            V, m0, m1, _ = measure_fields(body, S, 0.0, 1.0, (), False, f32,
+                                          dev)
+            levels, start = build_levels(m0), None
+        else:
+            V, m0, m1, _, start = measure_fields_banded(
+                body, S, 0.0, 1.0, (), False, f32, box, dev)
+            levels = build_levels(m0, box_shape=box, box_start=start)
+        state = state.replace(V=V, mu0=m0, mu1=m1, bbox=start)
+        pois = []
+        for _ in range(steps):
+            state, aux = mom_step(cfg, levels, state)
+            pois.append(torch.as_tensor(aux["pois_n"], device=dev))
+        drag = total_force(state.u, state.p, cfg.nu, body, state.t)[0]
+        return (drag, torch.stack(pois) if pois
+                else torch.zeros((0, 2), dtype=torch.int64, device=dev),
+                state.u,
+                torch.stack([torch.as_tensor(lv.box_start, device=dev)
+                             for lv in levels if lv.banded]
+                            or [torch.zeros(3, dtype=torch.int64,
+                                            device=dev)]))
+    return run
+
+
+def _static_box(torch, dev, S, radius, centre):
+    from waterlily_tpu_torch.body import band_box_shape
+    return band_box_shape(sphere_body(torch, radius, centre), S, 0.0, 1.0,
+                          torch.float32, device=dev)
+
+
+def _stencil_launches(one, ens, one_forms, forms, members, kernels,
+                      shared=SETUP_FORMS):
+    """(iv)'s rule on each of ``kernels``: the ensemble launches it as
+    often as one member alone, in the member form (and, for the kernels
+    in ``shared``, on the members' shared fields the one-field forms one
+    member launched)."""
+    bad = []
+    for k in kernels:
+        allowed = {"members"} | (one_forms.get(k, set())
+                                 if k in shared else set())
+        whole = k not in shared
+        if (ens[k] != one[k] or "members" not in forms.get(k, set())
+                or not forms[k] <= allowed
+                or (whole and members.get(k, 0) != ens[k])):
+            bad.append((k, one[k], ens[k], members.get(k, 0),
+                        sorted(map(str, forms.get(k, set())))))
+    return bad
+
+
+def step_costs(torch, label, run, vs, steps):
+    """Busy and wall ms a step (``steps`` steps less the setup and drag
+    alone), idle share and peak GiB of ``run`` under `torch.func.vmap`
+    over ``vs`` and of its first member alone."""
+    rows = {}
+    for who, call in (("ensemble", lambda n: torch.func.vmap(run(n))(vs)),
+                      ("one member", lambda n: run(n)(vs[0]))):
+        call(steps)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        b1, w1 = _busy_wall(torch, lambda: call(steps))
+        gib = torch.cuda.max_memory_allocated() / 2 ** 30
+        b0, w0 = _busy_wall(torch, lambda: call(0))
+        rows[who] = ((b1 - b0) / steps, (w1 - w0) / steps, gib)
+    (bm, wm, gm), (b1, w1, g1) = rows["ensemble"], rows["one member"]
+    M = len(vs)
+    log(f"  a step of {label} ({M} members): {wm:.3f} ms wall, {bm:.3f} ms "
+        f"busy, idle share {1 - bm / wm:.4f}, peak {gm:.3f} GiB; one member: "
+        f"{w1:.3f} ms wall, {b1:.3f} busy, idle {1 - b1 / w1:.4f}, peak "
+        f"{g1:.3f} GiB; {M} x one member {M * w1:.3f} ms wall ({M * b1:.3f} "
+        f"busy, {M * g1:.3f} GiB) ({steps} steps less the setup and drag "
+        f"alone)")
+    BANDED_COSTS[label] = {"busy_ms": bm, "wall_ms": wm, "idle": 1 - bm / wm,
+                           "peak_gib": gm, "one_busy_ms": b1,
+                           "one_wall_ms": w1, "one_peak_gib": g1}
+
+
+def run_banded_sweeps(torch, dev):
+    """Phase 6.8 (v): the banded ensemble, each member its own body window
+    (`FlowState.bbox` and the banded levels' `box_start` device tensors
+    under `torch.func.vmap`).  (a) The radius sweep at FINE x 8 with banded
+    BDIM and banded levels: with ``fixed_iters=2`` `ana_mult3d` launches
+    as often as one member alone, every launch in its member form but the
+    first residual's on the members' shared warm start (the other kernels
+    by (iv)'s rule), the drag within 1e-5 of each member
+    alone; adaptive, each member's pois_n equal to its own card run's and
+    the drag within 1e-5, the sweep against the dense one (pois_n within
+    ±2/≤4, max|du| < 1e-3), members 0 and 7 against the CPU (drag 1e-4,
+    pois_n ±2/≤4).  (b) 258³ x 4 radii, 2 adaptive steps: each member's
+    pois_n equal to its own card run's, drag within 1e-4 (the plain
+    reductions' order); its cost a step
+    against 4 x one member's.  (c) `vmap(jvp)` of (a)'s adaptive drag in
+    the radius: each member's tangent and drag within 1e-4 of its own
+    `jvp` on the card, pois_n equal; member 0 against the CPU (drag 1e-4,
+    tangent 1e-3, pois_n ±2/≤4); its wall, busy and peak GiB."""
+    box = _static_box(torch, dev, FINE, BANDED_RADII[1], AD_CENTRE)
+    banded_sweep(torch, dev, box)
+    banded_sweep_big(torch, dev)
+    banded_jvp(torch, dev, box)
+
+
+def banded_sweep(torch, dev, box):
+    """Phase 6.8 (v) (a): the banded radius sweep at FINE x 8 on the
+    ``box`` window."""
+    from waterlily_tpu_torch.ops import pcg_kernel as pk
+    from waterlily_tpu_torch.ops import stencil_kernels as sk
+    M = SWEEP_MEMBERS
+    vs = torch.linspace(*BANDED_RADII, M, device=dev)
+    stage(f"(v)(a) banded radius sweep at {FINE} x {M}, box {box}, "
+          f"fixed_iters=2, {BANDED_STEPS} steps")
+    fixed = banded_run(torch, FINE, AD_NU, AD_CENTRE, box, BANDED_STEPS,
+                       tol=AD_TOL, fixed_iters=2)
+    one_label = "6.8 (v) banded, one member, fixed_iters=2"
+    on_path(torch, one_label, BANDED_LEVELS, lambda: fixed(vs[0]))
+    one, one_forms = PATH_LAUNCHES[one_label], PATH_FORMS[one_label]
+    single_pcg = dict(pk.pcg_fused.shapes)
+    drag, _p, _u, corners = on_path(torch, BANDED_PATHS[0], BANDED_LEVELS,
+                                    lambda: torch.func.vmap(fixed)(vs))
+    ens, forms = PATH_LAUNCHES[BANDED_PATHS[0]], PATH_FORMS[BANDED_PATHS[0]]
+    members = MEMBER_COUNTS[BANDED_PATHS[0]]
+    # the first residual's A·x is of the warm start p·dt, which every
+    # member shares before the first solve (p = 0): one one-field launch
+    bad = _stencil_launches(one, ens, one_forms, forms, members,
+                            ("ana_mult3d", "cfl3d", "bc3d", "conv_diff3d"),
+                            SETUP_FORMS + ("ana_mult3d",))
+    if ens["ana_mult3d"] - members.get("ana_mult3d", 0) > 1:
+        bad.append(("ana_mult3d one-field launches",
+                    ens["ana_mult3d"] - members.get("ana_mult3d", 0)))
+    want = {S: n * pk.launch_chunks(S, M, dev)
+            for S, n in single_pcg.items()}
+    log(f"  banded levels' corners a member {corners.tolist()}")
+    log(f"  ana_mult3d: one member {one['ana_mult3d']}, the ensemble "
+        f"{ens['ana_mult3d']} launches ({members.get('ana_mult3d', 0)} in "
+        f"the member form) by shape {dict(sk.ana_mult3d.shapes)}; pcg_fused "
+        f"{dict(pk.pcg_fused.shapes)} (one member's times the chunks: "
+        f"{want})")
+    # radii 7 to 9 move the band's edge by two cells: the members' windows
+    # sit at a few distinct corners
+    distinct = [len({tuple(c) for c in corners[:, lv].tolist()})
+                for lv in range(corners.shape[1])]
+    log(f"  distinct corners on each banded level: {distinct}")
+    if bad or dict(pk.pcg_fused.shapes) != want or len(distinct) < 2 \
+            or distinct[0] < 2:
+        raise AssertionError(f"banded sweep launches: {bad}, pcg_fused "
+                             f"{dict(pk.pcg_fused.shapes)} vs {want}, "
+                             f"corners {corners.tolist()}")
+    alone = torch.stack([fixed(v)[0] for v in vs])
+    err = rel_err(drag.tolist(), alone.tolist())
+    log(f"  drag {drag.tolist()}; vs each member alone: max rel {err:.3e}")
+    if not bool(torch.isfinite(drag).all()) or err > 1e-5:
+        raise AssertionError(f"banded sweep vs members alone: {err}")
+    PATH_LAUNCHES.pop(BANDED_PATHS[0])    # the kernels line's member rows
+
+    stage(f"(v)(a) the adaptive solve (tol {AD_TOL:g}): against each "
+          f"member, the dense sweep and the CPU")
+    adapt = banded_run(torch, FINE, AD_NU, AD_CENTRE, box, BANDED_STEPS,
+                       tol=AD_TOL)
+    drag, pois, u, _c = torch.func.vmap(adapt)(vs)
+    own = [adapt(v) for v in vs]
+    err = rel_err(drag.tolist(), [float(o[0]) for o in own])
+    same = all(torch.equal(pois[m], own[m][1]) for m in range(M))
+    log(f"  pois_n a member {[p.tolist() for p in pois]}; equal to each "
+        f"member's own card run: {same}; drag max rel {err:.3e}")
+    if not same or err > 1e-5:
+        raise AssertionError(f"banded adaptive sweep vs members alone: "
+                             f"pois_n equal {same}, drag {err}")
+    dense = banded_run(torch, FINE, AD_NU, AD_CENTRE, None, BANDED_STEPS,
+                       tol=AD_TOL)
+    ddrag, dpois, du, _c = torch.func.vmap(dense)(vs)
+    du_max = float((u - du).abs().max())
+    pois_dense = all(pois_ok(pois[m].tolist(), dpois[m].tolist())
+                     for m in range(M))
+    log(f"  vs the dense sweep (bbox off): pois_n {[p.tolist() for p in dpois]}"
+        f" ({pois_dense} under the ±2/≤4 rule), max|du| {du_max:.3e}, drag "
+        f"max rel {rel_err(drag.tolist(), ddrag.tolist()):.3e}")
+    if not pois_dense or not du_max < 1e-3:
+        raise AssertionError("banded sweep differs from the dense sweep")
+    t0 = time.perf_counter()
+    for m in SWEEP_CPU:
+        d_cpu, p_cpu, _u, _c = adapt(vs[m].cpu())
+        e = abs(float(drag[m]) - float(d_cpu)) / abs(float(d_cpu))
+        log(f"  member {m} on the CPU: drag {float(d_cpu)!r} vs "
+            f"{float(drag[m])!r} (rel {e:.3e}), pois_n {p_cpu.tolist()} vs "
+            f"{pois[m].tolist()}")
+        if e > 1e-4 or not pois_ok(pois[m].tolist(), p_cpu.tolist()):
+            raise AssertionError(f"banded member {m} vs the CPU")
+    log(f"  CPU runs {time.perf_counter() - t0:.1f} s")
+    step_costs(torch, "the banded radius sweep (adaptive)",
+               lambda n: banded_run(torch, FINE, AD_NU, AD_CENTRE, box, n,
+                                    tol=AD_TOL), vs, BANDED_STEPS)
+    del u, du, own
+    torch.cuda.empty_cache()
+
+
+def banded_sweep_big(torch, dev):
+    """Phase 6.8 (v) (b): the 256³ sphere's geometry over `BIG_RADII`."""
+    from waterlily_tpu_torch.ops import stencil_kernels as sk
+    big_vs = torch.tensor(BIG_RADII, device=dev)
+    big_box = _static_box(torch, dev, BIG, BIG_RADII[-1], BIG_CENTRE)
+    stage(f"(v)(b) the 256³ sphere's geometry, {len(BIG_RADII)} radii "
+          f"{BIG_RADII}, box {big_box}, {BIG_STEPS} adaptive steps")
+    big = lambda n: banded_run(torch, BIG, BIG_NU, BIG_CENTRE, big_box, n)
+    drag, pois, _u, corners = on_path(
+        torch, BANDED_PATHS[1], BANDED_LEVELS,
+        lambda: torch.func.vmap(big(BIG_STEPS))(big_vs))
+    del _u
+    log(f"  banded levels' corners a member {corners.tolist()}; ana_mult3d "
+        f"member-form launches {MEMBER_COUNTS[BANDED_PATHS[1]].get('ana_mult3d', 0)}"
+        f" by shape {dict(sk.ana_mult3d.shapes)}")
+    PATH_LAUNCHES.pop(BANDED_PATHS[1])
+    own = [big(BIG_STEPS)(v)[:2] for v in big_vs]
+    err = rel_err(drag.tolist(), [float(o[0]) for o in own])
+    same = all(torch.equal(pois[m], own[m][1]) for m in range(len(own)))
+    log(f"  pois_n a member {[p.tolist() for p in pois]}; equal to each "
+        f"member's own card run: {same}; drag {drag.tolist()}, max rel "
+        f"{err:.3e}")
+    distinct = [len({tuple(c) for c in corners[:, lv].tolist()})
+                for lv in range(corners.shape[1])]
+    log(f"  distinct corners on each banded level: {distinct}")
+    # each member's kernels are its own launches bit for bit, but the plain
+    # reductions (the PCG dots, the residual's mean, the force) sum a
+    # batched field in another order than a single one: at 258³ after 2
+    # steps that moved the drag by 1.5e-5 on an H100 80GB HBM3 at 700 W,
+    # against 3.6e-7 at FINE (PERF.md §6), so the drag is held at the f32
+    # gate of a reordered run
+    if len(distinct) < 3 or distinct[0] < len(BIG_RADII) or not same \
+            or err > 1e-4 or not bool(torch.isfinite(drag).all()):
+        raise AssertionError(f"258^3 banded sweep vs members alone: pois_n "
+                             f"equal {same}, drag {err}, corners "
+                             f"{corners.tolist()}")
+    del own
+    torch.cuda.empty_cache()
+    step_costs(torch, "the banded 258^3 sweep", big, big_vs, BIG_STEPS)
+    torch.cuda.empty_cache()
+
+
+def banded_jvp(torch, dev, box):
+    """Phase 6.8 (v) (c): `vmap(jvp)` of (a)'s adaptive drag in the
+    radius on the ``box`` window."""
+    M = SWEEP_MEMBERS
+    vs = torch.linspace(*BANDED_RADII, M, device=dev)
+    stage(f"(v)(c) vmap(jvp) of the banded adaptive drag in the radius, "
+          f"{FINE} x {M}, {JVP_STEPS} steps")
+    base = banded_run(torch, FINE, AD_NU, AD_CENTRE, box, JVP_STEPS,
+                      tol=AD_TOL)
+    jvp = lambda r: torch.func.jvp(lambda v: base(v)[:2], (r,),
+                                   (torch.ones_like(r),), has_aux=True)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    p, d, pois = torch.func.vmap(jvp)(vs)
+    torch.cuda.synchronize()
+    first = time.perf_counter() - t0
+    gib = torch.cuda.max_memory_allocated() / 2 ** 30
+    own = [jvp(v) for v in vs]
+    terr = rel_err(d.tolist(), [float(o[1]) for o in own])
+    perr = rel_err(p.tolist(), [float(o[0]) for o in own])
+    same = all(torch.equal(pois[m], own[m][2]) for m in range(M))
+    log(f"  d(drag)/d(radius) {d.tolist()}; vs each member's own jvp: max "
+        f"rel {terr:.3e} (drag {perr:.3e}), pois_n equal {same} "
+        f"{[q.tolist() for q in pois]}")
+    # both take the plain forms; the batched plain reductions sum in
+    # another order (the drag moved by 1.0e-5 at 2 steps, PERF.md §6)
+    if not same or terr > 1e-4 or perr > 1e-4 \
+            or not bool(torch.isfinite(d).all()):
+        raise AssertionError(f"vmap(jvp) vs each member: tangent {terr}, "
+                             f"drag {perr}, pois_n equal {same}")
+    t0 = time.perf_counter()
+    pc, dc, qc = jvp(vs[0].cpu())
+    e_p = abs(float(p[0]) - float(pc)) / abs(float(pc))
+    e_d = abs(float(d[0]) - float(dc)) / abs(float(dc))
+    log(f"  member 0 on the CPU ({time.perf_counter() - t0:.1f} s): drag "
+        f"rel {e_p:.3e}, tangent {float(dc)!r} vs {float(d[0])!r} (rel "
+        f"{e_d:.3e}), pois_n {qc.tolist()} vs {pois[0].tolist()}")
+    if e_p > 1e-4 or e_d > 1e-3 or not pois_ok(pois[0].tolist(),
+                                                qc.tolist()):
+        raise AssertionError("vmap(jvp) member 0 vs the CPU")
+    busy, wall = _busy_wall(torch, lambda: torch.func.vmap(jvp)(vs))
+    log(f"  vmap(jvp) of {M} members, {JVP_STEPS} steps with their setup and "
+        f"drag: {wall:.1f} ms wall ({first * 1e3:.1f} the first call), "
+        f"{busy:.1f} ms busy, idle share {1 - busy / wall:.4f}, peak "
+        f"{gib:.3f} GiB")
+    BANDED_COSTS["vmap(jvp)"] = {"busy_ms": busy, "wall_ms": wall,
+                                 "peak_gib": gib}
+    torch.cuda.empty_cache()
 
 
 def timing_stencil_members(torch, dev):
@@ -2865,6 +3223,7 @@ def main() -> int:
     phase("6.8 ensembles: the sweep under torch.func.vmap")
     run_ensemble(torch, dev)
     run_sweeps(torch, dev)
+    run_banded_sweeps(torch, dev)
     phase("6.9 the decomposition over processes: ProcessMesh, gloo and "
           "NCCL")
     run_process_mesh(torch, dev, snapshot)
@@ -2923,10 +3282,10 @@ def main() -> int:
         "bound_by": MEMBER_TIMES[S]["bound_by"], "library_ms": None,
         "shape": [ENS_MEMBERS, *S],
         "sync_floor_ms": MEMBER_TIMES[S]["sync_floor_ms"]})
-    # the seven stencils' member forms (phase 6.8 (iv)'s member-form
-    # launches; checked in phase 3, timed at FINE x 8 in phase 8); no one
-    # PyTorch call computes a batch of them
-    for k in SEVEN:
+    # the seven stencils' and ana_mult3d's member forms (phase 6.8 (iv)'s
+    # and (v)'s member-form launches; checked in phase 3, timed at FINE x 8
+    # in phase 8); no one PyTorch call computes a batch of them
+    for k in SEVEN + ("ana_mult3d",):
         t = STENCIL_MEMBER_TIMES[k]
         kernels.append({
             "name": members_key(k), "route": "cuda",

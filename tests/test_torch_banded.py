@@ -68,7 +68,8 @@ def _sphere_bodies(c, r, D):
 def test_band_box_shape_matches_jax(c, r, S):
     bj, bt = _sphere_bodies(c, r, len(S))
     want = jb.band_box_shape(bj, S, dtype=jnp.float32)
-    assert tb.band_box_shape(bt, S, dtype=torch.float32) == want
+    assert tb.band_box_shape(bt, S, dtype=torch.float32,
+                             device="cpu") == want
     assert tb.band_box_shape(None, S) is None
 
 
@@ -95,12 +96,12 @@ def test_measure_fields_banded(case):
     else:
         (bj, bt), S, t, perdir, exit_ = _sphere_bodies(14.0, 4.0, 3), \
             (34, 30, 30), 0.0, (1,), False
-    box = tb.band_box_shape(bt, S, t, dtype=torch.float32)
+    box = tb.band_box_shape(bt, S, t, dtype=torch.float32, device="cpu")
     assert box is not None
     dense = tb.measure_fields(bt, S, t, 1.0, perdir, exit_, torch.float32,
                                "cpu")
     *band, start = tb.measure_fields_banded(bt, S, t, 1.0, perdir, exit_,
-                                            torch.float32, box)
+                                            torch.float32, box, "cpu")
     assert start == tuple(band_box_start(band[3] < 3.0, box).tolist())
     ref = jb.measure_fields_banded(bj, S, t, 1.0, perdir, exit_, jnp.float32,
                                    box)

@@ -265,10 +265,11 @@ def test_csg_fields(dtype):
     atol = 1e-6 if dtype is F32 else 1e-12
     for a, b in zip(outt, outj):
         np.testing.assert_allclose(npy(a), npy(b), atol=atol)
-    box = tb.band_box_shape(bt_, S, 0.0, 1.0, TORCH[dtype], max_frac=1.0)
+    box = tb.band_box_shape(bt_, S, 0.0, 1.0, TORCH[dtype], max_frac=1.0,
+                            device="cpu")
     assert box == jb.band_box_shape(bj_, S, 0.0, 1.0, JAX[dtype],
                                     max_frac=1.0)
     banded = tb.measure_fields_banded(bt_, S, 0.0, 1.0, (), False,
-                                      TORCH[dtype], box)
+                                      TORCH[dtype], box, "cpu")
     for a, b in zip(banded[:4], outt):
         assert torch.equal(a, b)

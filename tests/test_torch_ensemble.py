@@ -26,7 +26,8 @@ from waterlily_tpu.metrics import ke as jke
 from waterlily_tpu.ops.multigrid import build_levels as jbuild
 from waterlily_tpu_torch import flow as tf
 from waterlily_tpu_torch import metrics as tm
-from waterlily_tpu_torch.body import AutoBody, measure_fields, measure_sdf
+from waterlily_tpu_torch.body import (AutoBody, band_box_shape, measure_fields,
+                                      measure_fields_banded, measure_sdf)
 from waterlily_tpu_torch.kernels.check import member_inputs, member_variants
 from waterlily_tpu_torch.metrics import ke, total_force
 from waterlily_tpu_torch.ops import pcg_kernel as pk
@@ -387,37 +388,63 @@ def test_vmap_only(transform):
     assert batched == transform.startswith("vmap")
 
 
-def test_vmap_over_jvp_through_the_adaptive_solve_raises():
-    """`vmap` of a derivative through the adaptive solve is not ported: a
-    clear `NotImplementedError` naming its ROADMAP item (`jvp` through it
-    without `vmap` works, `tests/test_torch_grad.py`)."""
+def test_vmap_over_jvp_through_the_adaptive_solve():
+    """`vmap` of `jvp` through the adaptive solve (the loop's `jvp` rule,
+    each member's tangent carried beside its primal for its primal's
+    count) equals each member's own `jvp` through the unbatched loop within
+    1e-12 relative, primal and tangent; `jvp` of `vmap` gives the same
+    (`tests/test_torch_ensemble_banded.py` holds both against JAX)."""
     force = _force_fn(n_steps=1, fixed=None)
     lift = lambda x: force(x)[1]
     xis = torch.tensor(XIS[:2], dtype=f64)
-    with pytest.raises(NotImplementedError, match="ROADMAP A17"):
-        torch.func.vmap(lambda x: torch.func.jvp(
-            lift, (x,), (torch.ones_like(x),))[1])(xis)
-    _, d = torch.func.jvp(lift, (xis[0],), (torch.ones_like(xis[0]),))
-    assert math.isfinite(float(d))
+    p, d = torch.func.vmap(lambda x: torch.func.jvp(
+        lift, (x,), (torch.ones_like(x),)))(xis)
+    own = [torch.func.jvp(lift, (x,), (torch.ones_like(x),)) for x in xis]
+    assert bool(torch.isfinite(d).all())
+    assert_rel(p, torch.stack([o[0] for o in own]), 1e-12)
+    assert_rel(d, torch.stack([o[1] for o in own]), 1e-12)
+    p2, d2 = torch.func.jvp(torch.func.vmap(lift), (xis,),
+                            (torch.ones_like(xis),))
+    assert torch.equal(p2, p) and torch.equal(d2, d)
 
 
 # --- the entry points' device -----------------------------------------------
 
-@pytest.mark.parametrize("fn", [measure_fields, measure_sdf, tm.nds])
-def test_entry_points_default_to_the_card(fn):
-    """`measure_fields`, `measure_sdf` and `metrics.nds` run on the card
-    unless asked for another device, as `FlowConfig` and the cases do;
-    asked for ``meta`` (standing in for the card) every output lies there,
-    `nds` under `vmap` too (its whole-grid measurement)."""
+@pytest.mark.parametrize("fn", [measure_fields, measure_sdf, tm.nds,
+                                measure_fields_banded, band_box_shape])
+def test_entry_points_default_to_the_card(fn, monkeypatch):
+    """`measure_fields`, `measure_sdf`, `metrics.nds`,
+    `measure_fields_banded` and `band_box_shape` run on the card unless
+    asked for another device, as `FlowConfig` and the cases do; asked for
+    ``meta`` (standing in for the card) every output lies there, `nds`
+    and the banded measurement under `vmap` too (the whole-grid
+    measurement; the window corner of each member, which a single run
+    reads to the host, stays on the device).  `band_box_shape` returns
+    host ints: its one full-grid pass runs on the device asked for."""
     assert inspect.signature(fn).parameters["device"].default == "cuda"
     body = AutoBody(lambda x, t: torch.sqrt(torch.sum(x * x)) - 3.0)
     S = (10, 12)
-    if fn is tm.nds:
+    if fn is band_box_shape:
+        import waterlily_tpu_torch.body as tb
+        seen, real = [], tb._d_center
+        monkeypatch.setattr(tb, "_d_center", lambda b, S, t, dt, dev: (
+            seen.append((torch.device(dev), t.device.type))
+            or real(b, S, torch.zeros((), dtype=dt), dt, "cpu")))
+        assert fn(body, S, device="meta") == fn(body, S, device="cpu")
+        assert seen[0] == (torch.device("meta"), "meta")
+        return
+    if fn in (tm.nds, measure_fields_banded):
         rads = torch.ones(2, device="meta")
-        out = torch.func.vmap(lambda c: fn(AutoBody(
-            lambda x, t: torch.sqrt(torch.sum(x * x)) - 3.0 * c), S,
-            device="meta"))(rads)
-        assert out.shape == (2, 2) + S
+        sphere = lambda c: AutoBody(
+            lambda x, t: torch.sqrt(torch.sum(x * x)) - 3.0 * c)
+        call = ((lambda c: fn(sphere(c), S, device="meta")) if fn is tm.nds
+                else (lambda c: fn(sphere(c), S, 0.0, 1.0, (), False,
+                                   torch.float32, (6, 6), device="meta")))
+        out = torch.func.vmap(call)(rads)
+        if fn is tm.nds:
+            assert out.shape == (2, 2) + S
+        else:
+            assert out[-1].shape == (2, 2) and out[-1].dtype == torch.int64
     else:
         out = fn(body, S, 0.0, device="meta")
     for o in (out if isinstance(out, tuple) else (out,)):

@@ -639,8 +639,44 @@ def test_stencil_members_match_single_launches(name, S, M, shared, device):
     assert all(r["single_err"] == 0 and r["launches"] == 1 for r in rows)
 
 
+# --- ana_mult3d's member form (a banded ensemble's far-field operator) -----
+
+@pytest.mark.parametrize("M", [1, 3, 8])
+@pytest.mark.parametrize("S", [FINE, (50, 34, 34)])
+def test_ana_mult3d_members_match_single_launches(S, M, device):
+    """`ana_mult3d`'s member form (one launch for every member, with and
+    without the dot, walls and every periodic mask) equals each member's
+    own launch bit for bit and `vmap` of the plain version within the
+    kernel's tolerance (z exact, the dot 1e-5)."""
+    from waterlily_tpu_torch.kernels.check import compare_stencil_members
+    rows = compare_stencil_members("ana_mult3d", S, M, False, 1, device)
+    bad = [r for r in rows if not r["ok"]]
+    assert not bad, bad
+    assert all(r["single_err"] == 0 and r["launches"] == 1 for r in rows)
+
+
+@pytest.mark.parametrize("with_dot", [False, True])
+def test_ana_mult3d_members_vs_cpu(with_dot, device):
+    """The member form on the card against the CPU's (`vmap` of the plain
+    version) on the same inputs: z bit for bit, each member's dot within
+    1e-5 relative."""
+    from waterlily_tpu_torch.ops import stencil_kernels as sk
+    g = torch.Generator().manual_seed(7)
+    x = torch.randn((3,) + FINE, generator=g)
+    run = lambda x: torch.func.vmap(
+        lambda v: sk.ana_mult3d(v, 2.0, (1,), with_dot))(x)
+    n = sk.ana_mult3d.members
+    card, cpu = run(x.to(device)), run(x)
+    assert sk.ana_mult3d.members - n == 1
+    if with_dot:
+        assert torch.equal(card[0].cpu(), cpu[0])
+        assert torch.allclose(card[1].cpu(), cpu[1], rtol=1e-5, atol=0)
+    else:
+        assert torch.equal(card.cpu(), cpu)
+
+
 @pytest.mark.parametrize("S", MARCH_RAGGED)
-@pytest.mark.parametrize("name", ["mult3d", "cfl3d"])
+@pytest.mark.parametrize("name", ["mult3d", "cfl3d", "ana_mult3d"])
 def test_march_members_ragged(name, S, device):
     """The marches' member forms where column tiles and axis-0 chunks are
     cut raggedly and where axis 0 has one or two interior planes: every

@@ -19,8 +19,9 @@ import numpy as np
 import torch
 
 from .grid import (loc_grid, interior, mask_interior, pad_interior,
-                   band_box_start, box_slices)
+                   band_box_start, window, put_window)
 from .ops.bc import bc_vector
+from .ops.stencil_kernels import vmapped
 
 __all__ = ["AbstractBody", "AutoBody", "Bodies", "NoBody", "sdf", "measure",
            "measure_fields", "measure_fields_banded", "measure_sdf",
@@ -332,11 +333,12 @@ def measure_fields(body, S, t=0.0, eps=1.0, perdir=(), exitBC=False,
     return V, m0, m1_in, d_center
 
 
-def _loc_window(W: tuple, start: tuple, i: int | None, dtype,
+def _loc_window(W: tuple, start, i: int | None, dtype,
                 device=None) -> torch.Tensor:
     """Physical coordinates of the box-window cells (indices
     ``start+1+k``), shape ``(*W, D)``: the `loc_grid` convention generated
-    on the window alone."""
+    on the window alone; ``start`` host ints or a ``(D,)`` tensor (a
+    member's own corner under `torch.func.vmap`)."""
     axes = []
     for d in range(len(W)):
         c = (torch.arange(W[d], device=device) + (start[d] + 1)).to(dtype) \
@@ -348,32 +350,36 @@ def _loc_window(W: tuple, start: tuple, i: int | None, dtype,
 
 
 def measure_fields_banded(body, S, t, eps, perdir, exitBC, dtype, box_shape,
-                          device=None):
+                          device="cuda"):
     """Narrow-band BDIM rasterization (reference ``measure!``, Body.jl:32-44).
 
     One cheap full-grid sdf pass (no gradients) locates the band; the D
     face-grid measurements (sdf gradient, map Jacobian and jvp per point)
     run only on the ``box_shape`` window placed by `grid.band_box_start`
-    (one host read of its corner) and are written into the far-field
-    constants ``μ₀ = 1, V = 0, μ₁ = 0``.  Equal to `measure_fields` bit for
-    bit whenever the window covers the ``d < 2+eps`` region (the
-    `band_box_shape` contract).  Returns ``(V, mu0, mu1, d_center,
-    start)``, ``start`` the window corner as host ints."""
+    and are written into the far-field constants ``μ₀ = 1, V = 0, μ₁ =
+    0``.  Equal to `measure_fields` bit for bit whenever the window covers
+    the ``d < 2+eps`` region (the `band_box_shape` contract).  Returns
+    ``(V, mu0, mu1, d_center, start)``, ``start`` the window corner: host
+    ints (one host read) in a single run; under `torch.func.vmap`, where
+    each member's corner is its own, a ``(D,)`` int64 tensor that stays on
+    the device (the windows are gathered and written by index vectors,
+    `grid.window`/`put_window`), as JAX's traced corner does."""
     D = len(S)
     t_ = torch.as_tensor(t, dtype=dtype, device=device)
     d_center = _d_center(body, S, t_, dtype, device)
-    start = tuple(band_box_start(d_center < (2.0 + eps), box_shape).tolist())
+    start = band_box_start(d_center < (2.0 + eps), box_shape)
+    if not vmapped(start):
+        start = tuple(start.tolist())
     W = tuple(box_shape)
-    box = box_slices(start, W)
     Vw, m0w, m1w = _face_fields(
         body, lambda i: _loc_window(W, start, i, dtype, device), W,
-        d_center[box], t_, eps, dtype)
-    m0 = torch.ones((D,) + S, dtype=dtype, device=device)
-    V = torch.zeros((D,) + S, dtype=dtype, device=device)
-    m1 = torch.zeros((D, D) + S, dtype=dtype, device=device)
-    m0[box_slices(start, W, 1)] = m0w
-    V[box_slices(start, W, 1)] = Vw
-    m1[box_slices(start, W, 2)] = m1w
+        window(d_center, start, W), t_, eps, dtype)
+    m0 = put_window(torch.ones((D,) + S, dtype=dtype, device=device), start,
+                    W, m0w, 1)
+    V = put_window(torch.zeros((D,) + S, dtype=dtype, device=device), start,
+                   W, Vw, 1)
+    m1 = put_window(torch.zeros((D, D) + S, dtype=dtype, device=device),
+                    start, W, m1w, 2)
     # window cells are interior: μ₁ and V ghosts are already zero
     m0 = bc_vector(m0, (0.0,) * D, False, perdir, inplace=True)
     V = bc_vector(V, (0.0,) * D, exitBC, perdir, inplace=True)
@@ -381,7 +387,7 @@ def measure_fields_banded(body, S, t, eps, perdir, exitBC, dtype, box_shape,
 
 
 def band_box_shape(body, S, t=0.0, eps=1.0, dtype=torch.float32, margin=3,
-                   max_frac=0.5, device=None):
+                   max_frac=0.5, device="cuda"):
     """Static band-box extents for the banded immersed-boundary path: the
     per-axis extent of the ``d < 2+eps`` region at ``t`` plus ``margin``
     cells each side (the box's position is found again at every

@@ -49,18 +49,30 @@ def _ints(v):
     return None if v is None else tuple(int(s) for s in np.asarray(v))
 
 
-def flow_from_numpy(fields: dict, device) -> FlowState:
+def _corner(v, device, members: bool):
+    """A window corner: host ints, or with ``members`` (JAX's batched
+    corners, one a member) an ``(M, D)`` int64 tensor on ``device``."""
+    if v is None or not members:
+        return _ints(v)
+    return torch.tensor(np.asarray(v), dtype=torch.int64, device=device)
+
+
+def flow_from_numpy(fields: dict, device, members: bool = False) -> FlowState:
     """A `FlowState` from numpy arrays of the JAX state's fields; the
     window corner ``bbox``, where given, becomes host ints (only the banded
-    path reads it)."""
+    path reads it), or with ``members`` (JAX's batched state, ``jax.vmap``
+    of its step) an ``(M, D)`` int64 tensor, each member's own corner for
+    `torch.func.vmap`."""
     missing = [k for k in FLOW_FIELDS if k not in fields]
     if missing:
         raise KeyError(f"flow_from_numpy: missing fields {missing}")
     return FlowState(**{k: _t(fields[k], device) for k in FLOW_FIELDS},
-                     bbox=_ints(fields.get("bbox")))
+                     bbox=_corner(fields.get("bbox"), device, members))
 
 
 SHADOWS = ("L16", "D16", "iD16")
+# a level's values that carry JAX's batched stack's member axis
+MEMBER_ARRAYS = ("L", "D", "iD", "box_start") + SHADOWS
 
 
 def _shadows(lev, device) -> dict:
@@ -84,14 +96,15 @@ def levels_from_numpy(levels: list, device, perdir: tuple = (),
     axis (``jax.vmap`` of ``build_levels``): each level's flags (blocked,
     bf16 directions, shadows) are those `make_level` gives one member's
     arrays, its tensors keep the member axis for `torch.func.vmap` (through
-    `ops.poisson.level_tensors`, as every field of `flow_from_numpy`), and
+    `ops.poisson.level_tensors`, as every field of `flow_from_numpy`), a
+    banded level's corners among them (an ``(M, D)`` int64 tensor), and
     where the flags want shadows that JAX did not give, each member gets
     its own (`ops.poisson.operator_shadows`)."""
     from .ops.poisson import operator_shadows
     out = []
     for lev in levels:
-        one = {k: (v[0] if members and k in ("L", "D", "iD") + SHADOWS
-                   and v is not None else v) for k, v in lev.items()}
+        one = {k: (v[0] if members and k in MEMBER_ARRAYS and v is not None
+                   else v) for k, v in lev.items()}
         level = make_level(_t(one["L"], device), perdir,
                            Dd=_t(one["D"], device), iD=_t(one["iD"], device),
                            **_shadows(one, device),
@@ -99,6 +112,8 @@ def levels_from_numpy(levels: list, device, perdir: tuple = (),
         if members:
             full = {"L": _t(lev["L"], device), "D": _t(lev["D"], device),
                     "iD": _t(lev["iD"], device)}
+            if level.banded:
+                full["box_start"] = _corner(lev["box_start"], device, True)
             if level.L16 is not None:
                 full.update({k: _t(lev[k], device) for k in SHADOWS}
                             if lev.get("L16") is not None else
@@ -129,6 +144,8 @@ def levels_to(levels: tuple, device) -> tuple:
                                     for k in SHADOWS}}
     return tuple(
         make_level(l.L.to(device), l.perdir, l.banded, l.c, l.box_shape,
-                   l.box_start, Dd=l.D.to(device), iD=l.iD.to(device),
+                   l.box_start.to(device)
+                   if isinstance(l.box_start, torch.Tensor) else l.box_start,
+                   Dd=l.D.to(device), iD=l.iD.to(device),
                    bf16_eps=l.bf16_eps, **shadows(l))
         for l in levels)

@@ -30,16 +30,28 @@
 // nf is a sum of six 0/1 flags, exact in any order, so its axis-1 and -2
 // part is summed once a column): built with --fmad=false it equals the
 // plain version `_ana_mult3d_plain` bit for bit.
+// Members (an ensemble's banded levels under torch.func.vmap, `ana_mult3d`'s
+// member form): one launch marches every member's x with a one-member
+// launch's chunks and gives each member its z and its own dot (march.cuh),
+// equal to its own launch bit for bit.  c and the periodic axes are the
+// level's, the same for every member.
 #include "march.cuh"
 
-template <bool DOT>
+// MB: the member-axis instance (march.cuh); x and z hold the members one
+// after another, S0 * S1 * S2 values apart.
+template <bool DOT, bool MB>
 __global__ void __launch_bounds__(MARCH_THREADS)
 ana_kernel(const float* __restrict__ x, float* __restrict__ z,
            float* partial, unsigned int* count, float* out, float c,
            int periodic, int S0, int S1, int S2, int planes) {
   __shared__ float sh[MARCH_THREADS / 32];
-  const Column col = march_column(S0, S1, S2, planes);
+  const Column col = march_column<MB>(S0, S1, S2, planes);
   const int P = S1 * S2;
+  if (MB) {
+    const long long sm = (long long)col.m * S0 * P;
+    x += sm;
+    z += sm;
+  }
   const auto zero = [z](int a) { z[a] = 0.f; };
   float dot = 0.f;
   if (col.in) {
@@ -88,22 +100,38 @@ ana_kernel(const float* __restrict__ x, float* __restrict__ z,
                         partial, count, out, sh);
 }
 
-// partial, count, out: NULL for z alone; else one float a block of the
-// grid (`march_grid`), a zeroed counter (left zeroed) and the dot.  Calls
-// that share a counter run on one stream.
+template <bool DOT>
+static void ana_launch(dim3 grid, cudaStream_t s, bool members,
+                       const float* x, float* z, float* partial,
+                       unsigned int* count, float* out, float c, int periodic,
+                       int S0, int S1, int S2, int planes) {
+  const dim3 block(MARCH_TK, MARCH_TJ);
+  if (members)
+    ana_kernel<DOT, true><<<grid, block, 0, s>>>(
+        x, z, partial, count, out, c, periodic, S0, S1, S2, planes);
+  else
+    ana_kernel<DOT, false><<<grid, block, 0, s>>>(
+        x, z, partial, count, out, c, periodic, S0, S1, S2, planes);
+}
+
+// partial, count, out: NULL for z alone; else one float a block of a
+// member's grid (`march_grid`), member after member, a zeroed counter a
+// member (left zeroed) and each member's dot.  members: the fields at x,
+// x + S0*S1*S2, ... and their z alike (one field: members 1).  Calls that
+// share a counter run on one stream.
 extern "C" int wl_ana_mult3d(const float* x, float* z, float* partial,
                              unsigned int* count, float* out, float c,
-                             int periodic, int planes, int S0, int S1, int S2,
-                             void* stream) {
-  if (!march_shape_ok(S0, S1, S2, planes)) return (int)cudaErrorInvalidValue;
-  const dim3 grid = march_grid(S0, S1, S2, planes);
-  const dim3 block(MARCH_TK, MARCH_TJ);
+                             int periodic, int planes, int members, int S0,
+                             int S1, int S2, void* stream) {
+  if (!march_shape_ok(S0, S1, S2, planes, members))
+    return (int)cudaErrorInvalidValue;
+  const dim3 grid = march_grid(S0, S1, S2, planes, members);
   const cudaStream_t s = (cudaStream_t)stream;
   if (partial != nullptr)
-    ana_kernel<true><<<grid, block, 0, s>>>(x, z, partial, count, out, c,
-                                            periodic, S0, S1, S2, planes);
+    ana_launch<true>(grid, s, members > 1, x, z, partial, count, out, c,
+                     periodic, S0, S1, S2, planes);
   else
-    ana_kernel<false><<<grid, block, 0, s>>>(x, z, partial, count, out, c,
-                                             periodic, S0, S1, S2, planes);
+    ana_launch<false>(grid, s, members > 1, x, z, partial, count, out, c,
+                      periodic, S0, S1, S2, planes);
   return (int)cudaGetLastError();
 }

@@ -29,7 +29,7 @@ from typing import Any, Callable
 import torch
 
 from .grid import (interior_view, interior_mask, apply_field, pad_interior,
-                   box_slices)
+                   window, put_window)
 from .ops.bc import bc_vector, exit_bc
 from .ops.convect import conv_diff, accelerate, quick
 from .ops.multigrid import ml_solve, ml_solve_implicit
@@ -53,7 +53,9 @@ class FlowState:
     mu1: torch.Tensor   # (D, D, *S) first kernel moment × normal
     dt: torch.Tensor    # 0-d: the time step to take next
     t: torch.Tensor     # 0-d: accumulated time
-    bbox: tuple | None = None  # body-band window corner, host ints (banded)
+    # body-band window corner (banded): host ints, or a (D,) int64 tensor
+    # that stays on the device (each member's own under torch.func.vmap)
+    bbox: tuple | torch.Tensor | None = None
 
     def replace(self, **kw) -> "FlowState":
         return dataclasses.replace(self, **kw)
@@ -141,25 +143,24 @@ def bdim_banded(cfg: FlowConfig, bbox, u, u0, r, V, mu0, mu1, dt,
 
     ``u=None`` is the predictor form: interior from the blend alone, ghosts
     from ``u0`` (the reference's ``scale_u!(a, 0)`` folded in); ``scale``
-    folds the corrector's ``scale_u!(a, 0.5)``."""
-    D = cfg.D
-    win = lambda a, lead: a[box_slices(bbox, cfg.bbox_shape, lead, halo=1)]
+    folds the corrector's ``scale_u!(a, 0.5)``.  ``bbox`` is host ints
+    (slices, and writes into the step's own fields) or a ``(D,)`` tensor
+    (each member's own corner under `torch.func.vmap`: gathers and
+    ``index_put``, `grid.window`/`put_window`)."""
+    D, W = cfg.D, cfg.bbox_shape
+    win = lambda a, lead: window(a, bbox, tuple(w + 2 for w in W), lead,
+                                 off=0)
     blend = _bdim_blend(win(u0, 1), win(r, 1), win(V, 1), win(mu0, 1),
                         win(mu1, 2), dt)
     f_far = u0 + dt * r                  # V = 0 away from the body
     imask = interior_mask(cfg.S, u0.device)
-    box = box_slices(bbox, cfg.bbox_shape, 1)
     if u is None:
-        out = torch.where(imask, f_far, u0)
-        out[box] = blend
-        return out
+        return put_window(torch.where(imask, f_far, u0), bbox, W, blend, 1)
     upd_far = u + f_far
     w_val = interior_view(win(u, 1), D) + blend
     if scale is not None:
         upd_far, w_val = scale * upd_far, scale * w_val
-    out = torch.where(imask, upd_far, u)
-    out[box] = w_val
-    return out
+    return put_window(torch.where(imask, upd_far, u), bbox, W, w_val, 1)
 
 
 def project(levels, u, p, dt_eff, cfg: FlowConfig):

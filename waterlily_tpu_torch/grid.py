@@ -22,7 +22,7 @@ __all__ = [
     "shift", "plane", "interior", "interior_view", "set_interior",
     "interior_mask", "mask_interior", "pad_interior", "axis_coord",
     "loc_grid", "apply_field", "interp", "inside_count", "field_dot", "l2",
-    "linf", "band_box_start", "box_slices",
+    "linf", "band_box_start", "window", "put_window",
 ]
 
 
@@ -122,14 +122,61 @@ def band_box_start(mask: torch.Tensor, box_shape: tuple) -> torch.Tensor:
     return torch.stack(starts)
 
 
-def box_slices(start: tuple, shape: tuple, lead: int = 0,
-               halo: int = 0) -> tuple:
-    """Index tuple of the box cells ``[start+1, start+1+shape)`` of a
-    window with corner ``start`` (host ints), widened by ``halo`` cells
-    each side (``halo=1``: the whole window), after ``lead`` full leading
-    axes."""
+def _window_slices(start, shape: tuple, lead: int, off: int) -> tuple:
+    """The index tuple of a window at a host-int corner."""
     return (slice(None),) * lead + tuple(
-        slice(s + 1 - halo, s + 1 + w + halo) for s, w in zip(start, shape))
+        slice(s + off, s + off + w) for s, w in zip(start, shape))
+
+
+def _window_vectors(start: torch.Tensor, shape: tuple, off: int,
+                    ndim: int) -> list:
+    """The index vectors ``start[d] + off + arange(shape[d])`` of a window
+    of the trailing ``len(shape)`` axes of an ``ndim``-axis array, each
+    shaped to broadcast over the window."""
+    D = len(shape)
+    out = []
+    for d in range(D):
+        view = [1] * ndim
+        view[ndim - D + d] = shape[d]
+        out.append((start[d] + off + torch.arange(
+            shape[d], device=start.device)).reshape(view))
+    return out
+
+
+def window(a: torch.Tensor, start, shape: tuple, lead: int = 0,
+           off: int = 1) -> torch.Tensor:
+    """The cells ``[start+off, start+off+shape)`` of ``a`` per spatial
+    axis, after ``lead`` full leading axes: with `band_box_start`'s corner
+    ``off=1`` gives the box cells, ``off=0`` with ``shape + 2`` the halo'd
+    window, ``off=0`` on an interior-shaped array its box.
+    ``start`` is host ints (a view, the single run's form) or a ``(D,)``
+    integer tensor (a gather by index vectors: JAX's ``dynamic_slice``,
+    which `torch.func.vmap` batches, so each member reads its own window
+    with no host read); the caller keeps the window in bounds
+    (`band_box_start`'s clamp)."""
+    if not isinstance(start, torch.Tensor):
+        return a[_window_slices(start, shape, lead, off)]
+    return a[(slice(None),) * lead
+             + tuple(_window_vectors(start, shape, off, len(shape)))]
+
+
+def put_window(a: torch.Tensor, start, shape: tuple, values: torch.Tensor,
+               lead: int = 0, off: int = 1) -> torch.Tensor:
+    """``a`` with the cells of `window` (same arguments) set to
+    ``values``: host ints write into ``a`` itself (a field the caller has
+    just made) and return it; a tensor ``start`` gives a new tensor
+    (JAX's ``dynamic_update_slice``, by ``index_put``, which
+    `torch.func.vmap` batches whether or not ``a`` is batched)."""
+    if not isinstance(start, torch.Tensor):
+        a[_window_slices(start, shape, lead, off)] = values
+        return a
+    n = lead + len(shape)
+    heads = [torch.arange(a.shape[i], device=start.device).reshape(
+        [a.shape[i] if j == i else 1 for j in range(n)])
+        for i in range(lead)]
+    return torch.index_put(
+        a, tuple(heads + _window_vectors(start, shape, off, n)),
+        values.to(a.dtype))
 
 
 def loc_grid(S: tuple, i: int | None, dtype=torch.float32,

@@ -60,7 +60,7 @@ SIGNATURES = {
     "wl_pcg_axpy": [_P] * 11 + [_I, _I, _I] + _S3,
     "wl_copy_probe": [_P, _P, _F] + _S3,
     "wl_roll_probe": [_P, _P, _F] + _S3,
-    "wl_ana_mult3d": [_P] * 5 + [_F, _I, _I] + _S3,
+    "wl_ana_mult3d": [_P] * 5 + [_F, _I, _I, _I] + _S3,
     "wl_cfl3d": [_P] * 4 + [_I, _I, _L] + _S3,
     # the shard-local forms' kernels also take the global sizes and the
     # global index of cell 0

@@ -829,7 +829,7 @@ def time_members(S, members: int, device, n=20) -> dict:
 # --- the seven stencils' member forms (a 3D ensemble under torch.func.vmap) --
 
 STENCIL_MEMBERS = ("mult3d", "increment3d", "cfl3d", "bc3d", "div3d",
-                   "project3d", "conv_diff3d")
+                   "project3d", "conv_diff3d", "ana_mult3d")
 
 
 def stencil_member_inputs(S, members: int, shared: bool, seed, device):
@@ -870,7 +870,8 @@ def stencil_member_variants(name, d) -> list:
     and without the dot, f32 and bf16 L and x; the increment in f32, bf16
     eps and L16; ``bc3d`` in place in all 16 periodic and outlet forms;
     ``conv_diff3d`` with QUICK, van Leer and minmod, and QUICK on every
-    periodic mask."""
+    periodic mask; ``ana_mult3d`` with the dot and without it on every
+    periodic mask (it reads no operator: ``shared`` changes nothing)."""
     od = None if d["shared"] else 0     # the operator, dt, ν, A
     if name == "mult3d":
         return [(("z" + t, "dot" + t) if dot else ("z_nodot" + t,),
@@ -915,6 +916,16 @@ def stencil_member_variants(name, d) -> list:
                     (d["u"], d["nu"]), (0, od))
         return ([conv(lim) for lim in CONV_LIMITERS]
                 + [conv(convect.quick, q) for q in CONV_PERDIRS])
+    if name == "ana_mult3d":
+        # the level's c and periodic axes are every member's: with the dot
+        # at c = 1 (timed), then without it at c = 2 on every mask
+        def ana(q, c, dot):
+            tag = ("z", "dot") if dot else (
+                "_".join(filter(None, ("z_c2", _tag(q)))),)
+            return (tag, lambda x: sk.ana_mult3d(x, c, q, dot),
+                    lambda x: sk._ana_mult3d_plain(x, c, q, dot),
+                    (d["x"],), (0,))
+        return [ana((), 1.0, True)] + [ana(q, 2.0, False) for q in BC_PERDIRS]
     raise KeyError(name)
 
 

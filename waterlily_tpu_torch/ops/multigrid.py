@@ -100,10 +100,19 @@ def _band_ok(S, box_shape) -> bool:
 
 def _coarsen_box(box_start, box_shape, S_coarse):
     """Map a band box down one level (fine cell f -> coarse (f+1)//2),
-    keeping the one in-box margin cell below the band; host ints."""
+    keeping the one in-box margin cell below the band: ``clip((s+3)//2 -
+    2, 0, S_coarse - shape - 2)``, on host ints or, for a corner that is a
+    tensor (a member's own under `torch.func.vmap`), on the device, as
+    JAX's ``jnp.clip``."""
     shape_c = tuple(b // 2 + 4 for b in box_shape)
-    start_c = tuple(min(max((s + 3) // 2 - 2, 0), Sc - b - 2)
-                    for s, Sc, b in zip(box_start, S_coarse, shape_c))
+    lim = tuple(Sc - b - 2 for Sc, b in zip(S_coarse, shape_c))
+    if isinstance(box_start, torch.Tensor):
+        hi = torch.tensor(lim, dtype=box_start.dtype,
+                          device=box_start.device)
+        return torch.minimum(torch.clamp_min(
+            (box_start + 3) // 2 - 2, 0), hi), shape_c
+    start_c = tuple(min(max((s + 3) // 2 - 2, 0), m)
+                    for s, m in zip(box_start, lim))
     return start_c, shape_c
 
 
@@ -114,10 +123,13 @@ def build_levels(mu0: torch.Tensor, perdir: tuple = (), box_shape=None,
     the BDIM zeroth moment ``μ₀``, each coarse ``L`` its restriction.
     ``box_shape``/``box_start`` (the body band window) make the levels on
     which it pays banded; the box coarsens with the grid and the far-field
-    coefficient scales by 2^(D-2) per level.  ``bf16_eps`` stores the
-    smoother's search direction in bf16 on every blocked level, ``op_bf16``
-    (None: `poisson.BF16_OP`) gives every blocked level bf16 operator
-    shadows, which exclude bf16 directions (`poisson.make_level`)."""
+    coefficient scales by 2^(D-2) per level.  ``box_start`` is host ints,
+    or a ``(D,)`` integer tensor (each member's own corner under
+    `torch.func.vmap`), which every banded level keeps as its own.
+    ``bf16_eps`` stores the smoother's search direction in bf16 on every
+    blocked level, ``op_bf16`` (None: `poisson.BF16_OP`) gives every
+    blocked level bf16 operator shadows, which exclude bf16 directions
+    (`poisson.make_level`)."""
     S = tuple(mu0.shape[1:])
     nlev = n_levels(S)
     have_box = box_shape is not None and box_start is not None
@@ -188,8 +200,12 @@ def ml_solve(levels: tuple, x, z, tol=1e-4, itmx=32, fixed=None,
     Under `torch.func.vmap` (an ensemble) the adaptive loop runs every
     member at once through a `vmap` rule (`poisson.adaptive_members`):
     each member stops by its own test and keeps its values from then on,
-    and ``n`` is each member's count, a tensor; under `vmap` of a
-    derivative it raises `NotImplementedError`."""
+    and ``n`` is each member's count, a tensor.  `torch.func.jvp` and
+    `vmap` compose in either order (the loop's `jvp` rule: each member's
+    tangent carried beside its primal, for its primal's count);
+    `torch.func.grad` of the batched loop raises `NotImplementedError`, as
+    JAX's reverse mode of a ``while_loop`` does (use ``fixed`` or
+    `ml_solve_implicit`)."""
     fine = levels[0]
     r = residual(fine, x, z)
     rows = [_log_row(r, x.dtype)] if trace else None
@@ -212,7 +228,7 @@ def ml_solve(levels: tuple, x, z, tol=1e-4, itmx=32, fixed=None,
                 rows.append(_log_row(r, x.dtype))
         return finish(x, r, int(fixed))
     r2 = fdot(fine, r, r)
-    if vmap_loop("ml_solve", levels, x, z):
+    if vmap_loop(levels, x, z):
         out = members_solve(
             levels, lambda lv, x, r: smooth(lv[0], *vcycle(lv, 0, x, r)),
             x, r, r2, tol, itmx,

@@ -32,7 +32,7 @@ from dataclasses import dataclass
 import torch
 
 from ..grid import (interior_view, mask_interior, inside_count, field_dot,
-                    pad_interior, axis_coord, box_slices)
+                    pad_interior, axis_coord, window, put_window)
 from .bc import bc_scalar_periodic
 from . import stencil_kernels as sk
 from . import pcg_kernel as pk
@@ -99,9 +99,12 @@ class PoissonLevel:
     body band the face coefficients are exactly the constant ``c`` (μ₀ is
     exactly 1 there and each restriction scales it by 2^(D-2)), zero on
     the wall faces, so the operator reads coefficients only inside the
-    window of extents ``box_shape`` at corner ``box_start`` (host ints, the
-    `grid.box_slices` convention).  Equal to the dense operator bit for
-    bit."""
+    window of extents ``box_shape`` at corner ``box_start`` (the
+    `grid.band_box_start` convention): host ints in a single run, a ``(D,)``
+    int64 tensor where each member of a `torch.func.vmap` ensemble has its
+    own (read and written by `grid.window`/`put_window`, and carried with
+    the level's tensors, `level_tensors`).  Equal to the dense operator
+    bit for bit."""
     L: torch.Tensor      # (D, *S) lower face coefficients
     D: torch.Tensor      # (*S) diagonal, zero in ghosts
     iD: torch.Tensor     # (*S) guarded inverse diagonal (0 inside bodies)
@@ -111,7 +114,7 @@ class PoissonLevel:
     banded: bool = False
     c: float = 1.0
     box_shape: tuple | None = None
-    box_start: tuple | None = None
+    box_start: tuple | torch.Tensor | None = None
     L16: torch.Tensor | None = None
     D16: torch.Tensor | None = None
     iD16: torch.Tensor | None = None
@@ -153,16 +156,20 @@ def make_level(L: torch.Tensor, perdir: tuple = (), banded: bool = False,
     search directions.  ``op_bf16`` (None: the module default `BF16_OP`)
     builds the operator shadows ``L16``/``D16``/``iD16`` on blocked f32
     levels, as JAX's `make_level` does, and forces ``bf16_eps`` off there.
-    A banded level (``banded`` with a ``box_shape``) is never blocked.
-    ``Dd`` and ``iD``, and the shadows where given, are taken as they are
-    (a level carried across, `convert.py`)."""
+    A banded level (``banded`` with a ``box_shape``) is never blocked; its
+    ``box_start`` stays a tensor where it is given one (a member's own
+    corner under `torch.func.vmap`).  ``Dd`` and ``iD``, and the shadows
+    where given, are taken as they are (a level carried across,
+    `convert.py`)."""
     if Dd is None:
         Dd = _diag(L)
         iD = _guarded_inverse(Dd).to(L.dtype)
     if banded and box_shape is not None:
         banded = True
         box_shape = tuple(int(b) for b in box_shape)
-        box_start = tuple(int(b) for b in box_start)
+        box_start = (box_start.to(torch.int64)
+                     if isinstance(box_start, torch.Tensor)
+                     else tuple(int(b) for b in box_start))
     else:
         banded, box_shape, box_start = False, None, None
     blocked = (not banded) and sk.use_blocked(tuple(L.shape[1:]), L.dtype,
@@ -266,17 +273,18 @@ def _ana_D_interior(S, perdir, dtype, c, device):
 
 
 def _win(lev: PoissonLevel, a: torch.Tensor, lead: int = 0) -> torch.Tensor:
-    """The body window of ``a``: the box and a one-cell halo (a view)."""
-    return a[box_slices(lev.box_start, lev.box_shape, lead, halo=1)]
+    """The body window of ``a``: the box and a one-cell halo (a view where
+    the corner is host ints)."""
+    return window(a, lev.box_start, tuple(w + 2 for w in lev.box_shape),
+                  lead, off=0)
 
 
 def _box_update(lev: PoissonLevel, interior_field: torch.Tensor,
                 box_values: torch.Tensor) -> torch.Tensor:
     """Overwrite the box cells of an interior-shaped field the caller owns
-    (in place) and return it."""
-    interior_field[tuple(slice(s, s + w) for s, w in
-                         zip(lev.box_start, lev.box_shape))] = box_values
-    return interior_field
+    (in place where the corner is host ints) and return it."""
+    return put_window(interior_field, lev.box_start, lev.box_shape,
+                      box_values, off=0)
 
 
 def _box_ax(lev: PoissonLevel, x: torch.Tensor) -> torch.Tensor:
@@ -298,20 +306,19 @@ def _banded_mult_interior(lev: PoissonLevel, x: torch.Tensor) -> torch.Tensor:
 def _banded_ax(lev: PoissonLevel, x: torch.Tensor, with_dot: bool = False):
     """Ghost-zero A·x of a banded level (and ⟨A·x, x⟩ with ``with_dot``):
     the `ana_mult3d` kernel plus a window fix-up where the stencil-kernel
-    gate holds, the plain far-field form elsewhere."""
+    gate holds (its member form under `vmap` alone, each member's window
+    at its own corner), the plain far-field form elsewhere."""
     D = x.ndim
-    if sk.kernel_ok(tuple(x.shape), x.dtype, x.device, x, lev.L):
+    if sk.members_ok(tuple(x.shape), x.dtype, x.device, x, lev.L):
         zw = _box_ax(lev, x)
-        box = box_slices(lev.box_start, lev.box_shape)
+        start, W = lev.box_start, lev.box_shape
         if with_dot:
             z, dot = sk.ana_mult3d(x, lev.c, lev.perdir, with_dot=True)
             # the window overwrite changes the dot by <zw - z_far, x> there
-            dot = dot + field_dot(zw - z[box], interior_view(_win(lev, x), D))
-            z[box] = zw
-            return z, dot
-        z = sk.ana_mult3d(x, lev.c, lev.perdir)
-        z[box] = zw
-        return z
+            dot = dot + field_dot(zw - window(z, start, W),
+                                  interior_view(_win(lev, x), D))
+            return put_window(z, start, W, zw), dot
+        return put_window(sk.ana_mult3d(x, lev.c, lev.perdir), start, W, zw)
     z = pad_interior(_banded_mult_interior(lev, x))
     return (z, field_dot(z, x)) if with_dot else z
 
@@ -508,18 +515,26 @@ def smooth(lev: PoissonLevel, x, r, it: int = 6):
 # --- the adaptive loops under torch.func.vmap -------------------------------
 #
 # `poisson_solve` and `multigrid.ml_solve` stop when a host read of the
-# residual says so, which `vmap` cannot trace.  Under `vmap` (and no other
-# transform) both hand their loop to `_Adaptive`, whose `vmap` rules fold
-# every `vmap` level into one member axis and run it with that axis in the
-# open: each iteration is one `vmap` of the solver's iteration over every
-# member, a member that has stopped keeps its values (`torch.where`, bit
-# for bit), and the loop ends when every member has stopped, with one host
-# read an iteration.  JAX's batched `while_loop` does the same.  The level
-# tensors are arguments of the rule, so it sees which carry the member axis
-# and which every member shares.
+# residual says so, which `vmap` cannot trace.  Under `vmap` both hand their
+# loop to `_Adaptive`, whose `vmap` rules fold every `vmap` level into one
+# member axis and run it with that axis in the open: each iteration is one
+# `vmap` of the solver's iteration over every member, a member that has
+# stopped keeps its values (`torch.where`, bit for bit), and the loop ends
+# when every member has stopped, with one host read an iteration.  JAX's
+# batched `while_loop` does the same.  The level tensors are arguments of
+# the rule, so it sees which carry the member axis and which every member
+# shares.
+#
+# Forward mode (`jvp` of the batched loop, in either order of `vmap` and
+# `jvp`) is `_Adaptive`'s `jvp` rule, as JAX's `jvp` of a `while_loop`: a
+# second loop, through the same rules, carries each member's primal and
+# tangent, each iteration the `jvp` of one iteration, and runs each member
+# for the count its primal loop took.  Reverse mode raises, as JAX's does
+# for a `while_loop`.
 
-# tensor fields of a level, in the order `level_tensors` flattens them
-_LEVEL_TENSORS = ("L", "D", "iD", "L16", "D16", "iD16")
+# tensor fields of a level, in the order `level_tensors` flattens them (a
+# banded level's corner where it is a tensor: each member's own)
+_LEVEL_TENSORS = ("L", "D", "iD", "L16", "D16", "iD16", "box_start")
 
 
 def level_tensors(levels: tuple) -> tuple:
@@ -527,10 +542,12 @@ def level_tensors(levels: tuple) -> tuple:
     out (None) and those tensors, flat, for `with_level_tensors`."""
     spec, flat = [], []
     for lev in levels:
-        have = tuple(getattr(lev, f) is not None for f in _LEVEL_TENSORS)
+        have = tuple(isinstance(getattr(lev, f), torch.Tensor)
+                     for f in _LEVEL_TENSORS)
         flat += [getattr(lev, f) for f, h in zip(_LEVEL_TENSORS, have) if h]
         spec.append((dataclasses.replace(
-            lev, **{f: None for f in _LEVEL_TENSORS}), have))
+            lev, **{f: None for f, h in zip(_LEVEL_TENSORS, have) if h}),
+            have))
     return tuple(spec), tuple(flat)
 
 
@@ -549,25 +566,30 @@ def _go_on(n, itmx, r2, r2p, tol):
     return (n < itmx) & (r2 >= tol) & ~(r2 > 2.0 * r2p)
 
 
-def adaptive_members(step, carry: tuple, r2, tol, itmx: int, rows=None):
+def adaptive_members(step, carry: tuple, r2, tol, itmx: int, rows=None,
+                     counts=None):
     """The adaptive loop over the members of ``carry`` (tensors with the
     member axis first) and their ``r·r`` ``r2`` (``(M,)``): ``step(carry)
     -> (carry, r2)`` is one iteration of every member; each member stops by
     its own test (`_go_on`) after at least one iteration and keeps its
     values from then on (`torch.where`); the loop ends when all have
-    stopped.  Returns ``(carry, n)``, ``n`` the ``(M,)`` int64 counts, and
-    with ``rows`` (``carry -> (M, 2)``, the residual trace's rows) also the
-    ``(M, itmx+1, 2)`` trace: row 0 of the initial carry, row ``k+1``
-    after each member's iteration ``k``, zeros after its last."""
-    M = r2.shape[0]
-    n = torch.zeros(M, dtype=torch.int64, device=r2.device)
-    active = torch.ones(M, dtype=torch.bool, device=r2.device)
+    stopped.  With ``counts`` (``(M,)``, each at least 1) member m instead
+    runs exactly ``counts[m]`` iterations (``r2`` and ``tol`` unread: the
+    tangent loop of `_Adaptive`'s `jvp` rule).  Returns ``(carry, n)``,
+    ``n`` the ``(M,)`` int64 counts, and with ``rows`` (``carry -> (M,
+    k)``, the residual trace's rows) also the ``(M, itmx+1, k)`` trace: row
+    0 of the initial carry, row ``i+1`` after each member's iteration
+    ``i``, zeros after its last."""
+    M = carry[0].shape[0]
+    dev = carry[0].device
+    n = torch.zeros(M, dtype=torch.int64, device=dev)
+    active = torch.ones(M, dtype=torch.bool, device=dev)
     if rows is not None:
         first = rows(carry)
-        tr = torch.zeros((M, itmx + 1, 2), dtype=first.dtype,
-                         device=first.device)
+        tr = torch.zeros((M, itmx + 1) + tuple(first.shape[1:]),
+                         dtype=first.dtype, device=first.device)
         tr[:, 0] = first
-        slot = torch.arange(itmx + 1, device=r2.device)
+        slot = torch.arange(itmx + 1, device=dev)
     r2p = r2
     while True:
         new, r2n = step(carry)
@@ -576,95 +598,193 @@ def adaptive_members(step, carry: tuple, r2, tol, itmx: int, rows=None):
             return torch.where(active.reshape((M,) + (1,) * (a.ndim - 1)),
                                a, b)
         carry = tuple(keep(a, b) for a, b in zip(new, carry))
-        r2p, r2 = keep(r2, r2p), keep(r2n, r2)
+        if counts is None:
+            r2p, r2 = keep(r2, r2p), keep(r2n, r2)
         if rows is not None:
             at_row = active[:, None] & (slot[None, :] == n[:, None] + 1)
             tr = torch.where(at_row[..., None], rows(carry)[:, None], tr)
         n = n + active
-        active = active & _go_on(n, itmx, r2, r2p, tol)
+        active = active & (n < counts if counts is not None
+                           else _go_on(n, itmx, r2, r2p, tol))
         if not bool(active.any()):
             break
     return (carry, n) if rows is None else (carry, n, tr)
 
 
 class _Adaptive(torch.autograd.Function):
-    """An adaptive loop for `torch.func.vmap`: ``run(dims, x, r, r2,
-    *ops)`` runs it on ``x``, ``r`` and ``r2`` with a member axis first
-    and the level tensors ``ops``, those whose ``dims`` is 0 with a member
-    axis too (None: shared by every member), and returns member-axis
-    outputs.  The `vmap` rule folds its batch axis into the member axis
-    (`pcg_kernel.fold_members`) and applies the Function again, so that
-    nested `vmap` levels fold one by one and the loop runs once, over the
-    members of all of them."""
+    """An adaptive loop for `torch.func.vmap`: ``loop(dims, *args)`` runs
+    it on ``args`` (the carry, with a member axis first, then the level
+    tensors, those whose ``dims`` is 0 with a member axis too; None where
+    an argument is shared by every member or absent) and returns
+    member-axis outputs.  The `vmap` rule folds its batch axis into the
+    member axis (`pcg_kernel.fold_members`) and applies the Function again,
+    so that nested `vmap` levels fold one by one and the loop runs once,
+    over the members of all of them.  The `jvp` rule runs the loop's
+    tangent loop (`_Loop.tangent_loop`) through the same Function; the
+    backward raises."""
 
     @staticmethod
-    def forward(run, dims, x, r, r2, *ops):
-        return run(dims, x, r, r2, *ops)
+    def forward(loop, dims, *args):
+        return loop(dims, *args)
 
     @staticmethod
     def setup_context(ctx, inputs, output):
-        pass
+        loop, dims, *args = inputs
+        ctx.loop, ctx.dims = loop, dims
+        if loop.primal:
+            ctx.none = tuple(a is None for a in args)
+            ctx.save_for_forward(output[2],
+                                 *[a for a in args if a is not None])
 
     @staticmethod
     def backward(ctx, *grads):
-        raise RuntimeError("the adaptive loop under vmap has no derivative")
+        raise NotImplementedError(
+            "the adaptive pressure solve under torch.func.vmap has no "
+            "reverse-mode derivative, as in the JAX package (JAX raises "
+            "'Reverse-mode differentiation does not work for "
+            "lax.while_loop'): differentiate a fixed_iters solve, or use "
+            "implicit_diff (one adjoint solve), for reverse mode; forward "
+            "mode (torch.func.jvp) runs through it")
 
     @staticmethod
-    def vmap(info, in_dims, run, dims, x, r, r2, *ops):
-        B, dx = info.batch_size, in_dims[2]
-        M = x.shape[1 if dx == 0 else 0]
-        x, r, r2 = (pk.fold_members(t, d, True, B, M)
-                    for t, d in zip((x, r, r2), in_dims[2:5]))
-        ops = [pk.fold_members(t, d, m is not None, B, M)
-               for t, d, m in zip(ops, in_dims[5:], dims)]
+    def jvp(ctx, _loop, _dims, *tangents):
+        n, *kept = ctx.saved_tensors
+        it = iter(kept)
+        args = [None if none else next(it) for none in ctx.none]
+        x, r, _r2, *ops = args
+        xd, rd, _r2d, *dots = tangents
+        xd = torch.zeros_like(x) if xd is None else xd
+        rd = torch.zeros_like(r) if rd is None else rd
+        dims = ctx.dims[3:]
+        out = _Adaptive.apply(ctx.loop.tangent_loop(),
+                              (0,) * 5 + dims + dims,
+                              n, x, r, xd, rd, *ops, *dots)
+        return (out[0], out[1], None) + tuple(out[2:])
+
+    @staticmethod
+    def vmap(info, in_dims, loop, dims, *args):
+        # the first argument (x, or the tangent loop's counts) always
+        # carries the member axis
+        B = info.batch_size
+        M = args[0].shape[1 if in_dims[2] == 0 else 0]
+        folded = [t if t is None else
+                  pk.fold_members(t, d, m is not None, B, M)
+                  for t, d, m in zip(args, in_dims[2:], dims)]
         dims = tuple(None if m is None and d is None else 0
-                     for m, d in zip(dims, in_dims[5:]))
-        out = _Adaptive.apply(run, dims, x, r, r2, *ops)
+                     for m, d in zip(dims, in_dims[2:]))
+        out = _Adaptive.apply(loop, dims, *folded)
         return (tuple(o.reshape((B, M) + tuple(o.shape[1:])) for o in out),
                 (0,) * len(out))
+
+
+class _Loop:
+    """The adaptive loop of a solver for `_Adaptive`: ``one(levels, x, r)
+    -> (x, r)`` its iteration on the level stack of layout ``spec``
+    (`level_tensors`), ``tol`` and ``itmx`` its stopping test, ``row``
+    (``(x, r) -> [max|r|, r·r]``, or None) the residual trace's row.
+    Called as the primal loop on ``(x, r, r2, *ops)``, it returns ``(x, r,
+    n)`` (and the trace); its `tangent_loop` on ``(n, x, r, xd, rd, *ops,
+    *dots)`` (``dots`` the level tensors' tangents, None where a tensor has
+    none) returns the tangents ``(xd, rd)`` (and the trace's).  With
+    ``plain`` (the loop is differentiated) the primal loop runs the plain
+    forms (`stencil_kernels.plain_forms`), as its tangent loop and each
+    member's own `jvp` do, so that both take one route and the counts."""
+
+    primal = True
+
+    def __init__(self, spec, one, tol, itmx, row, plain=False):
+        self.spec, self.one, self.tol, self.itmx, self.row = (
+            spec, one, tol, itmx, row)
+        self.plain = plain
+
+    def __call__(self, dims, x, r, r2, *ops):
+        if self.plain:
+            with sk.plain_forms():
+                return self.run(dims, x, r, r2, *ops)
+        return self.run(dims, x, r, r2, *ops)
+
+    def run(self, dims, x, r, r2, *ops):
+        spec, one, row = self.spec, self.one, self.row
+
+        def it(x, r, *ops):
+            lv = with_level_tensors(spec, ops)
+            x, r = one(lv, x, r)
+            return (x, r), fdot(lv[0], r, r)
+        step = torch.func.vmap(it, in_dims=(0, 0) + tuple(dims[3:]))
+        rows = (None if row is None
+                else lambda c: torch.func.vmap(row)(*c))
+        out = adaptive_members(lambda c: step(*c, *ops), (x, r), r2,
+                               self.tol, self.itmx, rows)
+        return out[0] + out[1:]
+
+    def tangent_loop(self):
+        return _TangentLoop(self)
+
+
+class _TangentLoop:
+    """`_Loop`'s tangent loop (`_Adaptive`'s `jvp` rule): the carry is
+    each member's primal and tangent, each iteration the `torch.func.jvp`
+    of one iteration, member m run for ``n[m]`` iterations, the count of
+    its primal loop."""
+
+    primal = False
+
+    def __init__(self, loop: _Loop):
+        self.loop = loop
+
+    def __call__(self, dims, n, x, r, xd, rd, *rest):
+        spec, one, row = self.loop.spec, self.loop.one, self.loop.row
+        k = len(rest) // 2
+        ops, dots = rest[:k], rest[k:]
+        live = [i for i, d in enumerate(dots) if d is not None]
+
+        def it(x, r, xd, rd, *a):
+            o, do = a[:k], a[k:]
+
+            def f(x, r, *moving):
+                full = list(o)
+                for i, t in zip(live, moving):
+                    full[i] = t
+                return one(with_level_tensors(spec, full), x, r)
+            (x, r), (xd, rd) = torch.func.jvp(
+                f, (x, r) + tuple(o[i] for i in live), (xd, rd) + tuple(do))
+            return (x, r, xd, rd), x.new_zeros(())
+        step = torch.func.vmap(it, in_dims=(0,) * 4 + tuple(dims[5:5 + k])
+                               + tuple(dims[5 + k + i] for i in live))
+        moving = [dots[i] for i in live]
+
+        def rows(c):
+            return torch.func.vmap(lambda x, r, xd, rd: torch.func.jvp(
+                row, (x, r), (xd, rd))[1])(*c)
+        out = adaptive_members(lambda c: step(*c, *ops, *moving),
+                               (x, r, xd, rd), None, None, self.loop.itmx,
+                               None if row is None else rows, counts=n)
+        return out[0][2:] + out[2:]
 
 
 def members_solve(levels: tuple, one, x, r, r2, tol, itmx: int, row=None):
     """The adaptive loop of a solver under `torch.func.vmap`: ``one(levels,
     x, r) -> (x, r)`` is its iteration, ``r2`` the members' ``r·r``, each
     member stopped by its own test (`adaptive_members`) and the loop run
-    with the member axis in the open through `_Adaptive`'s `vmap` rule.
-    Returns ``(x, r, n)``, with ``row`` (``(x, r) -> [max|r|, r·r]``) also
-    the residual trace, each member's as `adaptive_members` gives it."""
+    with the member axis in the open through `_Adaptive`'s `vmap` rule
+    (and, under `torch.func.jvp`, its `jvp` rule).  Returns ``(x, r, n)``,
+    with ``row`` (``(x, r) -> [max|r|, r·r]``) also the residual trace,
+    each member's as `adaptive_members` gives it."""
     spec, ops = level_tensors(levels)
-
-    def run(dims, x, r, r2, *ops):
-        def it(x, r, *ops):
-            lv = with_level_tensors(spec, ops)
-            x, r = one(lv, x, r)
-            return (x, r), fdot(lv[0], r, r)
-        step = torch.func.vmap(it, in_dims=(0, 0) + tuple(dims))
-        rows = (None if row is None
-                else lambda c: torch.func.vmap(row)(*c))
-        out = adaptive_members(lambda c: step(*c, *ops), (x, r), r2, tol,
-                               itmx, rows)
-        return out[0] + out[1:]
-    out = _Adaptive.apply(run, (None,) * len(ops), x[None], r[None],
+    plain = "ad" in sk.tracked_by(x, r, *ops)
+    out = _Adaptive.apply(_Loop(spec, one, tol, itmx, row, plain),
+                          (0, 0, 0) + (None,) * len(ops), x[None], r[None],
                           r2[None], *ops)
     return tuple(o[0] for o in out)
 
 
-def vmap_loop(name: str, levels: tuple, *values) -> bool:
+def vmap_loop(levels: tuple, *values) -> bool:
     """True where an adaptive loop must run with the member axis in the
     open (`_Adaptive`): ``values`` or the tensors of ``levels`` carry
-    `vmap` levels.  Raises `NotImplementedError` where they are also
-    differentiated (``grad``, ``jvp``; a backward pass's untracked
-    cotangents are not)."""
-    kinds = sk.tracked_by(*values, *(getattr(lv, f) for lv in levels
-                                     for f in _LEVEL_TENSORS))
-    if "vmap" not in kinds:
-        return False
-    if "ad" in kinds:
-        raise NotImplementedError(
-            f"{name}: torch.func.vmap over a derivative (grad, jvp) through "
-            f"the adaptive solve is not ported (ROADMAP A17, queue A); use "
-            f"fixed_iters, or implicit_diff for reverse mode")
-    return True
+    `vmap` levels (and perhaps derivatives: forward mode runs through the
+    loop's `jvp` rule, reverse mode raises in its backward, as JAX's)."""
+    return "vmap" in sk.tracked_by(*values, *(
+        getattr(lv, f) for lv in levels for f in _LEVEL_TENSORS))
 
 
 def poisson_solve(lev: PoissonLevel, x, z, tol=1e-4, itmx=1000,
@@ -676,7 +796,7 @@ def poisson_solve(lev: PoissonLevel, x, z, tol=1e-4, itmx=1000,
     `torch.func.vmap` each member's count (`adaptive_members`), a tensor."""
     r = residual(lev, x, z)
     r2 = fdot(lev, r, r)
-    if vmap_loop("poisson_solve", (lev,), x, z):
+    if vmap_loop((lev,), x, z):
         x, r, n = members_solve((lev,), lambda lv, x, r: smoother(lv[0], x, r),
                                 x, r, r2, tol, itmx)
         return bc_scalar_periodic(x, lev.perdir), r, n

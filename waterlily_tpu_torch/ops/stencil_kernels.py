@@ -45,21 +45,26 @@ which count kernel launches only.
 
 A field under `torch.func.vmap` (an ensemble's member axis) counts as
 tracked too (`ad_tracked`, `kernel_ok`), but one that `vmap` alone
-batches (`vmap_only`) has member forms: seven wrappers (`mult3d`,
+batches (`vmap_only`) has member forms: eight wrappers (`mult3d`,
 `increment3d`, `cfl3d`, `bc3d`, `div3d`, `project3d`, `conv_diff3d`,
-whole grid) take it through an `autograd.Function` whose `vmap` rule
-folds every `vmap` level into one member axis and launches the kernel
-once for all members (`member_form`; a member's work, its sums included,
-is that of its own launch, bit for bit; ``"members"`` in ``.forms``), and
+whole grid, and `ana_mult3d`) take it through an `autograd.Function`
+whose `vmap` rule folds every `vmap` level into one member axis and
+launches the kernel once for all members (`member_form`; a member's
+work, its sums included, is that of its own launch, bit for bit;
+``"members"`` in ``.forms``), and
 their gates (`members_ok`, and `ops.poisson`'s level branches) send such
 a field there; the PCG smooth's caller (`ops.poisson.smooth`) sends it to
 `pcg_kernel.pcg_fused`, whose `vmap` rule launches once for a chunk of
-members.  `ana_mult3d` has no member form: a batched banded level takes
-its plain form.
+members.  `ana_mult3d` has a member form too: a batched banded level's
+far-field operator, each member its own window fix-up around it
+(`ops.poisson._banded_ax`).  Inside `plain_forms` every field counts as
+tracked: the primal loop of an adaptive solve that `torch.func.jvp`
+differentiates under `vmap` runs there (`ops.poisson._Loop`).
 """
 from __future__ import annotations
 
 import collections
+import contextlib
 import functools
 import math
 
@@ -70,7 +75,8 @@ from ..kernels.build import THREADS, launch, library
 from .pcg_kernel import fold_members
 
 __all__ = ["MIN_CELLS", "use_blocked", "tracked_by", "ad_tracked", "vmapped",
-           "vmap_only", "kernel_ok", "members_ok", "member_form", "COUNTERS",
+           "vmap_only", "plain_forms", "kernel_ok", "members_ok",
+           "member_form", "COUNTERS",
            "mult3d", "increment3d", "ana_mult3d",
            "cfl3d", "bc3d", "div3d", "project3d", "conv_diff3d",
            "global_interior", "kernel_wrappers"]
@@ -95,22 +101,47 @@ _functorch = torch._C._functorch
 
 
 def _kinds(v: torch.Tensor, grad_on: bool, duals: bool) -> set:
-    """How ``v`` is tracked: ``"ad"`` for ``requires_grad`` under grad mode
-    and for a forward-AD dual (a ``jvp`` level's tensor is one), ``"vmap"``
-    for each `torch.func.vmap` level that batches it, ``"wrapped"`` for
-    any other `torch.func` level (a ``grad`` level's tensor that does not
-    require grad: a cotangent in a backward pass)."""
-    kinds = set()
-    if (grad_on and v.requires_grad) or (
-            duals and forward_ad.unpack_dual(v).tangent is not None):
-        kinds.add("ad")
+    """How ``v`` is tracked: ``"ad"`` for ``requires_grad`` under grad mode,
+    for a forward-AD dual at any level (a ``jvp`` level's tensor is one)
+    and inside `plain_forms`, ``"vmap"`` for each `torch.func.vmap` level
+    that batches it, ``"wrapped"`` for any other `torch.func` level (a
+    ``grad`` level's tensor that does not require grad: a cotangent in a
+    backward pass)."""
+    kinds = {"ad"} if _PLAIN or (grad_on and v.requires_grad) else set()
+    # a dual's tangent sits on its own level's tensor, which may lie beneath
+    # a vmap level (jvp of vmap); a batched tensor has none to unpack
     t = v
-    while _functorch.is_functorch_wrapped_tensor(t):
-        kinds.add("vmap" if _functorch.is_batchedtensor(t) else "wrapped")
+    while True:
+        batched = _functorch.is_batchedtensor(t)
+        if (duals and not batched
+                and forward_ad.unpack_dual(t).tangent is not None):
+            kinds.add("ad")
+        if not _functorch.is_functorch_wrapped_tensor(t):
+            break
+        kinds.add("vmap" if batched else "wrapped")
         t = _functorch.get_unwrapped(t)
     if grad_on and t.requires_grad:
         kinds.add("ad")
     return kinds
+
+
+# >0 inside `plain_forms()`
+_PLAIN = 0
+
+
+@contextlib.contextmanager
+def plain_forms():
+    """Inside the block every field counts as tracked by autograd
+    (`tracked_by` adds ``"ad"``), so every gate sends it to the plain
+    forms: the primal of an adaptive loop that `torch.func.jvp`
+    differentiates runs there (`ops.poisson._Loop`), as the loop's
+    tangent, and a member's own `jvp`, do."""
+    global _PLAIN
+    _PLAIN += 1
+    try:
+        yield
+    finally:
+        _PLAIN -= 1
 
 
 def tracked_by(*values) -> set:
@@ -289,8 +320,9 @@ def _count(fn, S, members: bool = False, form=None, **streams) -> None:
 
 # --- member forms: an ensemble under torch.func.vmap ------------------------
 #
-# Each of the seven stencil wrappers below (`mult3d`, `increment3d`,
-# `cfl3d`, `bc3d`, `div3d`, `project3d`, `conv_diff3d`) has a member form:
+# Each of the eight stencil wrappers below (`mult3d`, `increment3d`,
+# `ana_mult3d`, `cfl3d`, `bc3d`, `div3d`, `project3d`, `conv_diff3d`) has a
+# member form:
 # its kernel over M members in one launch, whatever M (a grid axis runs
 # over the members; each member's work, sums included, is a one-member
 # launch's, bit for bit).  A wrapper handed operands that `vmap` batches
@@ -634,24 +666,41 @@ def _ana_mult3d_plain(x, c, perdir=(), with_dot=False):
     return (z, field_dot(z, x)) if with_dot else z
 
 
+def _ana_mult3d_launch(x, c, perdir=(), with_dot=False, members=False):
+    """The kernel on ``x`` (``(M, *S)``): z with the member axis, and with
+    ``with_dot`` each member's dot, ``(M,)``."""
+    M, S = x.shape[0], tuple(x.shape[1:])
+    _check("ana_mult3d", S, x=(x, (M,) + S))
+    planes, buf = _march("ana_mult3d", S, x.device, int(with_dot),
+                         members=M)
+    z = torch.empty_like(x)
+    launch("wl_ana_mult3d", x, z, *((buf[M:], _counter(x.device), buf[:M])
+                                    if with_dot else (None,) * 3),
+           float(c), _axis_bits(perdir), planes, M, *S)
+    _count(ana_mult3d, S, members)
+    return (z, buf[:M]) if with_dot else z
+
+
 @_counted
 def ana_mult3d(x, c, perdir: tuple = (), with_dot: bool = False):
     """z = A·x for the constant-coefficient far-field operator of a banded
     level (face coefficient ``c``, wall faces zero from the index, no
     coefficient reads), zero ghosts; with ``with_dot`` also ⟨A·x, x⟩ over
     the interior as a 0-d tensor, in the same launch.  Periodic ghosts of
-    ``x`` must be filled by the caller."""
-    S = tuple(x.shape)
+    ``x`` must be filled by the caller.  Under `vmap` alone, the member
+    form (one launch for every member, each its own dot; ``c`` and
+    ``perdir`` the level's, shared)."""
+    if vmap_only(x):
+        return _by_members("ana_mult3d", x, float(c), tuple(perdir),
+                           bool(with_dot))
     if _on_cpu("ana_mult3d", x, c):
         return _ana_mult3d_plain(x, c, perdir, with_dot)
-    _check("ana_mult3d", S, x=(x, S))
-    planes, buf = _march("ana_mult3d", S, x.device, int(with_dot))
-    z = torch.empty_like(x)
-    launch("wl_ana_mult3d", x, z, *((buf[1:], _counter(x.device), buf[0])
-                                    if with_dot else (None,) * 3),
-           float(c), _axis_bits(perdir), planes, *S)
-    _count(ana_mult3d, S)
-    return (z, buf[0]) if with_dot else z
+    out = _ana_mult3d_launch(x[None], c, perdir, with_dot)
+    return (out[0][0], out[1][0]) if with_dot else out[0]
+
+
+_member_function("ana_mult3d", (3,), 0, _ana_mult3d_plain,
+                 _ana_mult3d_launch)
 
 
 def _cfl3d_plain(u):

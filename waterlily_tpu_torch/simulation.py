@@ -19,7 +19,7 @@ from .convert import to_numpy
 from .body import (NoBody, measure_fields, measure_fields_banded,
                    band_box_shape)
 from .flow import FlowConfig, flow_init, mom_step
-from .grid import box_slices
+from .grid import put_window
 from .ops.convect import quick
 from .ops.multigrid import build_levels
 
@@ -275,7 +275,7 @@ class Simulation:
         if bb is None:
             return True
         outside = d_center < (2.0 + self.epsilon)
-        outside[box_slices(bb, self._measure_box)] = False
+        put_window(outside, bb, self._measure_box, False)
         return not bool(outside.any())
 
     _BAND_ERR = ("body band outgrew its static window: the d<2+eps region "
