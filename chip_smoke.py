@@ -1424,6 +1424,464 @@ def timing_process_mesh():
         f"ms wall a step on the slowest rank ({RANK_TIMED_STEPS} steps)")
 
 
+# phase 6.10: autograd across ranks.  Phase 6.7's (96,64,64) sphere on the
+# (2,2,2) process mesh of 8 gloo ranks sharing the card, its drag of
+# `Simulation.global_flow` differentiated on every rank alike in ν and the
+# radius; then the 256³ sphere's reverse step at the size the reckoning
+# below lets 8 ranks hold at once.
+GRAD_STEPS = 2
+# the reckoning of (iv): a rank's block of the single-device 256³ reverse
+# step (phase 6.7: 53.457 GiB on an NVIDIA H100 80GB HBM3, 700.00 W,
+# PERF.md §5), the replicated coarse levels (L, D, iD and the two solves'
+# vectors: 5 fields over ~1/7 of the fine cells), a rank's peak while it
+# constructs the 256³ sphere on the process mesh (phase 6.9: 3.69 GiB,
+# the same card, PERF.md §5) and a CUDA context, each scaled by (n/256)³
+# but the context; the largest n of `AD_SIZES` whose 8 ranks fit in the
+# budget
+SINGLE_REVERSE_GIB = 53.457
+RANK_CONSTRUCT_GIB = 3.69
+CONTEXT_GIB = 0.5
+GRAD_BUDGET_GIB = 70.0
+
+
+def reckon_gib(n):
+    """(iv)'s reckoned GiB of 8 ranks at ``sphere_3d(n, n)``, and a
+    rank's terms."""
+    scale = (n / 256) ** 3
+    cells = (n + 2) ** 3
+    terms = {"block graph": SINGLE_REVERSE_GIB * scale / RANKS,
+             "coarse levels": 5 * 4 * cells / 7 / 2 ** 30,
+             "construction": RANK_CONSTRUCT_GIB * scale,
+             "context": CONTEXT_GIB}
+    return RANKS * sum(terms.values()), terms
+
+
+def grad_sim(torch, dev, nu, radius, mesh, **ad):
+    """Phase 6.7's sphere (`drag_setup`'s body, ν and tolerance) as a
+    `Simulation` on ``mesh`` (None: dense)."""
+    from waterlily_tpu_torch import Simulation
+    from waterlily_tpu_torch.body import AutoBody
+    body = AutoBody(lambda x, t: torch.sqrt(torch.sum((x - AD_CENTRE) ** 2))
+                    - radius)
+    return Simulation(tuple(s - 2 for s in FINE), (1.0, 0.0, 0.0),
+                      2 * AD_RADIUS, nu=nu, body=body, device=dev, mesh=mesh,
+                      **{"tol": AD_TOL, **ad})
+
+
+def sim_drag(sim, flow):
+    from waterlily_tpu_torch.metrics import total_force
+    return total_force(flow.u, flow.p, sim.cfg.nu, sim.body, flow.t)[0]
+
+
+def _sync(torch, dev):
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def _peak(torch, dev, reset=False):
+    if dev.type != "cuda":
+        return 0.0
+    if reset:
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(dev)
+    return torch.cuda.max_memory_allocated(dev) / 2 ** 30
+
+
+def _exchanged(mesh, before):
+    return {k: mesh.stats[k] - before[k] for k in before}
+
+
+def rank_reverse(torch, dev, mesh, steps, **ad):
+    """`steps` steps of the sphere on the process ``mesh``, its drag and
+    the gradient in (ν, radius), the launches of the forward and of the
+    backward pass (counters zeroed before each, read after), the walls,
+    this rank's peak GiB and the exchanges of each pass."""
+    from waterlily_tpu_torch.ops.multigrid import ml_solve_implicit
+    nu, radius = ad_params(torch, dev)
+    sim = grad_sim(torch, dev, nu, radius, mesh, **ad)
+    _sync(torch, dev)
+    _peak(torch, dev, reset=True)
+    stats0 = dict(mesh.stats)
+    kernels = zeroed_wrappers()
+    t0 = time.perf_counter()
+    sim.steps(steps, remeasure=False)
+    drag = sim_drag(sim, sim.global_flow())
+    _sync(torch, dev)
+    t1 = time.perf_counter()
+    fwd = _read_wrappers(kernels)
+    kernels = zeroed_wrappers()
+    ml_solve_implicit.adjoint_n.clear()
+    g = torch.autograd.grad(drag, (nu, radius))
+    _sync(torch, dev)
+    t2 = time.perf_counter()
+    return {"drag": float(drag.detach()), "grad": [float(v) for v in g],
+            "pois_n": sim.pois_n, "dts": sim.dts, "fwd": fwd,
+            "bwd": _read_wrappers(kernels),
+            "adjoint": list(ml_solve_implicit.adjoint_n),
+            "forward_s": t1 - t0, "backward_s": t2 - t1,
+            "peak_gib": _peak(torch, dev),
+            "exchanges": _exchanged(mesh, stats0)}
+
+
+def rank_log(torch, dev, mesh):
+    """(iii): the sphere with ``log=True``, 2 steps, and without it: this
+    rank's traces, blocks and histories, and whether the two runs' blocks
+    and histories are bit for bit."""
+    runs = []
+    for log_on in (True, False):
+        nu, radius = ad_params(torch, dev, grad=False)
+        sim = grad_sim(torch, dev, nu, radius, mesh, log=log_on,
+                       tol=1e-4)
+        sim.steps(GRAD_STEPS, remeasure=False)
+        runs.append(sim)
+    a, b = runs
+    return {"res_log": [t.copy() for t in a.res_log], "dts": a.dts,
+            "pois_n": a.pois_n,
+            "same_as_plain": (torch.equal(a.flow.u, b.flow.u)
+                              and torch.equal(a.flow.p, b.flow.p)
+                              and a.dts == b.dts and a.pois_n == b.pois_n)}
+
+
+def rank_big_reverse(torch, dev, n):
+    """(iv): one ``implicit_diff`` reverse step of ``sphere_3d(n, n,
+    bbox=False)`` on the (2,2,2) process mesh, the KE of the assembled
+    velocity differentiated in this rank's block of the initial velocity:
+    the gradient block (host), wall s, busy ms (a second step under the
+    profiler), peak GiB, exchanges, pois_n and adjoint counts."""
+    from waterlily_tpu_torch import sphere_3d
+    from waterlily_tpu_torch.metrics import ke
+    from waterlily_tpu_torch.ops.multigrid import ml_solve_implicit
+    from waterlily_tpu_torch.parallel.dist import dist_mesh_for
+    from waterlily_tpu_torch.parallel.shard_step import shardmap_mom_step
+    from waterlily_tpu_torch.utils.perf import EVENTS_KEY, device_profile
+    mesh = dist_mesh_for((n + 2,) * 3, device=dev)
+    sim = sphere_3d(n, n, bbox=False, implicit_diff=True, device=dev,
+                    mesh=mesh)
+    _sync(torch, dev)
+    construct_gib = _peak(torch, dev)
+    # a step with the residual traces first (untracked: the kernel forms)
+    kernels = zeroed_wrappers()
+    _state, aux = shardmap_mom_step(
+        dataclasses.replace(sim.cfg, implicit_diff=False, log=True), mesh,
+        sim.levels, sim.flow)
+    _sync(torch, dev)
+    log_step = {**_read_wrappers(kernels), "pois_n": aux["pois_n"],
+                "rows": [int((t != 0).any(dim=1).sum())
+                         for t in aux["res_trace"]]}
+    del _state, aux
+
+    def reverse():
+        u0 = sim.flow.u.detach().requires_grad_()
+        state, aux = shardmap_mom_step(sim.cfg, mesh, sim.levels,
+                                       sim.flow.replace(u=u0))
+        loss = torch.sum(ke(mesh.assemble([state.u], 1)))
+        (g,) = torch.autograd.grad(loss, u0)
+        return g, aux
+
+    _peak(torch, dev, reset=True)
+    stats0 = dict(mesh.stats)
+    kernels = zeroed_wrappers()
+    ml_solve_implicit.adjoint_n.clear()
+    mesh.barrier()
+    t0 = time.perf_counter()
+    g, aux = reverse()
+    _sync(torch, dev)
+    wall = time.perf_counter() - t0
+    # numpy: a tensor would cross to the parent through shared memory
+    out = {"n": n, "g": g.cpu().numpy(), "wall_s": wall, "peak_gib": _peak(torch, dev),
+           "construct_gib": construct_gib, "pois_n": aux["pois_n"],
+           "adjoint": list(ml_solve_implicit.adjoint_n),
+           "exchanges": _exchanged(mesh, stats0),
+           "counts": _read_wrappers(kernels)["counts"], "log_step": log_step}
+    del g
+    if dev.type == "cuda":
+        busy, by_name = device_profile(lambda: reverse(), 1, events=True)
+        out.update(busy_ms=busy, events=EVENTS_KEY in by_name)
+    return out
+
+
+def rank_grad(rank, world, dev, big_n):
+    """Phase 6.10 (i)-(iv) on one rank of the (2,2,2) process mesh."""
+    import gc
+    import torch
+    from waterlily_tpu_torch.parallel.dist import dist_mesh_for
+    if dev.type == "cuda":
+        from waterlily_tpu_torch.kernels.build import library
+        library()
+    mesh = dist_mesh_for(FINE, device=dev)
+    out = {"rank": rank,
+           "implicit": rank_reverse(torch, dev, mesh, GRAD_STEPS,
+                                    implicit_diff=True),
+           "fixed": rank_reverse(torch, dev, mesh, 1, fixed_iters=2),
+           "log": rank_log(torch, dev, mesh)}
+    gc.collect()
+    _peak(torch, dev, reset=True)
+    out["big"] = rank_big_reverse(torch, dev, big_n)
+    return out
+
+
+def rank_grad_nccl(rank, world, dev):
+    """(v): (i) on the NCCL world of one rank."""
+    import torch
+    from waterlily_tpu_torch.kernels.build import library
+    from waterlily_tpu_torch.parallel.dist import dist_mesh_for
+    if dev.type == "cuda":
+        library()
+    mesh = dist_mesh_for(FINE, device=dev)
+    out = rank_reverse(torch, dev, mesh, GRAD_STEPS, implicit_diff=True)
+    out["mesh"] = repr(mesh)
+    return out
+
+
+def twin_reverse(torch, dev, mesh, steps, **ad):
+    """The in-process block step's twin of `rank_reverse`: the dense
+    Simulation's state and levels through `shardmap_mom_step` on ``mesh``
+    (an in-process `mesh_for`)."""
+    from waterlily_tpu_torch.parallel.shard_step import shardmap_mom_step
+    nu, radius = ad_params(torch, dev, grad=not ad.get("log"))
+    sim = grad_sim(torch, dev, nu, radius, None, **ad)
+    state, pois, traces = sim.flow, [], []
+    for _ in range(steps):
+        state, aux = shardmap_mom_step(sim.cfg, mesh, sim.levels, state)
+        pois.append(aux["pois_n"])
+        if sim.cfg.log:
+            traces.append(aux["res_trace"].cpu().numpy())
+    out = {"pois_n": pois, "state": state, "res_log": traces}
+    if not sim.cfg.log:
+        drag = sim_drag(sim, state)
+        out["drag"] = float(drag.detach())
+        out["grad"] = [float(v) for v in torch.autograd.grad(drag,
+                                                             (nu, radius))]
+    return out
+
+
+def _launch_report(label, res, part_of):
+    """Each rank's launches in the forward and the backward pass of
+    ``part_of(res[r])``: ``pcg_fused`` in both, nothing of `AD_PLAIN`."""
+    for r in res:
+        for part in ("fwd", "bwd"):
+            counts = part_of(r)[part]["counts"]
+            name = f"{label} {'forward' if part == 'fwd' else 'backward'}, " \
+                   f"rank {r.get('rank', 0)}"
+            ran = [k for k in AD_PLAIN if counts[k]]
+            if ran or not counts["pcg_fused"]:
+                raise AssertionError(f"{name}: launches {counts}")
+            PATH_LAUNCHES[name] = counts
+            for k, shapes in part_of(r)[part]["shapes"].items():
+                PATH_SHAPES.setdefault(k, set()).update(shapes)
+    launched = {k: n for k, n in part_of(res[0])["fwd"]["counts"].items()
+                if n}
+    back = {k: n for k, n in part_of(res[0])["bwd"]["counts"].items() if n}
+    log(f"  launches a rank (rank 0; every rank alike checked): forward "
+        f"{launched}, backward {back}; none of {AD_PLAIN}")
+
+
+def run_process_grad(torch, dev):
+    """Phase 6.10: autograd across ranks on the (2,2,2) process mesh of 8
+    gloo ranks sharing the card, (i) ``implicit_diff``, (ii)
+    ``fixed_iters=2``, (iii) ``log``, each against the in-process block
+    step on the card, (iv) the big reverse step at the reckoned size
+    against the dense one, (v) NCCL at world size 1."""
+    import gc
+    import numpy as np
+    from waterlily_tpu_torch.parallel.launch import run_ranks
+    from waterlily_tpu_torch.parallel.mesh import mesh_for
+    fits = [n for n in AD_SIZES if reckon_gib(n)[0] <= GRAD_BUDGET_GIB]
+    for n in AD_SIZES:
+        total, terms = reckon_gib(n)
+        log(f"  (iv) reckoning at sphere_3d({n}, {n}): {total:.2f} GiB for "
+            f"{RANKS} ranks, a rank " + ", ".join(
+                f"{k} {v:.3f}" for k, v in terms.items()))
+    if not fits:
+        raise AssertionError(f"no size of {AD_SIZES} fits "
+                             f"{GRAD_BUDGET_GIB} GiB")
+    big_n = fits[0]
+    log(f"  (iv) runs at sphere_3d({big_n}, {big_n}): the largest of "
+        f"{AD_SIZES} within {GRAD_BUDGET_GIB} GiB")
+    label = "6.10 (i) implicit_diff, 8 gloo ranks"
+    stage(f"(i)-(iv) 8 gloo ranks sharing the card, (2,2,2) mesh: "
+          f"sphere_3d(96, 64) implicit_diff tol {AD_TOL:g}, fixed_iters=2, "
+          f"log; sphere_3d({big_n}, {big_n}) implicit_diff reverse step")
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    res = run_ranks(rank_grad, RANKS, "gloo", dev, timeout=900.0,
+                    args=(big_n,))
+    log(f"8 ranks done in {time.perf_counter() - t0:.1f} s")
+
+    stage("(i) implicit_diff against the in-process block step")
+    mesh = mesh_for(FINE, RANKS, dev)
+    twin = twin_reverse(torch, dev, mesh, GRAD_STEPS, implicit_diff=True)
+    grads = {tuple(r["implicit"]["grad"]) for r in res}
+    g = res[0]["implicit"]["grad"]
+    e_twin = rel_err(g + [res[0]["implicit"]["drag"]],
+                     twin["grad"] + [twin["drag"]])
+    single = AD_RESULTS["implicit"]
+    e_single = rel_err(g, single["grad"])
+    for r in res:
+        x = r["implicit"]
+        log(f"  rank {r['rank']}: drag {x['drag']!r}, d/dν, d/dradius = "
+            f"{x['grad']}; pois_n {x['pois_n']}, adjoint {x['adjoint']}; "
+            f"forward {x['forward_s']:.3f} s, reverse pass "
+            f"{x['backward_s']:.3f} s, peak {x['peak_gib']:.3f} GiB; "
+            f"exchanges forward {x['exchanges']['halo_bytes'] / 2**20:.2f} "
+            f"MiB sent, {x['exchanges']['gather_bytes'] / 2**20:.2f} MiB "
+            f"gathered in {x['exchanges']['calls']} calls "
+            f"({x['exchanges']['comm_s']:.3f} s), backward "
+            f"{x['exchanges']['bwd_halo_bytes'] / 2**20:.2f} MiB sent, "
+            f"{x['exchanges']['bwd_gather_bytes'] / 2**20:.2f} MiB gathered "
+            f"in {x['exchanges']['bwd_calls']} calls "
+            f"({x['exchanges']['bwd_comm_s']:.3f} s)")
+    log(f"  in-process block step (mesh_for(FINE, 8) on the card): drag "
+        f"{twin['drag']!r}, {twin['grad']}, pois_n {twin['pois_n']}: "
+        f"relative difference {e_twin:.3e}")
+    log(f"  single device (phase 6.7 (i)): {single['grad']}, pois_n "
+        f"{single['pois_n']}: relative difference {e_single:.3e}")
+    if len(grads) != 1:
+        raise AssertionError(f"{label}: the ranks' gradients differ: "
+                             f"{grads}")
+    if not (e_twin <= 1e-4 and all(r["implicit"]["pois_n"] == twin["pois_n"]
+                                   for r in res)):
+        raise AssertionError(f"{label} vs the in-process block step: {g} vs "
+                             f"{twin['grad']}")
+    if not e_single <= 2e-2:
+        raise AssertionError(f"{label} vs single device: {g} vs "
+                             f"{single['grad']}")
+    _launch_report(label, res, lambda r: r["implicit"])
+    del twin
+
+    stage("(ii) fixed_iters=2, 1 step, against the in-process block step")
+    twin = twin_reverse(torch, dev, mesh, 1, fixed_iters=2)
+    x = res[0]["fixed"]
+    e = abs(x["grad"][0] - twin["grad"][0]) / abs(twin["grad"][0])
+    cost = AD_RESULTS["fixed_cost"]
+    log(f"  ranks: d/dν, d/dradius = {x['grad']} (every rank alike: "
+        f"{len({tuple(r['fixed']['grad']) for r in res}) == 1}); in-process "
+        f"{twin['grad']}: d/dν relative difference {e:.3e}")
+    for r in res:
+        y = r["fixed"]
+        log(f"  rank {r['rank']}: forward {y['forward_s']:.3f} s, reverse "
+            f"pass {y['backward_s']:.3f} s, peak {y['peak_gib']:.3f} GiB, "
+            f"exchanges backward {y['exchanges']['bwd_halo_bytes'] / 2**20:.2f} "
+            f"MiB sent in {y['exchanges']['bwd_calls']} calls")
+    log(f"  beside phase 6.7 (iv)'s single-device fixed_iters={cost['k']} "
+        f"2 steps: reverse pass {cost['wall_s']:.3f} s, peak "
+        f"{cost['peak_gib']:.3f} GiB")
+    if not e <= 1e-4 or len({tuple(r["fixed"]["grad"]) for r in res}) != 1:
+        raise AssertionError(f"(ii) fixed_iters=2: {x['grad']} vs "
+                             f"{twin['grad']}")
+    del twin
+
+    stage("(iii) log=True: the residual traces")
+    twin = twin_reverse(torch, dev, mesh, GRAD_STEPS, log=True, tol=1e-4)
+    for r in res:
+        y = r["log"]
+        same = all(np.array_equal(a, b) for a, b in zip(y["res_log"],
+                                                        twin["res_log"]))
+        alike = all(np.array_equal(a, b) for a, b in zip(
+            y["res_log"], res[0]["log"]["res_log"]))
+        rows = [[int(np.any(t != 0, axis=1).sum()) for t in step]
+                for step in y["res_log"]]
+        want = [[n + 1 for n in p] for p in y["pois_n"]]
+        if not (same and alike and rows == want and y["same_as_plain"]
+                and y["pois_n"] == twin["pois_n"]
+                and len(y["res_log"]) == GRAD_STEPS):
+            raise AssertionError(f"(iii) rank {r['rank']}: traces equal the "
+                                 f"block step's {same}, rank 0's {alike}; "
+                                 f"rows {rows} vs {want}; the run without "
+                                 f"log {y['same_as_plain']}")
+    log(f"  every rank's res_log bit for bit the in-process block step's and "
+        f"rank 0's; non-zero rows a solve {rows} = pois_n + 1; u, p, dt, "
+        f"pois_n bit for bit the run without log; first rows "
+        f"{res[0]['log']['res_log'][0][0][:2].tolist()}")
+    del twin
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    stage(f"(iv) sphere_3d({big_n}, {big_n}, bbox=False): one implicit_diff "
+          f"reverse step, 8 ranks against the in-process block step and "
+          f"the single device")
+    S_big = (big_n + 2,) * 3
+    cpu_mesh = mesh_for(S_big, RANKS, "cpu")
+    twin = cpu_mesh.split(block_reverse_step(torch, dev, big_n), 1)
+    gc.collect()
+    torch.cuda.empty_cache()
+    dense = dense_reverse_step(torch, dev, big_n)
+    with gates_shut():
+        plain = dense_reverse_step(torch, dev, big_n)
+    if dense is None or plain is None:
+        raise AssertionError(f"(iv) the single-device step at {big_n} does "
+                             f"not fit")
+    scale = float(dense["g"].abs().max())
+    spread = float((dense["g"] - plain["g"]).abs().max()) / scale
+    blocks = cpu_mesh.split(dense["g"], 1)
+    log(f"  the single device's own spread at the default tol 1e-4 (its "
+        f"kernels against every plain form, max|Δg| / max|g|): "
+        f"{spread:.3e}")
+    for r in res:
+        y = r["big"]
+        gr = torch.from_numpy(y["g"])
+        e = float((gr - blocks[r["rank"]]).abs().max()) / scale
+        same = torch.equal(gr, twin[r["rank"]])
+        finite = bool(torch.isfinite(gr).all())
+        log(f"  rank {r['rank']}: {y['wall_s']:.3f} s wall, busy "
+            f"{y.get('busy_ms', float('nan')):.2f} ms"
+            f"{' (CUDA events)' if y.get('events') else ''}, peak "
+            f"{y['peak_gib']:.3f} GiB stepping ({y['construct_gib']:.3f} "
+            f"constructing); exchanges forward "
+            f"{y['exchanges']['halo_bytes'] / 2**20:.2f} MiB sent, "
+            f"{y['exchanges']['gather_bytes'] / 2**20:.2f} MiB gathered, "
+            f"backward {y['exchanges']['bwd_halo_bytes'] / 2**20:.2f} MiB "
+            f"sent, {y['exchanges']['bwd_gather_bytes'] / 2**20:.2f} MiB "
+            f"gathered ({y['exchanges']['comm_s'] + y['exchanges']['bwd_comm_s']:.3f} "
+            f"s in exchanges); pois_n {y['pois_n']}, adjoint "
+            f"{y['adjoint']}; bit for bit the in-process block step's "
+            f"{same}; max|Δg| / max|g| against the single device {e:.3e}; "
+            f"launches {dict((k, n) for k, n in y['counts'].items() if n)}")
+        if not (finite and same):
+            raise AssertionError(f"(iv) rank {r['rank']}: finite {finite}, "
+                                 f"bit for bit the in-process block step "
+                                 f"{same}")
+        PATH_LAUNCHES[f"6.10 (iv) {big_n}³ reverse step, rank "
+                      f"{r['rank']}"] = y["counts"]
+        z = y["log_step"]
+        idle = [k for k in SHARDED if not z["counts"][k]]
+        if r["rank"] == 0:
+            log(f"    a log=True step at {big_n}³ before it (every rank "
+                f"alike checked): launches "
+                f"{dict((k, n) for k, n in z['counts'].items() if n)}, "
+                f"pois_n {z['pois_n']}, non-zero trace rows {z['rows']}")
+        if idle or z["rows"] != [k + 1 for k in z["pois_n"]]:
+            raise AssertionError(f"(iii) log step at {big_n}³, rank "
+                                 f"{r['rank']}: never launched {idle}; "
+                                 f"rows {z['rows']}")
+        PATH_LAUNCHES[f"6.10 (iii) log step at {big_n}³, rank "
+                      f"{r['rank']}"] = z["counts"]
+        for k, shapes in z["shapes"].items():
+            PATH_SHAPES.setdefault(k, set()).update(shapes)
+        for k, bases in z["bases"].items():
+            PATH_BASES.setdefault(k, set()).update(bases)
+        del y["g"]
+    del dense, plain, blocks, twin
+
+    stage("(v) NCCL at world size 1: (i) against mesh_for(S, 1) in process")
+    (r,) = run_ranks(rank_grad_nccl, 1, "nccl", dev, timeout=300.0)
+    twin = twin_reverse(torch, dev, mesh_for(FINE, 1, dev), GRAD_STEPS,
+                        implicit_diff=True)
+    e = [abs(a - b) / abs(b) for a, b in zip(r["grad"], twin["grad"])]
+    log(f"  {r['mesh']}: {r['grad']}, in process {twin['grad']}: relative "
+        f"differences {e[0]:.3e}, {e[1]:.3e}; pois_n {r['pois_n']} vs "
+        f"{twin['pois_n']}")
+    # d/dradius sums its terms in another association (a rank keeps the
+    # measured fields as blocks, the in-process step splits them each
+    # step): 4e-6 apart in f32 at (34,18,18) on the CPU, 2e-15 in f64
+    if not (e[0] <= 1e-6 and e[1] <= 1e-4
+            and r["pois_n"] == twin["pois_n"]):
+        raise AssertionError(f"(v) NCCL: {r['grad']} vs {twin['grad']}")
+    _launch_report("6.10 (v) NCCL world of 1", [r], lambda r: r)
+    torch.cuda.empty_cache()
+
+
 # phase 6.6: the samplings of the forces; the sphere's moments are taken
 # about the domain's origin, so that the lever arm makes them large
 SAMPLINGS = ("center", "surface", "extrap")
@@ -1660,6 +2118,7 @@ AD_TOL = 1e-5
 AD_KERNELS = ("mult3d", "increment3d", "pcg_fused")
 AD_PLAIN = ("conv_diff3d", "bc3d", "div3d", "project3d", "cfl3d")
 AD_SIZES = (256, 192, 128)   # the big reverse step, largest first
+AD_RESULTS = {}     # phase 6.7's gradients and costs, read by phase 6.10
 
 
 def drag_setup(torch, dev, nu, radius, **ad):
@@ -1739,51 +2198,76 @@ def reverse_cost(torch, dev, label, **ad):
         f"gradient {g}")
     if not all(math.isfinite(v) for v in g + [drag]):
         raise AssertionError(f"{label}: non-finite gradient {g}")
+    return {"wall_s": wall, "peak_gib": gib, "grad": g, "pois_n": pois}
 
 
-def big_reverse_step(torch, dev):
+def dense_reverse_step(torch, dev, n):
     """One ``implicit_diff`` reverse step of ``sphere_3d(n, n, bbox=False)``
-    (d of the kinetic energy in the initial velocity) at the largest n of
-    `AD_SIZES` that fits in the card's memory: wall seconds, peak GiB."""
+    on the card (d of the kinetic energy in the initial velocity): the
+    gradient (on the host), wall seconds, peak GiB, pois_n and the adjoint
+    solves' counts; None where it does not fit in the card's memory."""
     import gc
     from waterlily_tpu_torch import sphere_3d
     from waterlily_tpu_torch.flow import mom_step
     from waterlily_tpu_torch.metrics import ke
     from waterlily_tpu_torch.ops.multigrid import ml_solve_implicit
-    for n in AD_SIZES:
-        sim = sphere_3d(n, n, bbox=False, implicit_diff=True, device=dev)
+    sim = sphere_3d(n, n, bbox=False, implicit_diff=True, device=dev)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    ml_solve_implicit.adjoint_n.clear()
+    t0 = time.perf_counter()
+    try:
+        u0 = sim.flow.u.detach().requires_grad_()
+        state, aux = mom_step(sim.cfg, sim.levels, sim.flow.replace(u=u0))
+        (g,) = torch.autograd.grad(torch.sum(ke(state.u)), u0)
         torch.cuda.synchronize()
-        torch.cuda.empty_cache()
-        torch.cuda.reset_peak_memory_stats()
-        ml_solve_implicit.adjoint_n.clear()
-        t0 = time.perf_counter()
-        try:
-            u0 = sim.flow.u.detach().requires_grad_()
-            state, aux = mom_step(sim.cfg, sim.levels,
-                                  sim.flow.replace(u=u0))
-            (g,) = torch.autograd.grad(torch.sum(ke(state.u)), u0)
-            torch.cuda.synchronize()
-            fits = True
-        except torch.cuda.OutOfMemoryError:
-            fits = False
-            state = u0 = None
-        wall = time.perf_counter() - t0
-        gib = torch.cuda.max_memory_allocated() / 2 ** 30
-        if fits:
-            log(f"  sphere_3d({n}, {n}, bbox=False) one implicit_diff "
-                f"reverse step: {wall:.3f} s, peak {gib:.3f} GiB allocated; "
-                f"pois_n {aux['pois_n']}, adjoint "
-                f"{list(ml_solve_implicit.adjoint_n)}")
-            if not bool(torch.isfinite(g).all()):
-                raise AssertionError(f"sphere_3d({n}, {n}): non-finite "
-                                     "gradient")
-            return
+        out = {"n": n, "g": g.cpu(), "pois_n": aux["pois_n"],
+               "adjoint": list(ml_solve_implicit.adjoint_n)}
+    except torch.cuda.OutOfMemoryError:
+        out = None
+    wall = time.perf_counter() - t0
+    gib = torch.cuda.max_memory_allocated() / 2 ** 30
+    state = u0 = g = sim = None
+    gc.collect()
+    torch.cuda.empty_cache()
+    if out is None:
         log(f"  sphere_3d({n}, {n}, bbox=False): one implicit_diff reverse "
             f"step does not fit in the card's memory (peak {gib:.3f} GiB "
             f"allocated when it ran out)")
-        del sim
-        gc.collect()
-        torch.cuda.empty_cache()
+        return None
+    out.update(wall_s=wall, peak_gib=gib)
+    log(f"  sphere_3d({n}, {n}, bbox=False) one implicit_diff reverse step: "
+        f"{wall:.3f} s, peak {gib:.3f} GiB allocated; pois_n "
+        f"{out['pois_n']}, adjoint {out['adjoint']}")
+    if not bool(torch.isfinite(out["g"]).all()):
+        raise AssertionError(f"sphere_3d({n}, {n}): non-finite gradient")
+    return out
+
+
+def block_reverse_step(torch, dev, n):
+    """`dense_reverse_step`'s gradient by the block step on the in-process
+    (2,2,2) mesh on the card (on the host)."""
+    from waterlily_tpu_torch import sphere_3d
+    from waterlily_tpu_torch.metrics import ke
+    from waterlily_tpu_torch.parallel.mesh import mesh_for
+    from waterlily_tpu_torch.parallel.shard_step import shardmap_mom_step
+    sim = sphere_3d(n, n, bbox=False, implicit_diff=True, device=dev)
+    u0 = sim.flow.u.detach().requires_grad_()
+    state, _aux = shardmap_mom_step(sim.cfg, mesh_for((n + 2,) * 3, 8, dev),
+                                    sim.levels, sim.flow.replace(u=u0))
+    (g,) = torch.autograd.grad(torch.sum(ke(state.u)), u0)
+    return g.cpu()
+
+
+def big_reverse_step(torch, dev):
+    """`dense_reverse_step` at the largest n of `AD_SIZES` that fits in
+    the card's memory (kept in `AD_RESULTS` for phase 6.10)."""
+    for n in AD_SIZES:
+        out = dense_reverse_step(torch, dev, n)
+        if out is not None:
+            AD_RESULTS["big"] = {k: v for k, v in out.items() if k != "g"}
+            return
     raise AssertionError(f"no reverse step of the sizes {AD_SIZES} fits")
 
 
@@ -1817,6 +2301,8 @@ def run_differentiability(torch, dev):
     log(f"  drag {float(drag.detach())!r}, d/dν, d/dradius = {g}; forward "
         f"{t1 - t0:.3f} s, backward {t2 - t1:.3f} s; pois_n {pois}, "
         f"adjoint {adjoint}")
+    AD_RESULTS["implicit"] = {"drag": float(drag.detach()), "grad": g,
+                              "pois_n": pois}
     del setup, drag
 
     stage("(i) against the gates shut, the CPU and FD")
@@ -1894,7 +2380,8 @@ def run_differentiability(torch, dev):
     stage("(iv) the cost of a reverse pass")
     k = max(max(p) for p in pois)
     reverse_cost(torch, dev, "(96,64,64) implicit_diff", implicit_diff=True)
-    reverse_cost(torch, dev, f"(96,64,64) fixed_iters={k}", fixed_iters=k)
+    AD_RESULTS["fixed_cost"] = dict(k=k, **reverse_cost(
+        torch, dev, f"(96,64,64) fixed_iters={k}", fixed_iters=k))
     big_reverse_step(torch, dev)
     torch.cuda.empty_cache()
 
@@ -2470,7 +2957,7 @@ def timing_stencil_members(torch, dev):
 # the JAX example names for a chip: Dm = 32 (S = (194, 130)), 32 members,
 # 20 fixed_iters=2 steps; members held against their own card runs and
 # three against the CPU; and vmap(grad) through implicit_diff
-ENS_DM, ENS_MEMBERS, ENS_STEPS = 32, 32, 20
+ENS_DM, ENS_MEMBERS, ENS_STEPS = 32, 32, 10
 ENS_CPU = (0, 15, 31)
 ENS_PATHS = ("6.8 ensemble sweep", "6.8 vmap(implicit_diff) forward",
              "6.8 vmap(grad(implicit_diff))")
@@ -2824,6 +3311,13 @@ PROBES = ("copy_probe", "roll_probe")
 PROBE_LAUNCHES = {}   # the probes' launches in phase 8 (on no path)
 
 
+# phase 8's repeat counts: each kernel pair's timed calls, and the steps
+# each 256³ configuration is timed over (cut from 20 and 10 when phase
+# 6.10 was added, to keep the run within its limit)
+PAIR_CALLS = 10
+STEPS_256 = 5
+
+
 def timing(torch, dev, sim):
     from waterlily_tpu_torch import sphere_3d, heaving_sphere_3d
     from waterlily_tpu_torch.kernels import probes
@@ -2844,7 +3338,7 @@ def timing(torch, dev, sim):
         largest = max(PATH_SHAPES.get(name) or {BIG}, key=math.prod)
         for S in dict.fromkeys((PCG_LEVEL if name == "pcg_fused" else FINE,
                                 largest)):
-            t = time_pair(name, S, dev)
+            t = time_pair(name, S, dev, n=PAIR_CALLS)
             t["shape"] = S
             t["bound_ms"], t["bound_by"] = bound_ms(name, S)
             if name in LIBRARY:
@@ -2861,7 +3355,7 @@ def timing(torch, dev, sim):
         times[name] = t
     # the periodic, outlet, 2D, bf16, shadow and carried-rows forms
     for name, S, variant in TIMED_FORMS:
-        t = time_pair(name, S, dev, variant=variant)
+        t = time_pair(name, S, dev, variant=variant, n=PAIR_CALLS)
         b, by = bound_ms(name, S, variant)
         log(f"  {name:<12} {str(S):<15} form {variant}, device "
             f"(profiler): kernel {t['ms']:.4f} ms, plain {t['plain_ms']:.4f} "
@@ -2873,7 +3367,7 @@ def timing(torch, dev, sim):
     # forms above hold the periodic ones)
     for S in sorted(PATH_SHAPES.get("pcg_fused", ()),
                     key=lambda S: (len(S), -math.prod(S))):
-        t = time_pair("pcg_fused", S, dev)
+        t = time_pair("pcg_fused", S, dev, n=PAIR_CALLS)
         b, by = bound_ms("pcg_fused", S)
         form = "one block" if pcg_grid(math.prod(S))[0] == 1 else "grid"
         log(f"  pcg_fused    {str(S):<15} {form:<9} device (profiler): "
@@ -2895,7 +3389,7 @@ def timing(torch, dev, sim):
         for S in sorted(PATH_SHAPES.get(name, ()), key=math.prod,
                         reverse=True):
             for v, form in forms:
-                t = time_pair(name, S, dev, variant=v)
+                t = time_pair(name, S, dev, variant=v, n=PAIR_CALLS)
                 b = bound_ms(name, S, v if isinstance(v, str) else None)[0]
                 log(f"  {name:<12} {str(S) + form:<15} device (profiler): "
                     f"kernel {t['ms']:.4f} ms, plain {t['plain_ms']:.4f} "
@@ -2922,7 +3416,7 @@ def timing(torch, dev, sim):
                         (band, "sphere_3d(256, 256)"),
                         (band, "sphere_3d(256, 256)"),
                         (dense, "sphere_3d(256, 256, bbox=False)")):
-        report_steps(torch, sim_, label, 10, 2)
+        report_steps(torch, sim_, label, STEPS_256, 2)
     step_profile(dense, 5, "sphere_3d(256, 256, bbox=False)")
     step_profile(band, 5, "sphere_3d(256, 256)")
     del dense, band
@@ -2935,14 +3429,16 @@ def timing(torch, dev, sim):
     lv = construct(torch, "sphere_3d(256, 256, banded_levels=True)",
                    lambda: sphere_3d(256, 256, banded_levels=True,
                                      device=dev))
-    report_steps(torch, lv, "sphere_3d(256, 256, banded_levels=True)", 10, 2)
+    report_steps(torch, lv, "sphere_3d(256, 256, banded_levels=True)",
+                 STEPS_256, 2)
     peak(torch, "sphere_3d(256, 256, banded_levels=True)")
     step_profile(lv, 5, "sphere_3d(256, 256, banded_levels=True)")
     del lv
 
     hv = construct(torch, "heaving_sphere_3d(radius=64)",
                    lambda: heaving_sphere_3d(radius=64, device=dev))
-    report_steps(torch, hv, "heaving_sphere_3d(radius=64), remeasure", 10, 2,
+    report_steps(torch, hv, "heaving_sphere_3d(radius=64), remeasure",
+                 STEPS_256, 2,
                  remeasure=True)
     peak(torch, "heaving_sphere_3d(radius=64)")
     start = torch.cuda.Event(enable_timing=True)
@@ -2975,7 +3471,7 @@ def timing_shard_forms(torch, dev):
         if not keys:
             continue
         S, form = keys[0][0], keys[0][1:]
-        t = time_pair(name, S, dev, form=form)
+        t = time_pair(name, S, dev, form=form, n=PAIR_CALLS)
         b, by = bound_ms(name, S, form=form)
         log(f"  {name:<12} {str(S):<15} shard-local form {form}, device "
             f"(profiler): kernel {t['ms']:.4f} ms, plain {t['plain_ms']:.4f} "
@@ -3018,7 +3514,7 @@ def timing_sharded(torch, dev):
         256, 256, bbox=False, device=dev, mesh=mesh_for(BIG, 8, dev)))
     peak(torch, ls)
     for sim_, label in ((dense, la), (shard, ls), (shard, ls), (dense, la)):
-        report_steps(torch, sim_, label, 10, 2)
+        report_steps(torch, sim_, label, STEPS_256, 2)
     step_profile(dense, 5, la)
     r = step_profile(shard, 5, ls)
     busy, wall = split_assemble_ms(torch, shard)
@@ -3067,7 +3563,7 @@ def timing_pcg_paths(torch, dev):
     for name, flags, _bf16, _op16, _expect in PCG_CONFIGS + PCG_CONFIGS[::-1]:
         with seams(flags):
             report_steps(torch, sims[name], f"sphere_3d(256, 256) {name}",
-                         10, 2)
+                         STEPS_256, 2)
     for name, flags, _bf16, _op16, _expect in PCG_CONFIGS:
         with seams(flags):
             step_profile(sims[name], 5, f"sphere_3d(256, 256) {name}")
@@ -3228,6 +3724,9 @@ def main() -> int:
           "NCCL")
     run_process_mesh(torch, dev, snapshot)
     snapdir.cleanup()
+    phase("6.10 autograd across ranks: implicit_diff, fixed_iters and log "
+          "on the process mesh")
+    run_process_grad(torch, dev)
     phase("7. kernels vs plain versions at the paths' shapes")
     check_kernels(torch, dev, {**PATH_SHAPES,
                                "pcg_blocked": PATH_SHAPES["pcg_dir_mult"],

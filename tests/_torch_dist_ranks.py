@@ -27,6 +27,15 @@ REPLICA_S = (66, 34)
 WRAPPER_S = (18, 18, 18)
 HEAVE = dict(radius=12, amp=4, Re=100, bbox="force")
 HEAVE_S = (50, 50, 50)
+# the differentiated sphere (f64): ν and the radius are leaves on every
+# rank; fixed_iters and implicit_diff reverse, log forward
+GRAD_DIMS = (32, 16, 16)
+GRAD_S = tuple(n + 2 for n in GRAD_DIMS)
+GRAD_NU, GRAD_RADIUS, GRAD_CENTRE = 0.1, 4.0, (11.0, 8.0, 8.0)
+GRAD_STEPS = 2
+GRAD_MODES = {"implicit_diff": dict(implicit_diff=True, tol=1e-12, itmx=64),
+              "fixed_iters": dict(fixed_iters=2),
+              "log": dict(log=True)}
 
 
 def shard_value(s: int) -> torch.Tensor:
@@ -136,6 +145,55 @@ def _np(t):
     return t.detach().cpu().numpy()
 
 
+def grad_leaves(grad=True):
+    """ν and the sphere's radius, 0-d f64 leaves."""
+    return tuple(torch.tensor(v, dtype=torch.float64, requires_grad=grad)
+                 for v in (GRAD_NU, GRAD_RADIUS))
+
+
+def grad_sim(device, mesh, nu, radius, mode):
+    """The differentiated sphere's `Simulation` on ``mesh`` (None: dense)
+    with ``GRAD_MODES[mode]``."""
+    from waterlily_tpu_torch import Simulation
+    from waterlily_tpu_torch.body import AutoBody
+    c = torch.tensor(GRAD_CENTRE, dtype=torch.float64, device=device)
+    body = AutoBody(lambda x, t: torch.sqrt(torch.sum((x - c) ** 2))
+                    - radius)
+    return Simulation(GRAD_DIMS, (1.0, 0.0, 0.0), 2 * GRAD_RADIUS, nu=nu,
+                      body=body, dtype=torch.float64, device=device,
+                      mesh=mesh, **GRAD_MODES[mode])
+
+
+def drag(sim, flow=None):
+    """The drag of a state (default: the sim's, assembled on every rank of
+    a process mesh)."""
+    from waterlily_tpu_torch.metrics import total_force
+    f = sim.global_flow() if flow is None else flow
+    return total_force(f.u, f.p, sim.cfg.nu, sim.body, f.t)[0]
+
+
+def grad_case(device, mesh, mode):
+    """`GRAD_STEPS` steps of the differentiated sphere on ``mesh``; for
+    the reverse modes the drag and its gradient in (ν, radius), every
+    rank alike; the rank's blocks, histories and traces."""
+    from waterlily_tpu_torch.ops.multigrid import ml_solve_implicit
+    reverse = mode != "log"
+    nu, radius = grad_leaves(reverse)
+    sim = grad_sim(device, mesh, nu, radius, mode)
+    ml_solve_implicit.adjoint_n.clear()
+    sim.steps(GRAD_STEPS)
+    out = {"u": _np(sim.flow.u), "p": _np(sim.flow.p), "dts": sim.dts,
+           "pois_n": sim.pois_n, "sharded": sim._sharded,
+           "res_log": [a.copy() for a in sim.res_log]}
+    if reverse:
+        d = drag(sim)
+        out["drag"] = float(d.detach())
+        out["grad"] = [float(g) for g in torch.autograd.grad(d, (nu,
+                                                                 radius))]
+        out["adjoint_n"] = list(ml_solve_implicit.adjoint_n)
+    return out
+
+
 def run_cases(rank, world, device, tmp):
     """Every case of the module test on this rank; a dict of results."""
     from waterlily_tpu_torch.io import save_checkpoint, restart_sim
@@ -200,14 +258,15 @@ def run_cases(rank, world, device, tmp):
         out["seconds"][kind] = time.perf_counter() - t0
     out["steps"] = steps
 
-    # a ProcessMesh refuses what carries autograd across ranks
-    from waterlily_tpu_torch import Simulation
-    try:
-        Simulation((32, 16, 16), (1.0, 0.0, 0.0), 4, device=device, mesh=pm,
-                   fixed_iters=2)
-        out["refused"] = None
-    except NotImplementedError as e:
-        out["refused"] = str(e)
+    # reverse mode across ranks (fixed_iters, implicit_diff) and the
+    # residual traces (log)
+    out["grad"] = {}
+    for mode in GRAD_MODES:
+        t0 = time.perf_counter()
+        gm = dist_mesh_for(GRAD_S, device=device)
+        out["grad"][mode] = grad_case(device, gm, mode)
+        out["grad"][mode]["stats"] = dict(gm.stats)
+        out["seconds"]["grad " + mode] = time.perf_counter() - t0
 
     # the replica mesh: two groups of 4 ranks, one step of the 2D flow
     t0 = time.perf_counter()
@@ -231,6 +290,21 @@ def run_cases(rank, world, device, tmp):
     out["seconds"]["heave"] = time.perf_counter() - t0
     out["stats"] = dict(pm.stats)
     return out
+
+
+def raise_in_backward(rank, world, device, bad):
+    """Rank ``bad`` raises in the backward pass of a differentiated psum;
+    the others wait in its exchanges."""
+    def fail(_grad):
+        raise RuntimeError("raised in backward")
+
+    mesh = ProcessMesh((world,), device)
+    x = torch.ones((), dtype=torch.float64, requires_grad=True)
+    y = mesh.pbroadcast(mesh.psum([x * (rank + 1)])) * 2.0
+    if rank == bad:
+        y.register_hook(fail)
+    (g,) = torch.autograd.grad(mesh.psum([y]), x)
+    return float(g)
 
 
 def hang(rank, world, device, hung):

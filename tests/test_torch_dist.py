@@ -8,10 +8,14 @@ the thread count) runs the same cases on the in-process `ShardMesh` and
 compares: the collectives, the halo exchange, the standalone wrappers,
 three steps of the small sphere, its outlet form and ``tgv_3d(32)`` (u, p,
 dt and every pois_n), the per-rank checkpoint's restart and assembly, a
-replica mesh and the heaving sphere remeasured every step.  Through the
-in-process mesh's own tests (`tests/test_torch_parallel.py`) the process
-mesh is tied to JAX's 8-device virtual mesh.
+replica mesh, the heaving sphere remeasured every step, and autograd
+across ranks: a small sphere's drag differentiated in ν and its radius
+with ``implicit_diff`` and ``fixed_iters`` (every rank's gradient alike
+bit for bit, against the in-process block step) and its ``log`` traces.
+Through the in-process mesh's own tests (`tests/test_torch_parallel.py`,
+`tests/test_torch_grad_ranks.py`) the process mesh is tied to JAX.
 """
+import dataclasses
 import os
 import time
 
@@ -162,9 +166,90 @@ def test_restart_refuses_another_grid(world):
         assert "checkpoint grid (34, 18, 18)" in msg and untouched
 
 
-def test_process_mesh_refuses_autograd_paths(world):
-    for r in world["ranks"]:
-        assert "autograd across ranks" in r["refused"]
+@pytest.fixture(scope="module")
+def grad_twin():
+    """Each mode of `_torch_dist_ranks.GRAD_MODES` on the in-process
+    mesh's block step (`shardmap_mom_step` on `mesh_for`), from the dense
+    Simulation's state and levels: the state, histories, traces and (the
+    reverse modes) the drag and its gradient; and the run without a
+    mode."""
+    from waterlily_tpu_torch.parallel.shard_step import shardmap_mom_step
+    mesh = mesh_for(R.GRAD_S, WORLD, "cpu")
+    out = {}
+    for mode in list(R.GRAD_MODES) + [None]:
+        reverse = mode in ("implicit_diff", "fixed_iters")
+        nu, radius = R.grad_leaves(reverse)
+        sim = R.grad_sim("cpu", None, nu, radius, mode or "log")
+        cfg = sim.cfg if mode else dataclasses.replace(sim.cfg, log=False)
+        state, pois, dts, traces = sim.flow, [], [float(sim.flow.dt)], []
+        for _ in range(R.GRAD_STEPS):
+            state, aux = shardmap_mom_step(cfg, mesh, sim.levels, state)
+            pois.append(aux["pois_n"])
+            dts.append(float(aux["dt"].detach()))
+            if cfg.log:
+                traces.append(aux["res_trace"].numpy())
+        res = {"u": state.u, "p": state.p, "pois_n": pois, "dts": dts,
+               "res_log": traces}
+        if reverse:
+            d = R.drag(sim, state)
+            res["drag"] = float(d.detach())
+            res["grad"] = [float(g) for g in torch.autograd.grad(
+                d, (nu, radius))]
+        out[mode] = res
+    return out
+
+
+@pytest.mark.parametrize("mode", list(R.GRAD_MODES))
+def test_process_mesh_steps_every_mode(world, grad_twin, mode):
+    """``Simulation(mesh=ProcessMesh)`` with ``implicit_diff``,
+    ``fixed_iters=2`` or ``log`` steps on the rank's blocks (no
+    per-phase path to refuse): u, p, dt and every pois_n bit for bit the
+    in-process block step's; under ``log`` each rank's ``res_log`` is
+    the block step's traces bit for bit, alike on every rank, with
+    pois_n + 1 non-zero rows a solve, and u, p, dt, pois_n bit for bit
+    the run without it."""
+    ref = grad_twin[mode]
+    ranks = [r["grad"][mode] for r in world["ranks"]]
+    mesh = mesh_for(R.GRAD_S, WORLD, "cpu")
+    assert all(r["sharded"] for r in ranks)
+    assert _eq(_joined(mesh, [r["u"] for r in ranks], 1), ref["u"])
+    assert _eq(_joined(mesh, [r["p"] for r in ranks], 0), ref["p"])
+    for r in ranks:
+        assert r["dts"] == ref["dts"] and r["pois_n"] == ref["pois_n"]
+    if mode != "log":
+        assert all(r["res_log"] == [] for r in ranks)
+        return
+    plain = grad_twin[None]
+    assert _eq(ref["u"], plain["u"]) and _eq(ref["p"], plain["p"])
+    assert ref["dts"] == plain["dts"] and ref["pois_n"] == plain["pois_n"]
+    for r in ranks:
+        assert len(r["res_log"]) == R.GRAD_STEPS
+        for got, want, pois in zip(r["res_log"], ref["res_log"],
+                                   ref["pois_n"]):
+            assert _eq(got, want) and got.shape == (2, 33, 2)
+            assert [int(np.any(t != 0, axis=1).sum()) for t in got] == [
+                n + 1 for n in pois]
+
+
+@pytest.mark.parametrize("mode", ["implicit_diff", "fixed_iters"])
+def test_process_mesh_gradient_across_ranks(world, grad_twin, mode):
+    """The drag of `global_flow` after 2 steps, differentiated on every
+    rank alike: each rank's d/dν and d/dradius are bit for bit the same
+    on all ranks (no factor of the world size) and within rtol 1e-12 of
+    the in-process block step's; the drag equal; the implicit adjoint
+    solves recorded on every rank."""
+    ref = grad_twin[mode]
+    ranks = [r["grad"][mode] for r in world["ranks"]]
+    assert all(r["grad"] == ranks[0]["grad"] for r in ranks)
+    assert all(r["drag"] == ref["drag"] for r in ranks)
+    assert all(np.isfinite(g) and g != 0.0 for g in ref["grad"])
+    np.testing.assert_allclose(ranks[0]["grad"], ref["grad"], rtol=1e-12,
+                               atol=0)
+    for r in ranks:
+        assert r["stats"]["bwd_calls"] > 0 and r["stats"]["bwd_halo_bytes"] > 0
+        assert (len(r["adjoint_n"]) == 2 * R.GRAD_STEPS) == (
+            mode == "implicit_diff")
+        assert r["adjoint_n"] == ranks[0]["adjoint_n"]
 
 
 def test_replica_mesh_matches_single(world):
@@ -218,6 +303,18 @@ def test_moving_body_matches_in_process_and_dense(world):
     np.testing.assert_allclose(p.numpy(), dense.flow.p.numpy(), atol=3e-3,
                                rtol=0)
     np.testing.assert_allclose(rows[0]["dts"][-1], dense.dts[-1], rtol=1e-5)
+
+
+def test_rank_raising_in_backward_fails_within_its_timeout():
+    """A rank whose backward pass raises while the others wait in its
+    exchanges: the launcher reports a failed rank (that one, or a peer
+    whose exchange it closed), kills the world and raises within its
+    limit."""
+    t0 = time.perf_counter()
+    with pytest.raises(RuntimeError, match="ranks failed"):
+        run_ranks(R.raise_in_backward, 4, "gloo", "cpu", timeout=30.0,
+                  args=(2,))
+    assert time.perf_counter() - t0 < 30.0 + 20.0
 
 
 def test_hung_rank_fails_within_its_timeout():

@@ -202,8 +202,9 @@ def test_simulation_implicit_diff_plumbs_and_validates(tmp_path):
     """`Simulation(implicit_diff=True)` steps like the default (the
     Function is transparent to the primal) and refuses what JAX refuses
     (tests/test_grad.py:230); under the in-process mesh it steps on the
-    per-phase path, while a `ProcessMesh` refuses it (ROADMAP A19,
-    autograd across ranks)."""
+    per-phase path, and a `ProcessMesh` steps it on the rank's blocks,
+    bit for bit the in-process mesh's block step."""
+    from waterlily_tpu_torch.parallel.shard_step import shardmap_mom_step
     from waterlily_tpu_torch.parallel.dist import ProcessMesh
     from waterlily_tpu_torch.parallel.mesh import mesh_for
     from _torch_dist_ranks import one_rank_world
@@ -222,9 +223,16 @@ def test_simulation_implicit_diff_plumbs_and_validates(tmp_path):
     meshed.step()
     assert torch.isfinite(meshed.flow.u).all() and len(meshed.pois_n) == 1
     with one_rank_world(tmp_path):
-        with pytest.raises(NotImplementedError, match="A19"):
-            Simulation((64, 32, 32), (1.0, 0.0, 0.0), 8, implicit_diff=True,
-                       mesh=ProcessMesh((1, 1, 1), "cpu"), **kw)
+        proc = Simulation((64, 32, 32), (1.0, 0.0, 0.0), 8,
+                          implicit_diff=True,
+                          mesh=ProcessMesh((1, 1, 1), "cpu"), **kw)
+        assert proc._sharded
+        proc.step()
+    dense = Simulation((64, 32, 32), (1.0, 0.0, 0.0), 8, implicit_diff=True,
+                       **kw)
+    twin, aux = shardmap_mom_step(dense.cfg, mesh_for((66, 34, 34), 1, "cpu"),
+                                  dense.levels, dense.flow)
+    assert proc.pois_n == [aux["pois_n"]] and torch.equal(proc.flow.u, twin.u)
     sim = Simulation((8, 8), (1.0, 0.0), 8, implicit_diff=True, **kw)
     assert sim._op_bf16 is False and sim.cfg.implicit_diff
     sim = Simulation((8, 8), (1.0, 0.0), 8, nu=0.1, implicit_diff=True, **kw)

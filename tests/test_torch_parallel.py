@@ -297,7 +297,8 @@ def test_simulation_mesh_steps_sharded(monkeypatch, tmp_path):
     """``Simulation(mesh=...)`` steps through `shardmap_mom_step` (the
     narrow-band measurement kept, the dense blend) and matches the dense
     simulation; ``fixed_iters`` under the in-process mesh steps on the
-    per-phase path, while a `ProcessMesh` refuses it."""
+    per-phase path, and a `ProcessMesh` steps it on the rank's blocks
+    (the whole-step region), as the in-process mesh's block step does."""
     from waterlily_tpu_torch import sphere_3d
     calls = []
     real = shard_step.shardmap_mom_step
@@ -319,9 +320,15 @@ def test_simulation_mesh_steps_sharded(monkeypatch, tmp_path):
     c.step()
     assert len(calls) == 2 and c.pois_n == [[2, 2]]
     with one_rank_world(tmp_path):
-        with pytest.raises(NotImplementedError, match="A19"):
-            sphere_3d(64, 32, device="cpu", fixed_iters=2,
+        d = sphere_3d(64, 32, device="cpu", fixed_iters=2,
                       mesh=ProcessMesh((1, 1, 1), "cpu"))
+        assert d._sharded
+        d.step()
+    assert len(calls) == 3 and d.pois_n == [[2, 2]]
+    e = sphere_3d(64, 32, device="cpu", fixed_iters=2)
+    twin, aux = real(e.cfg, mesh_for((66, 34, 34), 1, "cpu"), e.levels,
+                     e.flow)
+    assert aux["pois_n"] == [2, 2] and torch.equal(twin.u, d.flow.u)
 
 
 # --- the standalone wrappers (tests/test_sharding.py:239, 287, 371, 799,

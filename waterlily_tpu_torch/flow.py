@@ -14,11 +14,13 @@ kernel_ok`); the pressure solve of ``implicit_diff`` runs the kernels in
 its forward and its adjoint solve.
 
 Under an in-process mesh (``cfg.mesh``, the per-phase sharded path that
-`Simulation` takes where the whole-step region is refused: ``log``,
-``fixed_iters``, ``implicit_diff``) conv_diff, accelerate and the BDIM
-blend run as one region over the shards' blocks
-(`parallel.shard_step.shardmap_conv_bdim`), the rest of the step dense,
-as JAX's `mom_step` does with its mesh.
+`Simulation` takes for ``log``, ``fixed_iters`` and ``implicit_diff``,
+as JAX routes them) conv_diff, accelerate and the BDIM blend run as one
+region over the shards' blocks (`parallel.shard_step.shardmap_conv_bdim`),
+the rest of the step dense, as JAX's `mom_step` does with its mesh.  A
+process mesh's rank holds only its blocks: there these options take the
+whole step on the blocks (`parallel.shard_step.shardmap_mom_step`),
+differentiable across ranks (`parallel.dist`).
 """
 from __future__ import annotations
 

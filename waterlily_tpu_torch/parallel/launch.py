@@ -1,6 +1,6 @@
 """Start a `torch.distributed` world and run a function on every rank.
 
-    results = run_ranks(fn, world=8, backend="gloo", device="cpu",
+    results = run_ranks(fn, world=8, backend="gloo", device="cuda",
                         timeout=120.0, args=(...))
 
 Each rank is a process started with the ``spawn`` method (the caller may
@@ -9,11 +9,12 @@ CPU thread (`torch.set_num_threads(1)`: a CPU reduction's order depends on
 the thread count), a file store under a temporary directory, and
 ``init_process_group``'s ``timeout``.  It calls ``fn(rank, world, device,
 *args)`` and sends back what ``fn`` returns (picklable: ``fn`` must be a
-module-level function).  The parent collects the results while it waits,
-up to ``timeout`` seconds in all; a rank that raises, dies or is still
-running then fails the run: every child is killed and `RuntimeError`
-raised (`TimeoutError` for a hang), so a hung rank never outlives its
-limit.
+module-level function); ``device`` is the card unless the caller asks
+for another (``"cpu"``).  The parent collects the results while it
+waits, up to ``timeout`` seconds in all; a rank that raises, dies or is
+still running then fails the run: every child is killed and
+`RuntimeError` raised (`TimeoutError` for a hang), so a hung rank never
+outlives its limit.
 
 On CUDA each rank takes card ``rank % device_count`` (NCCL wants one
 rank a card; several gloo ranks share a card) unless ``device`` names
@@ -77,7 +78,7 @@ def _rank_main(fn, rank, world, backend, device, init_method, timeout, args,
         results.put((rank, False, traceback.format_exc()))
 
 
-def run_ranks(fn, world: int, backend: str = "gloo", device="cpu",
+def run_ranks(fn, world: int, backend: str = "gloo", device="cuda",
               timeout: float = 300.0, args: tuple = ()) -> list:
     """``fn(rank, world, device, *args)`` on ``world`` ranks of a new
     process group (module doc); the ranks' results in rank order."""

@@ -11,7 +11,9 @@ return lists, and each collective reads the whole list.  A value that every
 shard holds alike (a dot, a coarse multigrid level) is one tensor.  The
 mesh over processes (`parallel.dist.ProcessMesh`, a `torch.distributed`
 rank a block) implements the same interface for the one block a rank
-holds.
+holds, and differentiates across ranks by JAX's shard_map typing: a
+value every shard holds alike enters the blocks' computation through
+`ShardMesh.pbroadcast`.
 
 GSPMD's sharding constraints (`constrain_state`, `constrain_levels`,
 `mom_step_auto`, `sharded_step_fn`) have no counterpart: the one-region
@@ -170,11 +172,16 @@ class ShardMesh:
         return ordered_sum(self.all_gather(values))
 
     def pmax(self, values: list) -> torch.Tensor:
-        """``jax.lax.pmax`` over every spatial axis."""
-        total = values[0]
-        for v in values[1:]:
-            total = torch.maximum(total, v)
-        return total
+        """``jax.lax.pmax`` over every spatial axis (``amax``: a
+        derivative splits among tied shards evenly)."""
+        return torch.stack(values).amax(0)
+
+    def pbroadcast(self, v):
+        """An invariant value (one every shard holds alike) entering the
+        blocks' computation: ``v`` itself here, where autograd sums its
+        cotangents over the blocks in one graph; a process mesh sums them
+        over the ranks (`parallel.dist`)."""
+        return v
 
 
 def ordered_sum(values: list) -> torch.Tensor:

@@ -121,7 +121,8 @@ def pcg_local(mesh: ShardMesh, S, L_l, Dd_l, iD_l, x_l, r_l, it: int,
               pallas: str, op=None, perdir=(), masks=None):
     """The PCG smoother on the local blocks: `ops.poisson.pcg`'s algebra
     with its dead-mask early exits held in device scalars, f32 directions,
-    dots as per-shard partials plus psum."""
+    dots as per-shard partials plus psum (the step sizes entering the
+    blocks through `ShardMesh.pbroadcast`)."""
     D = x_l[0].ndim
     dt = x_l[0].dtype
     teneps = 10 * torch.finfo(dt).eps
@@ -143,7 +144,7 @@ def pcg_local(mesh: ShardMesh, S, L_l, Dd_l, iD_l, x_l, r_l, it: int,
         alpha = torch.where(dead | (denom == 0), 0.0,
                             rho / torch.where(denom == 0, 1.0, denom)).to(dt)
         dead = dead | (torch.abs(alpha) < 1e-2) | (torch.abs(alpha) > 1e2)
-        upd = torch.where(dead, 0.0, alpha).to(dt)
+        upd = mesh.pbroadcast(torch.where(dead, 0.0, alpha).to(dt))
         x_l = [x + upd * e for x, e in zip(x_l, eps)]
         r_l = [r - upd * zz for r, zz in zip(r_l, z)]
         if i == it - 1:
@@ -151,8 +152,8 @@ def pcg_local(mesh: ShardMesh, S, L_l, Dd_l, iD_l, x_l, r_l, it: int,
         z2 = [r * iD for r, iD in zip(r_l, iD_l)]
         rho2 = _gdot(mesh, r_l, z2)
         dead = dead | (torch.abs(rho2) < teneps)
-        beta = torch.where(dead, 0.0,
-                           rho2 / torch.where(rho == 0, 1.0, rho)).to(dt)
+        beta = mesh.pbroadcast(torch.where(
+            dead, 0.0, rho2 / torch.where(rho == 0, 1.0, rho)).to(dt))
         eps = [torch.where(m, beta * e + zz, 0.0)
                for m, e, zz in zip(masks, eps, z2)]
         rho = torch.where(dead, rho, rho2)
@@ -188,7 +189,7 @@ def residual_local(mesh: ShardMesh, S, L_l, Dd_l, iD_l, x_l, z_l,
     r_int = [torch.where(m & (iD != 0), z - a, 0.0).to(dt)
              for m, iD, z, a in zip(masks, iD_l, z_l, ax)]
     s = mesh.psum([torch.sum(r) for r in r_int]) / cnt
-    corr = torch.where(torch.abs(s) <= teps, 0.0, s).to(dt)
+    corr = mesh.pbroadcast(torch.where(torch.abs(s) <= teps, 0.0, s).to(dt))
     return [torch.where(m, r - corr, 0.0).to(dt)
             for m, r in zip(masks, r_int)]
 
@@ -198,7 +199,8 @@ def conv_diff_local(mesh: ShardMesh, S, u_l, nu, limiter, pallas: str,
     """The conv_diff tendency of each shard's block: width-2 halos (modular
     wraps on periodic axes) and flux evaluation with global-index boundary
     variants and support.  The ghost planes of ``u_l`` must be
-    periodic-filled on entry (the step's BC keeps them so).  Kernel form:
+    periodic-filled on entry (the step's BC keeps them so); a tensor
+    ``nu`` comes through `ShardMesh.pbroadcast`.  Kernel form:
     ``conv_diff3d`` in its base (and modular) form on the halo-extended
     block, trimmed."""
     from ..ops.convect import conv_core
@@ -278,6 +280,6 @@ def shardmap_conv_diff(mesh: ShardMesh, u, nu, limiter,
     S = tuple(u.shape[1:])
     if pallas is None:
         pallas = _auto_pallas(mesh, S, u.dtype, extra=4)
-    r_l = conv_diff_local(mesh, S, mesh.split(u, 1), nu, limiter, pallas,
-                          tuple(perdir))
+    r_l = conv_diff_local(mesh, S, mesh.split(u, 1), mesh.pbroadcast(nu),
+                          limiter, pallas, tuple(perdir))
     return mesh.assemble(r_l, 1)

@@ -19,6 +19,7 @@ shard_map region for the whole `ml_solve`):
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 
 import torch
@@ -30,7 +31,8 @@ from .shard_smooth import (can_shardmap, prep_local_op, pcg_local,
                            increment_local, residual_local, _auto_pallas)
 
 __all__ = ["shardmap_ml_solve", "can_shard_solve", "replicate_level",
-           "ml_solve_local", "restrict_replicated", "prolongate_local"]
+           "ml_solve_local", "ml_solve_local_implicit",
+           "restrict_replicated", "prolongate_local"]
 
 
 def can_shard_solve(mesh: ShardMesh | None, levels) -> bool:
@@ -128,6 +130,7 @@ def prolongate_local(mesh: ShardMesh, S, xc: torch.Tensor,
     loc = tuple(S[d] // mesh.k(d) for d in range(D))
     if masks is None:
         masks = ghost_mask_local(mesh, S, loc)
+    xc = mesh.pbroadcast(xc)
     out = []
     for m, s in zip(masks, mesh.local_shards):
         base = mesh.base(s, S)
@@ -145,15 +148,22 @@ def prolongate_local(mesh: ShardMesh, S, xc: torch.Tensor,
 
 def ml_solve_local(mesh: ShardMesh, S, fL, fD, fiD, coarse, x_l, z_l,
                    tol=1e-4, itmx=32, fixed=None, pallas="off",
-                   it_smooth=6, op=None, perdir=(), masks=None):
+                   it_smooth=6, op=None, perdir=(), masks=None,
+                   trace=False, fill=True):
     """`ops.multigrid.ml_solve` on the shards' fine blocks (``fL``, ``fD``,
     ``fiD``) with the replicated coarser levels ``coarse``
     (`replicate_level`): a V-cycle and the fine PCG smooth per outer
     iteration, at least one, until ``r·r < tol``, ``itmx`` iterations or
     an iteration that doubles ``r·r`` (the host reads r·r once an
-    iteration, as the dense solve does); ``fixed=k`` runs exactly ``k``.
-    ``op`` shares `prep_local_op`'s streams with the caller.  Returns
-    ``(x_l, r_l, n)``, ``x_l``'s periodic ghosts filled."""
+    iteration, as the dense solve does); ``fixed=k`` runs exactly ``k``
+    with no host read, and a tracked block takes it through
+    ``torch.autograd`` (``pallas="off"``: the plain forms).  ``op``
+    shares `prep_local_op`'s streams with the caller.  Returns ``(x_l,
+    r_l, n)``, ``x_l``'s periodic ghosts filled (unless ``fill=False``);
+    with ``trace=True`` also the residual trace of `ops.multigrid.ml_solve`
+    (an ``(itmx+1, 2)``, under ``fixed`` a ``(fixed+1, 2)``, tensor every
+    shard holds alike: rows ``[max|r|, ⟨r, r⟩]``, the max a pmax and the
+    dot a psum, zeros after the last iteration)."""
     from ..ops.multigrid import vcycle
     from ..ops.poisson import smooth
 
@@ -186,23 +196,154 @@ def ml_solve_local(mesh: ShardMesh, S, fL, fD, fiD, coarse, x_l, z_l,
     def gdot2(r_l):
         return mesh.psum([torch.sum(r * r) for r in r_l])
 
+    rows = []
+
+    def log_row(r_l, r2=None):
+        if trace:
+            r2 = gdot2(r_l) if r2 is None else r2
+            rows.append(torch.stack([
+                mesh.pmax([torch.max(torch.abs(r)) for r in r_l]),
+                r2]).to(x_l[0].dtype))
+
     r_l = residual_local(mesh, S, fL, fD, fiD, x_l, z_l, pallas, **kw)
     if fixed is not None:
+        log_row(r_l)
         for _ in range(fixed):
             x_l, r_l = outer(x_l, r_l)
+            log_row(r_l)
         n = int(fixed)
     else:
         r2 = gdot2(r_l)
+        log_row(r_l, r2)
         n, go = 0, True
         while go:
             x_l, r_l = outer(x_l, r_l)
             r2p, r2 = r2, gdot2(r_l)
+            log_row(r_l, r2)
             n += 1
             # divergence safeguard: see ops.multigrid.ml_solve
             go = n < itmx and bool((r2 >= tol) & ~(r2 > 2.0 * r2p))
+    if perdir and fill:
+        x_l = per_fill_local(x_l, mesh, S, perdir)
+    if not trace:
+        return x_l, r_l, n
+    tr = torch.stack(rows)
+    pad = (itmx if fixed is None else fixed) + 1 - tr.shape[0]
+    return x_l, r_l, n, torch.cat([tr, tr.new_zeros((pad, 2))])
+
+
+# --- implicit differentiation on the blocks ----------------------------------
+#
+# `ops.multigrid.ml_solve_implicit` on the shards: at convergence A(L)·x* =
+# P z, so the cotangents are one adjoint solve on the same blocks and
+# replicated coarse levels, λ = A⁻¹ P x̄, and the vjp of the plain local
+# operator (`shard_smooth.local_mult`, linear in L and D):
+#
+#   z̄ = mask(λ),   D̄ = −λ∘x*,   L̄ᵢ = −(λ∘x*[I−δᵢ] + λ[I−δᵢ]∘x*),
+#
+# the shifted values one halo round each.  Both solves run on detached
+# blocks, so the kernel forms run where the gate allows.
+
+
+class _ImplicitLocal(torch.autograd.Function):
+    """``(*x*, n)`` of the adaptive `ml_solve_local` on the blocks,
+    unfilled (the caller fills the periodic ghosts, whose derivative is
+    then the halo moves'); differentiable in the fine blocks' ``L`` and
+    ``D`` and in ``z``.  On a process mesh it is one collective of the
+    backward chain (`parallel.dist`): its backward's exchanges keep their
+    place among the others'."""
+
+    @staticmethod
+    def forward(ctx, mesh, tok, cfg, *blocks):
+        nb = len(mesh.local_shards)
+        fL, fD, x, z = ([t.detach() for t in blocks[i * nb:(i + 1) * nb]]
+                        for i in range(4))
+        op = cfg["op"] or prep_local_op(mesh, fL, fD, x[0].ndim,
+                                        cfg["pallas"])
+        xs, _r, n = ml_solve_local(
+            mesh, cfg["S"], fL, fD, cfg["fiD"], cfg["coarse"], x, z,
+            tol=cfg["tol"], itmx=cfg["itmx"], pallas=cfg["pallas"], op=op,
+            perdir=cfg["perdir"], masks=cfg["masks"], fill=False)
+        ctx.mesh, ctx.cfg, ctx.op = mesh, cfg, op
+        ctx.chained = tok is not None
+        ctx.save_for_backward(*xs, *fL, *fD)
+        return (*xs, n) + ((tok.new_zeros(()),) if tok is not None else ())
+
+    @staticmethod
+    def backward(ctx, *grads):
+        from ..ops.multigrid import ml_solve_implicit
+        mesh, cfg = ctx.mesh, ctx.cfg
+        nb = len(mesh.local_shards)
+        saved = ctx.saved_tensors
+        xs, fL, fD = saved[:nb], saved[nb:2 * nb], saved[2 * nb:]
+        S, perdir, masks = cfg["S"], cfg["perdir"], cfg["masks"]
+        D = xs[0].ndim
+        with (mesh._backward() if mesh.distributed
+              else contextlib.nullcontext()):
+            xbar = [g.contiguous() for g in grads[:nb]]
+            # the stopping test r·r >= tol is absolute and the cotangent
+            # scales with the loss: solve for the unit-norm right-hand side
+            s = torch.sqrt(mesh.psum([torch.sum(g * g) for g in xbar]))
+            safe = torch.where(s > 0, s, 1.0).to(xs[0].dtype)
+            lam, _r, n = ml_solve_local(
+                mesh, S, fL, fD, cfg["fiD"], cfg["coarse"],
+                [torch.zeros_like(x) for x in xs], [g / safe for g in xbar],
+                tol=cfg["tol"], itmx=cfg["itmx"], pallas=cfg["pallas"],
+                op=ctx.op, perdir=perdir, masks=masks, fill=False)
+            ml_solve_implicit.adjoint_n.append(n)
+            zbar = [torch.where(m & (iD != 0), torch.where(s > 0, lm * safe,
+                                                           0.0), 0.0)
+                    for m, iD, lm in zip(masks, cfg["fiD"], lam)]
+            xf = per_fill_local(list(xs), mesh, S, perdir) if perdir \
+                else list(xs)
+            c = [-zb for zb in zbar]
+            xh = halo_exchange(xf, mesh, D)
+            ch = halo_exchange(c, mesh, D)
+        loc = tuple(xs[0].shape)
+
+        def below(a, i):
+            return a[tuple(slice(1 - (k == i), 1 - (k == i) + loc[k])
+                           for k in range(D))]
+
+        Lbar = [torch.stack([cs * below(xhs, i) + below(chs, i) * x
+                             for i in range(D)])
+                for cs, xhs, chs, x in zip(c, xh, ch, xf)]
+        Dbar = [cs * x for cs, x in zip(c, xf)]
+        tok = torch.zeros((), device=mesh.device) if ctx.chained else None
+        return (None, tok, None, *Lbar, *Dbar, *(None,) * nb, *zbar)
+
+
+def ml_solve_local_implicit(mesh: ShardMesh, S, fL, fD, fiD, coarse, x_l,
+                            z_l, tol=1e-4, itmx=32, pallas="off", op=None,
+                            perdir=(), masks=None):
+    """`ops.multigrid.ml_solve_implicit` on the shards' fine blocks: the
+    adaptive `ml_solve_local` (the kernel forms where ``pallas`` says, on
+    detached blocks; ``op`` the streams of those blocks, or None) whose
+    gradient is one adjoint `ml_solve_local` on the same blocks and
+    replicated coarse levels and the vjp of the plain local operator
+    (module comment).  Cotangents reach ``z_l`` and the blocks ``fL`` and
+    ``fD`` (and through them μ₀ and a body's parameters); the warm start
+    and the coarse levels get none, as in the dense Function.  Returns
+    ``(x_l, n)``, ``x_l``'s periodic ghosts filled;
+    ``ml_solve_implicit.adjoint_n`` records the adjoint solves' counts."""
+    from ..ops.poisson import level_tensors, with_level_tensors
+    if masks is None:
+        masks = ghost_mask_local(mesh, S, tuple(x_l[0].shape))
+    spec, ts = level_tensors(coarse)
+    cfg = {"S": tuple(S), "tol": float(tol), "itmx": int(itmx),
+           "pallas": pallas, "op": op, "perdir": tuple(perdir),
+           "masks": masks, "fiD": [t.detach() for t in fiD],
+           "coarse": with_level_tensors(spec, [t.detach() for t in ts])}
+    blocks = (*fL, *fD, *x_l, *z_l)
+    if mesh.distributed and torch.is_grad_enabled() and any(
+            t.requires_grad for t in blocks):
+        out = mesh._chained(_ImplicitLocal, cfg, *blocks)
+    else:
+        out = _ImplicitLocal.apply(mesh, None, cfg, *blocks)
+    *x_l, n = out
     if perdir:
         x_l = per_fill_local(x_l, mesh, S, perdir)
-    return x_l, r_l, n
+    return x_l, n
 
 
 def shardmap_ml_solve(mesh: ShardMesh, levels, x, z, tol=1e-4, itmx=32,

@@ -24,11 +24,19 @@ field is built in a step.  With the kernel forms (``pallas``) the
 projection head and tail run ``div3d`` and ``project3d`` in their
 shard-local forms on the halo-extended blocks.
 
+The whole step also takes ``fixed_iters`` (the solves unrolled, no host
+read), ``log`` (each solve's residual trace, a pmax and a psum a row)
+and ``implicit_diff`` (`shard_solve.ml_solve_local_implicit`: one
+adjoint solve on the blocks a projection), and it is differentiable
+across ranks (`parallel.dist`'s rules; a tracked step runs the plain
+local forms).  A `Simulation` on a process mesh steps these options
+here.
+
 `shardmap_conv_bdim` is JAX's per-phase region: conv_diff, accelerate
 and the BDIM blend (optionally the boundary conditions after it) on the
-blocks, global arrays in and out; `flow.mom_step` runs it under a mesh
-where the whole-step region is refused (``log``, ``fixed_iters``,
-``implicit_diff``), the rest of that step dense.
+blocks, global arrays in and out; `flow.mom_step` runs it under an
+in-process mesh for ``log``, ``fixed_iters`` and ``implicit_diff`` (as
+JAX routes them), the rest of that step dense.
 """
 from __future__ import annotations
 
@@ -41,7 +49,8 @@ from .halo import halo_exchange, ghost_mask_local, per_fill_local
 from .mesh import ShardMesh
 from .shard_smooth import (can_shardmap, conv_diff_local, prep_local_op,
                            _auto_pallas)
-from .shard_solve import ml_solve_local, replicate_level
+from .shard_solve import (ml_solve_local, ml_solve_local_implicit,
+                          replicate_level)
 
 __all__ = ["shardmap_mom_step", "can_shard_step", "bc_vector_local",
            "exit_bc_local", "shardmap_conv_bdim", "local_levels"]
@@ -49,13 +58,16 @@ __all__ = ["shardmap_mom_step", "can_shard_step", "bc_vector_local",
 
 def can_shard_step(cfg, mesh: ShardMesh | None, levels) -> bool:
     """Gate of the whole-step region: a mesh that divides the fine level
-    evenly (`shard_smooth.can_shardmap`), no fixed solver iteration count,
-    no residual-trace capture (``cfg.log``) and no ``implicit_diff``: JAX
-    keeps these on its per-phase path (`flow.mom_step` with
-    `shardmap_conv_bdim`)."""
+    evenly (`shard_smooth.can_shardmap`).  On the in-process mesh also no
+    fixed solver iteration count, no residual-trace capture (``cfg.log``)
+    and no ``implicit_diff``: JAX keeps these on its per-phase path
+    (`flow.mom_step` with `shardmap_conv_bdim`), which needs the dense
+    state a process-mesh rank does not hold; there the whole-step region
+    takes them."""
     fine = levels[0]
-    return (mesh is not None and cfg.fixed_iters is None and not cfg.log
-            and not cfg.implicit_diff
+    per_phase = (cfg.fixed_iters is not None or cfg.log
+                 or cfg.implicit_diff)
+    return (mesh is not None and (mesh.distributed or not per_phase)
             and can_shardmap(mesh, tuple(fine.D.shape), fine.perdir))
 
 
@@ -132,7 +144,8 @@ def bc_vector_local(mesh: ShardMesh, S, u_l: list, A, save_exit=False,
 def exit_bc_local(mesh: ShardMesh, S, u_l: list, u0_l: list, U, dt) -> list:
     """Reference ``exitBC!`` on the local blocks: the convective outlet on
     the high-x ghost plane of component 0, shifted so that the mean outflow
-    equals ``U[0]`` (the mean a psum)."""
+    equals ``U[0]`` (the mean a psum).  ``U`` and ``dt`` as every shard
+    holds them (the blocks take them through `ShardMesh.pbroadcast`)."""
     D = u_l[0].shape[0]
     loc = tuple(u_l[0].shape[1:])
     dev = u_l[0].device
@@ -140,6 +153,7 @@ def exit_bc_local(mesh: ShardMesh, S, u_l: list, u0_l: list, U, dt) -> list:
     for d in range(1, D):
         cnt = cnt * (S[d] - 2)
     masks, news = [], []
+    udt = mesh.pbroadcast(U[0] * dt)
     for s, u0 in zip(mesh.local_shards, u0_l):
         m = _gidx(mesh, S, loc, 0, s, dev) == S[0] - 1
         for d in range(1, D):
@@ -148,9 +162,10 @@ def exit_bc_local(mesh: ShardMesh, S, u_l: list, u0_l: list, U, dt) -> list:
         u0c = u0[0]
         um = torch.roll(u0c, +1, dims=0)            # u0 at x-1 (same shard)
         masks.append(m)
-        news.append(u0c - U[0] * dt * (u0c - um))
-    flux = mesh.psum([torch.sum(torch.where(m, n, 0.0))
-                      for m, n in zip(masks, news)]) / cnt - U[0]
+        news.append(u0c - udt * (u0c - um))
+    flux = mesh.pbroadcast(mesh.psum([torch.sum(torch.where(m, n, 0.0))
+                                      for m, n in zip(masks, news)]) / cnt
+                           - U[0])
     return [torch.cat([torch.where(m, n - flux, u[0])[None], u[1:]], dim=0)
             for m, n, u in zip(masks, news, u_l)]
 
@@ -251,12 +266,12 @@ def shardmap_conv_bdim(cfg, u_in, u0, V, mu0, mu1, dt, t_eff, scale,
         pallas = _auto_pallas(mesh, S, dtype, extra=4)
     u0_l = mesh.from_state(u0, 1)
     u_l = u0_l if u_in is u0 else mesh.from_state(u_in, 1)
-    r = conv_diff_local(mesh, S, u_l, cfg.nu, cfg.limiter, pallas,
-                        cfg.perdir)
+    r = conv_diff_local(mesh, S, u_l, mesh.pbroadcast(cfg.nu), cfg.limiter,
+                        pallas, cfg.perdir)
     r = [accelerate(rs, t_eff, cfg.g, cfg.U, dtype) for rs in r]
     blend = _bdim_blend_local(mesh, S, u0_l, r, mesh.from_state(V, 1),
                               mesh.from_state(mu0, 1),
-                              mesh.from_state(mu1, 2), dt)
+                              mesh.from_state(mu1, 2), mesh.pbroadcast(dt))
     masks = ghost_mask_local(mesh, S, tuple(u0_l[0].shape[1:]))
     if scale is None:
         un = [torch.where(m[None], b, u) for m, b, u in zip(masks, blend,
@@ -274,12 +289,20 @@ def shardmap_conv_bdim(cfg, u_in, u0, V, mu0, mu1, dt, t_eff, scale,
 def shardmap_mom_step(cfg, mesh: ShardMesh, levels, state, pallas=None):
     """One predictor/corrector time step (reference ``mom_step!``) on the
     shards' blocks: the phases of `flow.mom_step` in its order, with its
-    time conventions.  Returns ``(state, aux)`` as `flow.mom_step` does.
-    ``state`` and the fine level are in the form ``mesh`` keeps them
-    (`ShardMesh.from_state`, `local_levels`: global on the in-process
-    mesh, the rank's blocks on a process mesh); the coarse levels are
-    whole.  ``pallas`` overrides the
-    per-shard dispatch (`shard_smooth`): "off" or "kernels"."""
+    time conventions.  Returns ``(state, aux)`` as `flow.mom_step` does
+    (``aux["res_trace"]`` under ``cfg.log``).  ``state`` and the fine
+    level are in the form ``mesh`` keeps them (`ShardMesh.from_state`,
+    `local_levels`: global on the in-process mesh, the rank's blocks on a
+    process mesh); the coarse levels are whole.  ``pallas`` overrides the
+    per-shard dispatch (`shard_smooth`): "off" or "kernels".
+
+    The step is differentiable on either mesh (`parallel.dist`): a step
+    whose inputs autograd tracks runs the plain local forms, with
+    ``cfg.fixed_iters`` solves unrolled; ``cfg.implicit_diff`` solves by
+    `shard_solve.ml_solve_local_implicit`, whose forward and adjoint
+    solves keep the kernel forms.  Every value all shards hold alike
+    (``dt``, ``t``, the BC velocity) enters the blocks through
+    `ShardMesh.pbroadcast`."""
     from ..flow import bc_tuple
     from ..ops.convect import accelerate
 
@@ -288,7 +311,6 @@ def shardmap_mom_step(cfg, mesh: ShardMesh, levels, state, pallas=None):
     coarse = tuple(replicate_level(lev) for lev in levels[1:])
     if pallas is None:
         pallas = _auto_pallas(mesh, S, dtype)
-    kern = pallas != "off"
     u0 = mesh.from_state(state.u, 1)
     p = mesh.from_state(state.p)
     V, mu0 = mesh.from_state(state.V, 1), mesh.from_state(state.mu0, 1)
@@ -297,14 +319,42 @@ def shardmap_mom_step(cfg, mesh: ShardMesh, levels, state, pallas=None):
                    mesh.from_state(fine.iD))
     dt, t = state.dt, state.t
     U = bc_tuple(cfg.U, t + dt, D, dtype)
+    # a tracked field takes the plain forms (the kernels have no
+    # derivative); the implicit solves see detached blocks
+    solve_pallas = pallas
+    if sk.ad_tracked(u0, p, V, mu0, mu1, fL, fD, dt, t, cfg.nu, U):
+        pallas = "off"
+    kern = pallas != "off"
     loc = tuple(p[0].shape)
     masks = ghost_mask_local(mesh, S, loc)
-    op = prep_local_op(mesh, fL, fD, D, pallas)
+    # the operator's streams, for the solves and project3d (an implicit
+    # solve of a tracked step builds its own of detached blocks)
+    op = (prep_local_op(mesh, fL, fD, D, pallas)
+          if kern or not cfg.implicit_diff else None)
     # the halo-extended blocks' cell 0, a plane below each block's
     base_ext = [tuple(b - 1 for b in mesh.base(s, S))
                 for s in mesh.local_shards]
     inner = (slice(1, -1),) * D
     pad1 = (1, 1) * D
+    # the invariant values, once each a step, as the blocks take them
+    dt_v, nu_v = mesh.pbroadcast(dt), mesh.pbroadcast(cfg.nu)
+    U_v = tuple(mesh.pbroadcast(a) for a in U)
+    timed = cfg.g is not None or callable(cfg.U)     # accelerate reads t
+    traces = []
+
+    def solve(x, z):
+        kw = dict(tol=cfg.tol, itmx=cfg.itmx, perdir=cfg.perdir,
+                  masks=masks)
+        if cfg.implicit_diff:
+            return ml_solve_local_implicit(
+                mesh, S, fL, fD, fiD, coarse, x, z, pallas=solve_pallas,
+                op=op, **kw)
+        out = ml_solve_local(mesh, S, fL, fD, fiD, coarse, x, z,
+                             fixed=cfg.fixed_iters, pallas=pallas, op=op,
+                             trace=cfg.log, **kw)
+        if cfg.log:
+            traces.append(out[3])
+        return out[0], out[2]
 
     def solve_project(u, p, dt_eff):
         if kern:
@@ -317,9 +367,7 @@ def shardmap_mom_step(cfg, mesh: ShardMesh, levels, state, pallas=None):
         else:
             z = _div_local(mesh, S, u, masks)
             x = [ps * dt_eff for ps in p]
-        x, _r, n = ml_solve_local(mesh, S, fL, fD, fiD, coarse, x, z,
-                                  tol=cfg.tol, itmx=cfg.itmx, pallas=pallas,
-                                  op=op, perdir=cfg.perdir, masks=masks)
+        x, n = solve(x, z)
         if kern:
             Lh, _Dh = op
             xh = halo_exchange(x, mesh, D)
@@ -333,31 +381,35 @@ def shardmap_mom_step(cfg, mesh: ShardMesh, levels, state, pallas=None):
         return u, [xs / dt_eff for xs in x], n
 
     def bc(u):
-        return bc_vector_local(mesh, S, u, U, cfg.exitBC, perdir=cfg.perdir)
+        return bc_vector_local(mesh, S, u, U_v, cfg.exitBC, perdir=cfg.perdir)
 
     def tendency(u, t_r):
-        r = conv_diff_local(mesh, S, u, cfg.nu, cfg.limiter, pallas,
+        r = conv_diff_local(mesh, S, u, nu_v, cfg.limiter, pallas,
                             cfg.perdir)
+        t_r = mesh.pbroadcast(t_r) if timed else t_r
         return [accelerate(rs, t_r, cfg.g, cfg.U, dtype) for rs in r]
 
     # predictor u -> u'
     r = tendency(u0, t)
-    blend = _bdim_blend_local(mesh, S, u0, r, V, mu0, mu1, dt)
+    blend = _bdim_blend_local(mesh, S, u0, r, V, mu0, mu1, dt_v)
     u1 = bc([torch.where(m[None], b, u) for m, b, u in zip(masks, blend, u0)])
     if cfg.exitBC:
         u1 = exit_bc_local(mesh, S, u1, u0, U, dt)
-    u1, p, n1 = solve_project(u1, p, dt)
+    u1, p, n1 = solve_project(u1, p, dt_v)
     u1 = bc(u1)
 
     # corrector u -> u¹
     r = tendency(u1, t + dt)
-    blend = _bdim_blend_local(mesh, S, u0, r, V, mu0, mu1, dt)
+    blend = _bdim_blend_local(mesh, S, u0, r, V, mu0, mu1, dt_v)
     u2 = bc([torch.where(m[None], 0.5 * (a + b), a)
              for m, a, b in zip(masks, u1, blend)])
-    u2, p, n2 = solve_project(u2, p, 0.5 * dt)
+    u2, p, n2 = solve_project(u2, p, 0.5 * dt_v)
     u2 = bc(u2)
 
     dt_new = _cfl_local(mesh, S, u2, cfg.nu, masks)
     new = state.replace(u=mesh.to_state(u2, 1), p=mesh.to_state(p),
                         dt=dt_new, t=t + dt)
-    return new, {"pois_n": [n1, n2], "dt": dt_new}
+    aux = {"pois_n": [n1, n2], "dt": dt_new}
+    if cfg.log:
+        aux["res_trace"] = torch.stack(traces)
+    return new, aux

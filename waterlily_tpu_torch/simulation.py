@@ -112,10 +112,14 @@ class Simulation:
     keep the rank's blocks; between them a rank holds its blocks of the
     state and of the fine level and the whole coarse levels.  ``flow``
     then holds the rank's blocks; `global_flow` assembles the global
-    fields on every rank (output, not stepping).  The mesh must divide the
-    grid (`ValueError` otherwise), and ``log``, ``fixed_iters`` and
-    ``implicit_diff`` raise `NotImplementedError`: no derivative crosses a
-    rank (ROADMAP A19, autograd across ranks).
+    fields on every rank (differentiable: a loss of them, computed alike
+    on every rank, is one to call ``backward`` on, every rank alike).  The
+    mesh must divide the grid (`ValueError` otherwise).  ``log``,
+    ``fixed_iters`` and ``implicit_diff`` step on the rank's blocks
+    (`parallel.shard_step.shardmap_mom_step`); gradients cross the ranks
+    by JAX's shard_map rules (`parallel.dist`): each rank's gradient of a
+    leaf every rank holds alike (ν, a body's radius) is the whole
+    gradient.
 
     ``log=True`` captures the pressure solver's residual traces (reference
     ``@log``): `step` and `steps` append one ``(2, itmx+1, 2)`` numpy
@@ -131,12 +135,6 @@ class Simulation:
                  smoother_bf16=False, op_bf16=None, device="cuda",
                  mesh=None, log=False, implicit_diff=False):
         D = len(dims)
-        if getattr(mesh, "distributed", False) and (
-                fixed_iters is not None or implicit_diff or log):
-            raise NotImplementedError(
-                "log, fixed_iters and implicit_diff on a ProcessMesh are not "
-                "ported: torch.distributed's point-to-point operations carry "
-                "no autograd (ROADMAP A19, autograd across ranks)")
         if implicit_diff and fixed_iters is not None:
             raise ValueError("implicit_diff and fixed_iters are mutually "
                              "exclusive reverse-mode paths; pick one")
@@ -232,7 +230,8 @@ class Simulation:
 
     def global_flow(self):
         """The state with global fields: ``flow`` itself, or on a process
-        mesh its blocks assembled on every rank."""
+        mesh its blocks assembled on every rank (differentiable: each
+        rank's block takes its own part of a loss's cotangent)."""
         if not self._distributed:
             return self.flow
         mesh, f = self.mesh, self.flow
@@ -332,7 +331,7 @@ class Simulation:
         aux = self._advance(remeasure)
         self.dts.append(float(aux["dt"]))
         if self.cfg.log:
-            self.res_log.append(aux["res_trace"].cpu().numpy())
+            self.res_log.append(aux["res_trace"].detach().cpu().numpy())
         return self
 
     def sim_step(self, t_end=None, remeasure=True, max_steps=None,
@@ -357,7 +356,7 @@ class Simulation:
             self.dts.extend(torch.stack([a["dt"] for a in auxs]).tolist())
             if self.cfg.log:
                 self.res_log.extend(torch.stack(
-                    [a["res_trace"] for a in auxs]).cpu().numpy())
+                    [a["res_trace"] for a in auxs]).detach().cpu().numpy())
         return self
 
     def run_until(self, t_end, chunk=50, remeasure=True):
