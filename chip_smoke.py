@@ -37,9 +37,19 @@ Phases, each of which raises (and so exits non-zero) on failure:
    the operator, dt, ν and BC values shared and one a member: against
    ``vmap`` of the plain version at the kernel's tolerance of 3, against
    each member's own launch exactly, one launch a call, ``bc3d``'s fill
-   seen in the batched field; and ``ana_mult3d``'s member form (with the
+   seen in the batched field; ``ana_mult3d``'s member form (with the
    dot, and without it on walls and every periodic mask) the same way at
    (98,66,66) with 1, 3 and 8 members and at (50,34,34) with 3 and 8;
+   and the member forms of the blocked-level PCG seams' six wrappers
+   (``dot3d`` aa, ab, rid and rid on iD16; ``pcg_axpy`` and
+   ``pcg_update`` f32, bf16 eps and iD16; ``pcg_dir_mult`` with β and at
+   β = 0, f32, bf16 directions and the shadows; ``mult3d_stream`` as
+   ``mult3d``; ``increment3d_stream`` f32 and L16) and the composite
+   ``pcg_blocked`` under ``vmap`` (against ``vmap`` of the per-pass
+   ``pcg``, 1e-5 absolute, member 1's residual zero, 12 launches a
+   smooth) the same way as the seven, at (98,66,66) with 3 and 8 members
+   and at (37,29,35) with 3, the operator and scalars (β, upd) shared and
+   one a member;
 4. the dense slice: ``sphere_3d(96, 64)`` constructed and stepped 20 times
    on the card with every kernel launch-counted (every ``bc3d`` launch in
    place), then 3 steps from the same initial state on the CPU (plain
@@ -141,12 +151,12 @@ Phases, each of which raises (and so exits non-zero) on failure:
    (or, where it does not fit, the largest ``sphere_3d(n, n)`` that does);
 6.8 ensembles (`examples/ensemble_sweep.py` under ``torch.func.vmap``):
    (i) the spinning cylinder at ``Dm=32`` ((194,130), f32,
-   ``fixed_iters=2``) for 32 spin ratios and 20 steps in one batched
+   ``fixed_iters=2``) for 32 spin ratios and 5 steps in one batched
    program: each member's time-averaged (Cd, Cl) against its own run on
    the card (1e-5 relative) and members 0, 15, 31 against the CPU
    (1e-4), |Cl| growing with the spin, and ``pcg_fused`` launched only in
    its member form, at each level one member's launches times the
-   level's member chunks; (ii) ms per ensemble step (its 20 steps and
+   level's member chunks; (ii) ms per ensemble step (its 5 steps and
    their forces) against 32 times one member's, wall and busy, the idle
    share and the peak memory; (iii) ``vmap(grad)`` of the kinetic energy
    after one ``implicit_diff`` step of the periodic (130,130)
@@ -157,7 +167,7 @@ Phases, each of which raises (and so exits non-zero) on failure:
    pure function of a parameter under ``torch.func.vmap`` at (98,66,66),
    8 members: a radius sweep (7 to 9, each member its own body and
    operator) and a ν sweep (0.08 to 0.32, one body, the operator
-   shared); with ``fixed_iters=2`` and 5 steps each of the seven 3D
+   shared); with ``fixed_iters=2`` and 3 steps each of the seven 3D
    stencils launched as often as by one member alone, ``mult3d``,
    ``increment3d``, ``div3d``, ``project3d`` and ``cfl3d`` only in their
    member form (``bc3d`` and ``conv_diff3d`` also in one-field launches
@@ -179,7 +189,7 @@ Phases, each of which raises (and so exits non-zero) on failure:
    the sweep against the dense (``bbox`` off) sweep (pois_n ±2/≤4,
    max|du| < 1e-3), members 0 and 7 against the CPU, and its cost a step;
    (b) the 256³ sphere's geometry (258³, centre 127, ν 0.64) swept over
-   the radii 28, 30, 32, 34, 2 adaptive steps (258³, 130³, 66³ and 34³
+   the radii 28, 30, 32, 34, 1 adaptive step (258³, 130³, 66³ and 34³
    banded): each member's pois_n equal to its own card run's and the drag
    within 1e-4 (the batched plain reductions sum in another order: 1.5e-5
    measured); wall and busy ms a step, idle share and peak GiB against
@@ -188,7 +198,19 @@ Phases, each of which raises (and so exits non-zero) on failure:
    primal solve in the plain forms as the member's own ``jvp``): each
    member's tangent and drag within 1e-4 of its own ``jvp`` on the card,
    pois_n equal, member 0 against the CPU (drag 1e-4, tangent 1e-3), its
-   wall, busy and peak GiB;
+   wall, busy and peak GiB; (vi) (iv)'s radius sweep under the
+   blocked-level PCG seams of 6.4, (b) ``KDOT = KAXPY = True``, (c)
+   ``PCG_BLOCKED = True`` and (g) ``STREAM = True``: with
+   ``fixed_iters=2`` each seam kernel (``dot3d`` and ``pcg_axpy``;
+   ``pcg_dir_mult`` and ``pcg_update``; ``mult3d_stream`` and
+   ``increment3d_stream``) launched only at (98,66,66), only in its
+   member form and as often as by one member alone under the same seam
+   (so no call took a plain form), the other kernels by (iv)'s rule, the
+   drag within 1e-5 of each member alone; adaptive, each member's pois_n
+   equal to its own card run's under the seam and the drag within 1e-5,
+   members 0 and 7 against the CPU (drag 1e-4, pois_n ±2/≤4); each
+   seam's cost a step against 8 x one member's and against (iv)'s
+   default-path radius sweep;
 6.9 the decomposition over processes (`parallel.dist.ProcessMesh`, ranks
    spawned by `parallel.launch.run_ranks`): (i) 8 gloo ranks sharing the
    card (each exchange staged through host memory) run
@@ -213,7 +235,7 @@ Phases, each of which raises (and so exits non-zero) on failure:
 8. timing: ms/step, MLUPS, ns/DOF and the card's idle share at (96,64,64),
    256³ dense and banded (in turns), 256³ ``banded_levels=True``, the
    256³ heaving sphere with its remeasure and ``tgv_3d(256)`` (with its
-   kinetic energy before and after); ``circle_2d(96, 64)`` to tU/L = 50
+   kinetic energy before and after); ``circle_2d(96, 64)`` to tU/L = 20
    (wall seconds with construction; ms/step, idle share and the
    mean Cd over the last 10 tU/L); the plate's and ``tgv_2d(64)``'s
    ms/step; each kernel next to its plain version and its bound at
@@ -246,9 +268,11 @@ Phases, each of which raises (and so exits non-zero) on failure:
    ``pcg_fused``'s member form at (194,130) and (98,66) with 32 members
    (an operator each) beside ``vmap`` of the plain ``pcg``, its bound and
    its sync floor (its launches times 12 grid barriers of the chunk's
-   blocks, ``kernels/times.py``'s ``barrier:``); the seven stencils' and
-   ``ana_mult3d``'s member forms at (98,66,66) x 8 beside ``vmap`` of
-   their plain versions and 8 times the one-field bound.
+   blocks, ``kernels/times.py``'s ``barrier:``); the seven stencils',
+   ``ana_mult3d``'s and the six PCG-seam wrappers' member forms at
+   (98,66,66) x 8 beside ``vmap`` of their plain versions and 8 times
+   the one-field bound (``dot3d``'s also beside one batched
+   ``torch.linalg.vecdot``).
 
 Every path runs with the launch counters set to 0 and the launched shapes
 and forms cleared just before it, all read just after (each kernel's
@@ -258,9 +282,9 @@ kernels line gives them 0 launches and their calls in phase 8 as
 ``timing_launches``.  The line before the last is a JSON object with one
 entry per kernel, one for ``pcg_fused``'s member form (its launches
 those of 6.8's batched paths, its time at (194,130) x 32) and one for
-each of the seven stencils' and ``ana_mult3d``'s member forms (``"<name>
-(members)"``: its member-form launches on the paths, its time at
-(98,66,66) x 8); the last
+each of the seven stencils', ``ana_mult3d``'s and the six PCG-seam
+wrappers' member forms (``"<name> (members)"``: its member-form launches
+on the paths, its time at (98,66,66) x 8); the last
 line is ``{"ok": true, "device": {...}}``.
 Without a CUDA device the script prints no result and exits 2.  Imports
 no JAX.
@@ -2433,7 +2457,8 @@ STENCIL_MEMBER_CASES = ((FINE, 3), (FINE, 8), (RAGGED, 3))
 # banded levels with 1, 3 and 8 members
 ANA_MEMBER_CASES = ((FINE, 1), (FINE, 3), (FINE, 8), (PCG_LEVEL, 3),
                     (PCG_LEVEL, 8))
-SWEEP_MEMBERS, SWEEP_STEPS = 8, 5
+SWEEP_MEMBERS, SWEEP_STEPS = 8, 3
+SWEEP_RADII = (7.0, 9.0)      # the radius sweeps' range
 SWEEP_CPU = (0, 7)
 SEVEN = ("mult3d", "increment3d", "conv_diff3d", "bc3d", "div3d",
          "project3d", "cfl3d")
@@ -2448,14 +2473,18 @@ def members_key(name):
 
 
 def check_stencil_members(torch, dev):
-    """Phase 3: each of the seven stencils' member forms (`torch.func.vmap`
-    of its wrapper) against `vmap` of its plain version at the kernel's
-    tolerance and against each member's own launch exactly, one launch a
-    call, every form (`kernels.check.stencil_member_variants`)."""
+    """Phase 3: each member form of a 3D kernel (`torch.func.vmap` of its
+    wrapper: the seven stencils, `ana_mult3d`, the six PCG-seam wrappers)
+    and the composite `pcg_blocked` under `vmap` against `vmap` of its
+    plain version at the kernel's tolerance and against each member's own
+    launch exactly, one launch a call (`pcg_blocked` its sweeps' 12),
+    every form (`kernels.check.stencil_member_variants`)."""
     from waterlily_tpu_torch.kernels.check import (STENCIL_MEMBERS,
-                                                   compare_stencil_members)
+                                                   MEMBER_COMPOSITES,
+                                                   compare_stencil_members,
+                                                   clear_inputs)
     failures = []
-    for name in STENCIL_MEMBERS:
+    for name in STENCIL_MEMBERS + MEMBER_COMPOSITES:
         ana = name == "ana_mult3d"
         for S, M in ANA_MEMBER_CASES if ana else STENCIL_MEMBER_CASES:
             for shared in (False,) if ana else (True, False):
@@ -2463,7 +2492,7 @@ def check_stencil_members(torch, dev):
                 worst = max(r["max_abs_err"] for r in rows)
                 single = max(r["single_err"] for r in rows)
                 bad = [r for r in rows if not r["ok"]]
-                log(f"  {name:<12} {str(S):<13} M={M} "
+                log(f"  {name:<18} {str(S):<13} M={M} "
                     f"{'shared' if shared else 'own   '} {len(rows):>2} "
                     f"outputs: max|d| vs vmap(plain) {worst:.3e}, vs the "
                     f"members' own launches {single:.3e}, launches a call "
@@ -2472,7 +2501,8 @@ def check_stencil_members(torch, dev):
                 WORST[members_key(name)] = max(
                     WORST.get(members_key(name), 0.0), worst)
                 failures += bad
-        torch.cuda.empty_cache()
+    clear_inputs()
+    torch.cuda.empty_cache()
     if failures:
         raise AssertionError(f"stencil member forms failed: {failures}")
 
@@ -2493,10 +2523,11 @@ def sweep_force(torch, kind, steps=SWEEP_STEPS, **ad):
     return force
 
 
-def sweep_costs(torch, kind, vs):
-    """Busy and wall ms a step (the 5-step sweep less its setup and force
-    alone), idle share and peak GiB of the adaptive sweep over ``vs`` and
-    of its first member alone."""
+def sweep_costs(torch, kind, vs, label):
+    """Busy and wall ms a step (the `SWEEP_STEPS`-step sweep less its
+    setup and force alone), idle share and peak GiB of the adaptive sweep
+    over ``vs`` and of its first member alone, kept in `SWEEP_COSTS` under
+    ``label``."""
     run = lambda steps, v: sweep_force(torch, kind, steps)(v)
     rows = {}
     batched = lambda n: torch.func.vmap(lambda v: run(n, v))(vs)
@@ -2512,15 +2543,15 @@ def sweep_costs(torch, kind, vs):
         rows[who] = (busy, wall, gib)
     (bm, wm, gm), (b1, w1, g1) = rows["ensemble"], rows["one member"]
     M = len(vs)
-    log(f"  a step of the {kind} sweep ({M} members, adaptive): "
+    log(f"  a step of the {label} sweep ({M} members, adaptive): "
         f"{wm:.3f} ms wall, {bm:.3f} ms busy, idle share "
         f"{1 - bm / wm:.4f}, peak {gm:.3f} GiB; one member: {w1:.3f} ms "
         f"wall, {b1:.3f} busy, idle {1 - b1 / w1:.4f}, peak {g1:.3f} GiB; "
         f"{M} x one member {M * w1:.3f} ms wall ({M * b1:.3f} busy) "
         f"(the {SWEEP_STEPS}-step sweep less its setup and force alone)")
-    SWEEP_COSTS[kind] = {"busy_ms": bm, "wall_ms": wm, "idle": 1 - bm / wm,
-                         "peak_gib": gm, "one_busy_ms": b1,
-                         "one_wall_ms": w1}
+    SWEEP_COSTS[label] = {"busy_ms": bm, "wall_ms": wm, "idle": 1 - bm / wm,
+                          "peak_gib": gm, "one_busy_ms": b1,
+                          "one_wall_ms": w1}
 
 
 SWEEP_COSTS = {}
@@ -2530,82 +2561,118 @@ def run_sweeps(torch, dev):
     """Phase 6.8 (iv): the (96,64,64) sphere's drag under
     `torch.func.vmap` at FINE, 8 members: a radius sweep (each member its
     own body and operator) and a ν sweep (one body, the operator shared, ν
-    a member's own).  With ``fixed_iters=2`` (5 steps) each of the seven
-    stencils launches as often as one member alone, the five of the step's
-    own fields only in the member form, `pcg_fused` one member's launches
-    times the chunks; with the adaptive solve (5 steps) each member's
-    pois_n equals its own card run's and its drag within 1e-5, members 0
-    and 7 against the CPU (drag 1e-4, pois_n ±2 a solve, ≤ 4 in all); then
-    each sweep's cost a step."""
-    from waterlily_tpu_torch.ops import pcg_kernel as pk
-    cpu = torch.device("cpu")
-    M = SWEEP_MEMBERS
-    for kind, lo, hi in (("radius", 7.0, 9.0), ("nu", 0.08, 0.32)):
-        vs = torch.linspace(lo, hi, M, device=dev)
-        stage(f"(iv) {kind} sweep at {FINE} x {M}, fixed_iters=2, "
-              f"{SWEEP_STEPS} steps")
-        fixed = sweep_force(torch, kind, fixed_iters=2)
-        one_label = f"6.8 (iv) {kind}: one member, fixed_iters=2"
-        ens_label = f"6.8 (iv) {kind} sweep, fixed_iters=2"
-        on_path(torch, one_label, SEVEN + ("pcg_fused",),
-                lambda: fixed(vs[0]))
-        one, one_forms = PATH_LAUNCHES[one_label], PATH_FORMS[one_label]
-        single_pcg = dict(pk.pcg_fused.shapes)
-        drag, _ = on_path(torch, ens_label, SEVEN + ("pcg_fused",),
-                          lambda: torch.func.vmap(fixed)(vs))
-        ens, forms = PATH_LAUNCHES[ens_label], PATH_FORMS[ens_label]
-        members = MEMBER_COUNTS[ens_label]
-        bad = []
-        for k in SEVEN:
-            allowed = {"members"} | (one_forms.get(k, set())
-                                     if k in SETUP_FORMS else set())
-            whole = k not in SETUP_FORMS
-            if (ens[k] != one[k] or "members" not in forms[k]
-                    or not forms[k] <= allowed
-                    or (whole and members.get(k, 0) != ens[k])):
-                bad.append((k, one[k], ens[k], members.get(k, 0),
-                            sorted(map(str, forms[k]))))
-        want = {S: n * pk.launch_chunks(S, M, dev)
-                for S, n in single_pcg.items()}
-        log(f"  the seven: one member {[one[k] for k in SEVEN]}, the "
-            f"ensemble {[ens[k] for k in SEVEN]} launches, "
-            f"{[members.get(k, 0) for k in SEVEN]} of them in the member "
-            f"form; forms {[sorted(map(str, forms[k])) for k in SEVEN]}; "
-            f"pcg_fused by shape {dict(pk.pcg_fused.shapes)} (one member's "
-            f"times the chunks: {want})")
-        if bad or dict(pk.pcg_fused.shapes) != want:
-            raise AssertionError(f"{kind} sweep launches: {bad}, pcg_fused "
-                                 f"{dict(pk.pcg_fused.shapes)} vs {want}")
-        alone = torch.stack([fixed(v)[0] for v in vs])
-        err = rel_err(drag.tolist(), alone.tolist())
-        log(f"  drag {drag.tolist()}; vs each member alone: max rel "
-            f"{err:.3e}")
-        if not bool(torch.isfinite(drag).all()) or err > 1e-5:
-            raise AssertionError(f"{kind} sweep vs members alone: {err}")
-        PATH_LAUNCHES.pop(ens_label)    # the kernels line's member rows
+    a member's own), each held by `sweep_checks`."""
+    for kind, lo, hi in (("radius",) + SWEEP_RADII, ("nu", 0.08, 0.32)):
+        vs = torch.linspace(lo, hi, SWEEP_MEMBERS, device=dev)
+        sweep_checks(torch, dev, kind, vs, f"(iv) {kind}")
 
-        stage(f"(iv) {kind} sweep, the adaptive solve (tol {AD_TOL:g})")
-        adapt = sweep_force(torch, kind)
-        drag, pois = torch.func.vmap(adapt)(vs)
-        own = [adapt(v) for v in vs]
-        err = rel_err(drag.tolist(), [float(d) for d, _ in own])
-        same = all(torch.equal(pois[m], own[m][1]) for m in range(M))
-        log(f"  pois_n a member {[p.tolist() for p in pois]}; equal to each "
-            f"member's own card run: {same}; drag max rel {err:.3e}")
-        if not same or err > 1e-5:
-            raise AssertionError(f"{kind} adaptive sweep vs members alone: "
-                                 f"pois_n equal {same}, drag {err}")
-        t0 = time.perf_counter()
-        for m in SWEEP_CPU:
-            d_cpu, p_cpu = adapt(vs[m].cpu())
-            e = abs(float(drag[m]) - float(d_cpu)) / abs(float(d_cpu))
-            log(f"  member {m} on the CPU: drag {float(d_cpu)!r} vs "
-                f"{float(drag[m])!r} (rel {e:.3e}), pois_n {p_cpu.tolist()}"
-                f" vs {pois[m].tolist()}")
-            if e > 1e-4 or not pois_ok(pois[m].tolist(), p_cpu.tolist()):
-                raise AssertionError(f"{kind} member {m} vs the CPU")
-        log(f"  CPU runs {time.perf_counter() - t0:.1f} s")
-        sweep_costs(torch, kind, vs)
+
+def sweep_checks(torch, dev, kind, vs, tag, seam=()):
+    """The checks of a `sweep_force` sweep of ``kind`` over ``vs``
+    (logged under ``tag``), on the seams ``poisson`` has set: with
+    ``fixed_iters=2`` (3 steps) each of the seven stencils and of the
+    ``seam`` kernels launches as often as one member alone (so no call
+    took a plain form), the step's own fields' and the seam kernels' only
+    in the member form (the seam kernels only at FINE), `pcg_fused` one
+    member's launches times the chunks, the drag within 1e-5 of each
+    member alone; with the adaptive solve (3 steps) each member's pois_n
+    equals its own card run's and its drag within 1e-5, members 0 and 7
+    against the CPU (drag 1e-4, pois_n ±2 a solve, ≤ 4 in all); then the
+    sweep's cost a step (`SWEEP_COSTS[tag]`)."""
+    from waterlily_tpu_torch.ops import pcg_kernel as pk
+    from waterlily_tpu_torch.ops.stencil_kernels import kernel_wrappers
+    M = len(vs)
+    stage(f"{tag} sweep at {FINE} x {M}, fixed_iters=2, {SWEEP_STEPS} "
+          f"steps")
+    fixed = sweep_force(torch, kind, fixed_iters=2)
+    one_label = f"6.8 {tag}: one member, fixed_iters=2"
+    ens_label = f"6.8 {tag} sweep, fixed_iters=2"
+    expect = SEVEN + ("pcg_fused",) + seam
+    on_path(torch, one_label, expect if not seam else seam,
+            lambda: fixed(vs[0]))
+    one, one_forms = PATH_LAUNCHES[one_label], PATH_FORMS[one_label]
+    single_pcg = dict(pk.pcg_fused.shapes)
+    drag, _ = on_path(torch, ens_label, expect if not seam else seam,
+                      lambda: torch.func.vmap(fixed)(vs))
+    ens, forms = PATH_LAUNCHES[ens_label], PATH_FORMS[ens_label]
+    members = MEMBER_COUNTS[ens_label]
+    # a seam takes some of the seven off the path (STREAM: mult3d and
+    # increment3d), in the ensemble as in one member
+    ran = [k for k in SEVEN + seam if one[k] or ens[k]]
+    bad = _stencil_launches(one, ens, one_forms, forms, members, ran)
+    wrappers = kernel_wrappers()
+    bad += [(k, dict(wrappers[k].shapes)) for k in seam
+            if set(wrappers[k].shapes) != {FINE}]
+    want = {S: n * pk.launch_chunks(S, M, dev)
+            for S, n in single_pcg.items()}
+    log(f"  one member {[(k, one[k]) for k in ran]}, the ensemble "
+        f"{[(k, ens[k]) for k in ran]} launches, "
+        f"{[(k, members.get(k, 0)) for k in ran]} of them in the member "
+        f"form; forms {[sorted(map(str, forms[k])) for k in ran]}; "
+        f"pcg_fused by shape {dict(pk.pcg_fused.shapes)} (one member's "
+        f"times the chunks: {want})")
+    if bad or dict(pk.pcg_fused.shapes) != want:
+        raise AssertionError(f"{tag} sweep launches: {bad}, pcg_fused "
+                             f"{dict(pk.pcg_fused.shapes)} vs {want}")
+    alone = torch.stack([fixed(v)[0] for v in vs])
+    err = rel_err(drag.tolist(), alone.tolist())
+    log(f"  drag {drag.tolist()}; vs each member alone: max rel {err:.3e}")
+    if not bool(torch.isfinite(drag).all()) or err > 1e-5:
+        raise AssertionError(f"{tag} sweep vs members alone: {err}")
+    PATH_LAUNCHES.pop(ens_label)    # the kernels line's member rows
+
+    stage(f"{tag} sweep, the adaptive solve (tol {AD_TOL:g})")
+    adapt = sweep_force(torch, kind)
+    drag, pois = torch.func.vmap(adapt)(vs)
+    own = [adapt(v) for v in vs]
+    err = rel_err(drag.tolist(), [float(d) for d, _ in own])
+    same = all(torch.equal(pois[m], own[m][1]) for m in range(M))
+    log(f"  pois_n a member {[p.tolist() for p in pois]}; equal to each "
+        f"member's own card run: {same}; drag max rel {err:.3e}")
+    if not same or err > 1e-5:
+        raise AssertionError(f"{tag} adaptive sweep vs members alone: "
+                             f"pois_n equal {same}, drag {err}")
+    t0 = time.perf_counter()
+    for m in SWEEP_CPU:
+        d_cpu, p_cpu = adapt(vs[m].cpu())
+        e = abs(float(drag[m]) - float(d_cpu)) / abs(float(d_cpu))
+        log(f"  member {m} on the CPU: drag {float(d_cpu)!r} vs "
+            f"{float(drag[m])!r} (rel {e:.3e}), pois_n {p_cpu.tolist()} vs "
+            f"{pois[m].tolist()}")
+        if e > 1e-4 or not pois_ok(pois[m].tolist(), p_cpu.tolist()):
+            raise AssertionError(f"{tag} member {m} vs the CPU")
+    log(f"  CPU runs {time.perf_counter() - t0:.1f} s")
+    sweep_costs(torch, kind, vs, tag)
+    torch.cuda.empty_cache()
+
+
+# phase 6.8 (vi): (iv)'s radius sweep under the blocked-level PCG seams of
+# phase 6.4, each with the `ops.attic` wrappers it routes the fine level
+# through (their member forms under vmap)
+SEAM_SWEEPS = (("b", {"KDOT": True, "KAXPY": True}, ("dot3d", "pcg_axpy")),
+               ("c", {"PCG_BLOCKED": True}, ("pcg_dir_mult", "pcg_update")),
+               ("g", {"STREAM": True}, STREAMS))
+SEAM_MEMBERS = ("dot3d", "pcg_axpy", "pcg_dir_mult", "pcg_update") + STREAMS
+
+
+def run_seam_sweeps(torch, dev):
+    """Phase 6.8 (vi): (iv)'s radius sweep (FINE x 8) under the seams (b)
+    ``KDOT = KAXPY = True``, (c) ``PCG_BLOCKED`` and (g) ``STREAM``, each
+    held by `sweep_checks` with its `ops.attic` kernels; then each seam's
+    cost a step against (iv)'s default-path radius sweep's."""
+    vs = torch.linspace(*SWEEP_RADII, SWEEP_MEMBERS, device=dev)
+    a = SWEEP_COSTS["(iv) radius"]
+    for name, flags, kernels in SEAM_SWEEPS:
+        tag = f"(vi) ({name})"
+        with seams(flags):
+            log(f"{tag}: {flags}")
+            sweep_checks(torch, dev, "radius", vs, tag, kernels)
+        c = SWEEP_COSTS[tag]
+        log(f"  {tag} under vmap against (iv)'s default-path radius sweep "
+            f"(a): busy {c['busy_ms']:.3f} vs {a['busy_ms']:.3f} ms a step "
+            f"({c['busy_ms'] / a['busy_ms']:.3f}), wall {c['wall_ms']:.3f} "
+            f"vs {a['wall_ms']:.3f} ({c['wall_ms'] / a['wall_ms']:.3f}) "
+            f"(wall in one call only)")
         torch.cuda.empty_cache()
 
 
@@ -2613,11 +2680,11 @@ def run_sweeps(torch, dev):
 # banded BDIM and banded levels (each member its own body window: at FINE
 # the (98,66,66) and (50,34,34) levels are banded); (b) the 256³ sphere's
 # geometry (sphere_3d(256, 256): 258³, centre 127, ν 0.64) swept over 4
-# radii, 2 adaptive steps; (c) vmap(jvp) of (a)'s adaptive drag in the
+# radii, 1 adaptive step; (c) vmap(jvp) of (a)'s adaptive drag in the
 # radius
 BANDED_RADII = (7.0, 9.0)
 BIG_RADII = (28.0, 30.0, 32.0, 34.0)
-BIG_NU, BIG_CENTRE, BIG_STEPS = 0.64, 127.0, 2
+BIG_NU, BIG_CENTRE, BIG_STEPS = 0.64, 127.0, 1
 # (a)'s steps and (c)'s: (c) runs every pass but the solve's primal in the
 # plain forms, ~6 s a member's own jvp of 2 steps on the H100
 BANDED_STEPS, JVP_STEPS = 3, 1
@@ -2738,7 +2805,7 @@ def run_banded_sweeps(torch, dev):
     alone; adaptive, each member's pois_n equal to its own card run's and
     the drag within 1e-5, the sweep against the dense one (pois_n within
     ±2/≤4, max|du| < 1e-3), members 0 and 7 against the CPU (drag 1e-4,
-    pois_n ±2/≤4).  (b) 258³ x 4 radii, 2 adaptive steps: each member's
+    pois_n ±2/≤4).  (b) 258³ x 4 radii, 1 adaptive step: each member's
     pois_n equal to its own card run's, drag within 1e-4 (the plain
     reductions' order); its cost a step
     against 4 x one member's.  (c) `vmap(jvp)` of (a)'s adaptive drag in
@@ -2938,18 +3005,21 @@ def banded_jvp(torch, dev, box):
 
 
 def timing_stencil_members(torch, dev):
-    """Phase 8: each stencil's member form at FINE x 8 (an operator, step,
-    ν and BC values a member) against `vmap` of its plain version, beside
-    8 times the one-field bound."""
+    """Phase 8: each 3D kernel's member form at FINE x 8 (an operator,
+    step, ν, BC values and PCG scalars a member) against `vmap` of its
+    plain version, beside 8 times the one-field bound (and `dot3d`'s
+    beside one batched `torch.linalg.vecdot`)."""
     from waterlily_tpu_torch.kernels.check import (STENCIL_MEMBERS,
                                                    time_stencil_members)
     for name in STENCIL_MEMBERS:
         t = time_stencil_members(name, FINE, SWEEP_MEMBERS, dev)
         STENCIL_MEMBER_TIMES[name] = t
-        log(f"  {name:<12} {str(FINE)} x {SWEEP_MEMBERS} members: kernel "
+        lib = t.get("library_ms")
+        log(f"  {name:<18} {str(FINE)} x {SWEEP_MEMBERS} members: kernel "
             f"{t['ms']:.4f} ms, plain vmap {t['plain_ms']:.4f} ms, bound "
-            f"{t['bound_ms']:.4f} ms ({t['bound_by']}); wall per call "
-            f"{t['wall_ms']:.4f} ms")
+            f"{t['bound_ms']:.4f} ms ({t['bound_by']})"
+            + (f", library call {lib:.4f} ms" if lib is not None else "")
+            + f"; wall per call {t['wall_ms']:.4f} ms")
         torch.cuda.empty_cache()
 
 
@@ -2957,7 +3027,7 @@ def timing_stencil_members(torch, dev):
 # the JAX example names for a chip: Dm = 32 (S = (194, 130)), 32 members,
 # 20 fixed_iters=2 steps; members held against their own card runs and
 # three against the CPU; and vmap(grad) through implicit_diff
-ENS_DM, ENS_MEMBERS, ENS_STEPS = 32, 32, 10
+ENS_DM, ENS_MEMBERS, ENS_STEPS = 32, 32, 5
 ENS_CPU = (0, 15, 31)
 ENS_PATHS = ("6.8 ensemble sweep", "6.8 vmap(implicit_diff) forward",
              "6.8 vmap(grad(implicit_diff))")
@@ -3205,7 +3275,7 @@ def timing_recording(torch, dev):
     sim.steps(3, remeasure=False)
     flow, levels = sim.flow, sim.levels
     hist = (list(sim.dts), list(sim.pois_n), list(sim.res_log))
-    t_end = sim.sim_time + 1.0
+    t_end = sim.sim_time + RECORD_SPAN
     fields = record_fields(torch)
     rows = {"run_record, no fields": [], "steps": [],
             "run_record, fields": []}
@@ -3311,11 +3381,19 @@ PROBES = ("copy_probe", "roll_probe")
 PROBE_LAUNCHES = {}   # the probes' launches in phase 8 (on no path)
 
 
-# phase 8's repeat counts: each kernel pair's timed calls, and the steps
-# each 256³ configuration is timed over (cut from 20 and 10 when phase
-# 6.10 was added, to keep the run within its limit)
+# phase 8's repeat counts: each kernel pair's timed calls, the steps each
+# 256³ configuration is timed over and profiled over, the steps, warm-up
+# steps and profiled steps of the (96,64,64) sphere and the 2D cases, and
+# the circle's horizon in tU/L (cut from 20 and 10 when phase 6.10 was
+# added; when phase 6.8 (vi) was, from 5, 5, (50, 10, 20) and 50, to keep
+# the run within its limit)
 PAIR_CALLS = 10
-STEPS_256 = 5
+STEPS_256, PROFILE_256 = 3, 3
+STEPS_SMALL, WARM_SMALL, PROFILE_SMALL = 20, 5, 10
+CIRCLE_T = 20.0
+# tU/L that phase 8 times `run_record` over (39 steps of the (96,64,64)
+# sphere at 1.0, before phase 6.8 (vi) was added)
+RECORD_SPAN = 0.5
 
 
 def timing(torch, dev, sim):
@@ -3328,17 +3406,19 @@ def timing(torch, dev, sim):
 
     for w in probes.kernel_wrappers().values():
         w.launches = 0
-    report_steps(torch, sim, "sphere_3d(96, 64)", 50, 10)
-    step_profile(sim, 20, "sphere_3d(96, 64)")
+    report_steps(torch, sim, "sphere_3d(96, 64)", STEPS_SMALL, WARM_SMALL)
+    step_profile(sim, PROFILE_SMALL, "sphere_3d(96, 64)")
     # each kernel at the dense slice's shape, then at the largest shape a
     # path launched it at (the kernels line's shape; 258³ for the probes)
     stage("kernels and forms against their plain versions")
-    times, rows = {}, []
+    # (kernel, shape, variant) -> its time_pair row: a form timed once
+    times, rows, done = {}, [], {}
     for name in KERNELS:
         largest = max(PATH_SHAPES.get(name) or {BIG}, key=math.prod)
         for S in dict.fromkeys((PCG_LEVEL if name == "pcg_fused" else FINE,
                                 largest)):
             t = time_pair(name, S, dev, n=PAIR_CALLS)
+            done[name, S, 0] = t
             t["shape"] = S
             t["bound_ms"], t["bound_by"] = bound_ms(name, S)
             if name in LIBRARY:
@@ -3356,6 +3436,7 @@ def timing(torch, dev, sim):
     # the periodic, outlet, 2D, bf16, shadow and carried-rows forms
     for name, S, variant in TIMED_FORMS:
         t = time_pair(name, S, dev, variant=variant, n=PAIR_CALLS)
+        done[name, S, variant] = t
         b, by = bound_ms(name, S, variant)
         log(f"  {name:<12} {str(S):<15} form {variant}, device "
             f"(profiler): kernel {t['ms']:.4f} ms, plain {t['plain_ms']:.4f} "
@@ -3389,7 +3470,9 @@ def timing(torch, dev, sim):
         for S in sorted(PATH_SHAPES.get(name, ()), key=math.prod,
                         reverse=True):
             for v, form in forms:
-                t = time_pair(name, S, dev, variant=v, n=PAIR_CALLS)
+                # a form timed above is logged again, not timed twice
+                t = done.get((name, S, v)) or time_pair(
+                    name, S, dev, variant=v, n=PAIR_CALLS)
                 b = bound_ms(name, S, v if isinstance(v, str) else None)[0]
                 log(f"  {name:<12} {str(S) + form:<15} device (profiler): "
                     f"kernel {t['ms']:.4f} ms, plain {t['plain_ms']:.4f} "
@@ -3417,8 +3500,8 @@ def timing(torch, dev, sim):
                         (band, "sphere_3d(256, 256)"),
                         (dense, "sphere_3d(256, 256, bbox=False)")):
         report_steps(torch, sim_, label, STEPS_256, 2)
-    step_profile(dense, 5, "sphere_3d(256, 256, bbox=False)")
-    step_profile(band, 5, "sphere_3d(256, 256)")
+    step_profile(dense, PROFILE_256, "sphere_3d(256, 256, bbox=False)")
+    step_profile(band, PROFILE_256, "sphere_3d(256, 256)")
     del dense, band
     stage("256³ sphere on the (2,2,2) mesh, in turns with (a)")
     timing_sharded(torch, dev)
@@ -3432,7 +3515,7 @@ def timing(torch, dev, sim):
     report_steps(torch, lv, "sphere_3d(256, 256, banded_levels=True)",
                  STEPS_256, 2)
     peak(torch, "sphere_3d(256, 256, banded_levels=True)")
-    step_profile(lv, 5, "sphere_3d(256, 256, banded_levels=True)")
+    step_profile(lv, PROFILE_256, "sphere_3d(256, 256, banded_levels=True)")
     del lv
 
     hv = construct(torch, "heaving_sphere_3d(radius=64)",
@@ -3452,7 +3535,7 @@ def timing(torch, dev, sim):
     log(f"heaving_sphere_3d(radius=64): {start.elapsed_time(end) / 3e3:.4f} "
         f"s per remeasure (measure() alone, 3 calls; box "
         f"{hv.cfg.bbox_shape})")
-    step_profile(hv, 5, "heaving_sphere_3d(radius=64), remeasure",
+    step_profile(hv, PROFILE_256, "heaving_sphere_3d(radius=64), remeasure",
                  remeasure=True)
     del hv
     stage("tgv_3d(256), 2D cases")
@@ -3515,8 +3598,8 @@ def timing_sharded(torch, dev):
     peak(torch, ls)
     for sim_, label in ((dense, la), (shard, ls), (shard, ls), (dense, la)):
         report_steps(torch, sim_, label, STEPS_256, 2)
-    step_profile(dense, 5, la)
-    r = step_profile(shard, 5, ls)
+    step_profile(dense, PROFILE_256, la)
+    r = step_profile(shard, PROFILE_256, ls)
     busy, wall = split_assemble_ms(torch, shard)
     log(f"{ls}: split and assemble {busy:.4f} ms device, {wall:.4f} ms wall "
         f"a step: {busy / r['busy_ms']:.4f} of the busy and "
@@ -3566,7 +3649,8 @@ def timing_pcg_paths(torch, dev):
                          STEPS_256, 2)
     for name, flags, _bf16, _op16, _expect in PCG_CONFIGS:
         with seams(flags):
-            step_profile(sims[name], 5, f"sphere_3d(256, 256) {name}")
+            step_profile(sims[name], PROFILE_256,
+                         f"sphere_3d(256, 256) {name}")
     peak(torch, f"the {len(sims)} sphere_3d(256, 256) configurations")
     del sims
     torch.cuda.empty_cache()
@@ -3578,9 +3662,9 @@ def timing_periodic_2d(torch, dev):
 
     tg = construct(torch, "tgv_3d(256)", lambda: wt.tgv_3d(256, device=dev))
     ke0 = float(torch.sum(ke(tg.flow.u)))
-    report_steps(torch, tg, "tgv_3d(256)", 10, 2)
+    report_steps(torch, tg, "tgv_3d(256)", STEPS_256, 2)
     peak(torch, "tgv_3d(256)")
-    step_profile(tg, 5, "tgv_3d(256)")
+    step_profile(tg, PROFILE_256, "tgv_3d(256)")
     ke1 = float(torch.sum(ke(tg.flow.u)))
     log(f"tgv_3d(256): interior kinetic energy {ke0!r} at step 0, {ke1!r} "
         f"after {len(tg.pois_n)} steps (tU/L {tg.sim_time!r})")
@@ -3588,19 +3672,22 @@ def timing_periodic_2d(torch, dev):
 
     # one horizon: two were within 5% of each other, and the script's
     # time is limited
-    sim = circle_horizon(torch, dev, 1)
-    step_profile(sim, 50, "circle_2d(96, 64) after tU/L=50")
+    sim = circle_horizon(torch, dev, 1, CIRCLE_T)
+    step_profile(sim, PROFILE_SMALL,
+                 f"circle_2d(96, 64) after tU/L={CIRCLE_T:g}")
     del sim
 
     plate = construct(torch, "oscillating_plate_2d(32)",
                       lambda: wt.oscillating_plate_2d(32, device=dev))
-    report_steps(torch, plate, "oscillating_plate_2d(32), remeasure", 20, 5,
+    report_steps(torch, plate, "oscillating_plate_2d(32), remeasure",
+                 STEPS_SMALL // 2, WARM_SMALL,
                  remeasure=True)
-    step_profile(plate, 10, "oscillating_plate_2d(32), remeasure",
+    step_profile(plate, PROFILE_SMALL // 2,
+                 "oscillating_plate_2d(32), remeasure",
                  remeasure=True)
     tv = construct(torch, "tgv_2d(64)", lambda: wt.tgv_2d(64, device=dev))
-    report_steps(torch, tv, "tgv_2d(64)", 50, 10)
-    step_profile(tv, 20, "tgv_2d(64)")
+    report_steps(torch, tv, "tgv_2d(64)", STEPS_SMALL, WARM_SMALL)
+    step_profile(tv, PROFILE_SMALL, "tgv_2d(64)")
 
 
 def circle_horizon(torch, dev, run, t_end=50.0, chunk=100):
@@ -3686,7 +3773,7 @@ def main() -> int:
     one_launch(torch, dev)
     stage("pcg_fused's member form (torch.func.vmap)")
     check_members(torch, dev)
-    stage("the seven stencils' member forms (torch.func.vmap)")
+    stage("the 3D kernels' member forms (torch.func.vmap)")
     check_stencil_members(torch, dev)
     phase("4. the dense slice: sphere_3d(96, 64)")
     sim = run_slice(torch, dev)
@@ -3720,6 +3807,7 @@ def main() -> int:
     run_ensemble(torch, dev)
     run_sweeps(torch, dev)
     run_banded_sweeps(torch, dev)
+    run_seam_sweeps(torch, dev)
     phase("6.9 the decomposition over processes: ProcessMesh, gloo and "
           "NCCL")
     run_process_mesh(torch, dev, snapshot)
@@ -3738,7 +3826,7 @@ def main() -> int:
     timing_recording(torch, dev)
     stage("pcg_fused's member form")
     timing_members(torch, dev)
-    stage("the seven stencils' member forms")
+    stage("the 3D kernels' member forms")
     timing_stencil_members(torch, dev)
     stage("the process mesh: phase 6.9 (i)'s world")
     timing_process_mesh()
@@ -3781,10 +3869,12 @@ def main() -> int:
         "bound_by": MEMBER_TIMES[S]["bound_by"], "library_ms": None,
         "shape": [ENS_MEMBERS, *S],
         "sync_floor_ms": MEMBER_TIMES[S]["sync_floor_ms"]})
-    # the seven stencils' and ana_mult3d's member forms (phase 6.8 (iv)'s
-    # and (v)'s member-form launches; checked in phase 3, timed at FINE x 8
-    # in phase 8); no one PyTorch call computes a batch of them
-    for k in SEVEN + ("ana_mult3d",):
+    # the seven stencils', ana_mult3d's and the PCG seams' six member
+    # forms (phase 6.8 (iv)'s, (v)'s and (vi)'s member-form launches;
+    # checked in phase 3, timed at FINE x 8 in phase 8); one PyTorch call
+    # computes a batch of dot3d's (torch.linalg.vecdot), none of the
+    # others
+    for k in SEVEN + ("ana_mult3d",) + SEAM_MEMBERS:
         t = STENCIL_MEMBER_TIMES[k]
         kernels.append({
             "name": members_key(k), "route": "cuda",
@@ -3792,7 +3882,7 @@ def main() -> int:
             "launches": sum(c.get(k, 0) for c in MEMBER_COUNTS.values()),
             "max_abs_err": WORST[members_key(k)], "ms": t["ms"],
             "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
-            "bound_by": t["bound_by"], "library_ms": None,
+            "bound_by": t["bound_by"], "library_ms": t.get("library_ms"),
             "shape": [SWEEP_MEMBERS, *FINE]})
     log(card)
     log(json.dumps({"kernels": kernels}))

@@ -478,6 +478,15 @@ def test_ad_tracked():
 
 KERNELS = ("mult3d", "increment3d", "bc3d", "div3d", "project3d",
            "conv_diff3d", "cfl3d")
+# the blocked-level PCG seams' wrappers (`ops.attic`), spied on too, and
+# the seams that route a blocked level through them
+SEAM_KERNELS = ("dot3d", "pcg_axpy", "pcg_dir_mult", "pcg_update",
+                "mult3d_stream", "increment3d_stream")
+SEAMS = {"KDOT+KAXPY": ({"KDOT": True, "KAXPY": True}, ("dot3d", "pcg_axpy")),
+         "PCG_BLOCKED": ({"PCG_BLOCKED": True}, ("pcg_dir_mult",
+                                                 "pcg_update")),
+         "STREAM": ({"STREAM": True}, ("mult3d_stream",
+                                       "increment3d_stream"))}
 S3 = (18, 10, 10)
 
 
@@ -501,6 +510,8 @@ def spies(monkeypatch):
                         math.prod(S) < 1000)
     for name in KERNELS:
         monkeypatch.setattr(sk, name, spy(name, getattr(sk, name)))
+    for name in SEAM_KERNELS:
+        monkeypatch.setattr(at, name, spy(name, getattr(at, name)))
     monkeypatch.setattr(pk, "pcg_fused", spy("pcg_fused", pk.pcg_fused))
     return calls
 
@@ -559,3 +570,32 @@ def test_implicit_solves_reach_the_kernels(spies):
     fd = central_fd(lambda nu: _step3(nu, implicit_diff=True, tol=1e-14,
                                       itmx=64), 0.05, 1e-5)
     assert np.isclose(float(g), fd, rtol=1e-5), (float(g), fd)
+
+
+@pytest.mark.parametrize("seam", sorted(SEAMS))
+def test_seam_gates_route_tracked_fields_to_the_plain_forms(spies, seam,
+                                                            monkeypatch):
+    """Under each blocked-level PCG seam, with every gate open: an
+    untracked step calls the seam's `ops.attic` wrappers; a tracked
+    ``fixed_iters`` step under ``torch.autograd`` and one under
+    `torch.func.jvp` hand none of the wrappers a tracked operand (on the
+    card they would raise), and the gradient equals the one with the
+    seam off."""
+    flags, kernels = SEAMS[seam]
+    for k, v in flags.items():
+        monkeypatch.setattr(tp, k, v)
+    with torch.no_grad():
+        _step3(torch.tensor(0.05, dtype=f64), fixed_iters=2)
+    assert all(spies[k, False] for k in kernels), spies
+    assert not any(t for (_, t) in spies)
+    spies.clear()
+    _, g = grad_and_value(lambda nu: _step3(nu, fixed_iters=2), 0.05)
+    _, d = torch.func.jvp(lambda nu: _step3(nu, fixed_iters=2),
+                          (torch.tensor(0.05, dtype=f64),),
+                          (torch.ones((), dtype=f64),))
+    assert not any(t for (_, t) in spies), spies
+    assert np.isclose(float(d), g, rtol=1e-9)
+    for k in flags:
+        monkeypatch.setattr(tp, k, False)
+    _, g_off = grad_and_value(lambda nu: _step3(nu, fixed_iters=2), 0.05)
+    assert g == g_off, (g, g_off)

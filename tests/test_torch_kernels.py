@@ -716,3 +716,80 @@ def test_stencil_members_nested_vmap(name, device):
             assert torch.equal(got[m // 3, m % 3], want), (name, m)
         if name == "bc3d":
             assert torch.equal(nested[0][m // 3, m % 3], own[0])
+
+
+# --- the blocked-level PCG seams' member forms (vmap under KDOT, KAXPY,
+# PCG_BLOCKED, STREAM) -------------------------------------------------------
+
+SEAM_MEMBERS = ["dot3d", "pcg_axpy", "pcg_dir_mult", "pcg_update",
+                "mult3d_stream", "increment3d_stream"]
+
+
+@pytest.mark.parametrize("shared", [True, False])
+@pytest.mark.parametrize("M", [1, 3, 8])
+@pytest.mark.parametrize("S", [FINE, RAGGED])
+@pytest.mark.parametrize("name", SEAM_MEMBERS + ["pcg_blocked"])
+def test_seam_members_match_single_launches(name, S, M, shared, device):
+    """Each PCG-seam wrapper's member form (`torch.func.vmap` of it: one
+    launch for every member) equals each member's own launch bit for bit
+    (its dots included) and `vmap` of the plain version within the
+    kernel's tolerance, in every form of `check.stencil_member_variants`
+    (the operator and β, upd shared or one a member; bf16 directions,
+    operator shadows); `pcg_blocked` under `vmap` 12 launches a smooth,
+    each member bit for bit its own smooth."""
+    from waterlily_tpu_torch.kernels.check import compare_stencil_members
+    rows = compare_stencil_members(name, S, M, shared, 1, device)
+    bad = [r for r in rows if not r["ok"] or r["single_err"] != 0]
+    assert not bad, bad
+
+
+@pytest.mark.parametrize("S", MARCH_RAGGED)
+@pytest.mark.parametrize("name", ["pcg_dir_mult", "mult3d_stream"])
+def test_seam_march_members_ragged(name, S, device):
+    """The marching seam kernels' member forms where column tiles and
+    axis-0 chunks are cut raggedly and where axis 0 has one or two
+    interior planes (3 members, an operator a member)."""
+    from waterlily_tpu_torch.kernels.check import compare_stencil_members
+    rows = compare_stencil_members(name, S, 3, False, 1, device)
+    bad = [r for r in rows if not r["ok"] or r["single_err"] != 0]
+    assert not bad, bad
+
+
+@pytest.mark.parametrize("name", SEAM_MEMBERS)
+def test_seam_members_nested_vmap(name, device):
+    """`vmap` of `vmap` (2 × 3 members) through each PCG-seam wrapper: one
+    launch for all six, each member equal to its own launch."""
+    from waterlily_tpu_torch.kernels.check import (
+        stencil_member_inputs, stencil_member_variants, member_args)
+    from waterlily_tpu_torch.ops import stencil_kernels as sk
+    d = stencil_member_inputs(FINE, 6, False, 1, device)
+    _outputs, fn, _plain, args, dims = stencil_member_variants(name, d)[0]
+    grid = lambda a, dd: (a.reshape((2, 3) + tuple(a.shape[1:]))
+                          if dd == 0 else a)
+    nested = [grid(a, dd) for a, dd in zip(member_args(args), dims)]
+    wrapper = sk.kernel_wrappers()[name]
+    n, nm = wrapper.launches, wrapper.members
+    out = torch.func.vmap(torch.func.vmap(fn, in_dims=dims),
+                          in_dims=dims)(*nested)
+    assert wrapper.launches - n == 1 and wrapper.members - nm == 1
+    out = out if isinstance(out, tuple) else (out,)
+    for m in range(6):
+        own = fn(*[a[m] if dd == 0 else a for a, dd in zip(args, dims)])
+        own = own if isinstance(own, tuple) else (own,)
+        for got, want in zip(out, own):
+            assert torch.equal(got[m // 3, m % 3], want), (name, m)
+
+
+def test_seam_members_refuse(device):
+    """A member form raises on operands its kernel does not take (an
+    operand with another member count, f64) and never runs the plain
+    version on the card."""
+    from waterlily_tpu_torch.kernels.check import stencil_member_inputs
+    from waterlily_tpu_torch.ops import attic as at
+    d = stencil_member_inputs(FINE, 3, False, 1, device)
+    with pytest.raises(ValueError):
+        torch.func.vmap(lambda a, b: at.dot3d(a, b, "ab"))(
+            d["r"], d["x"][:, :-1].contiguous())
+    with pytest.raises(TypeError):
+        torch.func.vmap(lambda x, r: at.pcg_update(
+            x, r, x, r, r, 0.5))(d["x"].double(), d["r"].double())

@@ -49,6 +49,13 @@
 // --fmad=false, eps and z equal the plain version bit for bit.  eps_prev
 // must not alias eps: neighbours read the previous direction while eps is
 // written.
+// Members (an ensemble under torch.func.vmap, `pcg_dir_mult`'s member
+// form): the march's member axis (march.cuh): each member marched with a
+// one-member launch's chunks, with its own beta (a member stride of 0: one
+// for all), partials, counter and two dots, so bit for bit its own
+// launch; eps and z hold the members' fields one after another, each input
+// at its own member stride (0 for one every member shares: a level's
+// operator).
 #include <type_traits>
 
 #include "march.cuh"
@@ -69,24 +76,41 @@ __device__ inline void put(__nv_bfloat16* p, float v) {
   *p = __float2bfloat16_rn(v);  // v is bf16-representable: exact
 }
 
+// Member strides (elements) of the first sweep's inputs and of beta.
+struct DirStrides {
+  long long L, D, ep, r, iD, beta;
+};
+
 // TP: eps_prev's type, TO: eps's, TC: the coefficients L and iD's.
 // beta_p: the device scalar beta, or NULL for the number beta_v.  partial:
 // 2 floats a block (the <z, eps> partials, then <r, r*iD>'s), out: the two
-// sums.
-template <typename TP, typename TO, typename TC>
+// sums.  MB: the member-axis instance (the one-field instance leaves its
+// pointers as they are passed).
+template <typename TP, typename TO, typename TC, bool MB>
 __global__ void __launch_bounds__(MARCH_THREADS)
 dir_mult_kernel(const TC* __restrict__ L, const float* __restrict__ Dd,
                 const TP* __restrict__ ep, const float* __restrict__ r,
                 const TC* __restrict__ iD, const float* __restrict__ beta_p,
                 float beta_v, TO* __restrict__ eps, float* __restrict__ z,
                 float* partial, unsigned int* count, float* out, int S0,
-                int S1, int S2, int planes) {
+                int S1, int S2, int planes, DirStrides st) {
   // k+-1 taps by warp shuffles with f32 coefficients, rebuilt from L1
   // with the bf16 shadows (the faster of the two for each, above)
   constexpr bool SHUFFLE = std::is_same<TC, float>::value;
   __shared__ float sh[2 * MARCH_THREADS / 32];
-  const Column col = march_column(S0, S1, S2, planes);
+  const Column col = march_column<MB>(S0, S1, S2, planes);
   const int P = S1 * S2, N = S0 * P;
+  if constexpr (MB) {
+    const long long m = col.m;
+    L += m * st.L;
+    Dd += m * st.D;
+    ep += m * st.ep;
+    r += m * st.r;
+    iD += m * st.iD;
+    if (beta_p != nullptr) beta_p += m * st.beta;
+    eps += m * N;
+    z += m * N;
+  }
   const float beta = beta_p != nullptr ? *beta_p : beta_v;
   const TC* __restrict__ L0 = L;
   const TC* __restrict__ L1 = L + N;
@@ -169,29 +193,42 @@ dir_mult_kernel(const TC* __restrict__ L, const float* __restrict__ Dd,
 
 // ep_bf16: eps_prev is bf16; out_bf16: eps is written (and rounded) in bf16;
 // coef_bf16: L and iD are bf16 (the level's L16 and iD16; D is f32).
-// beta: a device scalar, or NULL for the number beta_v.  partial: 2 floats
-// a block of the grid (`march_grid`), count: a zeroed counter (left
-// zeroed), out: <z, eps> then <r, r*iD>.  Calls that share a counter run
-// on one stream.
+// beta: a device scalar (one a member at stride sb, 0: shared), or NULL for
+// the number beta_v.  partial: 2 floats a block of a member's grid
+// (`march_grid`), member after member, count: a zeroed counter a member
+// (left zeroed), out: each member's <z, eps> then <r, r*iD>.  members: eps
+// and z hold that many fields one after another, member m reading L + m sL,
+// Dd + m sD, eps_prev + m se, r + m sr, iD + m si (elements; 0: shared;
+// one field: members 1).  Calls that share a counter run on one stream.
 extern "C" int wl_pcg_dir_mult(const void* L, const float* Dd, const void* ep,
                                const float* r, const void* iD,
                                const float* beta, void* eps, float* z,
                                float* partial, unsigned int* count,
                                float* out, float beta_v, int ep_bf16,
                                int out_bf16, int coef_bf16, int planes,
-                               int S0, int S1, int S2, void* stream) {
-  if (!march_shape_ok(S0, S1, S2, planes)) return (int)cudaErrorInvalidValue;
-  const dim3 grid = march_grid(S0, S1, S2, planes);
+                               int members, long long sL, long long sD,
+                               long long se, long long sr, long long si,
+                               long long sb, int S0, int S1, int S2,
+                               void* stream) {
+  if (!march_shape_ok(S0, S1, S2, planes, members))
+    return (int)cudaErrorInvalidValue;
+  const dim3 grid = march_grid(S0, S1, S2, planes, members);
   const dim3 block(MARCH_TK, MARCH_TJ);
   const cudaStream_t s = (cudaStream_t)stream;
+  const DirStrides st{sL, sD, se, sr, si, sb};
   dispatch_bf16(ep_bf16, out_bf16, [&](auto tp, auto to) {
     using TP = TAG_T(tp);
     using TO = TAG_T(to);
     auto go = [&](auto tc) {
       using TC = TAG_T(tc);
-      dir_mult_kernel<TP, TO, TC><<<grid, block, 0, s>>>(
-          (const TC*)L, Dd, (const TP*)ep, r, (const TC*)iD, beta, beta_v,
-          (TO*)eps, z, partial, count, out, S0, S1, S2, planes);
+      if (members > 1)
+        dir_mult_kernel<TP, TO, TC, true><<<grid, block, 0, s>>>(
+            (const TC*)L, Dd, (const TP*)ep, r, (const TC*)iD, beta, beta_v,
+            (TO*)eps, z, partial, count, out, S0, S1, S2, planes, st);
+      else
+        dir_mult_kernel<TP, TO, TC, false><<<grid, block, 0, s>>>(
+            (const TC*)L, Dd, (const TP*)ep, r, (const TC*)iD, beta, beta_v,
+            (TO*)eps, z, partial, count, out, S0, S1, S2, planes, st);
     };
     if (coef_bf16)
       go(type_tag<__nv_bfloat16>{});
@@ -205,8 +242,12 @@ extern "C" int wl_pcg_update(const float* x, const float* r, const void* eps,
                              const float* z, const void* iD, const float* upd,
                              float* x_out, float* r_out, float* partial,
                              unsigned int* count, float* out, int eps_bf16,
-                             int iD_bf16, int blocks, int S0, int S1, int S2,
-                             void* stream) {
+                             int iD_bf16, int blocks, int members,
+                             long long sx, long long sr, long long se,
+                             long long sz, long long si, long long su,
+                             int S0, int S1, int S2, void* stream) {
   return launch_axpy_rho(x, r, eps, z, iD, upd, x_out, r_out, partial, count,
-                         out, eps_bf16, iD_bf16, blocks, S0, S1, S2, stream);
+                         out, eps_bf16, iD_bf16, blocks, members,
+                         AxpyStrides{sx, sr, se, sz, si, su}, S0, S1, S2,
+                         stream);
 }

@@ -31,26 +31,52 @@
 // Ghost outputs are written by a branch (r unchanged) and the ragged
 // edges of tiles and chunks are masked by bounds checks, never by a multiply.
 // Every shape is taken: there is no divisibility condition.
+// Members (an ensemble under torch.func.vmap, `increment3d_stream`'s member
+// form): the grid's z axis runs over each member's chunks in turn
+// (blockIdx.z = member * chunks + chunk), every member with a one-member
+// launch's tiles and chunks; the outputs hold the members' fields one
+// after another, each input sits at its own member stride (0 for one
+// every member shares: a level's operator).
 #include "common.cuh"
 
 #define ST_TJ 8    // tile extent along axis 1 (threadIdx.y)
 #define ST_TK 32   // tile extent along axis 2 (threadIdx.x)
 
+// Member strides (elements) of the increment's inputs.
+struct IncStrides {
+  long long L, D, eps, x, r;
+};
+
 // TL: L's type; TX: eps's (``x`` below: the increment's eps; ``xa``: its
-// x).  out = r - A eps, x_out = x + eps.
-template <typename TL, typename TX>
+// x).  out = r - A eps, x_out = x + eps.  MB: the member-axis instance (the
+// one-field instance leaves its pointers as they are passed, its chunk
+// blockIdx.z).
+template <typename TL, typename TX, bool MB>
 __global__ void __launch_bounds__(ST_TJ * ST_TK)
 stream_kernel(const TL* __restrict__ L, const float* __restrict__ Dd,
               const TX* __restrict__ x, const float* __restrict__ xa,
               const float* __restrict__ r, float* __restrict__ out,
-              float* __restrict__ x_out, Shape3 g, int rows) {
+              float* __restrict__ x_out, Shape3 g, int rows, IncStrides st) {
   __shared__ float sx[ST_TJ + 2][ST_TK + 2];  // x with a one-cell halo
   __shared__ float s1[ST_TJ + 1][ST_TK];      // L1 and its j+1 halo row
   __shared__ float s2[ST_TJ][ST_TK + 1];      // L2 and its k+1 halo column
   const int tj = threadIdx.y, tk = threadIdx.x;
   const int j = blockIdx.y * ST_TJ + tj, k = blockIdx.x * ST_TK + tk;
   const int S0 = g.S[0], S1 = g.S[1], S2 = g.S[2];
-  const int i0 = blockIdx.z * rows;
+  int chunk = blockIdx.z;
+  if constexpr (MB) {
+    const int chunks = (S0 + rows - 1) / rows;
+    const long long m = blockIdx.z / chunks;
+    chunk = (int)(blockIdx.z - m * chunks);
+    L += m * st.L;
+    Dd += m * st.D;
+    x += m * st.eps;
+    xa += m * st.x;
+    r += m * st.r;
+    out += m * g.N;
+    x_out += m * g.N;
+  }
+  const int i0 = chunk * rows;
   const int i1 = min(i0 + rows, S0);
   const bool in = j < S1 && k < S2;
   const bool inner_jk = j >= 1 && j <= S1 - 2 && k >= 1 && k <= S2 - 2;
@@ -141,22 +167,34 @@ extern "C" int wl_stream_tile(int axis) {
 }
 
 // (x_out, r_out) = (x + eps, r - A eps).  L_bf16 / eps_bf16: L / eps are
-// bf16 (else f32).
+// bf16 (else f32).  members: x_out and r_out hold that many fields one
+// after another, member m reading L + m sL, Dd + m sD, eps + m se, x + m sx
+// and r + m sr (elements; 0: shared; one field: members 1).
 extern "C" int wl_increment3d_stream(const void* L, const float* Dd,
                                      const void* eps, const float* x,
                                      const float* r, float* x_out,
                                      float* r_out, int L_bf16, int eps_bf16,
-                                     int rows, int S0, int S1, int S2,
+                                     int rows, int members, long long sL,
+                                     long long sD, long long se, long long sx,
+                                     long long sr, int S0, int S1, int S2,
                                      void* stream) {
-  if (rows < 1) return (int)cudaErrorInvalidValue;
+  const int chunks = rows < 1 ? 0 : (S0 + rows - 1) / rows;
+  if (rows < 1 || members < 1 || (long long)members * chunks > 65535)
+    return (int)cudaErrorInvalidValue;
   const Shape3 g = make_shape(S0, S1, S2);
   const dim3 grid((S2 + ST_TK - 1) / ST_TK, (S1 + ST_TJ - 1) / ST_TJ,
-                  (S0 + rows - 1) / rows);
+                  members * chunks);
+  const cudaStream_t s = (cudaStream_t)stream;
+  const IncStrides st{sL, sD, se, sx, sr};
   dispatch_bf16(L_bf16, eps_bf16, [&](auto tl, auto tx) {
-    stream_kernel<TAG_T(tl), TAG_T(tx)>
-        <<<grid, dim3(ST_TK, ST_TJ), 0, (cudaStream_t)stream>>>(
-            (const TAG_T(tl)*)L, Dd, (const TAG_T(tx)*)eps, x, r, r_out,
-            x_out, g, rows);
+    using TL = TAG_T(tl);
+    using TX = TAG_T(tx);
+    if (members > 1)
+      stream_kernel<TL, TX, true><<<grid, dim3(ST_TK, ST_TJ), 0, s>>>(
+          (const TL*)L, Dd, (const TX*)eps, x, r, r_out, x_out, g, rows, st);
+    else
+      stream_kernel<TL, TX, false><<<grid, dim3(ST_TK, ST_TJ), 0, s>>>(
+          (const TL*)L, Dd, (const TX*)eps, x, r, r_out, x_out, g, rows, st);
   });
   return (int)cudaGetLastError();
 }

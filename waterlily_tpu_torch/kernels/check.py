@@ -31,8 +31,8 @@ __all__ = ["KERNELS", "COMPOSITES", "TOLERANCE", "SOURCES", "LIBRARY",
            "ulp_diff", "bound_ms", "bytes_moved", "HBM_BYTES_PER_S",
            "F32_FLOPS_PER_S", "member_inputs", "member_variants",
            "compare_members", "member_bound_ms", "time_members",
-           "STENCIL_MEMBERS", "stencil_member_inputs",
-           "stencil_member_variants", "member_args",
+           "STENCIL_MEMBERS", "MEMBER_COMPOSITES", "MEMBER_LIBRARY",
+           "stencil_member_inputs", "stencil_member_variants", "member_args",
            "compare_stencil_members", "member_stencil_bound_ms",
            "time_stencil_members"]
 
@@ -660,8 +660,10 @@ def _seeded(S, seed, device) -> dict:
 
 
 def clear_inputs():
-    """Free the inputs `compare` and the timings keep for reuse."""
+    """Free the inputs `compare`, the member checks and the timings keep
+    for reuse."""
     _seeded.cache_clear()
+    _member_seeded.cache_clear()
 
 
 def _fresh_inputs(S, seed, device) -> dict:
@@ -826,19 +828,48 @@ def time_members(S, members: int, device, n=20) -> dict:
     return {"ms": (k1 + k2) / 2, "plain_ms": (p1 + p2) / 2, "wall_ms": wall}
 
 
-# --- the seven stencils' member forms (a 3D ensemble under torch.func.vmap) --
+# --- the 3D kernels' member forms (a 3D ensemble under torch.func.vmap) -----
 
+# the wrappers with a member form: the seven stencils of the dense step,
+# the banded levels' far-field operator and the blocked-level PCG seams'
+# six (`ops.attic`)
 STENCIL_MEMBERS = ("mult3d", "increment3d", "cfl3d", "bc3d", "div3d",
-                   "project3d", "conv_diff3d", "ana_mult3d")
+                   "project3d", "conv_diff3d", "ana_mult3d", "dot3d",
+                   "pcg_axpy", "pcg_dir_mult", "pcg_update", "mult3d_stream",
+                   "increment3d_stream")
+# checked like a member form, but built from two: the fused-iteration
+# smoother under `vmap` (two member-form launches an iteration, 12 in a
+# 6-iteration smooth: 6 of `pcg_dir_mult`, 6 of `pcg_update`)
+MEMBER_COMPOSITES = ("pcg_blocked",)
+_MEMBER_WRAPPERS = {"pcg_blocked": ("pcg_dir_mult", "pcg_update")}
+_MEMBER_LAUNCHES = {"pcg_blocked": 12}
+# one PyTorch call that computes a member form's timed form on the same
+# inputs (timed beside it, used nowhere in the port): the members' aa dots
+# of ghost-zero fields are one batched vector dot
+MEMBER_LIBRARY = {"dot3d": lambda d: (
+    lambda: torch.linalg.vecdot(d["r"].reshape(d["M"], -1),
+                                d["r"].reshape(d["M"], -1)))}
 
 
 def stencil_member_inputs(S, members: int, shared: bool, seed, device):
     """``members`` members' seeded fields at shape ``S`` (member m's those
     of `inputs` of seed ``seed + m``), stacked on a leading member axis;
-    the operator (``L``, ``D`` and the shadows ``L16``, ``D16``), the time
-    step, ν and the BC values are member 0's for all where ``shared`` (the
-    step and ν a 0-d tensor and a number, the BC values numbers), one a
-    member otherwise (``(M,)`` and ``(M, 3)`` tensors)."""
+    the operator (``L``, ``D``, ``iD`` and the shadows ``L16``, ``D16``,
+    ``iD16``), the time step (also the PCG scalars' β and upd), ν and the
+    BC values are member 0's for all where ``shared`` (the step and ν a
+    0-d tensor and a number, the BC values numbers), one a member
+    otherwise (``(M,)`` and ``(M, 3)`` tensors).  Drawn once a key (kept
+    until `clear_inputs`): callers copy a tensor before they write into
+    it (`member_args`)."""
+    return dict(_member_seeded(tuple(S), members, bool(shared), seed,
+                               torch.device(device)))
+
+
+@functools.lru_cache(maxsize=16)
+def _member_seeded(S, members, shared, seed, device) -> dict:
+    # drawing 8 members' fields at (98,66,66) on the host takes about a
+    # second, and every member form is checked on the same nine keys
+    # (chip_smoke's phase 3), which the cache holds all at once
     ds = [inputs(S, seed + m, device) for m in range(members)]
     st = lambda f: torch.stack([f(d) for d in ds]).contiguous()
     op = lambda f: f(ds[0]) if shared else st(f)
@@ -846,9 +877,11 @@ def stencil_member_inputs(S, members: int, shared: bool, seed, device):
     return {
         "M": members, "shared": shared,
         "L": op(lambda d: d["lev"].L), "D": op(lambda d: d["lev"].D),
+        "iD": op(lambda d: d["lev"].iD),
         "L16": op(lambda d: d["L16"]), "D16": op(lambda d: d["D16"]),
+        "iD16": op(lambda d: d["iD16"]),
         **{k: st(lambda d, k=k: d[k]) for k in ("x", "eps", "eps16", "r",
-                                                "u", "p")},
+                                                "u", "p", "z")},
         "x16": st(lambda d: d["x"].to(torch.bfloat16)),
         "dt": (ds[0]["dt"] if shared else
                torch.tensor([0.37 + 0.01 * m for m in range(members)], **f32)),
@@ -871,11 +904,19 @@ def stencil_member_variants(name, d) -> list:
     eps and L16; ``bc3d`` in place in all 16 periodic and outlet forms;
     ``conv_diff3d`` with QUICK, van Leer and minmod, and QUICK on every
     periodic mask; ``ana_mult3d`` with the dot and without it on every
-    periodic mask (it reads no operator: ``shared`` changes nothing)."""
+    periodic mask (it reads no operator: ``shared`` changes nothing); the
+    PCG seams' wrappers in the forms of `variants`: ``mult3d_stream`` as
+    ``mult3d``, ``increment3d_stream`` f32 and L16, ``pcg_dir_mult`` with
+    β (a member's or shared) and at β = 0, f32, bf16 directions and the
+    shadows, ``pcg_update`` and ``pcg_axpy`` f32, bf16 eps and iD16,
+    ``dot3d`` aa, ab, rid and rid on iD16; the composite ``pcg_blocked``
+    against the per-pass `ops.poisson.pcg`, f32 and with the shadows,
+    member 1's residual zero (its own dead mask)."""
     od = None if d["shared"] else 0     # the operator, dt, ν, A
-    if name == "mult3d":
+    if name in ("mult3d", "mult3d_stream"):
+        fn = sk.mult3d if name == "mult3d" else at.mult3d_stream
         return [(("z" + t, "dot" + t) if dot else ("z_nodot" + t,),
-                 lambda L, Dd, x, dot=dot: sk.mult3d(L, Dd, x, dot),
+                 lambda L, Dd, x, dot=dot: fn(L, Dd, x, dot),
                  lambda L, Dd, x, dot=dot: sk._mult3d_plain(L, Dd, x, dot),
                  (d[Lk], d[Dk], d[xk]), (od, od, 0))
                 for t, Lk, Dk, xk in (("", "L", "D", "x"),
@@ -883,12 +924,71 @@ def stencil_member_variants(name, d) -> list:
                                       ("_bf16", "L", "D", "x16"),
                                       ("_L16_bf16", "L16", "D16", "x16"))
                 for dot in (True, False)]
-    if name == "increment3d":
-        return [(("x" + t, "r" + t), sk.increment3d, sk._increment3d_plain,
+    if name in ("increment3d", "increment3d_stream"):
+        fn = (sk.increment3d if name == "increment3d"
+              else at.increment3d_stream)
+        return [(("x" + t, "r" + t), fn, sk._increment3d_plain,
                  (d[Lk], d[Dk], d[ek], d["x"], d["r"]), (od, od, 0, 0, 0))
                 for t, Lk, Dk, ek in (("", "L", "D", "eps"),
                                       ("_bf16", "L", "D", "eps16"),
-                                      ("_L16", "L16", "D16", "eps"))]
+                                      ("_L16", "L16", "D16", "eps"))
+                if name == "increment3d" or t != "_bf16"]
+    if name == "pcg_dir_mult":
+        # the iteration's form (β != 0, timed) first, then the preamble's
+        # (β = 0, eps_prev the residual)
+        def dir_mult(tag, op, ek, beta, bf16):
+            Lk, Dk, iDk = op
+            return (tuple(o + tag for o in ("eps", "z", "den", "rho")),
+                    lambda L, Dd, e, r, iD, b: at.pcg_dir_mult(
+                        L, Dd, e, r, iD, b, bf16),
+                    lambda L, Dd, e, r, iD, b: at._pcg_dir_mult_plain(
+                        L, Dd, e, r, iD, b, bf16),
+                    (d[Lk], d[Dk], d[ek], d["r"], d[iDk],
+                     d["dt"] if beta else 0.0),
+                    (od, od, 0, 0, od, od if beta else None))
+        f32, sh = ("L", "D", "iD"), ("L16", "D16", "iD16")
+        return [dir_mult("", f32, "eps", True, False),
+                dir_mult("_b0", f32, "r", False, False),
+                dir_mult("_bf16", f32, "eps16", True, True),
+                dir_mult("_b0_bf16", f32, "r", False, True),
+                dir_mult("_L16", sh, "eps", True, False),
+                dir_mult("_b0_L16", sh, "r", False, False)]
+    if name in ("pcg_update", "pcg_axpy"):
+        fn = getattr(at, name)
+        return [(tuple(o + t for o in ("x", "r", "rho")), fn,
+                 at._axpy_rho_plain,
+                 (d["x"], d["r"], d[ek], d["z"], d[iDk], d["dt"]),
+                 (0, 0, 0, 0, od, od))
+                for t, ek, iDk in (("", "eps", "iD"), ("_bf16", "eps16", "iD"),
+                                   ("_iD16", "eps", "iD16"))]
+    if name == "dot3d":
+        # aa first (timed, beside one batched torch.linalg.vecdot); ab on
+        # two member fields with non-zero ghosts; rid on the operator's iD
+        def dot(tag, mode, ak, bk, bd):
+            return ((tag,), lambda a, b: at.dot3d(a, b, mode),
+                    lambda a, b: at._dot3d_plain(a, b, mode),
+                    (d[ak], d[bk]), (0, bd))
+        return [dot("aa", "aa", "r", "r", 0), dot("ab", "ab", "x", "eps", 0),
+                dot("rid", "rid", "r", "iD", od),
+                dot("rid_iD16", "rid", "r", "iD16", od)]
+    if name == "pcg_blocked":
+        rz = d["r"].clone()
+        if d["M"] > 1:
+            rz[1] = 0.0
+
+        def smooth(f16, fn):
+            def call(L, Dd, iD, L16, D16, iD16, x, r):
+                lev = poisson.PoissonLevel(L=L, D=Dd, iD=iD, blocked=True)
+                if f16:
+                    lev = dataclasses.replace(lev, L16=L16, D16=D16,
+                                              iD16=iD16)
+                return fn(lev, x, r)
+            return call
+        ops = tuple(d[k] for k in ("L", "D", "iD", "L16", "D16", "iD16"))
+        return [(("x" + t, "r" + t), smooth(f16, at.pcg_blocked),
+                 smooth(f16, poisson.pcg),
+                 ops + (torch.zeros_like(rz), rz), (od,) * 6 + (0, 0))
+                for t, f16 in (("", False), ("_L16", True))]
     if name == "cfl3d":
         return [((), sk.cfl3d, sk._cfl3d_plain, (d["u"],), (0,))]
     if name == "bc3d":
@@ -946,17 +1046,20 @@ def compare_stencil_members(name, S, members: int, shared: bool, seed,
     (`TOLERANCE`), and against each member's own one-field call, exactly,
     every form of `stencil_member_variants`; ``bc3d``'s fill also in the
     batched field itself.  A row per form and output: max |d| to each,
-    the member form's launches (one a call on CUDA, none on the CPU) and
-    the verdict."""
+    the member form's launches (one a call on CUDA, a composite's its
+    sweeps' 12; none on the CPU) and the verdict."""
     d = stencil_member_inputs(S, members, shared, seed, device)
-    wrapper = sk.kernel_wrappers()[name]
+    wrappers = [sk.kernel_wrappers()[k]
+                for k in _MEMBER_WRAPPERS.get(name, (name,))]
+    launched = lambda: sum(w.launches for w in wrappers)
+    expected = _MEMBER_LAUNCHES.get(name, 1)
     cuda = torch.device(device).type == "cuda"
     rows = []
     for outputs, fn, plain, args, dims in stencil_member_variants(name, d):
         kargs = member_args(args)
-        before = wrapper.launches
+        before = launched()
         k_out = _outputs(torch.func.vmap(fn, in_dims=dims)(*kargs))
-        launches = wrapper.launches - before
+        launches = launched() - before
         p_out = _outputs(torch.func.vmap(plain, in_dims=dims)(
             *member_args(args)))
         sargs = member_args(args)
@@ -986,7 +1089,7 @@ def compare_stencil_members(name, S, members: int, shared: bool, seed,
                 "single_err": float(torch.max(torch.abs(k - one))),
                 "launches": launches,
                 "tolerance": kind if tol is None else f"{kind} {tol}",
-                "ok": (ok and own and launches == (1 if cuda else 0)
+                "ok": (ok and own and launches == (expected if cuda else 0)
                        and bool(torch.isfinite(k).all()))})
     return rows
 
@@ -1003,7 +1106,9 @@ def time_stencil_members(name, S, members: int, device, n=20) -> dict:
     `stencil_member_variants`, an operator, step, ν and BC values a
     member) and of ``vmap`` of its plain version, in turns plain, kernel,
     kernel, plain, each call on the next of `ROTATE` copies of its inputs;
-    wall ms a call of the member form (CUDA events)."""
+    wall ms a call of the member form (CUDA events); where
+    `MEMBER_LIBRARY` has one, the device ms of that PyTorch call on the
+    same inputs (``library_ms``)."""
     d = stencil_member_inputs(S, members, False, 0, device)
     _, fn, plain, args, dims = stencil_member_variants(name, d)[0]
     sets = [member_args(args) for _ in range(ROTATE)]
@@ -1020,5 +1125,12 @@ def time_stencil_members(name, S, members: int, device, n=20) -> dict:
     k2 = device_profile(kern, n, events=True)[0]
     p2 = device_profile(pl, n, events=True)[0]
     b, by = member_stencil_bound_ms(name, S, members)
+    lib = None
+    if name in MEMBER_LIBRARY:
+        call = _rotating([MEMBER_LIBRARY[name](
+            {**d, "r": a[0]}) for a in sets])
+        call()
+        lib = (device_profile(call, n, events=True)[0]
+               + device_profile(call, n, events=True)[0]) / 2
     return {"ms": (k1 + k2) / 2, "plain_ms": (p1 + p2) / 2, "wall_ms": wall,
-            "bound_ms": b, "bound_by": by}
+            "bound_ms": b, "bound_by": by, "library_ms": lib}

@@ -31,6 +31,18 @@ same bits on every call.  A search direction may be stored in bf16
 JAX promotes ``f32_scalar * bf16_array`` to f32 (PyTorch would keep bf16).
 A level's operator shadows (`PoissonLevel.L16`, ``iD16``) pass as bf16
 ``L`` and ``iD``, upcast where they are read.
+
+Every wrapper has a member form (an ensemble under `torch.func.vmap`, as
+`stencil_kernels.mult3d`'s): handed operands that `vmap` alone batches
+(`stencil_kernels.vmap_only`), it enters its `autograd.Function`
+(`stencil_kernels._member_function`), whose `vmap` rule folds every
+`vmap` level into one member axis and launches the kernel once for all
+members, each member's work and sums those of its own launch, bit for
+bit; an operand without a member axis (a level's shared operator) is
+shared at a member stride of 0, and a scalar (``beta``, ``upd``) may be a
+number, a 0-d tensor or one value a member.  `pcg_blocked` under `vmap`
+is then two member-form launches an iteration for all members, its masks
+one value a member on the device.
 """
 from __future__ import annotations
 
@@ -40,10 +52,11 @@ import torch
 
 from ..grid import interior_view
 from ..kernels.build import launch, library
-from .stencil_kernels import (_on_cpu, _check, _scalar_on, _counted, _count,
-                              _bf16, _blocks, _wide, _mult3d_plain,
+from .stencil_kernels import (_on_cpu, _check, _counted, _count, _bf16,
+                              _blocks, _wide, _mult3d_plain,
                               _increment3d_plain, _counter, _march, _each,
-                              _stride)
+                              _stride, _scalars_on, vmap_only, _by_members,
+                              _member_function)
 
 __all__ = ["pcg_dir_mult", "pcg_update", "pcg_blocked", "dot3d", "pcg_axpy",
            "mult3d_stream", "increment3d_stream", "kernel_wrappers"]
@@ -71,6 +84,40 @@ def _pcg_dir_mult_plain(L, Dd, eps_prev, r, iD, beta, bf16=False):
 DIR_PLANES = (4, 32)
 
 
+def _pcg_dir_mult_launch(L, Dd, eps_prev, r, iD, beta, bf16=False,
+                         members=False):
+    """The kernel on ``r`` (``(M, *S)``) and each other operand with a
+    member axis or shared (a member stride of 0), ``beta`` a number or a
+    tensor (one value, or one a member): eps and z ``(M, *S)``, the two
+    dots ``(M,)`` each, every member's in the order of its own launch."""
+    M, S = r.shape[0], tuple(r.shape[1:])
+    _check("pcg_dir_mult", S, bf16=("eps_prev", "L", "iD"),
+           L=(L, _each(L, (3,) + S, M)), D=(Dd, _each(Dd, S, M)),
+           eps_prev=(eps_prev, _each(eps_prev, S, M)), r=(r, (M,) + S),
+           iD=(iD, _each(iD, S, M)))
+    if L.dtype != iD.dtype:
+        raise TypeError(f"pcg_dir_mult: L is {L.dtype} and iD {iD.dtype}; "
+                        "the kernel takes both f32 or both bf16 (a level's "
+                        "L16 and iD16)")
+    planes, buf = _march("pcg_dir_mult", S, r.device, 2, DIR_PLANES,
+                         members=M)
+    eps = torch.empty((M,) + S,
+                      dtype=torch.bfloat16 if bf16 else torch.float32,
+                      device=r.device)
+    z = torch.empty((M,) + S, dtype=torch.float32, device=r.device)
+    betas, sb = (_scalars_on(beta, r, "pcg_dir_mult", M)
+                 if isinstance(beta, torch.Tensor) else (None, 0))
+    launch("wl_pcg_dir_mult", L, Dd, eps_prev, r, iD, betas, eps, z,
+           buf[2 * M:], _counter(r.device), buf[:2 * M],
+           0.0 if betas is not None else float(beta), _bf16(eps_prev),
+           int(bool(bf16)), _bf16(L), planes, M, _stride(L, 4),
+           _stride(Dd, 3), _stride(eps_prev, 3), _stride(r, 3),
+           _stride(iD, 3), sb, *S)
+    _count(pcg_dir_mult, S, members, L=L, iD=iD, eps_prev=eps_prev, eps=eps)
+    dots = buf[:2 * M].view(M, 2)
+    return eps, z, dots[:, 0], dots[:, 1]
+
+
 @_counted
 def pcg_dir_mult(L, Dd, eps_prev, r, iD, beta, bf16: bool = False):
     """``(eps, z, ⟨z, eps⟩, ⟨r, r∘iD⟩)`` in one sweep: the search direction
@@ -81,29 +128,20 @@ def pcg_dir_mult(L, Dd, eps_prev, r, iD, beta, bf16: bool = False):
     ``eps_prev`` may be bf16; a new ``eps`` is written (never in place).
     ``L`` and ``iD`` may be a level's bf16 shadows L16 and iD16 (both, with
     the f32 D16), upcast where they are read.  One launch: a number
-    ``beta`` goes with it, a device scalar is read by the kernel."""
-    S = tuple(r.shape)
+    ``beta`` goes with it, a device scalar is read by the kernel.  Under
+    `vmap` alone, the member form (``beta`` one value a member or shared)."""
+    if vmap_only(L, Dd, eps_prev, r, iD, beta):
+        return _by_members("pcg_dir_mult", L, Dd, eps_prev, r, iD, beta,
+                           bool(bf16))
     if _on_cpu("pcg_dir_mult", r, L, Dd, eps_prev, iD, beta):
         return _pcg_dir_mult_plain(L, Dd, eps_prev, r, iD, beta, bf16)
-    _check("pcg_dir_mult", S, bf16=("eps_prev", "L", "iD"),
-           L=(L, (3,) + S), D=(Dd, S), eps_prev=(eps_prev, S), r=(r, S),
-           iD=(iD, S))
-    if L.dtype != iD.dtype:
-        raise TypeError(f"pcg_dir_mult: L is {L.dtype} and iD {iD.dtype}; "
-                        "the kernel takes both f32 or both bf16 (a level's "
-                        "L16 and iD16)")
-    planes, buf = _march("pcg_dir_mult", S, r.device, 2, DIR_PLANES)
-    eps = torch.empty(S, dtype=torch.bfloat16 if bf16 else torch.float32,
-                      device=r.device)
-    z = torch.empty_like(r)
-    on_device = isinstance(beta, torch.Tensor)
-    launch("wl_pcg_dir_mult", L, Dd, eps_prev, r, iD,
-           _scalar_on(beta, r, "pcg_dir_mult") if on_device else None,
-           eps, z, buf[2:], _counter(r.device), buf[:2],
-           0.0 if on_device else float(beta), _bf16(eps_prev),
-           int(bool(bf16)), _bf16(L), planes, *S)
-    _count(pcg_dir_mult, S, L=L, iD=iD, eps_prev=eps_prev, eps=eps)
-    return eps, z, buf[0], buf[1]
+    eps, z, den, rho = _pcg_dir_mult_launch(L, Dd, eps_prev, r[None], iD,
+                                            beta, bf16)
+    return eps[0], z[0], den[0], rho[0]
+
+
+_member_function("pcg_dir_mult", (4, 3, 3, 3, 3, 0), 3, _pcg_dir_mult_plain,
+                 _pcg_dir_mult_launch)
 
 
 def _axpy_rho_plain(x, r, eps, z, iD, upd):
@@ -112,36 +150,55 @@ def _axpy_rho_plain(x, r, eps, z, iD, upd):
     return x, r, _interior_sum(r * (r * iD))
 
 
-def _axpy_rho(wrapper, name, x, r, eps, z, iD, upd):
+def _axpy_rho_launch(wrapper, x, r, eps, z, iD, upd, members=False):
     """``(x + upd·eps, r − upd·z, ⟨r', r'∘iD⟩)``: the kernel shared by
     `pcg_update` and `pcg_axpy` (``csrc/pcg_axpy.cuh``), counted on
-    ``wrapper``, in one launch; ``eps`` and ``iD`` (a level's iD16) may be
-    bf16.  New x and r are written (nothing in place)."""
-    S = tuple(x.shape)
-    if _on_cpu(name, x, r, eps, z, iD, upd):
-        return _axpy_rho_plain(x, r, eps, z, iD, upd)
-    _check(name, S, bf16=("eps", "iD"), x=(x, S), r=(r, S), eps=(eps, S),
-           z=(z, S), iD=(iD, S))
-    x_out = torch.empty_like(x)
-    r_out = torch.empty_like(r)
+    ``wrapper``, in one launch, on ``x`` (``(M, *S)``) and each other
+    operand with a member axis or shared (a member stride of 0), ``upd`` a
+    number or a tensor (one value, or one a member); ``eps`` and ``iD`` (a
+    level's iD16) may be bf16.  New x and r are written (nothing in
+    place); the rho is ``(M,)``, every member's in the order of its own
+    launch."""
+    name = wrapper.__name__
+    M, S = x.shape[0], tuple(x.shape[1:])
+    _check(name, S, bf16=("eps", "iD"), x=(x, (M,) + S),
+           r=(r, _each(r, S, M)), eps=(eps, _each(eps, S, M)),
+           z=(z, _each(z, S, M)), iD=(iD, _each(iD, S, M)))
+    x_out = torch.empty((M,) + S, dtype=torch.float32, device=x.device)
+    r_out = torch.empty_like(x_out)
     # one wave of blocks striding over the cells: a block a 256 cells would
     # leave ~67k partials at 258³, and as many atomics on the one counter
-    # that elects the last block, which serialise
+    # that elects the last block, which serialise; each member with the
+    # one-field launch's grid
     blocks = min(_blocks(S), _axpy_coresident(x.device.index, _bf16(eps),
                                               _bf16(iD)))
-    # the rho, then one partial a block
-    buf = torch.empty(1 + blocks, dtype=torch.float32, device=x.device)
-    launch(f"wl_{name}", x, r, eps, z, iD, _scalar_on(upd, x, name), x_out,
-           r_out, buf[1:], _counter(x.device), buf[0], _bf16(eps), _bf16(iD),
-           blocks, *S)
-    _count(wrapper, S, eps=eps, iD=iD)
-    return x_out, r_out, buf[0]
+    # the rhos, then one partial a block of a member
+    buf = torch.empty(M * (1 + blocks), dtype=torch.float32, device=x.device)
+    upds, su = _scalars_on(upd, x, name, M)
+    launch(f"wl_{name}", x, r, eps, z, iD, upds, x_out, r_out, buf[M:],
+           _counter(x.device), buf[:M], _bf16(eps), _bf16(iD), blocks, M,
+           _stride(x, 3), _stride(r, 3), _stride(eps, 3), _stride(z, 3),
+           _stride(iD, 3), su, *S)
+    _count(wrapper, S, members, eps=eps, iD=iD)
+    return x_out, r_out, buf[:M]
+
+
+def _axpy_rho(wrapper, name, x, r, eps, z, iD, upd):
+    """`pcg_update`'s and `pcg_axpy`'s body (``wrapper``, named ``name``):
+    the member form under `vmap` alone, the plain version on the CPU, one
+    launch on CUDA."""
+    if vmap_only(x, r, eps, z, iD, upd):
+        return _by_members(name, x, r, eps, z, iD, upd)
+    if _on_cpu(name, x, r, eps, z, iD, upd):
+        return _axpy_rho_plain(x, r, eps, z, iD, upd)
+    xo, ro, rho = _axpy_rho_launch(wrapper, x[None], r, eps, z, iD, upd)
+    return xo[0], ro[0], rho[0]
 
 
 @functools.cache
 def _axpy_coresident(device_index, eps_bf16: int, iD_bf16: int) -> int:
-    """Blocks of the axpy sweep's kernel (its eps and iD types) the card
-    holds at once (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``
+    """Blocks of the axpy sweep's one-field kernel (its eps and iD types)
+    the card holds at once (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``
     times the SMs)."""
     with torch.cuda.device(device_index):
         return library().wl_axpy_coresident(eps_bf16, iD_bf16)
@@ -150,8 +207,13 @@ def _axpy_coresident(device_index, eps_bf16: int, iD_bf16: int) -> int:
 @_counted
 def pcg_update(x, r, eps, z, iD, upd):
     """The fused iteration's second sweep: ``(x + upd·eps, r − upd·z,
-    ⟨r', r'∘iD⟩)``; ``eps`` and ``iD`` may be bf16."""
+    ⟨r', r'∘iD⟩)``; ``eps`` and ``iD`` may be bf16.  Under `vmap` alone,
+    the member form (``upd`` one value a member or shared)."""
     return _axpy_rho(pcg_update, "pcg_update", x, r, eps, z, iD, upd)
+
+
+_member_function("pcg_update", (3, 3, 3, 3, 3, 0), 0, _axpy_rho_plain,
+                 functools.partial(_axpy_rho_launch, pcg_update))
 
 
 def pcg_blocked(lev, x, r, it: int = 6):
@@ -163,7 +225,12 @@ def pcg_blocked(lev, x, r, it: int = 6):
     full-grid pass.  A level with operator shadows applies L16/D16 and
     preconditions with iD16, as JAX's does.  Non-periodic, non-banded
     levels only: the in-kernel eps rebuild fills no periodic ghosts and
-    reads the dense coefficients.  Returns new ``(x, r)``."""
+    reads the dense coefficients.  Returns new ``(x, r)``.
+
+    Under `torch.func.vmap` alone (an ensemble) the two sweeps take their
+    member forms: two launches an iteration for all members, the masks,
+    α, β and upd one value a member on the device (no host read), each
+    member's ``(x, r)`` bit for bit its own smooth's."""
     if lev.perdir or lev.banded:
         raise ValueError("pcg_blocked: the fused iteration takes dense, "
                          "non-periodic levels only (got perdir="
@@ -225,27 +292,42 @@ def dot3d(a, b, mode=None):
     (``"rid"``: PCG's rho against the Jacobi-preconditioned residual,
     without writing the product; ``b`` may be a level's bf16 iD16).
     Equals `grid.field_dot` on ghost-zero operands up to the order of the
-    sum."""
+    sum.  Under `vmap` alone, the member form (each member's dot, ``b``
+    one a member or shared)."""
     if mode is None:
         mode = "aa" if b is a else "ab"
     if mode not in _DOT_MODES:
         raise ValueError(f"dot3d: mode {mode!r} is not one of "
                          f"{sorted(_DOT_MODES)}")
-    S = tuple(a.shape)
+    if vmap_only(a, b):
+        return _by_members("dot3d", a, None if mode == "aa" else b, mode)
     if _on_cpu("dot3d", a, b):
         return _dot3d_plain(a, b, mode)
-    ops = {"a": (a, S)} if mode == "aa" else {"a": (a, S), "b": (b, S)}
+    return _dot3d_launch(a[None], b, mode)[0]
+
+
+def _dot3d_launch(a, b, mode, members=False):
+    """The kernel on ``a`` (``(M, *S)``) and ``b`` (a member's each or
+    shared; None in mode ``"aa"``): each member's dot, ``(M,)``, in the
+    order of its own launch."""
+    M, S = a.shape[0], tuple(a.shape[1:])
+    ops = ({"a": (a, (M,) + S)} if mode == "aa"
+           else {"a": (a, (M,) + S), "b": (b, _each(b, S, M))})
     _check("dot3d", S, bf16=("b",) if mode == "rid" else (), **ops)
     rows = (S[0] - 2) * (S[1] - 2)
     blocks = max(1, min(DOT_BLOCKS_PER_SM * _sm_count(a.device),
                         -(-rows // DOT_ROWS_MIN)))
-    part = torch.empty(blocks, dtype=torch.float32, device=a.device)
-    out = torch.empty((), dtype=torch.float32, device=a.device)
-    launch("wl_dot3d", a, None if mode == "aa" else b, part,
-           _counter(a.device), out, _DOT_MODES[mode],
-           0 if mode == "aa" else _bf16(b), blocks, *S)
-    _count(dot3d, S, a=a, **({} if mode == "aa" else {"b": b}))
+    part = torch.empty(M * blocks, dtype=torch.float32, device=a.device)
+    out = torch.empty(M, dtype=torch.float32, device=a.device)
+    aa = mode == "aa"
+    launch("wl_dot3d", a, None if aa else b, part, _counter(a.device), out,
+           _DOT_MODES[mode], 0 if aa else _bf16(b), blocks, M,
+           _stride(a, 3), 0 if aa else _stride(b, 3), *S)
+    _count(dot3d, S, members, a=a, **({} if aa else {"b": b}))
     return out
+
+
+_member_function("dot3d", (3, 3), 0, _dot3d_plain, _dot3d_launch)
 
 
 @_counted
@@ -254,6 +336,10 @@ def pcg_axpy(x, r, eps, z, iD, upd):
     upd·eps, r − upd·z, ⟨r', r'∘iD⟩)``; ``eps`` and ``iD`` may be bf16
     (upcast), ``upd`` is the dead-masked step."""
     return _axpy_rho(pcg_axpy, "pcg_axpy", x, r, eps, z, iD, upd)
+
+
+_member_function("pcg_axpy", (3, 3, 3, 3, 3, 0), 0, _axpy_rho_plain,
+                 functools.partial(_axpy_rho_launch, pcg_axpy))
 
 
 # --- the carried-rows operator: mult3d_stream, increment3d_stream ----------
@@ -358,29 +444,58 @@ def mult3d_stream(L, Dd, x, with_dot: bool = False):
     ``L`` (a level's L16) and ``x`` may be bf16; every axis needs an
     interior.  Periodic ghosts of ``x`` must be filled by the caller.
     `stencil_kernels.mult3d` launches the same kernel; the two wrappers
-    count their launches apart, so a path shows which one it took."""
+    count their launches apart, so a path shows which one it took.  Under
+    `vmap` alone, the member form (the same launch as `mult3d`'s)."""
+    if vmap_only(L, Dd, x):
+        return _by_members("mult3d_stream", L, Dd, x, bool(with_dot))
     if _on_cpu("mult3d_stream", x, L, Dd):
         return _mult3d_plain(L, Dd, x, with_dot)
     out = _mult3d_march(mult3d_stream, L, Dd, x[None], with_dot)
     return (out[0][0], out[1][0]) if with_dot else out[0]
 
 
+_member_function("mult3d_stream", (4, 3, 3), 2, _mult3d_plain,
+                 functools.partial(_mult3d_march, mult3d_stream))
+
+
+def _increment3d_stream_launch(L, Dd, eps, x, r, members=False):
+    """The kernel on ``x`` (``(M, *S)``) and each other operand with a
+    member axis or shared (a member stride of 0): ``(x + eps, r − A·eps)``
+    with the member axis."""
+    M, S = x.shape[0], tuple(x.shape[1:])
+    _check("increment3d_stream", S, bf16=("L", "eps"),
+           L=(L, _each(L, (3,) + S, M)), D=(Dd, _each(Dd, S, M)),
+           eps=(eps, _each(eps, S, M)), x=(x, (M,) + S),
+           r=(r, _each(r, S, M)))
+    rows = _stream_rows(S, _stream_tile())
+    if M * -(-S[0] // rows) > 65535:
+        raise ValueError(f"increment3d_stream: {M} members of {S} exceed "
+                         f"the grid's 65535 chunks a launch")
+    x_out = torch.empty((M,) + S, dtype=torch.float32, device=x.device)
+    r_out = torch.empty_like(x_out)
+    launch("wl_increment3d_stream", L, Dd, eps, x, r, x_out, r_out,
+           _bf16(L), _bf16(eps), rows, M, _stride(L, 4), _stride(Dd, 3),
+           _stride(eps, 3), _stride(x, 3), _stride(r, 3), *S)
+    _count(increment3d_stream, S, members, L=L, eps=eps)
+    return x_out, r_out
+
+
 @_counted
 def increment3d_stream(L, Dd, eps, x, r):
     """(x + eps, r − A·eps), the function of `stencil_kernels.increment3d`,
     by the carried-rows kernel, which also writes x + eps from the eps it
-    reads once.  ``L`` and ``eps`` may be bf16.  Returns new tensors."""
-    S = tuple(x.shape)
+    reads once.  ``L`` and ``eps`` may be bf16.  Returns new tensors.
+    Under `vmap` alone, the member form."""
+    if vmap_only(L, Dd, eps, x, r):
+        return _by_members("increment3d_stream", L, Dd, eps, x, r)
     if _on_cpu("increment3d_stream", x, L, Dd, eps, r):
         return _increment3d_plain(L, Dd, eps, x, r)
-    _check("increment3d_stream", S, bf16=("L", "eps"), L=(L, (3,) + S),
-           D=(Dd, S), eps=(eps, S), x=(x, S), r=(r, S))
-    x_out = torch.empty_like(x)
-    r_out = torch.empty_like(r)
-    launch("wl_increment3d_stream", L, Dd, eps, x, r, x_out, r_out,
-           _bf16(L), _bf16(eps), _stream_rows(S, _stream_tile()), *S)
-    _count(increment3d_stream, S, L=L, eps=eps)
-    return x_out, r_out
+    xo, ro = _increment3d_stream_launch(L, Dd, eps, x[None], r)
+    return xo[0], ro[0]
+
+
+_member_function("increment3d_stream", (4, 3, 3, 3, 3), 3,
+                 _increment3d_plain, _increment3d_stream_launch)
 
 
 def kernel_wrappers() -> dict:

@@ -15,6 +15,8 @@ kernels of `ops.attic`, as the JAX package's ``KDOT``/``KAXPY`` and its
 `attic.pcg_blocked` dispatch do, and a fourth, ``STREAM``, their operator
 through its carried-rows kernels.  All four are off by default: they are
 seams for A/B runs (`chip_smoke.py` phase 6.4), not the default path.
+Under `torch.func.vmap` alone (an ensemble) each seam opens as the default
+path's level branches do (`_open`), to its kernels' member forms.
 ``BF16_OP`` (off, as in JAX) is the default of the bf16 operator shadows
 (`PoissonLevel.L16`, ``Simulation(op_bf16=)``).
 
@@ -194,9 +196,9 @@ def _tracked(lev: PoissonLevel, *fields) -> bool:
 
 
 def _open(lev: PoissonLevel, *fields) -> bool:
-    """True where a blocked level's `mult3d` and `increment3d` take the
-    level and ``fields``: nothing tracks them, or `vmap` alone does (their
-    member forms)."""
+    """True where a blocked level's kernels (`mult3d`, `increment3d` and
+    the seams' `ops.attic` wrappers) take the level and ``fields``:
+    nothing tracks them, or `vmap` alone does (their member forms)."""
     return sk.tracked_by(lev.L, lev.D, *_opLD(lev), *fields) <= {"vmap"}
 
 
@@ -218,9 +220,8 @@ def _ax(lev: PoissonLevel, x: torch.Tensor, with_dot: bool = False):
     """A·x of a blocked level (with ⟨A·x, x⟩ under ``with_dot``):
     `mult3d`, or under ``STREAM`` `attic.mult3d_stream` (the same kernel),
     on the level's operator (`_opLD`); their plain version where autograd
-    tracks the level or ``x``, and under `vmap` `mult3d`'s member form
-    (``STREAM``'s wrapper has none: plain)."""
-    if not _open(lev, x) or (STREAM and _tracked(lev, x)):
+    tracks the level or ``x``, and under `vmap` alone their member form."""
+    if not _open(lev, x):
         return sk._mult3d_plain(*_opLD(lev), x, with_dot)
     mult3d = at.mult3d_stream if STREAM else sk.mult3d
     return mult3d(*_opLD(lev), x, with_dot=with_dot)
@@ -379,13 +380,13 @@ def increment(lev: PoissonLevel, x, r, eps):
     r see the same rounded eps.  Blocked levels: `increment3d` (under
     ``STREAM`` `attic.increment3d_stream`) on the level's operator, their
     plain version where autograd tracks the level or an operand, and under
-    `vmap` `increment3d`'s member form (``STREAM``'s wrapper has none)."""
+    `vmap` alone their member form."""
     if lev.blocked:
         if lev.bf16_eps:
             eps = eps.to(torch.bfloat16)
         eps = bc_scalar_periodic(eps, lev.perdir)
         inc = at.increment3d_stream if STREAM else sk.increment3d
-        if not _open(lev, eps, x, r) or (STREAM and _tracked(lev, eps, x, r)):
+        if not _open(lev, eps, x, r):
             inc = sk._increment3d_plain
         return inc(*_opLD(lev), eps, x, r)
     return x + eps, r - mult(lev, eps)
@@ -426,8 +427,9 @@ def jacobi(lev: PoissonLevel, x, r, it: int = 1):
 
 def fdot(lev: PoissonLevel, a, b) -> torch.Tensor:
     """Solver dot product (ghost-zero operands): the `attic.dot3d` kernel
-    on blocked levels under ``KDOT``, `grid.field_dot` otherwise."""
-    if KDOT and lev.blocked and not _tracked(lev, a, b):
+    on blocked levels under ``KDOT`` (its member form under `vmap` alone),
+    `grid.field_dot` otherwise and where autograd tracks an operand."""
+    if KDOT and lev.blocked and _open(lev, a, b):
         return at.dot3d(a, b)
     return field_dot(a, b)
 
@@ -435,8 +437,8 @@ def fdot(lev: PoissonLevel, a, b) -> torch.Tensor:
 def _rho_rid(lev: PoissonLevel, r, z) -> torch.Tensor:
     """⟨r, r∘iD⟩ for PCG's rho given ``z = r∘iD``; under ``KDOT`` on a
     blocked level the kernel re-reads r and iD (iD16 where the level has
-    it) instead of taking z."""
-    if KDOT and lev.blocked and not _tracked(lev, r):
+    it) instead of taking z (its member form under `vmap` alone)."""
+    if KDOT and lev.blocked and _open(lev, r, _iDk(lev)):
         return at.dot3d(r, _iDk(lev), mode="rid")
     return field_dot(r, z)
 
@@ -448,7 +450,8 @@ def pcg(lev: PoissonLevel, x, r, it: int = 6):
     level rounds each new direction to bf16 and upcasts it wherever it
     meets an f32 scalar (JAX's promotion); a shadowed level applies L16/D16
     and preconditions with iD16; ``KAXPY`` and ``KDOT`` route a blocked
-    level's axpy pair and dots through `ops.attic`."""
+    level's axpy pair and dots through `ops.attic` (their member forms
+    under `vmap` alone)."""
     dt = x.dtype
     teneps = 10 * torch.finfo(dt).eps
     z = _rid(lev, r)
@@ -469,8 +472,8 @@ def pcg(lev: PoissonLevel, x, r, it: int = 6):
         dead = dead | (torch.abs(alpha) < 1e-2) | (torch.abs(alpha) > 1e2)
         upd = torch.where(dead, 0.0, alpha).to(dt)
         last = i == it - 1
-        if KAXPY and lev.blocked and not last and not _tracked(
-                lev, x, r, eps, z, upd):
+        if KAXPY and lev.blocked and not last and _open(
+                lev, x, r, eps, z, upd, _iDk(lev)):
             x, r, rho2 = at.pcg_axpy(x, r, eps, z, _iDk(lev), upd)
             z2 = _rid(lev, r)
         else:
@@ -499,15 +502,15 @@ def smooth(lev: PoissonLevel, x, r, it: int = 6):
     ``x`` or ``r``.  Under `torch.func.vmap` alone (an ensemble,
     `stencil_kernels.vmap_only`) the small CUDA levels still take
     `pcg_kernel.pcg_fused`, whose `vmap` rule smooths the members in one
-    launch a chunk of them; `attic.pcg_blocked` has no member axis."""
+    launch a chunk of them, and under ``PCG_BLOCKED`` the blocked levels
+    `attic.pcg_blocked`, whose two sweeps take their member forms."""
     if (lev.L16 is None
             and pk.use_pcg_fused(tuple(x.shape), x.dtype, x.device)
             and (not _tracked(lev, x, r)
                  or sk.vmap_only(lev.L, lev.D, lev.iD, x, r))):
         return pk.pcg_fused(lev, x, r, it)
-    if _tracked(lev, x, r):
-        return pcg(lev, x, r, it)
-    if PCG_BLOCKED and lev.blocked and not lev.perdir and not lev.banded:
+    if (PCG_BLOCKED and lev.blocked and not lev.perdir and not lev.banded
+            and _open(lev, x, r, _iDk(lev))):
         return at.pcg_blocked(lev, x, r, it)
     return pcg(lev, x, r, it)
 

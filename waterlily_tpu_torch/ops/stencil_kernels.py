@@ -45,21 +45,25 @@ which count kernel launches only.
 
 A field under `torch.func.vmap` (an ensemble's member axis) counts as
 tracked too (`ad_tracked`, `kernel_ok`), but one that `vmap` alone
-batches (`vmap_only`) has member forms: eight wrappers (`mult3d`,
-`increment3d`, `cfl3d`, `bc3d`, `div3d`, `project3d`, `conv_diff3d`,
-whole grid, and `ana_mult3d`) take it through an `autograd.Function`
-whose `vmap` rule folds every `vmap` level into one member axis and
-launches the kernel once for all members (`member_form`; a member's
-work, its sums included, is that of its own launch, bit for bit;
-``"members"`` in ``.forms``), and
-their gates (`members_ok`, and `ops.poisson`'s level branches) send such
-a field there; the PCG smooth's caller (`ops.poisson.smooth`) sends it to
-`pcg_kernel.pcg_fused`, whose `vmap` rule launches once for a chunk of
-members.  `ana_mult3d` has a member form too: a batched banded level's
-far-field operator, each member its own window fix-up around it
-(`ops.poisson._banded_ax`).  Inside `plain_forms` every field counts as
-tracked: the primal loop of an adaptive solve that `torch.func.jvp`
-differentiates under `vmap` runs there (`ops.poisson._Loop`).
+batches (`vmap_only`) has member forms: every wrapper of a solver path
+but `pcg_fused` (the eight here, `mult3d`, `increment3d`, `cfl3d`,
+`bc3d`, `div3d`, `project3d`, `conv_diff3d`, whole grid, and
+`ana_mult3d`, and the six of `ops.attic`, `dot3d`, `pcg_axpy`,
+`pcg_dir_mult`, `pcg_update`, `mult3d_stream`, `increment3d_stream`)
+takes it through an `autograd.Function` whose `vmap` rule folds every
+`vmap` level into one member axis and launches the kernel once for all
+members (`member_form`; a member's work, its sums included, is that of
+its own launch, bit for bit; ``"members"`` in ``.forms``), and their
+gates (`members_ok`, and `ops.poisson`'s level branches and seams) send
+such a field there; the PCG smooth's caller (`ops.poisson.smooth`) sends
+it to `pcg_kernel.pcg_fused`, whose `vmap` rule launches once for a
+chunk of members, or under ``PCG_BLOCKED`` to `ops.attic.pcg_blocked`,
+two member-form launches an iteration.  `ana_mult3d`'s member form is a
+batched banded level's far-field operator, each member its own window
+fix-up around it (`ops.poisson._banded_ax`).  Inside `plain_forms` every
+field counts as tracked: the primal loop of an adaptive solve that
+`torch.func.jvp` differentiates under `vmap` runs there
+(`ops.poisson._Loop`).
 """
 from __future__ import annotations
 
@@ -321,8 +325,9 @@ def _count(fn, S, members: bool = False, form=None, **streams) -> None:
 # --- member forms: an ensemble under torch.func.vmap ------------------------
 #
 # Each of the eight stencil wrappers below (`mult3d`, `increment3d`,
-# `ana_mult3d`, `cfl3d`, `bc3d`, `div3d`, `project3d`, `conv_diff3d`) has a
-# member form:
+# `ana_mult3d`, `cfl3d`, `bc3d`, `div3d`, `project3d`, `conv_diff3d`), and
+# each of `ops.attic`'s six (`dot3d`, `pcg_axpy`, `pcg_dir_mult`,
+# `pcg_update`, `mult3d_stream`, `increment3d_stream`), has a member form:
 # its kernel over M members in one launch, whatever M (a grid axis runs
 # over the members; each member's work, sums included, is a one-member
 # launch's, bit for bit).  A wrapper handed operands that `vmap` batches
@@ -375,8 +380,9 @@ def member_form(name: str, *args):
 
 def _member_function(name, ranks, main, plain, launch_fn, inplace=None):
     """Register wrapper ``name``'s member form: ``ranks`` the one-field
-    ranks of its operands (a scalar may be a number, the BC values numbers:
-    passed as they are), ``main`` the index of
+    ranks of its operands (a scalar may be a number, the BC values numbers,
+    an operand a wrapper does not read None: passed as they are), ``main``
+    the index of
     the one the wrapper gives a member axis, ``plain`` its plain version
     and ``launch_fn`` its kernel launch (both on the operands, then the
     wrapper's other arguments; the launch with ``members=True`` on operands
