@@ -88,3 +88,14 @@ def test_retried_session_is_per_call(fake_card):
     assert ops == pytest.approx({"k": 0.1, "fill": 0.01})
     assert ms == pytest.approx(0.11)
     assert perf.EVENT_FALLBACKS == []
+
+
+def test_span_ranges_are_no_operations(fake_card):
+    """A span's range on the card's timeline (a user annotation) adds no
+    device time: only the operations count."""
+    span = types.SimpleNamespace(key="wl.solve", count=1,
+                                 self_device_time_total=900.0,
+                                 is_user_annotation=True)
+    fake_card(lambda n: [span, _op("mult", 2, 400.0)])
+    ms, ops = perf.device_profile(lambda: None, 2)
+    assert ops == {"mult": 0.2} and ms == 0.2

@@ -22,6 +22,7 @@ from .grid import (loc_grid, interior, mask_interior, pad_interior,
                    band_box_start, window, put_window)
 from .ops.bc import bc_vector
 from .ops.stencil_kernels import vmapped
+from .utils.perf import host_read, span
 
 __all__ = ["AbstractBody", "AutoBody", "Bodies", "NoBody", "sdf", "measure",
            "measure_fields", "measure_fields_banded", "measure_sdf",
@@ -321,9 +322,12 @@ def measure_fields(body, S, t=0.0, eps=1.0, perdir=(), exitBC=False,
         return V, m0, m1, torch.zeros(S, dtype=dtype, device=device)
 
     t_ = torch.as_tensor(t, dtype=dtype, device=device)
-    d_center = _d_center(body, S, t_, dtype, device)
-    V, m0, m1 = _face_fields(body, lambda i: loc_grid(S, i, dtype, device),
-                             tuple(S), d_center, t_, eps, dtype)
+    with span("wl.body.sdf"):
+        d_center = _d_center(body, S, t_, dtype, device)
+    with span("wl.body.faces"):
+        V, m0, m1 = _face_fields(
+            body, lambda i: loc_grid(S, i, dtype, device), tuple(S),
+            d_center, t_, eps, dtype)
     # interior cells only: μ₁ ghosts stay zero, V ghosts are zero before the
     # BC fill (so an exitBC outlet plane stays 0)
     m1_in = pad_interior(m1[interior(D, lead=2)], lead=2)
@@ -366,14 +370,17 @@ def measure_fields_banded(body, S, t, eps, perdir, exitBC, dtype, box_shape,
     `grid.window`/`put_window`), as JAX's traced corner does."""
     D = len(S)
     t_ = torch.as_tensor(t, dtype=dtype, device=device)
-    d_center = _d_center(body, S, t_, dtype, device)
-    start = band_box_start(d_center < (2.0 + eps), box_shape)
-    if not vmapped(start):
-        start = tuple(start.tolist())
+    with span("wl.body.sdf"):
+        d_center = _d_center(body, S, t_, dtype, device)
+        start = band_box_start(d_center < (2.0 + eps), box_shape)
+        if not vmapped(start):
+            with host_read("band_start"):
+                start = tuple(start.tolist())
     W = tuple(box_shape)
-    Vw, m0w, m1w = _face_fields(
-        body, lambda i: _loc_window(W, start, i, dtype, device), W,
-        window(d_center, start, W), t_, eps, dtype)
+    with span("wl.body.faces"):
+        Vw, m0w, m1w = _face_fields(
+            body, lambda i: _loc_window(W, start, i, dtype, device), W,
+            window(d_center, start, W), t_, eps, dtype)
     m0 = put_window(torch.ones((D,) + S, dtype=dtype, device=device), start,
                     W, m0w, 1)
     V = put_window(torch.zeros((D,) + S, dtype=dtype, device=device), start,
@@ -398,7 +405,9 @@ def band_box_shape(body, S, t=0.0, eps=1.0, dtype=torch.float32, margin=3,
         return None
     D = len(S)
     t_ = torch.as_tensor(t, dtype=dtype, device=device)
-    mask = (_d_center(body, S, t_, dtype, device) < (2.0 + eps)).cpu().numpy()
+    mask = _d_center(body, S, t_, dtype, device) < (2.0 + eps)
+    with host_read("band_shape"):
+        mask = mask.cpu().numpy()
     if not mask.any():
         return None
     shape = []

@@ -39,6 +39,7 @@ from .ops.poisson import pressure_grad_interior
 from .ops import stencil_kernels as sk
 from .parallel import shard_step
 from .parallel.shard_smooth import can_shardmap
+from .utils.perf import span, spanned
 
 __all__ = ["FlowState", "FlowConfig", "bc_tuple", "div", "bdim",
            "bdim_banded", "project", "cfl", "cfl_flux_max", "mom_step",
@@ -165,6 +166,7 @@ def bdim_banded(cfg: FlowConfig, bbox, u, u0, r, V, mu0, mu1, dt,
     return put_window(torch.where(imask, upd_far, u), bbox, W, w_val, 1)
 
 
+@spanned("wl.flow.project")
 def project(levels, u, p, dt_eff, cfg: FlowConfig):
     """Pressure projection (reference `project!`): the Poisson unknown is
     the dt-scaled pressure, warm-started from the last step; the velocity
@@ -208,6 +210,7 @@ def cfl_flux_max(u: torch.Tensor) -> torch.Tensor:
     return torch.max(s)
 
 
+@spanned("wl.flow.cfl")
 def cfl(u, nu, dt_max=10.0):
     """Adaptive time step (reference `CFL`/`flux_out`) as a 0-d tensor; a
     ``u`` that autograd tracks takes `cfl_flux_max` (the max's
@@ -220,6 +223,7 @@ def cfl(u, nu, dt_max=10.0):
     return torch.clamp_max(1.0 / (mx + 5 * nu), dt_max)
 
 
+@spanned("wl.flow.mom_step")
 def mom_step(cfg: FlowConfig, levels, state: FlowState):
     """One predictor/corrector time step (reference `mom_step!`).
 
@@ -240,6 +244,7 @@ def mom_step(cfg: FlowConfig, levels, state: FlowState):
     imask = interior_mask(cfg.S, cfg.device)
     banded = cfg.bbox_shape is not None
 
+    @spanned("wl.flow.bc")
     def bc(u):
         # in place on a field the step has just made, where autograd does
         # not track it; under vmap alone where the BC values are every
@@ -264,17 +269,20 @@ def mom_step(cfg: FlowConfig, levels, state: FlowState):
     if shard_cb:
         u = conv_bdim(u0, t, None)
     else:
-        r = conv_diff(u0, cfg.nu, cfg.perdir, cfg.limiter)
+        with span("wl.flow.conv_diff"):
+            r = conv_diff(u0, cfg.nu, cfg.perdir, cfg.limiter)
         r = accelerate(r, t, cfg.g, cfg.U, dtype)
-        if banded:
-            u = bdim_banded(cfg, state.bbox, None, u0, r, state.V,
-                            state.mu0, state.mu1, dt)
-        else:
-            u = torch.where(imask, 0.0, u0)             # scale_u!(a, 0)
-            u = bdim(u, u0, r, state.V, state.mu0, state.mu1, dt)
+        with span("wl.flow.bdim"):
+            if banded:
+                u = bdim_banded(cfg, state.bbox, None, u0, r, state.V,
+                                state.mu0, state.mu1, dt)
+            else:
+                u = torch.where(imask, 0.0, u0)         # scale_u!(a, 0)
+                u = bdim(u, u0, r, state.V, state.mu0, state.mu1, dt)
     u = bc(u)
     if cfg.exitBC:
-        u = exit_bc(u, u0, U, dt)
+        with span("wl.flow.bc"):
+            u = exit_bc(u, u0, U, dt)
     u, p, (n1, tr1) = project(levels, u, p, dt, cfg)
     u = bc(u)
 
@@ -282,14 +290,16 @@ def mom_step(cfg: FlowConfig, levels, state: FlowState):
     if shard_cb:
         u = conv_bdim(u, t + dt, 0.5)
     else:
-        r = conv_diff(u, cfg.nu, cfg.perdir, cfg.limiter)
+        with span("wl.flow.conv_diff"):
+            r = conv_diff(u, cfg.nu, cfg.perdir, cfg.limiter)
         r = accelerate(r, t + dt, cfg.g, cfg.U, dtype)
-        if banded:
-            u = bdim_banded(cfg, state.bbox, u, u0, r, state.V, state.mu0,
-                            state.mu1, dt, scale=0.5)
-        else:
-            u = bdim(u, u0, r, state.V, state.mu0, state.mu1, dt)
-            u = torch.where(imask, 0.5 * u, u)          # scale_u!(a, 0.5)
+        with span("wl.flow.bdim"):
+            if banded:
+                u = bdim_banded(cfg, state.bbox, u, u0, r, state.V,
+                                state.mu0, state.mu1, dt, scale=0.5)
+            else:
+                u = bdim(u, u0, r, state.V, state.mu0, state.mu1, dt)
+                u = torch.where(imask, 0.5 * u, u)      # scale_u!(a, 0.5)
     u = bc(u)
     u, p, (n2, tr2) = project(levels, u, p, 0.5 * dt, cfg)
     u = bc(u)

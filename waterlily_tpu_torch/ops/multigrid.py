@@ -15,6 +15,7 @@ import math
 import torch
 
 from ..grid import interior_view, pad_interior, field_dot
+from ..utils.perf import host_read, span, spanned
 from .bc import bc_vector, bc_scalar_periodic
 from .poisson import (make_level, residual, jacobi, smooth, increment, fdot,
                       _mult_interior_arrays, level_tensors, with_level_tensors,
@@ -25,6 +26,8 @@ __all__ = ["n_levels", "coarse_shape", "restrict", "restrict_L", "prolongate",
            "ml_solve_implicit"]
 
 MAX_LEVELS = 10
+# the span of each level's V-cycle, by the level's index in the stack
+_LEVEL_SPANS = tuple(f"wl.mg.l{k}" for k in range(MAX_LEVELS + 1))
 
 
 def _divisible(s: int) -> bool:
@@ -168,15 +171,22 @@ def update_levels(levels: tuple, mu0: torch.Tensor, box_start=None) -> tuple:
 def vcycle(levels: tuple, l: int, x, r):
     """One V-cycle from level ``l``: Jacobi pre-smooth, restrict the
     residual, recurse, PCG-smooth the coarse level, prolongate, increment."""
-    fine, coarse = levels[l], levels[l + 1]
-    x, r = jacobi(fine, x, r)
-    rc = restrict(r)
-    xc = torch.zeros_like(coarse.D)
-    if l + 1 < len(levels) - 1:
-        xc, rc = vcycle(levels, l + 1, xc, rc)
-    xc, rc = smooth(coarse, xc, rc)
-    eps = prolongate(xc)
-    return increment(fine, x, r, eps)
+    with span(_LEVEL_SPANS[l]):
+        fine, coarse = levels[l], levels[l + 1]
+        x, r = jacobi(fine, x, r)
+        rc = restrict(r)
+        xc = torch.zeros_like(coarse.D)
+        if l + 1 < len(levels) - 1:
+            xc, rc = vcycle(levels, l + 1, xc, rc)
+        xc, rc = smooth(coarse, xc, rc)
+        eps = prolongate(xc)
+        return increment(fine, x, r, eps)
+
+
+@spanned("wl.solve.smooth")
+def _smooth_fine(levels: tuple, x, r):
+    """The fine level's PCG smooth that ends each outer iteration."""
+    return smooth(levels[0], x, r)
 
 
 def _log_row(r, dtype):
@@ -184,6 +194,7 @@ def _log_row(r, dtype):
     return torch.stack([torch.max(torch.abs(r)), field_dot(r, r)]).to(dtype)
 
 
+@spanned("wl.solve")
 def ml_solve(levels: tuple, x, z, tol=1e-4, itmx=32, fixed=None,
              trace=False):
     """Multigrid pressure solve (reference ``solver!``): V-cycle plus
@@ -207,7 +218,8 @@ def ml_solve(levels: tuple, x, z, tol=1e-4, itmx=32, fixed=None,
     JAX's reverse mode of a ``while_loop`` does (use ``fixed`` or
     `ml_solve_implicit`)."""
     fine = levels[0]
-    r = residual(fine, x, z)
+    with span("wl.solve.residual"):
+        r = residual(fine, x, z)
     rows = [_log_row(r, x.dtype)] if trace else None
 
     def finish(x, r, n):
@@ -223,26 +235,29 @@ def ml_solve(levels: tuple, x, z, tol=1e-4, itmx=32, fixed=None,
     if fixed is not None:
         for k in range(fixed):
             x, r = vcycle(levels, 0, x, r)
-            x, r = smooth(fine, x, r)
+            x, r = _smooth_fine(levels, x, r)
             if trace:
                 rows.append(_log_row(r, x.dtype))
         return finish(x, r, int(fixed))
     r2 = fdot(fine, r, r)
     if vmap_loop(levels, x, z):
         out = members_solve(
-            levels, lambda lv, x, r: smooth(lv[0], *vcycle(lv, 0, x, r)),
+            levels, lambda lv, x, r: _smooth_fine(lv, *vcycle(lv, 0, x, r)),
             x, r, r2, tol, itmx,
             (lambda x, r: _log_row(r, x.dtype)) if trace else None)
         return (bc_scalar_periodic(out[0], fine.perdir),) + tuple(out[1:])
     n, go = 0, True
     while go:
         x, r = vcycle(levels, 0, x, r)
-        x, r = smooth(fine, x, r)
+        x, r = _smooth_fine(levels, x, r)
         r2p, r2 = r2, fdot(fine, r, r)
         if trace:
             rows.append(_log_row(r, x.dtype))
         n += 1
-        go = n < itmx and bool((r2 >= tol) & ~(r2 > 2.0 * r2p))
+        go = n < itmx
+        if go:
+            with host_read("solve_check"):
+                go = bool((r2 >= tol) & ~(r2 > 2.0 * r2p))
     return finish(x, r, n)
 
 

@@ -39,6 +39,7 @@ from .bc import bc_scalar_periodic
 from . import stencil_kernels as sk
 from . import pcg_kernel as pk
 from . import attic as at
+from ..utils.perf import host_read
 
 __all__ = ["PoissonLevel", "make_level", "mult", "residual", "increment",
            "pressure_grad_interior", "jacobi", "fdot", "pcg", "smooth",
@@ -609,7 +610,9 @@ def adaptive_members(step, carry: tuple, r2, tol, itmx: int, rows=None,
         n = n + active
         active = active & (n < counts if counts is not None
                            else _go_on(n, itmx, r2, r2p, tol))
-        if not bool(active.any()):
+        with host_read("members"):
+            going = bool(active.any())
+        if not going:
             break
     return (carry, n) if rows is None else (carry, n, tr)
 
@@ -808,6 +811,9 @@ def poisson_solve(lev: PoissonLevel, x, z, tol=1e-4, itmx=1000,
         x, r = smoother(lev, x, r)
         r2p, r2 = r2, fdot(lev, r, r)
         n += 1
-        go = n < itmx and bool((r2 >= tol) & ~(r2 > 2.0 * r2p))
+        go = n < itmx
+        if go:
+            with host_read("solve_check"):
+                go = bool((r2 >= tol) & ~(r2 > 2.0 * r2p))
     x = bc_scalar_periodic(x, lev.perdir)
     return x, r, n

@@ -22,6 +22,7 @@ from .flow import FlowConfig, flow_init, mom_step
 from .grid import put_window
 from .ops.convect import quick
 from .ops.multigrid import build_levels
+from .utils.perf import STEP_SPAN, host_read, span, spanned
 
 __all__ = ["Simulation", "sim_time", "BANDED_MIN_CELLS"]
 
@@ -275,7 +276,8 @@ class Simulation:
             return True
         outside = d_center < (2.0 + self.epsilon)
         put_window(outside, bb, self._measure_box, False)
-        return not bool(outside.any())
+        with host_read("band_check"):
+            return not bool(outside.any())
 
     _BAND_ERR = ("body band outgrew its static window: the d<2+eps region "
                  "is no longer covered by cfg.bbox_shape (sized at t=0). "
@@ -284,6 +286,7 @@ class Simulation:
                  "the band escaped ran on truncated physics — the current "
                  "state is NOT trustworthy; restart from a checkpoint.")
 
+    @spanned("wl.body.measure")
     def measure(self, t=None):
         """Re-measure the body and rebuild the Poisson levels (reference
         `measure!(sim)`), at ``t`` (default: the time of the next step).
@@ -296,9 +299,10 @@ class Simulation:
         V, m0, m1, dc, bb = self._measure_all(t)
         if not self._band_covered(dc, bb):
             raise RuntimeError(self._BAND_ERR)
-        levels = build_levels(m0, self.cfg.perdir, self._lv_box, bb,
-                              bf16_eps=self._smoother_bf16,
-                              op_bf16=self._op_bf16)
+        with span("wl.body.levels"):
+            levels = build_levels(m0, self.cfg.perdir, self._lv_box, bb,
+                                  bf16_eps=self._smoother_bf16,
+                                  op_bf16=self._op_bf16)
         if self.mesh is not None:
             from .parallel.shard_step import can_shard_step, local_levels
             self._sharded = can_shard_step(self.cfg, self.mesh, levels)
@@ -326,12 +330,15 @@ class Simulation:
         self.pois_n.append(aux["pois_n"])
         return aux
 
+    @spanned(STEP_SPAN)
     def step(self, remeasure=True):
         """Advance one time step (reference `sim_step!(sim)`)."""
         aux = self._advance(remeasure)
-        self.dts.append(float(aux["dt"]))
+        with host_read("dt"):
+            self.dts.append(float(aux["dt"]))
         if self.cfg.log:
-            self.res_log.append(aux["res_trace"].detach().cpu().numpy())
+            with host_read("log"):
+                self.res_log.append(aux["res_trace"].detach().cpu().numpy())
         return self
 
     def sim_step(self, t_end=None, remeasure=True, max_steps=None,
@@ -351,13 +358,24 @@ class Simulation:
         """Advance ``n`` steps, reading the dt history (and, under ``log``,
         the residual traces) back once at the end (the solver's
         convergence checks still sync once per outer iteration)."""
-        auxs = [self._advance(remeasure) for _ in range(int(n))]
-        if auxs:
+        n = int(n)
+        auxs = []
+        for k in range(n):
+            with span(STEP_SPAN):
+                auxs.append(self._advance(remeasure))
+                if k == n - 1:
+                    self._read_back(auxs)
+        return self
+
+    def _read_back(self, auxs):
+        """Append the dts (and, under ``log``, the residual traces) of the
+        steps ``auxs`` to the histories, read back at once."""
+        with host_read("dt"):
             self.dts.extend(torch.stack([a["dt"] for a in auxs]).tolist())
-            if self.cfg.log:
+        if self.cfg.log:
+            with host_read("log"):
                 self.res_log.extend(torch.stack(
                     [a["res_trace"] for a in auxs]).detach().cpu().numpy())
-        return self
 
     def run_until(self, t_end, chunk=50, remeasure=True):
         """Integrate to dimensionless time ``t_end`` in `steps` chunks; the

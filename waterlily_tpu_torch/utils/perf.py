@@ -1,19 +1,24 @@
 """Performance accounting: MLUPS, CUDA-event step timing, device busy
-time from `torch.profiler`, the card's idle share over a window of steps
-and a profiler trace of a block (`trace_profile`)."""
+time from `torch.profiler`, the card's idle share over a window of steps,
+a profiler trace of a block (`trace_profile`) and the program's own spans
+(`span`, `host_read`, read back by `span_totals`)."""
 from __future__ import annotations
 
+import collections
 import contextlib
+import functools
 import math
 import os
 import sys
 import tempfile
+import threading
 import time
 
 import torch
 
 __all__ = ["mlups", "time_steps", "device_profile", "idle_share",
-           "trace_profile"]
+           "trace_profile", "span", "spanned", "host_read", "span_records",
+           "span_totals", "STEP_SPAN", "SPAN_STEPS"]
 
 # Profiler sessions per measurement: a short session run right after
 # others now and then records no device activity on the H100, so an
@@ -105,6 +110,8 @@ def device_profile(fn, n=1, events=False):
             torch.cuda.synchronize()
         by_name = {}
         for e in prof.key_averages():
+            if getattr(e, "is_user_annotation", False):
+                continue        # a span's range on the card, no operation
             us = getattr(e, "self_device_time_total", None)
             if us is None:
                 us = e.self_cuda_time_total
@@ -188,3 +195,160 @@ def trace_profile(logdir=None):
         if cuda:
             torch.cuda.synchronize()
     prof.export_chrome_trace(os.path.join(logdir, "trace.json"))
+
+
+# --- spans ----------------------------------------------------------------
+#
+# The step, the pressure solve and the body measurement open named spans
+# (`span`) and wrap each blocking device-to-host read in one (`host_read`).
+# A span is live only while a `torch.profiler` session is: then it is a
+# `record_function` range (on the profiler's trace, which keeps CPU events
+# on the Unix clock of `time.time_ns`), a record in memory with its host
+# interval on that clock and, where CUDA is initialised, a pair of timing
+# events on the current stream.  Records are kept by step: a `STEP_SPAN`
+# root opens the next step, and only spans inside a root on their thread
+# are kept; one opened outside any root is the profiler's range alone.
+# With no session `span` returns one shared no-op context, and a function
+# under `spanned` is called straight through.
+
+STEP_SPAN = "wl.sim.step"
+# steps whose records are kept (the oldest dropped first)
+SPAN_STEPS = 256
+_profiling = torch.autograd._profiler_enabled
+
+
+class _SpanLog:
+    """The records by step, the index of the last step opened, and each
+    thread's open spans."""
+
+    def __init__(self):
+        self.steps = collections.deque(maxlen=SPAN_STEPS)
+        self.index = 0
+        self.local = threading.local()
+
+    def open_spans(self) -> list:
+        try:
+            return self.local.open
+        except AttributeError:
+            self.local.open = []
+            return self.local.open
+
+
+_LOG = _SpanLog()
+
+
+class SpanRecord:
+    """One live span: ``name``, the enclosing ``parent`` record (None at a
+    root), the ``step`` it belongs to, host ``t0_ns``/``t1_ns``
+    (`time.time_ns` just before the profiler's range opens and just after
+    it closes; ``t1_ns`` None while open) and ``events``, the CUDA timing
+    events at entry and exit (None where CUDA is not initialised)."""
+
+    __slots__ = ("name", "parent", "step", "t0_ns", "t1_ns", "events",
+                 "_range")
+
+    def __init__(self, name):
+        self.name = name
+
+    def __enter__(self):
+        stack = _LOG.open_spans()
+        self.parent = stack[-1] if stack else None
+        if self.name == STEP_SPAN:
+            _LOG.steps.append([])
+            _LOG.index += 1
+        self.step = _LOG.index
+        _LOG.steps[-1].append(self)
+        stack.append(self)
+        self.t1_ns = None
+        self.t0_ns = time.time_ns()
+        self._range = torch.profiler.record_function(self.name)
+        self._range.__enter__()
+        self.events = None
+        if torch.cuda.is_initialized():
+            self.events = (torch.cuda.Event(enable_timing=True),
+                           torch.cuda.Event(enable_timing=True))
+            self.events[0].record()
+        return self
+
+    def __exit__(self, *exc):
+        if self.events is not None:
+            self.events[1].record()
+        self._range.__exit__(*exc)
+        self._range = None
+        self.t1_ns = time.time_ns()
+        _LOG.open_spans().pop()
+        return False
+
+
+class _Off:
+    __slots__ = ()
+
+    def __enter__(self):
+        return None
+
+    def __exit__(self, *exc):
+        return False
+
+
+_OFF = _Off()
+
+
+def span(name: str):
+    """A context naming a part of the program: a no-op unless a
+    `torch.profiler` session is live, then a `SpanRecord` (a `STEP_SPAN`
+    root, or a span inside one) or the profiler's range alone."""
+    if not _profiling():
+        return _OFF
+    if name != STEP_SPAN and not _LOG.open_spans():
+        return torch.profiler.record_function(name)
+    return SpanRecord(name)
+
+
+def spanned(name: str):
+    """`span` as a decorator: each call of the function is the span."""
+    def wrap(fn):
+        @functools.wraps(fn)
+        def spanned_fn(*args, **kwargs):
+            if not _profiling():
+                return fn(*args, **kwargs)
+            with span(name):
+                return fn(*args, **kwargs)
+        return spanned_fn
+    return wrap
+
+
+def host_read(site: str):
+    """The span ``wl.read.<site>``, around one blocking device-to-host
+    read."""
+    if not _profiling():
+        return _OFF
+    return span("wl.read." + site)
+
+
+def span_records(steps: int) -> list:
+    """The records of the last ``steps`` steps (`STEP_SPAN` roots) kept,
+    in the order the spans opened."""
+    kept = list(_LOG.steps)
+    return [r for s in kept[len(kept) - min(steps, len(kept)):] for r in s]
+
+
+def span_totals(steps: int) -> dict:
+    """``{name: {"calls", "host_ms", "stream_ms"}}`` over the closed spans
+    of the last ``steps`` steps recorded: their count, host milliseconds
+    and CUDA-event milliseconds from entry to exit on the stream, summed
+    (it synchronises first; None where a span of the name has no
+    events)."""
+    recs = [r for r in span_records(steps) if r.t1_ns is not None]
+    if any(r.events is not None for r in recs):
+        torch.cuda.synchronize()
+    out = {}
+    for r in recs:
+        t = out.setdefault(r.name, {"calls": 0, "host_ms": 0.0,
+                                    "stream_ms": 0.0})
+        t["calls"] += 1
+        t["host_ms"] += (r.t1_ns - r.t0_ns) / 1e6
+        if r.events is None or t["stream_ms"] is None:
+            t["stream_ms"] = None
+        else:
+            t["stream_ms"] += r.events[0].elapsed_time(r.events[1])
+    return out
