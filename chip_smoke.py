@@ -42,14 +42,15 @@ Phases, each of which raises (and so exits non-zero) on failure:
    (98,66,66) with 1, 3 and 8 members and at (50,34,34) with 3 and 8;
    and the member forms of the blocked-level PCG seams' six wrappers
    (``dot3d`` aa, ab, rid and rid on iD16; ``pcg_axpy`` and
-   ``pcg_update`` f32, bf16 eps and iD16; ``pcg_dir_mult`` with β and at
-   β = 0, f32, bf16 directions and the shadows; ``mult3d_stream`` as
+   ``pcg_update`` f32, bf16 eps and iD16; ``pcg_dir_mult`` with β from
+   its words and at the seed (no words, β = 0), f32, bf16 directions and
+   the shadows; ``mult3d_stream`` as
    ``mult3d``; ``increment3d_stream`` f32 and L16) and the composite
    ``pcg_blocked`` under ``vmap`` (against ``vmap`` of the per-pass
    ``pcg``, 1e-5 absolute, member 1's residual zero, 12 launches a
    smooth) the same way as the seven, at (98,66,66) with 3 and 8 members
-   and at (37,29,35) with 3, the operator and scalars (β, upd) shared and
-   one a member;
+   and at (37,29,35) with 3, the operator, the sweeps' words and
+   ``pcg_axpy``'s upd shared and one a member;
 4. the dense slice: ``sphere_3d(96, 64)`` constructed and stepped 20 times
    on the card with every kernel launch-counted (every ``bc3d`` launch in
    place), then 3 steps from the same initial state on the CPU (plain
@@ -81,20 +82,28 @@ Phases, each of which raises (and so exits non-zero) on failure:
    ``metrics.total_force`` on the card against the CPU (1e-4 relative);
 6.4 the blocked-level PCG paths (the `ops.attic` kernels, bf16 search
    directions and bf16 operator shadows): ``sphere_3d(256, 256)`` from one
-   initial state, 3 steps in each of (a) the default, (b) ``poisson.KDOT =
-   KAXPY = True``, (c) ``poisson.PCG_BLOCKED = True``, (d)
-   ``smoother_bf16=True``, (e) (d) with (c), (f) ``op_bf16=True``, (g)
-   ``poisson.STREAM = True`` (the carried-rows operator), (h) (f) with (g)
-   and (i) (f) with (c), each against (a): finite u, p, dt; pois_n within
-   the ±2/≤4 rule and max|du| < 1e-3 for (b), (c), (g), < 1e-2 for (d),
-   (e); for the rounded operator (f), (h), (i) pois_n within ±2 per solve
-   (the total |Δpois_n| logged) and max|du| < 1e-2; every blocked level
-   carries the configuration's direction type and shadows, the kernels
-   launched in the configuration's forms (bf16 L exactly where shadowed)
-   and (g), (h) launched neither ``mult3d`` nor ``increment3d``; then
-   ``sphere_3d(96, 64)`` in (b), (c), (d), (f) and (g) against the CPU
-   from one state, as in 4 ((f)'s CPU twin with the kernel gate patched,
-   so its levels are blocked and keep their shadows);
+   initial state, 3 steps in each of (a) the default (the blocked levels
+   smoothed by ``attic.pcg_blocked``, its scalar step in its sweeps), (c)
+   the plain ``pcg`` on the same blocked levels (``plain_smoother``, a
+   patch of this script: no flag of the program), (d)
+   ``smoother_bf16=True``, (e) (d) with the plain ``pcg``, (f)
+   ``op_bf16=True``, (g) ``poisson.STREAM = True`` (the carried-rows
+   operator), (h) (f) with (g) and (i) (f) with the plain ``pcg``, each
+   against (a); and (b) ``poisson.KDOT = KAXPY = True`` on ``tgv_3d(256)``
+   (periodic blocked levels, which `pcg` smooths: the seams act there)
+   against ``tgv_3d(256)``'s default path from the same state: finite u,
+   p, dt; pois_n within the ±2/≤4 rule and max|du| < 1e-3 for (b), (c),
+   (g), < 1e-2 for (d), (e); for the rounded operator (f), (h), (i) pois_n
+   within ±2 per solve (the total |Δpois_n| logged) and max|du| < 1e-2;
+   every blocked level carries the configuration's direction type and
+   shadows, the kernels launched in the configuration's forms (bf16 L
+   exactly where shadowed), (g), (h) launched neither ``mult3d`` nor
+   ``increment3d``, the plain-``pcg`` rows and the vortex neither sweep of
+   ``pcg_blocked``, and ``poisson.smooth.routes`` is logged; then
+   ``sphere_3d(96, 64)`` in (c), (d), (f) and (g) and ``tgv_3d(64)`` in
+   (b) against the CPU from one state, as in 4 ((f)'s CPU twin with the
+   kernel gate patched, so its levels are blocked and keep their
+   shadows);
 6.5 the sharded path (`waterlily_tpu_torch.parallel`, an in-process mesh
    of 8 shards on the card), each held against the dense step on the card
    from the same state over 3 steps (pois_n within the ±2/≤4 rule, the
@@ -199,18 +208,19 @@ Phases, each of which raises (and so exits non-zero) on failure:
    member's tangent and drag within 1e-4 of its own ``jvp`` on the card,
    pois_n equal, member 0 against the CPU (drag 1e-4, tangent 1e-3), its
    wall, busy and peak GiB; (vi) (iv)'s radius sweep under the
-   blocked-level PCG seams of 6.4, (b) ``KDOT = KAXPY = True``, (c)
-   ``PCG_BLOCKED = True`` and (g) ``STREAM = True``: with
-   ``fixed_iters=2`` each seam kernel (``dot3d`` and ``pcg_axpy``;
-   ``pcg_dir_mult`` and ``pcg_update``; ``mult3d_stream`` and
-   ``increment3d_stream``) launched only at (98,66,66), only in its
+   blocked-level PCG configurations of 6.4, (b) ``KDOT = KAXPY = True``
+   with the pipe periodic in z (its levels smoothed by ``pcg``), (c) the
+   plain ``pcg`` on the blocked levels (``plain_smoother``) and (g)
+   ``STREAM = True``: with ``fixed_iters=2`` each seam kernel (``dot3d``
+   and ``pcg_axpy``; none; ``mult3d_stream`` and ``increment3d_stream``)
+   launched only at (98,66,66), only in its
    member form and as often as by one member alone under the same seam
    (so no call took a plain form), the other kernels by (iv)'s rule, the
    drag within 1e-5 of each member alone; adaptive, each member's pois_n
    equal to its own card run's under the seam and the drag within 1e-5,
    members 0 and 7 against the CPU (drag 1e-4, pois_n ±2/≤4); each
-   seam's cost a step against 8 x one member's and against (iv)'s
-   default-path radius sweep;
+   configuration's cost a step against 8 x one member's and against (iv)'s
+   default-path radius sweep (``pcg_blocked``'s member forms);
 6.9 the decomposition over processes (`parallel.dist.ProcessMesh`, ranks
    spawned by `parallel.launch.run_ranks`): (i) 8 gloo ranks sharing the
    card (each exchange staged through host memory) run
@@ -251,9 +261,9 @@ Phases, each of which raises (and so exits non-zero) on failure:
    operator-shadow, bf16-iD and carried-rows forms at 258³ and (98,66,66), ``torch.dot`` beside ``dot3d`` and
    ``torch.mul`` beside ``copy_probe``; the probes' rates in GB/s (the
    roll's also as a share of the copy's) and each kernel's bytes over
-   its time as a share of the copy probe's rate; the 256³ sphere in
-   configurations (a)-(i) of 6.4 in turns (a, ..., i, i, ..., a), each
-   with its idle share and pois_n; the shard-local forms at the sharded
+   its time as a share of the copy probe's rate; the 256³ configurations
+   (a)-(i) of 6.4 ((b) the vortex's) in turns (a, ..., i, i, ..., a),
+   each with its idle share and pois_n; the shard-local forms at the sharded
    path's shapes beside their plain versions and bounds, and the sharded
    256³ step of 6.5 (i) in turns with (a) (dense, sharded, sharded,
    dense): wall and busy ms/step, idle share, and the share of a step that
@@ -291,6 +301,7 @@ no JAX.
 """
 from __future__ import annotations
 
+import collections
 import contextlib
 import dataclasses
 import json
@@ -401,15 +412,15 @@ def one_launch(torch, dev):
     """The one-launch reductions put one kernel on the card a call and no
     PyTorch reduce after it (profiler, 5 calls at the dense slice's
     shape): `cfl3d`, `ana_mult3d`, `dot3d`, every form of `pcg_dir_mult`
-    (beta a device scalar, or the number 0 at the smooth's start),
-    `pcg_update`, `pcg_axpy`, and `mult3d` and `mult3d_stream` with the
-    dot (f32 operator and shadows)."""
-    from waterlily_tpu_torch.kernels.check import inputs, variants
+    (beta from a smooth's words, or none at the smooth's seed),
+    `pcg_update` (its words), `pcg_axpy`, and `mult3d` and `mult3d_stream`
+    with the dot (f32 operator and shadows)."""
+    from waterlily_tpu_torch.kernels.check import inputs, variants, words
     from waterlily_tpu_torch.ops import stencil_kernels as sk, attic as at
     from waterlily_tpu_torch.utils.perf import device_profile
     d = inputs(FINE, 0, dev)
     u, x, r, eps, z, s = d["u"], d["x"], d["r"], d["eps"], d["z"], d["dt"]
-    iD = d["lev"].iD
+    iD, w = d["lev"].iD, words(None, dev)
     dir_mult = [(f"pcg_dir_mult {outs[0]}", kern)
                 for outs, kern, _ in variants("pcg_dir_mult", d)]
     for label, call in [
@@ -417,7 +428,7 @@ def one_launch(torch, dev):
             ("ana_mult3d, dot", lambda: sk.ana_mult3d(x, 1.0, with_dot=True)),
             ("ana_mult3d", lambda: sk.ana_mult3d(x, 1.0)),
             ("dot3d aa", lambda: at.dot3d(r, r, "aa")),
-            ("pcg_update", lambda: at.pcg_update(x, r, eps, z, iD, s)),
+            ("pcg_update", lambda: at.pcg_update(x, r, eps, z, iD, w)),
             ("pcg_axpy", lambda: at.pcg_axpy(x, r, eps, z, iD, s)),
             ("mult3d, dot", lambda: sk.mult3d(d["lev"].L, d["lev"].D, x,
                                               True)),
@@ -445,27 +456,42 @@ def pois_ok(a, b):
 DENSE = ("mult3d", "increment3d", "cfl3d", "bc3d", "div3d", "project3d",
          "conv_diff3d", "pcg_fused")
 BANDED_LEVELS = ("ana_mult3d", "cfl3d", "bc3d", "conv_diff3d", "pcg_fused")
-# the blocked-level PCG configurations of phase 6.4: (label, poisson
-# seams set, smoother_bf16, op_bf16, kernels the path must launch beyond
-# DENSE's conv/projection ones); (a) is the default every other is held
-# against
+# the blocked-level PCG configurations of phase 6.4: (label, case, poisson
+# seams set, plain `pcg` on the blocked levels, smoother_bf16, op_bf16,
+# kernels the path must launch beyond DENSE's conv/projection ones); each
+# is held against its case's default path, (a) the sphere's.  The blocked
+# non-periodic levels' smoother is `pcg_blocked`'s two sweeps; (c), (e)
+# and (i) hold the plain `pcg` (`plain_smoother`) on the same levels
+# against it.  KDOT and KAXPY act in `pcg`, the smoother of periodic
+# levels: (b) runs on the vortex
 STREAMS = ("mult3d_stream", "increment3d_stream")
+SMOOTH = ("pcg_dir_mult", "pcg_update")
+PcgConfig = collections.namedtuple(
+    "PcgConfig", "name case flags plain bf16 op16 expect")
 PCG_CONFIGS = (
-    ("a default", {}, False, False, DENSE),
-    ("b KDOT+KAXPY", {"KDOT": True, "KAXPY": True}, False, False,
-     ("dot3d", "pcg_axpy", "mult3d")),
-    ("c PCG_BLOCKED", {"PCG_BLOCKED": True}, False, False,
-     ("pcg_dir_mult", "pcg_update")),
-    ("d smoother_bf16", {}, True, False, ("mult3d", "increment3d")),
-    ("e smoother_bf16+PCG_BLOCKED", {"PCG_BLOCKED": True}, True, False,
-     ("pcg_dir_mult", "pcg_update", "increment3d")),
-    ("f op_bf16", {}, False, True, ("mult3d", "increment3d")),
-    ("g STREAM", {"STREAM": True}, False, False, STREAMS),
-    ("h op_bf16+STREAM", {"STREAM": True}, False, True, STREAMS),
-    ("i op_bf16+PCG_BLOCKED", {"PCG_BLOCKED": True}, False, True,
-     ("pcg_dir_mult", "pcg_update", "increment3d")),
+    PcgConfig("a default", "sphere", {}, False, False, False,
+              DENSE + SMOOTH),
+    PcgConfig("b KDOT+KAXPY", "tgv", {"KDOT": True, "KAXPY": True}, False,
+              False, False, ("dot3d", "pcg_axpy", "mult3d")),
+    PcgConfig("c plain pcg", "sphere", {}, True, False, False,
+              ("mult3d", "increment3d")),
+    PcgConfig("d smoother_bf16", "sphere", {}, False, True, False,
+              ("mult3d", "increment3d") + SMOOTH),
+    PcgConfig("e smoother_bf16+plain pcg", "sphere", {}, True, True, False,
+              ("mult3d", "increment3d")),
+    PcgConfig("f op_bf16", "sphere", {}, False, False, True,
+              ("mult3d", "increment3d") + SMOOTH),
+    PcgConfig("g STREAM", "sphere", {"STREAM": True}, False, False, False,
+              STREAMS + SMOOTH),
+    PcgConfig("h op_bf16+STREAM", "sphere", {"STREAM": True}, False, False,
+              True, STREAMS + SMOOTH),
+    PcgConfig("i op_bf16+plain pcg", "sphere", {}, True, False, True,
+              ("mult3d", "increment3d")),
 )
-# the configurations also held against the CPU at (96,64,64)
+# each case's constructor at 256³ and at the CPU twin's size
+PCG_CASES = {"sphere": ("sphere_3d(256, 256)", "sphere_3d(96, 64)"),
+             "tgv": ("tgv_3d(256)", "tgv_3d(64)")}
+# the configurations also held against the CPU at the twin's size
 CPU_CONFIGS = ("b", "c", "d", "f", "g")
 PATH_LAUNCHES = {}
 PATH_SHAPES = {}    # kernel -> every shape a path launched it at
@@ -476,8 +502,11 @@ MEMBER_COUNTS = {}      # path -> kernel -> its launches in the member form
 
 def zeroed_wrappers():
     """Every kernel wrapper, its launch counters set to 0 and its
-    launched shapes, forms and bases cleared."""
+    launched shapes, forms and bases cleared; and `poisson.smooth`'s
+    routes."""
+    from waterlily_tpu_torch.ops.poisson import smooth
     from waterlily_tpu_torch.ops.stencil_kernels import kernel_wrappers
+    smooth.routes.clear()
     kernels = kernel_wrappers()
     for w in kernels.values():
         w.launches = 0
@@ -491,12 +520,16 @@ def zeroed_wrappers():
 def on_path(torch, label, expect, fn):
     """Run ``fn`` (a user-facing path) with every launch counter set to 0
     and every launched-shape and -form set cleared just before, all read
-    just after; fail if a kernel in ``expect`` never launched."""
+    just after (and `poisson.smooth`'s routes by level shape); fail if a
+    kernel in ``expect`` never launched."""
+    from waterlily_tpu_torch.ops.poisson import smooth
     kernels = zeroed_wrappers()
     out = fn()
     torch.cuda.synchronize()
     counts = {k: w.launches for k, w in kernels.items()}
     log(f"launches on {label}: {counts}")
+    log(f"  smooth routes (route, level shape): calls: "
+        f"{dict(sorted((+smooth.routes).items(), key=str))}")
     MEMBER_COUNTS[label] = {k: w.members for k, w in kernels.items()
                             if w.members}
     if MEMBER_COUNTS[label]:
@@ -824,9 +857,8 @@ def run_2d(torch, dev):
 
 @contextlib.contextmanager
 def seams(flags):
-    """`ops.poisson`'s seams (``KDOT``, ``KAXPY``, ``PCG_BLOCKED``,
-    ``STREAM``) set to ``flags`` inside the block and restored after it,
-    whatever happens."""
+    """`ops.poisson`'s seams (``KDOT``, ``KAXPY``, ``STREAM``) set to
+    ``flags`` inside the block and restored after it, whatever happens."""
     from waterlily_tpu_torch.ops import poisson
     old = {k: getattr(poisson, k) for k in flags}
     try:
@@ -854,8 +886,33 @@ def blocked_on_cpu(on):
         sk.use_blocked = old
 
 
-# the blocked-level kernels the default path must not launch (ops/attic.py)
-PCG_ITERATION = ("pcg_dir_mult", "pcg_update", "dot3d", "pcg_axpy") + STREAMS
+@contextlib.contextmanager
+def plain_smoother(on):
+    """With ``on``, `poisson.smooth`'s route of blocked non-periodic levels
+    (`attic.pcg_blocked`) made to run the plain `pcg` inside the block,
+    counted in ``smooth.routes`` as ``pcg``: the smoother those levels had
+    before `pcg_blocked` took them, held against it.  A patch of this
+    script's, not a flag of the program."""
+    from waterlily_tpu_torch.ops import attic, poisson
+    old = attic.pcg_blocked
+
+    def pcg(lev, x, r, it=6):
+        S = tuple(x.shape)
+        poisson.smooth.routes.subtract({("pcg_blocked", S): 1})
+        poisson.smooth.routes["pcg", S] += 1
+        return poisson.pcg(lev, x, r, it)
+    try:
+        if on:
+            attic.pcg_blocked = pcg
+        yield
+    finally:
+        attic.pcg_blocked = old
+
+
+# the blocked-level kernels the default path must not launch (ops/attic.py;
+# it smooths the blocked non-periodic levels with pcg_dir_mult and
+# pcg_update, none of the vortex's)
+PCG_ITERATION = ("dot3d", "pcg_axpy") + STREAMS
 # the kernels that read a level's operator (L, or its shadow L16)
 OPERATOR = ("mult3d", "increment3d", "pcg_dir_mult") + STREAMS
 
@@ -898,34 +955,59 @@ def pois_per_solve(a, b):
                for x, y in zip(ra, rb))
 
 
-def run_pcg_paths(torch, dev):
-    """Phase 6.4: the 256³ sphere in configurations (a)-(i) from one
-    initial state, each held against (a); then the (96,64,64) sphere in
-    `CPU_CONFIGS` against the CPU."""
-    from waterlily_tpu_torch import sphere_3d
-    from waterlily_tpu_torch.grid import interior_view
-    ref = ref_init = None
-    for name, flags, bf16, op16, expect in PCG_CONFIGS:
-        label = f"sphere_3d(256, 256) {name}"
+def _pcg_case(case, big, dev, bf16, op16):
+    """Phase 6.4's ``case`` (`PCG_CASES`) at 256³ (``big``) or at its CPU
+    twin's size, in a configuration's direction and operator types."""
+    from waterlily_tpu_torch import sphere_3d, tgv_3d
+    kw = _config_kw(bf16, op16)
+    if case == "tgv":
+        return tgv_3d(256 if big else 64, device=dev, **kw)
+    return sphere_3d(*((256, 256) if big else (96, 64)), device=dev, **kw)
 
-        def drive():
-            sim = sphere_3d(256, 256, device=dev, **_config_kw(bf16, op16))
+
+def run_pcg_paths(torch, dev):
+    """Phase 6.4: the 256³ sphere in configurations (a), (c)-(i) from one
+    initial state, each held against (a), and the 256³ vortex under (b)
+    against its own default path; then the CPU twins of `CPU_CONFIGS`
+    against the CPU."""
+    from waterlily_tpu_torch.grid import interior_view
+    refs = {}
+    for c in PCG_CONFIGS:
+        label = f"{PCG_CASES[c.case][0]} {c.name}"
+
+        def drive(c=c):
+            sim = _pcg_case(c.case, True, dev, c.bf16, c.op16)
             init = sim.flow
             sim.steps(3, remeasure=False)
             return sim, init
 
-        with seams(flags):
-            sim, init = on_path(torch, label, expect, drive)
-        finite(torch, sim, label)
-        _check_levels(sim, bf16, op16, label)
-        _check_forms(label, flags, op16)
-        log(f"{label}: pois_n {sim.pois_n}, dt {sim.dts[1:]}")
-        if ref is None:
-            new = [k for k in PCG_ITERATION if PATH_LAUNCHES[label][k]]
+        if c.case not in refs:
+            # the case's default path, which the configuration is held
+            # against: (a) for the sphere, run here first for the vortex
+            default = c.flags == {} and not (c.plain or c.bf16 or c.op16)
+            ref_label = label if default else f"{PCG_CASES[c.case][0]} default"
+            sim, init = on_path(torch, ref_label,
+                                c.expect if default else DENSE, drive)
+            finite(torch, sim, ref_label)
+            _check_levels(sim, False, False, ref_label)
+            log(f"{ref_label}: pois_n {sim.pois_n}, dt {sim.dts[1:]}")
+            off = PCG_ITERATION + (SMOOTH if c.case == "tgv" else ())
+            new = [k for k in off if PATH_LAUNCHES[ref_label][k]]
             if new:
-                raise AssertionError(f"the default path launched {new}")
-            ref, ref_init = sim, init
-            continue
+                raise AssertionError(f"{ref_label} launched {new}")
+            refs[c.case] = (sim, init)
+            if default:
+                continue
+        ref, ref_init = refs[c.case]
+        with seams(c.flags), plain_smoother(c.plain):
+            sim, init = on_path(torch, label, c.expect, drive)
+        finite(torch, sim, label)
+        _check_levels(sim, c.bf16, c.op16, label)
+        _check_forms(label, c.flags, c.op16)
+        ran = [k for k in SMOOTH if PATH_LAUNCHES[label][k]]
+        if ran and (c.plain or c.case == "tgv"):
+            raise AssertionError(f"{label}: launched {ran}")
+        log(f"{label}: pois_n {sim.pois_n}, dt {sim.dts[1:]}")
         same = (torch.equal(init.u, ref_init.u)
                 and torch.equal(init.mu0, ref_init.mu0))
         du = _max_du(sim, ref)
@@ -934,42 +1016,43 @@ def run_pcg_paths(torch, dev):
         dpi = interior_view(sim.flow.p - ref.flow.p, 3)
         dp = float(dpi.abs().max())
         dpc = float((dpi - dpi.mean()).abs().max())
-        lim = 1e-2 if bf16 or op16 else 1e-3
+        lim = 1e-2 if c.bf16 or c.op16 else 1e-3
         dn = sum(abs(x - y) for ra, rb in zip(sim.pois_n, ref.pois_n)
                  for x, y in zip(ra, rb))
-        log(f"{label} vs (a), 3 steps from the same state ({same}): pois_n "
-            f"{sim.pois_n} vs {ref.pois_n} (total |Δpois_n| {dn}), max|du| "
-            f"= {du:.3e} (limit {lim:g}), max|dp| = {dp:.3e}, max|dp - "
-            f"mean dp| = {dpc:.3e}")
-        pois = (pois_per_solve if op16 else pois_ok)(sim.pois_n, ref.pois_n)
+        log(f"{label} vs its default path, 3 steps from the same state "
+            f"({same}): pois_n {sim.pois_n} vs {ref.pois_n} (total "
+            f"|Δpois_n| {dn}), max|du| = {du:.3e} (limit {lim:g}), max|dp| "
+            f"= {dp:.3e}, max|dp - mean dp| = {dpc:.3e}")
+        pois = (pois_per_solve if c.op16 else pois_ok)(sim.pois_n,
+                                                        ref.pois_n)
         if not same or not pois or not du < lim:
-            raise AssertionError(f"{label} differs from (a)")
+            raise AssertionError(f"{label} differs from its default path")
         del sim, init
         torch.cuda.empty_cache()
-    del ref, ref_init
+    del refs
     torch.cuda.empty_cache()
 
-    for name, flags, bf16, op16, expect in PCG_CONFIGS:
-        if name[0] not in CPU_CONFIGS:
+    for c in PCG_CONFIGS:
+        if c.name[0] not in CPU_CONFIGS:
             continue
-        label = f"sphere_3d(96, 64) {name}"
+        label = f"{PCG_CASES[c.case][1]} {c.name}"
 
-        def drive():
-            sim = sphere_3d(96, 64, device=dev, **_config_kw(bf16, op16))
+        def drive(c=c):
+            sim = _pcg_case(c.case, False, dev, c.bf16, c.op16)
             init, init_levels = sim.flow, sim.levels
             sim.steps(3, remeasure=False)
             return sim, init, init_levels
 
-        with seams(flags):
-            sim, init, init_levels = on_path(torch, label, expect, drive)
+        with seams(c.flags), plain_smoother(c.plain):
+            sim, init, init_levels = on_path(torch, label, c.expect, drive)
             finite(torch, sim, label)
-            _check_levels(sim, bf16, op16, label)
-            _check_forms(label, flags, op16)
-            if op16:
+            _check_levels(sim, c.bf16, c.op16, label)
+            _check_forms(label, c.flags, c.op16)
+            if c.op16:
                 log("CPU twin: the card's levels copied with the kernel gate "
                     "patched to ignore the device, so the CPU fine level is "
                     "blocked, keeps L16/D16/iD16 and runs the plain forms")
-            with blocked_on_cpu(op16):
+            with blocked_on_cpu(c.op16):
                 vs_cpu(torch, sim, init, init_levels)
 
 
@@ -2139,7 +2222,9 @@ AD_NU, AD_RADIUS, AD_CENTRE = 0.16, 8.0, 31.0
 # 1e-5 and 1e-7 differ by 1.7%, and at 1e-7 the f32 forward solve stalls
 # at itmx (PERF.md §6)
 AD_TOL = 1e-5
-AD_KERNELS = ("mult3d", "increment3d", "pcg_fused")
+# (the detached levels' blocked smooths take pcg_blocked's two sweeps)
+AD_KERNELS = ("mult3d", "increment3d", "pcg_fused", "pcg_dir_mult",
+              "pcg_update")
 AD_PLAIN = ("conv_diff3d", "bc3d", "div3d", "project3d", "cfl3d")
 AD_SIZES = (256, 192, 128)   # the big reverse step, largest first
 AD_RESULTS = {}     # phase 6.7's gradients and costs, read by phase 6.10
@@ -2148,7 +2233,8 @@ AD_RESULTS = {}     # phase 6.7's gradients and costs, read by phase 6.10
 def drag_setup(torch, dev, nu, radius, **ad):
     """``(cfg, body, levels, state)`` of the (96,64,64) sphere at rest with
     viscosity ``nu`` and radius ``radius`` (0-d tensors) and the AD mode
-    ``ad``: `flow_init`, `measure_fields`, `build_levels`."""
+    ``ad`` (and any other `FlowConfig` keyword, such as ``perdir``):
+    `flow_init`, `measure_fields`, `build_levels`."""
     from waterlily_tpu_torch.body import AutoBody, measure_fields
     from waterlily_tpu_torch.flow import FlowConfig, flow_init
     from waterlily_tpu_torch.ops.multigrid import build_levels
@@ -2158,8 +2244,10 @@ def drag_setup(torch, dev, nu, radius, **ad):
     cfg = FlowConfig(D=3, S=FINE, device=dev, nu=nu, U=(1.0, 0.0, 0.0),
                      dtype=f32, **{"tol": AD_TOL, **ad})
     state = flow_init(cfg)
-    V, m0, m1, _ = measure_fields(body, FINE, 0.0, 1.0, (), False, f32, dev)
-    return cfg, body, build_levels(m0), state.replace(V=V, mu0=m0, mu1=m1)
+    V, m0, m1, _ = measure_fields(body, FINE, 0.0, 1.0, cfg.perdir, False,
+                                  f32, dev)
+    return (cfg, body, build_levels(m0, cfg.perdir),
+            state.replace(V=V, mu0=m0, mu1=m1))
 
 
 def drag_steps(cfg, body, levels, state, steps=2):
@@ -2523,12 +2611,12 @@ def sweep_force(torch, kind, steps=SWEEP_STEPS, **ad):
     return force
 
 
-def sweep_costs(torch, kind, vs, label):
+def sweep_costs(torch, kind, vs, label, **cfg):
     """Busy and wall ms a step (the `SWEEP_STEPS`-step sweep less its
     setup and force alone), idle share and peak GiB of the adaptive sweep
-    over ``vs`` and of its first member alone, kept in `SWEEP_COSTS` under
-    ``label``."""
-    run = lambda steps, v: sweep_force(torch, kind, steps)(v)
+    over ``vs`` (`FlowConfig` keywords ``cfg``) and of its first member
+    alone, kept in `SWEEP_COSTS` under ``label``."""
+    run = lambda steps, v: sweep_force(torch, kind, steps, **cfg)(v)
     rows = {}
     batched = lambda n: torch.func.vmap(lambda v: run(n, v))(vs)
     for who, call in (("ensemble", batched),
@@ -2567,9 +2655,10 @@ def run_sweeps(torch, dev):
         sweep_checks(torch, dev, kind, vs, f"(iv) {kind}")
 
 
-def sweep_checks(torch, dev, kind, vs, tag, seam=()):
+def sweep_checks(torch, dev, kind, vs, tag, seam=(), perdir=()):
     """The checks of a `sweep_force` sweep of ``kind`` over ``vs``
-    (logged under ``tag``), on the seams ``poisson`` has set: with
+    (logged under ``tag``; the pipe periodic along ``perdir``), on the
+    seams ``poisson`` has set: with
     ``fixed_iters=2`` (3 steps) each of the seven stencils and of the
     ``seam`` kernels launches as often as one member alone (so no call
     took a plain form), the step's own fields' and the seam kernels' only
@@ -2582,9 +2671,10 @@ def sweep_checks(torch, dev, kind, vs, tag, seam=()):
     from waterlily_tpu_torch.ops import pcg_kernel as pk
     from waterlily_tpu_torch.ops.stencil_kernels import kernel_wrappers
     M = len(vs)
+    cfg = {"perdir": perdir} if perdir else {}
     stage(f"{tag} sweep at {FINE} x {M}, fixed_iters=2, {SWEEP_STEPS} "
-          f"steps")
-    fixed = sweep_force(torch, kind, fixed_iters=2)
+          f"steps{f', periodic along {perdir}' if perdir else ''}")
+    fixed = sweep_force(torch, kind, fixed_iters=2, **cfg)
     one_label = f"6.8 {tag}: one member, fixed_iters=2"
     ens_label = f"6.8 {tag} sweep, fixed_iters=2"
     expect = SEVEN + ("pcg_fused",) + seam
@@ -2597,8 +2687,10 @@ def sweep_checks(torch, dev, kind, vs, tag, seam=()):
     ens, forms = PATH_LAUNCHES[ens_label], PATH_FORMS[ens_label]
     members = MEMBER_COUNTS[ens_label]
     # a seam takes some of the seven off the path (STREAM: mult3d and
-    # increment3d), in the ensemble as in one member
-    ran = [k for k in SEVEN + seam if one[k] or ens[k]]
+    # increment3d), in the ensemble as in one member; the blocked level's
+    # smooth is pcg_blocked's two sweeps under every seam
+    ran = [k for k in dict.fromkeys(SEVEN + SMOOTH + seam)
+           if one[k] or ens[k]]
     bad = _stencil_launches(one, ens, one_forms, forms, members, ran)
     wrappers = kernel_wrappers()
     bad += [(k, dict(wrappers[k].shapes)) for k in seam
@@ -2622,7 +2714,7 @@ def sweep_checks(torch, dev, kind, vs, tag, seam=()):
     PATH_LAUNCHES.pop(ens_label)    # the kernels line's member rows
 
     stage(f"{tag} sweep, the adaptive solve (tol {AD_TOL:g})")
-    adapt = sweep_force(torch, kind)
+    adapt = sweep_force(torch, kind, **cfg)
     drag, pois = torch.func.vmap(adapt)(vs)
     own = [adapt(v) for v in vs]
     err = rel_err(drag.tolist(), [float(d) for d, _ in own])
@@ -2642,31 +2734,42 @@ def sweep_checks(torch, dev, kind, vs, tag, seam=()):
         if e > 1e-4 or not pois_ok(pois[m].tolist(), p_cpu.tolist()):
             raise AssertionError(f"{tag} member {m} vs the CPU")
     log(f"  CPU runs {time.perf_counter() - t0:.1f} s")
-    sweep_costs(torch, kind, vs, tag)
+    sweep_costs(torch, kind, vs, tag, **cfg)
     torch.cuda.empty_cache()
 
 
-# phase 6.8 (vi): (iv)'s radius sweep under the blocked-level PCG seams of
-# phase 6.4, each with the `ops.attic` wrappers it routes the fine level
-# through (their member forms under vmap)
-SEAM_SWEEPS = (("b", {"KDOT": True, "KAXPY": True}, ("dot3d", "pcg_axpy")),
-               ("c", {"PCG_BLOCKED": True}, ("pcg_dir_mult", "pcg_update")),
-               ("g", {"STREAM": True}, STREAMS))
+# phase 6.8 (vi): (iv)'s radius sweep under the blocked-level PCG
+# configurations of phase 6.4: (name, seams set, plain `pcg` on the blocked
+# levels, periodic axes, the `ops.attic` wrappers it routes the fine level
+# through, in their member forms under vmap).  KDOT and KAXPY act in `pcg`,
+# the smoother of periodic levels: (b)'s pipe is periodic in z; (c) holds
+# the plain `pcg` against (iv)'s default `pcg_blocked`
+SEAM_SWEEPS = (("b", {"KDOT": True, "KAXPY": True}, False, (2,),
+                ("dot3d", "pcg_axpy")),
+               ("c", {}, True, (), ()),
+               ("g", {"STREAM": True}, False, (), STREAMS))
 SEAM_MEMBERS = ("dot3d", "pcg_axpy", "pcg_dir_mult", "pcg_update") + STREAMS
 
 
 def run_seam_sweeps(torch, dev):
-    """Phase 6.8 (vi): (iv)'s radius sweep (FINE x 8) under the seams (b)
-    ``KDOT = KAXPY = True``, (c) ``PCG_BLOCKED`` and (g) ``STREAM``, each
-    held by `sweep_checks` with its `ops.attic` kernels; then each seam's
-    cost a step against (iv)'s default-path radius sweep's."""
+    """Phase 6.8 (vi): (iv)'s radius sweep (FINE x 8) under (b) ``KDOT =
+    KAXPY = True`` (the pipe periodic in z), (c) the plain `pcg` on the
+    blocked levels and (g) ``STREAM``, each held by `sweep_checks` with its
+    `ops.attic` kernels, (b) and (c) launching neither of `pcg_blocked`'s
+    sweeps; then each one's cost a step against (iv)'s default-path
+    radius sweep's."""
     vs = torch.linspace(*SWEEP_RADII, SWEEP_MEMBERS, device=dev)
     a = SWEEP_COSTS["(iv) radius"]
-    for name, flags, kernels in SEAM_SWEEPS:
+    for name, flags, plain, perdir, kernels in SEAM_SWEEPS:
         tag = f"(vi) ({name})"
-        with seams(flags):
-            log(f"{tag}: {flags}")
-            sweep_checks(torch, dev, "radius", vs, tag, kernels)
+        with seams(flags), plain_smoother(plain):
+            log(f"{tag}: {flags}, plain pcg {plain}, perdir {perdir}")
+            sweep_checks(torch, dev, "radius", vs, tag, kernels, perdir)
+        ran = [k for k in SMOOTH
+               if PATH_LAUNCHES[f"6.8 {tag}: one member, fixed_iters=2"][k]
+               or MEMBER_COUNTS[f"6.8 {tag} sweep, fixed_iters=2"].get(k)]
+        if ran and (plain or perdir):
+            raise AssertionError(f"{tag} launched {ran}")
         c = SWEEP_COSTS[tag]
         log(f"  {tag} under vmap against (iv)'s default-path radius sweep "
             f"(a): busy {c['busy_ms']:.3f} vs {a['busy_ms']:.3f} ms a step "
@@ -3635,23 +3738,21 @@ def bandwidth_shares(rows):
 
 
 def timing_pcg_paths(torch, dev):
-    """The 256³ sphere in configurations (a)-(i) of phase 6.4, in turns
-    (a, ..., i, i, ..., a), then each one's idle share."""
-    from waterlily_tpu_torch import sphere_3d
-    sims = {name: construct(torch, f"sphere_3d(256, 256) {name}",
-                            lambda bf16=bf16, op16=op16: sphere_3d(
-                                256, 256, device=dev,
-                                **_config_kw(bf16, op16)))
-            for name, _flags, bf16, op16, _expect in PCG_CONFIGS}
-    for name, flags, _bf16, _op16, _expect in PCG_CONFIGS + PCG_CONFIGS[::-1]:
-        with seams(flags):
-            report_steps(torch, sims[name], f"sphere_3d(256, 256) {name}",
-                         STEPS_256, 2)
-    for name, flags, _bf16, _op16, _expect in PCG_CONFIGS:
-        with seams(flags):
-            step_profile(sims[name], PROFILE_256,
-                         f"sphere_3d(256, 256) {name}")
-    peak(torch, f"the {len(sims)} sphere_3d(256, 256) configurations")
+    """Phase 6.4's configurations at 256³, (a)-(i) (the sphere's, (b) the
+    vortex's), in turns (a, ..., i, i, ..., a), then each one's idle
+    share."""
+    label = lambda c: f"{PCG_CASES[c.case][0]} {c.name}"
+    sims = {c.name: construct(torch, label(c),
+                              lambda c=c: _pcg_case(c.case, True, dev,
+                                                    c.bf16, c.op16))
+            for c in PCG_CONFIGS}
+    for c in PCG_CONFIGS + PCG_CONFIGS[::-1]:
+        with seams(c.flags), plain_smoother(c.plain):
+            report_steps(torch, sims[c.name], label(c), STEPS_256, 2)
+    for c in PCG_CONFIGS:
+        with seams(c.flags), plain_smoother(c.plain):
+            step_profile(sims[c.name], PROFILE_256, label(c))
+    peak(torch, f"the {len(sims)} phase-6.4 configurations at 256³")
     del sims
     torch.cuda.empty_cache()
 

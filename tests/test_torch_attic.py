@@ -5,6 +5,7 @@ against JAX's, and `pcg` with the ``KDOT``/``KAXPY`` seams against JAX's
 with the same flags.  Outputs within 1e-6 absolute, sums within 1e-5
 relative, a bf16 direction within one bf16 ulp (XLA on the CPU may contract
 ``beta*eps + r*iD`` into an FMA that the port does not)."""
+import collections
 import dataclasses
 
 import jax.numpy as jnp
@@ -19,6 +20,7 @@ from waterlily_tpu_torch.ops import attic as ta
 from waterlily_tpu_torch.ops import poisson as tp
 
 from _torch_parity import normal, interior_only, tt, jj, npy, bc_coeffs
+from _pcg_chain import FOLD_CASES, chain, fold_case
 
 S = (20, 18, 22)
 RAGGED = (21, 13, 17)   # 21 rows: a ragged last slab at JAX's block 8
@@ -68,13 +70,21 @@ def _dir(a, bf16):
         else (jj(a), tt(a))
 
 
+def _words(upd=0.0, beta=0.0):
+    """A smooth's words in flight (`attic.WORDS`) carrying ``upd`` and
+    ``beta``, which the sweeps read."""
+    return torch.tensor([0.8, 1.3, 0.0, upd, beta])
+
+
 # --- the kernels' plain versions against the Pallas kernels ---------------
 
 @pytest.mark.parametrize("bf16", [False, True])
 @pytest.mark.parametrize("beta", [0.0, BETA])
 def test_pcg_dir_mult_plain_vs_jax(beta, bf16):
-    """beta = 0 (the preamble: eps_prev is r, eps = r*iD) and beta != 0
-    (eps_prev the previous direction, bf16 on a bf16 level)."""
+    """beta = 0 (the preamble, no words: eps_prev is r, eps = r*iD) and
+    beta != 0 (read from the words; eps_prev the previous direction, bf16
+    on a bf16 level).  The port's sums are in its words: <z, eps> its own
+    sum, the rho the seed's (it depends on r and iD alone)."""
     d = _inputs()
     lj, lt = d["lj"], d["lt"]
     ej_prev, et_prev = _dir(d["r"] if beta == 0 else d["eps"],
@@ -82,8 +92,12 @@ def test_pcg_dir_mult_plain_vs_jax(beta, bf16):
     ej, zj, denj, rhoj = ja.pcg_dir_mult(lj.L, lj.D, ej_prev, jj(d["r"]),
                                          lj.iD, beta, S, bf16=bf16,
                                          interpret=True, block=2)
-    et, zt, dent, rhot = ta.pcg_dir_mult(lt.L, lt.D, et_prev, tt(d["r"]),
-                                         lt.iD, torch.tensor(beta), bf16)
+    et, zt, wt = ta.pcg_dir_mult(lt.L, lt.D, et_prev, tt(d["r"]), lt.iD,
+                                 None if beta == 0 else _words(beta=beta),
+                                 bf16)
+    seed = wt if beta == 0 else ta.pcg_dir_mult(
+        lt.L, lt.D, tt(d["r"]), tt(d["r"]), lt.iD, None, bf16)[2]
+    dent, rhot = wt[ta.W_SUM], seed[ta.W_RHO]
     assert et.dtype == (torch.bfloat16 if bf16 else torch.float32)
     if bf16:
         _within_bf16_ulp(et, ej)
@@ -97,8 +111,9 @@ def test_pcg_dir_mult_plain_vs_jax(beta, bf16):
 @pytest.mark.parametrize("bf16", [False, True])
 @pytest.mark.parametrize("name", ["pcg_update", "pcg_axpy"])
 def test_axpy_rho_plain_vs_jax(name, bf16):
-    """The fused iteration's second sweep and the axpy-pair sweep (one
-    function, two TPU kernels), eps in f32 or bf16."""
+    """The fused iteration's second sweep (upd from its words, the rho its
+    own sum in the new words) and the axpy-pair sweep (one function, two
+    TPU kernels), eps in f32 or bf16."""
     d = _inputs()
     lj, lt = d["lj"], d["lt"]
     ej, et = _dir(d["eps"], bf16)
@@ -111,8 +126,11 @@ def test_axpy_rho_plain_vs_jax(name, bf16):
         xj, rj, rhoj = ja.pcg_axpy_pallas(jj(d["x"]), jj(d["r"]), ej,
                                           jj(d["z"]), lj.iD, jnp.float32(upd),
                                           interpret=True, block=8)
-    xt, rt, rhot = getattr(ta, name)(tt(d["x"]), tt(d["r"]), et, tt(d["z"]),
-                                     lt.iD, torch.tensor(upd))
+    xt, rt, rhot = getattr(ta, name)(
+        tt(d["x"]), tt(d["r"]), et, tt(d["z"]), lt.iD,
+        _words(upd=upd) if name == "pcg_update" else torch.tensor(upd))
+    if name == "pcg_update":
+        rhot = rhot[ta.W_SUM]
     _close(xt, xj, 1e-6)
     _close(rt, rj, 1e-6)
     _sum_close(rhot, rhoj)
@@ -199,7 +217,7 @@ def test_pcg_blocked_refuses_periodic_and_banded():
         ta.pcg_blocked(dataclasses.replace(lt, banded=True), x, r)
 
 
-# --- the seams: KDOT, KAXPY, PCG_BLOCKED ------------------------------------
+# --- the seams (KDOT, KAXPY) and the smoother's routes ----------------------
 
 def _interpret(monkeypatch):
     """JAX's blocked levels run their Pallas kernels in interpret mode."""
@@ -246,17 +264,81 @@ def test_pcg_seams_vs_jax(flags, monkeypatch):
 
 
 def test_smooth_pcg_blocked_seam(monkeypatch):
-    """``PCG_BLOCKED`` sends a blocked dense non-periodic level to
-    `pcg_blocked`; periodic and unblocked levels keep `pcg`."""
+    """A blocked dense non-periodic level goes to `pcg_blocked` by default
+    (no flag: ``PCG_BLOCKED`` is gone), within 2e-5 of JAX's
+    `attic.pcg_blocked`, and ``smooth.routes`` counts it; periodic and
+    unblocked levels keep `pcg`."""
+    assert not hasattr(tp, "PCG_BLOCKED")
     d = _inputs()
-    _, lt = _blocked(d, False)
+    lj, lt = _blocked(d, False)
     x, r = tt(d["x"]), tt(_residual(d))
     xb, rb = ta.pcg_blocked(lt, x, r)
     calls = _spy(monkeypatch, "pcg_blocked")
-    monkeypatch.setattr(tp, "PCG_BLOCKED", True)
+    monkeypatch.setattr(tp.smooth, "routes", collections.Counter())
     xs, rs = tp.smooth(lt, x, r)
     assert len(calls) == 1
     assert torch.equal(xs, xb) and torch.equal(rs, rb)
+    xj, rj = ja.pcg_blocked(lj, jj(d["x"]), jj(_residual(d)), it=6,
+                            interpret=True)
+    _close(xs, xj, 2e-5)
+    _close(rs, rj, 2e-5)
     for lv in (dataclasses.replace(lt, perdir=(1,)), d["lt"]):
         tp.smooth(lv, x, r)
     assert len(calls) == 1
+    assert tp.smooth.routes == {("pcg_blocked", S): 1, ("pcg", S): 2}
+
+
+@pytest.mark.parametrize("case", sorted(FOLD_CASES))
+def test_pcg_blocked_plain_step_equals_the_chain(case):
+    """On the CPU (the sweeps' plain versions taking the scalar step on
+    the words) `pcg_blocked` equals the 0-d-tensor chain bit for bit, in
+    each early exit, and the exit trips."""
+    d = _inputs()
+    _, lt = _blocked(d, False)
+    lev, r, exit_ = fold_case(case, lt, tt(_residual(d)))
+    exits = []
+    want = chain(lev, tt(d["x"]), r, exits=exits)
+    got = ta.pcg_blocked(lev, tt(d["x"]), r)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    assert exits[:1] == ([exit_] if exit_ else []), exits
+
+
+@pytest.mark.parametrize("route", ["periodic", "banded", "tracked",
+                                   "pcg_fused", "vmap"])
+def test_smooth_routes(route, monkeypatch):
+    """`smooth` keeps `pcg` on periodic, banded and tracked levels (a
+    ``fixed_iters`` solve under autograd: ``x`` requires grad), sends a
+    `pcg_fused`-sized level there, and a blocked level under `vmap` alone
+    to `pcg_blocked` (its member forms); ``smooth.routes`` counts each."""
+    from waterlily_tpu_torch.ops import pcg_kernel as pk
+    d = _inputs()
+    _, lt = _blocked(d, False)
+    x, r = tt(d["x"]), tt(_residual(d))
+    taken = []
+    for name, mod in (("pcg", tp), ("pcg_fused", pk)):
+        monkeypatch.setattr(mod, name, lambda lev, x, r, it=6, _n=name: (
+            taken.append(_n), (x, r))[1])
+    monkeypatch.setattr(tp.smooth, "routes", collections.Counter())
+    want = "pcg"
+    if route == "periodic":
+        tp.smooth(dataclasses.replace(lt, perdir=(0, 2)), x, r)
+    elif route == "banded":
+        tp.smooth(dataclasses.replace(lt, banded=True), x, r)
+    elif route == "tracked":
+        tp.smooth(lt, x.requires_grad_(), r)
+    elif route == "pcg_fused":
+        monkeypatch.setattr(pk, "use_pcg_fused", lambda S, dt, dev: True)
+        tp.smooth(lt, x, r)
+        want = "pcg_fused"
+    else:
+        X, R = torch.stack([x, x]), torch.stack([r, 0 * r])
+        own = [ta.pcg_blocked(lt, X[m], R[m]) for m in range(2)]
+        calls = _spy(monkeypatch, "pcg_blocked")
+        out = torch.func.vmap(lambda x, r: tp.smooth(lt, x, r))(X, R)
+        assert len(calls) == 1 and not taken
+        assert all(torch.equal(out[i][m], own[m][i])
+                   for m in range(2) for i in range(2))
+        assert tp.smooth.routes == {("pcg_blocked", S): 1}
+        return
+    assert taken == [want]
+    assert tp.smooth.routes == {(want, S): 1}

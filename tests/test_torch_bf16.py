@@ -192,7 +192,9 @@ def test_ml_solve_bf16_vs_jax(jax_blocked, port_blocked):
 # --- defaults and carrying the flag across ----------------------------------
 
 def test_defaults_are_f32_directions_and_seams_off(port_blocked):
-    assert tp.KDOT is False and tp.KAXPY is False and tp.PCG_BLOCKED is False
+    assert tp.KDOT is False and tp.KAXPY is False
+    # the smoother of blocked levels is chosen by the level, not a flag
+    assert not hasattr(tp, "PCG_BLOCKED")
     dims = (16, 16, 16)
     for flag, want in ((None, False), (False, False), (True, True)):
         kw = {} if flag is None else {"smoother_bf16": flag}

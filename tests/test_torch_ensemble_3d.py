@@ -59,6 +59,9 @@ M = 3
 RAGGED = (13, 9, 11)
 SEVEN = ("mult3d", "increment3d", "cfl3d", "bc3d", "div3d", "project3d",
          "conv_diff3d")
+# the member forms a blocked level's smooth reaches (`attic.pcg_blocked`,
+# the default smoother of blocked non-periodic levels)
+SMOOTH = ("pcg_dir_mult", "pcg_update")
 
 
 @pytest.fixture(autouse=True)
@@ -381,7 +384,8 @@ def _jax_sphere(kind, steps=2):
 @pytest.mark.parametrize("kind", ["radius", "nu"])
 def test_sphere_sweep_against_jax(member_calls, kind):
     """(b) The sweep under `torch.func.vmap` with the member forms on the
-    path (every one of the seven called, each call on all three members)
+    path (every one of the seven called, and the two sweeps of the blocked
+    levels' smoother, each call on all three members)
     against JAX's `jit(vmap(...))`: forces within 1e-10 relative, each
     member's pois_n equal."""
     vs = SWEEPS[kind]
@@ -390,7 +394,7 @@ def test_sphere_sweep_against_jax(member_calls, kind):
             torch.tensor(vs, dtype=torch.float64))
     jforces, jpois = jax.jit(jax.vmap(_jax_sphere(kind)))(
         jnp.asarray(vs, jnp.float64))
-    assert sorted(member_calls) == sorted(SEVEN)
+    assert sorted(member_calls) == sorted(SEVEN + SMOOTH)
     assert all(n == M for c in member_calls.values() for n in c)
     assert pois.tolist() == np.asarray(jpois).tolist()
     assert_rel(forces, jforces, 1e-10)
@@ -416,7 +420,7 @@ def test_sphere_sweep_equals_its_members(kind, fixed):
 
 def test_gates_route_transforms(member_calls):
     """With the gates open, a step under `vmap` alone reaches each of the
-    seven member forms, `vmap` of `vmap` (2 × 2 radii) folds every call
+    seven member forms (and the smoother's two sweeps), `vmap` of `vmap` (2 × 2 radii) folds every call
     into one on all four members, and under `vmap(grad)`, `vmap(jvp)` and
     `grad` (``fixed_iters=2``) no member form is called: tracked fields
     take the plain forms."""
@@ -424,10 +428,10 @@ def test_gates_route_transforms(member_calls):
     radii = torch.tensor([[3.0, 3.5], [4.0, 3.2]], dtype=torch.float64)
     with _gates_open():
         torch.func.vmap(force)(radii[0])
-        assert sorted(member_calls) == sorted(SEVEN)
+        assert sorted(member_calls) == sorted(SEVEN + SMOOTH)
         member_calls.clear()
         nested = torch.func.vmap(torch.func.vmap(force))(radii)[0]
-        assert sorted(member_calls) == sorted(SEVEN)
+        assert sorted(member_calls) == sorted(SEVEN + SMOOTH)
         assert all(n == 4 for c in member_calls.values() for n in c)
         for i in range(2):
             for j in range(2):

@@ -1,7 +1,8 @@
 """Port parity: the member forms of the blocked-level PCG seams' kernels
 (`ops.attic`: `pcg_dir_mult`, `pcg_update`, `dot3d`, `pcg_axpy`,
 `mult3d_stream`, `increment3d_stream`) and the seams (``KDOT``, ``KAXPY``,
-``PCG_BLOCKED``, ``STREAM``) under `torch.func.vmap`.
+``STREAM``) and the default smoother `pcg_blocked` under
+`torch.func.vmap`.
 
 (a) Each wrapper under `torch.func.vmap` (its member form: `vmap` of the
 plain version on the CPU), three members, the operator and the scalars
@@ -19,8 +20,10 @@ smooth.
 `vmap`, against `jax.vmap` of JAX's `pcg` with the same flags (its Pallas
 kernels in interpret mode): x and r within 2e-5 absolute.
 (d) A small 3D sphere sweep (f64, the stencil gates open on this CPU, so
-the fine levels are blocked) under (b) ``KDOT = KAXPY = True``, (c)
-``PCG_BLOCKED`` and (g) ``STREAM``: the `vmap` pipeline equal to its
+the fine levels are blocked) under (b) ``KDOT = KAXPY = True`` (the pipe
+periodic across the stream, so that its levels smooth with `pcg`, in which
+the two seams act), (c) the default path (`pcg_blocked` smooths the blocked levels; once the
+``PCG_BLOCKED`` seam) and (g) ``STREAM``: the `vmap` pipeline equal to its
 per-member runs bit for bit, the seam wrappers reached in their member
 forms, and each member's pois_n within the ±2 a solve / ≤ 4 in all rule of
 JAX's `jit(vmap)` step (whose CPU levels are not blocked).
@@ -155,33 +158,51 @@ def _jax(fn, dims, *args):
                                         else a for a in args))
 
 
+def _words(shared, upd=None, beta=None):
+    """The fused iteration's words in flight (`attic.WORDS`), one run a
+    member or, ``shared``, member 0's, carrying each member's ``upd`` or
+    ``beta`` (`BETAS`)."""
+    def run(m):
+        w = np.array([0.8, 1.3, 0.0, 0.0, 0.0], F32)
+        if upd is not None:
+            w[ta.W_UPD] = np.broadcast_to(upd, (M,))[m]
+        else:
+            w[ta.W_BETA] = np.broadcast_to(beta, (M,))[m]
+        return w
+    return tt(_stack(run, shared))
+
+
 # --- (a) the six member forms against JAX's batched Pallas kernels ----------
 
 @pytest.mark.parametrize("form", ["beta", "b0", "beta_bf16"])
 @pytest.mark.parametrize("shared", [True, False])
 def test_pcg_dir_mult_members_vs_pallas(member_calls, shared, form):
-    """The iteration's form (β a member's or shared, f32 or bf16
-    directions) and the preamble's (β = 0, eps_prev the residual)."""
+    """The iteration's form (β a member's or shared, read from the words,
+    f32 or bf16 directions) and the preamble's (no words: β = 0, eps_prev
+    the residual).  The sums are in the port's words: <z, eps> its own
+    sum, the rho the preamble's (it depends on r and iD alone)."""
     L, Dd, iD = _level(shared)
     r = _fields(1, scale=0.1)
     bf16 = form == "beta_bf16"
     ep = r if form == "b0" else _fields(2, scale=0.1)
     if form == "b0":
-        beta, bd = 0.0, None
+        beta, bd, words = 0.0, None, None
     else:
         beta, bd = ((np.float32(BETAS[0]), None) if shared else (BETAS, 0))
+        words = _words(shared, beta=beta)
     dims = _dims(shared, 2, 2) + (None if shared else 0, bd)
-    et, zt, dt, rt = _port(
-        lambda L, Dd, e, r, iD, b: ta.pcg_dir_mult(
-            L, Dd, e.to(torch.bfloat16) if bf16 else e, r, iD, b, bf16),
-        dims, L, Dd, ep, r, iD,
-        tt(beta) if isinstance(beta, np.ndarray) else float(beta))
+    dir_mult = lambda L, Dd, e, r, iD, w: ta.pcg_dir_mult(
+        L, Dd, e.to(torch.bfloat16) if bf16 else e, r, iD, w, bf16)
+    et, zt, wt = _port(dir_mult, dims, L, Dd, ep, r, iD, words)
+    seed = wt if form == "b0" else _port(
+        dir_mult, dims[:5] + (None,), L, Dd, r, r, iD, None)[2]
+    dt, rt = wt[:, ta.W_SUM], seed[:, ta.W_RHO]
     ej, zj, dj, rj = _jax(
         lambda L, Dd, e, r, iD, b: ja.pcg_dir_mult(
             L, Dd, e.astype(jnp.bfloat16) if bf16 else e, r, iD, b, S,
             bf16=bf16, interpret=True, block=2),
         dims, L, Dd, ep, r, iD, beta)
-    assert member_calls["pcg_dir_mult"] == [M]
+    assert member_calls["pcg_dir_mult"] == [M] * (1 if form == "b0" else 2)
     assert et.dtype == (torch.bfloat16 if bf16 else torch.float32)
     if bf16:
         _within_bf16_ulp(et, ej)
@@ -196,9 +217,10 @@ def test_pcg_dir_mult_members_vs_pallas(member_calls, shared, form):
 @pytest.mark.parametrize("shared", [True, False])
 @pytest.mark.parametrize("name", ["pcg_update", "pcg_axpy"])
 def test_axpy_rho_members_vs_pallas(member_calls, name, shared, bf16):
-    """The fused iteration's second sweep and the axpy-pair sweep (one
-    kernel, two TPU kernels), eps in f32 or bf16, iD and upd shared or one
-    a member."""
+    """The fused iteration's second sweep (upd read from its words, its
+    rho its own sum in the new words) and the axpy-pair sweep (one kernel,
+    two TPU kernels), eps in f32 or bf16, iD and upd shared or one a
+    member."""
     _, _, iD = _level(shared)
     x, r = _fields(3, interior=False), _fields(4, scale=0.1)
     eps, z = _fields(5, scale=0.1), _fields(6)
@@ -207,7 +229,11 @@ def test_axpy_rho_members_vs_pallas(member_calls, name, shared, bf16):
     xt, rt, ht = _port(
         lambda x, r, e, z, iD, u: getattr(ta, name)(
             x, r, e.to(torch.bfloat16) if bf16 else e, z, iD, u),
-        dims, x, r, eps, z, iD, tt(np.asarray(upd)))
+        dims, x, r, eps, z, iD,
+        _words(shared, upd=upd) if name == "pcg_update"
+        else tt(np.asarray(upd)))
+    if name == "pcg_update":
+        ht = ht[:, ta.W_SUM]
 
     def jax_one(x, r, e, z, iD, u):
         e = e.astype(jnp.bfloat16) if bf16 else e
@@ -374,10 +400,15 @@ RADII = [3.0, 3.5, 4.0]
 NU = 0.1
 STEPS = 2
 # phase 6.4's seam configurations and the wrappers each routes the fine
-# level through
+# level through: (c), once the ``PCG_BLOCKED`` seam, is the default path,
+# `pcg_blocked` the smoother of every blocked non-periodic level; KDOT and
+# KAXPY act in the plain `pcg`, the smoother of periodic levels
 CONFIGS = {"b": ({"KDOT": True, "KAXPY": True}, ("dot3d", "pcg_axpy")),
-           "c": ({"PCG_BLOCKED": True}, ("pcg_dir_mult", "pcg_update")),
+           "c": ({}, ("pcg_dir_mult", "pcg_update")),
            "g": ({"STREAM": True}, ("mult3d_stream", "increment3d_stream"))}
+# the sweep's periodic axes under each configuration: (b)'s pipe is
+# periodic across the stream (z), so that its levels smooth with `pcg`
+SWEEP_PERDIR = {"b": (2,), "c": (), "g": ()}
 
 
 class _gates_open:
@@ -394,17 +425,18 @@ class _gates_open:
         sk.use_blocked = self.gate
 
 
-def _port_sphere(v):
+def _port_sphere(v, perdir=()):
     """The port's drag force after `STEPS` steps and each step's pois_n,
-    ``(STEPS, 2)``, as a pure function of the radius (f64, the CPU)."""
+    ``(STEPS, 2)``, as a pure function of the radius (f64, the CPU), the
+    pipe periodic along ``perdir``."""
     f64 = torch.float64
     body = AutoBody(lambda x, t: torch.sqrt(torch.sum((x - CENTRE) ** 2))
                     - v)
     cfg = tf.FlowConfig(D=3, S=S_PIPE, device="cpu", nu=NU,
-                        U=(1.0, 0.0, 0.0), dtype=f64)
-    V, m0, m1, _ = measure_fields(body, S_PIPE, 0.0, 1.0, (), False, f64,
-                                  "cpu")
-    levels = build_levels(m0)
+                        U=(1.0, 0.0, 0.0), dtype=f64, perdir=perdir)
+    V, m0, m1, _ = measure_fields(body, S_PIPE, 0.0, 1.0, perdir, False,
+                                  f64, "cpu")
+    levels = build_levels(m0, perdir)
     state = tf.flow_init(cfg).replace(V=V, mu0=m0, mu1=m1)
     pois = []
     for _ in range(STEPS):
@@ -417,23 +449,32 @@ def _port_sphere(v):
 @pytest.fixture(scope="module")
 def jax_sweep():
     """JAX's `jit(vmap)` of the same sweep (its default path: its CPU
-    levels are not blocked): each member's pois_n, ``(M, STEPS, 2)``."""
+    levels are not blocked), the pipe periodic along the argument: each
+    member's pois_n, ``(M, STEPS, 2)``."""
     f64 = jnp.float64
+    done = {}
 
-    def force(v):
-        body = JBody(lambda x, t: jnp.sqrt(jnp.sum((x - CENTRE) ** 2)) - v)
-        cfg = JConfig(D=3, S=S_PIPE, nu=NU, U=(1.0, 0.0, 0.0), dtype=f64)
-        V, m0, m1, _ = jmeasure(body, S_PIPE, 0.0, 1.0, (), False, f64)
-        levels = jbuild(m0)
-        state = jf.flow_init(cfg)._replace(V=V, mu0=m0, mu1=m1)
-        pois = []
-        for _ in range(STEPS):
-            state, aux = jf.mom_step(cfg, levels, state)
-            pois.append(aux["pois_n"])
-        return jforce(state.u, state.p, cfg.nu, body, state.t), \
-            jnp.stack(pois)
-    forces, pois = jax.jit(jax.vmap(force))(jnp.asarray(RADII, f64))
-    return np.asarray(pois).tolist()
+    def sweep(perdir=()):
+        def force(v):
+            body = JBody(lambda x, t: jnp.sqrt(jnp.sum((x - CENTRE) ** 2))
+                         - v)
+            cfg = JConfig(D=3, S=S_PIPE, nu=NU, U=(1.0, 0.0, 0.0),
+                          dtype=f64, perdir=perdir)
+            V, m0, m1, _ = jmeasure(body, S_PIPE, 0.0, 1.0, perdir, False,
+                                    f64)
+            levels = jbuild(m0, perdir)
+            state = jf.flow_init(cfg)._replace(V=V, mu0=m0, mu1=m1)
+            pois = []
+            for _ in range(STEPS):
+                state, aux = jf.mom_step(cfg, levels, state)
+                pois.append(aux["pois_n"])
+            return jforce(state.u, state.p, cfg.nu, body, state.t), \
+                jnp.stack(pois)
+        if perdir not in done:
+            _, pois = jax.jit(jax.vmap(force))(jnp.asarray(RADII, f64))
+            done[perdir] = np.asarray(pois).tolist()
+        return done[perdir]
+    return sweep
 
 
 def _pois_ok(a, b):
@@ -449,21 +490,29 @@ def test_sphere_sweep_under_seams(member_calls, jax_sweep, config,
     per-member runs bit for bit (forces and pois_n), and each member's
     pois_n is within the ±2/≤4 rule of JAX's `jit(vmap)` step."""
     flags, seam = CONFIGS[config]
+    perdir = SWEEP_PERDIR[config]
+    # the blocked non-periodic levels' smoother, `pcg_blocked`, under every
+    # seam; none where the pipe is periodic (its levels smooth with `pcg`)
+    smooth = () if perdir else CONFIGS["c"][1]
     for k, v in flags.items():
         monkeypatch.setattr(tp, k, v)
     vs = torch.tensor(RADII, dtype=torch.float64)
+    port = lambda v: _port_sphere(v, perdir)
     with _gates_open():
-        forces, pois = torch.func.vmap(_port_sphere)(vs)
+        forces, pois = torch.func.vmap(port)(vs)
         batched = {k: list(c) for k, c in member_calls.items()}
         for m in range(M):
-            own_f, own_p = _port_sphere(vs[m])
+            own_f, own_p = port(vs[m])
             assert torch.equal(forces[m], own_f), (config, m)
             assert torch.equal(pois[m], own_p), (config, m)
-    assert all(batched.get(k) for k in seam), batched
+    assert all(batched.get(k) for k in seam + smooth), batched
+    assert not any(batched.get(k) for k in CONFIGS["c"][1]
+                   if k not in smooth), batched
     assert all(n == M for c in batched.values() for n in c)
+    jpois = jax_sweep(perdir)
     for m in range(M):
-        assert _pois_ok(pois[m].tolist(), jax_sweep[m]), (
-            m, pois[m].tolist(), jax_sweep[m])
+        assert _pois_ok(pois[m].tolist(), jpois[m]), (
+            m, pois[m].tolist(), jpois[m])
 
 
 # --- (e) the gates ----------------------------------------------------------
@@ -523,7 +572,10 @@ def test_seam_gates_route_transforms(member_calls, config, monkeypatch):
     flags, seam = CONFIGS[config]
     L, Dd, iD = (tt(a) for a in _level(False))
     r, x = tt(_residuals(False)), tt(_fields(23, interior=False))
-    lev = lambda L, Dd, iD: tp.PoissonLevel(L=L, D=Dd, iD=iD, blocked=True)
+    # KDOT and KAXPY act in `pcg`, the smoother of a periodic level
+    per = (0,) if config == "b" else ()
+    lev = lambda L, Dd, iD: tp.PoissonLevel(L=L, D=Dd, iD=iD, blocked=True,
+                                            perdir=per)
 
     def smoothed(L, Dd, iD, x, r):
         if config == "g":       # STREAM's wrappers: the residual, a Jacobi

@@ -380,7 +380,7 @@ def _guard_calls():
     (the card's stand-in) whose one operand is passed through ``T``: a
     field, or (``[...]``) the scalar or BC value."""
     f, v = (lambda: _meta(*SG)), (lambda: _meta(3, *SG))
-    s = lambda: _meta()
+    s, w = (lambda: _meta()), (lambda: _meta(5))
     lev = lambda L: tp.PoissonLevel(L=L, D=f(), iD=f())
     return {
         "mult3d": lambda T: sk.mult3d(v(), f(), T(f())),
@@ -398,14 +398,14 @@ def _guard_calls():
         "conv_diff3d[nu]": lambda T: sk.conv_diff3d(v(), T(s()), quick),
         "pcg_fused": lambda T: pk.pcg_fused(lev(v()), T(f()), f()),
         "pcg_fused[L]": lambda T: pk.pcg_fused(lev(T(v())), f(), f()),
-        "pcg_dir_mult": lambda T: at.pcg_dir_mult(v(), f(), f(), T(f()), f(),
-                                                  0.0),
+        # the fused iteration's sweeps read beta and upd from their words
+        "pcg_dir_mult": lambda T: at.pcg_dir_mult(v(), f(), f(), T(f()), f()),
         "pcg_dir_mult[beta]": lambda T: at.pcg_dir_mult(v(), f(), f(), f(),
-                                                        f(), T(s())),
+                                                        f(), T(w())),
         "pcg_update": lambda T: at.pcg_update(T(f()), f(), f(), f(), f(),
-                                              0.5),
+                                              w()),
         "pcg_update[upd]": lambda T: at.pcg_update(f(), f(), f(), f(), f(),
-                                                   T(s())),
+                                                   T(w())),
         "dot3d": lambda T: at.dot3d(T(f()), f()),
         "pcg_axpy": lambda T: at.pcg_axpy(f(), T(f()), f(), f(), f(), 0.5),
         "pcg_axpy[upd]": lambda T: at.pcg_axpy(f(), f(), f(), f(), f(),
@@ -482,11 +482,15 @@ KERNELS = ("mult3d", "increment3d", "bc3d", "div3d", "project3d",
 # the seams that route a blocked level through them
 SEAM_KERNELS = ("dot3d", "pcg_axpy", "pcg_dir_mult", "pcg_update",
                 "mult3d_stream", "increment3d_stream")
-SEAMS = {"KDOT+KAXPY": ({"KDOT": True, "KAXPY": True}, ("dot3d", "pcg_axpy")),
-         "PCG_BLOCKED": ({"PCG_BLOCKED": True}, ("pcg_dir_mult",
-                                                 "pcg_update")),
+# (``PCG_BLOCKED``, the retired seam's name, is now the default smoother
+# of blocked non-periodic levels, `attic.pcg_blocked`, under no flag; KDOT
+# and KAXPY act in the plain `pcg`, the smoother of periodic levels: their
+# channel is periodic across the stream)
+SEAMS = {"KDOT+KAXPY": ({"KDOT": True, "KAXPY": True}, ("dot3d", "pcg_axpy"),
+                        (1, 2)),
+         "PCG_BLOCKED": ({}, ("pcg_dir_mult", "pcg_update"), ()),
          "STREAM": ({"STREAM": True}, ("mult3d_stream",
-                                       "increment3d_stream"))}
+                                       "increment3d_stream"), ())}
 S3 = (18, 10, 10)
 
 
@@ -525,7 +529,7 @@ def _step3(nu, **kw):
     cfg = tf.FlowConfig(D=3, S=S3, device="cpu", nu=nu, U=(1.0, 0.0, 0.0),
                         dtype=f64, **kw)
     state = tf.flow_init(cfg, ulam)
-    levels = build_levels(state.mu0)
+    levels = build_levels(state.mu0, cfg.perdir)
     state, _aux = tf.mom_step(cfg, levels, state)
     return torch.sum(ke(state.u))
 
@@ -581,21 +585,24 @@ def test_seam_gates_route_tracked_fields_to_the_plain_forms(spies, seam,
     `torch.func.jvp` hand none of the wrappers a tracked operand (on the
     card they would raise), and the gradient equals the one with the
     seam off."""
-    flags, kernels = SEAMS[seam]
+    flags, kernels, perdir = SEAMS[seam]
     for k, v in flags.items():
         monkeypatch.setattr(tp, k, v)
     with torch.no_grad():
-        _step3(torch.tensor(0.05, dtype=f64), fixed_iters=2)
+        _step3(torch.tensor(0.05, dtype=f64), fixed_iters=2, perdir=perdir)
     assert all(spies[k, False] for k in kernels), spies
     assert not any(t for (_, t) in spies)
     spies.clear()
-    _, g = grad_and_value(lambda nu: _step3(nu, fixed_iters=2), 0.05)
-    _, d = torch.func.jvp(lambda nu: _step3(nu, fixed_iters=2),
+    _, g = grad_and_value(lambda nu: _step3(nu, fixed_iters=2,
+                                            perdir=perdir), 0.05)
+    _, d = torch.func.jvp(lambda nu: _step3(nu, fixed_iters=2,
+                                            perdir=perdir),
                           (torch.tensor(0.05, dtype=f64),),
                           (torch.ones((), dtype=f64),))
     assert not any(t for (_, t) in spies), spies
     assert np.isclose(float(d), g, rtol=1e-9)
     for k in flags:
         monkeypatch.setattr(tp, k, False)
-    _, g_off = grad_and_value(lambda nu: _step3(nu, fixed_iters=2), 0.05)
+    _, g_off = grad_and_value(lambda nu: _step3(nu, fixed_iters=2,
+                                                perdir=perdir), 0.05)
     assert g == g_off, (g, g_off)

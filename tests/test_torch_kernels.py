@@ -13,6 +13,8 @@ import itertools
 import pytest
 import torch
 
+from _pcg_chain import FOLD_CASES, chain, fold_case
+
 pytestmark = pytest.mark.cuda
 
 # the slice's shapes: the (96,64,64) fine level, a non-cubic shape whose
@@ -81,8 +83,7 @@ def test_bf16_forms_launch_and_refuse(device):
     with pytest.raises(TypeError, match="float32"):
         sk.mult3d(d["L16"], d["D16"].to(torch.bfloat16), d["x"])
     with pytest.raises(TypeError, match="iD16"):
-        at.pcg_dir_mult(d["L16"], d["D16"], d["eps"], d["r"], d["lev"].iD,
-                        0.5)
+        at.pcg_dir_mult(d["L16"], d["D16"], d["eps"], d["r"], d["lev"].iD)
     with pytest.raises(TypeError, match="float32"):
         at.dot3d(d["x"], d["iD16"], "ab")
 
@@ -335,9 +336,9 @@ def test_cfl3d_nan(S, device):
 
 def _dir_mult_forms(d):
     """(first output, kernel call) of each of the six `pcg_dir_mult` forms
-    the fused iteration launches (`check.variants`: beta a 0-d device
-    scalar, or the number 0 with eps_prev = r; f32 and bf16 directions, f32
-    operator and shadows) on inputs ``d``."""
+    the fused iteration launches (`check.variants`: beta from a smooth's
+    words, or none, beta 0 with eps_prev = r at the seed; f32 and bf16
+    directions, f32 operator and shadows) on inputs ``d``."""
     from waterlily_tpu_torch.kernels.check import variants
     return [(outs[0], kern) for outs, kern, _ in variants("pcg_dir_mult", d)]
 
@@ -348,17 +349,18 @@ def test_march_kernels_launch_once(device):
     with the dot (f32 operator and shadows) are one launch a call: the
     launch counter, and the profiler sees one kernel on the card and no
     PyTorch reduce (or scalar fill) beside it."""
-    from waterlily_tpu_torch.kernels.check import inputs
+    from waterlily_tpu_torch.kernels.check import inputs, words
     from waterlily_tpu_torch.ops import stencil_kernels as sk
     from waterlily_tpu_torch.ops import attic as at
     from waterlily_tpu_torch.utils.perf import device_profile
     d = inputs(FINE, 0, device)
     x, r, eps, z, iD, s = (d["x"], d["r"], d["eps"], d["z"], d["lev"].iD,
                            d["dt"])
+    ws = words(None, device)
     calls = [(sk.cfl3d, lambda: sk.cfl3d(d["u"])),
              (sk.ana_mult3d, lambda: sk.ana_mult3d(x, 1.0, with_dot=True)),
              (sk.ana_mult3d, lambda: sk.ana_mult3d(x, 1.0)),
-             (at.pcg_update, lambda: at.pcg_update(x, r, eps, z, iD, s)),
+             (at.pcg_update, lambda: at.pcg_update(x, r, eps, z, iD, ws)),
              (at.pcg_axpy, lambda: at.pcg_axpy(x, r, eps, z, iD, s)),
              (at.mult3d_stream,
               lambda: at.mult3d_stream(d["lev"].L, d["lev"].D, x, True)),
@@ -390,22 +392,24 @@ def test_pcg_dir_mult_march_matches_plain(S, device):
 
 @pytest.mark.parametrize("S", [FINE, (3, 37, 70), (37, 29, 35)])
 def test_pcg_iteration_sums_are_deterministic(S, device):
-    """Two calls on one input give the same bits: eps, z and both sums of
-    every pcg_dir_mult form, and the x, r and rho of pcg_update and
-    pcg_axpy (the last block sums the partials in index order; no atomics
-    in the sums)."""
-    from waterlily_tpu_torch.kernels.check import inputs
+    """Two calls on one input give the same bits: eps, z and the words
+    (its sum and the step taken from it) of every pcg_dir_mult form, the
+    x, r and words of pcg_update and the x, r and rho of pcg_axpy (the
+    last block sums the partials in index order; no atomics in the
+    sums)."""
+    from waterlily_tpu_torch.kernels.check import inputs, words
     from waterlily_tpu_torch.ops import attic as at
     d = inputs(S, 0, device)
     x, r, eps, z, iD, s = (d["x"], d["r"], d["eps"], d["z"], d["lev"].iD,
                            d["dt"])
+    w = words(None, device)
     calls = _dir_mult_forms(d) + [
-        ("pcg_update", lambda: at.pcg_update(x, r, eps, z, iD, s)),
+        ("pcg_update", lambda: at.pcg_update(x, r, eps, z, iD, w)),
         ("pcg_axpy", lambda: at.pcg_axpy(x, r, d["eps16"], z, d["iD16"],
                                          s))]
     for name, call in calls:
         one, two = call(), call()
-        assert one[2].shape == () and one[-1].shape == ()
+        assert one[2].shape == (() if name == "pcg_axpy" else (at.WORDS,))
         for a, b in zip(one, two):
             assert torch.equal(a, b), name
 
@@ -548,6 +552,130 @@ def test_pcg_blocked_on_the_card_vs_cpu(form, device):
             assert float(diff.mean()) <= 2e-6, float(diff.mean())
         else:
             assert float(diff.max()) <= 1e-5, float(diff.max())
+
+
+def _blocked_level(form, device):
+    """The dense slice's fine level, blocked, with f32 or bf16 directions
+    or the operator shadows, and its residual and x (`check.inputs`)."""
+    from waterlily_tpu_torch.kernels.check import inputs
+    d = inputs(FINE, 0, device)
+    lev = dataclasses.replace(d["lev"], blocked=True,
+                              bf16_eps=form == "bf16")
+    if form == "L16":
+        lev = dataclasses.replace(lev, L16=d["L16"], D16=d["D16"],
+                                  iD16=d["iD16"])
+    return lev, d["r"], d["x"]
+
+
+@pytest.mark.parametrize("form", ["f32", "bf16", "L16"])
+@pytest.mark.parametrize("case", sorted(FOLD_CASES))
+def test_pcg_blocked_folds_the_scalar_step(case, form, device):
+    """The smooth with the PCG's scalar step inside its two sweeps (the
+    smooth's device words) equals, bit for bit, `pcg_blocked` with the
+    step in 0-d tensors between them (`_pcg_chain.chain`), in each early
+    exit (rho 0 at the seed, denom 0, alpha outside [1e-2, 1e2], rho2
+    under 10 eps; each trips in the chain) and in a smooth that runs on,
+    with f32 and bf16 directions and the operator shadows: 6 launches of
+    each sweep."""
+    from waterlily_tpu_torch.ops import attic as at
+    lev, r, x = _blocked_level(form, device)
+    lev, r, exit_ = fold_case(case, lev, r)
+    exits = []
+    want = chain(lev, x, r, exits=exits)
+    n = at.pcg_dir_mult.launches, at.pcg_update.launches
+    got = at.pcg_blocked(lev, x, r)
+    assert (at.pcg_dir_mult.launches - n[0],
+            at.pcg_update.launches - n[1]) == (6, 6)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    assert exits[:1] == ([exit_] if exit_ else []), exits
+
+
+@pytest.mark.parametrize("bound", [1e-2, 1e2])
+def test_scalar_step_at_the_alpha_bounds(bound, device):
+    """`pcg_dir_mult`'s step keeps a step of exactly the f32 bound alive
+    and kills one an ulp outside it, as torch compares an f32 tensor with
+    the Python number, its words bit for bit those of the plain step
+    (`attic._alpha_step`) on the same sums."""
+    import numpy as np
+    from waterlily_tpu_torch.kernels.check import inputs, words
+    from waterlily_tpu_torch.ops import attic as at
+    d = inputs(FINE, 0, device)
+    lev, eps, r = d["lev"], d["eps"], d["r"]
+    w0 = words(None, device)
+    # this sweep's <z, eps> (its own sum in its words), on the same beta
+    den = at.pcg_dir_mult(lev.L, lev.D, eps, r, lev.iD, w0)[2][at.W_SUM]
+    den32, b = np.float32(float(den)), np.float32(bound)
+    away = np.float32(np.inf) * np.sign(den32)   # rho has den's sign
+    rho = np.float32(np.float64(b) * np.float64(den32))
+    while rho / den32 != b:         # the f32 step exactly at the bound
+        rho = np.nextafter(rho, away if rho / den32 < b else np.float32(0))
+    out = rho
+    while out / den32 == b:         # the next one outside it
+        out = np.nextafter(out, np.float32(0) if bound < 1 else away)
+    for value, dead in ((rho, 0.0), (out, 1.0)):
+        w = w0.clone()
+        w[at.W_RHO], w[at.W_DEAD] = float(value), 0.0
+        got = at.pcg_dir_mult(lev.L, lev.D, eps, r, lev.iD, w)[2]
+        want = at._alpha_step(w, den, None)
+        assert torch.equal(got, want), (got, want)
+        assert float(got[at.W_DEAD]) == dead, (bound, value, got)
+
+
+@pytest.mark.parametrize("form", ["f32", "bf16", "L16"])
+def test_pcg_blocked_members_fold_the_step(form, device):
+    """Under `torch.func.vmap` (3 members: one that runs on, one with a
+    zero residual, one scaled to trip rho2) the folded smooth equals
+    `vmap` of the 0-d-tensor chain (the sweeps' member forms, the step one
+    value a member) bit for bit, in 12 member-form launches."""
+    from waterlily_tpu_torch.ops import attic as at
+    lev, r, x = _blocked_level(form, device)
+    r2 = fold_case("rho2", lev, r)[1]
+    R = torch.stack([r, torch.zeros_like(r), r2])
+    X = torch.stack([x, x, x])
+    want = torch.func.vmap(lambda x, r: chain(lev, x, r))(X, R)
+    n = at.pcg_dir_mult.members + at.pcg_update.members
+    got = torch.func.vmap(lambda x, r: at.pcg_blocked(lev, x, r))(X, R)
+    assert at.pcg_dir_mult.members + at.pcg_update.members - n == 12
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+@pytest.mark.parametrize("S", [(386, 386, 386), (50, 50, 50)])
+def test_pcg_blocked_is_its_sweeps_alone(S, device):
+    """A smooth of a blocked level (the 384³ sphere's finest and coarsest
+    blocked shapes) makes 2·it runtime launches, the seed's sweep, ``it``
+    updates and ``it − 1`` rebuilds, and puts no other operation on the
+    card: no copy, no fill, no ATen kernel (profiler)."""
+    from torch.profiler import ProfilerActivity, profile
+    from waterlily_tpu_torch.grid import mask_interior
+    from waterlily_tpu_torch.ops import attic as at
+    from waterlily_tpu_torch.ops import poisson as tp
+    g = torch.Generator(device=device).manual_seed(0)
+    lev = tp.make_level(torch.rand((3,) + S, generator=g, device=device)
+                        + 0.5)
+    assert lev.blocked
+    r = mask_interior(torch.rand(S, generator=g, device=device) - 0.5)
+    x = torch.zeros_like(r)
+    at.pcg_blocked(lev, x, r)       # the library and its queries, once
+    launch = ("cudaLaunch", "cuLaunch", "cudaGraphLaunch", "cuGraphLaunch")
+    for _ in range(3):              # a session may record nothing
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            at.pcg_blocked(lev, x, r, it=6)
+            torch.cuda.synchronize()
+        evs = prof.events()
+        launches = [e.name for e in evs if e.name.startswith(launch)]
+        if launches:
+            break
+    copies = [e.name for e in evs
+              if e.name.startswith(("cudaMemcpy", "cudaMemset", "cuMemcpy",
+                                    "cuMemset"))]
+    on_card = {e.name for e in evs
+               if e.device_type == torch.autograd.DeviceType.CUDA}
+    assert len(launches) == 12, launches
+    assert not copies, copies
+    assert on_card and all("dir_mult_kernel" in k or "axpy_rho_kernel" in k
+                           for k in on_card), on_card
 
 
 @pytest.mark.parametrize("shared", [True, False])
@@ -792,4 +920,5 @@ def test_seam_members_refuse(device):
             d["r"], d["x"][:, :-1].contiguous())
     with pytest.raises(TypeError):
         torch.func.vmap(lambda x, r: at.pcg_update(
-            x, r, x, r, r, 0.5))(d["x"].double(), d["r"].double())
+            x, r, x, r, r, torch.zeros(at.WORDS, device=device)))(
+                d["x"].double(), d["r"].double())

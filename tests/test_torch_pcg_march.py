@@ -57,35 +57,46 @@ FORMS = {"f32": (0.37, False, False, False),
          "b0_L16": (0.0, False, False, True)}
 
 
+def _words(beta):
+    """A smooth's words in flight (`attic.WORDS`) carrying ``beta``."""
+    return torch.tensor([0.8, 1.3, 0.0, 0.3, beta])
+
+
 @pytest.mark.parametrize("form", FORMS)
 def test_pcg_dir_mult_cpu_sums_are_0d(form):
-    """The CPU wrapper returns eps and z and the two sums as 0-d tensors,
-    equal to the plain form's, in each form; beta as a number or a 0-d
-    tensor."""
+    """The CPU wrapper returns eps and z and the words (its sum and scalar
+    step, one run of `attic.WORDS`), equal to the plain form's, in each
+    form; beta read from the words, or 0 at the seed (no words)."""
     beta, prev16, bf16, op16 = FORMS[form]
     S = (12, 10, 14)
     lev, r, eps = _level(S)
     L, Dd, iD = (tp.operator_shadows(lev.L) if op16
                  else (lev.L, lev.D, lev.iD))
     prev = r if beta == 0.0 else (eps.to(torch.bfloat16) if prev16 else eps)
-    ref = ta._pcg_dir_mult_plain(L, Dd, prev, r, iD, beta, bf16)
-    for b in (beta, torch.tensor(beta)):
-        got = ta.pcg_dir_mult(L, Dd, prev, r, iD, b, bf16)
-        assert got[0].dtype == (torch.bfloat16 if bf16 else torch.float32)
-        assert got[2].shape == () and got[3].shape == ()
-        for a, e in zip(got, ref):
-            assert torch.equal(a, e)
+    w = None if beta == 0.0 else _words(beta)
+    ref = ta._pcg_dir_mult_plain(L, Dd, prev, r, iD, w, bf16)
+    got = ta.pcg_dir_mult(L, Dd, prev, r, iD, w, bf16)
+    assert got[0].dtype == (torch.bfloat16 if bf16 else torch.float32)
+    assert got[2].shape == (ta.WORDS,)
+    for a, e in zip(got, ref):
+        assert torch.equal(a, e)
 
 
 @pytest.mark.parametrize("name", ["pcg_update", "pcg_axpy"])
 def test_axpy_rho_cpu_sum_is_0d(name):
+    """`pcg_axpy` returns its rho as a 0-d tensor, `pcg_update` its words
+    (upd read from the words it is handed), each equal to the plain
+    form's."""
     S = (12, 10, 14)
     lev, r, eps = _level(S)
     x = tt(normal(5, S))
     z = tt(interior_only(normal(6, S)))
-    upd = torch.tensor(0.37)
-    got = getattr(ta, name)(x, r, eps, z, lev.iD, upd)
-    ref = ta._axpy_rho_plain(x, r, eps, z, lev.iD, upd)
-    assert got[2].shape == ()
+    if name == "pcg_update":
+        s, plain, shape = _words(0.37), ta._pcg_update_plain, (ta.WORDS,)
+    else:
+        s, plain, shape = torch.tensor(0.37), ta._axpy_rho_plain, ()
+    got = getattr(ta, name)(x, r, eps, z, lev.iD, s)
+    ref = plain(x, r, eps, z, lev.iD, s)
+    assert got[2].shape == shape
     for a, e in zip(got, ref):
         assert torch.equal(a, e)

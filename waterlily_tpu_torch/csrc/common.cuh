@@ -108,8 +108,9 @@ __device__ inline float block_sum(float v, float* sh) {
 // sums every block's partial in index order into *out: a reduction over
 // the grid in one launch, with no atomics in the sum and its order fixed by
 // the grid.  Every thread of the block calls it; sh as for `block_sum`.
-// Calls that share a counter run on one stream.
-__device__ inline void finish_sum(float s, float* partial,
+// True in the thread that wrote *out (thread 0 of the last block).  Calls
+// that share a counter run on one stream.
+__device__ inline bool finish_sum(float s, float* partial,
                                   unsigned int* count, float* out,
                                   float* sh) {
   __shared__ bool last;
@@ -119,7 +120,7 @@ __device__ inline void finish_sum(float s, float* partial,
     last = atomicAdd(count, 1u) == gridDim.x - 1;
   }
   __syncthreads();
-  if (!last) return;
+  if (!last) return false;
   // each thread adds partials t, t + B, t + 2B, ... in that order, with
   // eight loads in flight (a 258^3 grid leaves ~67k partials)
   const int n = (int)gridDim.x, B = (int)blockDim.x;
@@ -137,6 +138,7 @@ __device__ inline void finish_sum(float s, float* partial,
     *out = tot;
     *count = 0u;
   }
+  return threadIdx.x == 0;
 }
 
 inline int blocks_for(long long n) {

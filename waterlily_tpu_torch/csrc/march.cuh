@@ -119,9 +119,10 @@ __device__ inline float block_reduce(float v, float id, float* sh) {
 // out[0..N) and resets the member's counter to 0.  ``partial`` holds, member
 // after member, N runs of one float a block of a member; ``count`` and
 // ``out`` one counter and N results a member.  ``c``: the block's
-// `march_column`.  Every thread of the block calls it.
+// `march_column`.  Every thread of the block calls it; true in the thread
+// that wrote out (thread 0 of the member's last block).
 template <class Op, int N>
-__device__ inline void march_finish_n(const Column& c, const float (&r)[N],
+__device__ inline bool march_finish_n(const Column& c, const float (&r)[N],
                                       float id, float* partial,
                                       unsigned int* count, float* out,
                                       float* sh) {
@@ -140,7 +141,7 @@ __device__ inline void march_finish_n(const Column& c, const float (&r)[N],
     last = atomicAdd(count, 1u) == n - 1;
   }
   __syncthreads();
-  if (!last) return;
+  if (!last) return false;
   float v[N];
 #pragma unroll
   for (int q = 0; q < N; ++q) v[q] = id;
@@ -155,6 +156,7 @@ __device__ inline void march_finish_n(const Column& c, const float (&r)[N],
     for (int q = 0; q < N; ++q) out[q] = v[q];
     *count = 0u;
   }
+  return t == 0;
 }
 
 template <class Op>

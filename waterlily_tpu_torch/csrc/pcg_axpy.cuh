@@ -26,13 +26,70 @@
 // member stride of 0: one for all), partials, counter and rho, so bit for
 // bit its own launch; x', r' hold the members' fields one after another,
 // each input sits at its own member stride (0: shared).
+//
+// The scalar step (`ops.attic.pcg_blocked`'s smooth, the fused iteration's
+// sweeps with their words): a smooth carries its scalars in PCG_WORDS f32
+// device words a member, from sweep to sweep, and the thread that sums a
+// sweep's dots (thread 0 of the last block) also takes the PCG's scalar
+// step from them, so a smooth is its sweeps' launches and nothing else.
+// Each sweep reads the words its predecessor wrote and writes new ones
+// (never in place: every block reads beta or upd from them while the last
+// block steps).  The step is `ops.poisson.pcg`'s torch.where chain in IEEE
+// f32 (round-to-nearest division, comparisons false on NaN, the constants
+// rounded to f32 as torch rounds a Python number against an f32 tensor), so
+// the words equal the chain's 0-d tensors bit for bit.
 #pragma once
 
 #include "common.cuh"
 
-// Member strides (elements) of the sweep's inputs and of upd.
+// The words of a member: rho, the sweep's own sum (<z, eps> after the
+// first sweep, rho2 = <r', r'*iD> after the second), the dead flag (1 or
+// 0), the step upd and the next beta.
+#define PCG_WORDS 5
+enum PcgWord { W_RHO = 0, W_SUM, W_DEAD, W_UPD, W_BETA };
+// the smoother's exit on |rho|: 10 f32 eps (exact in f32)
+#define PCG_TENEPS (10.f * FLT_EPSILON)
+
+// The first sweep's step from its <z, eps> ``denom``: alpha = rho/denom
+// (0 where dead or denom is 0), dead where |alpha| leaves [1e-2, 1e2],
+// upd = alpha where alive.  w_in: the words of the previous sweep, or NULL
+// at the smooth's seed (rho its own <r, r*iD> ``rho_seed``, dead where
+// |rho| < PCG_TENEPS, beta 0).
+__device__ inline void step_alpha(const float* w_in, float denom,
+                                  float rho_seed, float* w_out) {
+  float rho = rho_seed, beta = 0.f;
+  bool dead = fabsf(rho_seed) < PCG_TENEPS;
+  if (w_in != nullptr) {
+    rho = w_in[W_RHO];
+    dead = w_in[W_DEAD] != 0.f;
+    beta = w_in[W_BETA];
+  }
+  const float alpha = (dead || denom == 0.f) ? 0.f : __fdiv_rn(rho, denom);
+  dead = dead || fabsf(alpha) < 1e-2f || fabsf(alpha) > 1e2f;
+  w_out[W_RHO] = rho;
+  w_out[W_SUM] = denom;
+  w_out[W_DEAD] = dead ? 1.f : 0.f;
+  w_out[W_UPD] = dead ? 0.f : alpha;
+  w_out[W_BETA] = beta;
+}
+
+// The second sweep's step from its rho2 = <r', r'*iD>: dead where |rho2| <
+// PCG_TENEPS, beta = rho2/rho (rho 0 read as 1; 0 where dead), rho = rho2
+// where alive.
+__device__ inline void step_beta(const float* w_in, float rho2,
+                                 float* w_out) {
+  const float rho = w_in[W_RHO];
+  const bool dead = w_in[W_DEAD] != 0.f || fabsf(rho2) < PCG_TENEPS;
+  w_out[W_RHO] = dead ? rho : rho2;
+  w_out[W_SUM] = rho2;
+  w_out[W_DEAD] = dead ? 1.f : 0.f;
+  w_out[W_UPD] = w_in[W_UPD];
+  w_out[W_BETA] = dead ? 0.f : __fdiv_rn(rho2, rho == 0.f ? 1.f : rho);
+}
+
+// Member strides (elements) of the sweep's inputs, of upd and of the words.
 struct AxpyStrides {
-  long long x, r, eps, z, iD, upd;
+  long long x, r, eps, z, iD, upd, words;
 };
 
 // MB: the member-axis instance (the one-field instance leaves its pointers
@@ -44,6 +101,7 @@ __global__ void axpy_rho_kernel(const float* __restrict__ x,
                                 const float* __restrict__ z,
                                 const TI* __restrict__ iD,
                                 const float* __restrict__ upd_p,
+                                const float* w_in, float* w_out,
                                 float* __restrict__ x_out,
                                 float* __restrict__ r_out,
                                 float* partial, unsigned int* count,
@@ -57,6 +115,10 @@ __global__ void axpy_rho_kernel(const float* __restrict__ x,
     z += m * st.z;
     iD += m * st.iD;
     upd_p += m * st.upd;
+    if (w_out != nullptr) {
+      w_in += m * st.words;
+      w_out += m * PCG_WORDS;
+    }
     x_out += m * g.N;
     r_out += m * g.N;
     partial += m * gridDim.x;
@@ -74,7 +136,9 @@ __global__ void axpy_rho_kernel(const float* __restrict__ x,
     unflatten(g, c, idx);
     if (is_interior(g, idx)) rho = rho + rn * (rn * ld(iD[c]));
   }
-  finish_sum(block_sum(rho, sh), partial, count, out, sh);
+  if (finish_sum(block_sum(rho, sh), partial, count, out, sh) &&
+      w_out != nullptr)
+    step_beta(w_in, *out, w_out);
 }
 
 // Blocks of the one-field sweep (eps, iD bf16 or f32) the card holds at
@@ -96,18 +160,20 @@ inline int axpy_coresident(int eps_bf16, int iD_bf16) {
 // partial: one float a block of a member, count: a zeroed counter a member
 // (left zeroed), out: each member's rho.  members: x_out and r_out hold
 // that many fields one after another, member m reading its inputs at the
-// strides ``st`` (one field: members 1).  Calls that share a counter run
-// on one stream.
+// strides ``st`` (one field: members 1).  w_in, w_out: `wl_pcg_update`'s
+// words (`step_beta`; w_out PCG_WORDS a member, w_in at member stride
+// st.words, upd pointing into w_in), or NULL for none (`wl_pcg_axpy`).
+// Calls that share a counter run on one stream.
 inline int launch_axpy_rho(const float* x, const float* r, const void* eps,
                            const float* z, const void* iD, const float* upd,
-                           float* x_out, float* r_out, float* partial,
-                           unsigned int* count, float* out, int eps_bf16,
-                           int iD_bf16, int blocks, int members,
-                           AxpyStrides st, int S0, int S1, int S2,
-                           void* stream) {
+                           const float* w_in, float* w_out, float* x_out,
+                           float* r_out, float* partial, unsigned int* count,
+                           float* out, int eps_bf16, int iD_bf16, int blocks,
+                           int members, AxpyStrides st, int S0, int S1,
+                           int S2, void* stream) {
   const Shape3 g = make_shape(S0, S1, S2);
   if (blocks < 1 || blocks > blocks_for(g.N) || members < 1 ||
-      members > 65535)
+      members > 65535 || (w_out != nullptr && w_in == nullptr))
     return (int)cudaErrorInvalidValue;
   const cudaStream_t s = (cudaStream_t)stream;
   dispatch_bf16(eps_bf16, iD_bf16, [&](auto te, auto ti) {
@@ -116,12 +182,12 @@ inline int launch_axpy_rho(const float* x, const float* r, const void* eps,
     if (members > 1)
       axpy_rho_kernel<TE, TI, true><<<dim3(blocks, members), WL_THREADS, 0,
                                       s>>>(
-          x, r, (const TE*)eps, z, (const TI*)iD, upd, x_out, r_out, partial,
-          count, out, g, st);
+          x, r, (const TE*)eps, z, (const TI*)iD, upd, w_in, w_out, x_out,
+          r_out, partial, count, out, g, st);
     else
       axpy_rho_kernel<TE, TI, false><<<blocks, WL_THREADS, 0, s>>>(
-          x, r, (const TE*)eps, z, (const TI*)iD, upd, x_out, r_out, partial,
-          count, out, g, st);
+          x, r, (const TE*)eps, z, (const TI*)iD, upd, w_in, w_out, x_out,
+          r_out, partial, count, out, g, st);
   });
   return (int)cudaGetLastError();
 }

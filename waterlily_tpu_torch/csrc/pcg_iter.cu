@@ -11,6 +11,11 @@
 // (D the f32 D16), upcast in registers as the TPU kernel's `_mult_block`
 // and `_pcg_rebuild` do.  `wl_pcg_update` replaces `pcg_update`
 // (`_pcg_update_kernel`): the axpy pair and the next rho (pcg_axpy.cuh).
+// Each sweep also takes the PCG's scalar step on the smooth's words
+// (`ops.attic.pcg_blocked`) in the thread that sums its dots (pcg_axpy.cuh's
+// `step_alpha` after the first sweep's <z, eps>, `step_beta` after the
+// second's rho), reading beta or upd from the words the other wrote: a
+// smooth is 2 launches an iteration and no other device work.
 //
 // Bound on the H100: memory.  The first sweep reads L (3 fields), D,
 // eps_prev, r and iD and writes eps and z: 9 fields a cell (8 with a bf16
@@ -52,8 +57,8 @@
 // Members (an ensemble under torch.func.vmap, `pcg_dir_mult`'s member
 // form): the march's member axis (march.cuh): each member marched with a
 // one-member launch's chunks, with its own beta (a member stride of 0: one
-// for all), partials, counter and two dots, so bit for bit its own
-// launch; eps and z hold the members' fields one after another, each input
+// for all), partials, counter, two dots and words, so bit for bit its
+// own launch; eps and z hold the members' fields one after another, each input
 // at its own member stride (0 for one every member shares: a level's
 // operator).
 #include <type_traits>
@@ -76,24 +81,25 @@ __device__ inline void put(__nv_bfloat16* p, float v) {
   *p = __float2bfloat16_rn(v);  // v is bf16-representable: exact
 }
 
-// Member strides (elements) of the first sweep's inputs and of beta.
+// Member strides (elements) of the first sweep's inputs and of the words.
 struct DirStrides {
-  long long L, D, ep, r, iD, beta;
+  long long L, D, ep, r, iD, words;
 };
 
-// TP: eps_prev's type, TO: eps's, TC: the coefficients L and iD's.
-// beta_p: the device scalar beta, or NULL for the number beta_v.  partial:
-// 2 floats a block (the <z, eps> partials, then <r, r*iD>'s), out: the two
-// sums.  MB: the member-axis instance (the one-field instance leaves its
-// pointers as they are passed).
+// TP: eps_prev's type, TO: eps's, TC: the coefficients L and iD's.  w_in:
+// the words beta is read from, or NULL at the smooth's seed (beta 0);
+// w_out: the new words (`step_alpha`).  partial: 2 floats a block (the
+// <z, eps> partials, then <r, r*iD>'s), out: the two sums.  MB: the
+// member-axis instance (the one-field instance leaves its pointers as they
+// are passed).
 template <typename TP, typename TO, typename TC, bool MB>
 __global__ void __launch_bounds__(MARCH_THREADS)
 dir_mult_kernel(const TC* __restrict__ L, const float* __restrict__ Dd,
                 const TP* __restrict__ ep, const float* __restrict__ r,
-                const TC* __restrict__ iD, const float* __restrict__ beta_p,
-                float beta_v, TO* __restrict__ eps, float* __restrict__ z,
-                float* partial, unsigned int* count, float* out, int S0,
-                int S1, int S2, int planes, DirStrides st) {
+                const TC* __restrict__ iD, const float* w_in, float* w_out,
+                TO* __restrict__ eps, float* __restrict__ z, float* partial,
+                unsigned int* count, float* out, int S0, int S1, int S2,
+                int planes, DirStrides st) {
   // k+-1 taps by warp shuffles with f32 coefficients, rebuilt from L1
   // with the bf16 shadows (the faster of the two for each, above)
   constexpr bool SHUFFLE = std::is_same<TC, float>::value;
@@ -107,11 +113,12 @@ dir_mult_kernel(const TC* __restrict__ L, const float* __restrict__ Dd,
     ep += m * st.ep;
     r += m * st.r;
     iD += m * st.iD;
-    if (beta_p != nullptr) beta_p += m * st.beta;
+    if (w_in != nullptr) w_in += m * st.words;
+    w_out += m * PCG_WORDS;
     eps += m * N;
     z += m * N;
   }
-  const float beta = beta_p != nullptr ? *beta_p : beta_v;
+  const float beta = w_in != nullptr ? w_in[W_BETA] : 0.f;
   const TC* __restrict__ L0 = L;
   const TC* __restrict__ L1 = L + N;
   const TC* __restrict__ L2 = L + 2 * N;
@@ -188,13 +195,17 @@ dir_mult_kernel(const TC* __restrict__ L, const float* __restrict__ Dd,
     march_ghosts(at, jl, jh, kl, kh, S2, ghost);
   }
   block_reduce_n<SumOp, 2>(sums, 0.f, sh);
-  march_finish_n<SumOp, 2>(col, sums, 0.f, partial, count, out, sh);
+  if (march_finish_n<SumOp, 2>(col, sums, 0.f, partial, count, out, sh)) {
+    const float* o = out + 2 * col.m;
+    step_alpha(w_in, o[0], o[1], w_out);
+  }
 }
 
 // ep_bf16: eps_prev is bf16; out_bf16: eps is written (and rounded) in bf16;
 // coef_bf16: L and iD are bf16 (the level's L16 and iD16; D is f32).
-// beta: a device scalar (one a member at stride sb, 0: shared), or NULL for
-// the number beta_v.  partial: 2 floats a block of a member's grid
+// w_in: the words beta is read from (one run a member at stride sw, 0:
+// shared), or NULL at the smooth's seed (beta 0); w_out: PCG_WORDS a
+// member, the new words.  partial: 2 floats a block of a member's grid
 // (`march_grid`), member after member, count: a zeroed counter a member
 // (left zeroed), out: each member's <z, eps> then <r, r*iD>.  members: eps
 // and z hold that many fields one after another, member m reading L + m sL,
@@ -202,20 +213,19 @@ dir_mult_kernel(const TC* __restrict__ L, const float* __restrict__ Dd,
 // one field: members 1).  Calls that share a counter run on one stream.
 extern "C" int wl_pcg_dir_mult(const void* L, const float* Dd, const void* ep,
                                const float* r, const void* iD,
-                               const float* beta, void* eps, float* z,
-                               float* partial, unsigned int* count,
-                               float* out, float beta_v, int ep_bf16,
-                               int out_bf16, int coef_bf16, int planes,
-                               int members, long long sL, long long sD,
-                               long long se, long long sr, long long si,
-                               long long sb, int S0, int S1, int S2,
-                               void* stream) {
-  if (!march_shape_ok(S0, S1, S2, planes, members))
+                               const float* w_in, float* w_out, void* eps,
+                               float* z, float* partial, unsigned int* count,
+                               float* out, int ep_bf16, int out_bf16,
+                               int coef_bf16, int planes, int members,
+                               long long sL, long long sD, long long se,
+                               long long sr, long long si, long long sw,
+                               int S0, int S1, int S2, void* stream) {
+  if (!march_shape_ok(S0, S1, S2, planes, members) || w_out == nullptr)
     return (int)cudaErrorInvalidValue;
   const dim3 grid = march_grid(S0, S1, S2, planes, members);
   const dim3 block(MARCH_TK, MARCH_TJ);
   const cudaStream_t s = (cudaStream_t)stream;
-  const DirStrides st{sL, sD, se, sr, si, sb};
+  const DirStrides st{sL, sD, se, sr, si, sw};
   dispatch_bf16(ep_bf16, out_bf16, [&](auto tp, auto to) {
     using TP = TAG_T(tp);
     using TO = TAG_T(to);
@@ -223,11 +233,11 @@ extern "C" int wl_pcg_dir_mult(const void* L, const float* Dd, const void* ep,
       using TC = TAG_T(tc);
       if (members > 1)
         dir_mult_kernel<TP, TO, TC, true><<<grid, block, 0, s>>>(
-            (const TC*)L, Dd, (const TP*)ep, r, (const TC*)iD, beta, beta_v,
+            (const TC*)L, Dd, (const TP*)ep, r, (const TC*)iD, w_in, w_out,
             (TO*)eps, z, partial, count, out, S0, S1, S2, planes, st);
       else
         dir_mult_kernel<TP, TO, TC, false><<<grid, block, 0, s>>>(
-            (const TC*)L, Dd, (const TP*)ep, r, (const TC*)iD, beta, beta_v,
+            (const TC*)L, Dd, (const TP*)ep, r, (const TC*)iD, w_in, w_out,
             (TO*)eps, z, partial, count, out, S0, S1, S2, planes, st);
     };
     if (coef_bf16)
@@ -238,16 +248,22 @@ extern "C" int wl_pcg_dir_mult(const void* L, const float* Dd, const void* ep,
   return (int)cudaGetLastError();
 }
 
+// w_in: the words upd is read from (one run a member at stride sw, 0:
+// shared), w_out: PCG_WORDS a member, the new words (`step_beta`).  The
+// rest as launch_axpy_rho's.
 extern "C" int wl_pcg_update(const float* x, const float* r, const void* eps,
-                             const float* z, const void* iD, const float* upd,
-                             float* x_out, float* r_out, float* partial,
+                             const float* z, const void* iD,
+                             const float* w_in, float* w_out, float* x_out,
+                             float* r_out, float* partial,
                              unsigned int* count, float* out, int eps_bf16,
                              int iD_bf16, int blocks, int members,
                              long long sx, long long sr, long long se,
-                             long long sz, long long si, long long su,
+                             long long sz, long long si, long long sw,
                              int S0, int S1, int S2, void* stream) {
-  return launch_axpy_rho(x, r, eps, z, iD, upd, x_out, r_out, partial, count,
-                         out, eps_bf16, iD_bf16, blocks, members,
-                         AxpyStrides{sx, sr, se, sz, si, su}, S0, S1, S2,
+  if (w_in == nullptr || w_out == nullptr) return (int)cudaErrorInvalidValue;
+  return launch_axpy_rho(x, r, eps, z, iD, w_in + W_UPD, w_in, w_out, x_out,
+                         r_out, partial, count, out, eps_bf16, iD_bf16,
+                         blocks, members,
+                         AxpyStrides{sx, sr, se, sz, si, sw, sw}, S0, S1, S2,
                          stream);
 }

@@ -149,9 +149,10 @@ extern "C" int wl_pcg_axpy(const float* x, const float* r, const void* eps,
                            long long sx, long long sr, long long se,
                            long long sz, long long si, long long su, int S0,
                            int S1, int S2, void* stream) {
-  return launch_axpy_rho(x, r, eps, z, iD, upd, x_out, r_out, partial, count,
-                         out, eps_bf16, iD_bf16, blocks, members,
-                         AxpyStrides{sx, sr, se, sz, si, su}, S0, S1, S2,
+  return launch_axpy_rho(x, r, eps, z, iD, upd, nullptr, nullptr, x_out,
+                         r_out, partial, count, out, eps_bf16, iD_bf16,
+                         blocks, members,
+                         AxpyStrides{sx, sr, se, sz, si, su, 0}, S0, S1, S2,
                          stream);
 }
 

@@ -54,8 +54,8 @@ SIGNATURES = {
     "wl_increment3d": [_P] * 5 + [_I] * 3 + [_L] * 4 + _S3,
     "wl_mult3d_stream": [_P] * 7 + [_I] + [_L] * 3 + [_I] * 3 + _S3,
     "wl_increment3d_stream": [_P] * 7 + [_I] * 4 + [_L] * 5 + _S3,
-    "wl_pcg_dir_mult": [_P] * 11 + [_F] + [_I] * 5 + [_L] * 6 + _S3,
-    "wl_pcg_update": [_P] * 11 + [_I] * 4 + [_L] * 6 + _S3,
+    "wl_pcg_dir_mult": [_P] * 12 + [_I] * 5 + [_L] * 6 + _S3,
+    "wl_pcg_update": [_P] * 12 + [_I] * 4 + [_L] * 6 + _S3,
     "wl_dot3d": [_P] * 5 + [_I] * 4 + [_L] * 2 + _S3,
     "wl_pcg_axpy": [_P] * 11 + [_I] * 4 + [_L] * 6 + _S3,
     "wl_copy_probe": [_P, _P, _F] + _S3,

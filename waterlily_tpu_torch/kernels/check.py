@@ -122,24 +122,29 @@ TOLERANCE = {
        for ps in PCG_PERDIRS.values() for p in ps for o in "xr"},
     "increment3d.x_bf16": ("exact", None),
     "increment3d.r_bf16": ("exact", None),
-    **{f"pcg_dir_mult.{o}{t}": (("rel", 1e-5) if o in ("den", "rho")
+    # the sweeps' words carry their sums (rho, <z, eps>, rho2) and the
+    # scalar step taken from them
+    **{f"pcg_dir_mult.{o}{t}": (("rel", 1e-5) if o == "words"
                                 else ("exact", None))
-       for o in ("eps", "z", "den", "rho")
+       for o in ("eps", "z", "words")
        for t in ("", "_b0", "_bf16", "_b0_bf16")},
-    **{f"{k}.{o}{t}": ("rel", 1e-5) if o == "rho" else ("exact", None)
-       for k in ("pcg_update", "pcg_axpy") for o in ("x", "r", "rho")
-       for t in ("", "_bf16")},
+    **{f"{k}.{o}{t}": ("rel", 1e-5) if o in ("rho", "words")
+       else ("exact", None)
+       for k, sums in (("pcg_update", "words"), ("pcg_axpy", "rho"))
+       for o in ("x", "r", sums) for t in ("", "_bf16")},
     "dot3d.aa": ("rel", 1e-5), "dot3d.ab": ("rel", 1e-5),
     "dot3d.rid": ("rel", 1e-5),
     "pcg_blocked.x": ("abs", 1e-5), "pcg_blocked.r": ("abs", 1e-5),
     # the operator-shadow forms (bf16 L with the f32 D16, bf16 iD)
     "increment3d.x_L16": ("exact", None),
     "increment3d.r_L16": ("exact", None),
-    **{f"pcg_dir_mult.{o}{t}": (("rel", 1e-5) if o in ("den", "rho")
+    **{f"pcg_dir_mult.{o}{t}": (("rel", 1e-5) if o == "words"
                                 else ("exact", None))
-       for o in ("eps", "z", "den", "rho") for t in ("_L16", "_b0_L16")},
-    **{f"{k}.{o}_iD16": ("rel", 1e-5) if o == "rho" else ("exact", None)
-       for k in ("pcg_update", "pcg_axpy") for o in ("x", "r", "rho")},
+       for o in ("eps", "z", "words") for t in ("_L16", "_b0_L16")},
+    **{f"{k}.{o}_iD16": ("rel", 1e-5) if o in ("rho", "words")
+       else ("exact", None)
+       for k, sums in (("pcg_update", "words"), ("pcg_axpy", "rho"))
+       for o in ("x", "r", sums)},
     "dot3d.rid_iD16": ("rel", 1e-5),
     "pcg_blocked.x_L16": ("abs", 1e-5), "pcg_blocked.r_L16": ("abs", 1e-5),
     # the operator (`mult3d` and `mult3d_stream` launch the same march),
@@ -221,6 +226,16 @@ def inputs(S, seed, device) -> dict:
     }
 
 
+def words(M, device) -> torch.Tensor:
+    """Scalar-step words (`ops.attic.WORDS`: rho, the last sweep's sum,
+    dead, upd, beta) of a smooth in flight: one run, or with ``M`` one a member, the
+    member m's values moved by 0.01 m and member 1 dead."""
+    runs = [[0.8 + 0.01 * m, 1.3 + 0.01 * m, float(m == 1),
+             0.3 + 0.01 * m, 0.37 + 0.01 * m] for m in range(M or 1)]
+    w = torch.tensor(runs, dtype=torch.float32, device=device)
+    return w if M else w[0]
+
+
 def variants(name, d) -> list:
     """``[(outputs, kernel call, plain call), ...]`` of kernel ``name`` on
     inputs ``d``, every variant the kernel has at their rank (only
@@ -265,17 +280,25 @@ def variants(name, d) -> list:
             return call
         return ((_tag(perdir, save_exit),), in_place(sk.bc3d),
                 in_place(bc_vector_planes))
-    def dir_mult(tag, eps_prev, beta, bf16, op=(L, Dd, iD)):
+    # the fused iteration's sweeps read their scalars from a smooth's words
+    # (the seed's first sweep from none: beta 0), pcg_axpy its upd
+    w = words(None, x.device)
+
+    def dir_mult(tag, eps_prev, ws, bf16, op=(L, Dd, iD)):
         Lc, Dc, iDc = op
-        return (tuple(o + tag for o in ("eps", "z", "den", "rho")),
-                lambda: at.pcg_dir_mult(Lc, Dc, eps_prev, r, iDc, beta, bf16),
-                lambda: at._pcg_dir_mult_plain(Lc, Dc, eps_prev, r, iDc,
-                                               beta, bf16))
+        return (tuple(o + tag for o in ("eps", "z", "words")),
+                lambda: at.pcg_dir_mult(Lc, Dc, eps_prev, r, iDc, ws, bf16),
+                lambda: at._pcg_dir_mult_plain(Lc, Dc, eps_prev, r, iDc, ws,
+                                               bf16))
 
     def axpy_rho(name, tag, e, iDa=iD):
-        return (tuple(o + tag for o in ("x", "r", "rho")),
-                lambda: getattr(at, name)(x, r, e, z, iDa, s),
-                lambda: at._axpy_rho_plain(x, r, e, z, iDa, s))
+        update = name == "pcg_update"
+        sv, plain = ((w, at._pcg_update_plain) if update
+                     else (s, at._axpy_rho_plain))
+        return (tuple(o + tag for o in ("x", "r", "words" if update
+                                        else "rho")),
+                lambda: getattr(at, name)(x, r, e, z, iDa, sv),
+                lambda: plain(x, r, e, z, iDa, sv))
 
     def dot(mode, a, b, tag=""):
         return ((mode + tag,), lambda: at.dot3d(a, b, mode),
@@ -318,12 +341,12 @@ def variants(name, d) -> list:
                          lambda: sk.increment3d(L16, D16, eps, x, r),
                          lambda: sk._increment3d_plain(L16, D16, eps, x, r))],
         # the timed (first) form is the iteration's: beta != 0, f32
-        "pcg_dir_mult": [dir_mult("", eps, s, False),
-                         dir_mult("_b0", r, 0.0, False),
-                         dir_mult("_bf16", eps16, s, True),
-                         dir_mult("_b0_bf16", r, 0.0, True),
-                         dir_mult("_L16", eps, s, False, (L16, D16, iD16)),
-                         dir_mult("_b0_L16", r, 0.0, False,
+        "pcg_dir_mult": [dir_mult("", eps, w, False),
+                         dir_mult("_b0", r, None, False),
+                         dir_mult("_bf16", eps16, w, True),
+                         dir_mult("_b0_bf16", r, None, True),
+                         dir_mult("_L16", eps, w, False, (L16, D16, iD16)),
+                         dir_mult("_b0_L16", r, None, False,
                                   (L16, D16, iD16))],
         "pcg_update": [axpy_rho("pcg_update", "", eps),
                        axpy_rho("pcg_update", "_bf16", eps16),
@@ -907,12 +930,15 @@ def stencil_member_variants(name, d) -> list:
     periodic mask (it reads no operator: ``shared`` changes nothing); the
     PCG seams' wrappers in the forms of `variants`: ``mult3d_stream`` as
     ``mult3d``, ``increment3d_stream`` f32 and L16, ``pcg_dir_mult`` with
-    β (a member's or shared) and at β = 0, f32, bf16 directions and the
-    shadows, ``pcg_update`` and ``pcg_axpy`` f32, bf16 eps and iD16,
+    its words (a member's each or shared) and at the seed (none: β = 0),
+    f32, bf16 directions and the shadows, ``pcg_update`` (its words a
+    member's each or shared) and ``pcg_axpy`` f32, bf16 eps and iD16,
     ``dot3d`` aa, ab, rid and rid on iD16; the composite ``pcg_blocked``
     against the per-pass `ops.poisson.pcg`, f32 and with the shadows,
     member 1's residual zero (its own dead mask)."""
     od = None if d["shared"] else 0     # the operator, dt, ν, A
+    # the scalar-step words: shared, or one run a member
+    wm, dev = (None if d["shared"] else d["M"]), d["x"].device
     if name in ("mult3d", "mult3d_stream"):
         fn = sk.mult3d if name == "mult3d" else at.mult3d_stream
         return [(("z" + t, "dot" + t) if dot else ("z_nodot" + t,),
@@ -934,32 +960,38 @@ def stencil_member_variants(name, d) -> list:
                                       ("_L16", "L16", "D16", "eps"))
                 if name == "increment3d" or t != "_bf16"]
     if name == "pcg_dir_mult":
-        # the iteration's form (β != 0, timed) first, then the preamble's
-        # (β = 0, eps_prev the residual)
-        def dir_mult(tag, op, ek, beta, bf16):
+        # the iteration's form (β from the words, timed) first, then the
+        # seed's (no words: β = 0, eps_prev the residual)
+        def dir_mult(tag, op, ek, seed, bf16):
             Lk, Dk, iDk = op
-            return (tuple(o + tag for o in ("eps", "z", "den", "rho")),
-                    lambda L, Dd, e, r, iD, b: at.pcg_dir_mult(
-                        L, Dd, e, r, iD, b, bf16),
-                    lambda L, Dd, e, r, iD, b: at._pcg_dir_mult_plain(
-                        L, Dd, e, r, iD, b, bf16),
+            return (tuple(o + tag for o in ("eps", "z", "words")),
+                    lambda L, Dd, e, r, iD, w: at.pcg_dir_mult(
+                        L, Dd, e, r, iD, w, bf16),
+                    lambda L, Dd, e, r, iD, w: at._pcg_dir_mult_plain(
+                        L, Dd, e, r, iD, w, bf16),
                     (d[Lk], d[Dk], d[ek], d["r"], d[iDk],
-                     d["dt"] if beta else 0.0),
-                    (od, od, 0, 0, od, od if beta else None))
+                     None if seed else words(wm, dev)),
+                    (od, od, 0, 0, od, None if seed else od))
         f32, sh = ("L", "D", "iD"), ("L16", "D16", "iD16")
-        return [dir_mult("", f32, "eps", True, False),
-                dir_mult("_b0", f32, "r", False, False),
-                dir_mult("_bf16", f32, "eps16", True, True),
-                dir_mult("_b0_bf16", f32, "r", False, True),
-                dir_mult("_L16", sh, "eps", True, False),
-                dir_mult("_b0_L16", sh, "r", False, False)]
+        return [dir_mult("", f32, "eps", False, False),
+                dir_mult("_b0", f32, "r", True, False),
+                dir_mult("_bf16", f32, "eps16", False, True),
+                dir_mult("_b0_bf16", f32, "r", True, True),
+                dir_mult("_L16", sh, "eps", False, False),
+                dir_mult("_b0_L16", sh, "r", True, False)]
     if name in ("pcg_update", "pcg_axpy"):
-        fn = getattr(at, name)
-        return [(tuple(o + t for o in ("x", "r", "rho")), fn,
-                 at._axpy_rho_plain,
-                 (d["x"], d["r"], d[ek], d["z"], d[iDk], d["dt"]),
+        # pcg_update's upd from the words (a member's each or shared),
+        # pcg_axpy's a member's or shared
+        update = name == "pcg_update"
+        plain = at._pcg_update_plain if update else at._axpy_rho_plain
+        return [(tuple(o + t for o in ("x", "r", "words" if update
+                                       else "rho")),
+                 getattr(at, name), plain,
+                 (d["x"], d["r"], d[ek], d["z"], d[iDk],
+                  words(wm, dev) if update else d["dt"]),
                  (0, 0, 0, 0, od, od))
-                for t, ek, iDk in (("", "eps", "iD"), ("_bf16", "eps16", "iD"),
+                for t, ek, iDk in (("", "eps", "iD"),
+                                   ("_bf16", "eps16", "iD"),
                                    ("_iD16", "eps", "iD16"))]
     if name == "dot3d":
         # aa first (timed, beside one batched torch.linalg.vecdot); ab on

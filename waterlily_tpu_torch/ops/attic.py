@@ -7,12 +7,14 @@ Counterpart of `waterlily_tpu.ops.attic`: its fused-iteration sweeps
 (`dot3d`, `pcg_axpy`) and carried-rows operator (`mult3d_stream`,
 `increment3d_stream`).  The JAX package retired these kernels on the TPU,
 where they lost their A/Bs; here they are the fused forms of the big 3D
-levels' PCG iteration and operator, reached through four module flags of
-`ops.poisson`, all off by default: ``KDOT`` (`dot3d` for the solver dots),
-``KAXPY`` (`pcg_axpy` for the axpy pair and next rho), ``PCG_BLOCKED``
-(`pcg_blocked` as the smoother of blocked, non-periodic, non-banded
-levels) and ``STREAM`` (`mult3d_stream` and `increment3d_stream` for the
-blocked levels' A·x and r − A·eps).  `mult3d_stream`'s kernel is also
+levels' PCG iteration and operator.  `pcg_blocked` is the default
+smoother of blocked, non-periodic, non-banded levels (`ops.poisson.
+smooth`), its two sweeps taking the PCG's scalar step too; the rest are
+reached through three module flags of `ops.poisson`, all off by default,
+in the plain `pcg`: ``KDOT`` (`dot3d` for the solver dots), ``KAXPY``
+(`pcg_axpy` for the axpy pair and next rho) and ``STREAM``
+(`mult3d_stream` and `increment3d_stream` for the blocked levels' A·x and
+r − A·eps).  `mult3d_stream`'s kernel is also
 the default path's: `stencil_kernels.mult3d` launches it through the same
 helper (`_mult3d_march`), so ``STREAM`` now differs from the default only
 in `increment3d_stream`.
@@ -22,8 +24,10 @@ kernel (``csrc/pcg_iter.cu``, ``csrc/reduce.cu``, ``csrc/stream_march.cu``,
 ``csrc/stream_stencil.cu``) on CUDA tensors, runs its plain PyTorch
 version on CPU tensors and raises on any other device or on a CUDA tensor
 its kernel does not take; it counts its launches in ``.launches``, by
-shape in ``.shapes`` and its bf16 forms in ``.forms``.  Scalars (``beta``, ``upd``) may be 0-d device tensors, so a
-smooth never synchronises with the host.  Every sum is over the interior
+shape in ``.shapes`` and its bf16 forms in ``.forms``.  `pcg_axpy`'s
+``upd`` may be a 0-d device tensor, and the fused iteration's sweeps read
+their scalars from a smooth's words on the device, so a smooth never
+synchronises with the host.  Every sum is over the interior
 (ghost cells masked), taken in per-block partials that the kernel's last
 block reduces in index order: each call is one launch, and its sums the
 same bits on every call.  A search direction may be stored in bf16
@@ -39,10 +43,11 @@ Every wrapper has a member form (an ensemble under `torch.func.vmap`, as
 `vmap` level into one member axis and launches the kernel once for all
 members, each member's work and sums those of its own launch, bit for
 bit; an operand without a member axis (a level's shared operator) is
-shared at a member stride of 0, and a scalar (``beta``, ``upd``) may be a
-number, a 0-d tensor or one value a member.  `pcg_blocked` under `vmap`
-is then two member-form launches an iteration for all members, its masks
-one value a member on the device.
+shared at a member stride of 0, `pcg_axpy`'s ``upd`` may be a number,
+a 0-d tensor or one value a member, and the words one run a member or
+shared.  `pcg_blocked` under `vmap` is then two member-form
+launches an iteration for all members, its words one run a member on the
+device.
 """
 from __future__ import annotations
 
@@ -68,13 +73,52 @@ def _interior_sum(v: torch.Tensor) -> torch.Tensor:
 
 # --- the fused PCG iteration: pcg_dir_mult, pcg_update, pcg_blocked --------
 
-def _pcg_dir_mult_plain(L, Dd, eps_prev, r, iD, beta, bf16=False):
+# The words of a PCG smooth's scalar step, one run of WORDS a member
+# (csrc/pcg_axpy.cuh PCG_WORDS): rho, the sweep's own sum (<z, eps> after
+# `pcg_dir_mult`, <r', r'∘iD> after `pcg_update`), the dead flag (1 or 0),
+# the step upd and the next beta.
+WORDS = 5
+W_RHO, W_SUM, W_DEAD, W_UPD, W_BETA = range(WORDS)
+
+
+def _alpha_step(words, denom, rho_seed):
+    """The scalar step after `pcg_dir_mult`'s ``<z, eps>`` (``denom``), as
+    `ops.poisson.pcg` takes it: the new words from ``words`` or, None (the
+    smooth's seed), from the sweep's rho ``rho_seed`` (dead where it is
+    under 10 eps, beta 0)."""
+    teneps = 10 * torch.finfo(denom.dtype).eps
+    if words is None:
+        rho, beta = rho_seed, torch.zeros_like(rho_seed)
+        dead = torch.abs(rho) < teneps
+    else:
+        rho, dead, beta = words[W_RHO], words[W_DEAD] != 0, words[W_BETA]
+    alpha = torch.where(dead | (denom == 0), 0.0,
+                        rho / torch.where(denom == 0, 1.0, denom))
+    dead = dead | (torch.abs(alpha) < 1e-2) | (torch.abs(alpha) > 1e2)
+    upd = torch.where(dead, 0.0, alpha)
+    return torch.stack([rho, denom, dead.to(rho.dtype), upd, beta])
+
+
+def _beta_step(words, rho2):
+    """The scalar step after `pcg_update`'s ``rho2``, as `ops.poisson.pcg`
+    takes it: dead where rho2 is under 10 eps, beta = rho2/rho, rho = rho2
+    where alive."""
+    teneps = 10 * torch.finfo(rho2.dtype).eps
+    rho = words[W_RHO]
+    dead = (words[W_DEAD] != 0) | (torch.abs(rho2) < teneps)
+    beta = torch.where(dead, 0.0, rho2 / torch.where(rho == 0, 1.0, rho))
+    return torch.stack([torch.where(dead, rho, rho2), rho2,
+                        dead.to(rho.dtype), words[W_UPD], beta])
+
+
+def _pcg_dir_mult_plain(L, Dd, eps_prev, r, iD, words=None, bf16=False):
+    beta = 0.0 if words is None else words[W_BETA]
     eps = beta * _wide(eps_prev) + r * iD
     if bf16:
         eps = eps.to(torch.bfloat16)
     z = _mult3d_plain(L, Dd, eps)
-    return (eps, z, _interior_sum(z * _wide(eps)),
-            _interior_sum(r * (r * iD)))
+    rho = _interior_sum(r * (r * iD)) if words is None else None
+    return eps, z, _alpha_step(words, _interior_sum(z * _wide(eps)), rho)
 
 
 # pcg_dir_mult's chunks: (fewest, most) interior planes a block marches
@@ -84,12 +128,21 @@ def _pcg_dir_mult_plain(L, Dd, eps_prev, r, iD, beta, bf16=False):
 DIR_PLANES = (4, 32)
 
 
-def _pcg_dir_mult_launch(L, Dd, eps_prev, r, iD, beta, bf16=False,
+def _words_on(words, like, name, M):
+    """``(words, stride)`` of a sweep's input words for ``M`` members: one
+    run of `WORDS` (stride 0: every member's) or one a member (stride
+    `WORDS`), f32 on ``like``'s device."""
+    _check(name, tuple(like.shape[1:]),
+           words=(words, (M, WORDS) if words.ndim > 1 else (WORDS,)))
+    return words, _stride(words, 1)
+
+
+def _pcg_dir_mult_launch(L, Dd, eps_prev, r, iD, words=None, bf16=False,
                          members=False):
     """The kernel on ``r`` (``(M, *S)``) and each other operand with a
-    member axis or shared (a member stride of 0), ``beta`` a number or a
-    tensor (one value, or one a member): eps and z ``(M, *S)``, the two
-    dots ``(M,)`` each, every member's in the order of its own launch."""
+    member axis or shared (a member stride of 0), ``words`` (a member's
+    each or shared) or None: eps and z ``(M, *S)``, the new words ``(M,
+    WORDS)``, every member's in the order of its own launch."""
     M, S = r.shape[0], tuple(r.shape[1:])
     _check("pcg_dir_mult", S, bf16=("eps_prev", "L", "iD"),
            L=(L, _each(L, (3,) + S, M)), D=(Dd, _each(Dd, S, M)),
@@ -105,42 +158,44 @@ def _pcg_dir_mult_launch(L, Dd, eps_prev, r, iD, beta, bf16=False,
                       dtype=torch.bfloat16 if bf16 else torch.float32,
                       device=r.device)
     z = torch.empty((M,) + S, dtype=torch.float32, device=r.device)
-    betas, sb = (_scalars_on(beta, r, "pcg_dir_mult", M)
-                 if isinstance(beta, torch.Tensor) else (None, 0))
-    launch("wl_pcg_dir_mult", L, Dd, eps_prev, r, iD, betas, eps, z,
-           buf[2 * M:], _counter(r.device), buf[:2 * M],
-           0.0 if betas is not None else float(beta), _bf16(eps_prev),
+    sw = 0
+    if words is not None:
+        words, sw = _words_on(words, r, "pcg_dir_mult", M)
+    w_out = torch.empty((M, WORDS), dtype=torch.float32, device=r.device)
+    launch("wl_pcg_dir_mult", L, Dd, eps_prev, r, iD, words, w_out, eps, z,
+           buf[2 * M:], _counter(r.device), buf[:2 * M], _bf16(eps_prev),
            int(bool(bf16)), _bf16(L), planes, M, _stride(L, 4),
            _stride(Dd, 3), _stride(eps_prev, 3), _stride(r, 3),
-           _stride(iD, 3), sb, *S)
+           _stride(iD, 3), sw, *S)
     _count(pcg_dir_mult, S, members, L=L, iD=iD, eps_prev=eps_prev, eps=eps)
-    dots = buf[:2 * M].view(M, 2)
-    return eps, z, dots[:, 0], dots[:, 1]
+    return eps, z, w_out
 
 
 @_counted
-def pcg_dir_mult(L, Dd, eps_prev, r, iD, beta, bf16: bool = False):
-    """``(eps, z, ⟨z, eps⟩, ⟨r, r∘iD⟩)`` in one sweep: the search direction
-    ``eps = beta·eps_prev + r∘iD`` (rounded to bf16 with ``bf16``), ``z =
-    A·eps`` applied to the rounded direction in f32, and the two interior
-    dots as 0-d tensors, the second from the unrounded ``r∘iD`` (the rho
-    seed at ``beta = 0``, where ``eps_prev`` must be finite: pass ``r``).
-    ``eps_prev`` may be bf16; a new ``eps`` is written (never in place).
-    ``L`` and ``iD`` may be a level's bf16 shadows L16 and iD16 (both, with
-    the f32 D16), upcast where they are read.  One launch: a number
-    ``beta`` goes with it, a device scalar is read by the kernel.  Under
-    `vmap` alone, the member form (``beta`` one value a member or shared)."""
-    if vmap_only(L, Dd, eps_prev, r, iD, beta):
-        return _by_members("pcg_dir_mult", L, Dd, eps_prev, r, iD, beta,
+def pcg_dir_mult(L, Dd, eps_prev, r, iD, words=None, bf16: bool = False):
+    """The fused iteration's first sweep, with the PCG's scalar step:
+    ``(eps, z, words')``.  The search direction ``eps = beta·eps_prev +
+    r∘iD`` (rounded to bf16 with ``bf16``), ``z = A·eps`` applied to the
+    rounded direction in f32, and the interior sum ``⟨z, eps⟩``, from
+    which its last block takes the step into the new `WORDS` words (rho,
+    that sum, dead, upd, beta): ``beta`` and the rest read from ``words``,
+    the previous `pcg_update`'s, or, None (the smooth's seed), beta 0 and
+    rho the sweep's own ``⟨r, r∘iD⟩`` of the unrounded ``r∘iD`` (where
+    ``eps_prev`` must be finite: pass ``r``).  ``eps_prev`` may be bf16; a new
+    ``eps`` is written (never in place).  ``L`` and ``iD`` may be a level's
+    bf16 shadows L16 and iD16 (both, with the f32 D16), upcast where they
+    are read.  One launch.  Under `vmap` alone, the member form (the words
+    one run a member or shared)."""
+    if vmap_only(L, Dd, eps_prev, r, iD, words):
+        return _by_members("pcg_dir_mult", L, Dd, eps_prev, r, iD, words,
                            bool(bf16))
-    if _on_cpu("pcg_dir_mult", r, L, Dd, eps_prev, iD, beta):
-        return _pcg_dir_mult_plain(L, Dd, eps_prev, r, iD, beta, bf16)
-    eps, z, den, rho = _pcg_dir_mult_launch(L, Dd, eps_prev, r[None], iD,
-                                            beta, bf16)
-    return eps[0], z[0], den[0], rho[0]
+    if _on_cpu("pcg_dir_mult", r, L, Dd, eps_prev, iD, words):
+        return _pcg_dir_mult_plain(L, Dd, eps_prev, r, iD, words, bf16)
+    out = _pcg_dir_mult_launch(L, Dd, eps_prev, r[None], iD, words, bf16)
+    return tuple(o[0] for o in out)
 
 
-_member_function("pcg_dir_mult", (4, 3, 3, 3, 3, 0), 3, _pcg_dir_mult_plain,
+_member_function("pcg_dir_mult", (4, 3, 3, 3, 3, 1), 3, _pcg_dir_mult_plain,
                  _pcg_dir_mult_launch)
 
 
@@ -150,15 +205,22 @@ def _axpy_rho_plain(x, r, eps, z, iD, upd):
     return x, r, _interior_sum(r * (r * iD))
 
 
-def _axpy_rho_launch(wrapper, x, r, eps, z, iD, upd, members=False):
+def _pcg_update_plain(x, r, eps, z, iD, words):
+    x, r, rho2 = _axpy_rho_plain(x, r, eps, z, iD, words[W_UPD])
+    return x, r, _beta_step(words, rho2)
+
+
+def _axpy_rho_launch(wrapper, x, r, eps, z, iD, s, members=False):
     """``(x + upd·eps, r − upd·z, ⟨r', r'∘iD⟩)``: the kernel shared by
     `pcg_update` and `pcg_axpy` (``csrc/pcg_axpy.cuh``), counted on
     ``wrapper``, in one launch, on ``x`` (``(M, *S)``) and each other
-    operand with a member axis or shared (a member stride of 0), ``upd`` a
-    number or a tensor (one value, or one a member); ``eps`` and ``iD`` (a
-    level's iD16) may be bf16.  New x and r are written (nothing in
-    place); the rho is ``(M,)``, every member's in the order of its own
-    launch."""
+    operand with a member axis or shared (a member stride of 0); ``eps``
+    and ``iD`` (a level's iD16) may be bf16.  ``s``: `pcg_axpy`'s upd, a
+    number or a tensor (one value, or one a member), the third output each
+    member's rho ``(M,)``; or `pcg_update`'s words (one run a member or
+    shared), upd read from them, the third output the new words ``(M,
+    WORDS)``.  New x and r are written (nothing in place), every member's
+    in the order of its own launch."""
     name = wrapper.__name__
     M, S = x.shape[0], tuple(x.shape[1:])
     _check(name, S, bf16=("eps", "iD"), x=(x, (M,) + S),
@@ -174,25 +236,32 @@ def _axpy_rho_launch(wrapper, x, r, eps, z, iD, upd, members=False):
                                               _bf16(iD)))
     # the rhos, then one partial a block of a member
     buf = torch.empty(M * (1 + blocks), dtype=torch.float32, device=x.device)
-    upds, su = _scalars_on(upd, x, name, M)
-    launch(f"wl_{name}", x, r, eps, z, iD, upds, x_out, r_out, buf[M:],
+    if wrapper is pcg_update:
+        s, ss = _words_on(s, x, name, M)
+        w_out = torch.empty((M, WORDS), dtype=torch.float32, device=x.device)
+        scalars = (s, w_out)
+    else:
+        s, ss = _scalars_on(s, x, name, M)
+        scalars = (s,)
+    launch(f"wl_{name}", x, r, eps, z, iD, *scalars, x_out, r_out, buf[M:],
            _counter(x.device), buf[:M], _bf16(eps), _bf16(iD), blocks, M,
            _stride(x, 3), _stride(r, 3), _stride(eps, 3), _stride(z, 3),
-           _stride(iD, 3), su, *S)
+           _stride(iD, 3), ss, *S)
     _count(wrapper, S, members, eps=eps, iD=iD)
-    return x_out, r_out, buf[:M]
+    return x_out, r_out, scalars[-1] if wrapper is pcg_update else buf[:M]
 
 
-def _axpy_rho(wrapper, name, x, r, eps, z, iD, upd):
-    """`pcg_update`'s and `pcg_axpy`'s body (``wrapper``, named ``name``):
-    the member form under `vmap` alone, the plain version on the CPU, one
-    launch on CUDA."""
-    if vmap_only(x, r, eps, z, iD, upd):
-        return _by_members(name, x, r, eps, z, iD, upd)
-    if _on_cpu(name, x, r, eps, z, iD, upd):
-        return _axpy_rho_plain(x, r, eps, z, iD, upd)
-    xo, ro, rho = _axpy_rho_launch(wrapper, x[None], r, eps, z, iD, upd)
-    return xo[0], ro[0], rho[0]
+def _axpy_rho(wrapper, plain, x, r, eps, z, iD, s):
+    """`pcg_update`'s and `pcg_axpy`'s body (``wrapper``, its plain version
+    ``plain``; ``s`` its words or upd): the member form under `vmap` alone,
+    the plain version on the CPU, one launch on CUDA."""
+    name = wrapper.__name__
+    if vmap_only(x, r, eps, z, iD, s):
+        return _by_members(name, x, r, eps, z, iD, s)
+    if _on_cpu(name, x, r, eps, z, iD, s):
+        return plain(x, r, eps, z, iD, s)
+    xo, ro, out = _axpy_rho_launch(wrapper, x[None], r, eps, z, iD, s)
+    return xo[0], ro[0], out[0]
 
 
 @functools.cache
@@ -205,57 +274,54 @@ def _axpy_coresident(device_index, eps_bf16: int, iD_bf16: int) -> int:
 
 
 @_counted
-def pcg_update(x, r, eps, z, iD, upd):
-    """The fused iteration's second sweep: ``(x + upd·eps, r − upd·z,
-    ⟨r', r'∘iD⟩)``; ``eps`` and ``iD`` may be bf16.  Under `vmap` alone,
-    the member form (``upd`` one value a member or shared)."""
-    return _axpy_rho(pcg_update, "pcg_update", x, r, eps, z, iD, upd)
+def pcg_update(x, r, eps, z, iD, words):
+    """The fused iteration's second sweep, with the PCG's scalar step:
+    ``(x + upd·eps, r − upd·z, words')``, upd read from ``words`` (the
+    previous `pcg_dir_mult`'s), and the new words from them and the
+    interior sum ``⟨r', r'∘iD⟩`` (its last block's step: dead, beta, rho);
+    ``eps`` and ``iD`` may be bf16.  Under `vmap` alone, the member form
+    (the words one run a member or shared)."""
+    return _axpy_rho(pcg_update, _pcg_update_plain, x, r, eps, z, iD, words)
 
 
-_member_function("pcg_update", (3, 3, 3, 3, 3, 0), 0, _axpy_rho_plain,
+_member_function("pcg_update", (3, 3, 3, 3, 3, 1), 0, _pcg_update_plain,
                  functools.partial(_axpy_rho_launch, pcg_update))
 
 
 def pcg_blocked(lev, x, r, it: int = 6):
     """Whole PCG smooth from the two fused-iteration sweeps, the
     restructure of `ops.poisson.pcg` by `waterlily_tpu.ops.attic.
-    pcg_blocked`: the same dead-mask early exits in 0-d device tensors;
-    the denominator of iteration i+1 comes from the sweep that rebuilds
-    eps at the end of iteration i.  Two launches per iteration, no other
-    full-grid pass.  A level with operator shadows applies L16/D16 and
-    preconditions with iD16, as JAX's does.  Non-periodic, non-banded
-    levels only: the in-kernel eps rebuild fills no periodic ghosts and
-    reads the dense coefficients.  Returns new ``(x, r)``.
+    pcg_blocked`, `ops.poisson.smooth`'s route on blocked, non-periodic,
+    non-banded levels: the denominator of iteration i+1 comes from the
+    sweep that rebuilds eps at the end of iteration i, and each sweep takes
+    the PCG's scalar step (the same dead-mask early exits) into the
+    smooth's `WORDS` device words, which the next sweep reads.  ``2·it``
+    launches (the seed's sweep, then ``it`` updates and ``it − 1``
+    rebuilds), no other device work; on the CPU the sweeps' plain versions
+    take the step in 0-d tensors, as `pcg` does.  A level with operator
+    shadows applies L16/D16 and preconditions with iD16, as JAX's does.
+    Non-periodic, non-banded levels only: the in-kernel eps rebuild fills
+    no periodic ghosts and reads the dense coefficients.  Returns new
+    ``(x, r)``.
 
     Under `torch.func.vmap` alone (an ensemble) the two sweeps take their
-    member forms: two launches an iteration for all members, the masks,
-    α, β and upd one value a member on the device (no host read), each
-    member's ``(x, r)`` bit for bit its own smooth's."""
+    member forms: two launches an iteration for all members, the words one
+    run a member on the device (no host read), each member's ``(x, r)``
+    bit for bit its own smooth's."""
     if lev.perdir or lev.banded:
         raise ValueError("pcg_blocked: the fused iteration takes dense, "
                          "non-periodic levels only (got perdir="
                          f"{lev.perdir}, banded={lev.banded})")
     from .poisson import _opLD, _iDk
-    dt = x.dtype
-    teneps = 10 * torch.finfo(dt).eps
     bf16 = lev.bf16_eps
     L, Dd = _opLD(lev)
     iD = _iDk(lev)
-    eps, z, denom, rho = pcg_dir_mult(L, Dd, r, r, iD, 0.0, bf16)
-    dead = torch.abs(rho) < teneps
+    eps, z, words = pcg_dir_mult(L, Dd, r, r, iD, None, bf16)
     for i in range(it):
-        alpha = torch.where(dead | (denom == 0), 0.0,
-                            rho / torch.where(denom == 0, 1.0, denom)).to(dt)
-        dead = dead | (torch.abs(alpha) < 1e-2) | (torch.abs(alpha) > 1e2)
-        upd = torch.where(dead, 0.0, alpha).to(dt)
-        x, r, rho2 = pcg_update(x, r, eps, z, iD, upd)
+        x, r, words = pcg_update(x, r, eps, z, iD, words)
         if i == it - 1:
             break
-        dead = dead | (torch.abs(rho2) < teneps)
-        beta = torch.where(dead, 0.0,
-                           rho2 / torch.where(rho == 0, 1.0, rho)).to(dt)
-        eps, z, denom, _ = pcg_dir_mult(L, Dd, eps, r, iD, beta, bf16)
-        rho = torch.where(dead, rho, rho2)
+        eps, z, words = pcg_dir_mult(L, Dd, eps, r, iD, words, bf16)
     return x, r
 
 
@@ -335,7 +401,7 @@ def pcg_axpy(x, r, eps, z, iD, upd):
     """The PCG iteration's axpy pair and next rho in one sweep: ``(x +
     upd·eps, r − upd·z, ⟨r', r'∘iD⟩)``; ``eps`` and ``iD`` may be bf16
     (upcast), ``upd`` is the dead-masked step."""
-    return _axpy_rho(pcg_axpy, "pcg_axpy", x, r, eps, z, iD, upd)
+    return _axpy_rho(pcg_axpy, _axpy_rho_plain, x, r, eps, z, iD, upd)
 
 
 _member_function("pcg_axpy", (3, 3, 3, 3, 3, 0), 0, _axpy_rho_plain,

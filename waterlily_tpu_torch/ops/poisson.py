@@ -10,10 +10,13 @@ As in the JAX package, the PCG smoother's early exits are a monotone
 host.  ``r``, ``z`` and every ``mult`` output are zero in the ghost cells,
 so whole-array dots equal the reference's interior dots.
 
-Three module flags route the PCG iteration of blocked levels through the
-kernels of `ops.attic`, as the JAX package's ``KDOT``/``KAXPY`` and its
-`attic.pcg_blocked` dispatch do, and a fourth, ``STREAM``, their operator
-through its carried-rows kernels.  All four are off by default: they are
+`smooth` sends a blocked, non-periodic, non-banded level whose kernels
+take it to `attic.pcg_blocked`, the smooth as two hand-written sweeps an
+iteration with the scalar step inside them, and counts its route in
+``smooth.routes``.  Two module flags route the plain `pcg`'s dots and axpy
+pair on blocked levels through the kernels of `ops.attic`, as the JAX
+package's ``KDOT``/``KAXPY`` do, and a third, ``STREAM``, their operator
+through its carried-rows kernels.  All three are off by default: they are
 seams for A/B runs (`chip_smoke.py` phase 6.4), not the default path.
 Under `torch.func.vmap` alone (an ensemble) each seam opens as the default
 path's level branches do (`_open`), to its kernels' member forms.
@@ -28,6 +31,7 @@ the kernels, which have no derivatives, see only untracked tensors.
 """
 from __future__ import annotations
 
+import collections
 import dataclasses
 from dataclasses import dataclass
 
@@ -45,7 +49,7 @@ __all__ = ["PoissonLevel", "make_level", "mult", "residual", "increment",
            "pressure_grad_interior", "jacobi", "fdot", "pcg", "smooth",
            "poisson_solve", "operator_shadows", "level_tensors",
            "with_level_tensors", "adaptive_members", "KDOT", "KAXPY",
-           "PCG_BLOCKED", "STREAM", "BF16_OP"]
+           "STREAM", "BF16_OP"]
 
 # Default of `make_level`'s ``op_bf16``: bf16 shadows of the operator
 # coefficients on blocked levels (the JAX package's flag of that name, off
@@ -59,10 +63,6 @@ KDOT = False
 # PCG's axpy pair and next rho on blocked levels in one `attic.pcg_axpy`
 # sweep (the JAX package's flag of that name).
 KAXPY = False
-# `smooth` of a blocked, non-periodic, non-banded level by the two-sweep
-# fused iteration `attic.pcg_blocked` (the dispatch the JAX package's
-# scripts/ab_pcgiter.py makes).
-PCG_BLOCKED = False
 # A·x (with and without the dot) and r − A·eps of blocked levels by the
 # carried-rows wrappers `attic.mult3d_stream`/`increment3d_stream` instead
 # of `mult3d`/`increment3d` (the JAX package keeps them but dispatches them
@@ -495,25 +495,38 @@ def pcg(lev: PoissonLevel, x, r, it: int = 6):
 
 
 def smooth(lev: PoissonLevel, x, r, it: int = 6):
-    """Default smoother (reference ``smooth! = pcg!``): the one-launch PCG
-    kernel on small CUDA levels (never on a level with operator shadows:
-    it applies the f32 operator, and one solve must not mix the two, as
-    in JAX), `attic.pcg_blocked` on blocked dense non-periodic levels under
-    ``PCG_BLOCKED``, `pcg` elsewhere and wherever autograd tracks the level,
-    ``x`` or ``r``.  Under `torch.func.vmap` alone (an ensemble,
+    """Default smoother (reference ``smooth! = pcg!``), routed by what the
+    level shows: the one-launch PCG kernel `pcg_kernel.pcg_fused` on small
+    CUDA levels (never on a level with operator shadows: it applies the
+    f32 operator, and one solve must not mix the two, as in JAX);
+    `attic.pcg_blocked`, two sweeps an iteration with the scalar step in
+    them, on blocked, non-periodic, non-banded levels (bf16 directions and
+    operator shadows in its forms of them); `pcg` elsewhere (periodic and
+    banded levels, the CPU) and wherever autograd tracks the level, ``x``
+    or ``r``.  Under `torch.func.vmap` alone (an ensemble,
     `stencil_kernels.vmap_only`) the small CUDA levels still take
-    `pcg_kernel.pcg_fused`, whose `vmap` rule smooths the members in one
-    launch a chunk of them, and under ``PCG_BLOCKED`` the blocked levels
-    `attic.pcg_blocked`, whose two sweeps take their member forms."""
+    `pcg_fused`, whose `vmap` rule smooths the members in one launch a
+    chunk of them, and the blocked levels `pcg_blocked`, whose two sweeps
+    take their member forms.  Each call counts its route and the level's
+    shape in ``smooth.routes``."""
+    S = tuple(x.shape)
     if (lev.L16 is None
-            and pk.use_pcg_fused(tuple(x.shape), x.dtype, x.device)
+            and pk.use_pcg_fused(S, x.dtype, x.device)
             and (not _tracked(lev, x, r)
                  or sk.vmap_only(lev.L, lev.D, lev.iD, x, r))):
+        smooth.routes["pcg_fused", S] += 1
         return pk.pcg_fused(lev, x, r, it)
-    if (PCG_BLOCKED and lev.blocked and not lev.perdir and not lev.banded
+    if (lev.blocked and not lev.perdir and not lev.banded
             and _open(lev, x, r, _iDk(lev))):
+        smooth.routes["pcg_blocked", S] += 1
         return at.pcg_blocked(lev, x, r, it)
+    smooth.routes["pcg", S] += 1
     return pcg(lev, x, r, it)
+
+
+# (route, level shape) -> calls of `smooth`: "pcg_fused", "pcg_blocked" or
+# "pcg", kept like the kernel wrappers' ``.shapes``
+smooth.routes = collections.Counter()
 
 
 # --- the adaptive loops under torch.func.vmap -------------------------------

@@ -57,7 +57,7 @@ its own launch, bit for bit; ``"members"`` in ``.forms``), and their
 gates (`members_ok`, and `ops.poisson`'s level branches and seams) send
 such a field there; the PCG smooth's caller (`ops.poisson.smooth`) sends
 it to `pcg_kernel.pcg_fused`, whose `vmap` rule launches once for a
-chunk of members, or under ``PCG_BLOCKED`` to `ops.attic.pcg_blocked`,
+chunk of members, or on a blocked level to `ops.attic.pcg_blocked`,
 two member-form launches an iteration.  `ana_mult3d`'s member form is a
 batched banded level's far-field operator, each member its own window
 fix-up around it (`ops.poisson._banded_ax`).  Inside `plain_forms` every
