@@ -1,20 +1,9 @@
-"""The comparison that decides ``correct``.
+"""The plain reference of the ``step`` entry and the numbers it compares.
 
-The program's trajectory is chaotic and hundreds of steps long, so the
-reference cannot follow it on its own: it follows the program step by step
-from the program's state, as a served model's reference reads the served
-tokens.  Two steps of the timed entry (`Simulation.step`, the window's own
-call, at the cell's size) are judged:
-
-- ``first``: the first step of set-up, from the initial state.  The
-  reference builds that state itself from the configuration and the seed
-  (the disturbed initial velocity, the body measured at its own time) and
-  steps it; this checks construction, which following the program skips.
-- ``last``: one more step after the window closes, from the program's
-  state at the close.  The reference takes only the velocity, pressure,
-  time step and time from the program; it measures the body again itself
-  (at the step's time, where the mix remeasures), builds its own multigrid
-  levels and steps.
+`Reference` steps a cell's flow from a state it is handed, or from its
+own initial state, with no object of the program; `numbers` compares one
+judged step of the program with it.  Which steps are judged, and from
+which state the reference follows, is the entry's (`entries/step.py`).
 
 Numbers (velocities in units of ``U``, pressure of ``U²``):
 ``du`` = max |u - u_ref|, ``dp`` = max |p - p_ref|, ``eu`` and ``ep``

@@ -2,26 +2,28 @@
 
 `BENCHMARK.json` names each cell's configuration and traffic mix; the
 harness reads ``configs/<config>.json``, its kind's closures from
-``kinds/<kind>.py``, ``traffic/<traffic>.json``, the correctness limits
-from ``limits/<cell>.json`` and each metric's reader from
-``metrics/<metric>.py``.  Adding a cell, a configuration, a mix or a
-metric adds files and entries; no file here changes.
+``kinds/<kind>.py``, its timed entry from ``entries/<entry>.py`` (the
+configuration's ``"entry"``, `DEFAULT_ENTRY` where it names none),
+``traffic/<traffic>.json``, the correctness limits from
+``limits/<cell>.json`` and each metric's reader from
+``metrics/<metric>.py``.  Adding a cell, a configuration, an entry, a mix
+or a metric adds files and entries; no file here changes.
 
-A run: build the cell's `Simulation` on the device from the seed; take
-the mix's warm-up steps (the first of them judged against the reference);
-then step `Simulation.step` in a closed loop for ``seconds``, timing each
-step by the host clock (each step ends in its host read of dt); read the
-peak memory; take one more step and judge it against the reference; print
-the one result line.  A traced run (``trace=True``) puts ranges around the
-program's layers and records ``trace_steps`` steps of the window with
-`torch.profiler`.
+A run: the entry builds the cell's program on the device from the seed;
+set-up takes the mix's warm-up units (the entry judges the first); then
+the entry's unit runs in a closed loop for ``seconds``, each timed by the
+host clock (each unit ends in its own host read); the peak memory is read;
+the entry takes one more unit, judged; the program is dropped, the
+entry's reference judges what it kept, and the one result line is
+printed.  `entries/step.py` sets out what an entry provides.  A traced run
+(``trace=True``) puts ranges around the program's layers and records
+``trace_steps`` units of the window with `torch.profiler`.
 """
 from __future__ import annotations
 
 import contextlib
 import importlib.util
 import json
-import math
 import subprocess
 import sys
 import time
@@ -29,12 +31,17 @@ from pathlib import Path
 
 import torch
 
-from . import check, trace, traffic
+from . import trace, traffic
 
-__all__ = ["ROOT", "REPO", "manifest", "cell_files", "cell_metrics", "run"]
+__all__ = ["ROOT", "REPO", "manifest", "cell_files", "cell_metrics",
+           "entry_file", "run"]
 
 ROOT = Path(__file__).resolve().parent
 REPO = ROOT.parent
+# the folder of the timed entries, and the entry of a configuration that
+# names none
+ENTRIES = ROOT / "entries"
+DEFAULT_ENTRY = "step"
 # the packages no part of a run may load (compared by top-level name)
 FORBIDDEN = ("jax", "jaxlib", "flax", "waterlily_tpu")
 # profiler sessions a traced run tries before it gives up on an empty one
@@ -67,6 +74,11 @@ def cell_files(man: dict, name: str) -> tuple[dict, dict, dict]:
     return cell, cfg, mix
 
 
+def entry_file(cfg: dict) -> Path:
+    """The file of configuration ``cfg``'s timed entry."""
+    return ENTRIES / f"{cfg.get('entry', DEFAULT_ENTRY)}.py"
+
+
 def cell_metrics(man: dict, name: str, traced: bool) -> list[dict]:
     """The metrics a run of cell ``name`` reports: its end-to-end ones, or
     with ``traced`` its per-layer ones (a metric without ``workloads``
@@ -97,21 +109,16 @@ def _card(device) -> dict:
     return info
 
 
-def _host(flow, pois) -> dict:
-    """The judged outputs of one program step, copied off the device."""
-    return {"u": flow.u.detach().cpu(), "p": flow.p.detach().cpu(),
-            "dt": float(flow.dt), "pois": list(pois)}
-
-
 def run(cell_name: str, seed: int, seconds: float, traced: bool,
         device="cuda", t_start: float | None = None, options=None,
         cfg_override=None, mix_override=None, detail=None,
         log=print) -> dict:
     """One run of cell ``cell_name``; returns the result line's object.
-    ``options`` are extra `Simulation` arguments (a control run's lower
-    precision); ``cfg_override`` replaces configuration keys (a small grid
-    in a test), ``mix_override`` mix keys; ``detail`` (a dict) receives
-    the run's record and every number of the comparison."""
+    ``options`` are extra arguments of the program, handed to the entry's
+    ``build`` (a control run's lower precision); ``cfg_override`` replaces
+    configuration keys (a small grid in a test), ``mix_override`` mix
+    keys; ``detail`` (a dict) receives the run's record and every number
+    of the comparison."""
     t_start = time.perf_counter() if t_start is None else t_start
     man = manifest()
     _, cfg, mix = cell_files(man, cell_name)
@@ -119,6 +126,7 @@ def run(cell_name: str, seed: int, seconds: float, traced: bool,
     mix = {**mix, **(mix_override or {})}
     limits = json.loads((ROOT / "limits" / f"{cell_name}.json").read_text())
     kind = load_module(ROOT / "kinds" / f"{cfg['kind']}.py")
+    entry = load_module(entry_file(cfg))
     setup = kind.setup(cfg, mix.get("motion"))
     dtype = getattr(torch, cfg["dtype"])
     dev = torch.device(device)
@@ -129,37 +137,24 @@ def run(cell_name: str, seed: int, seconds: float, traced: bool,
         library()
         log(f"kernel library: nvcc {build_seconds():.1f} s", file=sys.stderr)
         torch.cuda.reset_peak_memory_stats(dev)
-    from waterlily_tpu_torch.body import AutoBody
-    from waterlily_tpu_torch.simulation import Simulation
 
     pert = traffic.perturbation(mix, seed, setup["dims"], dev, dtype)
     ulam = traffic.initial_velocity(setup["base"], pert, setup["U"])
-    remeasure = bool(mix["remeasure"])
     sync = torch.cuda.synchronize if cuda else (lambda *a: None)
     spans = trace.spans() if traced else contextlib.nullcontext()
     with spans:
         t0 = time.perf_counter()
-        body = setup["body"]
-        sim = Simulation(
-            setup["dims"], setup["u_BC"], setup["L"], U=setup["U"],
-            nu=setup["nu"], perdir=setup["perdir"], ulam=ulam,
-            body=None if body is None else AutoBody(*body),
-            epsilon=float(cfg["epsilon"]), tol=float(cfg["tol"]),
-            itmx=int(cfg["itmx"]), dtype=dtype, device=dev,
-            **(options or {}))
+        prog = entry.build(setup, cfg, mix, ulam, dtype, dev, options)
         sync()
         construct_s = time.perf_counter() - t0
-        dt0 = float(sim.flow.dt)
-        sim.step(remeasure)
-        first = _host(sim.flow, sim.pois_n[-1])
-        for _ in range(int(mix["warmup_steps"]) - 1):
-            sim.step(remeasure)
+        for _ in range(int(mix["warmup_steps"])):
+            prog.advance()
         sync()
         setup_s = time.perf_counter() - t_start
 
-        # the measured window: a closed loop of Simulation.step
+        # the measured window: a closed loop of the entry's unit
         step_s, sessions = [], []
-        n0 = len(sim.pois_n)
+        n0 = None if prog.counts is None else len(prog.counts)
         skip, n_tr = int(mix["trace_skip"]), int(mix["trace_steps"])
         prof, prof_end = None, -1
         w0 = time.perf_counter()
@@ -174,15 +169,15 @@ def run(cell_name: str, seed: int, seconds: float, traced: bool,
             a = time.perf_counter()
             if traced:
                 with torch.profiler.record_function(trace.STEP):
-                    sim.step(remeasure)
+                    prog.advance()
             else:
-                sim.step(remeasure)
+                prog.advance()
             b = time.perf_counter()
             step_s.append(b - a)
             if prof is not None and len(step_s) == prof_end:
                 prof.__exit__(None, None, None)
                 got = trace.read_session(prof)
-                got["pois"] = sim.pois_n[n0 + prof_end - n_tr:n0 + prof_end]
+                got["pois"] = _counts(prog, n0, prof_end - n_tr, prof_end)
                 sessions.append(got)
                 prof = None
             traced_enough = not traced or (sessions and (
@@ -191,38 +186,24 @@ def run(cell_name: str, seed: int, seconds: float, traced: bool,
             if b - w0 >= seconds and prof is None and traced_enough:
                 break
         window_s = b - w0
-        pois_window = sim.pois_n[n0:]
+        pois_window = _counts(prog, n0, 0, len(step_s))
         peak = torch.cuda.max_memory_allocated(dev) if cuda else 0
 
-        # one more step of the timed entry, judged against the reference
-        before = sim.flow
-        sim.step(remeasure)
-        last = _host(sim.flow, sim.pois_n[-1])
-        if remeasure:
-            last.update(V=sim.flow.V.detach().cpu(),
-                        mu0=sim.flow.mu0.detach().cpu(),
-                        mu1=sim.flow.mu1.detach().cpu())
-        state = (before.u.detach(), before.p.detach(), before.dt.detach(),
-                 before.t.detach())
-        dts = list(sim.dts)
-    del sim, before
+        # one more unit of the timed entry, judged against the reference
+        kept = prog.finish()
+        failed, cells, counts = prog.failed(), prog.cells, prog.counts
+    # the program's memory goes before the reference takes its own
+    del prog
     if cuda:
         torch.cuda.empty_cache()
 
-    ref = check.Reference(setup, cfg, remeasure, ulam, dtype, dev)
     t_ref = time.perf_counter()
-    r1, n1 = ref.first(dt0)
-    nums = check.numbers("first", first, r1, n1, setup["U"], False)
-    del r1
-    rN, nN = ref.step(*state)
-    nums.update(check.numbers("last", last, rN, nN, setup["U"], remeasure))
-    del rN, state
+    nums = entry.judge(kept, setup, cfg, mix, ulam, dtype, dev)
     ref_s = time.perf_counter() - t_ref
 
-    failed = sum(1 for d in dts if not math.isfinite(d))
     compared = {k: [nums[k], float(v)] for k, v in limits.items()}
     correct = failed == 0 and all(v <= lim for v, lim in compared.values())
-    rec = {"cells": math.prod(setup["dims"]), "S": tuple(
+    rec = {"cells": cells, "S": tuple(
         n + 2 for n in setup["dims"]), "steps": len(step_s),
         "step_s": step_s, "window_s": window_s, "setup_s": setup_s,
         "peak_bytes": peak, "construct_s": construct_s,
@@ -253,7 +234,8 @@ def run(cell_name: str, seed: int, seconds: float, traced: bool,
     log(f"cell {cell_name} seed {seed}: {len(step_s)} steps in "
         f"{window_s:.3f} s, warm-up {mix['warmup_steps']}, set-up "
         f"{setup_s:.3f} s (construction {construct_s:.3f} s), reference "
-        f"{ref_s:.3f} s; pois_n first {first['pois']} last {last['pois']}; "
+        f"{ref_s:.3f} s; counts first {counts and counts[0]} last "
+        f"{counts and counts[-1]}; "
         f"card {result_device.get('kind')} power limit "
         f"{result_device.get('power_limit', 'n/a')}", file=sys.stderr)
     for k, v in nums.items():
@@ -272,6 +254,12 @@ def run(cell_name: str, seed: int, seconds: float, traced: bool,
     if detail is not None:
         detail.update(rec=rec, numbers=nums, ref_s=ref_s)
     return out
+
+
+def _counts(prog, n0, a, b) -> list:
+    """The program's counts of units ``a`` to ``b`` of the window (none
+    where the entry keeps none)."""
+    return [] if n0 is None else prog.counts[n0 + a:n0 + b]
 
 
 def _profiler():

@@ -49,6 +49,7 @@ def test_names_unique_and_well_formed(section):
 
 
 def test_configs():
+    from benchmark import harness
     used = {w["config"] for w in MAN["workloads"]}
     files = [c["file"] for c in MAN["configs"]]
     assert len(files) == len(set(files))
@@ -59,6 +60,10 @@ def test_configs():
         assert c["file"].startswith(tuple(p + "/" for p in MAN["paths"]))
         cfg = json.loads((REPO / c["file"]).read_text())
         assert (BENCH / "kinds" / f"{cfg['kind']}.py").is_file()
+        # its timed entry, `step` where it names none
+        entry = harness.entry_file(cfg)
+        assert entry.is_file() and entry.parent == BENCH / "entries"
+        assert entry.stem == cfg.get("entry", "step")
         assert len(c["reduced"]) <= 16
         assert all(NAME.fullmatch(k) for k in c["reduced"])
 
