@@ -334,12 +334,13 @@ class _ImplicitSolve(torch.autograd.Function):
         xbar = _fold_periodic(xs, xbar.detach().contiguous(), fine.perdir)
         # the stopping test r·r >= tol is absolute and the cotangent scales
         # with the loss: solve for the unit-norm right-hand side
-        s = torch.sqrt(field_dot(xbar, xbar))
-        safe = torch.where(s > 0, s, 1.0).to(xbar.dtype)
-        lam, _r, n = ml_solve(levels, torch.zeros_like(xs), xbar / safe,
-                              tol=ctx.tol, itmx=ctx.itmx)
-        ml_solve_implicit.adjoint_n.append(_counts(n))
-        lam = torch.where(s > 0, lam * safe, 0.0)
+        with span("wl.solve.adjoint"):
+            s = torch.sqrt(field_dot(xbar, xbar))
+            safe = torch.where(s > 0, s, 1.0).to(xbar.dtype)
+            lam, _r, n = ml_solve(levels, torch.zeros_like(xs), xbar / safe,
+                                  tol=ctx.tol, itmx=ctx.itmx)
+            ml_solve_implicit.adjoint_n.append(_counts(n))
+            lam = torch.where(s > 0, lam * safe, 0.0)
         lam_int = torch.where(interior_view(fine.iD, D) == 0, 0.0,
                               interior_view(lam, D))
         xb = bc_scalar_periodic(xs, fine.perdir)

@@ -21,7 +21,7 @@ from .body import (NoBody, measure_fields, measure_fields_banded,
 from .flow import FlowConfig, flow_init, mom_step
 from .grid import put_window
 from .ops.convect import quick
-from .ops.multigrid import build_levels
+from .ops.multigrid import build_levels, ml_solve_implicit
 from .utils.perf import STEP_SPAN, host_read, span, spanned
 
 __all__ = ["Simulation", "sim_time", "BANDED_MIN_CELLS"]
@@ -186,11 +186,13 @@ class Simulation:
             # the velocity and pressure as the rank's blocks too
             (u,), (p,) = mesh.split(self.flow.u, 1), mesh.split(self.flow.p)
             self.flow = self.flow.replace(u=u, p=p)
-        # host-side histories of flow.Δt, the solver iteration counts and
-        # (under log) the solver's residual traces
+        # host-side histories of flow.Δt, the solver iteration counts,
+        # (under log) the solver's residual traces and (`reverse_step`) the
+        # adjoint solves' iteration counts
         self.dts = [float(dt)]
         self.pois_n = []
         self.res_log = []
+        self.adjoint_n = []
 
     def _size_window(self, t0):
         """Size the body's band window at time ``t0`` and set ``cfg``: a
@@ -318,15 +320,18 @@ class Simulation:
         self.flow = self.flow.replace(V=V, mu0=m0, mu1=m1, bbox=bb)
         return self
 
+    def _take(self, flow):
+        """One step of ``flow`` by the simulation's route (the sharded or
+        the single-device step): ``(new flow, aux)``."""
+        if self._sharded:
+            from .parallel.shard_step import shardmap_mom_step
+            return shardmap_mom_step(self.cfg, self.mesh, self.levels, flow)
+        return mom_step(self.cfg, self.levels, flow)
+
     def _advance(self, remeasure: bool):
         if remeasure and not isinstance(self.body, NoBody):
             self.measure()
-        if self._sharded:
-            from .parallel.shard_step import shardmap_mom_step
-            self.flow, aux = shardmap_mom_step(self.cfg, self.mesh,
-                                               self.levels, self.flow)
-        else:
-            self.flow, aux = mom_step(self.cfg, self.levels, self.flow)
+        self.flow, aux = self._take(self.flow)
         self.pois_n.append(aux["pois_n"])
         return aux
 
@@ -340,6 +345,49 @@ class Simulation:
             with host_read("log"):
                 self.res_log.append(aux["res_trace"].detach().cpu().numpy())
         return self
+
+    @spanned(STEP_SPAN)
+    def reverse_step(self, loss_fn, wrt=()):
+        """One step differentiated in reverse mode: the unit of a training
+        loop through the solver (one-step gradients) or of an adjoint
+        sensitivity.  From the current state, with the velocity ``u₀`` a
+        fresh leaf, it takes one step by `step`'s own route (the same
+        gates, kernels and plain forms), evaluates ``loss_fn(flow)`` (a 0-d
+        tensor) on the new state and back-propagates it by
+        ``torch.autograd``, one adjoint pressure solve a projection
+        (``implicit_diff``, which it requires).
+
+        Returns ``(loss, grads)``: the loss as a float, read back with the
+        new dt in the unit's one host read of its own, and the gradients
+        in ``u₀`` and in each leaf of ``wrt`` (e.g. a 0-d ν made with
+        ``requires_grad`` and passed as ``nu``), in that order.  The
+        simulation is left at the new state, detached; ``dts``,
+        ``pois_n`` and ``adjoint_n`` (the two adjoint solves' iteration
+        counts, the predictor's first; ``ml_solve_implicit.adjoint_n`` is
+        cleared for them) get the step's entries; the body is not measured
+        again.  Under a profiler the unit is a `STEP_SPAN` root holding
+        ``wl.grad.forward`` and ``wl.grad.backward``."""
+        if not self.cfg.implicit_diff:
+            raise ValueError("reverse_step differentiates an implicit_diff "
+                             "step: construct Simulation(implicit_diff=True)")
+        adjoint_n = ml_solve_implicit.adjoint_n
+        adjoint_n.clear()
+        with torch.enable_grad():
+            with span("wl.grad.forward"):
+                u0 = self.flow.u.detach().requires_grad_()
+                new, aux = self._take(self.flow.replace(u=u0))
+                loss = loss_fn(new)
+            with span("wl.grad.backward"):
+                grads = torch.autograd.grad(loss, (u0, *wrt))
+        with host_read("loss"):
+            value, dt = torch.stack([loss.detach().double(),
+                                     aux["dt"].detach().double()]).tolist()
+        self.flow = new.replace(u=new.u.detach(), p=new.p.detach(),
+                                dt=new.dt.detach(), t=new.t.detach())
+        self.pois_n.append(aux["pois_n"])
+        self.adjoint_n.append(list(adjoint_n)[::-1])
+        self.dts.append(dt)
+        return value, grads
 
     def sim_step(self, t_end=None, remeasure=True, max_steps=None,
                  verbose=False):

@@ -202,28 +202,36 @@ def trace_profile(logdir=None):
 # The step, the pressure solve and the body measurement open named spans
 # (`span`) and wrap each blocking device-to-host read in one (`host_read`).
 # A span is live only while a `torch.profiler` session is: then it is a
-# `record_function` range (on the profiler's trace, which keeps CPU events
-# on the Unix clock of `time.time_ns`), a record in memory with its host
-# interval on that clock and, where CUDA is initialised, a pair of timing
-# events on the current stream.  Records are kept by step: a `STEP_SPAN`
-# root opens the next step, and only spans inside a root on their thread
-# are kept; one opened outside any root is the profiler's range alone.
-# With no session `span` returns one shared no-op context, and a function
-# under `spanned` is called straight through.
+# profiler range (on the profiler's trace, which keeps CPU events on the
+# Unix clock of `time.time_ns`), a record in memory with its host interval
+# on that clock, read just inside the range, and, where CUDA is
+# initialised, a pair of timing events on the current stream.  Records
+# are kept by step: a `STEP_SPAN` root opens the next step, and a span is
+# kept inside the root open on its own thread or, on a thread with no open
+# span (autograd's device thread running a backward pass), inside the
+# root open in the process; one opened outside any root is the profiler's
+# range alone.  With no session `span` returns one shared no-op context,
+# and a function under `spanned` is called straight through.
 
 STEP_SPAN = "wl.sim.step"
 # steps whose records are kept (the oldest dropped first)
 SPAN_STEPS = 256
 _profiling = torch.autograd._profiler_enabled
+# the profiler's range: the C++ context where this PyTorch has it, whose
+# entry and exit run no Python between the range's stamp and the record's
+# clock read (`record_function`'s run tens of microseconds of it)
+_RANGE = getattr(torch._C._profiler, "_RecordFunctionFast",
+                 torch.profiler.record_function)
 
 
 class _SpanLog:
-    """The records by step, the index of the last step opened, and each
-    thread's open spans."""
+    """The records by step, the index of the last step opened, the root
+    open in the process and each thread's open spans."""
 
     def __init__(self):
         self.steps = collections.deque(maxlen=SPAN_STEPS)
         self.index = 0
+        self.root = None
         self.local = threading.local()
 
     def open_spans(self) -> list:
@@ -239,30 +247,35 @@ _LOG = _SpanLog()
 
 class SpanRecord:
     """One live span: ``name``, the enclosing ``parent`` record (None at a
-    root), the ``step`` it belongs to, host ``t0_ns``/``t1_ns``
-    (`time.time_ns` just before the profiler's range opens and just after
-    it closes; ``t1_ns`` None while open) and ``events``, the CUDA timing
-    events at entry and exit (None where CUDA is not initialised)."""
+    root; on a thread with no open span, the root open in the process),
+    the ``step`` it belongs to, host ``t0_ns``/``t1_ns`` (`time.time_ns`
+    just after the profiler's range opens and just before it closes;
+    ``t1_ns`` None while open) and ``events``, the CUDA timing events at
+    entry and exit (None where CUDA is not initialised)."""
 
     __slots__ = ("name", "parent", "step", "t0_ns", "t1_ns", "events",
-                 "_range")
+                 "_range", "_outer")
 
     def __init__(self, name):
         self.name = name
 
     def __enter__(self):
         stack = _LOG.open_spans()
-        self.parent = stack[-1] if stack else None
+        if stack:
+            self.parent = stack[-1]
+        else:
+            self.parent = None if self.name == STEP_SPAN else _LOG.root
         if self.name == STEP_SPAN:
             _LOG.steps.append([])
             _LOG.index += 1
+            self._outer, _LOG.root = _LOG.root, self
         self.step = _LOG.index
         _LOG.steps[-1].append(self)
         stack.append(self)
         self.t1_ns = None
-        self.t0_ns = time.time_ns()
-        self._range = torch.profiler.record_function(self.name)
+        self._range = _RANGE(self.name)
         self._range.__enter__()
+        self.t0_ns = time.time_ns()
         self.events = None
         if torch.cuda.is_initialized():
             self.events = (torch.cuda.Event(enable_timing=True),
@@ -273,10 +286,12 @@ class SpanRecord:
     def __exit__(self, *exc):
         if self.events is not None:
             self.events[1].record()
+        self.t1_ns = time.time_ns()
         self._range.__exit__(*exc)
         self._range = None
-        self.t1_ns = time.time_ns()
         _LOG.open_spans().pop()
+        if self.name == STEP_SPAN:
+            _LOG.root = self._outer
         return False
 
 
@@ -299,8 +314,8 @@ def span(name: str):
     root, or a span inside one) or the profiler's range alone."""
     if not _profiling():
         return _OFF
-    if name != STEP_SPAN and not _LOG.open_spans():
-        return torch.profiler.record_function(name)
+    if name != STEP_SPAN and not _LOG.open_spans() and _LOG.root is None:
+        return _RANGE(name)
     return SpanRecord(name)
 
 
